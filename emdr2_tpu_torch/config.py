@@ -2,9 +2,8 @@
 
 The same frozen dataclasses and field names as the JAX package, so a config
 reads the same in both. Differences: ``dtype`` fields are ``torch.dtype``s,
-and there is no ``mesh`` field (the port runs on one device). The training
-sections (``MeshConfig``, ``TrainConfig``, ``OptimizerConfig``, remat) and
-the TPU query tiling come with the slices that need them.
+and there is no ``mesh`` field (the port runs on one device). ``MeshConfig``
+and the TPU query tiling come with the slices that need them.
 
 Defaults reproduce the flagship NQ recipe: BERT-base retriever, T5-base
 reader, top-50 retrieval, sequence lengths 512/256/64/32.
@@ -34,18 +33,29 @@ class TransformerConfig:
     ffn_size: int = 3072
     max_position_embeddings: int = 512
     num_tokentypes: int = 0          # BERT uses 2; T5 uses 0
-    hidden_dropout: float = 0.1      # unused: the port is eval-only so far
-    attention_dropout: float = 0.1   # unused: the port is eval-only so far
+    # training only (evaluation and serving run without dropout): hidden
+    # dropout on the embeddings and every residual branch (counter-hash
+    # masks, ops/hashing.py), attention dropout inside the flash kernels or
+    # on the materialized probabilities
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layernorm_epsilon: float = 1e-5
     init_std: float = 0.02
     gelu_variant: str = "erf"        # erf | tanh
-    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    dtype: torch.dtype = torch.bfloat16  # compute dtype; params stay fp32
+    # Per-layer activation checkpointing in training
+    # (torch.utils.checkpoint). Only "nothing" (save no activation inside a
+    # layer: the backward re-runs its forward) is ported; "dots_no_batch"
+    # (save the projection and MLP products) raises.
+    remat: bool = False
+    remat_policy: str = "nothing"    # nothing | dots_no_batch
     # layer parameter sharing: not ported yet (TransformerStack refuses it)
     num_unique_layers: Optional[int] = None
     param_sharing_style: str = "grouped"  # grouped | spaced
-    # Padding-masked encoder self-attention runs the hand-written flash
-    # kernel (ops/fid_attention.py) when set — the flagship recipe's
-    # --fid-flash-attention. Off: plain materialized-score attention.
+    # Encoder self-attention and the decoder's FiD cross-attention run the
+    # hand-written flash kernels (ops/fid_attention.py) when set — the
+    # flagship recipe's --fid-flash-attention. Off: plain materialized-score
+    # attention.
     fid_flash_attention: bool = False
     flash_key_chunk: int = 512
 
@@ -106,13 +116,39 @@ class IndexConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + global-norm clip + the AnnealingLR schedule; fp32 params,
+    bf16 compute, no loss scaling."""
+
+    lr: float = 2e-5
+    min_lr: float = 0.0
+    weight_decay: float = 0.1
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    clip_grad: float = 1.0
+    lr_decay_style: str = "linear"   # linear|cosine|exponential|constant
+    warmup: float = 0.01             # fraction of total iters
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The train step's settings. The JAX package's loop settings (batch
+    size, iterations, intervals, async save) come with the port's training
+    engine, which reads them."""
+
+    optimizer: OptimizerConfig = _field(default_factory=OptimizerConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class EMDR2Config:
-    """Top-level joint model configuration."""
+    """Top-level joint model + training configuration."""
 
     retriever: RetrieverConfig = _field(default_factory=RetrieverConfig)
     reader: ReaderConfig = _field(default_factory=ReaderConfig)
     index: IndexConfig = _field(default_factory=IndexConfig)
-    # training objective flags: unused until the training slice
+    train: TrainConfig = _field(default_factory=TrainConfig)
+    # EMDR2 objective flags
     update_retriever: bool = True
     retriever_score_scaling: bool = True
     use_kl_div_loss: bool = False
@@ -139,12 +175,19 @@ def tiny_config(**overrides) -> EMDR2Config:
     return cfg.replace(**overrides) if overrides else cfg
 
 
-def with_flash_attention(cfg: EMDR2Config) -> EMDR2Config:
-    """``cfg`` with ``fid_flash_attention`` set in both towers and the reader
-    (what the flagship recipe's --fid-flash-attention does)."""
-    enc = dataclasses.replace(cfg.retriever.encoder, fid_flash_attention=True)
-    t5c = dataclasses.replace(cfg.reader.transformer,
-                              fid_flash_attention=True)
+def with_transformers(cfg: EMDR2Config, towers: Optional[dict] = None,
+                      reader: Optional[dict] = None) -> EMDR2Config:
+    """``cfg`` with the towers' and the reader's ``TransformerConfig``
+    fields replaced (``towers`` and ``reader`` map field -> value)."""
+    enc = dataclasses.replace(cfg.retriever.encoder, **(towers or {}))
+    t5c = dataclasses.replace(cfg.reader.transformer, **(reader or {}))
     return cfg.replace(
         retriever=dataclasses.replace(cfg.retriever, encoder=enc),
         reader=dataclasses.replace(cfg.reader, transformer=t5c))
+
+
+def with_flash_attention(cfg: EMDR2Config) -> EMDR2Config:
+    """``cfg`` with ``fid_flash_attention`` set in both towers and the reader
+    (what the flagship recipe's --fid-flash-attention does)."""
+    flash = {"fid_flash_attention": True}
+    return with_transformers(cfg, flash, flash)

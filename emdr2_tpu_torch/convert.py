@@ -30,17 +30,27 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, value
 
 
+def port_key(path: str) -> str:
+    """A flax parameter path (joined by dots) -> the port's state_dict key."""
+    module, _, leaf = path.rpartition(".")
+    return f"{module}.weight" if leaf == "scale" else path   # LayerNorm
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (flax params) -> port ``state_dict``."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(tree):
         a = np.asarray(value)
-        module, _, leaf = path.rpartition(".")
+        leaf = path.rpartition(".")[2]
         if leaf == "kernel" and a.ndim == 3:       # FusedDense [D, n, H]
             a = a.reshape(a.shape[0], -1)
         elif leaf == "bias" and a.ndim == 2:       # FusedDense bias [n, H]
             a = a.reshape(-1)
-        elif leaf == "scale":                      # LayerNorm
-            path = f"{module}.weight"
-        out[path] = torch.tensor(a)
+        out[port_key(path)] = torch.tensor(a)
     return out
+
+
+def leaves_by_port_key(tree: Mapping) -> Dict[str, object]:
+    """Any pytree shaped like the flax params (e.g. the JAX package's
+    ``decay_mask``) -> {port state_dict key: leaf}, leaves unchanged."""
+    return {port_key(path): leaf for path, leaf in _flatten(tree)}

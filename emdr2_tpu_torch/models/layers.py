@@ -1,8 +1,8 @@
 """Transformer building blocks (port of ``emdr2_tpu/models/layers.py``).
 
-Eval-only ``nn.Module``s (no dropout, no remat) whose attribute names are
-the flax module names, so a parameter's ``state_dict`` key is its flax path
-joined by dots (``convert.params_from_jax``). Layouts:
+``nn.Module``s whose attribute names are the flax module names, so a
+parameter's ``state_dict`` key is its flax path joined by dots
+(``convert.params_from_jax``). Layouts:
 
 - ``Dense`` keeps the flax kernel layout [in, out] and computes ``x @ W``
   (no transpose on conversion); ``FusedDense`` stores [D, n*H] so ``x @ W``
@@ -15,11 +15,24 @@ joined by dots (``convert.params_from_jax``). Layouts:
   are exact in fp32 and TF32, so the result does not depend on TF32
   settings.
 
-Attention has three paths: encoder self-attention over a key-side pad bias
-(the flash kernel when ``cfg.fid_flash_attention``), incremental decoder
-self-attention over a ``DecodeCache``, and decoder cross-attention over
-pre-headed (k, v) [B, nh, Lk, hd] computed once per batch
-(``decoding.DecoderSession.cross_kvs``).
+Attention paths: encoder self-attention over a key-side pad bias (the K1
+flash kernel when ``cfg.fid_flash_attention``); the whole-prefix decoder
+(training and teacher): materialized causal self-attention and FiD
+cross-attention over the encoder states (the K2 flash kernel when
+``cfg.fid_flash_attention``, keys padded to a ``key_chunk`` multiple at
+-1e9 bias; otherwise materialized scores under the full [B, 1, Ld, Lk]
+bias); and, for generation, incremental decoder self-attention over a
+``DecodeCache`` with cross-attention over pre-headed (k, v) [B, nh, Lk, hd]
+computed once per batch (``decoding.DecoderSession.cross_kvs``).
+
+Training: every method takes ``drop``, the ``DropoutSeeds`` of its part of
+the step (``None`` when evaluating). Hidden dropout (``packed_dropout``)
+runs on the embeddings and on each residual branch, attention dropout inside
+the flash kernels or on the materialized probabilities; each site's seed is
+``drop.site(i)`` for a fixed ``i`` (the ``_SITE_*`` indices), each layer's
+stream ``drop.fold(layer)``. ``TransformerStack`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``: the
+recompute gets the same seeds, so the same masks.
 """
 
 from __future__ import annotations
@@ -30,9 +43,18 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from emdr2_tpu_torch.config import TransformerConfig
-from emdr2_tpu_torch.ops.fid_attention import flash_self_attention
+from emdr2_tpu_torch.ops.fid_attention import (flash_cross_attention,
+                                               flash_self_attention)
+from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold, packed_dropout
+
+# dropout sites of one layer (DropoutSeeds.site)
+_SITE_SELF_ATTN, _SITE_SELF_RESID = 0, 1
+_SITE_CROSS_ATTN, _SITE_CROSS_RESID = 2, 3
+_SITE_MLP_RESID = 4
+_SITE_EMBED = 0
 
 
 def gelu(x: torch.Tensor, variant: str) -> torch.Tensor:
@@ -124,7 +146,8 @@ class Embeddings(nn.Module):
                 if p is not None:
                     p.normal_(0.0, self.cfg.init_std, generator=generator)
 
-    def forward(self, ids, position_offset: int = 0, tokentype_ids=None):
+    def forward(self, ids, position_offset: int = 0, tokentype_ids=None,
+                drop: Optional[DropoutSeeds] = None):
         x = F.embedding(ids, self.word_embeddings)
         pos = torch.arange(position_offset, position_offset + ids.shape[-1],
                            device=ids.device)
@@ -133,7 +156,8 @@ class Embeddings(nn.Module):
             if tokentype_ids is None:
                 tokentype_ids = torch.zeros_like(ids)
             x = x + F.embedding(tokentype_ids, self.tokentype_embeddings)
-        return x.to(self.cfg.dtype)
+        return packed_dropout(x.to(self.cfg.dtype), self.cfg.hidden_dropout,
+                              _site(drop, _SITE_EMBED))
 
     def attend(self, hidden):
         """hidden [..., H] -> fp32 logits over the tied word embeddings."""
@@ -159,17 +183,24 @@ class DecodeCache:
         self.index = 0
 
 
-def _attend(q, k, v, bias, dtype):
+def _site(drop: Optional[DropoutSeeds], index: int) -> Optional[int]:
+    return None if drop is None else drop.site(index)
+
+
+def _attend(q, k, v, bias, dtype, rate: float = 0.0,
+            seed: Optional[int] = None):
     """Materialized-score attention over heads: q [B, nh, Lq, hd], k/v
     [B, nh, Lk, hd], bias broadcastable to [B, nh, Lq, Lk] (or None) ->
     [B, nh, Lq, hd] in ``dtype``. q is scaled in ``dtype``, scores and the
-    softmax are fp32, probs are cast to ``dtype`` before the P.V product."""
+    softmax are fp32, probs are cast to ``dtype`` (then dropped out when a
+    ``seed`` is given) before the P.V product."""
     hd = q.shape[-1]
     q = q * (hd ** -0.5)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias
-    probs = torch.softmax(scores, dim=-1).to(dtype)
+    probs = packed_dropout(torch.softmax(scores, dim=-1).to(dtype), rate,
+                           seed)
     return torch.matmul(probs, v.to(dtype))
 
 
@@ -201,21 +232,66 @@ class Attention(nn.Module):
         return o.transpose(1, 2).reshape(o.shape[0], o.shape[2],
                                          self.cfg.hidden_size)
 
-    def encode(self, x, kv_bias):
+    def _dropout(self, drop, site):
+        """(rate, seed) of an attention-dropout site; rate 0 off training."""
+        rate = self.cfg.attention_dropout
+        if drop is None or rate == 0.0:
+            return 0.0, None
+        return rate, drop.site(site)
+
+    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         """Padding-masked self-attention: x [B, L, H], kv_bias [B, L]."""
         cfg = self.cfg
+        rate, seed = self._dropout(drop, _SITE_SELF_ATTN)
         qkv = self.qkv(x)                                   # [B, L, 3H]
         if cfg.fid_flash_attention:
             if x.shape[-2] > cfg.flash_key_chunk:
                 raise NotImplementedError(
                     "self-attention longer than flash_key_chunk runs the "
                     "general flash kernel, which is not ported yet")
-            o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads)
+            o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads,
+                                     seed, rate)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
             o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],
-                                    cfg.dtype))
+                                    cfg.dtype, rate, seed))
         return self.out(o.to(cfg.dtype))
+
+    def decode_full(self, x, self_bias, drop: Optional[DropoutSeeds] = None):
+        """Whole-prefix decoder self-attention, materialized: x [B, L, H],
+        self_bias [B, 1, L, L] (causal and padding)."""
+        cfg = self.cfg
+        rate, seed = self._dropout(drop, _SITE_SELF_ATTN)
+        q, k, v = (self._heads(t) for t in self.qkv(x).chunk(3, dim=-1))
+        return self.out(self._merge(_attend(q, k, v, self_bias, cfg.dtype,
+                                            rate, seed)))
+
+    def cross_full(self, x, enc_out, kv_bias=None, cross_bias=None,
+                   drop: Optional[DropoutSeeds] = None):
+        """FiD cross-attention of x [B, Ld, H] over the encoder states
+        enc_out [B, Lk, H]. With ``kv_bias`` [B, Lk] (the flash path) the K2
+        kernel runs on the [k | v] slab, keys padded to a ``key_chunk``
+        multiple at -1e9 bias; otherwise materialized scores under
+        ``cross_bias`` [B, 1, Ld, Lk]."""
+        cfg = self.cfg
+        rate, seed = self._dropout(drop, _SITE_CROSS_ATTN)
+        q = self.query(x)                                   # [B, Ld, H]
+        kv = self.key_value(enc_out)                        # [B, Lk, 2H]
+        if kv_bias is not None and cfg.fid_flash_attention:
+            Lk = kv.shape[1]
+            key_chunk = min(cfg.flash_key_chunk, Lk)
+            kvb = kv_bias.float()
+            rem = Lk % key_chunk
+            if rem:
+                pad = key_chunk - rem
+                kv = F.pad(kv, (0, 0, 0, pad))
+                kvb = F.pad(kvb, (0, pad), value=-1e9)
+            o = flash_cross_attention(q, kv.contiguous(), kvb.contiguous(),
+                                      cfg.num_heads, key_chunk, seed, rate)
+            return self.out(o.to(cfg.dtype))
+        k, v = (self._heads(t) for t in kv.chunk(2, dim=-1))
+        return self.out(self._merge(_attend(self._heads(q), k, v, cross_bias,
+                                            cfg.dtype, rate, seed)))
 
     def decode(self, x, cache: DecodeCache, layer: int):
         """Incremental self-attention of the new positions x [B, Lq, H] over
@@ -263,6 +339,7 @@ class TransformerLayer(nn.Module):
                  has_cross_attention: bool = False, device=None):
         super().__init__()
         eps = cfg.layernorm_epsilon
+        self.hidden_dropout = cfg.hidden_dropout
         self.ln_self = LayerNorm(cfg.hidden_size, eps, device)
         self.self_attention = Attention(cfg, device=device)
         if has_cross_attention:
@@ -272,9 +349,28 @@ class TransformerLayer(nn.Module):
         self.ln_mlp = LayerNorm(cfg.hidden_size, eps, device)
         self.mlp = MLP(cfg, device)
 
-    def encode(self, x, kv_bias):
-        x = x + self.self_attention.encode(self.ln_self(x), kv_bias)
-        return x + self.mlp(self.ln_mlp(x))
+    def _resid(self, y, r, drop, site):
+        """``r + dropout(y)``."""
+        return r + packed_dropout(y, self.hidden_dropout, _site(drop, site))
+
+    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
+        x = self._resid(self.self_attention.encode(self.ln_self(x), kv_bias,
+                                                   drop),
+                        x, drop, _SITE_SELF_RESID)
+        return self._resid(self.mlp(self.ln_mlp(x)), x, drop,
+                           _SITE_MLP_RESID)
+
+    def decode_full(self, x, enc_out, self_bias, kv_bias, cross_bias,
+                    drop: Optional[DropoutSeeds] = None):
+        """Whole-prefix decoder layer (training, teacher)."""
+        x = self._resid(self.self_attention.decode_full(self.ln_self(x),
+                                                        self_bias, drop),
+                        x, drop, _SITE_SELF_RESID)
+        x = self._resid(self.cross_attention.cross_full(
+            self.ln_cross(x), enc_out, kv_bias, cross_bias, drop),
+            x, drop, _SITE_CROSS_RESID)
+        return self._resid(self.mlp(self.ln_mlp(x)), x, drop,
+                           _SITE_MLP_RESID)
 
     def decode(self, x, cache, layer, cross_kv, cross_bias):
         x = x + self.self_attention.decode(self.ln_self(x), cache, layer)
@@ -284,7 +380,8 @@ class TransformerLayer(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    """A stack of layers (``layer_0`` ...) + final LayerNorm."""
+    """A stack of layers (``layer_0`` ...) + final LayerNorm; with
+    ``cfg.remat``, each layer is checkpointed while gradients are on."""
 
     def __init__(self, cfg: TransformerConfig,
                  has_cross_attention: bool = False, device=None):
@@ -292,6 +389,10 @@ class TransformerStack(nn.Module):
         if cfg.num_unique_layers not in (None, cfg.num_layers):
             raise NotImplementedError("layer parameter sharing is not "
                                       "ported yet")
+        if cfg.remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet (only "
+                f"'nothing': every layer re-runs its forward)")
         self.cfg = cfg
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}",
@@ -302,9 +403,24 @@ class TransformerStack(nn.Module):
     def layer(self, i: int) -> TransformerLayer:
         return getattr(self, f"layer_{i}")
 
-    def encode(self, x, kv_bias):
+    def _run(self, fn, *args):
+        if self.cfg.remat and torch.is_grad_enabled():
+            # the masks come from the seeds in ``args``, not from torch's
+            # generators: the recompute needs no RNG state restored
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         for i in range(self.cfg.num_layers):
-            x = self.layer(i).encode(x, kv_bias)
+            x = self._run(self.layer(i).encode, x, kv_bias, fold(drop, i))
+        return self.ln_final(x)
+
+    def decode_full(self, x, enc_out, self_bias, kv_bias, cross_bias,
+                    drop: Optional[DropoutSeeds] = None):
+        for i in range(self.cfg.num_layers):
+            x = self._run(self.layer(i).decode_full, x, enc_out, self_bias,
+                          kv_bias, cross_bias, fold(drop, i))
         return self.ln_final(x)
 
     def decode(self, x, cache: DecodeCache, cross_kvs, cross_bias):

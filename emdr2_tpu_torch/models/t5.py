@@ -1,14 +1,18 @@
-"""T5 reader with learned absolute positions (port of the eval side of
+"""T5 reader with learned absolute positions (port of
 ``emdr2_tpu/models/t5.py``): shared word embeddings, a tied LM head with a
 trainable bias, and an encoder whose states the FiD decoder cross-attends.
 
-Decoding here is incremental only (``decode_step=True`` in the JAX package):
-a ``DecodeCache`` holds the decoder self-attention K/V and the
-cross-attention K/V arrive precomputed per layer. The teacher's
-``decode_gold_log_probs`` and the whole-prefix decode come with training.
+Two decoders share the weights: ``decode`` runs the whole prefix (training
+and the teacher; causal self-attention bias, FiD cross-attention through the
+K2 flash kernel when configured), and ``decode_step`` runs new positions
+incrementally for generation over a ``DecodeCache`` and cross-attention K/V
+precomputed per layer. ``decode_gold_log_probs`` is the teacher's head: an
+online logsumexp over vocab chunks, never holding the [*, L, V] logits.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -17,6 +21,7 @@ from emdr2_tpu_torch.config import TransformerConfig
 from emdr2_tpu_torch.data import masks
 from emdr2_tpu_torch.models.layers import (DecodeCache, Embeddings,
                                            TransformerStack)
+from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 
 
 class T5Model(nn.Module):
@@ -35,23 +40,82 @@ class T5Model(nn.Module):
     def reset_parameters(self, generator=None):
         nn.init.zeros_(self.lm_bias)
 
-    def encode(self, enc_ids):
+    def encode(self, enc_ids, drop: Optional[DropoutSeeds] = None):
         """[B, L] ids -> [B, L, H] encoder states (key-side pad bias; the
         flash kernel runs when configured)."""
-        x = self.shared_embeddings(enc_ids)
-        return self.encoder.encode(x, masks.padding_bias(enc_ids))
+        x = self.shared_embeddings(enc_ids, drop=fold(drop, 0))
+        return self.encoder.encode(x, masks.padding_bias(enc_ids),
+                                   fold(drop, 1))
 
-    def _decode_hidden(self, dec_ids, cross_kvs, cross_bias,
-                       cache: DecodeCache, position_offset: int = 0):
+    def _decode_hidden(self, dec_ids, enc_hidden, enc_dec_mask,
+                       drop: Optional[DropoutSeeds] = None):
+        """Whole-prefix decoder -> [B, Ld, H] pre-head hidden states, shared
+        by ``decode`` and ``decode_gold_log_probs``. ``enc_dec_mask``
+        [B, Ld, Lk] bool (True = may attend). The flash path's key-side bias
+        is row 0 of that mask, as in the JAX package; the plain path takes
+        the whole [B, 1, Ld, Lk] bias."""
+        x = self.shared_embeddings(dec_ids, drop=fold(drop, 2))
+        self_bias = masks.mask_to_bias(
+            masks.self_attention_mask(dec_ids, causal=True))[:, None]
+        kv_bias = cross_bias = None
+        if self.cfg.fid_flash_attention:
+            kv_bias = masks.mask_to_bias(enc_dec_mask[:, 0, :])
+        else:
+            cross_bias = masks.mask_to_bias(enc_dec_mask)[:, None]
+        return self.decoder.decode_full(x, enc_hidden, self_bias, kv_bias,
+                                        cross_bias, fold(drop, 3))
+
+    def decode(self, dec_ids, enc_hidden, enc_dec_mask,
+               drop: Optional[DropoutSeeds] = None):
+        """Whole-prefix decoder -> [B, Ld, V] fp32 logits."""
+        x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
+        return self.shared_embeddings.attend(x) + self.lm_bias
+
+    def decode_gold_log_probs(self, dec_ids, enc_hidden, enc_dec_mask,
+                              labels, drop: Optional[DropoutSeeds] = None):
+        """Gold-token log-probs [B, Ld] fp32 of the whole-prefix decoder,
+        the LM head taken as an online logsumexp over 4 vocab chunks (a
+        dense head when the vocab does not divide by 4): exact up to
+        summation order against ``decode``."""
+        x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
+        emb = self.shared_embeddings.word_embeddings          # [V, H] fp32
+        V = emb.shape[0]
+        xf = x.float()
+        if V % 4:
+            logits = (self.shared_embeddings.attend(x)
+                      + self.lm_bias).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(-1, labels[..., None])[..., 0]
+            return picked - lse
+        chunk = V // 4
+        m = torch.full(labels.shape, -float("inf"), device=x.device)
+        s = torch.zeros(labels.shape, device=x.device)
+        picked = torch.zeros(labels.shape, device=x.device)
+        for c in range(4):
+            base = c * chunk
+            w = emb[base:base + chunk].to(x.dtype).float()
+            lc = torch.matmul(xf, w.T) + self.lm_bias[base:base + chunk]
+            m_new = torch.maximum(m, lc.amax(dim=-1))
+            s = (s * torch.exp(m - m_new)
+                 + torch.exp(lc - m_new[..., None]).sum(dim=-1))
+            in_chunk = (labels >= base) & (labels < base + chunk)
+            idx = (labels - base).clamp(0, chunk - 1)
+            val = lc.gather(-1, idx[..., None])[..., 0]
+            picked = torch.where(in_chunk, val, picked)
+            m = m_new
+        return picked - (torch.log(s) + m)
+
+    def _decode_step_hidden(self, dec_ids, cross_kvs, cross_bias,
+                            cache: DecodeCache, position_offset: int = 0):
         """New decoder positions dec_ids [B, Lq] -> pre-head hidden
         [B, Lq, H]; self-attention causality comes from the cache."""
         x = self.shared_embeddings(dec_ids, position_offset=position_offset)
         return self.decoder.decode(x, cache, cross_kvs, cross_bias)
 
-    def decode(self, dec_ids, cross_kvs, cross_bias, cache: DecodeCache,
-               position_offset: int = 0):
-        """-> [B, Lq, V] fp32 logits. ``cross_bias`` [B, Lk] is the
-        key-side bias of the encoder positions."""
-        x = self._decode_hidden(dec_ids, cross_kvs, cross_bias, cache,
-                                position_offset)
+    def decode_step(self, dec_ids, cross_kvs, cross_bias, cache: DecodeCache,
+                    position_offset: int = 0):
+        """Incremental decoder -> [B, Lq, V] fp32 logits. ``cross_bias``
+        [B, Lk] is the key-side bias of the encoder positions."""
+        x = self._decode_step_hidden(dec_ids, cross_kvs, cross_bias, cache,
+                                     position_offset)
         return self.shared_embeddings.attend(x) + self.lm_bias

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, on first use, into ``emdr2_tpu_torch/_build/``
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, on first use, into ``emdr2_tpu_torch/_build/``
 (git-ignored), named by the hash of the sources so an edit rebuilds. The
 library is loaded with ctypes: pointers and the stream are passed as
 ``c_void_p``, sizes as ``c_int``, and every entry point returns the
@@ -26,12 +27,19 @@ _CSRC = os.path.join(_OPS, "csrc")
 _BUILD = os.path.join(os.path.dirname(_OPS), "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # entry point -> argument types (pointers and the stream as c_void_p)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_U, _F = ctypes.c_uint, ctypes.c_float
+_DROPOUT = [_U, _U, _I, _F, _F]      # seed, threshold, on, 1-rate, 1/(1-rate)
 _SIGNATURES = {
-    "emdr2_flash_self_attention_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "emdr2_flash_self_attention_bf16": [_P] * 4 + [_I] * 4 + _DROPOUT + [_P],
+    "emdr2_flash_self_attention_bwd_bf16":
+        [_P] * 7 + [_I] * 4 + _DROPOUT + [_P],
+    "emdr2_flash_cross_attention_bf16": [_P] * 5 + [_I] * 6 + _DROPOUT + [_P],
+    "emdr2_flash_cross_attention_bwd_bf16":
+        [_P] * 9 + [_I] * 6 + _DROPOUT + [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -67,25 +75,49 @@ def library_path() -> str:
 
 
 def build(extra_flags=()) -> dict:
-    """Compile the kernels if this source hash has no library yet. Returns
-    ``{"path", "seconds", "built", "log"}`` (``log`` holds the compiler's
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc -c`` per source, run in parallel, then one link. Returns
+    ``{"path", "seconds", "built", "log"}`` (``log`` holds the compilers'
     output, e.g. ``-Xptxas -v`` register and shared-memory counts)."""
     path = library_path()
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "built": False, "log": ""}
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, *[
-        s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    stem = f"{path}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
-    return {"path": path, "seconds": seconds, "built": True,
-            "log": proc.stdout + proc.stderr}
+    procs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, src]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    objs = [obj for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{stem}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)   # atomic: a concurrent loader never sees half
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return {"path": path, "seconds": time.perf_counter() - t0,
+            "built": True, "log": "".join(log)}
 
 
 def load() -> ctypes.CDLL:

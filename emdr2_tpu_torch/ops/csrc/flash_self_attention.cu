@@ -1,101 +1,72 @@
-// Padding-masked flash self-attention on the fused QKV slab (bf16), Hopper.
+// Padding-masked flash self-attention on the fused QKV slab (bf16), Hopper:
+// forward with in-kernel dropout, and its backward.
 //
-// Replaces: emdr2_tpu/ops/fid_attention.py:_self_fwd_kernel (the forward
-// of flash_self_attention). Computes, for each row b and head h,
-//   out[b, :, h] = softmax(q k^T * hd^-0.5 + kv_bias[b]) v
+// Replaces: emdr2_tpu/ops/fid_attention.py:_self_fwd_kernel (forward) and
+// :_self_bwd_kernel (backward) of flash_self_attention. For each row b and
+// head h,
+//   out[b, :, h] = dropout(softmax(q k^T * hd^-0.5 + kv_bias[b])) v
 // reading q, k and v straight from the [B, L, 3H] slab at column offsets
-// h*hd, H + h*hd and 2H + h*hd: no split or head transpose in memory.
+// h*hd, H + h*hd and 2H + h*hd, and the backward writes dq, dk and dv into
+// the same column slices of a [B, L, 3H] dqkv slab: no split or head
+// transpose in memory, in either direction.
 //
 // Rounding follows the TPU kernel: scores in fp32 as s*scale + bias (bias is
 // 0 / -1e9, never -inf); p = exp(s - rowmax); l = sum(p) in fp32 over the
-// unrounded p; p is rounded to bf16 BEFORE the P.V product, which
-// accumulates in fp32; the division by l (guarded l > 0) comes after the
-// product; the result is cast to bf16.
+// unrounded, undropped p; dropped p are zeroed (hashing.cuh, keep mask with
+// bh = b*nh + h, j = 0, col = the global key index) and p is rounded to bf16
+// BEFORE the P.V product, which accumulates in fp32; the division by
+// l*(1-rate) (guarded > 0) comes after the product. The forward also writes
+// the row statistics (rowmax, 1/l) [B, nh, 2, L] fp32 for the backward: an
+// lse = rowmax + log(l) would lose log(l) in fp32 when a fully padded row
+// has rowmax ~ -1e9, and the TPU backward, which recomputes both, does not.
+//
+// Backward (TPU formula): P = exp(s - rowmax) / l; delta = rowsum(do*out);
+// dP = do v^T, zeroed where dropped and scaled by 1/(1-rate);
+// dS = P (dP - delta); dq = dS k * scale; dk = dS^T q * scale;
+// dv = P_d^T do with P_d the dropped, rescaled P. dS and P_d are rounded to
+// bf16 for the tensor-core products (the TPU multiplies them in fp32).
 //
 // What bounds it on the H100: at L=512 (FiD encoder, B*K=400 rows) the
-// 4*L^2*hd FLOP per row and head make it compute bound; at L=64 (query
-// tower) it is launch and memory bound.
+// 4*L^2*hd FLOP per row and head (forward; ~2.5x that backward) make it
+// compute bound; at L=64 (query tower) it is launch and memory bound.
 //
-// Design: one block per (query tile of 64 rows, head, row); four warps of
-// 16 query rows each. Both products run on the tensor cores through WMMA
-// (bf16 x bf16 -> fp32, 16x16x16). The key axis is walked in tiles of 64 in
+// Design: every kernel runs four warps of 16 rows over 64-row tiles, both
+// products on the tensor cores through WMMA (bf16 x bf16 -> fp32, 16x16x16).
+// Forward: one block per (query tile, head, row); the key axis is walked in
 // two passes: pass 1 finds the exact row max, pass 2 recomputes the scores,
 // forms p against that final max (so p rounds exactly where the TPU kernel
-// rounds it, which an online softmax would not), sums l and accumulates
-// P.V. The extra Q.K^T pass costs 1.5x the score FLOPs but keeps shared
-// memory at ~53 KB per block (several blocks per SM) instead of holding an
-// [64, L] fp32 score slab. Later work: wgmma + TMA, and a single pass.
+// rounds it, which an online softmax would not), sums l and accumulates P.V.
+// The extra Q.K^T pass costs 1.5x the score FLOPs but keeps shared memory at
+// ~53 KB per block. Backward: two kernels, neither with atomics, so the
+// gradients are deterministic: one block per (query tile, head, row) walks
+// the keys for dq (and writes delta), then one block per (key tile, head,
+// row) walks the queries for dk and dv; both recompute P from the saved
+// row statistics. Later work: wgmma + TMA, a single forward pass, a fused
+// backward.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "attention_tiles.cuh"
+#include "hashing.cuh"
 
 namespace {
 
-constexpr int HD = 64;                  // head dim (BERT-base, T5-base)
-constexpr int QT = 64;                  // query rows per block
-constexpr int KT = 64;                  // keys per tile
-constexpr int WARPS = QT / 16;          // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = HD + 8;             // bf16 tile row stride (elements)
-constexpr int LDS = KT + 4;             // fp32 score tile row stride
-constexpr int LDP = KT + 8;             // bf16 prob tile row stride
-constexpr int TILE_BYTES = 64 * LDT * 2;
-constexpr int S_BYTES = 16 * LDS * 4;   // per warp
-constexpr int P_BYTES = 16 * LDP * 2;   // per warp
-constexpr int SMEM_BYTES = 3 * TILE_BYTES + WARPS * (S_BYTES + P_BYTES);
+using namespace attn;
 
-static_assert(QT == 64 && KT == 64, "tile loader assumes 64-row tiles");
-static_assert(LDS >= HD, "the output staging reuses the score tile");
-
-// Rows [r0, r0+64) x columns [c0, c0+HD) of one slab row block -> smem,
-// zero-filled past L. 16-byte loads, 8 threads per 128-byte row.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* slab, int H3,
-                                          int c0, int r0, int L) {
-  for (int i = threadIdx.x; i < 64 * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) {
-      v = *reinterpret_cast<const uint4*>(slab + (size_t)(r0 + r) * H3 + c0 + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = v;
-  }
-}
-
-// Sw[16, KT] = Qw[16, HD] . Ks[KT, HD]^T (raw, unscaled) for one warp.
-__device__ __forceinline__ void score_tile(const __nv_bfloat16* Qw,
-                                           const __nv_bfloat16* Ks, float* Sw) {
-#pragma unroll
-  for (int n = 0; n < KT / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-    for (int k = 0; k < HD / 16; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qw + k * 16, LDT);
-      wmma::load_matrix_sync(b, Ks + n * 16 * LDT + k * 16, LDT);
-      wmma::mma_sync(s, a, b, s);
-    }
-    wmma::store_matrix_sync(Sw + n * 16, s, LDS, wmma::mem_row_major);
-  }
-}
+constexpr int FWD_SMEM = 3 * TILE_BYTES + WARPS * (S_BYTES + P_BYTES);
+constexpr int DQ_SMEM = 4 * TILE_BYTES + WARPS * (2 * S_BYTES + P_BYTES);
+constexpr int DKV_SMEM = 4 * TILE_BYTES + WARPS * (2 * S_BYTES + 2 * P_BYTES)
+                         + 3 * TR * 4;
 
 __global__ void __launch_bounds__(THREADS)
-flash_self_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            const float* __restrict__ kv_bias,
-                            __nv_bfloat16* __restrict__ out,
-                            int L, int nh, float scale) {
+self_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                const float* __restrict__ kv_bias,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ stats,
+                int L, int nh, float scale, Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + 64 * LDT;
-  __nv_bfloat16* Vs = Ks + 64 * LDT;
+  __nv_bfloat16* Ks = Qs + TR * LDT;
+  __nv_bfloat16* Vs = Ks + TR * LDT;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float* Sw = reinterpret_cast<float*>(smem + 3 * TILE_BYTES) + warp * 16 * LDS;
@@ -103,19 +74,21 @@ flash_self_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
       smem + 3 * TILE_BYTES + WARPS * S_BYTES) + warp * 16 * LDP;
   const __nv_bfloat16* Qw = Qs + warp * 16 * LDT;
 
-  const int q0 = blockIdx.x * QT;
+  const int q0 = blockIdx.x * TR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = nh * HD;
   const int H3 = 3 * H;
   const __nv_bfloat16* slab = qkv + (size_t)b * L * H3;
   const float* bias = kv_bias + (size_t)b * L;
+  const uint32_t bh = (uint32_t)(b * nh + h);
 
   // each query row of the warp is owned by a lane pair; the pair splits
   // the tile's columns even/odd
   const int row = lane >> 1;
   const int half = lane & 1;
-  const int n_kt = (L + KT - 1) / KT;
+  const int qrow = q0 + warp * 16 + row;
+  const int n_kt = (L + TR - 1) / TR;
 
   load_tile(Qs, slab, H3, h * HD, q0, L);
 
@@ -123,93 +96,338 @@ flash_self_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   float m = -INFINITY;
   for (int t = 0; t < n_kt; ++t) {
     __syncthreads();  // previous tile fully consumed (and Qs written)
-    load_tile(Ks, slab, H3, H + h * HD, t * KT, L);
+    load_tile(Ks, slab, H3, H + h * HD, t * TR, L);
     __syncthreads();
-    score_tile(Qw, Ks, Sw);
+    product_abt(Qw, Ks, Sw);
     __syncwarp();
-    for (int j = 0; j < KT / 2; ++j) {
+    for (int j = 0; j < TR / 2; ++j) {
       const int c = half + 2 * j;
-      const int key = t * KT + c;
+      const int key = t * TR + c;
       if (key < L) m = fmaxf(m, Sw[row * LDS + c] * scale + bias[key]);
     }
     __syncwarp();
   }
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
-  // ---- pass 2: p = exp(s - m), l = sum p, acc = bf16(p) . v ----
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[HD / 16];
+  // ---- pass 2: p = exp(s - m), l = sum p, acc = bf16(dropout(p)) . v ----
+  FragC acc[HD / 16];
 #pragma unroll
   for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
   float l = 0.0f;
   for (int t = 0; t < n_kt; ++t) {
     __syncthreads();
-    load_tile(Ks, slab, H3, H + h * HD, t * KT, L);
-    load_tile(Vs, slab, H3, 2 * H + h * HD, t * KT, L);
+    load_tile(Ks, slab, H3, H + h * HD, t * TR, L);
+    load_tile(Vs, slab, H3, 2 * H + h * HD, t * TR, L);
     __syncthreads();
-    score_tile(Qw, Ks, Sw);
+    product_abt(Qw, Ks, Sw);
     __syncwarp();
-    for (int j = 0; j < KT / 2; ++j) {
+    for (int j = 0; j < TR / 2; ++j) {
       const int c = half + 2 * j;
-      const int key = t * KT + c;
+      const int key = t * TR + c;
       float p = 0.0f;  // keys past L do not exist: no weight, no sum
       if (key < L) p = expf(Sw[row * LDS + c] * scale + bias[key] - m);
       l += p;
+      if (drop.on && p != 0.0f &&
+          !dropout_keep(drop.seed, bh, 0u, (uint32_t)qrow, (uint32_t)key,
+                        drop.threshold)) {
+        p = 0.0f;
+      }
       Pw[row * LDP + c] = __float2bfloat16(p);
     }
     __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, Pw + kk, LDP);
-#pragma unroll
-      for (int f = 0; f < HD / 16; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + kk * LDT + f * 16, LDT);
-        wmma::mma_sync(acc[f], pa, vb, acc[f]);
-      }
-    }
+    accumulate_pb(acc, Pw, Vs);
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
 
   // stage the [16, HD] fp32 product through the warp's score tile
   __syncwarp();
-#pragma unroll
-  for (int f = 0; f < HD / 16; ++f) {
-    wmma::store_matrix_sync(Sw + f * 16, acc[f], LDS, wmma::mem_row_major);
-  }
+  stage_acc(Sw, acc);
   __syncwarp();
-  const int qrow = q0 + warp * 16 + row;
   if (qrow < L) {
-    const float safe = l > 0.0f ? l : 1.0f;
+    const float l_eff = l * drop.keep_frac;
+    const float safe = l_eff > 0.0f ? l_eff : 1.0f;
     __nv_bfloat16* dst = out + ((size_t)b * L + qrow) * H + h * HD;
     for (int j = 0; j < HD / 2; ++j) {
       const int c = half + 2 * j;
       dst[c] = __float2bfloat16(Sw[row * LDS + c] / safe);
     }
+    if (half == 0 && stats != nullptr) {
+      stats[(size_t)bh * 2 * L + qrow] = m;
+      stats[((size_t)bh * 2 + 1) * L + qrow] = 1.0f / (l > 0.0f ? l : 1.0f);
+    }
   }
+}
+
+// dq for one (query tile, head, row); also writes delta = rowsum(do * out).
+__global__ void __launch_bounds__(THREADS)
+self_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
+                   const float* __restrict__ kv_bias,
+                   const __nv_bfloat16* __restrict__ out,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ stats, float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dqkv, int L, int nh,
+                   float scale, Dropout drop) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dOs = Qs + TR * LDT;
+  __nv_bfloat16* Ks = dOs + TR * LDT;
+  __nv_bfloat16* Vs = Ks + TR * LDT;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  unsigned char* wbase = smem + 4 * TILE_BYTES + warp * (2 * S_BYTES + P_BYTES);
+  float* Sw = reinterpret_cast<float*>(wbase);
+  float* dPw = reinterpret_cast<float*>(wbase + S_BYTES);
+  __nv_bfloat16* dSw = reinterpret_cast<__nv_bfloat16*>(wbase + 2 * S_BYTES);
+
+  const int q0 = blockIdx.x * TR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int H = nh * HD;
+  const int H3 = 3 * H;
+  const __nv_bfloat16* slab = qkv + (size_t)b * L * H3;
+  const float* bias = kv_bias + (size_t)b * L;
+  const uint32_t bh = (uint32_t)(b * nh + h);
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const int qrow = q0 + warp * 16 + row;
+  const int n_kt = (L + TR - 1) / TR;
+
+  load_tile(Qs, slab, H3, h * HD, q0, L);
+  load_tile(dOs, dout + (size_t)b * L * H, H, h * HD, q0, L);
+
+  float dlt = 0.0f;
+  float row_m = 0.0f, row_il = 0.0f;
+  if (qrow < L) {
+    const __nv_bfloat16* o = out + ((size_t)b * L + qrow) * H + h * HD;
+    const __nv_bfloat16* g = dout + ((size_t)b * L + qrow) * H + h * HD;
+    for (int j = 0; j < HD / 2; ++j) {
+      const int c = half + 2 * j;
+      dlt += __bfloat162float(g[c]) * __bfloat162float(o[c]);
+    }
+    row_m = stats[(size_t)bh * 2 * L + qrow];
+    row_il = stats[((size_t)bh * 2 + 1) * L + qrow];
+  }
+  dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
+  if (qrow < L && half == 0) delta[(size_t)bh * L + qrow] = dlt;
+
+  FragC acc[HD / 16];
+#pragma unroll
+  for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
+  for (int t = 0; t < n_kt; ++t) {
+    __syncthreads();
+    load_tile(Ks, slab, H3, H + h * HD, t * TR, L);
+    load_tile(Vs, slab, H3, 2 * H + h * HD, t * TR, L);
+    __syncthreads();
+    product_abt(Qs + warp * 16 * LDT, Ks, Sw);     // S = q k^T
+    product_abt(dOs + warp * 16 * LDT, Vs, dPw);   // dP = do v^T
+    __syncwarp();
+    for (int j = 0; j < TR / 2; ++j) {
+      const int c = half + 2 * j;
+      const int key = t * TR + c;
+      float ds = 0.0f;
+      if (key < L && qrow < L) {
+        const float P =
+            expf(Sw[row * LDS + c] * scale + bias[key] - row_m) * row_il;
+        float dp = dPw[row * LDS + c];
+        if (drop.on) {
+          dp = dropout_keep(drop.seed, bh, 0u, (uint32_t)qrow, (uint32_t)key,
+                            drop.threshold) ? dp * drop.inv_keep : 0.0f;
+        }
+        ds = P * (dp - dlt);
+      }
+      dSw[row * LDP + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+    accumulate_pb(acc, dSw, Ks);                    // dq += dS k
+  }
+  __syncwarp();
+  stage_acc(Sw, acc);
+  __syncwarp();
+  if (qrow < L) {
+    __nv_bfloat16* dst = dqkv + ((size_t)b * L + qrow) * H3 + h * HD;
+    for (int j = 0; j < HD / 2; ++j) {
+      const int c = half + 2 * j;
+      dst[c] = __float2bfloat16(Sw[row * LDS + c] * scale);
+    }
+  }
+}
+
+// dk and dv for one (key tile, head, row), walking the query tiles.
+__global__ void __launch_bounds__(THREADS)
+self_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
+                    const float* __restrict__ kv_bias,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ stats,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dqkv, int L, int nh,
+                    float scale, Dropout drop) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + TR * LDT;
+  __nv_bfloat16* Qs = Vs + TR * LDT;
+  __nv_bfloat16* dOs = Qs + TR * LDT;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  unsigned char* wbase = smem + 4 * TILE_BYTES
+                         + warp * (2 * S_BYTES + 2 * P_BYTES);
+  float* Sw = reinterpret_cast<float*>(wbase);
+  float* dPw = reinterpret_cast<float*>(wbase + S_BYTES);
+  __nv_bfloat16* Pw = reinterpret_cast<__nv_bfloat16*>(wbase + 2 * S_BYTES);
+  __nv_bfloat16* dSw = Pw + 16 * LDP;
+  float* m_s = reinterpret_cast<float*>(
+      smem + 4 * TILE_BYTES + WARPS * (2 * S_BYTES + 2 * P_BYTES));
+  float* il_s = m_s + TR;
+  float* delta_s = il_s + TR;
+
+  const int k0 = blockIdx.x * TR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int H = nh * HD;
+  const int H3 = 3 * H;
+  const __nv_bfloat16* slab = qkv + (size_t)b * L * H3;
+  const uint32_t bh = (uint32_t)(b * nh + h);
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const int key = k0 + warp * 16 + row;
+  const float kbias = key < L ? kv_bias[(size_t)b * L + key] : 0.0f;
+  const int n_qt = (L + TR - 1) / TR;
+
+  load_tile(Ks, slab, H3, H + h * HD, k0, L);
+  load_tile(Vs, slab, H3, 2 * H + h * HD, k0, L);
+
+  FragC dk[HD / 16], dv[HD / 16];
+#pragma unroll
+  for (int f = 0; f < HD / 16; ++f) {
+    wmma::fill_fragment(dk[f], 0.0f);
+    wmma::fill_fragment(dv[f], 0.0f);
+  }
+  for (int t = 0; t < n_qt; ++t) {
+    __syncthreads();
+    load_tile(Qs, slab, H3, h * HD, t * TR, L);
+    load_tile(dOs, dout + (size_t)b * L * H, H, h * HD, t * TR, L);
+    for (int i = threadIdx.x; i < TR; i += THREADS) {
+      const int q = t * TR + i;
+      m_s[i] = q < L ? stats[(size_t)bh * 2 * L + q] : 0.0f;
+      il_s[i] = q < L ? stats[((size_t)bh * 2 + 1) * L + q] : 0.0f;
+      delta_s[i] = q < L ? delta[(size_t)bh * L + q] : 0.0f;
+    }
+    __syncthreads();
+    product_abt(Ks + warp * 16 * LDT, Qs, Sw);     // S^T = k q^T
+    product_abt(Vs + warp * 16 * LDT, dOs, dPw);   // dP^T = v do^T
+    __syncwarp();
+    for (int j = 0; j < TR / 2; ++j) {
+      const int c = half + 2 * j;
+      const int q = t * TR + c;
+      float pd = 0.0f, ds = 0.0f;
+      if (q < L && key < L) {
+        const float P =
+            expf(Sw[row * LDS + c] * scale + kbias - m_s[c]) * il_s[c];
+        float dp = dPw[row * LDS + c];
+        pd = P;
+        if (drop.on) {
+          const bool keep = dropout_keep(drop.seed, bh, 0u, (uint32_t)q,
+                                         (uint32_t)key, drop.threshold);
+          dp = keep ? dp * drop.inv_keep : 0.0f;
+          pd = keep ? P * drop.inv_keep : 0.0f;
+        }
+        ds = P * (dp - delta_s[c]);
+      }
+      Pw[row * LDP + c] = __float2bfloat16(pd);
+      dSw[row * LDP + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+    accumulate_pb(dv, Pw, dOs);                     // dv += P_d^T do
+    accumulate_pb(dk, dSw, Qs);                     // dk += dS^T q
+  }
+  // stage_acc is warp-collective: every lane takes part, the writes are
+  // guarded per row
+  __nv_bfloat16* dst = dqkv + ((size_t)b * L + key) * H3 + h * HD;
+  __syncwarp();
+  stage_acc(Sw, dk);
+  __syncwarp();
+  if (key < L) {
+    for (int j = 0; j < HD / 2; ++j) {
+      const int c = half + 2 * j;
+      dst[H + c] = __float2bfloat16(Sw[row * LDS + c] * scale);
+    }
+  }
+  __syncwarp();
+  stage_acc(Sw, dv);
+  __syncwarp();
+  if (key < L) {
+    for (int j = 0; j < HD / 2; ++j) {
+      const int c = half + 2 * j;
+      dst[2 * H + c] = __float2bfloat16(Sw[row * LDS + c]);
+    }
+  }
+}
+
+bool bad_shape(int B, int L, int nh, int hd) {
+  return hd != HD || B <= 0 || L <= 0 || nh <= 0 || B > 65535 || nh > 65535;
 }
 
 }  // namespace
 
-// qkv [B, L, 3*nh*hd] bf16, kv_bias [B, L] fp32, out [B, L, nh*hd] bf16, all
-// contiguous and 16-byte aligned. Returns a cudaError_t (0 = launched).
-extern "C" int emdr2_flash_self_attention_bf16(const void* qkv,
-                                               const void* kv_bias, void* out,
-                                               int B, int L, int nh, int hd,
-                                               void* stream) {
-  if (hd != HD || B <= 0 || L <= 0 || nh <= 0 || B > 65535 || nh > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
+// qkv [B, L, 3*nh*hd] bf16, kv_bias [B, L] fp32, out [B, L, nh*hd] bf16,
+// stats [B, nh, 2, L] fp32 (rowmax, 1/l; or null), all contiguous and
+// 16-byte aligned.
+// Dropout is on when `drop_on` != 0: `threshold` = min(int(rate*2^32),
+// 2^32-1), keep_frac = 1 - rate. Returns a cudaError_t (0 = launched).
+extern "C" int emdr2_flash_self_attention_bf16(
+    const void* qkv, const void* kv_bias, void* out, void* stats, int B, int L,
+    int nh, int hd, unsigned int seed, unsigned int threshold, int drop_on,
+    float keep_frac, float inv_keep, void* stream) {
+  if (bad_shape(B, L, nh, hd)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_self_attention_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      self_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + QT - 1) / QT, nh, B);
+  const dim3 grid((L + TR - 1) / TR, nh, B);
   const float scale = 1.0f / sqrtf((float)HD);
-  flash_self_attention_kernel<<<grid, THREADS, SMEM_BYTES,
-                                (cudaStream_t)stream>>>(
+  self_fwd_kernel<<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const float*>(kv_bias), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(stats), L, nh, scale,
+      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep));
+  return (int)cudaGetLastError();
+}
+
+// Backward: qkv, kv_bias as the forward; out [B, L, H] and dout [B, L, H]
+// bf16; stats [B, nh, 2, L] fp32 from the forward; delta [B, nh, L] fp32
+// scratch; dqkv [B, L, 3H] bf16 (every element written). Two launches on
+// `stream`, in order. Returns a cudaError_t (0 = launched).
+extern "C" int emdr2_flash_self_attention_bwd_bf16(
+    const void* qkv, const void* kv_bias, const void* out, const void* dout,
+    const void* stats, void* delta, void* dqkv, int B, int L, int nh, int hd,
+    unsigned int seed, unsigned int threshold, int drop_on, float keep_frac,
+    float inv_keep, void* stream) {
+  if (bad_shape(B, L, nh, hd)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      self_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(self_bwd_dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + TR - 1) / TR, nh, B);
+  const float scale = 1.0f / sqrtf((float)HD);
+  const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
+                                    inv_keep);
+  cudaStream_t s = (cudaStream_t)stream;
+  self_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const float*>(kv_bias),
-      static_cast<__nv_bfloat16*>(out), L, nh, scale);
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(stats), static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(dqkv), L, nh, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  self_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const float*>(kv_bias),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dqkv), L, nh, scale, drop);
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,91 @@
-"""Flash self-attention on the fused QKV slab (port of the forward of
-``emdr2_tpu/ops/fid_attention.py:flash_self_attention``).
+"""Flash attention on projection slabs (port of
+``emdr2_tpu/ops/fid_attention.py``: ``flash_self_attention`` and
+``flash_cross_attention``, forward and backward).
 
-``flash_self_attention`` is padding-masked self-attention for every encoder
-on the serving path (the BERT query tower at L=64, the T5 FiD encoder at
-L=512). It consumes the fused projection as a flat [B, L, 3H] slab (features
-ordered [q | k | v], heads sliced inside the kernel) and the key-side bias
-[B, L] (0 / -1e9), and returns [B, L, H].
+- ``flash_self_attention`` (K1) is padding-masked self-attention for every
+  encoder: it consumes the fused projection as a flat [B, L, 3H] slab
+  (features [q | k | v], heads sliced inside the kernel) and the key-side
+  bias [B, L] (0 / -1e9), returns [B, L, H], and its backward emits the
+  combined dqkv slab [B, L, 3H].
+- ``flash_cross_attention`` (K2) is FiD cross-attention of the decoder
+  queries q [B, Lq, H] over the fused key/value slab kv [B, Lk, 2H] in
+  chunks of ``key_chunk`` keys with an online softmax; it saves the per-head
+  lse [B, Lq, nh] and its backward emits dq and dkv [B, Lk, 2H] (the TPU
+  kernel's dkv comes out transposed; this one does not).
 
-On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_self_attention.cu``) or raises; on a CPU tensor it runs
-:func:`flash_self_attention_reference`, the plain PyTorch version with the
-same rounding. The backward kernel, and with it autograd, comes with the
-training slice; dropout is off when serving.
+Attention dropout runs inside the kernels from a uint32 ``seed`` and a
+``rate``: the keep mask is ``ops.hashing.keep_mask``, bit for bit the TPU
+kernels' ``_keep_mask``, regenerated in the backward. Both functions are
+``torch.autograd.Function``s. On a CUDA tensor every direction launches its
+hand-written kernel (``csrc/flash_self_attention.cu``,
+``csrc/flash_cross_attention.cu``) or raises; on a CPU tensor it runs the
+plain PyTorch version beside it, which rounds where the TPU kernel rounds
+and, backward, follows the TPU kernel's formula. Each kernel's wrapper
+counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from emdr2_tpu_torch.ops import build
+from emdr2_tpu_torch.ops.hashing import attention_threshold, keep_mask
 
+
+# ------------------------------------------------------------------ helpers
+
+def _dropout_args(seed: Optional[int], rate: float) -> tuple:
+    """(seed, threshold, on, 1 - rate, 1 / (1 - rate)) for the kernels."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if rate == 0.0:
+        return 0, 0, 0, 1.0, 1.0
+    if seed is None:
+        raise ValueError("attention dropout needs a seed")
+    return (seed & 0xFFFFFFFF, attention_threshold(rate), 1, 1.0 - rate,
+            1.0 / (1.0 - rate))
+
+
+def _bh(B: int, nh: int, device) -> torch.Tensor:
+    """[B, nh] batch*head indices of the keep mask."""
+    return torch.arange(B * nh, device=device).view(B, nh)
+
+
+def _check_cuda(what: str, tensors, bf16, fp32) -> None:
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != tensors[0].device:
+            raise ValueError(f"{what}: unsupported devices "
+                             f"{[str(x.device) for x in tensors]}")
+    for t in bf16:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: the kernel takes bf16, got {t.dtype}")
+    for t in fp32:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: the kernel takes fp32 biases and "
+                            f"softmax statistics, got {t.dtype}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: needs contiguous inputs")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must be 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------------------------------- K1: self-attention slab
 
 def flash_self_attention_reference(qkv: torch.Tensor, kv_bias: torch.Tensor,
-                                   nh: int) -> torch.Tensor:
-    """Plain PyTorch version, rounding where the TPU kernel rounds: fp32
-    scores ``s*scale + bias``, ``p = exp(s - max)``, ``l = sum(p)`` in fp32,
-    ``p`` cast to the input dtype before the fp32-accumulated P.V product,
-    then ``/ l`` (guarded ``l > 0``) and a cast to the input dtype.
+                                   nh: int, seed: Optional[int] = None,
+                                   rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch forward, rounding where the TPU kernel rounds: fp32
+    scores ``s*scale + bias``, ``p = exp(s - max)``, ``l = sum(p)`` in fp32
+    over undropped ``p``, dropped ``p`` zeroed and cast to the input dtype
+    before the fp32-accumulated P.V product, then ``/ (l*(1-rate))``
+    (guarded ``> 0``) and a cast to the input dtype.
 
     The products run on fp32 copies; bf16 inputs are exact in fp32 (and in
     TF32), so TF32 settings cannot change the scores."""
@@ -39,50 +98,391 @@ def flash_self_attention_reference(qkv: torch.Tensor, kv_bias: torch.Tensor,
     s = s + kv_bias.float()[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
+    del s
     l = p.sum(dim=-1, keepdim=True)
+    if rate:
+        keep = keep_mask(seed, _bh(B, nh, qkv.device), rate, L, L)
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+        del keep
+        l = l * (1.0 - rate)
     safe = torch.where(l > 0, l, torch.ones_like(l))
     o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / safe
     return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, L, H)
 
 
-def flash_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor,
-                         nh: int) -> torch.Tensor:
-    """qkv [B, L, 3H], kv_bias [B, L] fp32 -> [B, L, H] in qkv's dtype."""
+def flash_self_attention_bwd_reference(qkv, kv_bias, out, dout, nh: int,
+                                       seed: Optional[int] = None,
+                                       rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch backward of the TPU kernel (``_self_bwd_kernel``):
+    recompute ``P = exp(s - max) / l``; ``delta = rowsum(do * out)``;
+    ``dP = do v^T`` (dropped and scaled by 1/(1-rate)); ``dS = P (dP -
+    delta)``; dq = dS k * scale, dk = dS^T q * scale, dv = P_d^T do, all in
+    fp32 and cast to qkv's dtype. Returns dqkv [B, L, 3H]."""
+    B, L, H3 = qkv.shape
+    H = H3 // 3
+    hd = H // nh
+    scale = hd ** -0.5
+    heads = qkv.view(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = heads[0].float(), heads[1].float(), heads[2].float()
+    do = dout.view(B, L, nh, hd).permute(0, 2, 1, 3).float()
+    o = out.view(B, L, nh, hd).permute(0, 2, 1, 3).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s + kv_bias.float()[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    P = torch.exp(s - m)
+    del s
+    l = P.sum(dim=-1, keepdim=True)
+    P.mul_(1.0 / torch.where(l > 0, l, torch.ones_like(l)))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    if rate:
+        keep = keep_mask(seed, _bh(B, nh, qkv.device), rate, L, L)
+        inv_keep = 1.0 / (1.0 - rate)
+        zero = torch.zeros((), device=P.device)
+        dp = torch.where(keep, dp, zero).mul_(inv_keep)
+        Pd = torch.where(keep, P, zero).mul_(inv_keep)
+        del keep
+    else:
+        Pd = P
+    ds = dp.sub_(delta).mul_(P)
+    del P
+    dq = (torch.matmul(ds, k) * scale).to(qkv.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2), q) * scale).to(qkv.dtype)
+    del ds
+    dv = torch.matmul(Pd.transpose(-1, -2), do).to(qkv.dtype)
+    d = torch.stack([dq, dk, dv], dim=0)                     # [3,B,nh,L,hd]
+    return d.permute(1, 3, 0, 2, 4).reshape(B, L, H3)
+
+
+def flash_self_attention_forward(qkv, kv_bias, nh: int,
+                                 seed: Optional[int] = None,
+                                 rate: float = 0.0, with_stats: bool = True):
+    """-> (out, row statistics or None); the kernel on CUDA, the plain
+    version on CPU (which keeps no statistics: its backward recomputes
+    them). Not differentiable (see ``flash_self_attention``).
+
+    The statistics [B, nh, 2, L] are (rowmax, 1/l) of the softmax: the
+    backward's P = exp(s - rowmax) / l, as the TPU backward recomputes it
+    (an lse would lose log(l) in fp32 on a fully padded row, whose rowmax
+    is ~-1e9)."""
+    if qkv.device.type == "cpu":
+        return flash_self_attention_reference(qkv, kv_bias, nh, seed,
+                                              rate), None
+    B, L, H3 = qkv.shape
+    H = H3 // 3
+    _check_cuda("flash_self_attention", (qkv, kv_bias), (qkv,), (kv_bias,))
+    if H // nh != 64:
+        raise ValueError(f"kernel is built for head_dim 64, got {H // nh}")
+    out = torch.empty((B, L, H), dtype=qkv.dtype, device=qkv.device)
+    stats = (torch.empty((B, nh, 2, L), dtype=torch.float32,
+                         device=qkv.device) if with_stats else None)
+    err = build.load().emdr2_flash_self_attention_bf16(
+        qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
+        stats.data_ptr() if stats is not None else None, B, L, nh, 64,
+        *_dropout_args(seed, rate), _stream(qkv))
+    build.check(err, "flash_self_attention")
+    flash_self_attention.launches += 1
+    return out, stats
+
+
+def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
+                                  seed: Optional[int] = None,
+                                  rate: float = 0.0,
+                                  stats: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """dqkv [B, L, 3H] of ``flash_self_attention``. On CUDA it launches the
+    backward kernels, which need the forward's row ``stats`` [B, nh, 2, L];
+    on CPU it runs the plain version."""
+    _dropout_args(seed, rate)
+    if qkv.device.type == "cpu":
+        return flash_self_attention_bwd_reference(qkv, kv_bias, out, dout,
+                                                  nh, seed, rate)
+    if stats is None:
+        raise ValueError("the backward kernel needs the forward's stats")
+    B, L, H3 = qkv.shape
+    H = H3 // 3
+    dout = dout.contiguous()
+    _check_cuda("flash_self_attention_backward",
+                (qkv, kv_bias, out, dout, stats), (qkv, out, dout),
+                (kv_bias, stats))
+    if H // nh != 64 or out.shape != (B, L, H) or dout.shape != (B, L, H) \
+            or stats.shape != (B, nh, 2, L):
+        raise ValueError(f"bad shapes for the backward kernel: qkv "
+                         f"{tuple(qkv.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, stats {tuple(stats.shape)}")
+    delta = torch.empty((B, nh, L), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    err = build.load().emdr2_flash_self_attention_bwd_bf16(
+        qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, L, nh, 64,
+        *_dropout_args(seed, rate), _stream(qkv))
+    build.check(err, "flash_self_attention_backward")
+    flash_self_attention_backward.launches += 1
+    return dqkv
+
+
+class _FlashSelfAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, qkv, kv_bias, nh, seed, rate):
+        out, stats = flash_self_attention_forward(qkv, kv_bias, nh, seed,
+                                                  rate)
+        ctx.save_for_backward(qkv, kv_bias, out, stats)
+        ctx.nh, ctx.seed, ctx.rate = nh, seed, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, kv_bias, out, stats = ctx.saved_tensors
+        dqkv = flash_self_attention_backward(qkv, kv_bias, out, dout, ctx.nh,
+                                             ctx.seed, ctx.rate, stats)
+        return dqkv, None, None, None, None
+
+
+def flash_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor, nh: int,
+                         seed: Optional[int] = None,
+                         rate: float = 0.0) -> torch.Tensor:
+    """qkv [B, L, 3H], kv_bias [B, L] fp32 -> [B, L, H] in qkv's dtype,
+    differentiable w.r.t. qkv. ``seed`` (uint32) and ``rate`` set the
+    in-kernel attention dropout."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * nh):
         raise ValueError(f"qkv must be [B, L, 3H] with H % nh == 0, "
                          f"got {tuple(qkv.shape)} and nh={nh}")
-    B, L, H3 = qkv.shape
+    B, L, _ = qkv.shape
     if kv_bias.shape != (B, L):
         raise ValueError(f"kv_bias must be {(B, L)}, got {tuple(kv_bias.shape)}")
-    if qkv.device.type == "cpu":
-        return flash_self_attention_reference(qkv, kv_bias, nh)
-    if qkv.device.type != "cuda" or kv_bias.device != qkv.device:
+    if qkv.device.type not in ("cpu", "cuda") or kv_bias.device != qkv.device:
         raise ValueError(f"flash_self_attention: unsupported devices "
                          f"{qkv.device} / {kv_bias.device}")
-    if qkv.requires_grad:
-        raise NotImplementedError(
-            "flash_self_attention has no backward kernel yet (training)")
-    H = H3 // 3
+    _dropout_args(seed, rate)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FlashSelfAttention.apply(qkv, kv_bias, nh, seed, rate)
+    return flash_self_attention_forward(qkv, kv_bias, nh, seed, rate,
+                                        with_stats=False)[0]
+
+
+# ------------------------------------------------ K2: cross-attention slab
+
+def _cross_heads(q, kv, nh):
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
     hd = H // nh
-    if qkv.dtype != torch.bfloat16 or kv_bias.dtype != torch.float32:
-        raise TypeError(f"kernel takes bf16 qkv and fp32 kv_bias, got "
-                        f"{qkv.dtype} / {kv_bias.dtype}")
-    if hd != 64:
-        raise ValueError(f"kernel is built for head_dim 64, got {hd}")
-    if not (qkv.is_contiguous() and kv_bias.is_contiguous()):
-        raise ValueError("flash_self_attention needs contiguous inputs")
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv must be 16-byte aligned")
-    out = torch.empty((B, L, H), dtype=qkv.dtype, device=qkv.device)
-    lib = build.load()
-    err = lib.emdr2_flash_self_attention_bf16(
-        qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), B, L, nh, hd,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    build.check(err, "flash_self_attention")
-    flash_self_attention.launches += 1
-    return out
+    qh = q.view(B, Lq, nh, hd).permute(0, 2, 1, 3)
+    kvh = kv.view(B, Lk, 2, nh, hd).permute(2, 0, 3, 1, 4)   # [2,B,nh,Lk,hd]
+    return qh, kvh[0], kvh[1], hd
+
+
+def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
+                                    seed: Optional[int] = None,
+                                    rate: float = 0.0
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward with the TPU kernel's chunked online softmax
+    and rounding: per chunk of ``key_chunk`` keys, ``p = exp(s - m_new)``
+    against the running max, ``l`` over undropped ``p``, dropped ``p`` cast
+    to kv's dtype before the fp32-accumulated P.V. Returns (out [B, Lq, H]
+    in q's dtype, lse [B, Lq, nh] fp32)."""
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
+    qh, kh, vh, hd = _cross_heads(q, kv, nh)
+    qf = qh.float()
+    bias = kv_bias.float()
+    bh = _bh(B, nh, q.device)
+    m = torch.full((B, nh, Lq, 1), -1e30, device=q.device)
+    l = torch.zeros((B, nh, Lq, 1), device=q.device)
+    acc = torch.zeros((B, nh, Lq, hd), device=q.device)
+    for j in range(Lk // key_chunk):
+        sl = slice(j * key_chunk, (j + 1) * key_chunk)
+        s = torch.matmul(qf, kh[:, :, sl].float().transpose(-1, -2))
+        s = s * (hd ** -0.5) + bias[:, None, None, sl]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if rate:
+            keep = keep_mask(seed, bh, rate, Lq, key_chunk, j)
+            p = torch.where(keep, p, torch.zeros((), device=p.device))
+        acc = acc * corr + torch.matmul(p.to(kv.dtype).float(),
+                                        vh[:, :, sl].float())
+        m = m_new
+    l_eff = l * (1.0 - rate) if rate else l
+    safe = torch.where(l_eff > 0, l_eff, torch.ones_like(l_eff))
+    out = (acc / safe).to(q.dtype).permute(0, 2, 1, 3).reshape(B, Lq, H)
+    lse = m + torch.log(torch.where(l > 0, l, torch.ones_like(l)))
+    return out, lse[..., 0].permute(0, 2, 1).contiguous()
+
+
+def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
+                                        nh: int, key_chunk: int,
+                                        seed: Optional[int] = None,
+                                        rate: float = 0.0
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of the TPU kernel (``_xslab_bwd_kernel``): per
+    chunk, ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled),
+    ``dS = P (dP - delta)``; dk = dS^T q * scale and dv = P_d^T do per key,
+    dq = sum over chunks of dS k * scale (fp32). Returns (dq [B, Lq, H],
+    dkv [B, Lk, 2H]) in the inputs' dtypes."""
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
+    qh, kh, vh, hd = _cross_heads(q, kv, nh)
+    scale = hd ** -0.5
+    qf = qh.float()
+    do = dout.view(B, Lq, nh, hd).permute(0, 2, 1, 3).float()
+    o = out.view(B, Lq, nh, hd).permute(0, 2, 1, 3).float()
+    lse_h = lse.permute(0, 2, 1)[..., None].float()          # [B, nh, Lq, 1]
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    bias = kv_bias.float()
+    bh = _bh(B, nh, q.device)
+    dq = torch.zeros((B, nh, Lq, hd), device=q.device)
+    dk = torch.empty((B, nh, Lk, hd), dtype=kv.dtype, device=q.device)
+    dv = torch.empty((B, nh, Lk, hd), dtype=kv.dtype, device=q.device)
+    for j in range(Lk // key_chunk):
+        sl = slice(j * key_chunk, (j + 1) * key_chunk)
+        kf = kh[:, :, sl].float()
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        s = s + bias[:, None, None, sl]
+        p = torch.exp(s - lse_h)
+        dp = torch.matmul(do, vh[:, :, sl].float().transpose(-1, -2))
+        if rate:
+            keep = keep_mask(seed, bh, rate, Lq, key_chunk, j)
+            inv_keep = 1.0 / (1.0 - rate)
+            zero = torch.zeros((), device=p.device)
+            dp = torch.where(keep, dp, zero) * inv_keep
+            pd = torch.where(keep, p, zero) * inv_keep
+        else:
+            pd = p
+        ds = p * (dp - delta)
+        dq = dq + torch.matmul(ds, kf) * scale
+        dk[:, :, sl] = (torch.matmul(ds.transpose(-1, -2), qf) * scale
+                        ).to(kv.dtype)
+        dv[:, :, sl] = torch.matmul(pd.transpose(-1, -2), do).to(kv.dtype)
+    dq = dq.to(q.dtype).permute(0, 2, 1, 3).reshape(B, Lq, H)
+    dkv = torch.stack([dk, dv], dim=0).permute(1, 3, 0, 2, 4)
+    return dq, dkv.reshape(B, Lk, 2 * H)
+
+
+def _check_cross(q, kv, kv_bias, nh, key_chunk):
+    if q.dim() != 3 or q.shape[-1] % nh:
+        raise ValueError(f"q must be [B, Lq, H] with H % nh == 0, got "
+                         f"{tuple(q.shape)} and nh={nh}")
+    B, Lq, H = q.shape
+    if kv.dim() != 3 or kv.shape[0] != B or kv.shape[2] != 2 * H:
+        raise ValueError(f"kv must be [{B}, Lk, {2 * H}], got "
+                         f"{tuple(kv.shape)}")
+    Lk = kv.shape[1]
+    if kv_bias.shape != (B, Lk):
+        raise ValueError(f"kv_bias must be {(B, Lk)}, got "
+                         f"{tuple(kv_bias.shape)}")
+    if key_chunk <= 0 or Lk % key_chunk:
+        raise ValueError(f"Lk={Lk} must be a multiple of key_chunk="
+                         f"{key_chunk} (pad the keys at -1e9 bias)")
+    if q.device.type not in ("cpu", "cuda") or not (
+            kv.device == kv_bias.device == q.device):
+        raise ValueError(f"flash_cross_attention: unsupported devices "
+                         f"{q.device} / {kv.device} / {kv_bias.device}")
+
+
+def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
+                                  seed: Optional[int] = None,
+                                  rate: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Lq, H], lse [B, Lq, nh] fp32): the kernel on CUDA, the
+    plain version on CPU. Not differentiable (see ``flash_cross_attention``)."""
+    _check_cross(q, kv, kv_bias, nh, key_chunk)
+    _dropout_args(seed, rate)
+    if q.device.type == "cpu":
+        return flash_cross_attention_reference(q, kv, kv_bias, nh, key_chunk,
+                                               seed, rate)
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
+    _check_cuda("flash_cross_attention", (q, kv, kv_bias), (q, kv),
+                (kv_bias,))
+    if H // nh != 64 or Lq > 64:
+        raise ValueError(f"kernel is built for head_dim 64 and at most 64 "
+                         f"queries, got head_dim {H // nh}, Lq {Lq}")
+    out = torch.empty((B, Lq, H), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Lq, nh), dtype=torch.float32, device=q.device)
+    err = build.load().emdr2_flash_cross_attention_bf16(
+        q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
+        *_dropout_args(seed, rate), _stream(q))
+    build.check(err, "flash_cross_attention")
+    flash_cross_attention.launches += 1
+    return out, lse
+
+
+def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
+                                   key_chunk: int, seed: Optional[int] = None,
+                                   rate: float = 0.0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dq [B, Lq, H], dkv [B, Lk, 2H]) of ``flash_cross_attention``: the
+    kernels on CUDA (per-chunk fp32 dq partials summed in chunk order, so
+    the result is deterministic), the plain version on CPU."""
+    _check_cross(q, kv, kv_bias, nh, key_chunk)
+    _dropout_args(seed, rate)
+    if q.device.type == "cpu":
+        return flash_cross_attention_bwd_reference(
+            q, kv, kv_bias, lse, out, dout, nh, key_chunk, seed, rate)
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
+    dout = dout.contiguous()
+    _check_cuda("flash_cross_attention_backward",
+                (q, kv, kv_bias, lse, out, dout), (q, kv, out, dout),
+                (kv_bias, lse))
+    if H // nh != 64 or Lq > 64 or out.shape != q.shape \
+            or dout.shape != q.shape or lse.shape != (B, Lq, nh):
+        raise ValueError(f"bad shapes for the backward kernel: q "
+                         f"{tuple(q.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
+    n_chunks = Lk // key_chunk
+    dq_part = torch.empty((B, n_chunks, Lq, H), dtype=torch.float32,
+                          device=q.device)
+    dq = torch.empty_like(q)
+    dkv = torch.empty_like(kv)
+    err = build.load().emdr2_flash_cross_attention_bwd_bf16(
+        q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), lse.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), dq_part.data_ptr(), dq.data_ptr(),
+        dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
+        *_dropout_args(seed, rate), _stream(q))
+    build.check(err, "flash_cross_attention_backward")
+    flash_cross_attention_backward.launches += 1
+    return dq, dkv
+
+
+class _FlashCrossAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, kv, kv_bias, nh, key_chunk, seed, rate):
+        out, lse = flash_cross_attention_forward(q, kv, kv_bias, nh,
+                                                 key_chunk, seed, rate)
+        ctx.save_for_backward(q, kv, kv_bias, lse, out)
+        ctx.args = (nh, key_chunk, seed, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kv, kv_bias, lse, out = ctx.saved_tensors
+        dq, dkv = flash_cross_attention_backward(q, kv, kv_bias, lse, out,
+                                                 dout, *ctx.args)
+        return dq, dkv, None, None, None, None, None
+
+
+def flash_cross_attention(q: torch.Tensor, kv: torch.Tensor,
+                          kv_bias: torch.Tensor, nh: int, key_chunk: int,
+                          seed: Optional[int] = None,
+                          rate: float = 0.0) -> torch.Tensor:
+    """q [B, Lq, H], kv [B, Lk, 2H] ([k | v]), kv_bias [B, Lk] fp32 with Lk a
+    multiple of ``key_chunk`` -> [B, Lq, H] in q's dtype, differentiable
+    w.r.t. q and kv."""
+    if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad):
+        return _FlashCrossAttention.apply(q, kv, kv_bias, nh, key_chunk, seed,
+                                          rate)
+    return flash_cross_attention_forward(q, kv, kv_bias, nh, key_chunk, seed,
+                                         rate)[0]
 
 
 # kernel launches since the last reset (a run proves its path went through
-# the kernel by reading this)
+# each kernel by reading these)
 flash_self_attention.launches = 0
+flash_self_attention_backward.launches = 0
+flash_cross_attention.launches = 0
+flash_cross_attention_backward.launches = 0

@@ -1,0 +1,160 @@
+"""Optimizer, train state and the train step (port of
+``emdr2_tpu/training/step.py``).
+
+One step: forward (retriever scores + FiD reader + stop-gradient teacher)
+-> joint loss -> backward -> global-norm clip -> AdamW on the fp32
+parameters, with the AnnealingLR schedule. Compute runs in bf16 (the
+layers' ``dtype``) with no loss scaling. Three details follow optax rather
+than PyTorch's habits, so the port takes the JAX package's steps:
+
+- the clip scales the gradients by ``max / norm`` only when ``norm >=
+  max`` (``optax.clip_by_global_norm``), with no epsilon;
+- the schedule is read at the update count before the update, so the first
+  step's learning rate is ``schedule(0)``, 0 under warmup;
+- parameters that got no gradient get a zero one, so AdamW still decays
+  them and updates their moments, as optax does.
+
+Weight decay skips biases, the LM bias and every LayerNorm (``decay_mask``,
+the JAX package's rule on the same names). The state is updated in place:
+the model's parameters and the optimizer's moments are PyTorch tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from emdr2_tpu_torch.config import EMDR2Config, OptimizerConfig
+from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
+from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold_seed
+from emdr2_tpu_torch.training.losses import emdr2_total_loss
+from emdr2_tpu_torch.training.schedules import schedule_from_config
+from emdr2_tpu_torch.utils.timing import StageTimer, stage
+
+
+def _no_decay(name: str) -> bool:
+    """True for parameters that are not weight-decayed: biases, the LM bias
+    and LayerNorm parameters (every LayerNorm module is named ``ln_*``)."""
+    parts = name.split(".")
+    if parts[-1] in ("bias", "lm_bias"):
+        return True
+    return any(p.startswith("ln_") or p == "scale" for p in parts)
+
+
+def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    """Parameter name -> True where AdamW applies weight decay."""
+    return {name: not _no_decay(name) for name, _ in model.named_parameters()}
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class Optimizer:
+    """Global-norm clip -> AdamW (two parameter groups: decayed and not)
+    with the learning rate of ``schedule`` at the update count."""
+
+    def __init__(self, model: EMDR2Model, cfg: OptimizerConfig,
+                 schedule: Callable[[int], float]):
+        self.cfg = cfg
+        self.schedule = schedule
+        mask = decay_mask(model)
+        named = list(model.named_parameters())
+        self.params = [p for _, p in named]
+        groups = [
+            {"params": [p for n, p in named if mask[n]],
+             "weight_decay": cfg.weight_decay},
+            {"params": [p for n, p in named if not mask[n]],
+             "weight_decay": 0.0},
+        ]
+        self.adamw = torch.optim.AdamW(
+            [g for g in groups if g["params"]], lr=0.0,
+            betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_eps)
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clip, update, count; returns the global gradient norm (before
+        the clip)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        # optax: g -> (g / norm) * max when norm >= max; on the device,
+        # with no host sync (g / 1 * 1 is g exactly)
+        keep = norm < self.cfg.clip_grad
+        one = torch.ones_like(norm)
+        div = torch.where(keep, one, norm)
+        mult = torch.where(keep, one, torch.full_like(norm,
+                                                      self.cfg.clip_grad))
+        for g in grads:
+            g.div_(div).mul_(mult)
+        lr = self.schedule(self.count)
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
+        self.adamw.step()
+        self.count += 1
+        return norm
+
+
+def make_optimizer(model: EMDR2Model, cfg: OptimizerConfig,
+                   total_iters: int) -> Optimizer:
+    return Optimizer(model, cfg, schedule_from_config(cfg, total_iters))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the seed the dropout masks derive from, the model
+    (fp32 parameters) and its optimizer."""
+
+    step: int
+    seed: int
+    model: EMDR2Model
+    optimizer: Optimizer
+
+    def dropout_seeds(self) -> DropoutSeeds:
+        """This step's seeds: a pure function of (seed, step)."""
+        return DropoutSeeds(fold_seed(self.seed, self.step))
+
+
+METRICS = ("loss", "lm_loss", "retriever_loss", "retriever_utility",
+           "null_block_lm_loss", "grad_norm")
+
+
+def make_train_step(cfg: EMDR2Config, eos_id: int,
+                    timer: Optional[StageTimer] = None) -> Callable:
+    """-> step_fn(state, batch) -> (state, metrics): forward with dropout
+    -> loss -> backward -> clip -> AdamW, in place. Metrics are 0-d
+    tensors on the model's device. ``timer`` records the
+    ``forward_backward`` and ``optimizer`` stages."""
+
+    def step_fn(state: TrainState, batch: EMDR2Batch):
+        model = state.model
+        with stage(timer, "forward_backward"):
+            state.optimizer.zero_grad()
+            out = model(batch, drop=state.dropout_seeds())
+            total, aux = emdr2_total_loss(
+                out.lm_logits, out.topk_log_probs, out.gold_log_probs,
+                batch.labels, batch.loss_mask, eos_id=eos_id,
+                update_retriever=cfg.update_retriever,
+                use_kl_div=cfg.use_kl_div_loss)
+            total.backward()
+        with stage(timer, "optimizer"):
+            grad_norm = state.optimizer.step()
+        state.step += 1
+        metrics = {"loss": total.detach(), "lm_loss": aux.lm_loss.detach(),
+                   "retriever_loss": aux.retriever_loss.detach(),
+                   "retriever_utility": aux.retriever_utility.detach(),
+                   "null_block_lm_loss": aux.null_block_lm_loss.detach(),
+                   "grad_norm": grad_norm}
+        return state, metrics
+
+    return step_fn

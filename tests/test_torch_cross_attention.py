@@ -1,0 +1,104 @@
+"""K2: the port's flash cross-attention (plain versions, CPU) against the
+JAX Pallas kernel ``flash_cross_attention`` run in interpret mode: output,
+lse, dq and dkv (the JAX dkv arrives in [B, Lk, 2H] after its own swap),
+with one and several key chunks, a padded key tail, and dropout.
+
+Tolerance: both sides compute in fp32 and differ only in summation order:
+atol 1e-5, rtol 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from emdr2_tpu.ops.fid_attention import (  # noqa: E402
+    _xslab_forward,
+    flash_cross_attention as jax_flash_cross_attention,
+)
+from emdr2_tpu_torch.ops import fid_attention  # noqa: E402
+from emdr2_tpu_torch.ops.fid_attention import (  # noqa: E402
+    flash_cross_attention,
+    flash_cross_attention_forward,
+)
+
+torch.set_num_threads(2)
+
+SEED = 4242
+
+
+def make_inputs(B, Lq, Lk, nh, real, hd=8, seed=0):
+    """q, kv, a key bias with the keys past ``real`` padded (the layer pads
+    Lk to a chunk multiple at -1e9), a shorter row, and an upstream grad."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, Lq, nh * hd).astype(np.float32)
+    kv = rng.randn(B, Lk, 2 * nh * hd).astype(np.float32)
+    bias = np.zeros((B, Lk), np.float32)
+    bias[:, real:] = -1e9
+    bias[-1, real // 2:] = -1e9
+    g = rng.randn(B, Lq, nh * hd).astype(np.float32)
+    return q, kv, bias, g
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("Lk,chunk,real", [(40, 40, 40), (48, 16, 37),
+                                           (64, 32, 64)])
+def test_forward_lse_and_grads_match_jax(Lk, chunk, real, rate):
+    nh = 2
+    q, kv, bias, g = make_inputs(3, 5, Lk, nh, real, seed=Lk + chunk)
+
+    def f(a, b):
+        return jax_flash_cross_attention(a, b, jnp.asarray(bias),
+                                         jnp.uint32(SEED), nh, chunk, True,
+                                         rate)
+
+    want, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(kv))
+    want_dq, want_dkv = vjp(jnp.asarray(g))
+    _, want_lse = _xslab_forward(jnp.asarray(q), jnp.asarray(kv),
+                                 jnp.asarray(bias),
+                                 jnp.asarray([SEED], jnp.uint32), nh, chunk,
+                                 True, rate)
+
+    a = torch.tensor(q, requires_grad=True)
+    b = torch.tensor(kv, requires_grad=True)
+    got = flash_cross_attention(a, b, torch.as_tensor(bias), nh, chunk, SEED,
+                                rate)
+    got.backward(torch.as_tensor(g))
+    _, lse = flash_cross_attention_forward(
+        torch.as_tensor(q), torch.as_tensor(kv), torch.as_tensor(bias), nh,
+        chunk, SEED, rate)
+    tol = dict(atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+    np.testing.assert_allclose(a.grad.numpy(), np.asarray(want_dq), **tol)
+    assert b.grad.shape == kv.shape                  # [B, Lk, 2H]
+    np.testing.assert_allclose(b.grad.numpy(), np.asarray(want_dkv), **tol)
+
+
+def test_cpu_runs_plain_version_without_counting():
+    q, kv, bias, g = make_inputs(2, 4, 32, 2, 20)
+    before = (fid_attention.flash_cross_attention.launches,
+              fid_attention.flash_cross_attention_backward.launches)
+    a = torch.tensor(q, requires_grad=True)
+    flash_cross_attention(a, torch.as_tensor(kv), torch.as_tensor(bias), 2,
+                          16).sum().backward()
+    assert (fid_attention.flash_cross_attention.launches,
+            fid_attention.flash_cross_attention_backward.launches) == before
+
+
+def test_rejects_bad_shapes_and_foreign_devices():
+    q, kv, bias, _ = make_inputs(2, 4, 32, 2, 20)
+    q, kv, bias = (torch.as_tensor(x) for x in (q, kv, bias))
+    with pytest.raises(ValueError):                  # Lk % key_chunk
+        flash_cross_attention(q, kv, bias, 2, 24)
+    with pytest.raises(ValueError):                  # kv width
+        flash_cross_attention(q, kv[..., :16], bias, 2, 16)
+    with pytest.raises(ValueError):
+        flash_cross_attention(q, kv, bias[:, :16], 2, 16)
+    with pytest.raises(ValueError):                  # dropout without seed
+        flash_cross_attention(q, kv, bias, 2, 16, None, 0.1)
+    with pytest.raises(ValueError):
+        flash_cross_attention(q.to("meta"), kv.to("meta"), bias.to("meta"),
+                              2, 16)

@@ -17,7 +17,12 @@ from emdr2_tpu.data.indexed_dataset import (  # noqa: E402
     MMapIndexedDataset as JaxDataset,
 )
 from emdr2_tpu.data.qa_dataset import (  # noqa: E402
+    OpenQADataset as JaxOpenQADataset,
     encode_question as jax_encode_question,
+)
+from emdr2_tpu.data.samplers import (  # noqa: E402
+    DistributedBatchSampler as JaxDistributedBatchSampler,
+    RandomSampler as JaxRandomSampler,
 )
 from emdr2_tpu.data.tokenizer import (  # noqa: E402
     BertWordPieceTokenizer as JaxTokenizer,
@@ -29,7 +34,14 @@ from emdr2_tpu_torch.data.indexed_dataset import (  # noqa: E402
     MMapIndexedDataset,
     MMapIndexedDatasetBuilder,
 )
-from emdr2_tpu_torch.data.qa_dataset import encode_question  # noqa: E402
+from emdr2_tpu_torch.data.qa_dataset import (  # noqa: E402
+    OpenQADataset,
+    encode_question,
+)
+from emdr2_tpu_torch.data.samplers import (  # noqa: E402
+    DistributedBatchSampler,
+    RandomSampler,
+)
 from emdr2_tpu_torch.data.tokenizer import (  # noqa: E402
     BertWordPieceTokenizer,
     toy_vocab,
@@ -129,6 +141,35 @@ def test_masks_match_jax():
             (masks.mask_to_bias(masks.self_attention_mask(t)),
              jmasks.mask_to_bias(jmasks.self_attention_mask(j)))):
         assert got.numpy().tobytes() == np.asarray(want).tobytes()
+
+
+def test_openqa_dataset_and_samplers(toks, tmp_path):
+    """Same csv, same seeds: identical batches (answers sampled per access,
+    epoch shuffles, per-rank slices, tail batch)."""
+    tok, jtok = toks
+    path = tmp_path / "qa.csv"
+    path.write_text("".join(
+        f"what is the color of item{i}\t['red', 'blue {i}', 'who']\n"
+        for i in range(11)))
+    ds = OpenQADataset([str(path)], tok, 16, 6, seed=3)
+    jds = JaxOpenQADataset([str(path)], jtok, 16, 6, seed=3)
+    for kw in (dict(seed=1), dict(seed=2, drop_last=False, shuffle=False),
+               dict(seed=4, rank=1, world_size=2)):
+        got = list(ds.epoch_batches(4, **kw))
+        want = list(jds.epoch_batches(4, **kw))
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(a, np.ndarray):
+                    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                else:
+                    assert a == b
+    a, b = RandomSampler(9, seed=5), JaxRandomSampler(9, seed=5)
+    a.set_epoch(2)
+    b.set_epoch(2)
+    assert list(a) == list(b)
+    assert list(DistributedBatchSampler(range(10), 4, False, 1, 2, True)) == \
+        list(JaxDistributedBatchSampler(range(10), 4, False, 1, 2, True))
 
 
 _BLOCK_JAX = """

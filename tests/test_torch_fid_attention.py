@@ -1,4 +1,4 @@
-"""The port's flash self-attention (plain version, CPU) against the JAX
+"""The port's flash self-attention (plain versions, CPU) against the JAX
 Pallas kernel run in interpret mode, plus the wrapper's dispatch rules.
 
 Tolerance: both sides compute in fp32 and differ only in summation order:
@@ -91,3 +91,42 @@ def test_rejects_bad_shapes_and_foreign_devices():
     with pytest.raises(ValueError):
         flash_self_attention(torch.empty(2, 16, 48, device="meta"),
                              torch.empty(2, 16, device="meta"), 2)
+
+
+# ---- K1 with dropout and its backward, against the JAX kernels' VJP ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("L,nh", [(16, 2), (48, 4)])
+def test_forward_and_backward_match_jax_vjp(L, nh, rate):
+    """The plain forward and the plain backward (through autograd) against
+    ``jax.vjp`` of the Pallas kernel in interpret mode, masked keys and a
+    fully padded row included; dropout with the same seed."""
+    import jax
+
+    qkv, bias = make_inputs(3, L, nh, seed=7 * L + nh)
+    g = np.random.RandomState(L).randn(3, L, nh * 8).astype(np.float32)
+    seed = 2 ** 31 + 5
+
+    def f(x):
+        return jax_flash_self_attention(x, jnp.asarray(bias), jnp.uint32(seed),
+                                        nh, True, rate)
+
+    want, vjp = jax.vjp(f, jnp.asarray(qkv))
+    (want_dqkv,) = vjp(jnp.asarray(g))
+    x = torch.tensor(qkv, requires_grad=True)
+    got = flash_self_attention(x, torch.as_tensor(bias), nh, seed, rate)
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_dqkv),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_dropout_changes_output_and_needs_a_seed():
+    qkv, bias = make_inputs(2, 16, 2)
+    x, b = torch.as_tensor(qkv), torch.as_tensor(bias)
+    plain = flash_self_attention(x, b, 2)
+    assert torch.equal(plain, flash_self_attention(x, b, 2, 3, 0.0))
+    assert not torch.equal(plain, flash_self_attention(x, b, 2, 3, 0.2))
+    with pytest.raises(ValueError):
+        flash_self_attention(x, b, 2, None, 0.2)

@@ -5,9 +5,12 @@ jax nor the JAX package, so the machine with the card runs it alone:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
 Tolerances: bf16 attention output keeps 8 mantissa bits and the sums run in
-another order, so max abs error <= 2e-2; candidate values are fp32 sums of
-exact products in another order, so |dv| <= 1e-3*|v| + 1e-3, and int8
-values are exact.
+another order, so max abs error <= 2e-2; the backward kernels also round dS
+and the dropped probabilities to bf16 for the tensor-core products (the
+plain versions multiply in fp32), so gradients are held to 2e-2 of the
+largest reference gradient at most and 2e-3 of it on average; candidate
+values are fp32 sums of exact products in another order, so |dv| <=
+1e-3*|v| + 1e-3, and int8 values are exact.
 """
 
 import pytest
@@ -17,6 +20,8 @@ torch = pytest.importorskip("torch")
 from emdr2_tpu_torch.ops import fid_attention, mips  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+NH = 12
 
 
 @pytest.fixture
@@ -31,6 +36,42 @@ def _gen(seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     return g
+
+
+def _assert_close(got, want, rel_max=2e-2, rel_mean=2e-3):
+    """Errors relative to the largest reference magnitude (bf16 results)."""
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs().max().item() or 1.0
+    assert err.max().item() <= rel_max * ref, (err.max().item(), ref)
+    assert err.mean().item() <= rel_mean * ref, (err.mean().item(), ref)
+
+
+def _self_inputs(B, L, seed):
+    g = _gen(seed)
+    qkv = torch.randn(B, L, 3 * NH * 64, device="cuda", generator=g
+                      ).to(torch.bfloat16)
+    bias = torch.zeros(B, L, device="cuda")
+    bias[0, :] = -1e9                        # a fully padded row
+    bias[-1, L // 3:] = -1e9                 # random-length padding
+    dout = torch.randn(B, L, NH * 64, device="cuda", generator=g
+                       ).to(torch.bfloat16)
+    return qkv, bias, dout
+
+
+def _cross_inputs(B, Lq, Lk, real, seed):
+    """q, kv and a bias whose keys past ``real`` (per row) are padding."""
+    g = _gen(seed)
+    H = NH * 64
+    q = torch.randn(B, Lq, H, device="cuda", generator=g).to(torch.bfloat16)
+    kv = torch.randn(B, Lk, 2 * H, device="cuda", generator=g
+                     ).to(torch.bfloat16)
+    bias = torch.zeros(B, Lk, device="cuda")
+    bias[:, real:] = -1e9
+    bias[-1, real // 2:] = -1e9
+    dout = torch.randn(B, Lq, H, device="cuda", generator=g
+                       ).to(torch.bfloat16)
+    return q, kv, bias, dout
 
 
 @pytest.mark.parametrize("B,L", [(3, 64), (2, 48), (2, 130), (2, 512)])
@@ -51,12 +92,140 @@ def test_flash_self_attention_matches_plain(cuda, B, L):
     assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
 
-def test_flash_self_attention_refuses_grad(cuda):
-    qkv = torch.zeros(1, 8, 3 * 64, device=cuda, dtype=torch.bfloat16,
-                      requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fid_attention.flash_self_attention(qkv, torch.zeros(1, 8,
-                                                            device=cuda), 1)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", [(3, 64), (2, 48), (2, 130), (1, 512)])
+def test_self_attention_forward_backward_match_plain(cuda, B, L, rate):
+    qkv, bias, dout = _self_inputs(B, L, seed=L)
+    x = qkv.clone().requires_grad_(True)
+    fwd0 = fid_attention.flash_self_attention.launches
+    bwd0 = fid_attention.flash_self_attention_backward.launches
+    out = fid_attention.flash_self_attention(x, bias, NH, 77, rate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_self_attention.launches == fwd0 + 1
+    assert fid_attention.flash_self_attention_backward.launches == bwd0 + 1
+    want = fid_attention.flash_self_attention_reference(qkv, bias, NH, 77,
+                                                        rate)
+    _assert_close(out.detach(), want)
+    dwant = fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, out.detach(), dout, NH, 77, rate)
+    _assert_close(x.grad, dwant)
+
+
+def test_self_attention_masked_keys_get_no_gradient(cuda):
+    qkv, bias, dout = _self_inputs(2, 100, seed=3)
+    x = qkv.clone().requires_grad_(True)
+    fid_attention.flash_self_attention(x, bias, NH, 5, 0.1).backward(dout)
+    H = NH * 64
+    # row 1 has real keys [0, 33): its padded keys get exactly zero dk, dv
+    assert (x.grad[1, 33:, H:] == 0).all()
+    assert torch.isfinite(x.grad.float()).all()      # row 0: fully masked
+
+
+def test_self_attention_rate_zero_is_no_dropout_and_repeats(cuda):
+    qkv, bias, dout = _self_inputs(2, 130, seed=4)
+    grads = []
+    for seed in (None, 9, 9):
+        x = qkv.clone().requires_grad_(True)
+        out = fid_attention.flash_self_attention(x, bias, NH, seed, 0.0)
+        out.backward(dout)
+        grads.append((out.detach(), x.grad))
+    for out, grad in grads[1:]:
+        assert torch.equal(out, grads[0][0]) and torch.equal(grad,
+                                                             grads[0][1])
+    x = qkv.clone().requires_grad_(True)
+    out = fid_attention.flash_self_attention(x, bias, NH, 9, 0.1)
+    out.backward(dout)
+    x2 = qkv.clone().requires_grad_(True)
+    out2 = fid_attention.flash_self_attention(x2, bias, NH, 9, 0.1)
+    out2.backward(dout)
+    assert torch.equal(out, out2) and torch.equal(x.grad, x2.grad)
+    assert not torch.equal(out, grads[0][0])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Lq,Lk,chunk,real", [
+    (2, 32, 1024, 512, 700),      # several chunks, padded tail
+    (3, 8, 96, 96, 50),           # one chunk, ragged: not a tile multiple
+    (2, 32, 144, 48, 100),        # chunk smaller than a tile
+    (1, 64, 512, 512, 512),
+])
+def test_cross_attention_forward_backward_match_plain(cuda, B, Lq, Lk,
+                                                      chunk, real, rate):
+    q, kv, bias, dout = _cross_inputs(B, Lq, Lk, real, seed=Lk + Lq)
+    a = q.clone().requires_grad_(True)
+    b = kv.clone().requires_grad_(True)
+    fwd0 = fid_attention.flash_cross_attention.launches
+    bwd0 = fid_attention.flash_cross_attention_backward.launches
+    out = fid_attention.flash_cross_attention(a, b, bias, NH, chunk, 31, rate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_cross_attention.launches == fwd0 + 1
+    assert fid_attention.flash_cross_attention_backward.launches == bwd0 + 1
+    want, lse = fid_attention.flash_cross_attention_reference(
+        q, kv, bias, NH, chunk, 31, rate)
+    _assert_close(out.detach(), want)
+    _, got_lse = fid_attention.flash_cross_attention_forward(
+        q, kv, bias, NH, chunk, 31, rate)
+    assert (got_lse - lse).abs().max().item() <= 1e-3 * lse.abs().max()
+    dq, dkv = fid_attention.flash_cross_attention_bwd_reference(
+        q, kv, bias, lse, out.detach(), dout, NH, chunk, 31, rate)
+    _assert_close(a.grad, dq)
+    _assert_close(b.grad, dkv)
+    # padded keys of every row get exactly zero dk and dv
+    assert (b.grad[:, real:] == 0).all()
+
+
+def test_cross_attention_fully_masked_row_stays_finite(cuda):
+    q, kv, bias, dout = _cross_inputs(2, 32, 512, 512, seed=8)
+    bias[0] = -1e9
+    a = q.clone().requires_grad_(True)
+    b = kv.clone().requires_grad_(True)
+    out = fid_attention.flash_cross_attention(a, b, bias, NH, 256, 3, 0.1)
+    out.backward(dout)
+    for t in (out, a.grad, b.grad):
+        assert torch.isfinite(t.float()).all()
+
+
+def test_cross_attention_rate_zero_is_no_dropout_and_repeats(cuda):
+    q, kv, bias, dout = _cross_inputs(2, 32, 1024, 900, seed=9)
+    runs = []
+    for seed, rate in ((None, 0.0), (4, 0.0), (4, 0.1), (4, 0.1)):
+        a = q.clone().requires_grad_(True)
+        b = kv.clone().requires_grad_(True)
+        out = fid_attention.flash_cross_attention(a, b, bias, NH, 512, seed,
+                                                  rate)
+        out.backward(dout)
+        runs.append((out.detach(), a.grad, b.grad))
+    for x, y in zip(runs[0], runs[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(runs[2], runs[3]):
+        assert torch.equal(x, y)
+    assert not torch.equal(runs[0][0], runs[2][0])
+
+
+def test_kernels_refuse_wrong_dtype_shape_device(cuda):
+    qkv, bias, dout = _self_inputs(2, 64, seed=1)
+    with pytest.raises(TypeError):
+        fid_attention.flash_self_attention(qkv.float(), bias, NH)
+    with pytest.raises(TypeError):
+        fid_attention.flash_self_attention(qkv, bias.half(), NH)
+    with pytest.raises(ValueError):
+        fid_attention.flash_self_attention(qkv, bias.cpu(), NH)
+    with pytest.raises(ValueError):                      # head_dim 32
+        fid_attention.flash_self_attention(qkv, bias, 2 * NH)
+    q, kv, kb, _ = _cross_inputs(2, 32, 512, 512, seed=2)
+    with pytest.raises(TypeError):
+        fid_attention.flash_cross_attention(q.float(), kv, kb, NH, 512)
+    with pytest.raises(ValueError):                      # Lk % chunk
+        fid_attention.flash_cross_attention(q, kv, kb, NH, 500)
+    with pytest.raises(ValueError):                      # Lq > 64
+        q2 = torch.zeros(2, 80, NH * 64, device=cuda, dtype=torch.bfloat16)
+        fid_attention.flash_cross_attention(q2, kv, kb, NH, 512)
+    with pytest.raises(ValueError):
+        fid_attention.flash_cross_attention(q, kv.cpu(), kb, NH, 512)
+    with pytest.raises(ValueError):                      # dropout, no seed
+        fid_attention.flash_cross_attention(q, kv, kb, NH, 512, None, 0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
