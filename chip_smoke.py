@@ -14,7 +14,15 @@
    (8 rows, 32 queries x 25,600 keys) and the teacher shape (400 rows, 32 x
    512), dropout 0 and 0.1, padded keys present; the MIPS candidate scan
    (K3) over a 1,310,720 x 768 index in bf16 and int8, nq in {8, 512}, plus
-   top-50 recall of the whole search against an exact fp32 search.
+   top-50 recall of the whole search against an exact fp32 search; the
+   general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
+   key chunks of 256, dropout 0 and 0.1, and at a small Lq != Lk shape; the
+   int8 decode attention (K5) at [8, R, 12, 25,600, 64] for R = 1 and 5, on
+   a slab padded to 256 rows and with a fully masked example. Beside each
+   attention kernel one ``scaled_dot_product_attention`` call on the same
+   inputs is timed as a yardstick (the port never calls it), and each
+   kernel's bound on this card is computed from its inputs: the larger of
+   bytes moved / 3.35 TB/s and operations / the peak rate of their type.
 3. Serving: drives ``QAPipeline.ask`` on 16 questions at batch 8 at full
    published width (BERT-base query tower, T5-base reader, K=50, reader
    length 512, 32 decode steps, int8 index, flash attention on: the
@@ -22,6 +30,11 @@
    corpus and a 1,310,720-row index made on the device. Prints ms per
    stage, peak memory and each kernel's launch count during ``ask``, and
    checks the answers and the retrieved ids against an exact search.
+   Generation, on the same model and questions: greedy with the int8 cross
+   K/V, then ``QAPipeline(beam_size=5, kv_quant="int8")``; prints the
+   stages, the slab's bytes in both forms, the share of int8 greedy answers
+   equal to the bf16-path ones, and holds one decode step's log-probs of
+   the int8 session against the bf16-path session's.
 4. Training: three ``E2EQATask.train_step``s at ``EMDR2Config()`` widths
    (BERT-base x 2, T5-base, K=50, Lr=512, Lc=256, Lq=64, Ld=32, dropout
    0.1, flash attention, the flagship AdamW / clip / schedule) at batch 8,
@@ -31,7 +44,14 @@
    steps; checks the metrics are finite, the gradient norm positive and
    the parameters moved once the learning rate is non-zero.
    ``--profile`` adds a fourth step under ``torch.profiler`` and prints its
-   top device kernels.
+   top device kernels, and does the same for one warm greedy batch with
+   the fp32-K slab and one with the int8 slab.
+5. Evaluation under ``flash_key_chunk=256`` (the reader's 512-token rows
+   then take the general flash kernel): ``E2EQATask.evaluate_em`` on 16
+   synthetic QA examples (greedy, int8 K/V), beam 5 on 8 of them, and
+   ``validation_loss`` over two batches of 8; checks counts, EM range,
+   finite losses, and the losses of one batch against the same weights
+   with the flash kernels off.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -67,6 +87,9 @@ GRAD_TOL = (2e-2, 2e-3)
 LSE_TOL = 1e-3                 # abs error of K2's fp32 lse
 RATE = 0.1                     # attention dropout of the flagship recipe
 DROP_SEED = 0x5EED
+# NVIDIA H100 SXM data sheet (dense): device memory rate, tensor-core rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(*args):
@@ -88,6 +111,57 @@ def time_ms(fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, op_type: str = "bf16"):
+    """(ms, "bytes" | "operations"): the least time this card could take to
+    move ``n_bytes`` (each input read once, each output written once) and
+    to do ``n_ops`` operations of ``op_type``, by the data sheet."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def sdpa(q, k, v, bias):
+    """The one PyTorch call that computes the same attention: heads-first
+    q [B, nh, Lq, hd], k, v [B, nh, Lk, hd] (views are fine) and the
+    key-side bias [B, Lk] as an additive mask. A yardstick only."""
+    mask = bias.to(q.dtype)[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+
+
+def slab_heads(slab, n, nh=12):
+    """[B, L, n*H] projection slab -> n heads-first views [B, nh, L, hd]."""
+    B, L = slab.shape[:2]
+    parts = slab.view(B, L, n, nh, -1).permute(2, 0, 3, 1, 4)
+    return [parts[i] for i in range(n)]
+
+
+def sdpa_times(q_slab, n_q, kv_slab, n_kv, bias, dout=None):
+    """(forward ms, backward ms or None) of ``sdpa`` on views of the
+    projection slabs; the backward is timed alone, from saved state."""
+    with torch.no_grad():
+        q = slab_heads(q_slab, n_q)[0]
+        k, v = slab_heads(kv_slab, n_kv)[-2:]
+        fwd = time_ms(lambda: sdpa(q, k, v, bias))
+    if dout is None:
+        return fwd, None
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in ((q_slab,) if kv_slab is q_slab
+                        else (q_slab, kv_slab))]
+    q = slab_heads(leaves[0], n_q)[0]
+    k, v = slab_heads(leaves[-1], n_kv)[-2:]
+    out = sdpa(q, k, v, bias)
+    g = slab_heads(dout, 1)[0]
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                              retain_graph=True))
+    return fwd, bwd
 
 
 def gpu_name_and_power() -> str:
@@ -117,12 +191,18 @@ def k1_phase(dev, gen):
         plain_ms = time_ms(lambda: flash_self_attention_reference(qkv, bias,
                                                                   12))
         flop = 4 * B * 12 * L * L * 64
+        moved = nbytes(qkv, bias, got)
+        bound_ms, bound_by = bound(moved, flop)
+        lib_ms, _ = sdpa_times(qkv, 3, qkv, 3, bias)
         log(f"K1 flash_self_attention [{B}, {L}, 2304] bf16: max_abs_err "
             f"{max_err:.3e} mean_abs_err {mean_err:.3e} (tol {FWD_TOL} x "
             f"max|ref| {ref:.3e}) | kernel {ms:.4f} ms "
-            f"({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} ms")
+            f"({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} ms | "
+            f"SDPA {lib_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
+            f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP)")
         rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
-                         plain_ms=plain_ms))
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms))
         del qkv, bias, got, want
     return rows
 
@@ -209,14 +289,20 @@ def k1_bwd_phase(dev, gen, check_rows=32):
         ms = time_ms(kernel)
         plain_ms = time_ms(plain, reps=3, warmup=1)
         flop = 2.5 * 4 * B * 12 * L * L * 64
+        moved = nbytes(qkv, bias, out, dout, stats, got)
+        bound_ms, bound_by = bound(moved, flop)
+        _, lib_ms = sdpa_times(qkv, 3, qkv, 3, bias, dout)  # rate 0
         log(f"K1-bwd flash_self_attention_backward [{B}, {L}, 2304] dropout "
             f"{RATE}: max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
             f"(rows 0..{n - 1}; tol {GRAD_TOL} x max|ref| {ref:.3e}), "
             f"repeat bit-identical | kernel {ms:.4f} ms "
             f"({flop / ms / 1e9:.2f} TFLOP/s by 2.5 x 4*L^2*hd) | plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms | SDPA backward (rate 0) {lib_ms:.4f} ms | "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
+            f"{flop / 1e9:.1f} GFLOP)")
         rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
-                         plain_ms=plain_ms))
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms))
         del qkv, bias, dout, out, stats, got
         torch.cuda.empty_cache()
     return rows
@@ -275,6 +361,11 @@ def k2_phase(dev, gen):
                     q, kv, bias, w_lse, w_out, dout, 12, 512, seed, rate),
                 reps=3, warmup=1)
             kv_gb = kv.numel() * 2 / 1e9
+            flop = 4 * B * 12 * 32 * Lk * 64
+            f_bound = bound(nbytes(q, kv, bias, out, lse), flop)
+            b_bound = bound(nbytes(q, kv, bias, w_lse, w_out, dout, dq, dkv),
+                            2.5 * flop)
+            lib_ms, lib_bwd_ms = sdpa_times(q, 1, kv, 2, bias, dout)
             log(f"K2 flash_cross_attention {name} [{B}, 32 x {Lk}] rate "
                 f"{rate}: fwd max_abs_err {f_max:.3e} mean {f_mean:.3e} (tol "
                 f"{FWD_TOL} x max|ref| {f_ref:.3e}) lse {lse_err:.3e} | bwd dq max {dq_err[0]:.3e} mean "
@@ -284,11 +375,17 @@ def k2_phase(dev, gen):
                 f"({kv_gb / ms * 1e3:.1f} GB/s of kv) plain {plain_ms:.4f} ms"
                 f" | bwd kernel "
                 f"{bwd_ms:.4f} ms ({2 * kv_gb / bwd_ms * 1e3:.1f} GB/s of kv + "
-                f"dkv) plain {bwd_plain_ms:.4f} ms")
+                f"dkv) plain {bwd_plain_ms:.4f} ms | SDPA (rate 0) fwd "
+                f"{lib_ms:.4f} ms bwd {lib_bwd_ms:.4f} ms | bound fwd "
+                f"{f_bound[0]:.4f} ms by {f_bound[1]}, bwd {b_bound[0]:.4f} "
+                f"ms by {b_bound[1]}")
             rows.append(dict(shape=name, rate=rate, max_abs_err=f_max,
                              bwd_max_abs_err=max(dq_err[0], dkv_err[0]),
                              ms=ms, plain_ms=plain_ms, bwd_ms=bwd_ms,
-                             bwd_plain_ms=bwd_plain_ms))
+                             bwd_plain_ms=bwd_plain_ms,
+                             bound_ms=f_bound[0], bound_by=f_bound[1],
+                             bwd_bound_ms=b_bound[0], bwd_bound_by=b_bound[1],
+                             library_ms=lib_ms, bwd_library_ms=lib_bwd_ms))
             del out, lse, w_out, w_lse, dq, dkv
         del q, kv, bias, dout
         torch.cuda.empty_cache()
@@ -318,6 +415,9 @@ def k3_phase(dev, gen):
                                 127).to(torch.int8)
             gv, gi = mips.candidate_scan(q, index, n_valid, 128, 2)
             torch.cuda.synchronize()
+            # the scales are applied outside the scan, so they do not count
+            bound_ms, bound_by = bound(nbytes(q, index, gv, gi),
+                                       2 * nq * N_INDEX * 768, name)
             wv, wi = mips.candidate_scan_reference(q, index, n_valid, 128, 2)
             if name == "int8":
                 ok = torch.equal(gv, wv) and torch.equal(gi, wi)
@@ -331,7 +431,7 @@ def k3_phase(dev, gen):
                                                      2))
             plain_ms = time_ms(lambda: mips.candidate_scan_reference(
                 q, index, n_valid, 128, 2), reps=10, warmup=1)
-            nbytes = index.numel() * index.element_size()
+            index_bytes = nbytes(index)
             # top-50 recall of the whole search vs exact fp32 over the
             # stored rows (rows past n_valid excluded)
             vals, ids = mips.mips_topk(qf, index, 50, n_valid=n_valid,
@@ -346,8 +446,9 @@ def k3_phase(dev, gen):
             log(f"K3 candidate_scan {name} nq={nq} N={N_INDEX}: "
                 f"{'equal' if name == 'int8' else 'within 1e-3*|v|+1e-3'}="
                 f"{ok} max_abs_err {max_err:.3e} id_agreement {id_agree:.6f} "
-                f"| kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of "
-                f"3350 GB/s data sheet) | plain {plain_ms:.4f} ms | "
+                f"| kernel {ms:.4f} ms ({index_bytes / ms / 1e6:.1f} GB/s of "
+                f"3350 GB/s data sheet) | plain {plain_ms:.4f} ms | bound "
+                f"{bound_ms:.4f} ms by {bound_by} | "
                 f"recall@50 {recall:.6f} (misses {collided[0]}, of them in "
                 f"a group holding >= 3 of the true top-50: {collided[1]})")
             if not ok:
@@ -359,9 +460,148 @@ def k3_phase(dev, gen):
                 raise AssertionError(f"K3 {name} nq={nq} recall {recall}, "
                                      f"misses {collided}")
             rows.append(dict(dtype=name, nq=nq, max_abs_err=max_err, ms=ms,
-                             plain_ms=plain_ms, gbps=nbytes / ms / 1e6,
-                             recall=recall))
+                             plain_ms=plain_ms, gbps=index_bytes / ms / 1e6,
+                             recall=recall, bound_ms=bound_ms,
+                             bound_by=bound_by))
     del stored
+    return rows
+
+
+def k4_phase(dev, gen):
+    """K4 forward on [B, L, nh, hd] views of a qkv slab: the reader encoder
+    under key chunk 256 (two chunks), dropout 0 and 0.1, and a small shape
+    with Lq != Lk, three chunks and ragged tiles."""
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    rows = []
+    for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
+                                   ("small", 3, 100, 288, 96)):
+        L = max(Lq, Lk)
+        slab = torch.randn(B, L, 3 * 768, device=dev, generator=gen
+                           ).to(torch.bfloat16)
+        q = slab[:, :Lq, :768].view(B, Lq, 12, 64)       # views, no copies
+        k = slab[:, :Lk, 768:1536].view(B, Lk, 12, 64)
+        v = slab[:, :Lk, 1536:].view(B, Lk, 12, 64)
+        lens = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
+        bias = torch.where(torch.arange(Lk, device=dev)[None, :]
+                           < lens[:, None], 0.0, -1e9).float()
+        for rate in (0.0, RATE):
+            seed = DROP_SEED if rate else None
+            out, lse = fa.fid_cross_attention_forward(q, k, v, bias, seed,
+                                                      chunk, rate)
+            torch.cuda.synchronize()
+            w_out, w_lse = fa.fid_cross_attention_reference(q, k, v, bias,
+                                                            seed, chunk, rate)
+            max_err, mean_err, ref = _check(f"K4-fwd {name} rate {rate}", out,
+                                            w_out, FWD_TOL)
+            lse_err = (lse - w_lse).abs().max().item()
+            if lse_err > LSE_TOL * max(1.0, w_lse.abs().max().item()):
+                raise AssertionError(f"K4-fwd {name} rate {rate}: lse error "
+                                     f"{lse_err}")
+            again, _ = fa.fid_cross_attention_forward(q, k, v, bias, seed,
+                                                      chunk, rate)
+            if not torch.equal(again, out):
+                raise AssertionError(f"K4-fwd {name} is not deterministic")
+            del w_out, w_lse, again
+            ms = time_ms(lambda: fa.fid_cross_attention_forward(
+                q, k, v, bias, seed, chunk, rate))
+            plain_ms = time_ms(lambda: fa.fid_cross_attention_reference(
+                q, k, v, bias, seed, chunk, rate), reps=3, warmup=1)
+            flop = 4 * B * 12 * Lq * Lk * 64
+            moved = nbytes(q, k, v, bias, out, lse)
+            bound_ms, bound_by = bound(moved, flop)
+            with torch.no_grad():
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = time_ms(lambda: sdpa(qh, kh, vh, bias))
+            log(f"K4 fid_cross_attention {name} [{B}, {Lq} x {Lk}, 12, 64] "
+                f"key_chunk {chunk} rate {rate}: max_abs_err {max_err:.3e} "
+                f"mean {mean_err:.3e} (tol {FWD_TOL} x max|ref| {ref:.3e}) "
+                f"lse {lse_err:.3e}, repeat bit-identical | kernel {ms:.4f} "
+                f"ms ({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} "
+                f"ms | SDPA (rate 0) {lib_ms:.4f} ms | bound {bound_ms:.4f} "
+                f"ms by {bound_by} ({moved / 1e6:.1f} MB, "
+                f"{flop / 1e9:.1f} GFLOP)")
+            rows.append(dict(shape=name, rate=rate, max_abs_err=max_err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms))
+            del out, lse
+        del slab, q, k, v, bias
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k5_phase(dev, gen):
+    """K5 at the decode shape [8, R, 12, 25,600, 64] for one query row
+    (greedy) and five (beam 5), on a slab padded from 200 to 256 rows, and
+    with a fully masked example. The kernel keeps ``p * vscale`` in fp32
+    where the plain version rounds it to bf16 (as the TPU kernel does) and
+    sums its key splits in another order: the forward tolerance."""
+    from emdr2_tpu_torch.ops import decode_attention as da
+    rows = []
+    for name, R, Lk, real_lo, masked in (("greedy", 1, 25_600, 12_800, False),
+                                         ("beam5", 5, 25_600, 12_800, False),
+                                         ("padded", 5, 256, 200, False),
+                                         ("masked", 5, 25_600, 12_800, True)):
+        B = 8
+        q = torch.randn(B, R, 12, 64, device=dev, generator=gen
+                        ).to(torch.bfloat16)
+        kf = torch.randn(B, 12, Lk, 64, device=dev, generator=gen)
+        vf = torch.randn(B, 12, Lk, 64, device=dev, generator=gen)
+        real = torch.randint(real_lo, Lk - 50 if Lk > 256 else real_lo + 1,
+                             (B,), device=dev, generator=gen)
+        pad = torch.arange(Lk, device=dev)[None, :] >= real[:, None]
+        kf.masked_fill_(pad[:, None, :, None], 0.0)      # padded rows: 0,
+        vf.masked_fill_(pad[:, None, :, None], 0.0)      # scale 1, bias -1e9
+        k8, ks = da.quantize_kv_rows(kf)
+        v8, vs = da.quantize_kv_rows(vf)
+        bias = torch.where(pad, -1e9, 0.0).float()
+        if masked:
+            bias[0] = -1e9
+        got = da.decode_cross_attention_int8(q, k8, ks, v8, vs, bias)
+        torch.cuda.synchronize()
+        want = da.decode_cross_attention_int8_plain(q, k8, ks, v8, vs, bias)
+        max_err, mean_err, ref = _check(f"K5 {name}", got, want, FWD_TOL)
+        dense = da.decode_cross_attention_int8_reference(q, k8, ks, v8, vs,
+                                                         bias)
+        dense_err, _, _ = _check(f"K5 {name} vs dense", got, dense,
+                                 (3e-2, 3e-3))
+        if not torch.equal(da.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                          bias), got):
+            raise AssertionError(f"K5 {name} is not deterministic")
+        if masked and got[0].abs().max().item() > 2 * ref:
+            raise AssertionError("K5: a fully masked example blew up")
+        row = dict(shape=name, R=R, Lk=Lk, max_abs_err=max_err)
+        line = (f"K5 decode_cross_attention_int8 {name} [{B}, {R}, 12, {Lk}, "
+                f"64]: max_abs_err {max_err:.3e} mean {mean_err:.3e} (tol "
+                f"{FWD_TOL} x max|ref| {ref:.3e}), vs dense reference "
+                f"{dense_err:.3e}, repeat bit-identical")
+        if name in ("greedy", "beam5"):
+            ms = time_ms(lambda: da.decode_cross_attention_int8(
+                q, k8, ks, v8, vs, bias), reps=20)
+            plain_ms = time_ms(lambda: da.decode_cross_attention_int8_plain(
+                q, k8, ks, v8, vs, bias), reps=3, warmup=1)
+            moved = nbytes(q, k8, ks, v8, vs, bias, got)
+            flop = 4 * B * R * 12 * Lk * 64
+            bound_ms, bound_by = bound(moved, flop)
+            # the same call on the slab dequantized to bf16: twice the bytes
+            kb = (k8.float() * ks[..., None]).to(torch.bfloat16)
+            vb = (v8.float() * vs[..., None]).to(torch.bfloat16)
+            qh = q.transpose(1, 2)
+            with torch.no_grad():
+                sdpa_bf16_ms = time_ms(lambda: sdpa(qh, kb, vb, bias),
+                                       reps=20)
+            del kb, vb
+            line += (f" | kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s of "
+                     f"3350) | plain {plain_ms:.4f} ms | SDPA on the bf16 "
+                     f"slab (twice the bytes) {sdpa_bf16_ms:.4f} ms | bound "
+                     f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} "
+                     f"MB, {flop / 1e9:.2f} GFLOP)")
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, sdpa_bf16_ms=sdpa_bf16_ms,
+                       gbps=moved / ms / 1e6)
+        log(line)
+        rows.append(row)
+        del q, kf, vf, k8, ks, v8, vs, bias, got, want, dense
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -425,12 +665,115 @@ def exact_ids(index, q_emb, k):
                       dim=1).indices
 
 
+def _counters():
+    """name -> wrapper whose ``.launches`` counts its kernel's launches."""
+    from emdr2_tpu_torch.ops import decode_attention as da
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    from emdr2_tpu_torch.ops import mips
+    return {"flash_self_attention": fa.flash_self_attention,
+            "flash_self_attention_backward": fa.flash_self_attention_backward,
+            "flash_cross_attention": fa.flash_cross_attention,
+            "flash_cross_attention_backward":
+                fa.flash_cross_attention_backward,
+            "candidate_scan": mips.candidate_scan,
+            "fid_cross_attention": fa.fid_cross_attention,
+            "decode_cross_attention_int8": da.decode_cross_attention_int8}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts(names):
+    counters = _counters()
+    return {name: counters[name].launches for name in names}
+
+
+def log_profile(what, p):
+    busy = p["device_ms"] / p["wall_ms"]
+    log(f"profiled {what}: wall {p['wall_ms']:.1f} ms, device kernels "
+        f"{p['device_ms']:.1f} ms (busy {busy:.3f})")
+    for key, ms, count in p["top"]:
+        log(f"  {ms:10.3f} ms  {count:6d}x  {key[:100]}")
+
+
+def generation_runs(cfg, model, tok, corpus, index, dev, questions, batch,
+                    base_pipe, base_answers, profile=False):
+    """The generation path on the serving phase's model and questions:
+    greedy over the int8 cross K/V, then beam 5 over it; then, outside the
+    counted runs, the slab's bytes in both forms and one decode step's
+    log-probs of the int8 session against the bf16-path session's."""
+    from emdr2_tpu_torch.serving import QAPipeline
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    names = ("flash_self_attention", "candidate_scan",
+             "decode_cross_attention_int8")
+    runs = {}
+    for name, kw in (("greedy_int8", dict(kv_quant="int8")),
+                     ("beam5_int8", dict(beam_size=5, kv_quant="int8"))):
+        timer = StageTimer(dev)
+        pipe = QAPipeline(cfg, model, tok, corpus, index, batch_size=batch,
+                          timer=timer, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        answers = pipe.ask(questions)
+        ask_s = time.perf_counter() - t0
+        launches = _read_counts(names)
+        if len(answers) != len(questions) or not all(
+                isinstance(a, str) for a in answers):
+            raise AssertionError(f"{name}: bad answers {answers!r}")
+        runs[name] = dict(
+            answers=answers, launches=launches, stage_ms=dict(timer.ms),
+            ask_s=ask_s, pipe=pipe,
+            peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else 0))
+    if profile:        # one warm batch of each greedy form
+        first = list(questions[:batch])
+        runs["profiles"] = {
+            "greedy, fp32-K slab": profile_call(
+                lambda: base_pipe.ask(first), "greedy_bf16_profile.txt"),
+            "greedy, int8 slab": profile_call(
+                lambda: runs["greedy_int8"]["pipe"].ask(first),
+                "greedy_int8_profile.txt")}
+    same = sum(a == b for a, b in zip(runs["greedy_int8"]["answers"],
+                                      base_answers))
+    runs["greedy_int8"]["share_equal_bf16"] = same / len(questions)
+
+    # one decode step from BOS, both sessions on the same encoder states
+    dev_batch = base_pipe._build_batch(list(questions[:batch]))
+    sessions = {"bf16": base_pipe.session,
+                "int8": runs["greedy_int8"].pop("pipe").session}
+    runs["beam5_int8"].pop("pipe")
+    lps, slab_bytes = {}, {}
+    for name, session in sessions.items():
+        kvs, flat = session.encode(dev_batch)
+        slab_bytes[name] = sum(nbytes(*kv) for kv in kvs)
+        with torch.inference_mode():
+            tok0 = torch.full((flat.shape[0], 1), tok.bos_id,
+                              dtype=torch.long, device=dev)
+            lps[name] = session._step_lp(
+                tok0, flat, kvs, session.new_cache(flat.shape[0], dev), 0)
+        del kvs
+    diff = (lps["int8"] - lps["bf16"]).abs().max().item()
+    if not (torch.isfinite(lps["int8"]).all() and diff < 0.1):
+        raise AssertionError(f"int8 decode step log-probs differ from the "
+                             f"bf16-path ones by {diff}")
+    runs["step_logprob_max_diff"] = diff
+    runs["slab_bytes"] = slab_bytes
+    return runs
+
+
 def slice_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
-                n_questions=16):
-    """Drive QAPipeline.ask; returns {"launches", "stage_ms", ...}."""
+                n_questions=16, profile=False):
+    """Drive QAPipeline.ask (greedy, the serving path), then the generation
+    path (``generation_runs``) on the same model; returns {"launches",
+    "stage_ms", ..., "generation"}."""
     from emdr2_tpu_torch.data.qa_dataset import encode_question
     from emdr2_tpu_torch.models import EMDR2Model
-    from emdr2_tpu_torch.ops import fid_attention, mips
     from emdr2_tpu_torch.serving import QAPipeline
     from emdr2_tpu_torch.utils.timing import StageTimer
 
@@ -451,14 +794,11 @@ def slice_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-        fid_attention.flash_self_attention.launches = 0
-        mips.candidate_scan.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         answers = pipe.ask(questions)
         ask_s = time.perf_counter() - t0
-        launches = {"flash_self_attention":
-                    fid_attention.flash_self_attention.launches,
-                    "candidate_scan": mips.candidate_scan.launches}
+        launches = _read_counts(("flash_self_attention", "candidate_scan"))
         peak = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else 0)
 
@@ -479,8 +819,93 @@ def slice_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
                 if set(got[r].tolist()) != set(want[r].tolist()):
                     raise AssertionError(f"search ids differ from the exact "
                                          f"search, batch {s // batch} row {r}")
+        generation = generation_runs(cfg, model, tok, corpus, index, dev,
+                                     questions, batch, pipe, answers,
+                                     profile)
     return dict(answers=answers, launches=launches, stage_ms=dict(timer.ms),
-                ask_s=ask_s, peak_bytes=peak)
+                ask_s=ask_s, peak_bytes=peak, generation=generation)
+
+
+def eval_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
+               n_examples=16, beam_size=5):
+    """Drive ``E2EQATask.evaluate_em`` (greedy over the int8 K/V on all
+    examples, then beam search on one batch) and ``validation_loss`` under
+    ``cfg`` (whose ``flash_key_chunk`` sends the reader's rows through the
+    general flash kernel); then hold one batch's losses against the same
+    weights with the flash kernels off (materialized attention)."""
+    from emdr2_tpu_torch.config import with_transformers
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    from emdr2_tpu_torch.models import EMDR2Model
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.training import step as step_lib
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    names = ("flash_self_attention", "flash_cross_attention",
+             "candidate_scan", "fid_cross_attention",
+             "decode_cross_attention_int8")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
+                                        n_rows)
+        qa = os.path.join(tmpdir, "qa.tsv")
+        with open(qa, "w") as f:
+            for i in range(n_examples):
+                f.write(f"what is the color of item w{7 * i}\t"
+                        f"['w{3 * i} w{i}', 'w{5 * i}']\n")
+        ds = OpenQADataset([qa], tok, cfg.retriever.query_seq_len,
+                           cfg.reader.decoder_seq_len, seed=SEED)
+        timer = StageTimer(dev)
+        task = E2EQATask(cfg, tok, corpus, index, device=dev, timer=timer)
+        state = task.init_state(SEED)
+        log(f"eval set-up {time.perf_counter() - t0:.1f} s: flash_key_chunk "
+            f"{cfg.reader.transformer.flash_key_chunk}, {n_examples} "
+            f"examples, batch {batch}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        em, n = task.evaluate_em(ds, batch_size=batch, kv_quant="int8")
+        t1 = time.perf_counter()
+        em_beam, n_beam = task.evaluate_em(ds, batch_size=batch,
+                                           beam_size=beam_size,
+                                           max_batches=1)
+        t2 = time.perf_counter()
+        val = task.validation_loss(ds, batch_size=batch)
+        t3 = time.perf_counter()
+        launches = _read_counts(names)
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        if n != n_examples or n_beam != min(batch, n_examples):
+            raise AssertionError(f"evaluate_em counted {n} and {n_beam}")
+        if not (0.0 <= em <= 100.0 and 0.0 <= em_beam <= 100.0):
+            raise AssertionError(f"EM out of range: {em}, {em_beam}")
+        if set(val) != {"loss", "lm_loss", "retriever_loss"} or not all(
+                np.isfinite(v) for v in val.values()):
+            raise AssertionError(f"validation_loss: {val}")
+
+        # the same weights with every flash kernel off, one batch
+        off = {"fid_flash_attention": False}
+        plain_cfg = with_transformers(cfg, off, off)
+        plain = EMDR2Model(plain_cfg, device=dev)
+        plain.load_state_dict(state.model.state_dict())
+        qa_batch = next(ds.epoch_batches(batch, seed=0, shuffle=False))
+        dev_batch = task.build_device_batch(qa_batch)
+        got = task._eval_fn(state, dev_batch)
+        want = step_lib.make_eval_forward(plain_cfg, tok.eos_id)(
+            step_lib.TrainState(0, SEED, plain, None), dev_batch)
+        agree = {}
+        for key in ("loss", "lm_loss", "retriever_loss"):
+            g, w = float(got[key]), float(want[key])
+            agree[key] = (g, w)
+            if key != "retriever_loss" and abs(g - w) > 5e-2 * abs(w):
+                raise AssertionError(f"{key} with the kernels {g} against "
+                                     f"materialized attention {w}")
+        del plain
+    return dict(em=em, n=n, em_beam=em_beam, n_beam=n_beam, val=val,
+                launches=launches, stage_ms=dict(timer.ms), peak_bytes=peak,
+                seconds=dict(evaluate_em=t1 - t0, evaluate_em_beam=t2 - t1,
+                             validation_loss=t3 - t2), agree=agree)
 
 
 def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
@@ -490,19 +915,13 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
     ``total_iters``, so the first update's lr is 0 and the later ones are
     not."""
     from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    from emdr2_tpu_torch.ops import mips
     from emdr2_tpu_torch.tasks import E2EQATask
     from emdr2_tpu_torch.training.step import METRICS
     from emdr2_tpu_torch.utils.timing import StageTimer
 
-    counters = {"flash_self_attention": fa.flash_self_attention,
-                "flash_self_attention_backward":
-                    fa.flash_self_attention_backward,
-                "flash_cross_attention": fa.flash_cross_attention,
-                "flash_cross_attention_backward":
-                    fa.flash_cross_attention_backward,
-                "candidate_scan": mips.candidate_scan}
+    names = ("flash_self_attention", "flash_self_attention_backward",
+             "flash_cross_attention", "flash_cross_attention_backward",
+             "candidate_scan")
     with tempfile.TemporaryDirectory() as tmpdir:
         t0 = time.perf_counter()
         tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
@@ -530,8 +949,7 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-        for fn in counters.values():
-            fn.launches = 0
+        _reset_counts()
         rows = []
         for i in range(steps):
             lr = state.optimizer.schedule(state.optimizer.count)
@@ -546,10 +964,14 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
             log(f"train step {i}: " + ", ".join(
                 f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in row.items()))
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = _read_counts(names)
         peak = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else 0)
-        top = profile_step(task, next(batches)) if profile else None
+        top = None
+        if profile:
+            batch_p = next(batches)
+            top = profile_call(lambda: task.train_step(batch_p),
+                               "train_step_profile.txt")
     for i, row in enumerate(rows):
         if not all(np.isfinite(row[k]) for k in METRICS):
             raise AssertionError(f"train step {i}: non-finite metrics {row}")
@@ -564,15 +986,16 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
                 peak_bytes=peak, top=top)
 
 
-def profile_step(task, batch, n_top=15):
-    """One warm train step under torch.profiler: (device ms summed over
-    kernels, wall ms, the top kernels by device time)."""
+def profile_call(fn, table_name, n_top=15):
+    """One warm call of ``fn`` under torch.profiler: (device ms summed over
+    kernels, wall ms, the top kernels by device time); the operator table
+    goes to ``chiprun_out/<table_name>``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        task.train_step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -588,8 +1011,7 @@ def profile_step(task, batch, n_top=15):
     total_ms = sum(dev_us(e) for e in events) / 1e3
     top = [(e.key, dev_us(e) / 1e3, e.count) for e in events[:n_top]]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "train_step_profile.txt"),
-              "w") as f:
+    with open(os.path.join(REPO, "chiprun_out", table_name), "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=60))
     return dict(device_ms=total_ms, wall_ms=wall_ms, top=top)
@@ -598,7 +1020,8 @@ def profile_step(task, batch, n_top=15):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more warm train step")
+                    help="profile one more warm train step and one warm "
+                         "greedy batch with each cross-K/V form")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -632,10 +1055,12 @@ def main() -> int:
     k1_bwd = k1_bwd_phase(dev, gen)
     k2 = k2_phase(dev, gen)
     k3 = k3_phase(dev, gen)
+    k4 = k4_phase(dev, gen)
+    k5 = k5_phase(dev, gen)
     torch.cuda.empty_cache()
 
     cfg = with_flash_attention(EMDR2Config(index=IndexConfig(quantize="int8")))
-    res = slice_phase(cfg, dev, gen)
+    res = slice_phase(cfg, dev, gen, profile=args.profile)
     for name, ms in res["stage_ms"].items():
         log(f"slice stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
             + " ms per batch")
@@ -645,6 +1070,30 @@ def main() -> int:
     for name, n in res["launches"].items():
         if n <= 0:
             raise AssertionError(f"{name} never launched during ask")
+    gn = res["generation"]
+    for run in ("greedy_int8", "beam5_int8"):
+        r = gn[run]
+        for name, ms in r["stage_ms"].items():
+            log(f"generation {run} stage {name}: "
+                + ", ".join(f"{m:.2f}" for m in ms) + " ms per batch")
+        log(f"generation {run}: {len(r['answers'])} answers in "
+            f"{r['ask_s']:.3f} s, peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, launches {r['launches']}; "
+            f"first answers {r['answers'][:2]!r}")
+        for name, n in r["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched during the "
+                                     f"{run} generation run")
+    log(f"generation: cross K/V slab of a batch of 8, 12 layers: "
+        f"{gn['slab_bytes']['bf16'] / 1e9:.3f} GB as fp32 K + bf16 V, "
+        f"{gn['slab_bytes']['int8'] / 1e9:.3f} GB as int8 + scales; int8 "
+        f"greedy answers equal to the bf16-path ones: "
+        f"{gn['greedy_int8']['share_equal_bf16']:.4f}; first decode step "
+        f"log-probs, int8 against bf16 path: max abs diff "
+        f"{gn['step_logprob_max_diff']:.3e}")
+    for what, prof in gn.get("profiles", {}).items():
+        log_profile(f"warm batch of 8, {what}", prof)
+    del gn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -660,55 +1109,127 @@ def main() -> int:
     for name, n in tr["launches"].items():
         if n <= 0:
             raise AssertionError(f"{name} never launched during the steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # evaluation under --flash-key-chunk 256: rows longer than the chunk
+    # (the reader's 512 tokens) run the general flash kernel
+    chunked = {"flash_key_chunk": 256}
+    ev = eval_phase(with_transformers(cfg, chunked, chunked), dev, gen)
+    for name, ms in ev["stage_ms"].items():
+        log(f"eval stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
+            + " ms")
+    log(f"eval: evaluate_em greedy int8 EM {ev['em']:.4f} n {ev['n']} in "
+        f"{ev['seconds']['evaluate_em']:.3f} s; beam 5 EM "
+        f"{ev['em_beam']:.4f} n {ev['n_beam']} in "
+        f"{ev['seconds']['evaluate_em_beam']:.3f} s; validation_loss "
+        f"{ev['val']} in {ev['seconds']['validation_loss']:.3f} s; peak "
+        f"memory {ev['peak_bytes'] / 2**30:.2f} GiB, launches "
+        f"{ev['launches']}")
+    log("eval: one batch's losses, flash kernels against materialized "
+        "attention: " + ", ".join(f"{k} {g:.6f} / {w:.6f}"
+                                  for k, (g, w) in ev["agree"].items()))
+    for name, n in ev["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched during evaluation")
+
     if tr["top"] is not None:
-        p = tr["top"]
-        busy = p["device_ms"] / p["wall_ms"]
-        log(f"profiled warm step: wall {p['wall_ms']:.1f} ms, device kernels "
-            f"{p['device_ms']:.1f} ms (busy {busy:.3f})")
-        for key, ms, count in p["top"]:
-            log(f"  {ms:10.3f} ms  {count:6d}x  {key[:100]}")
+        log_profile("warm train step", tr["top"])
 
     k1_main = k1[-1]                                   # [400, 512, 2304]
     k1_bwd_main = k1_bwd[-1]                           # [400, 512]
     k2_main = next(r for r in k2 if r["shape"] == "reader"
                    and r["rate"] == RATE)
     k3_main = next(r for r in k3 if r["dtype"] == "int8" and r["nq"] == 8)
-    serve, train = res["launches"], tr["launches"]
+    k4_main = next(r for r in k4 if r["shape"] == "reader"
+                   and r["rate"] == 0.0)
+    k4_drop = next(r for r in k4 if r["shape"] == "reader"
+                   and r["rate"] == RATE)
+    k5_greedy = next(r for r in k5 if r["shape"] == "greedy")
+    k5_beam = next(r for r in k5 if r["shape"] == "beam5")
+    serve, train, evl = res["launches"], tr["launches"], ev["launches"]
+    gen_greedy = res["generation"]["greedy_int8"]["launches"]
+    gen_beam = res["generation"]["beam5_int8"]["launches"]
     csrc = "emdr2_tpu_torch/ops/csrc/"
+    # "launches": the count on the first path that runs the kernel (serving
+    # for K1-fwd and K3, training for K1-bwd and K2, generation with beam 5
+    # for K5, evaluation for K4); the other paths' counts beside it
     summary = {"kernels": [
         {"name": "flash_self_attention", "route": "cuda",
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:383",
          "launches": serve["flash_self_attention"],
          "launches_train": train["flash_self_attention"],
+         "launches_generation": gen_beam["flash_self_attention"],
+         "launches_eval": evl["flash_self_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in k1 + [k1_drop]),
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "library_ms": k1_main["library_ms"],
          "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"]},
         {"name": "flash_self_attention_backward", "route": "cuda",
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:414",
          "launches": train["flash_self_attention_backward"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_bwd),
-         "ms": k1_bwd_main["ms"], "plain_ms": k1_bwd_main["plain_ms"]},
+         "ms": k1_bwd_main["ms"], "plain_ms": k1_bwd_main["plain_ms"],
+         "bound_ms": k1_bwd_main["bound_ms"],
+         "bound_by": k1_bwd_main["bound_by"],
+         "library_ms": k1_bwd_main["library_ms"]},
         {"name": "flash_cross_attention", "route": "cuda",
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:562",
          "launches": train["flash_cross_attention"],
+         "launches_eval": evl["flash_cross_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"]},
+         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
+         "library_ms": k2_main["library_ms"]},
         {"name": "flash_cross_attention_backward", "route": "cuda",
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:612",
          "launches": train["flash_cross_attention_backward"],
          "max_abs_err": max(r["bwd_max_abs_err"] for r in k2),
-         "ms": k2_main["bwd_ms"], "plain_ms": k2_main["bwd_plain_ms"]},
+         "ms": k2_main["bwd_ms"], "plain_ms": k2_main["bwd_plain_ms"],
+         "bound_ms": k2_main["bwd_bound_ms"],
+         "bound_by": k2_main["bwd_bound_by"],
+         "library_ms": k2_main["bwd_library_ms"]},
         {"name": "candidate_scan", "route": "cuda",
          "source": csrc + "candidate_scan.cu",
          "replaces": "emdr2_tpu/ops/mips.py:116",
          "launches": serve["candidate_scan"],
          "launches_train": train["candidate_scan"],
+         "launches_generation": gen_beam["candidate_scan"],
+         "launches_eval": evl["candidate_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in k3),
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"]},
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": None},
+        {"name": "decode_cross_attention_int8", "route": "cuda",
+         "source": csrc + "decode_attention.cu",
+         "replaces": "emdr2_tpu/ops/decode_attention.py:105",
+         "launches": gen_beam["decode_cross_attention_int8"],
+         "launches_generation_greedy":
+             gen_greedy["decode_cross_attention_int8"],
+         "launches_eval": evl["decode_cross_attention_int8"],
+         "max_abs_err": max(r["max_abs_err"] for r in k5),
+         "ms": k5_beam["ms"], "plain_ms": k5_beam["plain_ms"],
+         "bound_ms": k5_beam["bound_ms"], "bound_by": k5_beam["bound_by"],
+         "library_ms": None,            # no PyTorch call reads the int8 slab
+         "sdpa_bf16_slab_ms": k5_beam["sdpa_bf16_ms"],
+         "ms_one_row": k5_greedy["ms"],
+         "plain_ms_one_row": k5_greedy["plain_ms"],
+         "bound_ms_one_row": k5_greedy["bound_ms"],
+         "sdpa_bf16_slab_ms_one_row": k5_greedy["sdpa_bf16_ms"]},
+        {"name": "fid_cross_attention", "route": "cuda",
+         "source": csrc + "fid_attention.cu",
+         "replaces": "emdr2_tpu/ops/fid_attention.py:68",
+         "launches": evl["fid_cross_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4),
+         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
+         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
+         "library_ms": k4_main["library_ms"],
+         "ms_dropout": k4_drop["ms"], "plain_ms_dropout": k4_drop["plain_ms"]},
     ]}
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))

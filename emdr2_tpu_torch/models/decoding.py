@@ -1,12 +1,23 @@
-"""Greedy answer generation (port of the greedy side of
-``emdr2_tpu/models/decoding.py``).
+"""Answer generation: greedy or sampling, and length-normalized beam search
+(port of ``emdr2_tpu/models/decoding.py``).
 
-Retrieval and FiD encoding happen once per batch; the token loop then runs
+Retrieval and FiD encoding happen once per batch; the token loops then run
 over a decoder self-attention ``DecodeCache`` and per-layer cross-attention
 K/V projected once (``DecoderSession.cross_kvs``), pre-headed as
-[B, nh, Lk, hd]. The loop is a host loop of eager steps that exits early
-once every row has produced EOS. Beam search, sampling and int8 cross K/V
-(the K5 kernel) come in later work.
+[B, nh, Lk, hd], or, with ``kv_quant="int8"``, stored as int8 rows with
+per-row scales and read by the K5 decode kernel
+(``ops/decode_attention.py``). Beam search keeps the K/V at one row per
+example: the beams fold into query rows (``layers.Attention.cross``).
+
+Beam search follows the JAX package step for step: polynomial length
+normalization during the search (``length_penalty``), an ended hypothesis
+frozen (its score kept, only its first continuation alive through a -1e4
+bias, its token forced to EOS), parent gather and cache reorder per step,
+the best hypothesis per example at the end. Ties in a top-k go to the lower
+index, as ``jax.lax.top_k`` breaks them.
+
+The loops are host loops of eager steps that exit early once every row has
+produced EOS. All of it runs under ``torch.inference_mode``, no dropout.
 """
 
 from __future__ import annotations
@@ -16,10 +27,27 @@ from typing import List, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.models.layers import DecodeCache
+from emdr2_tpu_torch.ops.decode_attention import (padded_rows,
+                                                  quantize_kv_rows)
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
+
+
+def length_penalty(n, alpha: float = 0.6):
+    """Polynomial length normalization ``(5+n)^alpha / 6^alpha`` (``n`` a
+    number or an fp32 tensor)."""
+    return (5.0 + n) ** alpha / (5.0 + 1.0) ** alpha
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equals (``torch.topk`` does not promise an order on
+    ties; a stable descending sort does)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def bf16_eval_params(model: nn.Module) -> nn.Module:
@@ -56,13 +84,19 @@ def _encode_chunk_k(B: int, K: int, max_rows: int) -> int:
 
 
 class DecoderSession:
-    """Encode a batch once, then decode tokens over cached states."""
+    """Encode a batch once, then decode tokens over cached states.
+    ``kv_quant="int8"`` stores the cross K/V slab as int8 rows with per-row
+    scales: half the bytes held and read per step."""
 
     def __init__(self, model: EMDR2Model, max_decode_len: int,
+                 kv_quant: Optional[str] = None,
                  encode_chunk_rows: Optional[int] = None,
                  timer: Optional[StageTimer] = None):
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', {kv_quant!r}")
         self.model = model
         self.max_decode_len = max_decode_len
+        self.kv_quant = kv_quant
         self.encode_chunk_rows = (ENCODE_CHUNK_ROWS_AUTO
                                   if encode_chunk_rows is None
                                   else encode_chunk_rows)
@@ -88,10 +122,14 @@ class DecoderSession:
         return kvs, flat
 
     def cross_kvs(self, enc_hidden: torch.Tensor):
-        """Per decoder layer, the encoder-state (k, v) projections, each
-        [B, nh, Lk, hd]. k is held as fp32 copies of its compute-dtype
-        values, so each step's score product yields fp32 scores (the JAX
-        package's preferred_element_type) without a per-step cast."""
+        """Per decoder layer, the encoder-state K/V projections, pre-headed
+        [B, nh, Lk, hd]: (k, v), with k held as fp32 copies of its
+        compute-dtype values, so each step's score product yields fp32
+        scores (the JAX package's preferred_element_type) without a
+        per-step cast; or, under ``kv_quant="int8"``, (k8, kscale, v8,
+        vscale) with the key rows padded to ``padded_rows(Lk)`` at value 0
+        and scale 1 (the attention bias marks them -1e9), and no fp32 copy
+        of k."""
         cfg = self.model.config.reader.transformer
         B, Lk = enc_hidden.shape[:2]
         nh, hd = cfg.num_heads, cfg.head_dim
@@ -100,7 +138,16 @@ class DecoderSession:
         for i in range(cfg.num_layers):
             kv = decoder.layer(i).cross_attention.key_value(enc_hidden)
             kv = kv.view(B, Lk, 2, nh, hd).permute(2, 0, 3, 1, 4)
-            outs.append((kv[0].float().contiguous(), kv[1].contiguous()))
+            if self.kv_quant == "int8":
+                pad = padded_rows(Lk) - Lk
+                k8, ks = quantize_kv_rows(kv[0])
+                v8, vs = quantize_kv_rows(kv[1])
+                if pad:
+                    k8, v8 = (F.pad(a, (0, 0, 0, pad)) for a in (k8, v8))
+                    ks, vs = (F.pad(a, (0, pad), value=1.0) for a in (ks, vs))
+                outs.append(tuple(a.contiguous() for a in (k8, ks, v8, vs)))
+            else:
+                outs.append((kv[0].float().contiguous(), kv[1].contiguous()))
         return outs
 
     def new_cache(self, rows: int, device) -> DecodeCache:
@@ -109,11 +156,22 @@ class DecoderSession:
                            self.max_decode_len, cfg.head_dim, cfg.dtype,
                            device)
 
+    def _step_lp(self, tok, enc_flat_ids, kvs, cache, pos: int):
+        """One decoder step -> log-probs [rows, V] fp32."""
+        logits = self.model.decode_step(tok, enc_flat_ids, kvs, cache,
+                                        position_offset=pos)
+        return torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+
     @torch.inference_mode()
-    def greedy_loop(self, kvs, enc_flat_ids, bos_id: int,
-                    eos_id: int) -> torch.Tensor:
-        """Argmax token loop -> [B, max_decode_len] ids (0 past the exit).
-        Stops once every row has emitted EOS."""
+    def token_loop(self, kvs, enc_flat_ids, bos_id: int, eos_id: int,
+                   rng: Optional[torch.Generator] = None,
+                   sample: bool = False) -> torch.Tensor:
+        """Argmax token loop, or with ``sample`` a draw from each step's
+        categorical by ``rng`` (a generator on the model's device) ->
+        [B, max_decode_len] ids (0 past the exit). Stops once every row has
+        emitted EOS."""
+        if sample and rng is None:
+            raise ValueError("sampling decode needs an rng generator")
         with stage(self.timer, "decode"):
             B = enc_flat_ids.shape[0]
             dev = enc_flat_ids.device
@@ -123,16 +181,75 @@ class DecoderSession:
                               device=dev)
             done = torch.zeros(B, dtype=torch.bool, device=dev)
             for pos in range(self.max_decode_len):
-                logits = self.model.decode_step(tok, enc_flat_ids, kvs, cache,
-                                                position_offset=pos)
-                lp = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
-                ys = torch.argmax(lp, dim=-1)        # first max on ties
+                lp = self._step_lp(tok, enc_flat_ids, kvs, cache, pos)
+                if sample:
+                    ys = torch.multinomial(torch.exp(lp), 1,
+                                           generator=rng)[:, 0]
+                else:
+                    ys = torch.argmax(lp, dim=-1)    # first max on ties
                 out[:, pos] = ys
                 done |= ys == eos_id
                 tok = ys[:, None]
                 if bool(done.all()):
                     break
             return out
+
+    @torch.inference_mode()
+    def beam_loop(self, kvs, enc_flat_ids, bos_id: int, eos_id: int,
+                  beam_size: int, alpha: float) -> torch.Tensor:
+        """Length-normalized beam search -> the best hypothesis per example,
+        [B, max_decode_len] ids.
+
+        Step 0 runs on B rows and fans out to B*k; later steps run B*k rows
+        (the k beams of an example consecutive) against the K/V of B
+        examples. ``total`` holds the length-normalized running score; each
+        step un-normalizes by lp(len-1), adds the token log-prob and
+        re-normalizes by lp(len)."""
+        with stage(self.timer, "decode"):
+            k = beam_size
+            B = enc_flat_ids.shape[0]
+            dev = enc_flat_ids.device
+            max_len = self.max_decode_len
+            cache = self.new_cache(B, dev)
+            tok0 = torch.full((B, 1), bos_id, dtype=torch.long, device=dev)
+            lp0 = self._step_lp(tok0, enc_flat_ids, kvs, cache, 0)
+            top_sc, top_idx = _top_k(lp0, k)                     # [B, k]
+            cache.take_rows(torch.arange(B, device=dev).repeat_interleave(k))
+
+            seqs = torch.zeros((B * k, max_len), dtype=torch.long, device=dev)
+            seqs[:, 0] = top_idx.reshape(-1)
+            total = top_sc.reshape(-1)                           # lp(1) == 1
+            ended = seqs[:, 0] == eos_id
+            first = torch.arange(k, device=dev)[None, :] == 0
+            base = torch.arange(B, device=dev)[:, None] * k
+            pos = 1
+            while pos < max_len and not bool(ended.all()):
+                lp = self._step_lp(seqs[:, pos - 1:pos], enc_flat_ids, kvs,
+                                   cache, pos)
+                cand_lp, cand_idx = _top_k(lp, k)                # [B*k, k]
+
+                new_len = torch.tensor(float(pos + 1), device=dev)
+                norm = (total[:, None] * length_penalty(new_len - 1.0, alpha)
+                        + cand_lp) / length_penalty(new_len, alpha)
+                frozen = total[:, None] + torch.where(first, 0.0, -1e4)
+                scores = torch.where(ended[:, None], frozen, norm)
+                cand_tok = torch.where(ended[:, None], eos_id, cand_idx)
+
+                best_sc, best = _top_k(scores.reshape(B, k * k), k)  # [B, k]
+                total = best_sc.reshape(-1)
+                parent = (best // k + base).reshape(-1)
+                chosen = torch.gather(cand_tok.reshape(B, k * k), 1,
+                                      best).reshape(-1)
+
+                seqs = seqs.index_select(0, parent)
+                seqs[:, pos] = chosen
+                ended = ended.index_select(0, parent) | (chosen == eos_id)
+                cache.take_rows(parent)
+                pos += 1
+
+            best_row = torch.argmax(total.reshape(B, k), dim=1)
+            return seqs.reshape(B, k, max_len)[
+                torch.arange(B, device=dev), best_row]
 
 
 def _strip_eos(rows: np.ndarray, eos_id: int) -> List[List[int]]:
@@ -147,8 +264,23 @@ def _strip_eos(rows: np.ndarray, eos_id: int) -> List[List[int]]:
 
 
 def greedy_decode(session: DecoderSession, batch: EMDR2Batch,
-                  bos_id: int, eos_id: int) -> List[List[int]]:
-    """Greedy generation for every row of ``batch``."""
+                  bos_id: int, eos_id: int,
+                  rng: Optional[torch.Generator] = None,
+                  sample: bool = False) -> List[List[int]]:
+    """Greedy (or, with ``sample``, multinomial-sampling) generation for
+    every row of ``batch``. Sampling draws from ``rng``, a
+    ``torch.Generator`` on the model's device: the same seed reproduces the
+    tokens (they are not those of ``jax.random.categorical``)."""
     kvs, enc_flat_ids = session.encode(batch)
-    out = session.greedy_loop(kvs, enc_flat_ids, bos_id, eos_id)
+    out = session.token_loop(kvs, enc_flat_ids, bos_id, eos_id, rng, sample)
+    return _strip_eos(out.cpu().numpy(), eos_id)
+
+
+def beam_search_decode(session: DecoderSession, batch: EMDR2Batch,
+                       bos_id: int, eos_id: int, beam_size: int = 5,
+                       alpha: float = 0.6) -> List[List[int]]:
+    """Length-normalized beam search for every row of ``batch``."""
+    kvs, enc_flat_ids = session.encode(batch)
+    out = session.beam_loop(kvs, enc_flat_ids, bos_id, eos_id, beam_size,
+                            alpha)
     return _strip_eos(out.cpu().numpy(), eos_id)

@@ -25,6 +25,7 @@ from emdr2_tpu_torch.models.bert import DualEncoder
 from emdr2_tpu_torch.models.layers import DecodeCache, init_weights
 from emdr2_tpu_torch.models.t5 import T5Model
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
+from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class EMDR2Batch(NamedTuple):
@@ -50,12 +51,14 @@ class EMDR2Output(NamedTuple):
 
 class EMDR2Model(nn.Module):
 
-    def __init__(self, config: EMDR2Config, device=None,
+    def __init__(self, config: EMDR2Config, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
-        """Parameters are made on ``device`` and initialized from
+        """Parameters are made on ``device`` (the card unless the caller
+        names another; no card there raises) and initialized from
         ``generator`` like the JAX package's init (load converted weights
         with ``load_state_dict`` to replace them)."""
         super().__init__()
+        device = resolve_device(device)
         self.config = config
         self.retriever = DualEncoder(config.retriever, device)
         self.reader = T5Model(config.reader.transformer, device)
@@ -141,8 +144,11 @@ class EMDR2Model(nn.Module):
 
     def decode_step(self, dec_ids, enc_flat_ids, cross_kvs,
                     cache: DecodeCache, position_offset: int = 0):
-        """Incremental decode of dec_ids [B, Lq] over precomputed per-layer
-        cross K/V and the self-attention cache -> [B, Lq, V] fp32 logits."""
+        """Incremental decode of dec_ids [rows, Lq] over precomputed
+        per-layer cross K/V and the self-attention cache -> [rows, Lq, V]
+        fp32 logits. ``enc_flat_ids`` and the K/V hold one row per example;
+        in beam search ``rows`` is a multiple of that (the beams of an
+        example are consecutive rows)."""
         cross_bias = masks.padding_bias(enc_flat_ids)
         return self.reader.decode_step(dec_ids, cross_kvs, cross_bias, cache,
                                        position_offset)

@@ -15,15 +15,19 @@ parameter's ``state_dict`` key is its flax path joined by dots
   are exact in fp32 and TF32, so the result does not depend on TF32
   settings.
 
-Attention paths: encoder self-attention over a key-side pad bias (the K1
-flash kernel when ``cfg.fid_flash_attention``); the whole-prefix decoder
-(training and teacher): materialized causal self-attention and FiD
+Attention paths: encoder self-attention over a key-side pad bias (with
+``cfg.fid_flash_attention``, the K1 flash kernel up to ``flash_key_chunk``
+tokens and the general K4 kernel, in key chunks, beyond); the whole-prefix
+decoder (training and teacher): materialized causal self-attention and FiD
 cross-attention over the encoder states (the K2 flash kernel when
 ``cfg.fid_flash_attention``, keys padded to a ``key_chunk`` multiple at
 -1e9 bias; otherwise materialized scores under the full [B, 1, Ld, Lk]
 bias); and, for generation, incremental decoder self-attention over a
 ``DecodeCache`` with cross-attention over pre-headed (k, v) [B, nh, Lk, hd]
-computed once per batch (``decoding.DecoderSession.cross_kvs``).
+computed once per batch (``decoding.DecoderSession.cross_kvs``), or over
+their int8 form (k8, kscale, v8, vscale) through the K5 decode kernel. In
+beam search the K/V keep one row per example: the beams of an example fold
+into extra query rows.
 
 Training: every method takes ``drop``, the ``DropoutSeeds`` of its part of
 the step (``None`` when evaluating). Hidden dropout (``packed_dropout``)
@@ -46,7 +50,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from emdr2_tpu_torch.config import TransformerConfig
-from emdr2_tpu_torch.ops.fid_attention import (flash_cross_attention,
+from emdr2_tpu_torch.ops.decode_attention import decode_cross_attention_int8
+from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
+                                               flash_cross_attention,
                                                flash_self_attention)
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold, packed_dropout
 
@@ -182,6 +188,13 @@ class DecodeCache:
             for _ in range(num_layers)]
         self.index = 0
 
+    def take_rows(self, rows: torch.Tensor) -> None:
+        """Gather the cache's rows along the batch axis, in place: the beam
+        fan-out (each example's row repeated) and the per-step reorder by
+        parent hypothesis."""
+        self.keys = [k.index_select(0, rows) for k in self.keys]
+        self.values = [v.index_select(0, rows) for v in self.values]
+
 
 def _site(drop: Optional[DropoutSeeds], index: int) -> Optional[int]:
     return None if drop is None else drop.site(index)
@@ -244,13 +257,25 @@ class Attention(nn.Module):
         cfg = self.cfg
         rate, seed = self._dropout(drop, _SITE_SELF_ATTN)
         qkv = self.qkv(x)                                   # [B, L, 3H]
-        if cfg.fid_flash_attention:
-            if x.shape[-2] > cfg.flash_key_chunk:
-                raise NotImplementedError(
-                    "self-attention longer than flash_key_chunk runs the "
-                    "general flash kernel, which is not ported yet")
+        if cfg.fid_flash_attention and x.shape[-2] <= cfg.flash_key_chunk:
             o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads,
                                      seed, rate)
+        elif cfg.fid_flash_attention:
+            # longer than one key chunk: the general kernel on [B, L, nh,
+            # hd] views of the slab, keys padded to a chunk multiple
+            B, L = x.shape[0], x.shape[-2]
+            q, k, v = (t.view(B, L, cfg.num_heads, cfg.head_dim)
+                       for t in qkv.chunk(3, dim=-1))
+            key_chunk = min(cfg.flash_key_chunk, L)
+            kvb = kv_bias.float()
+            rem = L % key_chunk
+            if rem:
+                pad = key_chunk - rem
+                k = F.pad(k, (0, 0, 0, 0, 0, pad))
+                v = F.pad(v, (0, 0, 0, 0, 0, pad))
+                kvb = F.pad(kvb, (0, pad), value=-1e9)
+            o = fid_cross_attention(q, k, v, kvb, seed, key_chunk,
+                                    rate).reshape(B, L, cfg.hidden_size)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
             o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],
@@ -306,13 +331,37 @@ class Attention(nn.Module):
         return self.out(self._merge(o))
 
     def cross(self, x, kv, kv_bias):
-        """Cross-attention of x [B, Lq, H] over pre-headed ``kv = (k, v)``
-        [B, nh, Lk, hd] with key-side bias kv_bias [B, Lk]."""
+        """Cross-attention of x [Bq, Lq, H] over precomputed encoder K/V of
+        kvB examples with the key-side bias kv_bias [kvB, Lk]. ``kv`` is
+        (k, v), pre-headed [kvB, nh, Lk, hd], or their int8 form (k8,
+        kscale, v8, vscale) with the key rows padded
+        (``ops.decode_attention``), which runs the K5 decode kernel.
+
+        Bq = g * kvB: the g beams of an example (consecutive rows) become
+        extra query rows against that example's K/V, so the slab is read
+        once per step whatever the beam width, never repeated."""
         cfg = self.cfg
-        q = self._heads(self.query(x))
-        k, v = kv
-        o = _attend(q, k, v, kv_bias.float()[:, None, None, :], cfg.dtype)
-        return self.out(self._merge(o))
+        nh, hd = cfg.num_heads, cfg.head_dim
+        q = self.query(x)
+        Bq, Lq = q.shape[0], q.shape[1]
+        kvB = kv[0].shape[0]
+        if Bq % kvB or kv_bias.shape[0] != kvB:
+            raise ValueError(f"{Bq} query rows and a bias of "
+                             f"{kv_bias.shape[0]} rows over K/V of {kvB} "
+                             f"examples")
+        qh = q.view(kvB, (Bq // kvB) * Lq, nh, hd)
+        kvb = kv_bias.float()
+        if len(kv) == 4:
+            k8, ks, v8, vs = kv
+            pad = k8.shape[2] - kvb.shape[-1]
+            if pad:                            # the slab was chunk-padded
+                kvb = F.pad(kvb, (0, pad), value=-1e9)
+            o = decode_cross_attention_int8(qh, k8, ks, v8, vs, kvb)
+        else:
+            k, v = kv
+            o = _attend(qh.transpose(1, 2), k, v, kvb[:, None, None, :],
+                        cfg.dtype).transpose(1, 2)
+        return self.out(o.reshape(Bq, Lq, cfg.hidden_size))
 
 
 class MLP(nn.Module):

@@ -1,10 +1,10 @@
 """ctypes bindings for the C++ host-side store ops.
 
-The C++ source is shared with the JAX package: ``emdr2_tpu/native/
-store_ops.cpp`` is compiled by file path with g++ on first use (no Python
-import of that package) into ``emdr2_tpu_torch/_build/``. The bindings below
-are the JAX package's, unchanged; callers keep their pure-Python paths if the
-build fails, as there.
+``store_ops.cpp`` beside this file (the port's own copy of the JAX
+package's source; a test holds their code lines identical) is compiled with
+g++ on first use into ``emdr2_tpu_torch/_build/``. The bindings below are the JAX
+package's, unchanged; callers keep their pure-Python paths if the build
+fails, as there.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "emdr2_tpu", "native",
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "store_ops.cpp")
 _BUILD = os.path.join(_PKG, "_build")
 _SO = os.path.join(_BUILD, "_store_ops.so")

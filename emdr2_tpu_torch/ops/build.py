@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # entry point -> argument types (pointers and the stream as c_void_p)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_U, _F = ctypes.c_uint, ctypes.c_float
+_U, _F, _L = ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
 _DROPOUT = [_U, _U, _I, _F, _F]      # seed, threshold, on, 1-rate, 1/(1-rate)
 _SIGNATURES = {
     "emdr2_flash_self_attention_bf16": [_P] * 4 + [_I] * 4 + _DROPOUT + [_P],
@@ -40,6 +40,10 @@ _SIGNATURES = {
     "emdr2_flash_cross_attention_bf16": [_P] * 5 + [_I] * 6 + _DROPOUT + [_P],
     "emdr2_flash_cross_attention_bwd_bf16":
         [_P] * 9 + [_I] * 6 + _DROPOUT + [_P],
+    # q, k, v as (batch stride, row stride) in elements after the pointers
+    "emdr2_fid_attention_bf16":
+        [_P] * 6 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],
+    "emdr2_decode_attention_int8": [_P] * 8 + [_I] * 8 + [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -1,0 +1,204 @@
+// General per-head flash attention (bf16) with a key-side bias, an online
+// softmax over key chunks and in-kernel dropout, Hopper: the forward.
+//
+// Replaces: emdr2_tpu/ops/fid_attention.py:_fwd_kernel, launched by
+// _fid_forward for fid_cross_attention: the route self-attention takes when
+// the sequence is longer than the key chunk. For each row b and head h,
+//   out[b, :, h] = dropout(softmax(q k^T * hd^-0.5 + kv_bias[b])) v
+// with q [B, Lq, nh, hd] and k, v [B, Lk, nh, hd]. The three inputs are
+// read through their batch and row strides, so they may be views of one
+// fused [B, L, 3H] projection slab: nothing is copied or transposed.
+//
+// Rounding follows the TPU kernel, which walks the keys in chunks of
+// `key_chunk` with an online softmax: per chunk j, m_new = max(m, chunk
+// max), p = exp(s - m_new) rounded to bf16 before the fp32-accumulated P.V,
+// l = l*exp(m - m_new) + sum(p) over undropped p, acc = acc*exp(m - m_new)
+// + P.V; out = acc / (l*(1-rate)) (guarded > 0), lse = m + log(l) (l
+// guarded > 0). Dropout zeroes p in the value term only, with the keep mask
+// of hashing.cuh at bh = b*nh + h, j = the chunk, col = the key within the
+// chunk, row = the query: the chunk's coordinates, whatever tile walks it.
+//
+// What bounds it on the H100: operations. At the reader encoder's shape
+// (400 rows of 512 tokens, 12 heads) it is 4*Lq*Lk*hd FLOP per row and head
+// for 0.6 GB of reads and 0.3 GB of writes.
+//
+// Design: the tiles of the self-attention kernel (attention_tiles.cuh: WMMA
+// bf16 -> fp32, four warps of 16 query rows, 64-row tiles) under the chunk
+// loop of the cross-attention kernel. One block per (query tile, head,
+// row); within a chunk, two passes over its 64-key tiles (the chunk max,
+// then p, l and P.V), so p rounds against the same running max as on the
+// TPU; the running accumulator lives in shared memory and is rescaled once
+// per chunk. The extra Q.K^T pass costs 1.5x the score FLOPs. The backward
+// (_bwd_kernel) is not ported yet; the forward saves the lse it will need.
+
+#include <math.h>
+
+#include "attention_tiles.cuh"
+#include "hashing.cuh"
+
+namespace {
+
+using namespace attn;
+
+constexpr int FWD_SMEM = 3 * TILE_BYTES + WARPS * (2 * S_BYTES + P_BYTES);
+
+__global__ void __launch_bounds__(THREADS)
+fid_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const float* __restrict__ kv_bias,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               long long q_bs, int q_rs, long long k_bs, int k_rs,
+               long long v_bs, int v_rs, int Lq, int Lk, int nh, int C,
+               float scale, Dropout drop) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + TR * LDT;
+  __nv_bfloat16* Vs = Ks + TR * LDT;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  unsigned char* wbase = smem + 3 * TILE_BYTES
+                         + warp * (2 * S_BYTES + P_BYTES);
+  float* Sw = reinterpret_cast<float*>(wbase);
+  float* Aw = reinterpret_cast<float*>(wbase + S_BYTES);   // running acc
+  __nv_bfloat16* Pw = reinterpret_cast<__nv_bfloat16*>(wbase + 2 * S_BYTES);
+  const __nv_bfloat16* Qw = Qs + warp * 16 * LDT;
+
+  const int q0 = blockIdx.x * TR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const __nv_bfloat16* qb = q + (size_t)b * q_bs;
+  const __nv_bfloat16* kb = k + (size_t)b * k_bs;
+  const __nv_bfloat16* vb = v + (size_t)b * v_bs;
+  const float* bias = kv_bias + (size_t)b * Lk;
+  const uint32_t bh = (uint32_t)(b * nh + h);
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const int qrow = q0 + warp * 16 + row;
+  const int n_chunks = Lk / C;
+  const int n_ct = (C + TR - 1) / TR;
+
+  load_tile(Qs, qb, q_rs, h * HD, q0, Lq);
+  for (int jj = 0; jj < HD / 2; ++jj) Aw[row * LDS + half + 2 * jj] = 0.0f;
+
+  float m = -1e30f;
+  float l = 0.0f;
+  for (int j = 0; j < n_chunks; ++j) {
+    const int c0 = j * C;
+    // ---- pass 1: the chunk's row max ----
+    float mc = -INFINITY;
+    for (int t = 0; t < n_ct; ++t) {
+      __syncthreads();
+      load_tile(Ks, kb, k_rs, h * HD, c0 + t * TR, c0 + C);
+      __syncthreads();
+      product_abt(Qw, Ks, Sw);
+      __syncwarp();
+      for (int jj = 0; jj < TR / 2; ++jj) {
+        const int c = half + 2 * jj;
+        const int kin = t * TR + c;
+        if (kin < C) {
+          mc = fmaxf(mc, Sw[row * LDS + c] * scale + bias[c0 + kin]);
+        }
+      }
+      __syncwarp();
+    }
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+    const float m_new = fmaxf(m, mc);
+    const float corr = expf(m - m_new);
+
+    // ---- pass 2: p against the running max, l, P.V of the chunk ----
+    FragC acc[HD / 16];
+#pragma unroll
+    for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
+    float lc = 0.0f;
+    for (int t = 0; t < n_ct; ++t) {
+      __syncthreads();
+      load_tile(Ks, kb, k_rs, h * HD, c0 + t * TR, c0 + C);
+      load_tile(Vs, vb, v_rs, h * HD, c0 + t * TR, c0 + C);
+      __syncthreads();
+      product_abt(Qw, Ks, Sw);
+      __syncwarp();
+      for (int jj = 0; jj < TR / 2; ++jj) {
+        const int c = half + 2 * jj;
+        const int kin = t * TR + c;
+        float p = 0.0f;
+        if (kin < C) {
+          p = expf(Sw[row * LDS + c] * scale + bias[c0 + kin] - m_new);
+        }
+        lc += p;
+        if (drop.on && p != 0.0f &&
+            !dropout_keep(drop.seed, bh, (uint32_t)j, (uint32_t)qrow,
+                          (uint32_t)kin, drop.threshold)) {
+          p = 0.0f;
+        }
+        Pw[row * LDP + c] = __float2bfloat16(p);
+      }
+      __syncwarp();
+      accumulate_pb(acc, Pw, Vs);
+    }
+    lc += __shfl_xor_sync(0xffffffffu, lc, 1);
+    l = l * corr + lc;
+    __syncwarp();
+    stage_acc(Sw, acc);
+    __syncwarp();
+    for (int jj = 0; jj < HD / 2; ++jj) {
+      const int c = half + 2 * jj;
+      Aw[row * LDS + c] = Aw[row * LDS + c] * corr + Sw[row * LDS + c];
+    }
+    __syncwarp();
+    m = m_new;
+  }
+
+  if (qrow < Lq) {
+    const float l_eff = l * drop.keep_frac;
+    const float safe = l_eff > 0.0f ? l_eff : 1.0f;
+    __nv_bfloat16* dst = out + (((size_t)b * Lq + qrow) * nh + h) * HD;
+    for (int jj = 0; jj < HD / 2; ++jj) {
+      const int c = half + 2 * jj;
+      dst[c] = __float2bfloat16(Aw[row * LDS + c] / safe);
+    }
+    if (half == 0) {
+      lse[(size_t)bh * Lq + qrow] = m + logf(l > 0.0f ? l : 1.0f);
+    }
+  }
+}
+
+bool bad_stride(long long bs, int rs) {
+  return bs < 0 || rs <= 0 || bs % 8 || rs % 8;
+}
+
+}  // namespace
+
+// q [B, Lq, nh, hd], k, v [B, Lk, nh, hd] bf16, each given by its base
+// pointer (16-byte aligned), batch stride and row stride in elements
+// (multiples of 8; heads and the head dim contiguous); kv_bias [B, Lk] fp32;
+// out [B, Lq, nh, hd] bf16 and lse [B, nh, Lq] fp32, contiguous. Lk is a
+// multiple of key_chunk. Dropout as in the other attention kernels.
+// Returns a cudaError_t (0 = launched).
+extern "C" int emdr2_fid_attention_bf16(
+    const void* q, const void* k, const void* v, const void* kv_bias,
+    void* out, void* lse, long long q_bs, int q_rs, long long k_bs, int k_rs,
+    long long v_bs, int v_rs, int B, int Lq, int Lk, int nh, int hd,
+    int key_chunk, unsigned int seed, unsigned int threshold, int drop_on,
+    float keep_frac, float inv_keep, void* stream) {
+  if (hd != HD || B <= 0 || Lq <= 0 || Lk <= 0 || nh <= 0 || B > 65535 ||
+      nh > 65535 || key_chunk <= 0 || Lk % key_chunk ||
+      bad_stride(q_bs, q_rs) || bad_stride(k_bs, k_rs) ||
+      bad_stride(v_bs, v_rs)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fid_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + TR - 1) / TR, nh, B);
+  const float scale = 1.0f / sqrtf((float)HD);
+  fid_fwd_kernel<<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const float*>(kv_bias), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, Lq, Lk, nh,
+      key_chunk, scale,
+      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep));
+  return (int)cudaGetLastError();
+}

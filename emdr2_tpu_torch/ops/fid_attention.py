@@ -1,6 +1,7 @@
 """Flash attention on projection slabs (port of
 ``emdr2_tpu/ops/fid_attention.py``: ``flash_self_attention`` and
-``flash_cross_attention``, forward and backward).
+``flash_cross_attention``, forward and backward, and the forward of
+``fid_cross_attention``).
 
 - ``flash_self_attention`` (K1) is padding-masked self-attention for every
   encoder: it consumes the fused projection as a flat [B, L, 3H] slab
@@ -12,6 +13,13 @@
   chunks of ``key_chunk`` keys with an online softmax; it saves the per-head
   lse [B, Lq, nh] and its backward emits dq and dkv [B, Lk, 2H] (the TPU
   kernel's dkv comes out transposed; this one does not).
+
+- ``fid_cross_attention`` (K4) is the general per-head form on unfused
+  q [B, Lq, nh, hd] and k, v [B, Lk, nh, hd] (strided views of a slab are
+  taken as they are), chunked like K2: the route of self-attention longer
+  than ``flash_key_chunk``. Its forward kernel is
+  ``csrc/fid_attention.cu``; its backward kernel is not ported yet, so on
+  CUDA it refuses inputs that require grad.
 
 Attention dropout runs inside the kernels from a uint32 ``seed`` and a
 ``rate``: the keep mask is ``ops.hashing.keep_mask``, bit for bit the TPU
@@ -480,9 +488,137 @@ def flash_cross_attention(q: torch.Tensor, kv: torch.Tensor,
                                          rate)[0]
 
 
+# --------------------------------------- K4: general per-head attention
+
+def fid_cross_attention_reference(q, k, v, kv_bias,
+                                  seed: Optional[int] = None,
+                                  key_chunk: int = 512,
+                                  dropout_rate: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward of the general kernel, with the TPU kernel's
+    chunked online softmax and rounding (as
+    ``flash_cross_attention_reference``, on unfused heads): q [B, Lq, nh,
+    hd], k, v [B, Lk, nh, hd], kv_bias [B, Lk] -> (out [B, Lq, nh, hd] in
+    q's dtype, lse [B*nh, Lq, 1] fp32). Differentiable through autograd."""
+    B, Lq, nh, hd = q.shape
+    Lk = k.shape[1]
+    rate = dropout_rate
+    qf = q.permute(0, 2, 1, 3).float()
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    bias = kv_bias.float()
+    bh = _bh(B, nh, q.device)
+    m = torch.full((B, nh, Lq, 1), -1e30, device=q.device)
+    l = torch.zeros((B, nh, Lq, 1), device=q.device)
+    acc = torch.zeros((B, nh, Lq, hd), device=q.device)
+    for j in range(Lk // key_chunk):
+        sl = slice(j * key_chunk, (j + 1) * key_chunk)
+        s = torch.matmul(qf, kh[:, :, sl].float().transpose(-1, -2))
+        s = s * (hd ** -0.5) + bias[:, None, None, sl]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if rate:
+            keep = keep_mask(seed, bh, rate, Lq, key_chunk, j)
+            p = torch.where(keep, p, torch.zeros((), device=p.device))
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                        vh[:, :, sl].float())
+        m = m_new
+    l_eff = l * (1.0 - rate) if rate else l
+    safe = torch.where(l_eff > 0, l_eff, torch.ones_like(l_eff))
+    out = (acc / safe).to(q.dtype).permute(0, 2, 1, 3)
+    lse = m + torch.log(torch.where(l > 0, l, torch.ones_like(l)))
+    return out, lse.reshape(B * nh, Lq, 1)
+
+
+def _head_strides(what: str, t: torch.Tensor) -> Tuple[int, int]:
+    """(batch stride, row stride) in elements of a [B, L, nh, hd] tensor
+    whose heads and head dim are contiguous (a view of a projection slab
+    qualifies); raises on anything else."""
+    hd = t.shape[3]
+    if t.stride(3) != 1 or t.stride(2) != hd or t.stride(0) % 8 \
+            or t.stride(1) % 8 or t.data_ptr() % 16:
+        raise ValueError(f"fid_cross_attention: {what} must keep [nh, hd] "
+                         f"contiguous, with 16-byte aligned rows; strides "
+                         f"{t.stride()}")
+    return t.stride(0), t.stride(1)
+
+
+def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
+                                key_chunk: int = 512,
+                                dropout_rate: float = 0.0
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Lq, nh, hd], lse [B*nh, Lq, 1] fp32): the kernel on CUDA
+    (q, k and v are read through their strides: views of a fused slab are
+    not copied), the plain version on CPU."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"q must be [B, Lq, nh, hd] and k, v [B, Lk, nh, "
+                         f"hd], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Lq, nh, hd = q.shape
+    Lk = k.shape[1]
+    if kv_bias.shape != (B, Lk):
+        raise ValueError(f"kv_bias must be {(B, Lk)}, got "
+                         f"{tuple(kv_bias.shape)}")
+    if key_chunk <= 0 or Lk % key_chunk:
+        raise ValueError(f"Lk={Lk} must be a multiple of key_chunk="
+                         f"{key_chunk} (pad the keys at -1e9 bias)")
+    _dropout_args(seed, dropout_rate)
+    tensors = (q, k, v, kv_bias)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fid_cross_attention_reference(q, k, v, kv_bias, seed,
+                                             key_chunk, dropout_rate)
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError(f"fid_cross_attention: unsupported devices "
+                         f"{[str(t.device) for t in tensors]}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"fid_cross_attention: the kernel takes bf16, "
+                            f"got {t.dtype}")
+    if kv_bias.dtype != torch.float32:
+        raise TypeError(f"fid_cross_attention: the kernel takes an fp32 "
+                        f"bias, got {kv_bias.dtype}")
+    if hd != 64:
+        raise ValueError(f"kernel is built for head_dim 64, got {hd}")
+    strides = [x for name, t in (("q", q), ("k", k), ("v", v))
+               for x in _head_strides(name, t)]
+    kv_bias = kv_bias.contiguous()
+    out = torch.empty((B, Lq, nh, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * nh, Lq, 1), dtype=torch.float32, device=q.device)
+    err = build.load().emdr2_fid_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), *strides, B, Lq, Lk, nh, hd,
+        key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
+    build.check(err, "fid_cross_attention")
+    fid_cross_attention.launches += 1
+    return out, lse
+
+
+def fid_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_bias: torch.Tensor, seed: Optional[int] = None,
+                        key_chunk: int = 512,
+                        dropout_rate: float = 0.0) -> torch.Tensor:
+    """General per-head flash attention: q [B, Lq, nh, hd], k, v [B, Lk, nh,
+    hd], kv_bias [B, Lk] fp32 with Lk a multiple of ``key_chunk`` ->
+    [B, Lq, nh, hd] in q's dtype. On CPU it is differentiable through the
+    plain version; on CUDA only the forward kernel (K4-fwd) exists, so
+    inputs that require grad raise: its backward kernel, K4-bwd
+    (``emdr2_tpu/ops/fid_attention.py:_bwd_kernel``), is not ported yet."""
+    on_cuda = any(t.device.type == "cuda" for t in (q, k, v))
+    if on_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            "fid_cross_attention on CUDA has no backward yet: K4-bwd (the "
+            "general flash backward kernel) is not ported")
+    return fid_cross_attention_forward(q, k, v, kv_bias, seed, key_chunk,
+                                       dropout_rate)[0]
+
+
 # kernel launches since the last reset (a run proves its path went through
 # each kernel by reading these)
 flash_self_attention.launches = 0
 flash_self_attention_backward.launches = 0
 flash_cross_attention.launches = 0
 flash_cross_attention_backward.launches = 0
+fid_cross_attention.launches = 0

@@ -20,16 +20,17 @@ import torch.nn.functional as F
 
 from emdr2_tpu_torch.config import IndexConfig
 from emdr2_tpu_torch.ops.mips import NEG_INF, mips_topk, quantize_int8
+from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class ShardedEvidenceIndex:
-    """Flat MIPS index; ``row_to_passage_id`` maps rows to corpus passage
-    ids on the host."""
+    """Flat MIPS index, on the card unless ``device`` says otherwise;
+    ``row_to_passage_id`` maps rows to corpus passage ids on the host."""
 
     def __init__(self, cfg: IndexConfig,
                  embeddings: Union[np.ndarray, torch.Tensor],
                  passage_ids: Optional[np.ndarray] = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if cfg.quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', "
                              f"got {cfg.quantize!r}")
@@ -38,7 +39,7 @@ class ShardedEvidenceIndex:
             raise ValueError(f"embeddings are {d}-d, config says "
                              f"{cfg.embed_dim}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.quantized = cfg.quantize == "int8"
         self.n_real = n
         g = cfg.group_size

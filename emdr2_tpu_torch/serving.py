@@ -8,8 +8,10 @@ Each batch: embed the questions with the BERT query tower, search the
 resident index (the candidate-scan kernel), build the reader token layouts
 on the host (C++), FiD-encode the retrieved passages (the flash
 self-attention kernel), project the cross-attention K/V once, and decode
-greedily over a KV cache. Loading a trained checkpoint (``QAPipeline.load``)
-and beam search come in later work.
+over a KV cache: greedily, or with ``beam_size > 1`` by length-normalized
+beam search; ``kv_quant="int8"`` stores the cross K/V as int8 rows read by
+the decode-attention kernel. Loading a trained checkpoint
+(``QAPipeline.load``) comes in later work.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from emdr2_tpu_torch.data.evidence import EvidenceCorpus
 from emdr2_tpu_torch.data.postprocess import postprocess_retrieved
 from emdr2_tpu_torch.data.qa_dataset import encode_question
 from emdr2_tpu_torch.data.tokenizer import BertWordPieceTokenizer
-from emdr2_tpu_torch.models.decoding import (DecoderSession, bf16_eval_params,
-                                             greedy_decode)
+from emdr2_tpu_torch.models.decoding import (DecoderSession,
+                                             beam_search_decode,
+                                             bf16_eval_params, greedy_decode)
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
@@ -34,24 +37,30 @@ from emdr2_tpu_torch.utils.timing import StageTimer, stage
 class QAPipeline:
     """Batched open-domain QA: every call retrieves fresh top-K evidence and
     generates an answer with the reader. ``model`` runs where its
-    parameters live; ``timer`` (optional) records ms per stage. No
-    optimizer state when serving: the dense kernels move to bf16 storage
-    (``bf16_eval_params``, unchanged outputs)."""
+    parameters live; ``timer`` (optional) records ms per stage. Serving
+    holds no optimizer state, so with ``bf16_params`` the dense kernels move
+    to bf16 storage in place (``bf16_eval_params``, unchanged outputs)."""
 
     def __init__(self, cfg: EMDR2Config, model: EMDR2Model,
                  tokenizer: BertWordPieceTokenizer,
                  corpus: EvidenceCorpus, index: ShardedEvidenceIndex,
-                 batch_size: int = 8, timer: Optional[StageTimer] = None):
+                 batch_size: int = 8, beam_size: int = 1,
+                 max_decode_len: Optional[int] = None,
+                 kv_quant: Optional[str] = None, bf16_params: bool = True,
+                 timer: Optional[StageTimer] = None):
         self.cfg = cfg
-        self.model = bf16_eval_params(model).eval()
+        self.model = (bf16_eval_params(model) if bf16_params
+                      else model).eval()
         self.device = next(model.parameters()).device
         self.tok = tokenizer
         self.corpus = corpus
         self.index = index
         self.batch_size = batch_size
+        self.beam_size = beam_size
+        self.max_decode_len = max_decode_len or cfg.reader.decoder_seq_len
         self.timer = timer
-        self.session = DecoderSession(self.model, cfg.reader.decoder_seq_len,
-                                      timer=timer)
+        self.session = DecoderSession(self.model, self.max_decode_len,
+                                      kv_quant=kv_quant, timer=timer)
 
     def _ids(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.long).to(self.device)
@@ -107,8 +116,13 @@ class QAPipeline:
             while len(chunk) < B:
                 chunk.append(chunk[-1])
             batch = self._build_batch(chunk)
-            hyps = greedy_decode(self.session, batch, self.tok.bos_id,
-                                 self.tok.eos_id)
+            if self.beam_size == 1:
+                hyps = greedy_decode(self.session, batch, self.tok.bos_id,
+                                     self.tok.eos_id)
+            else:
+                hyps = beam_search_decode(self.session, batch,
+                                          self.tok.bos_id, self.tok.eos_id,
+                                          beam_size=self.beam_size)
             for hyp in hyps[:real]:
                 answers.append(self.tok.detokenize(hyp).strip())
         return answers

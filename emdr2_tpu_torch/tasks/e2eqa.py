@@ -10,8 +10,14 @@ One training step is three stages:
            context embeddings -> topk_log_probs -> FiD reader -> teacher ->
            joint loss -> backward -> clip -> AdamW
 
-There is no mesh: the port runs on one device. Evaluation (``evaluate_em``,
-``validation_loss``), prefetching and checkpoints come in later work.
+Evaluation: ``validation_loss`` runs the same forward with no dropout and
+no gradient over a dataset; ``evaluate_em`` generates an answer per example
+(greedy, sampling or beam search over ``models/decoding.py``, optionally
+with the int8 cross K/V) and scores exact match against the references.
+
+There is no mesh: the port runs on one device, so evaluation feeds whole
+batches (the JAX package's per-process slicing and allgather have nothing
+to do). Prefetching and checkpoints come in later work.
 """
 
 from __future__ import annotations
@@ -26,31 +32,43 @@ from emdr2_tpu_torch.data.evidence import EvidenceCorpus
 from emdr2_tpu_torch.data.postprocess import postprocess_retrieved
 from emdr2_tpu_torch.data.qa_dataset import QABatch
 from emdr2_tpu_torch.data.tokenizer import BertWordPieceTokenizer
+from emdr2_tpu_torch.models.decoding import (DecoderSession,
+                                             beam_search_decode,
+                                             greedy_decode)
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
 from emdr2_tpu_torch.training import step as step_lib
+from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from emdr2_tpu_torch.utils.metrics import (exact_match_score,
+                                           metric_max_over_ground_truths)
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
 
 
 class E2EQATask:
     """Owns the model, the optimizer and the host glue of EMDR2 training.
     ``timer`` (optional) records ms per stage: ``retrieve``,
-    ``postprocess``, ``forward_backward``, ``optimizer``."""
+    ``postprocess``, ``forward_backward``, ``optimizer``, and in evaluation
+    ``eval_forward`` and the decoder session's ``encode``, ``cross_kv`` and
+    ``decode``."""
 
     def __init__(self, cfg: EMDR2Config, t5_tokenizer: BertWordPieceTokenizer,
                  corpus: EvidenceCorpus, index: ShardedEvidenceIndex,
-                 total_train_iters: int = 1000, device="cpu",
+                 total_train_iters: int = 1000, device=DEFAULT_DEVICE,
                  timer: Optional[StageTimer] = None):
         self.cfg = cfg
         self.tok = t5_tokenizer
         self.corpus = corpus
         self.index = index
         self.total_train_iters = total_train_iters
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.timer = timer
         self.state: Optional[step_lib.TrainState] = None
         self._step_fn = step_lib.make_train_step(
             cfg, eos_id=t5_tokenizer.eos_id, timer=timer)
+        self._eval_fn = step_lib.make_eval_forward(
+            cfg, eos_id=t5_tokenizer.eos_id)
+        # decoder sessions by (max_decode_len, kv_quant)
+        self._sessions: Dict[Tuple[int, Optional[str]], DecoderSession] = {}
 
     # ------------------------------------------------------------------ setup
 
@@ -134,3 +152,114 @@ class E2EQATask:
         are 0-d tensors on the device."""
         self.state, metrics = self._step_fn(self.state, device_batch)
         return metrics
+
+    # ------------------------------------------------------------ evaluation
+
+    def validation_loss(self, dataset, batch_size: int,
+                        max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Deterministic forward losses over ``dataset`` in order: ``loss``,
+        ``lm_loss`` and ``retriever_loss``, averaged over the examples.
+
+        The tail batch is not dropped: it is padded to ``batch_size`` with
+        copies of its last row whose ``loss_mask`` is zeroed, so the padded
+        rows add no tokens to the token-normalized losses, and each batch's
+        means weigh in by its count of real examples."""
+        totals: Dict[str, float] = {}
+        n = 0
+        for bi, batch in enumerate(dataset.epoch_batches(
+                batch_size, seed=0, shuffle=False, drop_last=False)):
+            if max_batches is not None and bi >= max_batches:
+                break
+            real = len(batch.query_uid)
+            if real < batch_size:
+                batch = _pad_qa_batch(batch, batch_size, zero_loss_mask=True)
+            device_batch = self.build_device_batch(batch)
+            with stage(self.timer, "eval_forward"):
+                m = self._eval_fn(self.state, device_batch)
+                for k, v in m.items():
+                    totals[k] = totals.get(k, 0.0) + float(v) * real
+            n += real
+        return {k: v / max(n, 1) for k, v in totals.items()}
+
+    def evaluate_em(self, dataset, batch_size: int, beam_size: int = 1,
+                    max_decode_len: Optional[int] = None,
+                    max_batches: Optional[int] = None, sample: bool = False,
+                    sample_seed: int = 1234,
+                    kv_quant: Optional[str] = None) -> Tuple[float, int]:
+        """Generate an answer per example and score exact match against its
+        references -> (EM percentage, number of examples).
+
+        Greedy when ``beam_size == 1`` (with ``sample`` a draw from each
+        step's categorical; each batch's generator is seeded from
+        ``sample_seed`` and the batch index, so runs repeat), else
+        length-normalized beam search. The tail batch is padded with copies
+        of its last row; scores are kept per uid, so a padded copy counts
+        once. ``kv_quant="int8"`` stores the decode cross K/V as int8."""
+        cfg = self.cfg
+        max_decode_len = max_decode_len or cfg.reader.decoder_seq_len
+        model = self.state.model
+        key = (max_decode_len, kv_quant)
+        if key not in self._sessions:
+            self._sessions[key] = DecoderSession(
+                model, max_decode_len, kv_quant=kv_quant, timer=self.timer)
+        session = self._sessions[key]
+        session.model = model              # the state's current weights
+        scores: Dict[int, float] = {}
+        for bi, batch in enumerate(dataset.epoch_batches(
+                batch_size, seed=0, shuffle=False, drop_last=False)):
+            if max_batches is not None and bi >= max_batches:
+                break
+            if len(batch.query_uid) < batch_size:
+                batch = _pad_qa_batch(batch, batch_size)
+            device_batch = self.build_device_batch(batch)
+            if beam_size == 1:
+                rng = None
+                if sample:
+                    rng = torch.Generator(device=self.device)
+                    rng.manual_seed(_fold_sample_seed(sample_seed, bi))
+                hyps = greedy_decode(session, device_batch, self.tok.bos_id,
+                                     self.tok.eos_id, rng=rng, sample=sample)
+            else:
+                hyps = beam_search_decode(session, device_batch,
+                                          self.tok.bos_id, self.tok.eos_id,
+                                          beam_size=beam_size)
+            for uid, refs, hyp in zip(batch.query_uid.tolist(),
+                                      batch.references, hyps):
+                text = self.tok.detokenize(hyp).strip()
+                scores[uid] = metric_max_over_ground_truths(
+                    exact_match_score, text, refs)
+        n = len(scores)
+        return (100.0 * sum(scores.values()) / max(n, 1)), n
+
+
+def _fold_sample_seed(sample_seed: int, batch_index: int) -> int:
+    """One generator seed per (``sample_seed``, batch): distinct batches draw
+    from distinct streams, and a run repeats."""
+    return (sample_seed * 1_000_003 + batch_index) % (2 ** 63)
+
+
+def _pad_qa_batch(batch: QABatch, batch_size: int,
+                  zero_loss_mask: bool = False) -> QABatch:
+    """Repeat the last row until the batch has ``batch_size`` rows.
+
+    Padded rows carry real uids, so per-uid bookkeeping scores every
+    example once (a copy overwrites with the same value). With
+    ``zero_loss_mask`` the padded rows' loss_mask is zeroed, so they add no
+    tokens to the token-normalized losses."""
+    real = len(batch.query_uid)
+    pad = batch_size - real
+    if pad <= 0:
+        raise ValueError(f"batch of {real} rows cannot be padded to "
+                         f"{batch_size}")
+
+    def rep(x):
+        if isinstance(x, np.ndarray):
+            return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+        return list(x) + [x[-1]] * pad      # the references lists
+
+    out = QABatch(*[rep(f) for f in batch])
+    if zero_loss_mask:
+        lm = out.loss_mask.copy()
+        lm[real:] = 0.0
+        out = out._replace(loss_mask=lm)
+    return out

@@ -158,3 +158,22 @@ def make_train_step(cfg: EMDR2Config, eos_id: int,
         return state, metrics
 
     return step_fn
+
+
+def make_eval_forward(cfg: EMDR2Config, eos_id: int) -> Callable:
+    """-> eval_fn(state, batch) -> {"loss", "lm_loss", "retriever_loss"}:
+    the step's forward and loss with no dropout and no gradient. Metrics
+    are 0-d tensors on the model's device."""
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch: EMDR2Batch):
+        out = state.model(batch, drop=None)
+        total, aux = emdr2_total_loss(
+            out.lm_logits, out.topk_log_probs, out.gold_log_probs,
+            batch.labels, batch.loss_mask, eos_id=eos_id,
+            update_retriever=cfg.update_retriever,
+            use_kl_div=cfg.use_kl_div_loss)
+        return {"loss": total, "lm_loss": aux.lm_loss,
+                "retriever_loss": aux.retriever_loss}
+
+    return eval_fn

@@ -199,3 +199,55 @@ def test_port_never_imports_jax_or_the_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def _code_lines(path):
+    """The source without its ``//`` comment lines."""
+    with open(path, "rb") as f:
+        return [ln for ln in f.read().splitlines()
+                if not ln.lstrip().startswith(b"//")]
+
+
+def test_store_ops_source_is_the_ports_own_identical_copy():
+    """The port builds its own ``native/store_ops.cpp``: the JAX package's
+    source, code line for code line (comment lines may differ: the copy's
+    header names no path outside the repository)."""
+    from emdr2_tpu_torch import native
+    own = os.path.join(REPO, "emdr2_tpu_torch", "native", "store_ops.cpp")
+    assert os.path.samefile(native._SRC, own)
+    theirs = os.path.join(REPO, "emdr2_tpu", "native", "store_ops.cpp")
+    assert _code_lines(own) == _code_lines(theirs)
+    assert len(_code_lines(own)) > 100
+
+
+def _port_sources():
+    import glob
+    return sorted(glob.glob(os.path.join(REPO, "emdr2_tpu_torch", "**",
+                                         "*.py"), recursive=True)
+                  ) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("what,pattern", [
+    ("an import of jax, flax or the JAX package",
+     r"^\s*(import|from)\s+(jax|jaxlib|flax|emdr2_tpu)(\.|\s|$)"),
+    ("a path into the JAX package's directory",
+     r"[\"'/]emdr2_tpu[\"'/]|[\"']emdr2_tpu[\"']\s*[,)]"),
+])
+def test_port_sources_name_no_jax_import_and_no_jax_package_file(what,
+                                                                 pattern):
+    """Statically, over every module of the port and ``chip_smoke.py``: no
+    import of jax / flax / emdr2_tpu, and no file path built into
+    ``emdr2_tpu/`` (docstrings may name its files as ``emdr2_tpu/...``
+    inside double backquotes or after "Replaces:")."""
+    import re
+    rx = re.compile(pattern)
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                code = line.split("#", 1)[0]
+                if rx.search(code) and "``" not in line \
+                        and '"replaces"' not in line:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{n}: "
+                               f"{line.strip()}")
+    assert not bad, f"{what}:\n" + "\n".join(bad)

@@ -103,8 +103,9 @@ def test_two_train_steps_match_jax(world, flash, warmup):
         off = {"fid_flash_attention": False}
         cfg = with_transformers(cfg, off, off)
     cfg = _optimizer(cfg, warmup)
-    task = E2EQATask(cfg, tok, corpus, ShardedEvidenceIndex(cfg.index, emb),
-                     total_train_iters=4)
+    task = E2EQATask(cfg, tok, corpus,
+                     ShardedEvidenceIndex(cfg.index, emb, device="cpu"),
+                     total_train_iters=4, device="cpu")
     task.init_state(0, state_dict=_params(jtask))
 
     for i, batch in enumerate(list(ds.epoch_batches(B, seed=0))[:2]):
@@ -135,8 +136,9 @@ def test_first_step_under_warmup_leaves_params(world):
     cfg = _optimizer(port_config(jcfg), 0.5)
     emb = np.random.RandomState(1).randn(
         len(corpus), cfg.index.embed_dim).astype(np.float32)
-    task = E2EQATask(cfg, tok, corpus, ShardedEvidenceIndex(cfg.index, emb),
-                     total_train_iters=4)
+    task = E2EQATask(cfg, tok, corpus,
+                     ShardedEvidenceIndex(cfg.index, emb, device="cpu"),
+                     total_train_iters=4, device="cpu")
     task.init_state(3)
     before = {k: v.clone() for k, v in task.state.model.state_dict().items()}
     task.train_step(next(ds.epoch_batches(B, seed=0)))
@@ -158,8 +160,8 @@ def test_dropout_steps_are_deterministic_per_seed(world):
     runs = []
     for seed in (5, 5, 6):
         task = E2EQATask(cfg, tok, corpus,
-                         ShardedEvidenceIndex(cfg.index, emb),
-                         total_train_iters=4)
+                         ShardedEvidenceIndex(cfg.index, emb, device="cpu"),
+                         total_train_iters=4, device="cpu")
         task.init_state(0)
         task.state.seed = seed                 # same weights, other masks
         m = task.train_step(batch)

@@ -130,3 +130,73 @@ def test_dropout_changes_output_and_needs_a_seed():
     assert not torch.equal(plain, flash_self_attention(x, b, 2, 3, 0.2))
     with pytest.raises(ValueError):
         flash_self_attention(x, b, 2, None, 0.2)
+
+
+# ---- K4: the general per-head kernel's plain version against the JAX ----
+# ---- kernel (interpret mode): out and lse, chunked keys, dropout      ----
+
+def make_heads(B, Lq, Lk, nh, hd=8, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, Lq, nh, hd).astype(np.float32)
+    k = rng.randn(B, Lk, nh, hd).astype(np.float32)
+    v = rng.randn(B, Lk, nh, hd).astype(np.float32)
+    bias = np.zeros((B, Lk), np.float32)
+    for b in range(1, B):
+        bias[b, rng.randint(1, Lk + 1):] = -1e9
+    bias[0, :] = -1e9                                   # a fully masked row
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk,chunk", [(16, 32, 16), (24, 48, 16),
+                                         (8, 24, 8), (32, 32, 32)])
+def test_fid_reference_matches_jax_kernel(Lq, Lk, chunk, rate):
+    """Lq != Lk, one, two and three chunks; at rate 0.1 both sides draw the
+    keep mask from the same seed."""
+    from emdr2_tpu.ops.fid_attention import _fid_fwd
+
+    q, k, v, bias = make_heads(3, Lq, Lk, 2, seed=Lq + Lk)
+    seed = 2 ** 31 + 11
+    want, res = _fid_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+        jnp.uint32(seed), chunk, None, rate)
+    want_lse = res[-1]                                  # [B*nh, Lq, 1]
+    args = [torch.as_tensor(a) for a in (q, k, v, bias)]
+    got, lse = fid_attention.fid_cross_attention_forward(*args, seed, chunk,
+                                                         rate)
+    assert got.shape == (3, Lq, 2, 8) and lse.shape == (3 * 2, Lq, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want_lse).reshape(lse.shape),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, fid_attention.fid_cross_attention(
+        *args, seed, chunk, rate))
+    if rate:
+        plain = fid_attention.fid_cross_attention(*args, None, chunk, 0.0)
+        assert not torch.equal(plain, got)
+
+
+def test_fid_cpu_runs_plain_version_and_checks_inputs():
+    q, k, v, bias = (torch.as_tensor(a) for a in make_heads(2, 8, 16, 2))
+    before = fid_attention.fid_cross_attention.launches
+    got = fid_attention.fid_cross_attention(q, k, v, bias, None, 8)
+    assert fid_attention.fid_cross_attention.launches == before
+    want, _ = fid_attention.fid_cross_attention_reference(q, k, v, bias,
+                                                          None, 8)
+    assert torch.equal(got, want)
+    # on the CPU the plain version carries gradients
+    qg = q.clone().requires_grad_(True)
+    fid_attention.fid_cross_attention(qg, k, v, bias, None, 8).sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    with pytest.raises(ValueError):                      # Lk % key_chunk
+        fid_attention.fid_cross_attention(q, k, v, bias, None, 12)
+    with pytest.raises(ValueError):
+        fid_attention.fid_cross_attention(q, k, v, bias[:, :-1], None, 8)
+    with pytest.raises(ValueError):
+        fid_attention.fid_cross_attention(q[0], k, v, bias, None, 8)
+    with pytest.raises(ValueError):                      # rate without seed
+        fid_attention.fid_cross_attention(q, k, v, bias, None, 8, 0.1)
+    meta = [t.to("meta") for t in (q, k, v, bias)]
+    with pytest.raises(ValueError):                      # neither CPU nor CUDA
+        fid_attention.fid_cross_attention(*meta, None, 8)

@@ -10,14 +10,17 @@ and the dropped probabilities to bf16 for the tensor-core products (the
 plain versions multiply in fp32), so gradients are held to 2e-2 of the
 largest reference gradient at most and 2e-3 of it on average; candidate
 values are fp32 sums of exact products in another order, so |dv| <=
-1e-3*|v| + 1e-3, and int8 values are exact.
+1e-3*|v| + 1e-3, and int8 values are exact. The int8 decode kernel keeps
+``p * vscale`` in fp32 where its plain version rounds it to bf16, and sums
+the key splits in another order: the same 2e-2 / 2e-3 of the largest
+reference output.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from emdr2_tpu_torch.ops import fid_attention, mips  # noqa: E402
+from emdr2_tpu_torch.ops import decode_attention, fid_attention, mips  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -254,3 +257,142 @@ def test_candidate_scan_matches_plain(cuda, dtype, nq, cands):
         # ids may differ only where two rows' scores are within tolerance
         diff = gi != wi
         assert diff.float().mean().item() < 1e-3
+
+
+# ---- K4-fwd: the general per-head kernel on strided views of a slab ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Lq,Lk,chunk", [
+    (2, 512, 512, 256),           # the reader encoder under key chunk 256
+    (2, 100, 288, 96),            # Lq != Lk, three chunks, ragged tiles
+    (1, 70, 192, 64),
+    (3, 130, 130, 130),           # one chunk, not a tile multiple
+])
+def test_fid_cross_attention_matches_plain(cuda, B, Lq, Lk, chunk, rate):
+    g = _gen(Lq + Lk)
+    H = NH * 64
+    L = max(Lq, Lk)
+    slab = torch.randn(B, L, 3 * H, device=cuda, generator=g
+                       ).to(torch.bfloat16)
+    q = slab[:, :Lq, :H].view(B, Lq, NH, 64)          # views, not copies
+    k = slab[:, :Lk, H:2 * H].view(B, Lk, NH, 64)
+    v = slab[:, :Lk, 2 * H:].view(B, Lk, NH, 64)
+    bias = torch.zeros(B, Lk, device=cuda)
+    bias[0, :] = -1e9                                 # a fully masked row
+    bias[-1, Lk // 3:] = -1e9
+    before = fid_attention.fid_cross_attention.launches
+    out, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, 41,
+                                                         chunk, rate)
+    torch.cuda.synchronize()
+    assert fid_attention.fid_cross_attention.launches == before + 1
+    want, want_lse = fid_attention.fid_cross_attention_reference(
+        q, k, v, bias, 41, chunk, rate)
+    assert out.shape == (B, Lq, NH, 64) and out.is_contiguous()
+    _assert_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-3 * want_lse.abs().max()
+    again, _ = fid_attention.fid_cross_attention_forward(q, k, v, bias, 41,
+                                                         chunk, rate)
+    assert torch.equal(again, out)
+
+
+def test_fid_cross_attention_refuses_grad_and_bad_inputs(cuda):
+    g = _gen(5)
+    q = torch.randn(2, 64, NH, 64, device=cuda, generator=g
+                    ).to(torch.bfloat16)
+    bias = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="K4-bwd"):
+        fid_attention.fid_cross_attention(q.clone().requires_grad_(True), q,
+                                          q, bias, None, 64)
+    with pytest.raises(TypeError):
+        fid_attention.fid_cross_attention(q.float(), q.float(), q.float(),
+                                          bias, None, 64)
+    with pytest.raises(ValueError):                      # Lk % chunk
+        fid_attention.fid_cross_attention(q, q, q, bias, None, 48)
+    with pytest.raises(ValueError):                      # heads not contiguous
+        t = q.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        fid_attention.fid_cross_attention(q, t, q, bias, None, 64)
+    with pytest.raises(ValueError):
+        fid_attention.fid_cross_attention(q, q, q, bias.cpu(), None, 64)
+
+
+# ---- K5: decode attention over the int8 slab ----
+
+def _int8_inputs(B, R, Lk, real, seed):
+    """Quantized K/V padded from ``real`` to ``Lk`` rows as the decoder
+    session pads them (value 0, scale 1, bias -1e9)."""
+    g = _gen(seed)
+    q = torch.randn(B, R, NH, 64, device="cuda", generator=g
+                    ).to(torch.bfloat16)
+    kf = torch.randn(B, NH, Lk, 64, device="cuda", generator=g)
+    vf = torch.randn(B, NH, Lk, 64, device="cuda", generator=g)
+    kf[:, :, real:] = 0
+    vf[:, :, real:] = 0
+    k8, ks = decode_attention.quantize_kv_rows(kf)
+    v8, vs = decode_attention.quantize_kv_rows(vf)
+    bias = torch.zeros(B, Lk, device="cuda")
+    bias[:, real:] = -1e9
+    return q, k8, ks, v8, vs, bias
+
+
+@pytest.mark.parametrize("B,R,Lk,real", [
+    (2, 1, 128, 100),             # one short split
+    (2, 3, 256, 256),
+    (1, 5, 6400, 6000),           # two chunks of 3,200; a half split last
+    (2, 8, 1024, 900),
+    (2, 11, 768, 768),            # more rows than one launch takes
+])
+def test_decode_attention_int8_matches_plain(cuda, B, R, Lk, real):
+    q, k8, ks, v8, vs, bias = _int8_inputs(B, R, Lk, real, seed=Lk + R)
+    bias[-1, real // 2:] = -1e9                       # a masked tail
+    before = decode_attention.decode_cross_attention_int8.launches
+    got = decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                       bias)
+    torch.cuda.synchronize()
+    n = -(-R // decode_attention.MAX_KERNEL_ROWS)
+    assert decode_attention.decode_cross_attention_int8.launches == before + n
+    want = decode_attention.decode_cross_attention_int8_plain(
+        q, k8, ks, v8, vs, bias)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _assert_close(got, want)
+    _assert_close(got, decode_attention.decode_cross_attention_int8_reference(
+        q, k8, ks, v8, vs, bias), rel_max=3e-2)
+    again = decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                         bias)
+    assert torch.equal(again, got)
+    # masked rows poisoned with +-127 change nothing
+    k8[-1, :, real // 2:] = 127
+    v8[-1, :, real // 2:] = -127
+    poisoned = decode_attention.decode_cross_attention_int8(q, k8, ks, v8,
+                                                            vs, bias)
+    assert torch.equal(poisoned, got)
+
+
+def test_decode_attention_int8_fully_masked_example_is_finite(cuda):
+    q, k8, ks, v8, vs, bias = _int8_inputs(2, 5, 1024, 1024, seed=3)
+    bias[0] = -1e9
+    got = decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                       bias)
+    want = decode_attention.decode_cross_attention_int8_plain(
+        q, k8, ks, v8, vs, bias)
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want)
+
+
+def test_decode_attention_int8_refuses_wrong_inputs(cuda):
+    q, k8, ks, v8, vs, bias = _int8_inputs(2, 1, 256, 256, seed=4)
+    with pytest.raises(TypeError):
+        decode_attention.decode_cross_attention_int8(q.float(), k8, ks, v8,
+                                                     vs, bias)
+    with pytest.raises(TypeError):
+        decode_attention.decode_cross_attention_int8(q, k8.float(), ks, v8,
+                                                     vs, bias)
+    with pytest.raises(ValueError):
+        decode_attention.decode_cross_attention_int8(q, k8.cpu(), ks, v8, vs,
+                                                     bias)
+    with pytest.raises(ValueError):                      # Lk % key_chunk
+        decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs, bias,
+                                                     key_chunk=100)
+    with pytest.raises(ValueError):                      # not contiguous
+        decode_attention.decode_cross_attention_int8(
+            q, k8.transpose(2, 3).contiguous().transpose(2, 3), ks, v8, vs,
+            bias)

@@ -64,7 +64,7 @@ def pair():
     jmodel = JaxEMDR2Model(jcfg)
     params = jmodel.init({"params": jax.random.PRNGKey(0)}, jbatch)["params"]
     np_params = unboxed_numpy(params)
-    model = EMDR2Model(with_flash_attention(tiny_config()))
+    model = EMDR2Model(with_flash_attention(tiny_config()), device="cpu")
     model.load_state_dict(params_from_jax(np_params), strict=True)
     bf16_eval_params(model)
     jparams = jax_bf16_eval_params(unboxed_numpy(params))
@@ -80,7 +80,7 @@ class TestConvert:
                 for p, v in jax.tree_util.tree_flatten_with_path(
                     np_params)[0]}
         sd = params_from_jax(np_params)
-        model = EMDR2Model(tiny_config())
+        model = EMDR2Model(tiny_config(), device="cpu")
         assert set(sd) == set(model.state_dict())
         assert len(sd) == len(flat)
         for path, a in flat.items():
@@ -137,7 +137,7 @@ class TestModelParity:
         _, _, jparams, model, jbatch, _ = pair
         jcfg = jax_tiny_config()
         jmodel = JaxEMDR2Model(jcfg)
-        plain = EMDR2Model(tiny_config())
+        plain = EMDR2Model(tiny_config(), device="cpu")
         plain.load_state_dict(model.state_dict())
         ids = np.asarray(jbatch.reader_ids).copy()
         ids[1, 0, 30:] = 0

@@ -77,14 +77,15 @@ def pipelines(tmp_path_factory):
     jpipe = JaxPipeline(jcfg, params, jtok, jcorpus, jindex, batch_size=4)
 
     cfg = port_config(jcfg)
-    model = EMDR2Model(cfg)
+    model = EMDR2Model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(unboxed_numpy(params)))
     words = [f"item{i}" for i in range(n_docs)] + [
         "red", "blue", "green", "gold", "color", "of", "is", "what", "the"]
     tok = BertWordPieceTokenizer(toy_vocab(words), vocab_extra_ids=10)
     corpus = EvidenceCorpus(MMapIndexedDataset(str(root / "text")),
                             MMapIndexedDataset(str(root / "title")))
-    index = ShardedEvidenceIndex(cfg.index, emb, passage_ids=pids)
+    index = ShardedEvidenceIndex(cfg.index, emb, passage_ids=pids,
+                                 device="cpu")
     pipe = QAPipeline(cfg, model, tok, corpus, index, batch_size=4)
     return jpipe, pipe
 
@@ -117,6 +118,36 @@ def test_ask_identical_with_tail_padding(pipelines):
     assert len(got) == len(QUESTIONS)
     assert all(isinstance(a, str) for a in got)
     assert got == jpipe.ask(QUESTIONS)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(beam_size=3),
+    dict(kv_quant="int8"),
+    dict(beam_size=3, kv_quant="int8", max_decode_len=5),
+    dict(bf16_params=False),
+], ids=["beam3", "int8", "beam3-int8-len5", "fp32-params"])
+def test_ask_with_beam_and_int8_identical(pipelines, kw):
+    """The generation options of ``QAPipeline`` against the JAX pipeline's:
+    equal answers, tail batch included."""
+    jpipe, pipe = pipelines
+    jp = JaxPipeline(jpipe.cfg, jpipe.params, jpipe.tok, jpipe.corpus,
+                     jpipe.index, batch_size=4, **kw)
+    p = QAPipeline(pipe.cfg, pipe.model, pipe.tok, pipe.corpus, pipe.index,
+                   batch_size=4, **kw)
+    assert p.beam_size == kw.get("beam_size", 1)
+    assert p.max_decode_len == kw.get("max_decode_len",
+                                      pipe.cfg.reader.decoder_seq_len)
+    assert p.session.kv_quant == kw.get("kv_quant")
+    got = p.ask(QUESTIONS)
+    assert len(got) == len(QUESTIONS)
+    assert got == jp.ask(QUESTIONS)
+
+
+def test_pipeline_rejects_unknown_kv_quant(pipelines):
+    _, pipe = pipelines
+    with pytest.raises(ValueError):
+        QAPipeline(pipe.cfg, pipe.model, pipe.tok, pipe.corpus, pipe.index,
+                   kv_quant="fp8")
 
 
 def test_serving_import_leaves_jax_out():

@@ -94,7 +94,7 @@ def pair(request):
 
     (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         params)
-    model = EMDR2Model(cfg)
+    model = EMDR2Model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params)), strict=True)
     want = dict(out=out, loss=float(loss), grads=params_from_jax(
@@ -159,7 +159,7 @@ def dropout_cfg(flash=True, remat=False, rate=0.1):
 
 
 def loss_and_grads(cfg, state_dict, batch, seed):
-    model = EMDR2Model(cfg)
+    model = EMDR2Model(cfg, device="cpu")
     model.load_state_dict(state_dict)
     out = model(batch, drop=DropoutSeeds(seed))
     loss, _ = emdr2_total_loss(out.lm_logits, out.topk_log_probs,
@@ -213,10 +213,10 @@ def test_dropout_is_a_function_of_the_seed(pair):
     assert torch.equal(a, b)
     assert not torch.equal(a, c) and not torch.equal(a, d)
     with torch.no_grad():                      # no seeds: no dropout
-        m = EMDR2Model(cfg)
+        m = EMDR2Model(cfg, device="cpu")
         m.load_state_dict(sd)
         e = m(batch).lm_logits
-        m0 = EMDR2Model(dropout_cfg(rate=0.0))
+        m0 = EMDR2Model(dropout_cfg(rate=0.0), device="cpu")
         m0.load_state_dict(sd)
         assert torch.equal(e, m0(batch).lm_logits)
 

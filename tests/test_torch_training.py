@@ -101,7 +101,7 @@ def test_decay_mask_matches_jax_key_for_key():
     import flax.linen as nn
     want = leaves_by_port_key(jax.tree_util.tree_map(
         bool, jax_step.decay_mask(nn.meta.unbox(params))))
-    got = step.decay_mask(EMDR2Model(tiny_config()))
+    got = step.decay_mask(EMDR2Model(tiny_config(), device="cpu"))
     assert got == want
     assert not got["reader.lm_bias"] and not got[
         "reader.encoder.ln_final.weight"]
@@ -163,4 +163,4 @@ def test_remat_policy_dots_no_batch_is_refused():
                               remat_policy="dots_no_batch")
     with pytest.raises(NotImplementedError):
         EMDR2Model(cfg.replace(retriever=dataclasses.replace(
-            cfg.retriever, encoder=enc)))
+            cfg.retriever, encoder=enc)), device="cpu")
