@@ -16,7 +16,9 @@
    (K3) over a 1,310,720 x 768 index in bf16 and int8, nq in {8, 512}, plus
    top-50 recall of the whole search against an exact fp32 search; the
    general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
-   key chunks of 256, dropout 0 and 0.1, and at a small Lq != Lk shape; the
+   key chunks of 256, dropout 0 and 0.1, and at a small Lq != Lk shape; its
+   backward (K4-bwd) at the same shape (gradients checked on 32 rows, timed
+   on all) and on a shape with padded keys and a fully masked row; the
    int8 decode attention (K5) at [8, R, 12, 25,600, 64] for R = 1 and 5, on
    a slab padded to 256 rows and with a fully masked example. Beside each
    attention kernel one ``scaled_dot_product_attention`` call on the same
@@ -52,6 +54,20 @@
    ``validation_loss`` over two batches of 8; checks counts, EM range,
    finite losses, and the losses of one batch against the same weights
    with the flash kernels off.
+6. The training loop under ``flash_key_chunk=256``, full width and depth:
+   ``training.engine.train`` for four iterations at B=8 (dropout 0.1,
+   ``--remat --no-remat-towers``) with ``prefetch_depth=2``, an async
+   interval checkpoint at 2, the final one at 4 and an evaluation callback
+   at 4 (``validation_loss`` on one batch, ``evaluate_em`` on 8 examples,
+   greedy over the int8 K/V); then three more iterations with
+   ``prefetch_depth=0`` for the time per iteration without the prefetcher.
+   Checks the final iteration, ``TrainLog.history``, that the parameters
+   moved, every kernel's launch count, the tracker and the ``iter_*``
+   directories, that no worker thread is left, and that the final
+   checkpoint restores into a fresh task bit for bit (every parameter and
+   moment), from which one more step runs. Prints ms per iteration and per
+   stage, peak memory, and the checkpoint's bytes and seconds (async
+   stage, background write, synchronous save, load).
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -529,6 +545,85 @@ def k4_phase(dev, gen):
     return rows
 
 
+def k4_bwd_phase(dev, gen, check_rows=32):
+    """K4 backward on [B, L, nh, hd] views of a qkv slab, from the plain
+    forward's out and lse: the reader encoder under key chunk 256, dropout 0
+    and 0.1 (gradients held against the plain backward on the first
+    ``check_rows`` rows, both timed on all rows), and a small shape whose
+    keys past 300 are padding and whose row 0 is fully masked."""
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    rows = []
+    for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
+                                   ("padded", 3, 300, 512, 256)):
+        slab = torch.randn(B, Lk, 3 * 768, device=dev, generator=gen
+                           ).to(torch.bfloat16)
+        q = slab[:, :Lq, :768].view(B, Lq, 12, 64)       # views, no copies
+        k = slab[:, :, 768:1536].view(B, Lk, 12, 64)
+        v = slab[:, :, 1536:].view(B, Lk, 12, 64)
+        if name == "reader":
+            lens = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
+        else:
+            lens = torch.tensor([0, 300, 200], device=dev)
+        bias = torch.where(torch.arange(Lk, device=dev)[None, :]
+                           < lens[:, None], 0.0, -1e9).float()
+        # a cotangent that is not contiguous, as a reshape may hand over
+        dout = torch.randn(B, 12, Lq, 64, device=dev, generator=gen
+                           ).to(torch.bfloat16).transpose(1, 2)
+        n = min(B, check_rows)
+        for rate in (0.0, RATE):
+            seed = DROP_SEED if rate else None
+            out, lse = fa.fid_cross_attention_forward(q, k, v, bias, seed,
+                                                      chunk, rate)
+
+            def kernel():
+                return fa.fid_cross_attention_backward(
+                    q, k, v, bias, lse, out, dout, seed, chunk, rate)
+
+            def plain():
+                return fa.fid_cross_attention_bwd_reference(
+                    q, k, v, bias, lse, out, dout, seed, chunk, rate)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            want = fa.fid_cross_attention_bwd_reference(
+                q[:n], k[:n], v[:n], bias[:n], lse[:n * 12], out[:n],
+                dout[:n], seed, chunk, rate)
+            errs = [_check(f"K4-bwd {name} rate {rate} d{x}", g[:n], w)
+                    for x, g, w in zip("qkv", got, want)]
+            again = kernel()
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"K4-bwd {name} is not deterministic")
+            del want, again
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, reps=3, warmup=1)
+            flop = 2.5 * 4 * B * 12 * Lq * Lk * 64
+            moved = nbytes(q, k, v, bias, lse, out, dout, *got)
+            bound_ms, bound_by = bound(moved, flop)
+            lib_ms = None
+            if Lq == Lk:
+                _, lib_ms = sdpa_times(slab, 3, slab, 3, bias,
+                                       dout.reshape(B, Lq, 768))  # rate 0
+            log(f"K4-bwd fid_cross_attention_backward {name} [{B}, {Lq} x "
+                f"{Lk}, 12, 64] key_chunk {chunk} rate {rate}: "
+                + ", ".join(f"d{x} max {e[0]:.3e} mean {e[1]:.3e}"
+                            for x, e in zip("qkv", errs))
+                + f" (rows 0..{n - 1}; tol {GRAD_TOL} x max|ref| "
+                f"{max(e[2] for e in errs):.3e}), repeat bit-identical | "
+                f"kernel {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s by 2.5 x "
+                f"4*Lq*Lk*hd) | plain {plain_ms:.4f} ms | SDPA backward "
+                f"(rate 0) " + (f"{lib_ms:.4f} ms" if lib_ms else "not timed")
+                + f" | bound {bound_ms:.4f} ms by {bound_by} "
+                f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP)")
+            rows.append(dict(shape=name, rate=rate,
+                             max_abs_err=max(e[0] for e in errs), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms))
+            del out, lse, got
+        del slab, q, k, v, bias, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k5_phase(dev, gen):
     """K5 at the decode shape [8, R, 12, 25,600, 64] for one query row
     (greedy) and five (beam 5), on a slab padded from 200 to 256 rows, and
@@ -677,6 +772,7 @@ def _counters():
                 fa.flash_cross_attention_backward,
             "candidate_scan": mips.candidate_scan,
             "fid_cross_attention": fa.fid_cross_attention,
+            "fid_cross_attention_backward": fa.fid_cross_attention_backward,
             "decode_cross_attention_int8": da.decode_cross_attention_int8}
 
 
@@ -986,6 +1082,208 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
                 peak_bytes=peak, top=top)
 
 
+def _host_state(state):
+    """(parameters, AdamW moments and step counts, (step, seed, count)) of
+    a TrainState as host copies."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    params = {k: host(v) for k, v in state.model.state_dict().items()}
+    adam = state.optimizer.adamw.state
+    moments = {n: tuple(host(adam[p][key])
+                        for key in ("exp_avg", "exp_avg_sq", "step"))
+               for n, p in state.model.named_parameters()}
+    return params, moments, (state.step, state.seed, state.optimizer.count)
+
+
+def engine_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
+                 iters=4, plain_iters=3, prefetch_depth=2, eval_examples=8,
+                 total_iters=1000):
+    """Drive ``training.engine.train`` under ``cfg`` (whose
+    ``flash_key_chunk`` sends the reader's rows through the general flash
+    kernel, forward and backward): ``iters`` iterations with the
+    prefetcher, an interval checkpoint at ``iters // 2``, the final one and
+    an evaluation callback at ``iters``; then ``plain_iters`` more without
+    the prefetcher; then the final checkpoint restored into a fresh task
+    and one more step from it; then the checkpoint's times."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.training import checkpointing as ckpt
+    from emdr2_tpu_torch.training import engine
+    from emdr2_tpu_torch.training.step import METRICS
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    def loop_cfg(train_iters):
+        return cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=batch, train_iters=train_iters,
+            log_interval=1, save_interval=max(iters // 2, 1),
+            eval_interval=iters, async_save=True, seed=SEED))
+
+    def qa_file(path, n, offset=0):
+        with open(path, "w") as f:
+            for i in range(offset, offset + n):
+                f.write(f"what is the color of item w{7 * i}\t"
+                        f"['w{3 * i} w{i}', 'w{5 * i}']\n")
+
+    def dataset(path):
+        return OpenQADataset([path], tok, cfg.retriever.query_seq_len,
+                             cfg.reader.decoder_seq_len, seed=SEED)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
+                                        n_rows)
+        qa_file(os.path.join(tmpdir, "train.tsv"),
+                batch * (iters + plain_iters + 1))
+        qa_file(os.path.join(tmpdir, "valid.tsv"), eval_examples, 10_000)
+        ds = dataset(os.path.join(tmpdir, "train.tsv"))
+        valid = dataset(os.path.join(tmpdir, "valid.tsv"))
+        timer = StageTimer(dev)
+        task = E2EQATask(cfg, tok, corpus, index,
+                         total_train_iters=total_iters, device=dev,
+                         timer=timer)
+        state = task.init_state(SEED)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        log(f"engine set-up {time.perf_counter() - t0:.1f} s: "
+            f"{n_params / 1e6:.1f}M params, batch {batch}, flash_key_chunk "
+            f"{cfg.reader.transformer.flash_key_chunk}, prefetch_depth "
+            f"{prefetch_depth}")
+        probe = state.model.reader.decoder.layer(0).mlp.wi.kernel
+        before = probe.detach().clone()
+        root = os.path.join(tmpdir, "checkpoints")
+        evals = []
+
+        def eval_callback(iteration):
+            t0 = time.perf_counter()
+            val = task.validation_loss(valid, batch_size=batch, max_batches=1)
+            em, n = task.evaluate_em(valid, batch_size=batch,
+                                     kv_quant="int8", max_batches=1)
+            out = {"valid_loss": val["loss"], "valid_lm_loss": val["lm_loss"],
+                   "valid_em": em, "valid_n": n}
+            evals.append(dict(out, iteration=iteration,
+                              seconds=time.perf_counter() - t0))
+            return out
+
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        train_log = engine.TrainLog(1, log)
+        t0 = time.perf_counter()
+        final = engine.train(task, ds, loop_cfg(iters), save_dir=root,
+                             eval_callback=eval_callback,
+                             prefetch_depth=prefetch_depth, printer=log,
+                             log=train_log)
+        sync()
+        train_s = time.perf_counter() - t0
+        launches = _read_counts(tuple(_counters()))
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        stage_ms = {k: list(v) for k, v in timer.ms.items()}
+
+        history = train_log.history
+        if final != iters or state.step != iters or [
+                h["iteration"] for h in history] != list(range(1, iters + 1)):
+            raise AssertionError(f"engine ended at {final}, state step "
+                                 f"{state.step}, history {history}")
+        for h in history:
+            if not all(np.isfinite(h[k]) for k in METRICS):
+                raise AssertionError(f"non-finite metrics: {h}")
+            if h["grad_norm"] <= 0:
+                raise AssertionError(f"zero gradient norm: {h}")
+        if torch.equal(before, probe.detach()):
+            raise AssertionError("the parameters did not move")
+        if [e["iteration"] for e in evals] != [iters] or not all(
+                np.isfinite(evals[0][k]) for k in ("valid_loss",
+                                                   "valid_lm_loss")) \
+                or evals[0]["valid_n"] != min(eval_examples, batch) \
+                or not 0.0 <= evals[0]["valid_em"] <= 100.0:
+            raise AssertionError(f"evaluation callback: {evals}")
+        want_dirs = sorted({f"iter_{max(iters // 2, 1):07d}",
+                            f"iter_{iters:07d}", ckpt.TRACKER})
+        if sorted(os.listdir(root)) != want_dirs \
+                or ckpt.latest_iteration(root) != iters:
+            raise AssertionError(f"checkpoints: {sorted(os.listdir(root))}, "
+                                 f"tracker {ckpt.latest_iteration(root)}")
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith(("batch-prefetch", "ckpt-write"))]
+        if alive:
+            raise AssertionError(f"threads left alive: {alive}")
+        want_state = _host_state(state)
+        ckpt_bytes = os.path.getsize(os.path.join(
+            ckpt.iter_dir(root, iters), ckpt.STATE_FILE))
+
+        # the same task goes on without the prefetcher
+        plain_log = engine.TrainLog(1, log)
+        final = engine.train(task, ds, loop_cfg(iters + plain_iters),
+                             prefetch_depth=0, printer=log, log=plain_log)
+        sync()
+        if final != iters + plain_iters or len(plain_log.history) != \
+                plain_iters:
+            raise AssertionError(f"plain run ended at {final}")
+
+        # the final checkpoint into a fresh task, bit for bit; the first
+        # task's state leaves the card first (two states and a step's
+        # activations do not fit)
+        del state, probe, before
+        task.state = None
+        task._retrieval_snapshot = None
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        fresh = E2EQATask(cfg, tok, corpus, index,
+                          total_train_iters=total_iters, device=dev)
+        fresh.init_state(SEED + 1)
+        t0 = time.perf_counter()
+        _, it = ckpt.load_checkpoint(root, fresh.state)
+        sync()
+        load_s = time.perf_counter() - t0
+        got_state = _host_state(fresh.state)
+        if it != iters or got_state[2] != want_state[2]:
+            raise AssertionError(f"restored iteration {it}, counters "
+                                 f"{got_state[2]} against {want_state[2]}")
+        for name, w in want_state[0].items():
+            if not torch.equal(got_state[0][name], w):
+                raise AssertionError(f"restored parameter {name} differs")
+        for name, w in want_state[1].items():
+            if not all(torch.equal(g, x)
+                       for g, x in zip(got_state[1][name], w)):
+                raise AssertionError(f"restored moment of {name} differs")
+        n_compared = len(want_state[0]) + 2 * len(want_state[1])
+        del want_state, got_state
+        m = fresh.train_step(next(ds.epoch_batches(batch, seed=SEED + 99)))
+        resumed = {k: float(m[k]) for k in METRICS}
+        if fresh.state.step != iters + 1 or not all(
+                np.isfinite(v) for v in resumed.values()) \
+                or resumed["grad_norm"] <= 0:
+            raise AssertionError(f"step after the restore: {resumed}")
+
+        # the checkpoint's times, on the restored task's state
+        shutil.rmtree(root)
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(root, fresh.state, 1, async_save=True)
+        t1 = time.perf_counter()
+        ckpt.finalize_async_saves()
+        t2 = time.perf_counter()
+        ckpt.save_checkpoint(root, fresh.state, 1)
+        t3 = time.perf_counter()
+    return dict(history=history, plain_history=plain_log.history,
+                evals=evals, launches=launches, stage_ms=stage_ms,
+                peak_bytes=peak, train_s=train_s, resumed=resumed,
+                n_compared=n_compared, checkpoint=dict(
+                    bytes=ckpt_bytes, async_stage_s=t1 - t0,
+                    background_write_s=t2 - t1, sync_save_s=t3 - t2,
+                    load_s=load_s))
+
+
 def profile_call(fn, table_name, n_top=15):
     """One warm call of ``fn`` under torch.profiler: (device ms summed over
     kernels, wall ms, the top kernels by device time); the operator table
@@ -1056,6 +1354,7 @@ def main() -> int:
     k2 = k2_phase(dev, gen)
     k3 = k3_phase(dev, gen)
     k4 = k4_phase(dev, gen)
+    k4_bwd = k4_bwd_phase(dev, gen)
     k5 = k5_phase(dev, gen)
     torch.cuda.empty_cache()
 
@@ -1116,6 +1415,7 @@ def main() -> int:
     # (the reader's 512 tokens) run the general flash kernel
     chunked = {"flash_key_chunk": 256}
     ev = eval_phase(with_transformers(cfg, chunked, chunked), dev, gen)
+    evl = ev["launches"]
     for name, ms in ev["stage_ms"].items():
         log(f"eval stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
             + " ms")
@@ -1133,6 +1433,38 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} never launched during evaluation")
 
+    del ev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the training loop under --flash-key-chunk 256, --remat
+    # --no-remat-towers: prefetcher, checkpoints, evaluation callback
+    eg = engine_phase(with_transformers(tcfg, chunked, chunked), dev, gen)
+    for name, ms in eg["stage_ms"].items():
+        log(f"engine stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
+            + " ms")
+    log("engine: ms per iteration with prefetch "
+        + ", ".join(f"{h['ms_per_iter']:.1f}" for h in eg["history"])
+        + " (the third also stages the interval checkpoint, the fourth "
+        "runs beside its write); without prefetch "
+        + ", ".join(f"{h['ms_per_iter']:.1f}" for h in eg["plain_history"])
+        + f"; {len(eg['history'])} iterations, saves and the evaluation in "
+        f"{eg['train_s']:.3f} s; peak memory "
+        f"{eg['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"engine: evaluation callback {eg['evals']}")
+    ck = eg["checkpoint"]
+    log(f"engine: checkpoint {ck['bytes'] / 1e9:.3f} GB; async stage "
+        f"{ck['async_stage_s']:.3f} s, background write "
+        f"{ck['background_write_s']:.3f} s, synchronous save "
+        f"{ck['sync_save_s']:.3f} s, load into a fresh task "
+        f"{ck['load_s']:.3f} s; {eg['n_compared']} restored tensors equal "
+        f"bit for bit; the step after the restore: {eg['resumed']}")
+    log(f"engine: launches {eg['launches']} (one step should launch K4-bwd "
+        f"12, K4-fwd 36, K1-fwd 36, K1-bwd 24, K2-fwd 36, K2-bwd 12, K3 1)")
+    for name, n in eg["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched in the engine phase")
+
     if tr["top"] is not None:
         log_profile("warm train step", tr["top"])
 
@@ -1147,15 +1479,19 @@ def main() -> int:
                    and r["rate"] == RATE)
     k5_greedy = next(r for r in k5 if r["shape"] == "greedy")
     k5_beam = next(r for r in k5 if r["shape"] == "beam5")
-    serve, train, evl = res["launches"], tr["launches"], ev["launches"]
+    serve, train, eng = res["launches"], tr["launches"], eg["launches"]
+    k4_bwd_main = next(r for r in k4_bwd if r["shape"] == "reader"
+                       and r["rate"] == RATE)
     gen_greedy = res["generation"]["greedy_int8"]["launches"]
     gen_beam = res["generation"]["beam5_int8"]["launches"]
     csrc = "emdr2_tpu_torch/ops/csrc/"
     # "launches": the count on the first path that runs the kernel (serving
     # for K1-fwd and K3, training for K1-bwd and K2, generation with beam 5
-    # for K5, evaluation for K4); the other paths' counts beside it
+    # for K5, evaluation for K4-fwd, the engine for K4-bwd); the other
+    # paths' counts beside it
     summary = {"kernels": [
         {"name": "flash_self_attention", "route": "cuda",
+         "launches_engine": eng["flash_self_attention"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:383",
          "launches": serve["flash_self_attention"],
@@ -1168,6 +1504,7 @@ def main() -> int:
          "library_ms": k1_main["library_ms"],
          "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"]},
         {"name": "flash_self_attention_backward", "route": "cuda",
+         "launches_engine": eng["flash_self_attention_backward"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:414",
          "launches": train["flash_self_attention_backward"],
@@ -1177,6 +1514,7 @@ def main() -> int:
          "bound_by": k1_bwd_main["bound_by"],
          "library_ms": k1_bwd_main["library_ms"]},
         {"name": "flash_cross_attention", "route": "cuda",
+         "launches_engine": eng["flash_cross_attention"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:562",
          "launches": train["flash_cross_attention"],
@@ -1186,6 +1524,7 @@ def main() -> int:
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"]},
         {"name": "flash_cross_attention_backward", "route": "cuda",
+         "launches_engine": eng["flash_cross_attention_backward"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:612",
          "launches": train["flash_cross_attention_backward"],
@@ -1195,6 +1534,7 @@ def main() -> int:
          "bound_by": k2_main["bwd_bound_by"],
          "library_ms": k2_main["bwd_library_ms"]},
         {"name": "candidate_scan", "route": "cuda",
+         "launches_engine": eng["candidate_scan"],
          "source": csrc + "candidate_scan.cu",
          "replaces": "emdr2_tpu/ops/mips.py:116",
          "launches": serve["candidate_scan"],
@@ -1206,6 +1546,7 @@ def main() -> int:
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None},
         {"name": "decode_cross_attention_int8", "route": "cuda",
+         "launches_engine": eng["decode_cross_attention_int8"],
          "source": csrc + "decode_attention.cu",
          "replaces": "emdr2_tpu/ops/decode_attention.py:105",
          "launches": gen_beam["decode_cross_attention_int8"],
@@ -1222,6 +1563,7 @@ def main() -> int:
          "bound_ms_one_row": k5_greedy["bound_ms"],
          "sdpa_bf16_slab_ms_one_row": k5_greedy["sdpa_bf16_ms"]},
         {"name": "fid_cross_attention", "route": "cuda",
+         "launches_engine": eng["fid_cross_attention"],
          "source": csrc + "fid_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:68",
          "launches": evl["fid_cross_attention"],
@@ -1230,6 +1572,15 @@ def main() -> int:
          "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
          "library_ms": k4_main["library_ms"],
          "ms_dropout": k4_drop["ms"], "plain_ms_dropout": k4_drop["plain_ms"]},
+        {"name": "fid_cross_attention_backward", "route": "cuda",
+         "source": csrc + "fid_attention.cu",
+         "replaces": "emdr2_tpu/ops/fid_attention.py:120",
+         "launches": eng["fid_cross_attention_backward"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4_bwd),
+         "ms": k4_bwd_main["ms"], "plain_ms": k4_bwd_main["plain_ms"],
+         "bound_ms": k4_bwd_main["bound_ms"],
+         "bound_by": k4_bwd_main["bound_by"],
+         "library_ms": k4_bwd_main["library_ms"]},
     ]}
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))

@@ -133,11 +133,22 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The train step's settings. The JAX package's loop settings (batch
-    size, iterations, intervals, async save) come with the port's training
-    engine, which reads them."""
+    """The train step's optimizer and the settings of the training loop
+    (``training/engine.py``)."""
 
     optimizer: OptimizerConfig = _field(default_factory=OptimizerConfig)
+    batch_size: int = 8              # global batch (questions per step)
+    train_iters: Optional[int] = None
+    epochs: int = 10
+    seed: int = 1234
+    log_interval: int = 20
+    save_interval: int = 500
+    eval_interval: int = 500
+    exit_interval: Optional[int] = None
+    index_reload_interval: int = 500  # evidence re-embed cadence (steps)
+    # interval checkpoints stage device -> host and return; the disk write
+    # rides a background thread (exit and final saves stay synchronous)
+    async_save: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +182,7 @@ def tiny_config(**overrides) -> EMDR2Config:
         reader=ReaderConfig(transformer=t5c, seq_len=48, decoder_seq_len=8),
         index=IndexConfig(embed_dim=64, topk=4, chunk_rows=256, group_size=8,
                           dtype=torch.float32),
+        train=TrainConfig(batch_size=2, epochs=1),
     )
     return cfg.replace(**overrides) if overrides else cfg
 

@@ -1,4 +1,4 @@
-"""Carry JAX (flax) parameters over to the port.
+"""Carry JAX (flax) parameters and Adam state over to the port.
 
 ``params_from_jax(tree)`` takes the flax params of ``EMDR2Model`` as a
 nested dict of numpy arrays (unboxed from ``LogicallyPartitioned``, no jax
@@ -11,6 +11,11 @@ the layout changes are:
 - ``LayerNorm`` ``scale`` -> ``weight``;
 - ``Dense`` kernels keep the flax [in, out] layout (the port computes
   ``x @ W``, no transpose); embedding tables and the LM bias are copied.
+
+``load_adam_from_jax`` puts the JAX optimizer's Adam moments (trees shaped
+like the params, so the same layout changes apply) and its update count
+into the port's ``Optimizer``, so a port run can go on from the middle of a
+JAX run.
 """
 
 from __future__ import annotations
@@ -54,3 +59,27 @@ def leaves_by_port_key(tree: Mapping) -> Dict[str, object]:
     """Any pytree shaped like the flax params (e.g. the JAX package's
     ``decay_mask``) -> {port state_dict key: leaf}, leaves unchanged."""
     return {port_key(path): leaf for path, leaf in _flatten(tree)}
+
+
+def load_adam_from_jax(optimizer, model: torch.nn.Module, mu: Mapping,
+                       nu: Mapping, count: int) -> None:
+    """Load Adam's first and second moments (``mu``, ``nu``: nested dicts of
+    numpy arrays shaped like the flax params) and the number of updates
+    taken into ``optimizer`` (a ``training.step.Optimizer`` over
+    ``model``). The schedule is read at ``count`` from then on."""
+    first, second = params_from_jax(mu), params_from_jax(nu)
+    named = dict(model.named_parameters())
+    if set(first) != set(named) or set(second) != set(named):
+        raise ValueError("the moments do not cover the model's parameters: "
+                         f"{sorted(set(first) ^ set(named))[:5]} ...")
+    for name, p in named.items():
+        if first[name].shape != p.shape or second[name].shape != p.shape:
+            raise ValueError(f"moment of {name} has shape "
+                             f"{tuple(first[name].shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+        optimizer.adamw.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": first[name].to(p.device, p.dtype),
+            "exp_avg_sq": second[name].to(p.device, p.dtype),
+        }
+    optimizer.count = int(count)

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -43,12 +44,16 @@ _SIGNATURES = {
     # q, k, v as (batch stride, row stride) in elements after the pointers
     "emdr2_fid_attention_bf16":
         [_P] * 6 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],
+    "emdr2_fid_attention_bwd_bf16":
+        [_P] * 11 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],
     "emdr2_decode_attention_int8": [_P] * 8 + [_I] * 8 + [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()    # the library and the launch counts: the
+                            # prefetch worker launches kernels beside the step
 
 
 def _sources():
@@ -127,14 +132,22 @@ def build(extra_flags=()) -> dict:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build()["path"])
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (called where a wrapper has launched
+    its kernel; under the lock, so no count is lost between threads)."""
+    with _lock:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

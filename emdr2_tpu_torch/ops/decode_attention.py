@@ -180,7 +180,7 @@ def decode_cross_attention_int8(q, k8, kscale, v8, vscale, kv_bias,
             vscale.data_ptr(), kv_bias.data_ptr(), part.data_ptr(),
             out.data_ptr(), B, R, r0, rows, nh, hd, Lk, n_splits, stream)
         build.check(err, "decode_cross_attention_int8")
-        decode_cross_attention_int8.launches += 1
+        build.count_launch(decode_cross_attention_int8)
     return out
 
 

@@ -1,7 +1,7 @@
 """Flash attention on projection slabs (port of
 ``emdr2_tpu/ops/fid_attention.py``: ``flash_self_attention`` and
-``flash_cross_attention``, forward and backward, and the forward of
-``fid_cross_attention``).
+``flash_cross_attention`` and ``fid_cross_attention``, forward and
+backward).
 
 - ``flash_self_attention`` (K1) is padding-masked self-attention for every
   encoder: it consumes the fused projection as a flat [B, L, 3H] slab
@@ -17,16 +17,15 @@
 - ``fid_cross_attention`` (K4) is the general per-head form on unfused
   q [B, Lq, nh, hd] and k, v [B, Lk, nh, hd] (strided views of a slab are
   taken as they are), chunked like K2: the route of self-attention longer
-  than ``flash_key_chunk``. Its forward kernel is
-  ``csrc/fid_attention.cu``; its backward kernel is not ported yet, so on
-  CUDA it refuses inputs that require grad.
+  than ``flash_key_chunk``. It saves the lse [B*nh, Lq, 1] and its backward
+  emits dq, dk and dv in the inputs' shapes (``csrc/fid_attention.cu``).
 
 Attention dropout runs inside the kernels from a uint32 ``seed`` and a
 ``rate``: the keep mask is ``ops.hashing.keep_mask``, bit for bit the TPU
-kernels' ``_keep_mask``, regenerated in the backward. Both functions are
+kernels' ``_keep_mask``, regenerated in the backward. All three functions are
 ``torch.autograd.Function``s. On a CUDA tensor every direction launches its
 hand-written kernel (``csrc/flash_self_attention.cu``,
-``csrc/flash_cross_attention.cu``) or raises; on a CPU tensor it runs the
+``csrc/flash_cross_attention.cu``, ``csrc/fid_attention.cu``) or raises; on a CPU tensor it runs the
 plain PyTorch version beside it, which rounds where the TPU kernel rounds
 and, backward, follows the TPU kernel's formula. Each kernel's wrapper
 counts its launches in ``.launches``.
@@ -189,7 +188,7 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
         stats.data_ptr() if stats is not None else None, B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
     build.check(err, "flash_self_attention")
-    flash_self_attention.launches += 1
+    build.count_launch(flash_self_attention)
     return out, stats
 
 
@@ -225,7 +224,7 @@ def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
         stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
     build.check(err, "flash_self_attention_backward")
-    flash_self_attention_backward.launches += 1
+    build.count_launch(flash_self_attention_backward)
     return dqkv
 
 
@@ -414,7 +413,7 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
         lse.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
         *_dropout_args(seed, rate), _stream(q))
     build.check(err, "flash_cross_attention")
-    flash_cross_attention.launches += 1
+    build.count_launch(flash_cross_attention)
     return out, lse
 
 
@@ -452,7 +451,7 @@ def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
         dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
         *_dropout_args(seed, rate), _stream(q))
     build.check(err, "flash_cross_attention_backward")
-    flash_cross_attention_backward.launches += 1
+    build.count_launch(flash_cross_attention_backward)
     return dq, dkv
 
 
@@ -499,7 +498,7 @@ def fid_cross_attention_reference(q, k, v, kv_bias,
     chunked online softmax and rounding (as
     ``flash_cross_attention_reference``, on unfused heads): q [B, Lq, nh,
     hd], k, v [B, Lk, nh, hd], kv_bias [B, Lk] -> (out [B, Lq, nh, hd] in
-    q's dtype, lse [B*nh, Lq, 1] fp32). Differentiable through autograd."""
+    q's dtype, lse [B*nh, Lq, 1] fp32)."""
     B, Lq, nh, hd = q.shape
     Lk = k.shape[1]
     rate = dropout_rate
@@ -531,6 +530,57 @@ def fid_cross_attention_reference(q, k, v, kv_bias,
     return out, lse.reshape(B * nh, Lq, 1)
 
 
+def fid_cross_attention_bwd_reference(q, k, v, kv_bias, lse, out, dout,
+                                      seed: Optional[int] = None,
+                                      key_chunk: int = 512,
+                                      dropout_rate: float = 0.0
+                                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """Plain PyTorch backward of the TPU kernel (``_bwd_kernel``), chunk by
+    chunk from the saved lse [B*nh, Lq, 1]: ``delta = rowsum(do * out)``,
+    ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled), ``dS = P (dP
+    - delta)``; dq = sum over chunks of dS k * scale (fp32), dk = dS^T q *
+    scale and dv = P_d^T do per key. Returns (dq, dk, dv) in the inputs'
+    shapes and dtypes."""
+    B, Lq, nh, hd = q.shape
+    Lk = k.shape[1]
+    rate = dropout_rate
+    scale = hd ** -0.5
+    qf = q.permute(0, 2, 1, 3).float()
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    do = dout.permute(0, 2, 1, 3).float()
+    o = out.permute(0, 2, 1, 3).float()
+    lse_h = lse.reshape(B, nh, Lq, 1).float()
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    bias = kv_bias.float()
+    bh = _bh(B, nh, q.device)
+    dq = torch.zeros((B, nh, Lq, hd), device=q.device)
+    dk = torch.empty((B, nh, Lk, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, nh, Lk, hd), dtype=v.dtype, device=q.device)
+    for j in range(Lk // key_chunk):
+        sl = slice(j * key_chunk, (j + 1) * key_chunk)
+        kf = kh[:, :, sl].float()
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        s = s + bias[:, None, None, sl]
+        p = torch.exp(s - lse_h)
+        dp = torch.matmul(do, vh[:, :, sl].float().transpose(-1, -2))
+        if rate:
+            keep = keep_mask(seed, bh, rate, Lq, key_chunk, j)
+            inv_keep = 1.0 / (1.0 - rate)
+            zero = torch.zeros((), device=p.device)
+            dp = torch.where(keep, dp, zero) * inv_keep
+            pd = torch.where(keep, p, zero) * inv_keep
+        else:
+            pd = p
+        ds = p * (dp - delta)
+        dq = dq + torch.matmul(ds, kf) * scale
+        dk[:, :, sl] = (torch.matmul(ds.transpose(-1, -2), qf) * scale
+                        ).to(k.dtype)
+        dv[:, :, sl] = torch.matmul(pd.transpose(-1, -2), do).to(v.dtype)
+    return (dq.to(q.dtype).permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+            dv.permute(0, 2, 1, 3))
+
+
 def _head_strides(what: str, t: torch.Tensor) -> Tuple[int, int]:
     """(batch stride, row stride) in elements of a [B, L, nh, hd] tensor
     whose heads and head dim are contiguous (a view of a projection slab
@@ -544,20 +594,15 @@ def _head_strides(what: str, t: torch.Tensor) -> Tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
-def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
-                                key_chunk: int = 512,
-                                dropout_rate: float = 0.0
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, Lq, nh, hd], lse [B*nh, Lq, 1] fp32): the kernel on CUDA
-    (q, k and v are read through their strides: views of a fused slab are
-    not copied), the plain version on CPU."""
+def _check_fid(q, k, v, kv_bias, seed, key_chunk, dropout_rate) -> bool:
+    """Validate the K4 arguments; True when they lie on a CUDA device (the
+    kernels' route), False on the CPU (the plain versions')."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"q must be [B, Lq, nh, hd] and k, v [B, Lk, nh, "
                          f"hd], got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, Lq, nh, hd = q.shape
-    Lk = k.shape[1]
+    B, Lk = k.shape[:2]
     if kv_bias.shape != (B, Lk):
         raise ValueError(f"kv_bias must be {(B, Lk)}, got "
                          f"{tuple(kv_bias.shape)}")
@@ -567,8 +612,7 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
     _dropout_args(seed, dropout_rate)
     tensors = (q, k, v, kv_bias)
     if all(t.device.type == "cpu" for t in tensors):
-        return fid_cross_attention_reference(q, k, v, kv_bias, seed,
-                                             key_chunk, dropout_rate)
+        return False
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"fid_cross_attention: unsupported devices "
                          f"{[str(t.device) for t in tensors]}")
@@ -579,10 +623,30 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
     if kv_bias.dtype != torch.float32:
         raise TypeError(f"fid_cross_attention: the kernel takes an fp32 "
                         f"bias, got {kv_bias.dtype}")
-    if hd != 64:
-        raise ValueError(f"kernel is built for head_dim 64, got {hd}")
-    strides = [x for name, t in (("q", q), ("k", k), ("v", v))
-               for x in _head_strides(name, t)]
+    if q.shape[3] != 64:
+        raise ValueError(f"kernel is built for head_dim 64, got {q.shape[3]}")
+    return True
+
+
+def _qkv_strides(q, k, v) -> list:
+    return [x for name, t in (("q", q), ("k", k), ("v", v))
+            for x in _head_strides(name, t)]
+
+
+def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
+                                key_chunk: int = 512,
+                                dropout_rate: float = 0.0
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Lq, nh, hd], lse [B*nh, Lq, 1] fp32): the kernel on CUDA
+    (q, k and v are read through their strides: views of a fused slab are
+    not copied), the plain version on CPU. Not differentiable (see
+    ``fid_cross_attention``)."""
+    if not _check_fid(q, k, v, kv_bias, seed, key_chunk, dropout_rate):
+        return fid_cross_attention_reference(q, k, v, kv_bias, seed,
+                                             key_chunk, dropout_rate)
+    B, Lq, nh, hd = q.shape
+    Lk = k.shape[1]
+    strides = _qkv_strides(q, k, v)
     kv_bias = kv_bias.contiguous()
     out = torch.empty((B, Lq, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * nh, Lq, 1), dtype=torch.float32, device=q.device)
@@ -591,8 +655,65 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
         out.data_ptr(), lse.data_ptr(), *strides, B, Lq, Lk, nh, hd,
         key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
     build.check(err, "fid_cross_attention")
-    fid_cross_attention.launches += 1
+    build.count_launch(fid_cross_attention)
     return out, lse
+
+
+def fid_cross_attention_backward(q, k, v, kv_bias, lse, out, dout,
+                                 seed: Optional[int] = None,
+                                 key_chunk: int = 512,
+                                 dropout_rate: float = 0.0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(dq [B, Lq, nh, hd], dk, dv [B, Lk, nh, hd]) of
+    ``fid_cross_attention`` from the forward's ``out`` and ``lse``: the
+    kernels on CUDA (no atomics: the gradients repeat bit for bit), the
+    plain version on CPU."""
+    B, Lq, nh, hd = q.shape
+    Lk = k.shape[1]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (B * nh, Lq, 1):
+        raise ValueError(f"bad shapes for the backward: q {tuple(q.shape)}, "
+                         f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    if not _check_fid(q, k, v, kv_bias, seed, key_chunk, dropout_rate):
+        return fid_cross_attention_bwd_reference(
+            q, k, v, kv_bias, lse, out, dout, seed, key_chunk, dropout_rate)
+    strides = _qkv_strides(q, k, v)
+    kv_bias, out, dout = kv_bias.contiguous(), out.contiguous(), \
+        dout.contiguous()
+    _check_cuda("fid_cross_attention_backward", (kv_bias, lse, out, dout),
+                (out, dout), (kv_bias, lse))
+    delta = torch.empty((B * nh, Lq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Lq, nh, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, nh, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Lk, nh, hd), dtype=v.dtype, device=q.device)
+    err = build.load().emdr2_fid_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, B, Lq, Lk, nh,
+        hd, key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
+    build.check(err, "fid_cross_attention_backward")
+    build.count_launch(fid_cross_attention_backward)
+    return dq, dk, dv
+
+
+class _FidCrossAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, seed, key_chunk, rate):
+        out, lse = fid_cross_attention_forward(q, k, v, kv_bias, seed,
+                                               key_chunk, rate)
+        ctx.save_for_backward(q, k, v, kv_bias, lse, out)
+        ctx.args = (seed, key_chunk, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_bias, lse, out = ctx.saved_tensors
+        dq, dk, dv = fid_cross_attention_backward(q, k, v, kv_bias, lse, out,
+                                                  dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def fid_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -601,16 +722,12 @@ def fid_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_rate: float = 0.0) -> torch.Tensor:
     """General per-head flash attention: q [B, Lq, nh, hd], k, v [B, Lk, nh,
     hd], kv_bias [B, Lk] fp32 with Lk a multiple of ``key_chunk`` ->
-    [B, Lq, nh, hd] in q's dtype. On CPU it is differentiable through the
-    plain version; on CUDA only the forward kernel (K4-fwd) exists, so
-    inputs that require grad raise: its backward kernel, K4-bwd
-    (``emdr2_tpu/ops/fid_attention.py:_bwd_kernel``), is not ported yet."""
-    on_cuda = any(t.device.type == "cuda" for t in (q, k, v))
-    if on_cuda and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "fid_cross_attention on CUDA has no backward yet: K4-bwd (the "
-            "general flash backward kernel) is not ported")
+    [B, Lq, nh, hd] in q's dtype, differentiable w.r.t. q, k and v (the TPU
+    kernel's backward from the saved lse, on both devices)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FidCrossAttention.apply(q, k, v, kv_bias, seed, key_chunk,
+                                        dropout_rate)
     return fid_cross_attention_forward(q, k, v, kv_bias, seed, key_chunk,
                                        dropout_rate)[0]
 
@@ -622,3 +739,4 @@ flash_self_attention_backward.launches = 0
 flash_cross_attention.launches = 0
 flash_cross_attention_backward.launches = 0
 fid_cross_attention.launches = 0
+fid_cross_attention_backward.launches = 0

@@ -147,7 +147,7 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
              cands_per_group,
              torch.cuda.current_stream(index.device).cuda_stream)
     build.check(err, "candidate_scan")
-    candidate_scan.launches += 1
+    build.count_launch(candidate_scan)
     return vals, idx
 
 

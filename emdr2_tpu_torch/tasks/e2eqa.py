@@ -17,11 +17,17 @@ with the int8 cross K/V) and scores exact match against the references.
 
 There is no mesh: the port runs on one device, so evaluation feeds whole
 batches (the JAX package's per-process slicing and allgather have nothing
-to do). Prefetching and checkpoints come in later work.
+to do). ``training/engine.py`` loops over ``train_step``; with its
+prefetcher a worker thread runs stages A and B of the next batches on a
+stream of its own, and embeds the queries with a snapshot of the query
+tower (``enable_prefetch_snapshots``), because the optimizer updates the
+live tower in place.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -69,6 +75,18 @@ class E2EQATask:
             cfg, eos_id=t5_tokenizer.eos_id)
         # decoder sessions by (max_decode_len, kv_quant)
         self._sessions: Dict[Tuple[int, Optional[str]], DecoderSession] = {}
+        # the prefetch worker's copy of the query tower, the lock that
+        # orders its readers and its writer on the host, and the events
+        # that order them on the device (CUDA only)
+        self._retrieval_snapshot: Optional[torch.nn.Module] = None
+        self._snapshot_lock = threading.Lock()
+        self._snapshot_written: Optional[torch.cuda.Event] = None
+        self._snapshot_reads: Dict[int, torch.cuda.Event] = {}  # by stream
+
+    @property
+    def global_batch_size(self) -> int:
+        """Questions per train step (one device: the configured batch)."""
+        return self.cfg.train.batch_size
 
     # ------------------------------------------------------------------ setup
 
@@ -87,22 +105,77 @@ class E2EQATask:
                                             self.total_train_iters)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
                                          optimizer=optimizer)
+        self._retrieval_snapshot = None    # a copy of another model's tower
         return self.state
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.long).to(
             self.device)
 
+    # ---- the prefetch worker's query-tower snapshot -------------------------
+    # The optimizer writes the parameters in place, so a worker thread that
+    # embedded stage-A queries with the live tower could read half of one
+    # step and half of the next. With snapshots on, ``retrieve`` embeds with
+    # a copy of the query tower that ``train_step_prebuilt`` refreshes after
+    # every update. On a CUDA device the copy runs on the training stream
+    # after the optimizer; an event makes the next embed (on the worker's
+    # stream) wait for it, and another makes the next copy wait for the
+    # embeds already enqueued: no device-wide synchronize. Selection is as
+    # stale as the prefetch depth (training/prefetch.py); the scores in the
+    # step always come from the live parameters.
+
+    def enable_prefetch_snapshots(self) -> None:
+        if self.state is None:
+            raise RuntimeError("init_state before enabling prefetch")
+        if self._retrieval_snapshot is None:
+            with torch.no_grad():
+                snap = copy.deepcopy(self.state.model.retriever.query_model)
+            self._retrieval_snapshot = snap.requires_grad_(False).eval()
+        self.refresh_retrieval_snapshot()
+
+    @torch.no_grad()
+    def refresh_retrieval_snapshot(self) -> None:
+        """Copy the live query tower into the snapshot (device to device)."""
+        live = self.state.model.retriever.query_model
+        with self._snapshot_lock:
+            cuda = self.device.type == "cuda"
+            if cuda:
+                stream = torch.cuda.current_stream(self.device)
+                for read in self._snapshot_reads.values():
+                    stream.wait_event(read)
+                self._snapshot_reads.clear()
+            torch._foreach_copy_(list(self._retrieval_snapshot.parameters()),
+                                 list(live.parameters()))
+            if cuda:
+                self._snapshot_written = torch.cuda.Event()
+                self._snapshot_written.record(stream)
+
+    def _embed_query(self, ids: torch.Tensor) -> torch.Tensor:
+        if self._retrieval_snapshot is None:
+            return self.state.model.embed_query(ids)
+        with self._snapshot_lock:
+            cuda = self.device.type == "cuda"
+            if cuda:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(self._snapshot_written)
+            q = self._retrieval_snapshot.embed(ids).float()
+            if cuda:
+                read = torch.cuda.Event()
+                read.record(stream)
+                self._snapshot_reads[stream.cuda_stream] = read
+        return q
+
     # --------------------------------------------------------------- stage A
 
     @torch.no_grad()
     def retrieve(self, query_bert_ids: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Fresh query embeddings -> MIPS top-k -> (passage ids, scores) on
-        the host. Fetches K+1 when trivial docs must be dropped."""
+        """Fresh query embeddings (from the snapshot when one is set) ->
+        MIPS top-k -> (passage ids, scores) on the host. Fetches K+1 when
+        trivial docs must be dropped."""
         cfg = self.cfg
         k = cfg.index.topk + (0 if cfg.index.allow_trivial_doc else 1)
-        q = self.state.model.embed_query(self._ids(query_bert_ids))
+        q = self._embed_query(self._ids(query_bert_ids))
         scores, rows = self.index.search(q, k=k)
         return (self.index.lookup_passage_ids(rows.cpu().numpy()),
                 scores.cpu().numpy())
@@ -151,6 +224,9 @@ class E2EQATask:
         """One differentiable step on an already-retrieved batch; metrics
         are 0-d tensors on the device."""
         self.state, metrics = self._step_fn(self.state, device_batch)
+        if self._retrieval_snapshot is not None:
+            # hand the prefetch worker this step's weights
+            self.refresh_retrieval_snapshot()
         return metrics
 
     # ------------------------------------------------------------ evaluation

@@ -1,0 +1,221 @@
+"""Training engine: the epoch / interval loop of end-to-end EMDR2 training
+(port of ``emdr2_tpu/training/engine.py``).
+
+Per-interval loss averages and timer logs, checkpoint and evaluation
+intervals, the ``exit_interval`` and time-budget clean exits, the epoch /
+iteration resume math (``iteration -> epoch, batch offset``), the prefetcher
+and the handshake points of an index refresher.
+
+Unlike the JAX loop, every exit path (an exception included) stops the
+refresher and the prefetch worker and drains an in-flight checkpoint write,
+so a raising step leaves no live embedder and no thread behind.
+"""
+
+from __future__ import annotations
+
+import pprint
+import time
+from typing import Callable, Dict, List, Optional
+
+from emdr2_tpu_torch.config import EMDR2Config
+from emdr2_tpu_torch.training import checkpointing as ckpt_lib
+from emdr2_tpu_torch.training.prefetch import BatchPrefetcher
+from emdr2_tpu_torch.utils import monitoring
+from emdr2_tpu_torch.utils.timers import Timers
+
+
+class TrainLog:
+    """Interval-averaged metric logging. Metrics may be 0-d device tensors:
+    they are read (one wait for the device per value) only when an interval
+    closes, so the steps in between queue up without waiting."""
+
+    def __init__(self, log_interval: int,
+                 printer: Callable[[str], None] = print):
+        self.log_interval = log_interval
+        self.printer = printer
+        self._pending: List[Dict] = []
+        self._t0 = time.perf_counter()
+        self.history: List[Dict[str, float]] = []
+
+    def push(self, iteration: int, total_iters: int, metrics: Dict) -> None:
+        self._pending.append(metrics)
+        if iteration % self.log_interval == 0:
+            acc: Dict[str, float] = {}
+            for m in self._pending:
+                for k, v in m.items():
+                    acc[k] = acc.get(k, 0.0) + float(v)
+            count = len(self._pending)
+            avg = {k: v / count for k, v in acc.items()}
+            ms = (time.perf_counter() - self._t0) * 1000.0 / count
+            avg["ms_per_iter"] = ms
+            avg["iteration"] = iteration
+            self.history.append(avg)
+            parts = " | ".join(f"{k} {v:.4e}" for k, v in avg.items()
+                               if k != "iteration")
+            self.printer(f" iteration {iteration:8d}/{total_iters} | {parts}")
+            self._pending = []
+            self._t0 = time.perf_counter()
+
+
+def train(task, dataset, cfg: EMDR2Config,
+          refresher=None,
+          save_dir: Optional[str] = None,
+          eval_callback: Optional[Callable[[int], Optional[Dict]]] = None,
+          tensorboard_dir: Optional[str] = None,
+          prefetch_depth: int = 0,
+          timeout_minutes: Optional[float] = None,
+          printer: Callable[[str], None] = print,
+          log: Optional[TrainLog] = None) -> int:
+    """Run the training loop; returns the final iteration.
+
+    ``task`` is an ``E2EQATask`` with an initialized state (a resumed one
+    continues from ``task.state.step``); ``dataset`` an ``OpenQADataset``.
+    The total is ``epochs x batches per epoch`` unless
+    ``cfg.train.train_iters`` is set, which is then authoritative: epochs
+    cycle, reshuffled per pass, until it is reached.
+
+    ``refresher`` (optional) is any object with ``start(model)``,
+    ``maybe_swap(iteration, model) -> bool`` and ``stop(wait=...)``: it
+    re-embeds the evidence and swaps the index in. ``eval_callback(
+    iteration)`` may return a metrics dict (e.g. ``{"valid_em": ...}``),
+    which is written to TensorBoard at that iteration. With
+    ``prefetch_depth > 0`` a worker thread builds the next batches
+    (``training/prefetch.py``). Interval saves follow
+    ``cfg.train.async_save``; the exit, time-budget and final saves are
+    synchronous, durable before return. ``log`` (optional) is the
+    ``TrainLog`` to push to, for a caller that reads its ``history``.
+
+    The metrics writer is closed, the refresher and the prefetch worker
+    are stopped and a background checkpoint write is drained on every exit
+    path: normal completion, time budget, ``exit_interval`` and an
+    exception on its way out."""
+    tcfg = cfg.train
+    B = task.global_batch_size
+    batches_per_epoch = len(dataset) // B
+    total_iters = (tcfg.train_iters if tcfg.train_iters is not None
+                   else tcfg.epochs * batches_per_epoch)
+
+    iteration = int(task.state.step)
+    start_epoch = iteration // max(batches_per_epoch, 1)
+    start_offset = iteration % max(batches_per_epoch, 1)
+
+    if log is None:
+        log = TrainLog(tcfg.log_interval, printer)
+    timers = Timers()
+    writer = monitoring.MetricsWriter(tensorboard_dir)
+    reported_memory = False
+    # wall-clock budget: checkpoint and exit cleanly before a scheduler
+    # kills the job
+    deadline = (time.perf_counter() + timeout_minutes * 60.0
+                if timeout_minutes else None)
+
+    def save(it: int, async_save: bool = False) -> None:
+        if save_dir is not None:
+            ckpt_lib.save_checkpoint(save_dir, task.state, it,
+                                     async_save=async_save)
+
+    refresh_count = 0
+    epoch = start_epoch
+    prefetcher: Optional[BatchPrefetcher] = None
+    try:
+        # the full config as TensorBoard text, fenced so it renders verbatim
+        writer.text("config", "```\n" + pprint.pformat(cfg) + "\n```")
+        if refresher is not None:
+            refresher.start(task.state.model)
+        while iteration < total_iters and batches_per_epoch > 0:
+            epoch_batches = dataset.epoch_batches(B, seed=tcfg.seed + epoch)
+            if prefetch_depth > 0:
+                # the worker embeds stage-A queries with a copy of the query
+                # tower refreshed after every step: the optimizer updates
+                # the live one in place
+                task.enable_prefetch_snapshots()
+                epoch_batches = prefetcher = BatchPrefetcher(
+                    task, epoch_batches, depth=prefetch_depth)
+            batches = iter(epoch_batches)
+            bi = -1
+            while iteration < total_iters:
+                timers("batch").start()   # the wait for the next batch
+                batch = next(batches, None)
+                timers("batch").stop()
+                if batch is None:
+                    break
+                bi += 1
+                if epoch == start_epoch and bi < start_offset:
+                    continue                       # resume skip
+
+                if refresher is not None and refresher.maybe_swap(
+                        iteration, task.state.model):
+                    refresh_count += 1
+                    writer.scalars({"index_refresh_count": refresh_count},
+                                   iteration)
+                    if save_dir is not None:
+                        # a checkpoint at every refresh, for fault tolerance
+                        save(iteration, tcfg.async_save)
+                        ckpt_lib.remove_stale_checkpoints(save_dir,
+                                                          keep_last=2)
+
+                timers("step").start()
+                if prefetch_depth > 0:   # an already built device batch
+                    metrics = task.train_step_prebuilt(batch)
+                else:
+                    metrics = task.train_step(batch)
+                timers("step").stop()
+                iteration += 1
+                log.push(iteration, total_iters, metrics)
+                if iteration % tcfg.log_interval == 0:
+                    writer.scalars({k: float(v) for k, v in metrics.items()},
+                                   iteration)
+                    printer(" " + timers.log(["batch", "step"],
+                                             normalizer=tcfg.log_interval))
+                    if not reported_memory:
+                        monitoring.report_memory(" ", printer)
+                        reported_memory = True
+
+                if iteration % tcfg.save_interval == 0:
+                    # staged, then written under the next steps
+                    save(iteration, tcfg.async_save)
+                if (eval_callback is not None
+                        and iteration % tcfg.eval_interval == 0):
+                    eval_metrics = eval_callback(iteration)
+                    if eval_metrics:
+                        writer.scalars({k: float(v)
+                                        for k, v in eval_metrics.items()},
+                                       iteration)
+                if deadline is not None and time.perf_counter() > deadline:
+                    if refresher is not None:
+                        refresher.stop(wait=False)
+                        refresher = None
+                    save(iteration)
+                    printer(f" exiting at iteration {iteration} "
+                            f"(time budget)")
+                    return iteration
+                if tcfg.exit_interval and iteration % tcfg.exit_interval == 0:
+                    # clean shutdown: wait for an index build in flight,
+                    # final save, stop
+                    if refresher is not None:
+                        refresher.stop(wait=True)
+                        refresher = None
+                    save(iteration)
+                    printer(f" exiting at iteration {iteration} "
+                            f"(exit_interval)")
+                    return iteration
+            if prefetcher is not None:
+                prefetcher.close()
+                prefetcher = None
+            epoch += 1
+        if refresher is not None:
+            refresher.stop(wait=True)
+            refresher = None
+        save(iteration)
+        return iteration
+    finally:
+        # reached with a live refresher only when an exception is on its
+        # way out: stop it without waiting for an index build in flight
+        if refresher is not None:
+            refresher.stop(wait=False)
+        if prefetcher is not None:
+            prefetcher.close()
+        writer.close()
+        # a staged interval save becomes durable (or its failure surfaces)
+        # before the loop is left
+        ckpt_lib.finalize_async_saves()

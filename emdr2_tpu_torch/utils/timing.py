@@ -1,4 +1,5 @@
-"""Per-stage wall-clock timing for the serving path."""
+"""Per-stage wall-clock timing for the serving, training and evaluation
+paths."""
 
 from __future__ import annotations
 
@@ -11,9 +12,13 @@ import torch
 
 
 class StageTimer:
-    """Milliseconds per named stage. Each boundary synchronizes ``device``
-    (when it is a CUDA device), so the host clock covers the device work of
-    the stage and nothing of the next one."""
+    """Milliseconds per named stage. Each boundary waits for the calling
+    thread's current stream on ``device`` (when it is a CUDA device), so the
+    host clock covers the device work the thread gave the stage and nothing
+    of the next one. It does not wait for the whole device: the prefetch
+    worker (training/prefetch.py) times its stages against its own stream
+    and never waits for the train step that runs beside it, so its stage
+    times include whatever share of the card that step took from it."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -21,7 +26,7 @@ class StageTimer:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     @contextlib.contextmanager
     def stage(self, name: str):

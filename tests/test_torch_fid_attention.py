@@ -200,3 +200,109 @@ def test_fid_cpu_runs_plain_version_and_checks_inputs():
     meta = [t.to("meta") for t in (q, k, v, bias)]
     with pytest.raises(ValueError):                      # neither CPU nor CUDA
         fid_attention.fid_cross_attention(*meta, None, 8)
+
+
+# ---- K4 backward: the plain version (and the autograd Function over it) ----
+# ---- against jax.vjp of the Pallas kernel in interpret mode             ----
+
+def _jax_fid_vjp(q, k, v, bias, seed, chunk, rate, g):
+    import jax
+    from emdr2_tpu.ops.fid_attention import (
+        fid_cross_attention as jax_fid_cross_attention)
+
+    def f(q_, k_, v_):
+        return jax_fid_cross_attention(q_, k_, v_, jnp.asarray(bias),
+                                       jnp.uint32(seed), chunk, True, rate)
+
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return out, vjp(jnp.asarray(g).astype(out.dtype))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("Lq,Lk,chunk", [(16, 32, 16), (24, 48, 16),
+                                         (8, 24, 8), (32, 32, 32)])
+def test_fid_backward_matches_jax_vjp(Lq, Lk, chunk, rate):
+    """One, two and three chunks, Lq != Lk, masked keys and a fully masked
+    row; at rate 0.3 both sides regenerate the keep mask from the same
+    seed. fp32 on both sides: atol 1e-5, rtol 1e-4."""
+    q, k, v, bias = make_heads(3, Lq, Lk, 2, seed=3 * Lq + Lk)
+    g = np.random.RandomState(Lq).randn(3, Lq, 2, 8).astype(np.float32)
+    seed = 2 ** 31 + 17
+    want, (want_dq, want_dk, want_dv) = _jax_fid_vjp(q, k, v, bias, seed,
+                                                     chunk, rate, g)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    got = fid_attention.fid_cross_attention(tq, tk, tv, torch.as_tensor(bias),
+                                            seed, chunk, rate)
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-4)
+    for t, w in ((tq, want_dq), (tk, want_dk), (tv, want_dv)):
+        assert t.grad.shape == t.shape and torch.isfinite(t.grad).all()
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_fid_backward_padded_keys_match_jax_vjp():
+    """Lk = 40 is no chunk multiple: keys padded to 48 at -1e9 bias as the
+    encoder layer pads them; autograd slices the gradients back."""
+    Lq, Lk, chunk, pad = 40, 40, 16, 8
+    q, k, v, bias = make_heads(2, Lq, Lk, 2, seed=4)
+    g = np.random.RandomState(1).randn(2, Lq, 2, 8).astype(np.float32)
+    widths = ((0, 0), (0, pad), (0, 0), (0, 0))
+    bias_p = np.pad(bias, ((0, 0), (0, pad)), constant_values=-1e9)
+    _, want = _jax_fid_vjp(q, np.pad(k, widths), np.pad(v, widths), bias_p,
+                           5, chunk, 0.2, g)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    F = torch.nn.functional
+    out = fid_attention.fid_cross_attention(
+        tq, F.pad(tk, (0, 0, 0, 0, 0, pad)), F.pad(tv, (0, 0, 0, 0, 0, pad)),
+        torch.as_tensor(bias_p), 5, chunk, 0.2)
+    out.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(want[0]),
+                               atol=1e-5, rtol=1e-4)
+    for t, w in ((tk, want[1]), (tv, want[2])):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w)[:, :Lk],
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_fid_backward_bf16_follows_jax_vjp():
+    """bf16 inputs: both sides round q, k, v, out and the cotangent to bf16
+    and the gradients to bf16 at the end; one bf16 ulp of the largest
+    gradient (2^-7 of it) plus the rounding of out that feeds delta."""
+    q, k, v, bias = make_heads(2, 16, 32, 2, seed=8)
+    g = np.random.RandomState(2).randn(2, 16, 2, 8).astype(np.float32)
+    bf = jnp.bfloat16
+    _, want = _jax_fid_vjp(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                           jnp.asarray(v, bf), bias, 3, 16, 0.0, g)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16).requires_grad_(True)
+                  for a in (q, k, v))
+    out = fid_attention.fid_cross_attention(tq, tk, tv, torch.as_tensor(bias),
+                                            3, 16, 0.0)
+    out.backward(torch.as_tensor(g).to(torch.bfloat16))
+    for t, w in zip((tq, tk, tv), want):
+        assert t.grad.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(t.grad.float().numpy(), w,
+                                   atol=2 ** -6 * np.abs(w).max(), rtol=0)
+
+
+def test_fid_backward_fully_masked_row_is_finite_with_unit_probs():
+    """A row whose every key is masked has lse equal to its scores, so the
+    backward's P is 1 on every key (the TPU kernel's behaviour): dv of that
+    row is the column sum of do."""
+    q, k, v, bias = (torch.as_tensor(a) for a in make_heads(2, 8, 16, 2))
+    out, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, None,
+                                                         8)
+    do = torch.ones_like(out)
+    dq, dk, dv = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, out, do, None, 8)
+    for t in (dq, dk, dv):
+        assert torch.isfinite(t).all()
+    assert torch.allclose(dv[0], torch.full_like(dv[0], 8.0))
+    before = fid_attention.fid_cross_attention_backward.launches
+    fid_attention.fid_cross_attention_backward(q, k, v, bias, lse, out, do,
+                                               None, 8)
+    assert fid_attention.fid_cross_attention_backward.launches == before
+    with pytest.raises(ValueError):                      # lse of another shape
+        fid_attention.fid_cross_attention_backward(
+            q, k, v, bias, lse[:, :4], out, do, None, 8)

@@ -295,14 +295,95 @@ def test_fid_cross_attention_matches_plain(cuda, B, Lq, Lk, chunk, rate):
     assert torch.equal(again, out)
 
 
+def _fid_slab_views(B, Lq, Lk, seed):
+    """q, k, v as [B, L, NH, 64] views of one qkv slab, a bias whose row 0
+    is fully masked, and a non-contiguous cotangent."""
+    g = _gen(seed)
+    H = NH * 64
+    L = max(Lq, Lk)
+    slab = torch.randn(B, L, 3 * H, device="cuda", generator=g
+                       ).to(torch.bfloat16)
+    q = slab[:, :Lq, :H].view(B, Lq, NH, 64)
+    k = slab[:, :Lk, H:2 * H].view(B, Lk, NH, 64)
+    v = slab[:, :Lk, 2 * H:].view(B, Lk, NH, 64)
+    bias = torch.zeros(B, Lk, device="cuda")
+    bias[0, :] = -1e9
+    bias[-1, Lk // 3:] = -1e9
+    dout = torch.randn(B, NH, Lq, 64, device="cuda", generator=g
+                       ).to(torch.bfloat16).transpose(1, 2)
+    return q, k, v, bias, dout
+
+
+# ---- K4-bwd: dq, dk, dv from the saved lse ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Lq,Lk,chunk", [
+    (2, 512, 512, 256),           # the reader encoder under key chunk 256
+    (2, 100, 288, 96),            # Lq != Lk, three chunks, ragged tiles
+    (1, 70, 192, 64),
+    (3, 130, 130, 130),           # one chunk, not a tile multiple
+    (2, 300, 512, 256),           # keys padded to a chunk multiple
+])
+def test_fid_cross_attention_backward_matches_plain(cuda, B, Lq, Lk, chunk,
+                                                    rate):
+    q, k, v, bias, dout = _fid_slab_views(B, Lq, Lk, Lq + Lk)
+    out, lse = fid_attention.fid_cross_attention_reference(q, k, v, bias, 41,
+                                                           chunk, rate)
+    before = fid_attention.fid_cross_attention_backward.launches
+    got = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, out, dout, 41, chunk, rate)
+    torch.cuda.synchronize()
+    assert fid_attention.fid_cross_attention_backward.launches == before + 1
+    want = fid_attention.fid_cross_attention_bwd_reference(
+        q, k, v, bias, lse, out, dout, 41, chunk, rate)
+    for g_, w_, like in zip(got, want, (q, k, v)):
+        assert g_.shape == like.shape and g_.is_contiguous()
+        _assert_close(g_, w_)
+    again = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, out, dout, 41, chunk, rate)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_fid_cross_attention_autograd_runs_both_kernels(cuda):
+    """Through autograd on views of a slab that requires grad: the slab's
+    gradient equals the three kernels' gradients side by side, and a fully
+    masked row (P = 1 on every key, as the TPU backward has it) stays
+    finite."""
+    q, k, v, bias, dout = _fid_slab_views(2, 128, 128, 9)
+    H = NH * 64
+    slab = torch.cat([t.reshape(2, 128, H) for t in (q, k, v)], dim=-1
+                     ).requires_grad_(True)
+    qs, ks, vs = (t.view(2, 128, NH, 64) for t in slab.chunk(3, dim=-1))
+    counts = (fid_attention.fid_cross_attention.launches,
+              fid_attention.fid_cross_attention_backward.launches)
+    out = fid_attention.fid_cross_attention(qs, ks, vs, bias, 7, 64, 0.1)
+    out.backward(dout)
+    assert (fid_attention.fid_cross_attention.launches,
+            fid_attention.fid_cross_attention_backward.launches) == (
+                counts[0] + 1, counts[1] + 1)
+    assert torch.isfinite(slab.grad).all()
+    o2, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, 7, 64,
+                                                        0.1)
+    want = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, o2, dout, 7, 64, 0.1)
+    assert torch.equal(slab.grad, torch.cat(
+        [t.reshape(2, 128, H) for t in want], dim=-1))
+    # the fully masked row against the plain backward
+    plain = fid_attention.fid_cross_attention_bwd_reference(
+        q, k, v, bias, lse, o2, dout, 7, 64, 0.1)
+    for g_, w_ in zip(want, plain):
+        _assert_close(g_[0], w_[0])
+
+
 def test_fid_cross_attention_refuses_grad_and_bad_inputs(cuda):
     g = _gen(5)
     q = torch.randn(2, 64, NH, 64, device=cuda, generator=g
                     ).to(torch.bfloat16)
     bias = torch.zeros(2, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K4-bwd"):
-        fid_attention.fid_cross_attention(q.clone().requires_grad_(True), q,
-                                          q, bias, None, 64)
+    with pytest.raises(ValueError):                      # lse of another shape
+        fid_attention.fid_cross_attention_backward(
+            q, q, q, bias, torch.zeros(2, 64, NH, device=cuda), q, q, None,
+            64)
     with pytest.raises(TypeError):
         fid_attention.fid_cross_attention(q.float(), q.float(), q.float(),
                                           bias, None, 64)

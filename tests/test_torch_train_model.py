@@ -250,3 +250,83 @@ def test_flash_cross_attention_pads_keys_to_a_chunk_multiple():
                     + [p.grad for p in att.parameters()])
     for got, want in zip(*outs):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+def test_key_chunk_below_reader_length_matches_jax():
+    """``flash_key_chunk=32`` under the reader's 48 tokens: the reader and
+    teacher encoders take the general kernel (K4) with keys padded to 64,
+    forward and backward (the plain backward of the TPU kernel's formula on
+    the port's side, the Pallas VJP in interpret mode on the JAX side); the
+    towers' 32 and 16 tokens stay on the slab kernel. Forward, loss and
+    every gradient, atol 1e-5."""
+    from emdr2_tpu_torch.ops import fid_attention
+
+    chunk = {"flash_key_chunk": 32}
+    jcfg = jax_flash_cfg(jax_tiny_config())
+    jcfg = jcfg.replace(
+        retriever=dataclasses.replace(
+            jcfg.retriever,
+            encoder=dataclasses.replace(jcfg.retriever.encoder, **chunk)),
+        reader=dataclasses.replace(
+            jcfg.reader,
+            transformer=dataclasses.replace(jcfg.reader.transformer,
+                                            **chunk)))
+    cfg = with_transformers(with_flash_attention(tiny_config()), chunk, chunk)
+    jbatch = jax_batch(jcfg)
+    jmodel = JaxEMDR2Model(jcfg)
+    params = nn.meta.unbox(jax.jit(jmodel.init)(
+        {"params": jax.random.PRNGKey(2)}, jbatch)["params"])
+
+    def loss_fn(p):
+        out = jmodel.apply({"params": p}, jbatch)
+        total = jax_total_loss(out.lm_logits, out.topk_log_probs,
+                               out.gold_log_probs, jbatch.labels,
+                               jbatch.loss_mask, eos_id=EOS)[0]
+        return total, out
+
+    (want_loss, want_out), grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    want_grads = params_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+
+    model = EMDR2Model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    batch = torch_batch(jbatch)
+    calls = {"fwd": 0, "bwd": 0}
+    orig_f = fid_attention.fid_cross_attention_forward
+    orig_b = fid_attention.fid_cross_attention_backward
+
+    def spy_f(*a, **k):
+        calls["fwd"] += 1
+        return orig_f(*a, **k)
+
+    def spy_b(*a, **k):
+        calls["bwd"] += 1
+        return orig_b(*a, **k)
+
+    fid_attention.fid_cross_attention_forward = spy_f
+    fid_attention.fid_cross_attention_backward = spy_b
+    try:
+        out = model(batch)
+        loss, _ = emdr2_total_loss(out.lm_logits, out.topk_log_probs,
+                                   out.gold_log_probs, batch.labels.long(),
+                                   batch.loss_mask, eos_id=EOS)
+        loss.backward()
+    finally:
+        fid_attention.fid_cross_attention_forward = orig_f
+        fid_attention.fid_cross_attention_backward = orig_b
+    # two encoder layers: reader (with grad) + teacher (without) forward,
+    # and the reader's backward
+    n = cfg.reader.transformer.num_layers
+    assert calls == {"fwd": 2 * n, "bwd": n}
+    for name in want_out._fields:
+        np.testing.assert_allclose(getattr(out, name).detach().numpy(),
+                                   np.asarray(getattr(want_out, name)),
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=ATOL)
+    named = dict(model.named_parameters())
+    for key, g in want_grads.items():
+        got = named[key].grad
+        got = torch.zeros_like(g) if got is None else got
+        np.testing.assert_allclose(got.numpy(), g.numpy(), atol=ATOL,
+                                   err_msg=key)
