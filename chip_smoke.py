@@ -12,11 +12,14 @@
    [400, 256] and [400, 512] (gradients checked on 32 rows, timed on all);
    flash cross-attention (K2) forward and backward at the reader shape
    (8 rows, 32 queries x 25,600 keys) and the teacher shape (400 rows, 32 x
-   512), dropout 0 and 0.1, padded keys present; the MIPS candidate scan
+   512), dropout 0 and 0.1, padded keys present, and its forward's key
+   split under key chunk 256 (100 chunks) and with seven chunks dealt to 1,
+   2, 3 and 7 splits, whole splits and one row padded; the MIPS candidate scan
    (K3) over a 1,310,720 x 768 index in bf16 and int8, nq in {8, 512}, plus
    top-50 recall of the whole search against an exact fp32 search; the
    general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
-   key chunks of 256, dropout 0 and 0.1, and at a small Lq != Lk shape; its
+   key chunks of 256, dropout 0 and 0.1, at a small Lq != Lk shape and on
+   1,024 tokens in key chunks of 512; its
    backward (K4-bwd) at the same shape (gradients checked on 32 rows, timed
    on all) and on a shape with padded keys and a fully masked row; the
    int8 decode attention (K5) at [8, R, 12, 25,600, 64] for R = 1 and 5, on
@@ -354,6 +357,10 @@ def k2_phase(dev, gen):
             if lse_err > LSE_TOL:
                 raise AssertionError(f"K2-fwd {name} rate {rate}: lse error "
                                      f"{lse_err}")
+            again = fa.flash_cross_attention_forward(q, kv, bias, 12, 512,
+                                                     seed, rate)
+            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+                raise AssertionError(f"K2-fwd {name} is not deterministic")
             dq, dkv = fa.flash_cross_attention_backward(
                 q, kv, bias, w_lse, w_out, dout, 12, 512, seed, rate)
             torch.cuda.synchronize()
@@ -384,7 +391,8 @@ def k2_phase(dev, gen):
             lib_ms, lib_bwd_ms = sdpa_times(q, 1, kv, 2, bias, dout)
             log(f"K2 flash_cross_attention {name} [{B}, 32 x {Lk}] rate "
                 f"{rate}: fwd max_abs_err {f_max:.3e} mean {f_mean:.3e} (tol "
-                f"{FWD_TOL} x max|ref| {f_ref:.3e}) lse {lse_err:.3e} | bwd dq max {dq_err[0]:.3e} mean "
+                f"{FWD_TOL} x max|ref| {f_ref:.3e}) lse {lse_err:.3e}, "
+                f"repeat bit-identical | bwd dq max {dq_err[0]:.3e} mean "
                 f"{dq_err[1]:.3e}, dkv max {dkv_err[0]:.3e} mean "
                 f"{dkv_err[1]:.3e} (tol {GRAD_TOL} x max|ref|), repeat "
                 f"bit-identical | fwd kernel {ms:.4f} ms "
@@ -407,6 +415,95 @@ def k2_phase(dev, gen):
         torch.cuda.empty_cache()
     return rows
 
+
+def k2_split_phase(dev, gen):
+    """K2 forward's key split: the reader shape under key chunk 256 (100
+    chunks, the engine phase's setting), timed; then seven chunks dealt to
+    1, 2, 3 and 7 splits (3 deals them 3, 3, 1) with every key past the
+    first 1,000-1,500 padded, so whole splits hold padding only, and one row
+    fully padded. Every run against the plain version (the forced splits
+    also against its split + combine), repeated bit for bit."""
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    rows = []
+
+    def run(name, q, kv, bias, chunk, rate, n_splits):
+        seed = DROP_SEED if rate else None
+        out, lse = fa.flash_cross_attention_forward(q, kv, bias, 12, chunk,
+                                                    seed, rate, n_splits)
+        torch.cuda.synchronize()
+        w_out, w_lse = fa.flash_cross_attention_reference(q, kv, bias, 12,
+                                                          chunk, seed, rate)
+        f_max, f_mean, f_ref = _check(f"K2-fwd {name} rate {rate}", out,
+                                      w_out, FWD_TOL)
+        # rows with a live key: the absolute limit; a fully padded row's lse
+        # is its (equal) scores, about -1e9
+        live = (bias > -1e8).any(dim=1)
+        lse_err = (lse - w_lse)[live].abs().max().item()
+        if lse_err > LSE_TOL or not (torch.isfinite(lse).all()
+                                     and bool((lse[~live] < -9e8).all())):
+            raise AssertionError(f"K2-fwd {name} rate {rate}: lse error "
+                                 f"{lse_err}, padded rows {lse[~live]}")
+        if n_splits is not None:      # and the split + combine arithmetic
+            s_out, s_lse = fa.flash_cross_attention_split_reference(
+                q, kv, bias, 12, chunk, n_splits, seed, rate)
+            _check(f"K2-fwd {name} rate {rate} vs the plain split", out,
+                   s_out, FWD_TOL)
+            if (lse - s_lse)[live].abs().max().item() > LSE_TOL:
+                raise AssertionError(f"K2-fwd {name} rate {rate}: lse off "
+                                     f"the plain split's")
+        again = fa.flash_cross_attention_forward(q, kv, bias, 12, chunk,
+                                                 seed, rate, n_splits)
+        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+            raise AssertionError(f"K2-fwd {name} is not deterministic")
+        return f_max, f_mean, f_ref, lse_err
+
+    B, Lk = 8, 25_600
+    q = torch.randn(B, 32, 768, device=dev, generator=gen).to(torch.bfloat16)
+    kv = torch.randn(B, Lk, 1536, device=dev, generator=gen
+                     ).to(torch.bfloat16)
+    real = torch.randint(Lk // 2, Lk - 100, (B,), device=dev, generator=gen)
+    bias = torch.where(torch.arange(Lk, device=dev)[None, :] < real[:, None],
+                       0.0, -1e9).float()
+    n_chunks = Lk // 256
+    for rate in (0.0, RATE):
+        seed = DROP_SEED if rate else None
+        f_max, f_mean, f_ref, lse_err = run("reader chunk 256", q, kv, bias,
+                                            256, rate, None)
+        ms = time_ms(lambda: fa.flash_cross_attention_forward(
+            q, kv, bias, 12, 256, seed, rate))
+        log(f"K2 flash_cross_attention reader [{B}, 32 x {Lk}] key_chunk 256 "
+            f"({n_chunks} chunks) rate {rate}: fwd "
+            f"max_abs_err {f_max:.3e} mean {f_mean:.3e} (tol {FWD_TOL} x "
+            f"max|ref| {f_ref:.3e}) lse {lse_err:.3e}, repeat bit-identical "
+            f"| fwd kernel {ms:.4f} ms ({nbytes(kv) / ms / 1e6:.1f} GB/s of "
+            f"kv)")
+        rows.append(dict(shape="reader256", rate=rate, max_abs_err=f_max,
+                         ms=ms))
+    del q, kv, bias
+
+    B, Lk = 4, 7 * 512
+    q = torch.randn(B, 32, 768, device=dev, generator=gen).to(torch.bfloat16)
+    kv = torch.randn(B, Lk, 1536, device=dev, generator=gen
+                     ).to(torch.bfloat16)
+    real = torch.randint(1000, 1500, (B,), device=dev, generator=gen)
+    real[0] = 0                                       # a fully padded row
+    bias = torch.where(torch.arange(Lk, device=dev)[None, :] < real[:, None],
+                       0.0, -1e9).float()
+    for n_splits in (1, 2, 3, 7):
+        for rate in (0.0, RATE):
+            f_max, f_mean, f_ref, lse_err = run(
+                f"7 chunks in {n_splits} splits", q, kv, bias, 512, rate,
+                n_splits)
+            rows.append(dict(shape="padded", rate=rate, splits=n_splits,
+                             max_abs_err=f_max))
+    log(f"K2 flash_cross_attention [{B}, 32 x {Lk}] 7 chunks in 1, 2, 3 and "
+        f"7 splits, keys past {real[1:].min().item()}-{real.max().item()} "
+        f"and all of row 0 padded, rate 0 and {RATE}: max_abs_err "
+        f"{max(r['max_abs_err'] for r in rows if r['shape'] == 'padded'):.3e}"
+        f" (tol {FWD_TOL} x max|ref|, against the plain version and its "
+        f"split + combine), lse within {LSE_TOL} on live rows and below -9e8"
+        f" on row 0, repeats bit-identical")
+    return rows
 
 
 def k3_phase(dev, gen):
@@ -483,14 +580,17 @@ def k3_phase(dev, gen):
     return rows
 
 
-def k4_phase(dev, gen):
+def k4_phase(dev, gen, profile=False):
     """K4 forward on [B, L, nh, hd] views of a qkv slab: the reader encoder
-    under key chunk 256 (two chunks), dropout 0 and 0.1, and a small shape
-    with Lq != Lk, three chunks and ragged tiles."""
+    under key chunk 256 (two chunks), dropout 0 and 0.1, a small shape
+    with Lq != Lk, three chunks and ragged tiles, and 1,024 tokens under key
+    chunk 512. ``profile`` adds five calls each of the kernel and of SDPA at
+    the reader shape under torch.profiler."""
     from emdr2_tpu_torch.ops import fid_attention as fa
     rows = []
     for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
-                                   ("small", 3, 100, 288, 96)):
+                                   ("small", 3, 100, 288, 96),
+                                   ("long", 16, 1024, 1024, 512)):
         L = max(Lq, Lk)
         slab = torch.randn(B, L, 3 * 768, device=dev, generator=gen
                            ).to(torch.bfloat16)
@@ -539,6 +639,17 @@ def k4_phase(dev, gen):
             rows.append(dict(shape=name, rate=rate, max_abs_err=max_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms))
+            if profile and name == "reader" and not rate:
+                def five_each():
+                    with torch.no_grad():
+                        for _ in range(5):
+                            fa.fid_cross_attention_forward(q, k, v, bias,
+                                                           seed, chunk, rate)
+                        for _ in range(5):
+                            sdpa(qh, kh, vh, bias)
+                log_profile("K4-fwd and SDPA at the reader shape, five calls "
+                            "each", profile_call(five_each,
+                                                 "k4_fwd_profile.txt", 6))
             del out, lse
         del slab, q, k, v, bias
         torch.cuda.empty_cache()
@@ -1318,8 +1429,9 @@ def profile_call(fn, table_name, n_top=15):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more warm train step and one warm "
-                         "greedy batch with each cross-K/V form")
+                    help="profile one more warm train step, one warm "
+                         "greedy batch with each cross-K/V form, and K4-fwd "
+                         "beside SDPA")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1352,8 +1464,9 @@ def main() -> int:
     k1_drop = k1_dropout_phase(dev, gen)
     k1_bwd = k1_bwd_phase(dev, gen)
     k2 = k2_phase(dev, gen)
+    k2_split = k2_split_phase(dev, gen)
     k3 = k3_phase(dev, gen)
-    k4 = k4_phase(dev, gen)
+    k4 = k4_phase(dev, gen, profile=args.profile)
     k4_bwd = k4_bwd_phase(dev, gen)
     k5 = k5_phase(dev, gen)
     torch.cuda.empty_cache()
@@ -1472,6 +1585,10 @@ def main() -> int:
     k1_bwd_main = k1_bwd[-1]                           # [400, 512]
     k2_main = next(r for r in k2 if r["shape"] == "reader"
                    and r["rate"] == RATE)
+    k2_teacher = next(r for r in k2 if r["shape"] == "teacher"
+                      and r["rate"] == RATE)
+    k2_chunk256 = next(r for r in k2_split if r["shape"] == "reader256"
+                       and r["rate"] == RATE)
     k3_main = next(r for r in k3 if r["dtype"] == "int8" and r["nq"] == 8)
     k4_main = next(r for r in k4 if r["shape"] == "reader"
                    and r["rate"] == 0.0)
@@ -1519,10 +1636,13 @@ def main() -> int:
          "replaces": "emdr2_tpu/ops/fid_attention.py:562",
          "launches": train["flash_cross_attention"],
          "launches_eval": evl["flash_cross_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
+         "max_abs_err": max(r["max_abs_err"] for r in k2 + k2_split),
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": k2_main["library_ms"]},
+         "library_ms": k2_main["library_ms"],
+         "ms_teacher": k2_teacher["ms"],
+         "library_ms_teacher": k2_teacher["library_ms"],
+         "ms_key_chunk_256": k2_chunk256["ms"]},
         {"name": "flash_cross_attention_backward", "route": "cuda",
          "launches_engine": eng["flash_cross_attention_backward"],
          "source": csrc + "flash_cross_attention.cu",

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "emdr2_flash_self_attention_bf16": [_P] * 4 + [_I] * 4 + _DROPOUT + [_P],
     "emdr2_flash_self_attention_bwd_bf16":
         [_P] * 7 + [_I] * 4 + _DROPOUT + [_P],
-    "emdr2_flash_cross_attention_bf16": [_P] * 5 + [_I] * 6 + _DROPOUT + [_P],
+    # ..., the splits' scratch (acc, (m, l)), sizes, key_chunk, n_splits
+    "emdr2_flash_cross_attention_bf16": [_P] * 7 + [_I] * 7 + _DROPOUT + [_P],
     "emdr2_flash_cross_attention_bwd_bf16":
         [_P] * 9 + [_I] * 6 + _DROPOUT + [_P],
     # q, k, v as (batch stride, row stride) in elements after the pointers

@@ -29,6 +29,14 @@ hand-written kernel (``csrc/flash_self_attention.cu``,
 plain PyTorch version beside it, which rounds where the TPU kernel rounds
 and, backward, follows the TPU kernel's formula. Each kernel's wrapper
 counts its launches in ``.launches``.
+
+The K2 and K4 forward kernels are built on ``csrc/attention_mma.cuh``
+(mma.sync and wgmma products with the scores in registers, cp.async rings,
+one online-softmax step); K2's also
+splits the keys over blocks and combines fp32 partials in split order
+(``flash_cross_attention_split_reference`` is that arithmetic in plain
+PyTorch). The other kernels use the WMMA tiles of
+``csrc/attention_tiles.cuh``.
 """
 
 from __future__ import annotations
@@ -279,17 +287,14 @@ def _cross_heads(q, kv, nh):
     return qh, kvh[0], kvh[1], hd
 
 
-def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
-                                    seed: Optional[int] = None,
-                                    rate: float = 0.0
-                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch forward with the TPU kernel's chunked online softmax
-    and rounding: per chunk of ``key_chunk`` keys, ``p = exp(s - m_new)``
-    against the running max, ``l`` over undropped ``p``, dropped ``p`` cast
-    to kv's dtype before the fp32-accumulated P.V. Returns (out [B, Lq, H]
-    in q's dtype, lse [B, Lq, nh] fp32)."""
-    B, Lq, H = q.shape
-    Lk = kv.shape[1]
+def _cross_walk(q, kv, kv_bias, nh: int, key_chunk: int, chunks, seed,
+                rate: float):
+    """The TPU kernel's online softmax over the key chunks ``chunks`` (a
+    range): per chunk, ``p = exp(s - m_new)`` against the running max, ``l``
+    over undropped ``p``, dropped ``p`` cast to kv's dtype before the
+    fp32-accumulated P.V. Returns the running (m, l, acc), heads first:
+    [B, nh, Lq, 1], [B, nh, Lq, 1], [B, nh, Lq, hd]."""
+    B, Lq, _ = q.shape
     qh, kh, vh, hd = _cross_heads(q, kv, nh)
     qf = qh.float()
     bias = kv_bias.float()
@@ -297,7 +302,7 @@ def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
     m = torch.full((B, nh, Lq, 1), -1e30, device=q.device)
     l = torch.zeros((B, nh, Lq, 1), device=q.device)
     acc = torch.zeros((B, nh, Lq, hd), device=q.device)
-    for j in range(Lk // key_chunk):
+    for j in chunks:
         sl = slice(j * key_chunk, (j + 1) * key_chunk)
         s = torch.matmul(qf, kh[:, :, sl].float().transpose(-1, -2))
         s = s * (hd ** -0.5) + bias[:, None, None, sl]
@@ -311,11 +316,29 @@ def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
         acc = acc * corr + torch.matmul(p.to(kv.dtype).float(),
                                         vh[:, :, sl].float())
         m = m_new
+    return m, l, acc
+
+
+def _cross_finish(q, m, l, acc, rate: float):
+    """(out [B, Lq, H] in q's dtype, lse [B, Lq, nh] fp32) from a walk's
+    (m, l, acc): ``acc / (l*(1-rate))`` and ``m + log l``, both guarded."""
     l_eff = l * (1.0 - rate) if rate else l
     safe = torch.where(l_eff > 0, l_eff, torch.ones_like(l_eff))
-    out = (acc / safe).to(q.dtype).permute(0, 2, 1, 3).reshape(B, Lq, H)
+    out = (acc / safe).to(q.dtype).permute(0, 2, 1, 3).reshape(q.shape)
     lse = m + torch.log(torch.where(l > 0, l, torch.ones_like(l)))
     return out, lse[..., 0].permute(0, 2, 1).contiguous()
+
+
+def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
+                                    seed: Optional[int] = None,
+                                    rate: float = 0.0
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward with the TPU kernel's chunked online softmax
+    and rounding (``_cross_walk`` over every chunk in order). Returns (out
+    [B, Lq, H] in q's dtype, lse [B, Lq, nh] fp32)."""
+    chunks = range(kv.shape[1] // key_chunk)
+    return _cross_finish(q, *_cross_walk(q, kv, kv_bias, nh, key_chunk,
+                                         chunks, seed, rate), rate)
 
 
 def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
@@ -388,12 +411,69 @@ def _check_cross(q, kv, kv_bias, nh, key_chunk):
                          f"{q.device} / {kv.device} / {kv_bias.device}")
 
 
+def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
+                                          key_chunk: int, n_splits: int,
+                                          seed: Optional[int] = None,
+                                          rate: float = 0.0
+                                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the kernel's key split, in plain PyTorch: the
+    chunks are dealt to ``n_splits`` runs of whole chunks, each run walked
+    on its own into a partial (m, l, acc), and the partials combined in
+    split order: M = max m_i, l = sum l_i exp(m_i - M), acc likewise, then
+    out and lse as in the unsplit walk, which this equals up to rounding.
+    Nothing on the card's path calls it: the tests hold the combine rule
+    with it, and ``chip_smoke.py`` holds the kernel's forced splits to it."""
+    n_chunks = kv.shape[1] // key_chunk
+    per_split = _split_chunks(n_chunks, n_splits)[1]
+    parts = [_cross_walk(q, kv, kv_bias, nh, key_chunk,
+                         range(j0, min(n_chunks, j0 + per_split)), seed, rate)
+             for j0 in range(0, n_chunks, per_split)]
+    m = torch.stack([part[0] for part in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        w = torch.exp(m_i - m)
+        l = l + l_i * w
+        acc = acc + acc_i * w
+    return _cross_finish(q, m, l, acc, rate)
+
+
+# blocks the forward wants in flight before it stops splitting the keys, per
+# multiprocessor (four fit at once; more, smaller ones even out the tail)
+_CROSS_BLOCKS_PER_SM = 8
+
+
+def _split_chunks(n_chunks: int, n_splits: int) -> Tuple[int, int]:
+    """(splits, chunks per split) when ``n_chunks`` whole chunks are dealt
+    to at most ``n_splits`` runs of equal length, none empty (the last may
+    be shorter)."""
+    if n_splits < 1:
+        raise ValueError(f"n_splits must be >= 1, got {n_splits}")
+    per_split = -(-n_chunks // min(n_splits, n_chunks))
+    return -(-n_chunks // per_split), per_split
+
+
+def _cross_splits(B: int, nh: int, n_chunks: int, device) -> int:
+    """Key splits of the forward kernel: enough that B*nh*splits blocks fill
+    the card (the reader shape has 96 (head, row) pairs for 132
+    multiprocessors), one when the rows alone do (the teacher shape)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-_CROSS_BLOCKS_PER_SM * sms // (B * nh))
+    return _split_chunks(n_chunks, want)[0]
+
+
 def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
                                   seed: Optional[int] = None,
-                                  rate: float = 0.0
+                                  rate: float = 0.0,
+                                  n_splits: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Lq, H], lse [B, Lq, nh] fp32): the kernel on CUDA, the
-    plain version on CPU. Not differentiable (see ``flash_cross_attention``)."""
+    plain version on CPU. Not differentiable (see ``flash_cross_attention``).
+
+    The kernel deals the key chunks to ``n_splits`` blocks per (head, row)
+    and combines their fp32 partials in split order (one count in
+    ``.launches`` either way); ``None`` picks the number from the shape and
+    the card, a given number is reduced until no split is empty."""
     _check_cross(q, kv, kv_bias, nh, key_chunk)
     _dropout_args(seed, rate)
     if q.device.type == "cpu":
@@ -406,12 +486,24 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
     if H // nh != 64 or Lq > 64:
         raise ValueError(f"kernel is built for head_dim 64 and at most 64 "
                          f"queries, got head_dim {H // nh}, Lq {Lq}")
+    n_chunks = Lk // key_chunk
+    if n_splits is None:
+        n_splits = _cross_splits(B, nh, n_chunks, q.device)
+    else:
+        n_splits = _split_chunks(n_chunks, n_splits)[0]
     out = torch.empty((B, Lq, H), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Lq, nh), dtype=torch.float32, device=q.device)
+    part_acc = part_ml = None
+    if n_splits > 1:
+        part_acc = torch.empty((n_splits, B, nh, Lq, 64),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((n_splits, B, nh, Lq, 2), dtype=torch.float32,
+                              device=q.device)
     err = build.load().emdr2_flash_cross_attention_bf16(
         q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
-        *_dropout_args(seed, rate), _stream(q))
+        lse.data_ptr(), part_acc.data_ptr() if n_splits > 1 else None,
+        part_ml.data_ptr() if n_splits > 1 else None, B, Lq, Lk, nh, 64,
+        key_chunk, n_splits, *_dropout_args(seed, rate), _stream(q))
     build.check(err, "flash_cross_attention")
     build.count_launch(flash_cross_attention)
     return out, lse

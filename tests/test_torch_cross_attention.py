@@ -1,7 +1,9 @@
 """K2: the port's flash cross-attention (plain versions, CPU) against the
 JAX Pallas kernel ``flash_cross_attention`` run in interpret mode: output,
 lse, dq and dkv (the JAX dkv arrives in [B, Lk, 2H] after its own swap),
-with one and several key chunks, a padded key tail, and dropout.
+with one and several key chunks, a padded key tail, and dropout; and the
+key split of the CUDA forward (partials per run of whole chunks, combined in
+split order) against the unsplit plain version.
 
 Tolerance: both sides compute in fp32 and differ only in summation order:
 atol 1e-5, rtol 1e-4.
@@ -22,6 +24,8 @@ from emdr2_tpu_torch.ops import fid_attention  # noqa: E402
 from emdr2_tpu_torch.ops.fid_attention import (  # noqa: E402
     flash_cross_attention,
     flash_cross_attention_forward,
+    flash_cross_attention_reference,
+    flash_cross_attention_split_reference,
 )
 
 torch.set_num_threads(2)
@@ -75,6 +79,38 @@ def test_forward_lse_and_grads_match_jax(Lk, chunk, real, rate):
     np.testing.assert_allclose(a.grad.numpy(), np.asarray(want_dq), **tol)
     assert b.grad.shape == kv.shape                  # [B, Lk, 2H]
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(want_dkv), **tol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_split_and_combine_equals_unsplit_walk(n_splits, rate):
+    """Seven chunks of 16 keys dealt to 1, 2, 3 (3 + 3 + 1) and 7 splits:
+    keys past 40 are padding, so whole splits hold padding only, and row 0
+    is padded throughout. fp32 on both sides, another summation order:
+    atol = rtol = 1e-5."""
+    nh, chunk = 2, 16
+    q, kv, bias, _ = make_inputs(3, 5, 7 * chunk, nh, real=40, seed=n_splits)
+    bias[0] = -1e9
+    q, kv, bias = (torch.as_tensor(x) for x in (q, kv, bias))
+    want, want_lse = flash_cross_attention_reference(q, kv, bias, nh, chunk,
+                                                     SEED, rate)
+    got, lse = flash_cross_attention_split_reference(q, kv, bias, nh, chunk,
+                                                     n_splits, SEED, rate)
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **tol)
+    assert lse[0].max().item() < -9e8                 # the padded row's lse
+
+
+def test_split_counts_leave_no_split_empty():
+    assert fid_attention._split_chunks(7, 3) == (3, 3)
+    assert fid_attention._split_chunks(7, 5) == (4, 2)     # 2 + 2 + 2 + 1
+    assert fid_attention._split_chunks(7, 50) == (7, 1)
+    assert fid_attention._split_chunks(1, 4) == (1, 1)
+    assert fid_attention._split_chunks(100, 11) == (10, 10)
+    with pytest.raises(ValueError):
+        fid_attention._split_chunks(7, 0)
 
 
 def test_cpu_runs_plain_version_without_counting():

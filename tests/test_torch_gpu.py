@@ -152,6 +152,8 @@ def test_self_attention_rate_zero_is_no_dropout_and_repeats(cuda):
     (3, 8, 96, 96, 50),           # one chunk, ragged: not a tile multiple
     (2, 32, 144, 48, 100),        # chunk smaller than a tile
     (1, 64, 512, 512, 512),
+    (2, 32, 3584, 512, 1200),     # seven chunks, seven splits, four padded
+    (1, 32, 25600, 256, 20000),   # the reader's keys under key chunk 256
 ])
 def test_cross_attention_forward_backward_match_plain(cuda, B, Lq, Lk,
                                                       chunk, real, rate):
@@ -177,6 +179,37 @@ def test_cross_attention_forward_backward_match_plain(cuda, B, Lq, Lk,
     _assert_close(b.grad, dkv)
     # padded keys of every row get exactly zero dk and dv
     assert (b.grad[:, real:] == 0).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lk,chunk,real,n_splits", [
+    (3584, 512, 1200, 1),         # seven chunks walked by one block
+    (3584, 512, 1200, 2),         # 4 + 3
+    (3584, 512, 1200, 3),         # 3 + 3 + 1; the last two all padding
+    (3584, 512, 1200, 5),         # reduced to four splits of 2, 2, 2, 1
+    (3584, 512, 1200, 7),
+    (512, 512, 400, 4),           # one chunk: one split, no combine
+    (25600, 256, 20000, None),    # 100 chunks, the wrapper's own choice
+    (144, 48, 100, 3),            # chunks smaller than a tile
+])
+def test_cross_attention_key_splits_match_plain(cuda, Lk, chunk, real,
+                                                n_splits, rate):
+    q, kv, bias, _ = _cross_inputs(2, 32, Lk, real, seed=Lk + (n_splits or 0))
+    bias[0, :] = -1e9                                 # a fully padded row
+    before = fid_attention.flash_cross_attention.launches
+    out, lse = fid_attention.flash_cross_attention_forward(
+        q, kv, bias, NH, chunk, 31, rate, n_splits)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_cross_attention.launches == before + 1
+    want, want_lse = fid_attention.flash_cross_attention_reference(
+        q, kv, bias, NH, chunk, 31, rate)
+    _assert_close(out, want)
+    assert torch.isfinite(lse).all()
+    assert (lse - want_lse).abs().max().item() <= 1e-3 * want_lse.abs().max()
+    assert (lse[1] - want_lse[1]).abs().max().item() <= 1e-3
+    again = fid_attention.flash_cross_attention_forward(
+        q, kv, bias, NH, chunk, 31, rate, n_splits)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 def test_cross_attention_fully_masked_row_stays_finite(cuda):
@@ -267,6 +300,8 @@ def test_candidate_scan_matches_plain(cuda, dtype, nq, cands):
     (2, 100, 288, 96),            # Lq != Lk, three chunks, ragged tiles
     (1, 70, 192, 64),
     (3, 130, 130, 130),           # one chunk, not a tile multiple
+    (2, 256, 1024, 512),          # two chunks of 512
+    (1, 200, 128, 64),            # query tiles past Lq, two whole chunks
 ])
 def test_fid_cross_attention_matches_plain(cuda, B, Lq, Lk, chunk, rate):
     g = _gen(Lq + Lk)
@@ -373,6 +408,40 @@ def test_fid_cross_attention_autograd_runs_both_kernels(cuda):
         q, k, v, bias, lse, o2, dout, 7, 64, 0.1)
     for g_, w_ in zip(want, plain):
         _assert_close(g_[0], w_[0])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Lq,Lk,chunk", [
+    (2, 128, 128, 64), (2, 100, 288, 96), (3, 130, 130, 130),
+    (2, 512, 512, 256), (2, 256, 1024, 512),
+])
+def test_fid_cross_attention_forward_then_backward_match_plain(cuda, B, Lq,
+                                                               Lk, chunk,
+                                                               rate):
+    """Through the autograd Function: the backward kernels take the forward
+    kernel's out and lse, which agree with the plain forward's, and their
+    gradients match the plain backward's from the same out and lse."""
+    q, k, v, bias, dout = _fid_slab_views(B, Lq, Lk, Lq + Lk + chunk)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    counts = (fid_attention.fid_cross_attention.launches,
+              fid_attention.fid_cross_attention_backward.launches)
+    out = fid_attention.fid_cross_attention(*leaves, bias, 41, chunk, rate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fid_attention.fid_cross_attention.launches,
+            fid_attention.fid_cross_attention_backward.launches) == (
+                counts[0] + 1, counts[1] + 1)
+    w_out, w_lse = fid_attention.fid_cross_attention_reference(
+        q, k, v, bias, 41, chunk, rate)
+    _assert_close(out.detach(), w_out)
+    out2, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, 41,
+                                                          chunk, rate)
+    assert torch.equal(out2, out.detach())
+    assert (lse - w_lse).abs().max().item() <= 1e-3 * w_lse.abs().max()
+    want = fid_attention.fid_cross_attention_bwd_reference(
+        q, k, v, bias, lse, out2, dout, 41, chunk, rate)
+    for leaf, w_ in zip(leaves, want):
+        _assert_close(leaf.grad, w_)
 
 
 def test_fid_cross_attention_refuses_grad_and_bad_inputs(cuda):
