@@ -7,9 +7,12 @@
    (one nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version at the shapes the
    serving and training paths give it, and times both with CUDA events:
-   flash self-attention (K1) forward at [8, 64, 2304] and [400, 512, 2304]
-   (bf16, 12 heads) and with dropout 0.1, its backward at [8, 64],
-   [400, 256] and [400, 512] (gradients checked on 32 rows, timed on all);
+   flash self-attention (K1) forward at [8, 64, 2304], [400, 256, 2304] and
+   [400, 512, 2304] (bf16, 12 heads, one row fully padded; the saved
+   (rowmax, 1/l) held against the plain statistics) and with dropout 0.1,
+   its backward at [8, 64], [400, 256] and [400, 512] (gradients checked on
+   32 rows, timed on all); the registers, spills and shared memory of the
+   K1 and K4-fwd kernels are printed by name, and a spill fails the run;
    flash cross-attention (K2) forward and backward at the reader shape
    (8 rows, 32 queries x 25,600 keys) and the teacher shape (400 rows, 32 x
    512), dropout 0 and 0.1, padded keys present, and its forward's key
@@ -49,8 +52,9 @@
    steps; checks the metrics are finite, the gradient norm positive and
    the parameters moved once the learning rate is non-zero.
    ``--profile`` adds a fourth step under ``torch.profiler`` and prints its
-   top device kernels, and does the same for one warm greedy batch with
-   the fp32-K slab and one with the int8 slab.
+   top device kernels and the device time by operator, and does the same
+   for one warm greedy batch with the fp32-K slab and one with the int8
+   slab, for K4-fwd beside SDPA and for K1's three kernels at each shape.
 5. Evaluation under ``flash_key_chunk=256`` (the reader's 512-token rows
    then take the general flash kernel): ``E2EQATask.evaluate_em`` on 16
    synthetic QA examples (greedy, int8 K/V), beam 5 on 8 of them, and
@@ -104,6 +108,7 @@ FWD_TOL = (2e-2, 2e-3)
 # reference gradient
 GRAD_TOL = (2e-2, 2e-3)
 LSE_TOL = 1e-3                 # abs error of K2's fp32 lse
+STATS_TOL = 1e-3               # K1's fp32 (rowmax, 1/l): abs, relative
 RATE = 0.1                     # attention dropout of the flagship recipe
 DROP_SEED = 0x5EED
 # NVIDIA H100 SXM data sheet (dense): device memory rate, tensor-core rates
@@ -191,14 +196,61 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip()
 
 
+def _check_self_stats(name, stats, want, bias):
+    """The saved (rowmax, 1/l) [B, nh, 2, L] against the plain statistics:
+    rowmax to STATS_TOL on rows with a live key, 1/l to STATS_TOL of
+    itself; a fully padded row's rowmax is its scores (about -1e9) and its
+    1/l exactly 1/L. Returns the two errors over the live rows."""
+    L = want.shape[-1]
+    live = (bias > -1e8).any(dim=1)
+    m_err = (stats[live, :, 0] - want[live, :, 0]).abs().max().item()
+    il_err = (stats[live, :, 1] / want[live, :, 1] - 1.0).abs().max().item()
+    padded = stats[~live]
+    if not (torch.isfinite(stats).all() and m_err <= STATS_TOL
+            and il_err <= STATS_TOL and bool((padded[:, :, 0] < -9e8).all())
+            and bool((padded[:, :, 1] == 1.0 / L).all())):
+        raise AssertionError(f"{name}: statistics disagree with the plain "
+                             f"ones: rowmax {m_err}, 1/l {il_err} (relative)")
+    return m_err, il_err
+
+
+def flash_kernel_report(ptxas_log: str) -> None:
+    """Registers, spills and shared memory of the kernels instantiated from
+    ``attention_flash.cuh`` (K1 forward and backward, K4 forward), by name,
+    from the compilers' ``-Xptxas -v`` output and the library's launch
+    configuration. Fails if one of them spills."""
+    import ctypes
+    import re
+
+    from emdr2_tpu_torch.ops import build
+    smem = (ctypes.c_int * 2)()
+    build.load().emdr2_flash_self_attention_smem(smem)
+    entry = re.compile(
+        r"Compiling entry function '_ZN6aflash\d+(flash_\w+?_kernel)ILb([01])"
+        r"ENS_\d+(\w+?)EEE.*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
+        r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers")
+    for kernel, drop, stat, stack, st, ld, regs in entry.findall(ptxas_log):
+        dyn = smem[0] if kernel == "flash_fwd_kernel" else smem[1]
+        log(f"  {kernel}<dropout {'on' if drop == '1' else 'off'}, {stat}>: "
+            f"{regs} registers, {stack} bytes stack, spill stores {st} loads "
+            f"{ld} bytes, {dyn} bytes of dynamic shared memory a block")
+        if int(st) or int(ld):
+            raise AssertionError(f"{kernel}<{drop}, {stat}> spills registers")
+
+
 def k1_phase(dev, gen):
+    """K1 forward at the query tower's, the context tower's and the
+    reader's shapes, rate 0, with one fully padded row: the output and the
+    saved statistics against their plain versions."""
     from emdr2_tpu_torch.ops.fid_attention import (
-        flash_self_attention, flash_self_attention_reference)
+        flash_self_attention, flash_self_attention_forward,
+        flash_self_attention_reference, flash_self_attention_stats_reference)
     rows = []
-    for B, L in ((8, 64), (400, 512)):
+    for B, L in ((8, 64), (400, 256), (400, 512)):
         qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen
                           ).to(torch.bfloat16)
         lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
+        lens[B // 2] = 0                       # a fully padded row
         bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
                            0.0, -1e9).float()
         got = flash_self_attention(qkv, bias, 12)
@@ -206,6 +258,17 @@ def k1_phase(dev, gen):
         want = flash_self_attention_reference(qkv, bias, 12)
         max_err, mean_err, ref = _check(f"K1 [{B}, {L}]", got, want,
                                         FWD_TOL)
+        with_stats, stats = flash_self_attention_forward(qkv, bias, 12)
+        if not torch.equal(with_stats, got):
+            raise AssertionError(f"K1 [{B}, {L}]: saving the statistics "
+                                 f"changed the output")
+        n = min(B, 32)
+        idx = torch.unique(torch.tensor([*range(n), B // 2], device=dev))
+        m_err, il_err = _check_self_stats(
+            f"K1 [{B}, {L}]", stats[idx],
+            flash_self_attention_stats_reference(qkv[idx], bias[idx], 12),
+            bias[idx])
+        del with_stats, stats
         ms = time_ms(lambda: flash_self_attention(qkv, bias, 12))
         plain_ms = time_ms(lambda: flash_self_attention_reference(qkv, bias,
                                                                   12))
@@ -218,7 +281,10 @@ def k1_phase(dev, gen):
             f"max|ref| {ref:.3e}) | kernel {ms:.4f} ms "
             f"({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} ms | "
             f"SDPA {lib_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
-            f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP)")
+            f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP) | statistics "
+            f"(rows 0..{n - 1} and the fully padded row {B // 2}): rowmax "
+            f"error {m_err:.3e}, 1/l relative error {il_err:.3e} (tol "
+            f"{STATS_TOL}), the padded row's 1/l exactly 1/L")
         rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms))
@@ -274,10 +340,13 @@ def k1_dropout_phase(dev, gen):
     return dict(B=400, L=512, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
-def k1_bwd_phase(dev, gen, check_rows=32):
+def k1_bwd_phase(dev, gen, check_rows=32, profile=False):
     """K1 backward at the towers' and the reader's shapes, dropout 0.1:
     gradients held against the plain backward on the first ``check_rows``
-    rows (its fp32 [B, nh, L, L] tensors), both timed on all rows."""
+    rows (its fp32 [B, nh, L, L] tensors), both timed on all rows.
+    ``profile`` adds the device time of the forward kernel and of the
+    backward's two at each shape (five calls each under torch.profiler:
+    at [8, 64] the events above time the launch, not the kernels)."""
     from emdr2_tpu_torch.ops.fid_attention import (
         flash_self_attention_backward, flash_self_attention_bwd_reference,
         flash_self_attention_forward)
@@ -322,6 +391,16 @@ def k1_bwd_phase(dev, gen, check_rows=32):
         rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms))
+        if profile:
+            def five_each():
+                for _ in range(5):
+                    flash_self_attention_forward(qkv, bias, 12, DROP_SEED,
+                                                 RATE)
+                for _ in range(5):
+                    kernel()
+            log_profile(f"K1 forward and backward at [{B}, {L}] dropout "
+                        f"{RATE}, five calls each",
+                        profile_call(five_each, f"k1_profile_{L}.txt", 4))
         del qkv, bias, dout, out, stats, got
         torch.cuda.empty_cache()
     return rows
@@ -903,6 +982,12 @@ def log_profile(what, p):
         f"{p['device_ms']:.1f} ms (busy {busy:.3f})")
     for key, ms, count in p["top"]:
         log(f"  {ms:10.3f} ms  {count:6d}x  {key[:100]}")
+    log(f"  by class of kernel ({what}):")
+    for label, ms in sorted(p["classes"].items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:10.3f} ms  {ms / p['device_ms']:6.1%}  {label}")
+    log(f"  by operator ({what}):")
+    for key, ms, count in p["by_op"]:
+        log(f"  {ms:10.3f} ms  {count:6d}x  {key[:100]}")
 
 
 def generation_runs(cfg, model, tok, corpus, index, dev, questions, batch,
@@ -1395,6 +1480,29 @@ def engine_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
                     load_s=load_s))
 
 
+# classes of device kernels in a profile, by the first substring of the
+# kernel's name that matches (in this order)
+KERNEL_CLASSES = (
+    ("K1 flash self-attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("K2 flash cross-attention", ("::cross_",)),
+    ("K3, K4, K5", ("candidate_scan_kernel", "::fid_", "::decode_")),
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma",
+                                  "cublas")),
+    ("integer elementwise (the plain dropout hash)",
+     ("<int, int, int", "Bitwise", "bitwise", "shift")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+    ("other elementwise", ("elementwise_kernel",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    for label, words in KERNEL_CLASSES:
+        if any(w in name for w in words):
+            return label
+    return "other"
+
+
 def profile_call(fn, table_name, n_top=15):
     """One warm call of ``fn`` under torch.profiler: (device ms summed over
     kernels, wall ms, the top kernels by device time); the operator table
@@ -1414,24 +1522,34 @@ def profile_call(fn, table_name, n_top=15):
 
     # kernels only: an operator's row repeats the device time of the
     # kernels it launched; a kernel's own row has no CPU time
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if dev_us(e) > 0 and e.self_cpu_time_total == 0]
     events.sort(key=dev_us, reverse=True)
     total_ms = sum(dev_us(e) for e in events) / 1e3
     top = [(e.key, dev_us(e) / 1e3, e.count) for e in events[:n_top]]
+    # the same device time by the operator that launched the kernels
+    ops = sorted((e for e in averages
+                  if dev_us(e) > 0 and e.self_cpu_time_total > 0),
+                 key=dev_us, reverse=True)
+    by_op = [(e.key, dev_us(e) / 1e3, e.count) for e in ops[:2 * n_top]]
+    classes = {}
+    for e in events:
+        label = kernel_class(e.key)
+        classes[label] = classes.get(label, 0.0) + dev_us(e) / 1e3
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", table_name), "w") as f:
-        f.write(prof.key_averages().table(
-            sort_by="self_cuda_time_total", row_limit=60))
-    return dict(device_ms=total_ms, wall_ms=wall_ms, top=top)
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=60))
+    return dict(device_ms=total_ms, wall_ms=wall_ms, top=top, by_op=by_op,
+                classes=classes)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm train step, one warm "
-                         "greedy batch with each cross-K/V form, and K4-fwd "
-                         "beside SDPA")
+                         "greedy batch with each cross-K/V form, K4-fwd "
+                         "beside SDPA, and K1's kernels at each shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1459,10 +1577,11 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas:", line.strip())
+    flash_kernel_report(info["log"])
 
     k1 = k1_phase(dev, gen)
     k1_drop = k1_dropout_phase(dev, gen)
-    k1_bwd = k1_bwd_phase(dev, gen)
+    k1_bwd = k1_bwd_phase(dev, gen, profile=args.profile)
     k2 = k2_phase(dev, gen)
     k2_split = k2_split_phase(dev, gen)
     k3 = k3_phase(dev, gen)

@@ -24,6 +24,7 @@ from emdr2_tpu_torch.data import masks
 from emdr2_tpu_torch.models.bert import DualEncoder
 from emdr2_tpu_torch.models.layers import DecodeCache, init_weights
 from emdr2_tpu_torch.models.t5 import T5Model
+from emdr2_tpu_torch.ops.fid_attention import check_kernel_limits
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -56,9 +57,20 @@ class EMDR2Model(nn.Module):
         """Parameters are made on ``device`` (the card unless the caller
         names another; no card there raises) and initialized from
         ``generator`` like the JAX package's init (load converted weights
-        with ``load_state_dict`` to replace them)."""
+        with ``load_state_dict`` to replace them). On a card a configuration
+        that the attention kernels do not take
+        (``ops.fid_attention.kernel_limits``) raises here, before any work:
+        nothing is routed to a plain version."""
         super().__init__()
         device = resolve_device(device)
+        if device.type == "cuda":
+            for name, cfg, decoder_len in (
+                    ("retriever.encoder", config.retriever.encoder, None),
+                    ("reader.transformer", config.reader.transformer,
+                     config.reader.decoder_seq_len)):
+                check_kernel_limits(f"EMDR2Model on {device}, {name}",
+                                    cfg.dtype, cfg.head_dim, decoder_len,
+                                    cfg.fid_flash_attention)
         self.config = config
         self.retriever = DualEncoder(config.retriever, device)
         self.reader = T5Model(config.reader.transformer, device)

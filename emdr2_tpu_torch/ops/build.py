@@ -38,6 +38,7 @@ _SIGNATURES = {
     "emdr2_flash_self_attention_bf16": [_P] * 4 + [_I] * 4 + _DROPOUT + [_P],
     "emdr2_flash_self_attention_bwd_bf16":
         [_P] * 7 + [_I] * 4 + _DROPOUT + [_P],
+    "emdr2_flash_self_attention_smem": [_P],
     # ..., the splits' scratch (acc, (m, l)), sizes, key_chunk, n_splits
     "emdr2_flash_cross_attention_bf16": [_P] * 7 + [_I] * 7 + _DROPOUT + [_P],
     "emdr2_flash_cross_attention_bwd_bf16":

@@ -1,11 +1,11 @@
-// Register-resident attention tiles for the forward flash kernels (bf16,
-// head dim 64): the products on the tensor cores with their results in
-// registers, tiles brought in by cp.async, an online softmax that never
-// leaves registers. Two families of products share the softmax:
+// Register-resident attention tiles for the flash kernels (bf16, head dim
+// 64): the products on the tensor cores with their results in registers,
+// tiles brought in by cp.async, an online softmax that never leaves
+// registers. Two families of products share the softmax:
 // mma.sync.m16n8k16 fed by ldmatrix (one warp at a time: the cross-attention
 // forward, whose warps walk different keys) and wgmma.m64n64k16 (four warps
-// at a time, operands read straight from shared memory: the general
-// forward).
+// at a time, operands read straight from shared memory: the walks of
+// attention_flash.cuh).
 //
 // A warp owns M "atoms" of 16 query rows and NT "n-tiles" of 8 keys. Its
 // scores S[M][NT][4] come out of Q.K^T in the accumulator layout of the
@@ -282,6 +282,20 @@ __device__ __forceinline__ void accumulate_pv(float (&O)[M][DT][4],
   }
 }
 
+// The bf16 A operands of a product whose left factor is P (a warp's 16 rows
+// in the score layout): A[ks] covers keys 16*ks .. 16*ks + 15.
+template <int NT>
+__device__ __forceinline__ void pack_scores(uint32_t (&A)[NT / 2][4],
+                                            const float (&P)[1][NT][4]) {
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks) {
+    A[ks][0] = pack_bf16(P[0][2 * ks][0], P[0][2 * ks][1]);
+    A[ks][1] = pack_bf16(P[0][2 * ks][2], P[0][2 * ks][3]);
+    A[ks][2] = pack_bf16(P[0][2 * ks + 1][0], P[0][2 * ks + 1][1]);
+    A[ks][3] = pack_bf16(P[0][2 * ks + 1][2], P[0][2 * ks + 1][3]);
+  }
+}
+
 template <int M>
 __device__ __forceinline__ void init_state(float (&O)[M][DT][4],
                                            float (&mrow)[M][2],
@@ -311,8 +325,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // 128-byte rows under the 128-byte swizzle (the 16-byte column c of row r
 // lives at column c ^ (r % 8)), 1024-byte aligned. The accumulator of
 // m64n64 is float[1][8][4] per thread in the layout of the mma scores above
-// (warp w of the group owns rows 16w .. 16w + 15), so softmax_step, pack_p
-// and the quad reductions serve both.
+// (warp w of the group owns rows 16w .. 16w + 15), so softmax_step,
+// pack_scores and the quad reductions serve both.
 
 constexpr int WG_TILE = 64 * HD;        // elements of a [64, 64] tile
 

@@ -1,5 +1,7 @@
-// Tile helpers shared by the flash attention kernels (bf16, head dim 64,
-// four warps of 16 rows, WMMA 16x16x16 bf16 -> fp32 on the tensor cores).
+// Tile helpers shared by the backward kernels of flash cross-attention and
+// of the general per-head attention (bf16, head dim 64, four warps of 16
+// rows, WMMA 16x16x16 bf16 -> fp32 on the tensor cores, scores staged through
+// shared memory).
 
 #pragma once
 

@@ -24,22 +24,13 @@
 // (322 GFLOP) and one exp per score (1.26 G, a third of a millisecond of the
 // special-function units alone) for 0.6 GB of reads and 0.3 GB of writes.
 //
-// Forward design (attention_mma.cuh: wgmma m64n64k16, cp.async): one block
-// per (128-query tile, head, row), two warpgroups of 64 queries. Q and the
-// 64-key tiles of K and V sit in shared memory as [64, 64] tiles under the
-// 128-byte swizzle (a head's row is exactly one swizzle row), K, V and the
-// bias arriving through a ring of FWD_STAGES slots filled by cp.async, the
-// next tile in flight while this one is multiplied. Per tile: S = Q.K^T by
-// four wgmma with both operands in shared memory and the result in
-// registers; the online softmax on those registers (p rounds against the
-// running max after each 64-key tile, not after the whole chunk as on the
-// TPU: within bf16 rounding of the plain version); p packed to bf16 in
-// place as the register A operand of four wgmma for P.V (V read
-// transposed). The output accumulator lives in registers for the
-// whole walk. Tiles never straddle a chunk: a chunk that is no multiple of
+// Forward design: the shared forward walk of attention_flash.cuh (wgmma on
+// swizzled tiles, a cp.async ring, the online softmax in registers; p
+// rounds against the running max after each 64-key tile, not after the
+// whole chunk as on the TPU: within bf16 rounding of the plain version),
+// saving lse. Tiles never straddle a chunk: a chunk that is no multiple of
 // 64 keys ends in a short tile whose missing keys count as bias -inf, so
-// every shape takes this one kernel. FWD_MINB sets the register budget (128,
-// two blocks a multiprocessor).
+// every shape takes this one kernel.
 //
 // Backward (the TPU kernel's formula, from the forward's saved lse):
 // delta = rowsum(do * out) in fp32; per key, P = exp(s*scale + bias - lse);
@@ -51,199 +42,25 @@
 // multiplies them in fp32). At the reader encoder's shape it is five
 // products of 2*Lq*Lk*hd FLOP per row and head: bound by operations.
 //
-// Backward design: the two kernels of the self-attention backward, neither
-// with atomics or partial sums, so the gradients repeat bit for bit. One
-// block per (query tile, head, row) walks every key tile for dq and writes
-// delta; then one block per (key tile of a chunk, head, row) walks the
-// query tiles for dk and dv. Both recompute P from lse, and both take the
-// mask's (chunk, column in chunk) from the key's place in its logical
-// chunk. A chunk that is no multiple of 64 keys ends in a ragged tile. q,
-// k and v are read through their strides like the forward's; do, out and
-// the three gradients are contiguous [B, L, nh, hd].
+// Backward design (WMMA tiles of attention_tiles.cuh, scores staged through
+// shared memory): two kernels, neither with atomics or partial sums, so the
+// gradients repeat bit for bit. One block per (query tile, head, row) walks
+// every key tile for dq and writes delta; then one block per (key tile of a
+// chunk, head, row) walks the query tiles for dk and dv. Both recompute P
+// from lse, and both take the mask's (chunk, column in chunk) from the key's
+// place in its logical chunk. A chunk that is no multiple of 64 keys ends in
+// a ragged tile. q, k and v are read through their strides like the
+// forward's; do, out and the three gradients are contiguous [B, L, nh, hd].
 
 #include <math.h>
 
-#include "attention_mma.cuh"
+#include "attention_flash.cuh"
 #include "attention_tiles.cuh"
 #include "hashing.cuh"
 
 namespace {
 
 using namespace attn;
-
-// ---- forward: attention_mma.cuh tiles ----
-
-constexpr int FWD_GROUPS = 2;   // warpgroups (64 queries each) a block
-constexpr int FWD_STAGES = 3;   // key/value tiles in the shared-memory ring
-constexpr int FWD_MINB = 2;     // blocks a multiprocessor the registers allow
-constexpr int FWD_KT = 64;                          // keys per tile
-constexpr int FWD_NT = FWD_KT / 8;
-constexpr int FWD_ROWS = FWD_GROUPS * 64;            // queries per block
-constexpr int FWD_THREADS = FWD_GROUPS * 128;
-// one ring slot: a key tile, a value tile (both swizzled), the keys' bias,
-// rounded up to the tiles' 1024-byte alignment
-constexpr int FWD_SLOT = 2 * amma::WG_TILE * 2 + 1024;
-// the queries, the ring, and room to align the whole to 1024 bytes
-constexpr int FWD_SMEM = FWD_ROWS * amma::HD * 2 + FWD_STAGES * FWD_SLOT + 1024;
-
-static_assert(FWD_STAGES >= 2, "the ring overlaps one load with one product");
-static_assert(FWD_KT * 4 <= 1024, "the bias shares the slot's last KB");
-
-template <bool DROP>
-__global__ void __launch_bounds__(FWD_THREADS, FWD_MINB)
-fid_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const float* __restrict__ kv_bias,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-               long long q_bs, int q_rs, long long k_bs, int k_rs,
-               long long v_bs, int v_rs, int Lq, int Lk, int nh, int C,
-               float scale, Dropout drop) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (amma::smem_u32(smem_raw) & 1023)) & 1023);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + FWD_ROWS * amma::HD * 2;
-  const int tid = threadIdx.x;
-  const int group = tid / 128;                      // the warpgroup
-  const int warp = (tid % 128) / 32;                // within it
-  const int lane = tid % 32;
-
-  const int q0 = blockIdx.x * FWD_ROWS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* qb = q + (size_t)b * q_bs + h * amma::HD;
-  const __nv_bfloat16* kb = k + (size_t)b * k_bs + h * amma::HD;
-  const __nv_bfloat16* vb = v + (size_t)b * v_bs + h * amma::HD;
-  const float* bias = kv_bias + (size_t)b * Lk;
-  const uint32_t bh = (uint32_t)(b * nh + h);
-  const int n_chunks = Lk / C;
-  const int n_ct = (C + FWD_KT - 1) / FWD_KT;     // tiles of a chunk
-  const int n_tiles = n_chunks * n_ct;
-
-  auto slot_k = [&](int i) {
-    return reinterpret_cast<__nv_bfloat16*>(ring
-                                            + (i % FWD_STAGES) * FWD_SLOT);
-  };
-  auto slot_v = [&](int i) { return slot_k(i) + amma::WG_TILE; };
-  auto slot_bias = [&](int i) {
-    return reinterpret_cast<float*>(slot_k(i) + 2 * amma::WG_TILE);
-  };
-
-  // load tile `i` (chunk pj, tile pt of it, kept in step) into its slot
-  int pj = 0, pt = 0;
-  auto prefetch = [&](int i) {
-    if (pj < n_chunks) {
-      const int r0 = pj * C + pt * FWD_KT;
-      const int limit = (pj + 1) * C;
-      amma::load_rows_async_swizzled<FWD_KT>(slot_k(i), kb, k_rs, r0, limit,
-                                             tid, FWD_THREADS);
-      amma::load_rows_async_swizzled<FWD_KT>(slot_v(i), vb, v_rs, r0, limit,
-                                             tid, FWD_THREADS);
-      for (int c = tid; c < FWD_KT; c += FWD_THREADS) {
-        const bool ok = r0 + c < limit;
-        amma::cp_async4(slot_bias(i) + c, bias + (ok ? r0 + c : 0), ok);
-      }
-      if (++pt == n_ct) {
-        pt = 0;
-        ++pj;
-      }
-    }
-    amma::cp_async_commit();     // an empty group keeps the count in step
-  };
-
-  // a warpgroup's 64 queries are one swizzled tile of their own
-#pragma unroll
-  for (int g = 0; g < FWD_GROUPS; ++g) {
-    amma::load_rows_async_swizzled<64>(Qs + g * amma::WG_TILE, qb, q_rs,
-                                       q0 + g * 64, Lq, tid, FWD_THREADS);
-  }
-#pragma unroll
-  for (int s = 0; s < FWD_STAGES - 1; ++s) prefetch(s);  // Q is in group 0
-
-  float O[1][amma::DT][4], mrow[1][2], lrow[1][2];
-  amma::init_state<1>(O, mrow, lrow);
-  __nv_bfloat16* Qg = Qs + group * amma::WG_TILE;
-  const int qrow0 = q0 + group * 64 + warp * 16;
-  int cj = 0, ct = 0;                               // the tile in hand
-
-  float S[1][FWD_NT][4] = {};   // the products take it as a read-write operand
-  uint32_t P[FWD_NT / 2][4];
-  for (int i = 0; i < n_tiles; ++i) {
-    amma::cp_async_wait<FWD_STAGES - 2>();           // tile i has landed
-    amma::fence_async_proxy();                      // ... where wgmma reads,
-    __syncthreads();                                // for every thread,
-    prefetch(i + FWD_STAGES - 1);                    // and tile i-1 is free
-    amma::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < amma::HD / 16; ++kk) {    // 32 bytes a k-step
-      amma::wgmma_ss(S, amma::wgmma_desc(Qg, kk * 32),
-                     amma::wgmma_desc(slot_k(i), kk * 32), kk > 0);
-    }
-    amma::wgmma_commit();
-    amma::wgmma_wait<0>(S, O);
-    amma::softmax_step<1, FWD_NT, DROP>(S, O, mrow, lrow, slot_bias(i),
-                                        ct * FWD_KT, C, scale, drop, bh,
-                                        (uint32_t)cj, qrow0, lane);
-#pragma unroll
-    for (int ks = 0; ks < FWD_NT / 2; ++ks) {
-      P[ks][0] = amma::pack_bf16(S[0][2 * ks][0], S[0][2 * ks][1]);
-      P[ks][1] = amma::pack_bf16(S[0][2 * ks][2], S[0][2 * ks][3]);
-      P[ks][2] = amma::pack_bf16(S[0][2 * ks + 1][0], S[0][2 * ks + 1][1]);
-      P[ks][3] = amma::pack_bf16(S[0][2 * ks + 1][2], S[0][2 * ks + 1][3]);
-    }
-    amma::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < FWD_NT / 2; ++ks) {       // 16 keys = 2048 bytes
-      amma::wgmma_rs(O, P[ks], amma::wgmma_desc(slot_v(i), ks * 2048));
-    }
-    // waited for here: left in flight into the next tile, the assembler
-    // serializes the products (and the time is the same)
-    amma::wgmma_commit();
-    amma::wgmma_wait<0>(S, O);
-    if (++ct == n_ct) {
-      ct = 0;
-      ++cj;
-    }
-  }
-  amma::cp_async_wait<0>();
-
-  // out = O / (l * (1 - rate)): staged as bf16 over the warp's own query
-  // rows (every product that read them is done), then written 16 bytes a
-  // lane
-  __syncwarp();
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const float l = amma::quad_sum(lrow[0][hf]);
-    const float l_eff = l * drop.keep_frac;
-    const float inv = 1.0f / (l_eff > 0.0f ? l_eff : 1.0f);
-    const int r = warp * 16 + 8 * hf + g;
-#pragma unroll
-    for (int n = 0; n < amma::DT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(Qg + amma::swizzled(r, n) + 2 * t) =
-          __floats2bfloat162_rn(O[0][n][2 * hf] * inv,
-                                O[0][n][2 * hf + 1] * inv);
-    }
-    if (t == 0 && qrow0 + 8 * hf + g < Lq) {
-      lse[(size_t)bh * Lq + qrow0 + 8 * hf + g] =
-          mrow[0][hf] + logf(l > 0.0f ? l : 1.0f);
-    }
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * (amma::HD / 8); i += 32) {
-    const int r = i >> 3;
-    const int c = i & 7;
-    if (qrow0 + r < Lq) {
-      *reinterpret_cast<uint4*>(
-          out + (((size_t)b * Lq + qrow0 + r) * nh + h) * amma::HD + c * 8) =
-          *reinterpret_cast<const uint4*>(Qg
-                                          + amma::swizzled(warp * 16 + r, c));
-    }
-  }
-}
-
 
 constexpr int DQ_SMEM = 4 * TILE_BYTES + WARPS * (2 * S_BYTES + P_BYTES);
 constexpr int DKV_SMEM = 4 * TILE_BYTES + WARPS * (2 * S_BYTES + 2 * P_BYTES)
@@ -469,17 +286,13 @@ fid_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-bool bad_stride(long long bs, int rs) {
-  return bs < 0 || rs <= 0 || bs % 8 || rs % 8;
-}
-
 bool bad_call(long long q_bs, int q_rs, long long k_bs, int k_rs,
               long long v_bs, int v_rs, int B, int Lq, int Lk, int nh, int hd,
               int key_chunk) {
-  return hd != HD || B <= 0 || Lq <= 0 || Lk <= 0 || nh <= 0 || B > 65535 ||
-         nh > 65535 || key_chunk <= 0 || Lk % key_chunk ||
-         bad_stride(q_bs, q_rs) || bad_stride(k_bs, k_rs) ||
-         bad_stride(v_bs, v_rs);
+  return aflash::bad_shape(B, Lq, Lk, nh, hd, key_chunk) ||
+         aflash::bad_rows(aflash::head_rows(nullptr, q_bs, q_rs)) ||
+         aflash::bad_rows(aflash::head_rows(nullptr, k_bs, k_rs)) ||
+         aflash::bad_rows(aflash::head_rows(nullptr, v_bs, v_rs));
 }
 
 }  // namespace
@@ -500,21 +313,11 @@ extern "C" int emdr2_fid_attention_bf16(
                key_chunk)) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto kernel = drop_on ? fid_fwd_kernel<true> : fid_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + FWD_ROWS - 1) / FWD_ROWS, nh, B);
-  const float scale = 1.0f / sqrtf((float)HD);
-  kernel<<<grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const float*>(kv_bias), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, Lq, Lk, nh,
-      key_chunk, scale,
-      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep));
-  return (int)cudaGetLastError();
+  return (int)aflash::launch_forward(
+      aflash::head_rows(q, q_bs, q_rs), aflash::head_rows(k, k_bs, k_rs),
+      aflash::head_rows(v, v_bs, v_rs), kv_bias, out,
+      aflash::Lse{static_cast<float*>(lse)}, B, Lq, Lk, nh, key_chunk,
+      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep), stream);
 }
 
 // Backward: q, k, v (pointer and strides), kv_bias and the dropout arguments

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from emdr2_tpu_torch.ops import build
+from emdr2_tpu_torch.ops.fid_attention import check_kernel_limits
 
 DEFAULT_KEY_CHUNK = 3200
 # query rows one kernel launch takes; more rows go in blocks of this many
@@ -150,15 +151,11 @@ def decode_cross_attention_int8(q, k8, kscale, v8, vscale, kv_bias,
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"decode_cross_attention_int8: unsupported devices "
                          f"{[str(t.device) for t in tensors]}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel takes bf16 queries, got {q.dtype}")
+    check_kernel_limits("decode_cross_attention_int8", q.dtype, hd)
     for t in (kscale, vscale, kv_bias):
         if t.dtype != torch.float32:
             raise TypeError(f"the kernel takes fp32 scales and bias, got "
                             f"{t.dtype}")
-    if hd != 64:
-        raise ValueError(f"kernel is built for head_dim 64 (16-byte loads "
-                         f"of 64-byte int8 rows), got {hd}")
     q = q.contiguous()
     for t in (q, k8, kscale, v8, vscale, kv_bias):
         if not t.is_contiguous():

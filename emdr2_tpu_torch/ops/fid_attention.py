@@ -30,13 +30,19 @@ plain PyTorch version beside it, which rounds where the TPU kernel rounds
 and, backward, follows the TPU kernel's formula. Each kernel's wrapper
 counts its launches in ``.launches``.
 
-The K2 and K4 forward kernels are built on ``csrc/attention_mma.cuh``
-(mma.sync and wgmma products with the scores in registers, cp.async rings,
-one online-softmax step); K2's also
-splits the keys over blocks and combines fp32 partials in split order
+K1 (forward and backward) and the K2 and K4 forward kernels are built on
+``csrc/attention_mma.cuh`` (mma.sync and wgmma products with the scores in
+registers, cp.async rings, one online-softmax step). K1 and K4-fwd share
+the walks of ``csrc/attention_flash.cuh``: self-attention on the slab is
+their one-chunk case, saving (rowmax, 1/l) where K4 saves lse. K2's forward
+also splits the keys over blocks and combines fp32 partials in split order
 (``flash_cross_attention_split_reference`` is that arithmetic in plain
-PyTorch). The other kernels use the WMMA tiles of
+PyTorch). The K2 and K4 backward kernels use the WMMA tiles of
 ``csrc/attention_tiles.cuh``.
+
+What the kernels take is stated once, in ``kernel_limits``: a
+configuration outside it is refused on the card, at construction and at
+every call, never routed to a plain version.
 """
 
 from __future__ import annotations
@@ -68,14 +74,57 @@ def _bh(B: int, nh: int, device) -> torch.Tensor:
     return torch.arange(B * nh, device=device).view(B, nh)
 
 
-def _check_cuda(what: str, tensors, bf16, fp32) -> None:
+KERNEL_DTYPE = torch.bfloat16
+KERNEL_HEAD_DIM = 64
+KERNEL_MAX_DECODER_LEN = 64
+
+
+def kernel_limits(dtype: torch.dtype, head_dim: int,
+                  decoder_len: Optional[int] = None,
+                  flash: bool = True) -> Optional[str]:
+    """Why the hand-written attention kernels cannot run a configuration on
+    the card, or ``None`` when they can: they are built for bf16
+    activations and a head dim of 64 (one 128-byte swizzle row a head), and
+    the cross-attention kernel (K2) holds all the decoder positions of a
+    row in one 64-query tile. ``decoder_len`` is ``None`` where no decoder
+    attends (the towers, self-attention); with ``flash`` off no attention
+    kernel is on the path and nothing is refused. On the CPU the plain
+    versions run and none of this applies."""
+    if not flash:
+        return None
+    if dtype != KERNEL_DTYPE:
+        return (f"the attention kernels take bf16 activations, got {dtype} "
+                f"(set dtype=torch.bfloat16, or turn fid_flash_attention off)")
+    if head_dim != KERNEL_HEAD_DIM:
+        return (f"the attention kernels are built for head_dim "
+                f"{KERNEL_HEAD_DIM}, got {head_dim} (hidden_size / num_heads)")
+    if decoder_len is not None and decoder_len > KERNEL_MAX_DECODER_LEN:
+        return (f"the cross-attention kernel takes at most "
+                f"{KERNEL_MAX_DECODER_LEN} decoder positions (queries) a "
+                f"row, got {decoder_len}")
+    return None
+
+
+def check_kernel_limits(what: str, dtype: torch.dtype, head_dim: int,
+                        decoder_len: Optional[int] = None,
+                        flash: bool = True) -> None:
+    """Raise with ``kernel_limits``' reason (TypeError for the dtype,
+    ValueError otherwise)."""
+    reason = kernel_limits(dtype, head_dim, decoder_len, flash)
+    if reason is not None:
+        raise (TypeError if dtype != KERNEL_DTYPE else ValueError)(
+            f"{what}: {reason}")
+
+
+def _check_cuda(what: str, tensors, bf16, fp32,
+                head_dim: int = KERNEL_HEAD_DIM,
+                decoder_len: Optional[int] = None) -> None:
     for t in tensors:
         if t.device.type != "cuda" or t.device != tensors[0].device:
             raise ValueError(f"{what}: unsupported devices "
                              f"{[str(x.device) for x in tensors]}")
     for t in bf16:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bf16, got {t.dtype}")
+        check_kernel_limits(what, t.dtype, head_dim, decoder_len)
     for t in fp32:
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: the kernel takes fp32 biases and "
@@ -123,6 +172,25 @@ def flash_self_attention_reference(qkv: torch.Tensor, kv_bias: torch.Tensor,
     safe = torch.where(l > 0, l, torch.ones_like(l))
     o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / safe
     return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(B, L, H)
+
+
+def flash_self_attention_stats_reference(qkv: torch.Tensor,
+                                         kv_bias: torch.Tensor,
+                                         nh: int) -> torch.Tensor:
+    """Plain PyTorch row statistics of the forward, [B, nh, 2, L] fp32: the
+    softmax's ``(rowmax, 1/l)`` with ``l = sum(exp(s - rowmax))`` over every
+    key, dropped or not (guarded ``> 0``). What the forward kernel saves
+    and the backward kernels rebuild ``P = exp(s - rowmax) * (1/l)`` from;
+    exact on a fully padded row (rowmax about -1e9, ``1/l = 1/L``)."""
+    B, L, H3 = qkv.shape
+    hd = H3 // 3 // nh
+    heads = qkv.view(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(heads[0].float(), heads[1].float().transpose(-1, -2))
+    s = s * (hd ** -0.5) + kv_bias.float()[:, None, None, :]
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return torch.stack([m, 1.0 / torch.where(l > 0, l, torch.ones_like(l))],
+                       dim=2)
 
 
 def flash_self_attention_bwd_reference(qkv, kv_bias, out, dout, nh: int,
@@ -185,9 +253,8 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
                                               rate), None
     B, L, H3 = qkv.shape
     H = H3 // 3
-    _check_cuda("flash_self_attention", (qkv, kv_bias), (qkv,), (kv_bias,))
-    if H // nh != 64:
-        raise ValueError(f"kernel is built for head_dim 64, got {H // nh}")
+    _check_cuda("flash_self_attention", (qkv, kv_bias), (qkv,), (kv_bias,),
+                H // nh)
     out = torch.empty((B, L, H), dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty((B, nh, 2, L), dtype=torch.float32,
                          device=qkv.device) if with_stats else None)
@@ -219,8 +286,8 @@ def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
     dout = dout.contiguous()
     _check_cuda("flash_self_attention_backward",
                 (qkv, kv_bias, out, dout, stats), (qkv, out, dout),
-                (kv_bias, stats))
-    if H // nh != 64 or out.shape != (B, L, H) or dout.shape != (B, L, H) \
+                (kv_bias, stats), H // nh)
+    if out.shape != (B, L, H) or dout.shape != (B, L, H) \
             or stats.shape != (B, nh, 2, L):
         raise ValueError(f"bad shapes for the backward kernel: qkv "
                          f"{tuple(qkv.shape)}, out {tuple(out.shape)}, dout "
@@ -482,10 +549,7 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
     B, Lq, H = q.shape
     Lk = kv.shape[1]
     _check_cuda("flash_cross_attention", (q, kv, kv_bias), (q, kv),
-                (kv_bias,))
-    if H // nh != 64 or Lq > 64:
-        raise ValueError(f"kernel is built for head_dim 64 and at most 64 "
-                         f"queries, got head_dim {H // nh}, Lq {Lq}")
+                (kv_bias,), H // nh, Lq)
     n_chunks = Lk // key_chunk
     if n_splits is None:
         n_splits = _cross_splits(B, nh, n_chunks, q.device)
@@ -526,9 +590,9 @@ def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
     dout = dout.contiguous()
     _check_cuda("flash_cross_attention_backward",
                 (q, kv, kv_bias, lse, out, dout), (q, kv, out, dout),
-                (kv_bias, lse))
-    if H // nh != 64 or Lq > 64 or out.shape != q.shape \
-            or dout.shape != q.shape or lse.shape != (B, Lq, nh):
+                (kv_bias, lse), H // nh, Lq)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (B, Lq, nh):
         raise ValueError(f"bad shapes for the backward kernel: q "
                          f"{tuple(q.shape)}, out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
@@ -709,14 +773,10 @@ def _check_fid(q, k, v, kv_bias, seed, key_chunk, dropout_rate) -> bool:
         raise ValueError(f"fid_cross_attention: unsupported devices "
                          f"{[str(t.device) for t in tensors]}")
     for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"fid_cross_attention: the kernel takes bf16, "
-                            f"got {t.dtype}")
+        check_kernel_limits("fid_cross_attention", t.dtype, q.shape[3])
     if kv_bias.dtype != torch.float32:
         raise TypeError(f"fid_cross_attention: the kernel takes an fp32 "
                         f"bias, got {kv_bias.dtype}")
-    if q.shape[3] != 64:
-        raise ValueError(f"kernel is built for head_dim 64, got {q.shape[3]}")
     return True
 
 

@@ -231,15 +231,17 @@ class E2EQATask:
 
     # ------------------------------------------------------------ evaluation
 
-    def validation_loss(self, dataset, batch_size: int,
+    def validation_loss(self, dataset, batch_size: Optional[int] = None,
                         max_batches: Optional[int] = None) -> Dict[str, float]:
         """Deterministic forward losses over ``dataset`` in order: ``loss``,
         ``lm_loss`` and ``retriever_loss``, averaged over the examples.
+        ``batch_size`` defaults to ``global_batch_size``.
 
         The tail batch is not dropped: it is padded to ``batch_size`` with
         copies of its last row whose ``loss_mask`` is zeroed, so the padded
         rows add no tokens to the token-normalized losses, and each batch's
         means weigh in by its count of real examples."""
+        batch_size = batch_size or self.global_batch_size
         totals: Dict[str, float] = {}
         n = 0
         for bi, batch in enumerate(dataset.epoch_batches(
@@ -257,7 +259,8 @@ class E2EQATask:
             n += real
         return {k: v / max(n, 1) for k, v in totals.items()}
 
-    def evaluate_em(self, dataset, batch_size: int, beam_size: int = 1,
+    def evaluate_em(self, dataset, batch_size: Optional[int] = None,
+                    beam_size: int = 1,
                     max_decode_len: Optional[int] = None,
                     max_batches: Optional[int] = None, sample: bool = False,
                     sample_seed: int = 1234,
@@ -270,8 +273,10 @@ class E2EQATask:
         ``sample_seed`` and the batch index, so runs repeat), else
         length-normalized beam search. The tail batch is padded with copies
         of its last row; scores are kept per uid, so a padded copy counts
-        once. ``kv_quant="int8"`` stores the decode cross K/V as int8."""
+        once. ``kv_quant="int8"`` stores the decode cross K/V as int8.
+        ``batch_size`` defaults to ``global_batch_size``."""
         cfg = self.cfg
+        batch_size = batch_size or self.global_batch_size
         max_decode_len = max_decode_len or cfg.reader.decoder_seq_len
         model = self.state.model
         key = (max_decode_len, kv_quant)

@@ -17,6 +17,7 @@ to the card.
 """
 
 import copy
+import dataclasses
 
 import flax.linen as nn
 import jax
@@ -93,6 +94,9 @@ def tasks(tmp_path_factory):
             boxed, noisy, is_leaf=lambda x: isinstance(x, nn.Partitioned)))
 
     cfg = with_transformers(port_config(jcfg), CHUNKED, CHUNKED)
+    # the port's global batch is the configured one; the JAX task's is
+    # init_state's
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=B))
     task = E2EQATask(cfg, tok, corpus,
                      ShardedEvidenceIndex(cfg.index, emb, device="cpu"),
                      total_train_iters=4, device="cpu")
@@ -116,6 +120,21 @@ def test_validation_loss_matches_jax(tasks):
         two["loss"], jtask.validation_loss(ds, batch_size=B,
                                            max_batches=2)["loss"], rtol=1e-4)
     assert two["loss"] != got["loss"]
+
+
+def test_validation_loss_batch_size_defaults_to_the_global_batch(tasks):
+    """``validation_loss(ds)`` is the call with ``global_batch_size``
+    spelled out, in the port as in the JAX package, and the two agree."""
+    jtask, task, ds = tasks
+    assert task.global_batch_size == jtask.global_batch_size == B
+    got = task.validation_loss(ds)
+    assert got == task.validation_loss(ds, batch_size=B)
+    assert got == task.validation_loss(ds, None)
+    want = jtask.validation_loss(ds)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   err_msg=key)
+    assert got != task.validation_loss(ds, batch_size=B - 1)
 
 
 def test_validation_tail_rows_add_no_tokens(tasks):
@@ -185,6 +204,22 @@ def test_evaluate_em_matches_jax(tasks, monkeypatch, kw):
     assert got2 == want2
     assert got2[1] == N_EXAMPLES
     assert 100.0 * 10 / 19 - 1e-9 <= got2[0] < 100.0
+
+
+def test_evaluate_em_batch_size_defaults_to_the_global_batch(tasks,
+                                                             monkeypatch):
+    """``evaluate_em(ds)`` is the call with ``global_batch_size`` spelled
+    out (the same generated texts, the tail padded to 5 rows), in the port
+    as in the JAX package, and the two agree."""
+    jtask, task, ds = tasks
+    rec = _Recorder(e2eqa.metric_max_over_ground_truths)
+    monkeypatch.setattr(e2eqa, "metric_max_over_ground_truths", rec)
+    got = task.evaluate_em(ds, max_decode_len=4)
+    default_texts, rec.texts = rec.texts, []
+    assert got == task.evaluate_em(ds, batch_size=B, max_decode_len=4)
+    assert rec.texts == default_texts and len(default_texts) == 4 * B
+    assert got == jtask.evaluate_em(ds, max_decode_len=4)
+    assert got[1] == N_EXAMPLES
 
 
 def test_evaluate_em_max_batches_and_session_cache(tasks):

@@ -306,3 +306,117 @@ def test_fid_backward_fully_masked_row_is_finite_with_unit_probs():
     with pytest.raises(ValueError):                      # lse of another shape
         fid_attention.fid_cross_attention_backward(
             q, k, v, bias, lse[:, :4], out, do, None, 8)
+
+
+# ------------------------- the row statistics (rowmax, 1/l) of the forward
+
+def _numpy_stats(qkv, bias, nh):
+    """(rowmax, l) [B, nh, L] in float64, scores as the kernels form them:
+    fp32 ``s * scale + bias``."""
+    B, L, H3 = qkv.shape
+    hd = H3 // 3 // nh
+    x = qkv.reshape(B, L, 3, nh, hd)
+    q = x[:, :, 0].transpose(0, 2, 1, 3).astype(np.float64)
+    k = x[:, :, 1].transpose(0, 2, 1, 3).astype(np.float64)
+    s = (q @ k.transpose(0, 1, 3, 2) * hd ** -0.5).astype(np.float32)
+    s = (s + bias[:, None, None, :]).astype(np.float64)
+    m = s.max(axis=-1)
+    return m, np.exp(s - m[..., None]).sum(axis=-1)
+
+
+@pytest.mark.parametrize("L,nh", [(16, 2), (48, 4), (100, 2)])
+def test_stats_reference_matches_float64(L, nh):
+    """``flash_self_attention_stats_reference`` against float64 numpy,
+    tolerance 1e-5 (fp32 sums of at most 100 terms in [0, 1]); row 0 is
+    fully padded: its rowmax is its scores (about -1e9) and 1/l = 1/L."""
+    qkv, bias = make_inputs(3, L, nh, seed=L)
+    got = fid_attention.flash_self_attention_stats_reference(
+        torch.as_tensor(qkv), torch.as_tensor(bias), nh).numpy()
+    m, l = _numpy_stats(qkv, bias, nh)
+    assert got.shape == (3, nh, 2, L) and got.dtype == np.float32
+    np.testing.assert_allclose(got[1:, :, 0], m[1:], atol=1e-5)
+    np.testing.assert_allclose(got[:, :, 1], 1.0 / l, rtol=1e-5, atol=1e-5)
+    assert (got[0, :, 0] < -9e8).all()
+    np.testing.assert_allclose(got[0, :, 1], 1.0 / L, rtol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("L,nh", [(16, 2), (48, 4)])
+def test_stats_rebuild_the_backward(L, nh, rate):
+    """The statistics are what the backward needs: P rebuilt as
+    ``exp(s - rowmax) * (1/l)`` gives the gradients of
+    ``flash_self_attention_bwd_reference`` (which the test above holds
+    against the JAX VJP), a fully padded row included."""
+    qkv_np, bias_np = make_inputs(3, L, nh, seed=L + 7)
+    rng = np.random.RandomState(L)
+    qkv, bias = torch.as_tensor(qkv_np), torch.as_tensor(bias_np)
+    dout = torch.as_tensor(rng.randn(3, L, nh * 8).astype(np.float32))
+    seed = 21 if rate else None
+    out = flash_self_attention_reference(qkv, bias, nh, seed, rate)
+    want = fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, out, dout, nh, seed, rate)
+
+    stats = fid_attention.flash_self_attention_stats_reference(qkv, bias, nh)
+    B, hd, H = 3, 8, nh * 8
+    heads = qkv.view(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = heads[0], heads[1], heads[2]
+    do = dout.view(B, L, nh, hd).permute(0, 2, 1, 3)
+    o = out.view(B, L, nh, hd).permute(0, 2, 1, 3)
+    s = q @ k.transpose(-1, -2) * hd ** -0.5 + bias[:, None, None, :]
+    P = torch.exp(s - stats[:, :, 0, :, None]) * stats[:, :, 1, :, None]
+    np.testing.assert_allclose(P.sum(-1).numpy(), 1.0, atol=1e-5)
+    dp = do @ v.transpose(-1, -2)
+    Pd = P
+    if rate:
+        keep = fid_attention.keep_mask(seed, fid_attention._bh(B, nh, "cpu"),
+                                       rate, L, L)
+        dp = torch.where(keep, dp, torch.zeros(())) / (1.0 - rate)
+        Pd = torch.where(keep, P, torch.zeros(())) / (1.0 - rate)
+    ds = P * (dp - (do * o).sum(-1, keepdim=True))
+    got = torch.stack([ds @ k * hd ** -0.5,
+                       ds.transpose(-1, -2) @ q * hd ** -0.5,
+                       Pd.transpose(-1, -2) @ do])
+    got = got.permute(1, 3, 0, 2, 4).reshape(B, L, 3 * H)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-4)
+
+
+# ----------------------------------- what the kernels take, stated once
+
+@pytest.mark.parametrize("dtype,head_dim,decoder_len,flash,word", [
+    (torch.bfloat16, 64, None, True, None),
+    (torch.bfloat16, 64, 32, True, None),
+    (torch.bfloat16, 64, 64, True, None),
+    (torch.float32, 64, 32, True, "bf16"),
+    (torch.float16, 64, None, True, "bf16"),
+    (torch.bfloat16, 32, 32, True, "head_dim 64"),
+    (torch.bfloat16, 128, None, True, "head_dim 64"),
+    (torch.bfloat16, 64, 65, True, "at most 64 decoder positions"),
+    (torch.float32, 16, 100, False, None),     # no kernel on the path
+])
+def test_kernel_limits_names_the_limit(dtype, head_dim, decoder_len, flash,
+                                       word):
+    reason = fid_attention.kernel_limits(dtype, head_dim, decoder_len, flash)
+    if word is None:
+        assert reason is None
+        fid_attention.check_kernel_limits("x", dtype, head_dim, decoder_len,
+                                          flash)
+    else:
+        assert word in reason
+        err = TypeError if dtype != torch.bfloat16 else ValueError
+        with pytest.raises(err, match=word):
+            fid_attention.check_kernel_limits("x", dtype, head_dim,
+                                              decoder_len, flash)
+
+
+def test_kernel_limits_bind_no_cpu_path():
+    """On the CPU the plain versions run whatever the limits say: fp32, head
+    dim 8 (every parity test here), and a model outside them constructs."""
+    from emdr2_tpu_torch.config import tiny_config, with_flash_attention
+    from emdr2_tpu_torch.models import EMDR2Model
+    cfg = with_flash_attention(tiny_config())
+    enc = cfg.reader.transformer
+    assert fid_attention.kernel_limits(enc.dtype, enc.head_dim,
+                                       cfg.reader.decoder_seq_len,
+                                       enc.fid_flash_attention) is not None
+    EMDR2Model(cfg, device="cpu")

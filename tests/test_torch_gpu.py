@@ -146,6 +146,111 @@ def test_self_attention_rate_zero_is_no_dropout_and_repeats(cuda):
     assert not torch.equal(out, grads[0][0])
 
 
+# ---- K1 on the shared walks: one pass forward, backward in registers ----
+
+def _stats_close(got, want, live):
+    """(rowmax, 1/l) [B, nh, 2, L]: rows with a live key to 1e-3 (1/l
+    relative), a fully padded row's rowmax is its scores (about -1e9) and
+    its 1/l exactly 1/L."""
+    B, nh, _, L = want.shape
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got[live, :, 0] - want[live, :, 0]).abs().max().item() <= 1e-3
+    rel = (got[live, :, 1] / want[live, :, 1] - 1.0).abs().max().item()
+    assert rel <= 1e-3, rel
+    if (~live).any():
+        assert (got[~live, :, 0] < -9e8).all()
+        assert torch.equal(got[~live, :, 1],
+                           torch.full_like(got[~live, :, 1], 1.0 / L))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", [(3, 64), (2, 100), (2, 130), (2, 256),
+                                 (2, 288), (2, 512)])
+def test_self_attention_kernels_match_plain_and_repeat(cuda, B, L, rate):
+    """Forward, saved statistics and backward against the plain versions,
+    with a fully padded row and a ragged last tile; both repeat bit for
+    bit."""
+    qkv, bias, dout = _self_inputs(B, L, seed=L + 1)
+    out, stats = fid_attention.flash_self_attention_forward(qkv, bias, NH, 77,
+                                                            rate)
+    torch.cuda.synchronize()
+    want = fid_attention.flash_self_attention_reference(qkv, bias, NH, 77,
+                                                        rate)
+    _assert_close(out, want)
+    live = (bias > -1e8).any(dim=1)
+    _stats_close(stats, fid_attention.flash_self_attention_stats_reference(
+        qkv, bias, NH), live)
+    again, stats2 = fid_attention.flash_self_attention_forward(qkv, bias, NH,
+                                                               77, rate)
+    assert torch.equal(again, out) and torch.equal(stats2, stats)
+    # the backward from the plain statistics and from the kernel's own
+    plain_stats = fid_attention.flash_self_attention_stats_reference(qkv,
+                                                                     bias, NH)
+    dwant = fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, want, dout, NH, 77, rate)
+    for st, o in ((plain_stats, want), (stats, out)):
+        got = fid_attention.flash_self_attention_backward(
+            qkv, bias, o, dout, NH, 77, rate, st)
+        torch.cuda.synchronize()
+        _assert_close(got, dwant)
+        assert torch.equal(fid_attention.flash_self_attention_backward(
+            qkv, bias, o, dout, NH, 77, rate, st), got)
+
+
+@pytest.mark.parametrize("L", [64, 130, 512])
+def test_self_attention_without_stats_is_the_same_forward(cuda, L):
+    qkv, bias, _ = _self_inputs(2, L, seed=L + 2)
+    out, stats = fid_attention.flash_self_attention_forward(qkv, bias, NH)
+    bare, none = fid_attention.flash_self_attention_forward(
+        qkv, bias, NH, with_stats=False)
+    assert none is None and stats is not None and torch.equal(bare, out)
+    with torch.no_grad():
+        assert torch.equal(fid_attention.flash_self_attention(qkv, bias, NH),
+                           out)
+
+
+def test_self_attention_fully_padded_row_keeps_exact_statistics(cuda):
+    """Every key of row 0 is padding: uniform p, 1/l = 1/L exactly, finite
+    gradients that match the plain backward's on that row."""
+    qkv, bias, dout = _self_inputs(2, 288, seed=11)
+    x = qkv.clone().requires_grad_(True)
+    out = fid_attention.flash_self_attention(x, bias, NH, 3, 0.1)
+    out.backward(dout)
+    _, stats = fid_attention.flash_self_attention_forward(qkv, bias, NH, 3,
+                                                          0.1)
+    assert torch.equal(stats[0, :, 1], torch.full_like(stats[0, :, 1],
+                                                       1.0 / 288))
+    dwant = fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, out.detach(), dout, NH, 3, 0.1)
+    _assert_close(x.grad[0], dwant[0])
+
+
+def test_model_refuses_a_configuration_the_kernels_do_not_take(cuda):
+    """At construction on the card, before any work: fp32 activations, a
+    head dim other than 64, a decoder longer than the cross-attention
+    kernel's 64 queries. With flash attention off nothing is refused."""
+    import dataclasses
+
+    from emdr2_tpu_torch.config import (tiny_config, with_flash_attention,
+                                        with_transformers)
+    from emdr2_tpu_torch.models.emdr2 import EMDR2Model
+
+    tiny = tiny_config()
+    hd64 = {"hidden_size": 128, "num_heads": 2, "dtype": torch.bfloat16}
+    ok = with_flash_attention(with_transformers(tiny, hd64, hd64))
+    EMDR2Model(ok, device=cuda)
+    EMDR2Model(tiny, device=cuda)                       # flash off
+    with pytest.raises(TypeError, match="bf16"):
+        EMDR2Model(with_transformers(ok, {"dtype": torch.float32}, {}),
+                   device=cuda)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        EMDR2Model(with_transformers(ok, {}, {"num_heads": 4}), device=cuda)
+    long_decoder = ok.replace(reader=dataclasses.replace(
+        ok.reader, decoder_seq_len=80))
+    with pytest.raises(ValueError, match="at most 64 decoder positions"):
+        EMDR2Model(long_decoder, device=cuda)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,Lq,Lk,chunk,real", [
     (2, 32, 1024, 512, 700),      # several chunks, padded tail
