@@ -12,7 +12,7 @@
    (rowmax, 1/l) held against the plain statistics) and with dropout 0.1,
    its backward at [8, 64], [400, 256] and [400, 512] (gradients checked on
    32 rows, timed on all); the registers, spills and shared memory of the
-   K1 and K4-fwd kernels are printed by name, and a spill fails the run;
+   K1, K4 and K5 kernels are printed by name, and a spill fails the run;
    flash cross-attention (K2) forward and backward at the reader shape
    (8 rows, 32 queries x 25,600 keys) and the teacher shape (400 rows, 32 x
    512), dropout 0 and 0.1, padded keys present, and its forward's key
@@ -54,7 +54,8 @@
    ``--profile`` adds a fourth step under ``torch.profiler`` and prints its
    top device kernels and the device time by operator, and does the same
    for one warm greedy batch with the fp32-K slab and one with the int8
-   slab, for K4-fwd beside SDPA and for K1's three kernels at each shape.
+   slab, for K4-fwd beside SDPA, for K4's backward through autograd by
+   both routes and for K1's three kernels at each shape.
 5. Evaluation under ``flash_key_chunk=256`` (the reader's 512-token rows
    then take the general flash kernel): ``E2EQATask.evaluate_em`` on 16
    synthetic QA examples (greedy, int8 K/V), beam 5 on 8 of them, and
@@ -216,26 +217,59 @@ def _check_self_stats(name, stats, want, bias):
 
 def flash_kernel_report(ptxas_log: str) -> None:
     """Registers, spills and shared memory of the kernels instantiated from
-    ``attention_flash.cuh`` (K1 forward and backward, K4 forward), by name,
-    from the compilers' ``-Xptxas -v`` output and the library's launch
-    configuration. Fails if one of them spills."""
+    ``attention_flash.cuh`` (K1 and K4, each forward and backward: the
+    statistic ``RowMaxInv`` is K1's, ``Lse`` K4's) and of K5's walk, by
+    name, from the compilers' ``-Xptxas -v`` output and the library's launch
+    configuration. Fails if one of them spills, or if a kernel is missing
+    from the log. A library built earlier comes with no log: that is said,
+    and nothing is checked."""
     import ctypes
     import re
 
     from emdr2_tpu_torch.ops import build
+    from emdr2_tpu_torch.ops.decode_attention import kernel_layout
+    if not ptxas_log:
+        log("  the kernel library was built earlier: no compiler report, the "
+            "check for spills and missing kernels is skipped (remove "
+            "emdr2_tpu_torch/_build to have it)")
+        return
+    lib = build.load()
     smem = (ctypes.c_int * 2)()
-    build.load().emdr2_flash_self_attention_smem(smem)
+    lib.emdr2_flash_self_attention_smem(smem)
+    tail = (r".*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads\n.*?Used (\d+) registers")
     entry = re.compile(
         r"Compiling entry function '_ZN6aflash\d+(flash_\w+?_kernel)ILb([01])"
-        r"ENS_\d+(\w+?)EEE.*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
-        r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers")
+        r"ENS_\d+(\w+?)EEE" + tail)
+    seen = set()
     for kernel, drop, stat, stack, st, ld, regs in entry.findall(ptxas_log):
         dyn = smem[0] if kernel == "flash_fwd_kernel" else smem[1]
+        seen.add((kernel, stat))
         log(f"  {kernel}<dropout {'on' if drop == '1' else 'off'}, {stat}>: "
             f"{regs} registers, {stack} bytes stack, spill stores {st} loads "
             f"{ld} bytes, {dyn} bytes of dynamic shared memory a block")
         if int(st) or int(ld):
             raise AssertionError(f"{kernel}<{drop}, {stat}> spills registers")
+    want = {(k, stat) for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkv_kernel")
+            for stat in ("RowMaxInv", "Lse")}
+    if seen != want:
+        raise AssertionError(f"flash kernels in the ptxas log: {sorted(seen)}")
+    layout = kernel_layout()
+    walk = re.compile(r"Compiling entry function '\w*?decode_walk_kernelILi"
+                      r"(\d)EEE" + tail)
+    rows = sorted(walk.findall(ptxas_log))
+    if [r[0] for r in rows] != [str(i) for i in range(1, 9)]:
+        raise AssertionError(f"K5 walk kernels in the ptxas log: {rows}")
+    for R, stack, st, ld, regs in rows:
+        log(f"  decode_walk_kernel<R={R}>: {regs} registers, {stack} bytes "
+            f"stack, spill stores {st} loads {ld} bytes, "
+            f"{layout.smem_bytes[int(R) - 1]} bytes of dynamic shared memory "
+            f"a block ({layout.slots} slots of {layout.stage_keys} keys), "
+            f"{layout.resident_blocks[int(R) - 1]} blocks resident a "
+            f"multiprocessor by the occupancy query")
+        if int(st) or int(ld):
+            raise AssertionError(f"decode_walk_kernel<{R}> spills registers")
 
 
 def k1_phase(dev, gen):
@@ -735,12 +769,57 @@ def k4_phase(dev, gen, profile=False):
     return rows
 
 
-def k4_bwd_phase(dev, gen, check_rows=32):
+def _slab_routes(fa, slab, bias, dout, chunk, rate, seed, profile=False):
+    """The two ways from a [B, L, 3H] slab's attention output back to the
+    slab's gradient: ``fid_self_attention`` (the backward kernels write one
+    gradient slab in place) and ``fid_cross_attention`` on three views
+    (autograd concatenates dq, dk, dv). Returns {route: (gradient, ms of
+    the backward alone, bytes it allocates at its peak)}; ``profile`` adds
+    three backward calls of each route under torch.profiler."""
+    B, L = slab.shape[:2]
+    res = {}
+    for route in ("slab", "three tensors"):
+        leaf = slab.detach().clone().requires_grad_(True)
+        if route == "slab":
+            out = fa.fid_self_attention(leaf, bias, 12, seed, chunk, rate)
+            g = dout.reshape(B, L, 768)
+        else:
+            views = [t.view(B, L, 12, 64) for t in leaf.chunk(3, dim=-1)]
+            out = fa.fid_cross_attention(*views, bias, seed, chunk, rate)
+            g = dout
+
+        def backward():
+            return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+        backward()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grad = backward()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        res[route] = (grad, time_ms(backward), extra)
+        if profile:
+            def three_calls():
+                for _ in range(3):
+                    backward()
+            log_profile(f"K4 backward through autograd, {route} route, "
+                        f"three calls", profile_call(
+                            three_calls,
+                            f"k4_bwd_{route.split()[0]}_profile.txt", 6))
+        del out, leaf
+    return res
+
+
+def k4_bwd_phase(dev, gen, check_rows=32, profile=False):
     """K4 backward on [B, L, nh, hd] views of a qkv slab, from the plain
     forward's out and lse: the reader encoder under key chunk 256, dropout 0
     and 0.1 (gradients held against the plain backward on the first
     ``check_rows`` rows, both timed on all rows), and a small shape whose
-    keys past 300 are padding and whose row 0 is fully masked."""
+    keys past 300 are padding and whose row 0 is fully masked. At the
+    reader shape the backward also runs through autograd on the slab itself
+    and on three views of it (``_slab_routes``): the gradients must be equal
+    bit for bit; ``profile`` profiles both routes at rate 0.1."""
     from emdr2_tpu_torch.ops import fid_attention as fa
     rows = []
     for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
@@ -808,6 +887,27 @@ def k4_bwd_phase(dev, gen, check_rows=32):
                              max_abs_err=max(e[0] for e in errs), ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms))
+            if Lq == Lk:
+                routes = _slab_routes(fa, slab, bias, dout, chunk, rate, seed,
+                                      profile and bool(rate))
+                (g_slab, slab_ms, slab_b), (g_three, three_ms, three_b) = (
+                    routes["slab"], routes["three tensors"])
+                if not (torch.equal(g_slab, g_three) and torch.equal(
+                        g_slab, torch.cat([g.reshape(B, Lk, 768)
+                                           for g in got], dim=-1))):
+                    raise AssertionError(f"K4-bwd {name} rate {rate}: the "
+                                         f"slab route's gradient differs")
+                log(f"K4-bwd through autograd, {name} rate {rate}, the "
+                    f"slab's gradient [{B}, {Lk}, 2304]: slab route "
+                    f"{slab_ms:.4f} ms, {slab_b / 1e9:.3f} GB allocated by "
+                    f"the backward | three-tensor route {three_ms:.4f} ms, "
+                    f"{three_b / 1e9:.3f} GB (dq, dk, dv, then their "
+                    f"concatenation) | gradients equal bit for bit")
+                rows[-1].update(slab_route_ms=slab_ms,
+                                three_tensor_route_ms=three_ms,
+                                slab_route_bytes=slab_b,
+                                three_tensor_route_bytes=three_b)
+                del routes, g_slab, g_three
             del out, lse, got
         del slab, q, k, v, bias, dout
         torch.cuda.empty_cache()
@@ -819,8 +919,13 @@ def k5_phase(dev, gen):
     (greedy) and five (beam 5), on a slab padded from 200 to 256 rows, and
     with a fully masked example. The kernel keeps ``p * vscale`` in fp32
     where the plain version rounds it to bf16 (as the TPU kernel does) and
-    sums its key splits in another order: the forward tolerance."""
+    sums its stages, warps and blocks in another order: the forward
+    tolerance, also against the plain form of that order
+    (``decode_cross_attention_int8_split_reference``)."""
     from emdr2_tpu_torch.ops import decode_attention as da
+    layout = da.kernel_layout()
+    stage_keys, slots = layout.stage_keys, layout.slots
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, R, Lk, real_lo, masked in (("greedy", 1, 25_600, 12_800, False),
                                          ("beam5", 5, 25_600, 12_800, False),
@@ -849,6 +954,12 @@ def k5_phase(dev, gen):
                                                          bias)
         dense_err, _, _ = _check(f"K5 {name} vs dense", got, dense,
                                  (3e-2, 3e-3))
+        spb, n_blocks = da.split_plan(B, 12, Lk, dev)
+        split_err, _, _ = _check(
+            f"K5 {name} vs its own order of sums", got,
+            da.decode_cross_attention_int8_split_reference(
+                q, k8, ks, v8, vs, bias, spb, stage_keys, layout.warps),
+            FWD_TOL)
         if not torch.equal(da.decode_cross_attention_int8(q, k8, ks, v8, vs,
                                                           bias), got):
             raise AssertionError(f"K5 {name} is not deterministic")
@@ -858,10 +969,21 @@ def k5_phase(dev, gen):
         line = (f"K5 decode_cross_attention_int8 {name} [{B}, {R}, 12, {Lk}, "
                 f"64]: max_abs_err {max_err:.3e} mean {mean_err:.3e} (tol "
                 f"{FWD_TOL} x max|ref| {ref:.3e}), vs dense reference "
-                f"{dense_err:.3e}, repeat bit-identical")
+                f"{dense_err:.3e}, vs the plain form of its own order of "
+                f"sums {split_err:.3e}, repeat bit-identical; {n_blocks} "
+                f"blocks a (head, example) of {spb} stages of {stage_keys} "
+                f"keys")
         if name in ("greedy", "beam5"):
+            # one call between two events (the figure every kernel's row
+            # carries) takes the wrapper's host time when that is the longer;
+            # ten calls queued back to back take the kernels' time
             ms = time_ms(lambda: da.decode_cross_attention_int8(
                 q, k8, ks, v8, vs, bias), reps=20)
+
+            def ten_calls():
+                for _ in range(10):
+                    da.decode_cross_attention_int8(q, k8, ks, v8, vs, bias)
+            queued_ms = time_ms(ten_calls, reps=10) / 10
             plain_ms = time_ms(lambda: da.decode_cross_attention_int8_plain(
                 q, k8, ks, v8, vs, bias), reps=3, warmup=1)
             moved = nbytes(q, k8, ks, v8, vs, bias, got)
@@ -875,14 +997,26 @@ def k5_phase(dev, gen):
                 sdpa_bf16_ms = time_ms(lambda: sdpa(qh, kb, vb, bias),
                                        reps=20)
             del kb, vb
-            line += (f" | kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s of "
-                     f"3350) | plain {plain_ms:.4f} ms | SDPA on the bf16 "
+            # what a multiprocessor keeps in flight: the blocks the runtime's
+            # occupancy query says it holds, each with slots - 1 stages (K
+            # and V) asked for ahead of the one it computes
+            resident = layout.resident_blocks[R - 1]
+            ahead = resident * (slots - 1) * 2 * stage_keys * 64
+            line += (f" | kernel {ms:.4f} ms for one call between two events, "
+                     f"{queued_ms:.4f} ms a call of ten queued back to back "
+                     f"({moved / queued_ms / 1e6:.1f} GB/s of 3350) "
+                     f"| plain {plain_ms:.4f} ms | SDPA on the bf16 "
                      f"slab (twice the bytes) {sdpa_bf16_ms:.4f} ms | bound "
                      f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} "
-                     f"MB, {flop / 1e9:.2f} GFLOP)")
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, sdpa_bf16_ms=sdpa_bf16_ms,
-                       gbps=moved / ms / 1e6)
+                     f"MB, {flop / 1e9:.2f} GFLOP) | grid "
+                     f"({n_blocks}, 12, {B}) = {n_blocks * 12 * B} blocks on "
+                     f"{sms} multiprocessors, {layout.smem_bytes[R - 1]} "
+                     f"bytes of shared memory a block: {resident} resident a "
+                     f"multiprocessor (occupancy query), so {ahead} bytes "
+                     f"asked for ahead")
+            row.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       sdpa_bf16_ms=sdpa_bf16_ms)
         log(line)
         rows.append(row)
         del q, kf, vf, k8, ks, v8, vs, bias, got, want, dense
@@ -1483,9 +1617,10 @@ def engine_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
 # classes of device kernels in a profile, by the first substring of the
 # kernel's name that matches (in this order)
 KERNEL_CLASSES = (
-    ("K1 flash self-attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("K1 flash self-attention", ("RowMaxInv",)),
+    ("K4 general flash attention", ("aflash::Lse",)),
     ("K2 flash cross-attention", ("::cross_",)),
-    ("K3, K4, K5", ("candidate_scan_kernel", "::fid_", "::decode_")),
+    ("K3, K5", ("candidate_scan_kernel", "::decode_")),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma",
                                   "cublas")),
     ("integer elementwise (the plain dropout hash)",
@@ -1549,7 +1684,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm train step, one warm "
                          "greedy batch with each cross-K/V form, K4-fwd "
-                         "beside SDPA, and K1's kernels at each shape")
+                         "beside SDPA, K4's backward through autograd by "
+                         "both routes, and K1's kernels at each shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1586,7 +1722,7 @@ def main() -> int:
     k2_split = k2_split_phase(dev, gen)
     k3 = k3_phase(dev, gen)
     k4 = k4_phase(dev, gen, profile=args.profile)
-    k4_bwd = k4_bwd_phase(dev, gen)
+    k4_bwd = k4_bwd_phase(dev, gen, profile=args.profile)
     k5 = k5_phase(dev, gen)
     torch.cuda.empty_cache()
 
@@ -1797,7 +1933,9 @@ def main() -> int:
          "bound_ms": k5_beam["bound_ms"], "bound_by": k5_beam["bound_by"],
          "library_ms": None,            # no PyTorch call reads the int8 slab
          "sdpa_bf16_slab_ms": k5_beam["sdpa_bf16_ms"],
+         "ms_queued": k5_beam["queued_ms"],
          "ms_one_row": k5_greedy["ms"],
+         "ms_queued_one_row": k5_greedy["queued_ms"],
          "plain_ms_one_row": k5_greedy["plain_ms"],
          "bound_ms_one_row": k5_greedy["bound_ms"],
          "sdpa_bf16_slab_ms_one_row": k5_greedy["sdpa_bf16_ms"]},
@@ -1819,7 +1957,15 @@ def main() -> int:
          "ms": k4_bwd_main["ms"], "plain_ms": k4_bwd_main["plain_ms"],
          "bound_ms": k4_bwd_main["bound_ms"],
          "bound_by": k4_bwd_main["bound_by"],
-         "library_ms": k4_bwd_main["library_ms"]},
+         "library_ms": k4_bwd_main["library_ms"],
+         "ms_rate_0": next(r["ms"] for r in k4_bwd if r["shape"] == "reader"
+                           and r["rate"] == 0.0),
+         "slab_route_backward_ms": k4_bwd_main["slab_route_ms"],
+         "three_tensor_route_backward_ms":
+             k4_bwd_main["three_tensor_route_ms"],
+         "slab_route_backward_bytes": k4_bwd_main["slab_route_bytes"],
+         "three_tensor_route_backward_bytes":
+             k4_bwd_main["three_tensor_route_bytes"]},
     ]}
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))

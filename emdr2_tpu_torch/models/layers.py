@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from emdr2_tpu_torch.config import TransformerConfig
 from emdr2_tpu_torch.ops.decode_attention import decode_cross_attention_int8
 from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
+                                               fid_self_attention,
                                                flash_cross_attention,
                                                flash_self_attention)
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold, packed_dropout
@@ -261,21 +262,26 @@ class Attention(nn.Module):
             o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads,
                                      seed, rate)
         elif cfg.fid_flash_attention:
-            # longer than one key chunk: the general kernel on [B, L, nh,
-            # hd] views of the slab, keys padded to a chunk multiple
+            # longer than one key chunk: the general kernel, on the slab
+            # itself when the chunk divides the length (one gradient slab,
+            # nothing to concatenate), else on [B, L, nh, hd] views of it
+            # with the keys padded to a chunk multiple
             B, L = x.shape[0], x.shape[-2]
-            q, k, v = (t.view(B, L, cfg.num_heads, cfg.head_dim)
-                       for t in qkv.chunk(3, dim=-1))
-            key_chunk = min(cfg.flash_key_chunk, L)
+            key_chunk = cfg.flash_key_chunk
             kvb = kv_bias.float()
             rem = L % key_chunk
             if rem:
+                q, k, v = (t.view(B, L, cfg.num_heads, cfg.head_dim)
+                           for t in qkv.chunk(3, dim=-1))
                 pad = key_chunk - rem
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v = F.pad(v, (0, 0, 0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
-            o = fid_cross_attention(q, k, v, kvb, seed, key_chunk,
-                                    rate).reshape(B, L, cfg.hidden_size)
+                o = fid_cross_attention(q, k, v, kvb, seed, key_chunk,
+                                        rate).reshape(B, L, cfg.hidden_size)
+            else:
+                o = fid_self_attention(qkv, kvb, cfg.num_heads, seed,
+                                       key_chunk, rate)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
             o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],

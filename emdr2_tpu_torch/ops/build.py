@@ -46,9 +46,12 @@ _SIGNATURES = {
     # q, k, v as (batch stride, row stride) in elements after the pointers
     "emdr2_fid_attention_bf16":
         [_P] * 6 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],
+    # ... and dq, dk, dv likewise, after v's
     "emdr2_fid_attention_bwd_bf16":
-        [_P] * 11 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],
-    "emdr2_decode_attention_int8": [_P] * 8 + [_I] * 8 + [_P],
+        [_P] * 11 + [_L, _I] * 6 + [_I] * 6 + _DROPOUT + [_P],
+    # ..., Lk, stages a block walks, blocks a (head, example)
+    "emdr2_decode_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
+    "emdr2_decode_attention_layout": [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

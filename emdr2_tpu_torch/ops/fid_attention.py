@@ -19,6 +19,9 @@ backward).
   taken as they are), chunked like K2: the route of self-attention longer
   than ``flash_key_chunk``. It saves the lse [B*nh, Lq, 1] and its backward
   emits dq, dk and dv in the inputs' shapes (``csrc/fid_attention.cu``).
+  ``fid_self_attention`` is the same attention on the [B, L, 3H] slab
+  itself: its backward writes dq, dk and dv into the column slices of one
+  [B, L, 3H] gradient, so autograd has nothing to concatenate.
 
 Attention dropout runs inside the kernels from a uint32 ``seed`` and a
 ``rate``: the keep mask is ``ops.hashing.keep_mask``, bit for bit the TPU
@@ -30,14 +33,15 @@ plain PyTorch version beside it, which rounds where the TPU kernel rounds
 and, backward, follows the TPU kernel's formula. Each kernel's wrapper
 counts its launches in ``.launches``.
 
-K1 (forward and backward) and the K2 and K4 forward kernels are built on
+K1, K4 (each forward and backward) and the K2 forward kernel are built on
 ``csrc/attention_mma.cuh`` (mma.sync and wgmma products with the scores in
-registers, cp.async rings, one online-softmax step). K1 and K4-fwd share
-the walks of ``csrc/attention_flash.cuh``: self-attention on the slab is
-their one-chunk case, saving (rowmax, 1/l) where K4 saves lse. K2's forward
-also splits the keys over blocks and combines fp32 partials in split order
+registers, cp.async rings, one online-softmax step). K1 and K4 share the
+walks of ``csrc/attention_flash.cuh``, one forward and one backward pair
+over tensors given by strides: self-attention on the slab is their
+one-chunk case, saving (rowmax, 1/l) where K4 saves lse. K2's forward also
+splits the keys over blocks and combines fp32 partials in split order
 (``flash_cross_attention_split_reference`` is that arithmetic in plain
-PyTorch). The K2 and K4 backward kernels use the WMMA tiles of
+PyTorch). The K2 backward kernel alone still uses the WMMA tiles of
 ``csrc/attention_tiles.cuh``.
 
 What the kernels take is stated once, in ``kernel_limits``: a
@@ -814,13 +818,19 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
 def fid_cross_attention_backward(q, k, v, kv_bias, lse, out, dout,
                                  seed: Optional[int] = None,
                                  key_chunk: int = 512,
-                                 dropout_rate: float = 0.0
+                                 dropout_rate: float = 0.0,
+                                 grads: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor,
+                                                       torch.Tensor]] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """(dq [B, Lq, nh, hd], dk, dv [B, Lk, nh, hd]) of
     ``fid_cross_attention`` from the forward's ``out`` and ``lse``: the
     kernels on CUDA (no atomics: the gradients repeat bit for bit), the
-    plain version on CPU."""
+    plain version on CPU. ``grads`` gives the three tensors to write into
+    (of q's, k's and v's shapes and dtypes, [nh, hd] contiguous: column
+    slices of one slab's gradient qualify; nothing around them is touched)
+    and is returned; without it three contiguous tensors are made."""
     B, Lq, nh, hd = q.shape
     Lk = k.shape[1]
     if out.shape != q.shape or dout.shape != q.shape \
@@ -828,23 +838,40 @@ def fid_cross_attention_backward(q, k, v, kv_bias, lse, out, dout,
         raise ValueError(f"bad shapes for the backward: q {tuple(q.shape)}, "
                          f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, "
                          f"lse {tuple(lse.shape)}")
+    if grads is not None:
+        for g, like in zip(grads, (q, k, v)):
+            if g.shape != like.shape or g.dtype != like.dtype \
+                    or g.device != like.device:
+                raise ValueError(f"grads must match q, k and v, got "
+                                 f"{tuple(g.shape)} {g.dtype} {g.device} for "
+                                 f"{tuple(like.shape)} {like.dtype} "
+                                 f"{like.device}")
     if not _check_fid(q, k, v, kv_bias, seed, key_chunk, dropout_rate):
-        return fid_cross_attention_bwd_reference(
+        got = fid_cross_attention_bwd_reference(
             q, k, v, kv_bias, lse, out, dout, seed, key_chunk, dropout_rate)
+        if grads is None:
+            return got
+        for g, x in zip(grads, got):
+            g.copy_(x)
+        return tuple(grads)
     strides = _qkv_strides(q, k, v)
     kv_bias, out, dout = kv_bias.contiguous(), out.contiguous(), \
         dout.contiguous()
     _check_cuda("fid_cross_attention_backward", (kv_bias, lse, out, dout),
                 (out, dout), (kv_bias, lse))
     delta = torch.empty((B * nh, Lq), dtype=torch.float32, device=q.device)
-    dq = torch.empty((B, Lq, nh, hd), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Lk, nh, hd), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Lk, nh, hd), dtype=v.dtype, device=q.device)
+    if grads is None:
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=q.device)
+                      for t in (q, k, v))
+    dq, dk, dv = grads
+    grad_strides = [x for name, t in (("dq", dq), ("dk", dk), ("dv", dv))
+                    for x in _head_strides(name, t)]
     err = build.load().emdr2_fid_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
         lse.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, B, Lq, Lk, nh,
-        hd, key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, *grad_strides,
+        B, Lq, Lk, nh, hd, key_chunk, *_dropout_args(seed, dropout_rate),
+        _stream(q))
     build.check(err, "fid_cross_attention_backward")
     build.count_launch(fid_cross_attention_backward)
     return dq, dk, dv
@@ -882,6 +909,61 @@ def fid_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         dropout_rate)
     return fid_cross_attention_forward(q, k, v, kv_bias, seed, key_chunk,
                                        dropout_rate)[0]
+
+
+def _slab_heads(qkv: torch.Tensor, nh: int):
+    """The q, k and v column slices of a [B, L, 3H] slab as [B, L, nh, hd]
+    views (no copy)."""
+    B, L, H3 = qkv.shape
+    return tuple(t.view(B, L, nh, H3 // 3 // nh)
+                 for t in qkv.chunk(3, dim=-1))
+
+
+class _FidSelfAttention(torch.autograd.Function):
+    """K4 on the slab: one gradient slab, written in place by the backward
+    kernels through its three column slices."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_bias, nh, seed, key_chunk, rate):
+        out, lse = fid_cross_attention_forward(*_slab_heads(qkv, nh), kv_bias,
+                                               seed, key_chunk, rate)
+        B, L = qkv.shape[:2]
+        out = out.reshape(B, L, -1)
+        ctx.save_for_backward(qkv, kv_bias, lse, out)
+        ctx.args = (seed, key_chunk, rate)
+        ctx.nh = nh
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, kv_bias, lse, out = ctx.saved_tensors
+        q, k, v = _slab_heads(qkv, ctx.nh)
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        fid_cross_attention_backward(
+            q, k, v, kv_bias, lse, out.view(q.shape), dout.reshape(q.shape),
+            *ctx.args, grads=_slab_heads(dqkv, ctx.nh))
+        return dqkv, None, None, None, None, None
+
+
+def fid_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor, nh: int,
+                       seed: Optional[int] = None, key_chunk: int = 512,
+                       dropout_rate: float = 0.0) -> torch.Tensor:
+    """``fid_cross_attention`` of a fused projection slab on itself: qkv
+    [B, L, 3H] (features [q | k | v]), kv_bias [B, L] fp32 with L a multiple
+    of ``key_chunk`` -> [B, L, H] in qkv's dtype, differentiable w.r.t. qkv.
+    The same kernels read the three column slices through their strides;
+    the backward writes dq, dk and dv into the slices of one [B, L, 3H]
+    gradient (the three-tensor route leaves autograd to assemble it)."""
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * nh):
+        raise ValueError(f"qkv must be [B, L, 3H] with H % nh == 0, "
+                         f"got {tuple(qkv.shape)} and nh={nh}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FidSelfAttention.apply(qkv, kv_bias, nh, seed, key_chunk,
+                                       dropout_rate)
+    B, L = qkv.shape[:2]
+    return fid_cross_attention_forward(*_slab_heads(qkv, nh), kv_bias, seed,
+                                       key_chunk, dropout_rate
+                                       )[0].reshape(B, L, -1)
 
 
 # kernel launches since the last reset (a run proves its path went through

@@ -104,6 +104,57 @@ def test_plain_matches_jax_kernel(R, Lk, key_chunk, tail):
     np.testing.assert_allclose(_f32(got), _f32(ref), atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("R,Lk,tail,stages_per_block,stage_keys", [
+    (1, 128, 5, 1, 32),           # four stages, a block each
+    (3, 200, 0, 2, 32),           # Lk no stage multiple: a short last stage
+    (5, 20, 3, 4, 32),            # Lk shorter than one stage
+    (8, 512, 140, 3, 64),         # a run of three stages, then a shorter one
+    (2, 256, 0, 1, 256),          # the kernel's own stage length
+])
+def test_split_reference_matches_plain_and_jax_kernel(R, Lk, tail,
+                                                      stages_per_block,
+                                                      stage_keys):
+    """The kernel's order of sums (stages dealt to blocks, a stage's keys to
+    four warps, warps then blocks merged in order) against the plain chunked
+    version and the Pallas kernel in interpret mode. With fp32 queries both
+    plain forms keep ``p * vscale`` in fp32 and differ in the order of the
+    sums only: atol = rtol = 1e-5. In bf16 the split form does not round
+    ``p * vscale`` where the others do, and the outputs are bf16: the
+    tolerances of ``test_plain_matches_jax_kernel``."""
+    q, k, v, bias = make(R=R, Lk=Lk, masked_tail=tail, seed=R + Lk)
+    bias[-1] = -1e9                                   # a fully masked example
+    jargs, args = both_sides(q, k, v, bias)
+    got = da.decode_cross_attention_int8_split_reference(
+        *args, stages_per_block, stage_keys, 4)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert torch.isfinite(got.float()).all()
+    want = np.asarray(jax_da.decode_cross_attention_int8(*jargs), np.float32)
+    np.testing.assert_allclose(_f32(got), want, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(
+        _f32(got), _f32(da.decode_cross_attention_int8_plain(*args)),
+        atol=2e-2, rtol=2e-2)
+    args32 = (args[0].float(),) + args[1:]
+    np.testing.assert_allclose(
+        da.decode_cross_attention_int8_split_reference(
+            *args32, stages_per_block, stage_keys, 4).numpy(),
+        da.decode_cross_attention_int8_plain(*args32).numpy(),
+        atol=1e-5, rtol=1e-5)
+    # one block walking every stage is the same function
+    np.testing.assert_allclose(
+        da.decode_cross_attention_int8_split_reference(
+            *args32, 1000, stage_keys, 4).numpy(),
+        da.decode_cross_attention_int8_plain(*args32).numpy(),
+        atol=1e-5, rtol=1e-5)
+
+
+def test_split_reference_refuses_a_bad_split():
+    _, args = both_sides(*make())
+    with pytest.raises(ValueError):
+        da.decode_cross_attention_int8_split_reference(*args, 0, 32, 4)
+    with pytest.raises(ValueError):
+        da.decode_cross_attention_int8_split_reference(*args, 1, 30, 4)
+
+
 def test_fully_masked_example_matches_jax_and_is_finite():
     q, k, v, bias = make(R=3, Lk=256, masked_tail=9, seed=4)
     bias[0] = -1e9

@@ -286,15 +286,24 @@ def test_model_forward_with_chunked_self_attention_matches_jax(
     params = jmodel.init({"params": jax.random.PRNGKey(0)}, jbatch)["params"]
     want = jmodel.apply({"params": params}, jbatch)
 
-    calls = []
+    calls, slab_calls = [], []
     real = layers.fid_cross_attention
+    real_slab = layers.fid_self_attention
 
     def counting(q, k, v, kvb, seed, chunk, rate):
         calls.append((q.shape[1], k.shape[1], chunk))
         assert not k.shape[1] % chunk
         return real(q, k, v, kvb, seed, chunk, rate)
 
+    def counting_slab(qkv, kvb, nh, seed, chunk, rate):
+        # a length the chunk divides goes through the slab itself
+        calls.append((qkv.shape[1], qkv.shape[1], chunk))
+        slab_calls.append(qkv.shape[1])
+        assert not qkv.shape[1] % chunk
+        return real_slab(qkv, kvb, nh, seed, chunk, rate)
+
     monkeypatch.setattr(layers, "fid_cross_attention", counting)
+    monkeypatch.setattr(layers, "fid_self_attention", counting_slab)
     chunked = {"flash_key_chunk": key_chunk}
     cfg = with_transformers(with_flash_attention(tiny_config()), chunked,
                             chunked)
@@ -310,6 +319,7 @@ def test_model_forward_with_chunked_self_attention_matches_jax(
     padded = -(-48 // key_chunk) * key_chunk
     assert (48, padded, key_chunk) in calls
     assert all(L > key_chunk for L, _, _ in calls)
+    assert (48 in slab_calls) == (48 % key_chunk == 0)
 
 
 # ------------------------------------------------- defaults on the card

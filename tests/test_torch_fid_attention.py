@@ -308,6 +308,122 @@ def test_fid_backward_fully_masked_row_is_finite_with_unit_probs():
             q, k, v, bias, lse[:, :4], out, do, None, 8)
 
 
+# ---- K4 on the slab itself: one gradient slab, no concatenation ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fid_self_attention_slab_gradient_matches_jax_and_three_tensors(rate):
+    """The slab route (``fid_self_attention``: L a multiple of the chunk,
+    two chunks, row 0 fully masked so P = 1 there) against (a) jax.vjp of
+    the Pallas kernel in interpret mode on the slab's column slices and (b)
+    the port's three-tensor route on views of the same slab. fp32 on both
+    sides, the same keep mask from the same seed: atol 1e-5, rtol 1e-4."""
+    B, L, nh, hd, chunk, seed = 3, 32, 2, 8, 16, 2 ** 31 + 23
+    H = nh * hd
+    qkv, bias = make_inputs(B, L, nh, hd, seed=17)
+    g = np.random.RandomState(3).randn(B, L, H).astype(np.float32)
+    q, k, v = (qkv[..., i * H:(i + 1) * H].reshape(B, L, nh, hd)
+               for i in range(3))
+    want_out, want = _jax_fid_vjp(q, k, v, bias, seed, chunk, rate,
+                                  g.reshape(B, L, nh, hd))
+    want = np.concatenate([np.asarray(w).reshape(B, L, H) for w in want], -1)
+
+    slab = torch.tensor(qkv, requires_grad=True)
+    out = fid_attention.fid_self_attention(slab, torch.as_tensor(bias), nh,
+                                           seed, chunk, rate)
+    assert out.shape == (B, L, H)
+    out.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(want_out).reshape(B, L, H),
+                               atol=1e-5, rtol=1e-4)
+    assert slab.grad.shape == slab.shape and torch.isfinite(slab.grad).all()
+    np.testing.assert_allclose(slab.grad.numpy(), want, atol=1e-5, rtol=1e-4)
+
+    other = torch.tensor(qkv, requires_grad=True)
+    views = [t.view(B, L, nh, hd) for t in other.chunk(3, dim=-1)]
+    out3 = fid_attention.fid_cross_attention(*views, torch.as_tensor(bias),
+                                             seed, chunk, rate)
+    out3.backward(torch.as_tensor(g).view(B, L, nh, hd))
+    assert torch.equal(out3.reshape(B, L, H), out)
+    np.testing.assert_allclose(slab.grad.numpy(), other.grad.numpy(),
+                               atol=1e-5, rtol=0)
+    # no gradient asked for: the forward alone, the same output
+    with torch.no_grad():
+        assert torch.equal(fid_attention.fid_self_attention(
+            slab, torch.as_tensor(bias), nh, seed, chunk, rate), out)
+
+
+def test_fid_backward_writes_only_the_given_gradient_slices():
+    """``grads`` as the column slices of one slab: the backward fills them
+    and they equal the three separate gradients; a tensor of another shape
+    is refused."""
+    B, L, nh, hd, chunk = 2, 16, 2, 8, 8
+    H = nh * hd
+    qkv, bias = make_inputs(B, L, nh, hd, seed=2)
+    slab, bias = torch.as_tensor(qkv), torch.as_tensor(bias)
+    q, k, v = fid_attention._slab_heads(slab, nh)
+    out, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, 9,
+                                                         chunk, 0.1)
+    do = torch.as_tensor(np.random.RandomState(5).randn(*out.shape)
+                         .astype(np.float32))
+    want = fid_attention.fid_cross_attention_backward(q, k, v, bias, lse, out,
+                                                      do, 9, chunk, 0.1)
+    dqkv = torch.full_like(slab, float("nan"))
+    got = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, out, do, 9, chunk, 0.1,
+        grads=fid_attention._slab_heads(dqkv, nh))
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert torch.equal(dqkv, torch.cat([w.reshape(B, L, H) for w in want], -1))
+    with pytest.raises(ValueError):
+        fid_attention.fid_cross_attention_backward(
+            q, k, v, bias, lse, out, do, 9, chunk, 0.1,
+            grads=(want[0], want[1][:, :8], want[2]))
+
+
+@pytest.mark.parametrize("L,slab_route", [(32, True), (40, False)])
+def test_encoder_layer_routes_by_chunk_multiple(L, slab_route, monkeypatch):
+    """``Attention.encode`` under a key chunk shorter than the row: the slab
+    route when the chunk divides the length, the three-tensor route with
+    padded keys when it does not; both give the materialized attention's
+    output and input gradient (fp32: atol 1e-5)."""
+    from emdr2_tpu_torch.config import TransformerConfig
+    from emdr2_tpu_torch.models import layers
+
+    calls = []
+    for name in ("fid_self_attention", "fid_cross_attention"):
+        fn = getattr(layers, name)
+        monkeypatch.setattr(layers, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    kw = dict(hidden_size=16, num_heads=2, num_layers=1, ffn_size=32,
+              vocab_size=32, max_position_embeddings=64, dtype=torch.float32,
+              hidden_dropout=0.0, attention_dropout=0.0)
+    flash = TransformerConfig(fid_flash_attention=True, flash_key_chunk=16,
+                              **kw)
+    plain = TransformerConfig(fid_flash_attention=False, **kw)
+    gen = torch.Generator().manual_seed(0)
+    att = layers.Attention(flash, device="cpu")
+    for prm in att.parameters():
+        prm.data = torch.randn(prm.shape, generator=gen) * 0.3
+    ref = layers.Attention(plain, device="cpu")
+    ref.load_state_dict(att.state_dict())
+    rng = np.random.RandomState(L)
+    x = rng.randn(2, L, 16).astype(np.float32)
+    bias = np.zeros((2, L), np.float32)
+    bias[1, L - 5:] = -1e9
+    grads = []
+    for module in (att, ref):
+        xt = torch.tensor(x, requires_grad=True)
+        out = module.encode(xt, torch.as_tensor(bias))
+        out.square().sum().backward()
+        grads.append((out.detach(), xt.grad))
+    assert calls == ["fid_self_attention" if slab_route
+                     else "fid_cross_attention"]
+    np.testing.assert_allclose(grads[0][0].numpy(), grads[1][0].numpy(),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(grads[0][1].numpy(), grads[1][1].numpy(),
+                               atol=1e-5, rtol=1e-4)
+
+
 # ------------------------- the row statistics (rowmax, 1/l) of the forward
 
 def _numpy_stats(qkv, bias, nh):

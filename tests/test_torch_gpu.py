@@ -12,8 +12,8 @@ largest reference gradient at most and 2e-3 of it on average; candidate
 values are fp32 sums of exact products in another order, so |dv| <=
 1e-3*|v| + 1e-3, and int8 values are exact. The int8 decode kernel keeps
 ``p * vscale`` in fp32 where its plain version rounds it to bf16, and sums
-the key splits in another order: the same 2e-2 / 2e-3 of the largest
-reference output.
+its stages, warps and blocks in another order: the same 2e-2 / 2e-3 of the
+largest reference output, also against the plain form of its own order.
 """
 
 import pytest
@@ -549,6 +549,85 @@ def test_fid_cross_attention_forward_then_backward_match_plain(cuda, B, Lq,
         _assert_close(leaf.grad, w_)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,Lq,Lk,chunk", [
+    (2, 512, 512, 256),           # the reader encoder under key chunk 256
+    (2, 100, 288, 96),            # Lq != Lk, three ragged chunks
+    (2, 300, 512, 256),
+])
+def test_fid_backward_writes_gradients_through_their_strides(cuda, B, Lq, Lk,
+                                                             chunk, rate):
+    """dq, dk and dv as column slices of one wider slab: they equal the
+    contiguous gradients bit for bit, twice, and no other element of the
+    slab (the rows past Lq under dq, a spare column block) is touched."""
+    q, k, v, bias, dout = _fid_slab_views(B, Lq, Lk, Lq + Lk + 1)
+    out, lse = fid_attention.fid_cross_attention_forward(q, k, v, bias, 41,
+                                                         chunk, rate)
+    want = fid_attention.fid_cross_attention_backward(
+        q, k, v, bias, lse, out, dout, 41, chunk, rate)
+    H = NH * 64
+    L = max(Lq, Lk)
+    slab = torch.full((B, L, 3 * H + 64), 7.0, device=cuda,
+                      dtype=torch.bfloat16)
+    grads = (slab[:, :Lq, :H].view(B, Lq, NH, 64),
+             slab[:, :Lk, H:2 * H].view(B, Lk, NH, 64),
+             slab[:, :Lk, 2 * H:3 * H].view(B, Lk, NH, 64))
+    for _ in range(2):
+        before = fid_attention.fid_cross_attention_backward.launches
+        got = fid_attention.fid_cross_attention_backward(
+            q, k, v, bias, lse, out, dout, 41, chunk, rate, grads=grads)
+        torch.cuda.synchronize()
+        assert fid_attention.fid_cross_attention_backward.launches \
+            == before + 1
+        for g_, w_, view in zip(got, want, grads):
+            assert g_.data_ptr() == view.data_ptr()
+            assert torch.equal(g_, w_)
+        assert bool((slab[:, :, 3 * H:] == 7.0).all())
+        assert bool((slab[:, Lq:, :H] == 7.0).all())
+        assert bool((slab[:, Lk:, H:3 * H] == 7.0).all())
+    with pytest.raises(ValueError):                      # heads not contiguous
+        bad = torch.empty(B, NH, Lq, 64, device=cuda, dtype=torch.bfloat16
+                          ).transpose(1, 2)
+        fid_attention.fid_cross_attention_backward(
+            q, k, v, bias, lse, out, dout, 41, chunk, rate,
+            grads=(bad, grads[1], grads[2]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fid_self_attention_slab_route_equals_three_tensors(cuda, rate):
+    """``fid_self_attention`` on the slab: the same two kernels, one
+    gradient slab written in place; output and gradient equal the
+    three-tensor route's bit for bit; row 0 is fully masked (P = 1)."""
+    B, L, chunk = 2, 512, 256
+    H = NH * 64
+    q, k, v, bias, dout = _fid_slab_views(B, L, L, 21)
+    base = torch.cat([t.reshape(B, L, H) for t in (q, k, v)], dim=-1)
+    dout = dout.reshape(B, L, H)
+    slab = base.clone().requires_grad_(True)
+    counts = (fid_attention.fid_cross_attention.launches,
+              fid_attention.fid_cross_attention_backward.launches)
+    out = fid_attention.fid_self_attention(slab, bias, NH, 7, chunk, rate)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fid_attention.fid_cross_attention.launches,
+            fid_attention.fid_cross_attention_backward.launches) == (
+                counts[0] + 1, counts[1] + 1)
+    other = base.clone().requires_grad_(True)
+    views = [t.view(B, L, NH, 64) for t in other.chunk(3, dim=-1)]
+    out3 = fid_attention.fid_cross_attention(*views, bias, 7, chunk, rate)
+    out3.backward(dout.view(B, L, NH, 64))
+    assert torch.equal(out, out3.reshape(B, L, H))
+    assert torch.isfinite(slab.grad).all()
+    assert torch.equal(slab.grad, other.grad)
+    lse = fid_attention.fid_cross_attention_forward(*views, bias, 7, chunk,
+                                                    rate)[1]
+    plain = fid_attention.fid_cross_attention_bwd_reference(
+        *[t.detach() for t in views], bias, lse, out3.detach(),
+        dout.view(B, L, NH, 64), 7, chunk, rate)
+    _assert_close(slab.grad, torch.cat([t.reshape(B, L, H) for t in plain],
+                                       dim=-1))
+
+
 def test_fid_cross_attention_refuses_grad_and_bad_inputs(cuda):
     g = _gen(5)
     q = torch.randn(2, 64, NH, 64, device=cuda, generator=g
@@ -620,6 +699,45 @@ def test_decode_attention_int8_matches_plain(cuda, B, R, Lk, real):
     poisoned = decode_attention.decode_cross_attention_int8(q, k8, ks, v8,
                                                             vs, bias)
     assert torch.equal(poisoned, got)
+
+
+@pytest.mark.parametrize("stages_per_block", [None, 1, 3])
+@pytest.mark.parametrize("B,R,Lk,real", [
+    (2, 1, 1000, 900),            # Lk no multiple of the 256-key stage
+    (2, 5, 1000, 1000),
+    (1, 8, 2100, 2000),
+    (2, 1, 100, 80),              # Lk shorter than one stage
+    (2, 5, 77, 77),               # ... and odd: scales at any alignment
+    (2, 8, 200, 150),
+    (8, 5, 25_600, 25_000),       # the decode shape
+])
+def test_decode_attention_int8_stages_and_blocks(cuda, B, R, Lk, real,
+                                                 stages_per_block):
+    """Short last stages, runs of one and three stages a block and the
+    wrapper's own choice: against the plain version and against the plain
+    form of the kernel's own order of sums; a repeat is bit-identical."""
+    q, k8, ks, v8, vs, bias = _int8_inputs(B, R, Lk, real, seed=Lk + R)
+    bias[-1, real // 2:] = -1e9
+    layout = decode_attention.kernel_layout()
+    spb, n_blocks = decode_attention.split_plan(B, NH, Lk, q.device,
+                                                stages_per_block)
+    assert n_blocks == -(-(-(-Lk // layout.stage_keys)) // spb)
+    if stages_per_block is None:
+        got = decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                           bias)
+    else:
+        got = decode_attention._launch(q, k8, ks, v8, vs, bias,
+                                       plan=(spb, n_blocks))
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _assert_close(got, decode_attention.decode_cross_attention_int8_plain(
+        q, k8, ks, v8, vs, bias))
+    _assert_close(
+        got, decode_attention.decode_cross_attention_int8_split_reference(
+            q, k8, ks, v8, vs, bias, spb, layout.stage_keys, layout.warps))
+    again = decode_attention._launch(q, k8, ks, v8, vs, bias,
+                                     plan=(spb, n_blocks))
+    assert torch.equal(again, got)
 
 
 def test_decode_attention_int8_fully_masked_example_is_finite(cuda):
