@@ -41,8 +41,10 @@ _SIGNATURES = {
     "emdr2_flash_self_attention_smem": [_P],
     # ..., the splits' scratch (acc, (m, l)), sizes, key_chunk, n_splits
     "emdr2_flash_cross_attention_bf16": [_P] * 7 + [_I] * 7 + _DROPOUT + [_P],
+    # ..., delta and the runs' dq scratch, ..., sizes, key_chunk, n_runs
     "emdr2_flash_cross_attention_bwd_bf16":
-        [_P] * 9 + [_I] * 6 + _DROPOUT + [_P],
+        [_P] * 10 + [_I] * 7 + _DROPOUT + [_P],
+    "emdr2_flash_cross_attention_bwd_layout": [_P],
     # q, k, v as (batch stride, row stride) in elements after the pointers
     "emdr2_fid_attention_bf16":
         [_P] * 6 + [_L, _I] * 3 + [_I] * 6 + _DROPOUT + [_P],

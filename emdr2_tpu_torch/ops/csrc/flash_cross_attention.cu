@@ -57,24 +57,47 @@
 //   every key; m starts at -1e30, never -inf, so exp(m_i - M) is 0 or 1
 //   there and never NaN.
 //
-// Backward design: WMMA tiles of attention_tiles.cuh (four warps of 16
-// rows, 64-row tiles). One block per (chunk, head, row) writes its keys' dk
-// and dv and an fp32 dq partial for the chunk; a second kernel sums the
-// partials in chunk order. No atomics: deterministic. It reads the
-// forward's lse, whichever way the forward was split.
+// Backward design (the same family; bound by bytes too: it reads the kv
+// slab once more and writes a dkv slab of the same size, for about 2.5x the
+// forward's ~5 GFLOP, a tenth of the read's time at the tensor-core rate):
+// - Grid (run, head, row), the chunks dealt to runs as the forward deals
+//   them to splits. A first small kernel computes delta = rowsum(do * out)
+//   once per (row, query, head); a block loads Q, dO, lse and delta of its
+//   (head, row) once.
+// - The four warps split the keys: of each 64-key step a warp owns 16 keys
+//   (the M side of every product) and all the queries (the N side, Lq
+//   rounded up to 16, at least 32: no product is spent on 64 padded rows).
+//   A warp's keys, values and bias come through its own ring of BWD_STAGES
+//   slots fed by cp.async, so the key walk needs no block barrier and two
+//   steps are in flight while one computes. At 32 queries a block takes
+//   65,536 B of shared memory; no register cap is set (a cap for a third
+//   block made the walk spill), and chip_smoke.py prints the registers and
+//   the residency the build came to.
+// - S^T = k q^T and dP^T = v do^T come out of mma.sync in accumulators; P,
+//   the keep bit, P_d and dS are formed there and packed to bf16 in place as
+//   the A operands of dv = P_d^T do and dk = dS^T q (the queries
+//   contracted, do and q read by ldmatrix.trans). dq += dS k takes dS
+//   transposed by movmatrix, 8x8 by 8x8, into a warp's fp32 dq accumulator
+//   that lives across its whole run. No score tile goes through shared
+//   memory.
+// - dk and dv of the warp's 16 keys are staged as bf16 in the ring slot the
+//   warp has just read (its keys and values are spent by then) and written
+//   as whole 128-byte rows by 16-byte stores.
+// - At the end the four warps' dq are summed in warp order; with one run
+//   the block writes dq, otherwise an fp32 partial per run, and a last small
+//   kernel sums the partials in run order. No atomics: repeats are
+//   bit-identical. It reads the forward's lse, whichever way the forward was
+//   split; s = S*scale + bias stays fp32 before the lse is subtracted, so a
+//   fully padded row (s = lse = about -1e9) keeps P = exp(0) = 1.
 
 #include <math.h>
 
 #include "attention_mma.cuh"
-#include "attention_tiles.cuh"
 #include "hashing.cuh"
 
 namespace {
 
-using namespace attn;
-
-constexpr int BWD_SMEM = 4 * TILE_BYTES + WARPS * (2 * S_BYTES)
-                         + 2 * TILE_BYTES + 2 * TR * 4;
+constexpr int MAX_QUERIES = 64;                 // decoder positions a row
 
 // ---- forward: attention_mma.cuh tiles, keys split over warps and blocks ----
 
@@ -314,176 +337,506 @@ cudaError_t launch_cross_fwd(dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// One (chunk, head, row): dk, dv of the chunk's keys and its dq partial.
-__global__ void __launch_bounds__(THREADS)
+// ---- backward: keys split over blocks and warps, scores in registers ----
+
+constexpr int BWD_STAGES = 3;                   // slots of each warp's ring
+constexpr int BWD_WARPS = 4;
+constexpr int BWD_THREADS = BWD_WARPS * 32;
+constexpr int BWD_KW = 16;                      // keys a warp holds at once
+constexpr int BWD_KT = BWD_WARPS * BWD_KW;      // keys the block holds at once
+// one ring slot of a warp: its keys, their values, their bias
+constexpr int BWD_SLOT = 2 * BWD_KW * amma::LDT * 2 + BWD_KW * 4;
+constexpr int BWD_LDQ = amma::HD + 8;           // fp32 row stride of the merge
+
+// Atoms of 16 queries a warp carries at least: 16 queries or fewer run the
+// 32-query kernel (their padded queries get P = 0; no decoder of the model
+// is that short, and the one-atom instance spilled a register).
+constexpr int BWD_MIN_ATOMS = 2;
+
+static_assert(BWD_STAGES >= 2, "the ring overlaps one load with one step");
+
+// Shared memory of the backward for M atoms of 16 queries: the larger of
+// the walk's (Q, dO, lse, delta and the four rings) and the merge's (the
+// four warps' dq).
+constexpr int bwd_smem(int M) {
+  const int walk = 2 * M * 16 * amma::LDT * 2 + 2 * M * 16 * 4
+                   + BWD_WARPS * BWD_STAGES * BWD_SLOT;
+  const int merge = BWD_WARPS * M * 16 * BWD_LDQ * 4;
+  return walk > merge ? walk : merge;
+}
+
+// The transpose of an 8x8 bf16 matrix held by a warp in the mma fragment
+// layout (lane 4g + t: row g, columns 2t and 2t + 1), in the same layout.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t a) {
+  uint32_t d;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// O[m] += A[m] . B over one 16-deep step of the contraction: A[m] the bf16
+// A operands of 16 rows (mma layout), Bs the first of B's 16 rows and of its
+// 8 * ND columns, in shared memory with row stride LDT and the contracted
+// axis along its rows.
+template <int M, int ND>
+__device__ __forceinline__ void mma_rows(float (&O)[M][ND][4],
+                                         const uint32_t (&A)[M][4],
+                                         const __nv_bfloat16* Bs, int lane) {
+  static_assert(ND % 2 == 0, "columns come in pairs of n-tiles");
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_col = (lane >> 4) * 8;
+#pragma unroll
+  for (int dp = 0; dp < ND / 2; ++dp) {
+    uint32_t bv[4];
+    amma::ldsm_x4_trans(bv, Bs + b_row * amma::LDT + dp * 16 + b_col);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      amma::mma_bf16(O[m][2 * dp], A[m], bv[0], bv[1]);
+      amma::mma_bf16(O[m][2 * dp + 1], A[m], bv[2], bv[3]);
+    }
+  }
+}
+
+// d[16, HD / 2] = A^T . B for the warp's 16 keys and half the head dim:
+// A[m] the packed A operands of queries 16m .. 16m + 15 (the score
+// layout), Bs the queries' rows of q or do at the half's first column.
+template <int M>
+__device__ __forceinline__ void key_rows(float (&d)[1][amma::DT / 2][4],
+                                         const uint32_t (&A)[M][4],
+                                         const __nv_bfloat16* Bs, int lane) {
+#pragma unroll
+  for (int n = 0; n < amma::DT / 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[0][n][e] = 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const uint32_t a[1][4] = {{A[m][0], A[m][1], A[m][2], A[m][3]}};
+    mma_rows<1, amma::DT / 2>(d, a, Bs + 16 * m * amma::LDT, lane);
+  }
+}
+
+// One step of the backward on a warp's 16 keys and 8 * NT queries from
+// query c0 on, in registers. S holds the scores k.q^T of the keys (rows)
+// against the queries (columns), dP holds v.do^T; P = exp(S*scale + bias -
+// lse) and
+//   Ads = bf16(P (dP_d - delta)),  Apd = bf16(P_d),
+// with dP_d and P_d dropped by the keep mask at (query, the key's place in
+// its chunk j) and rescaled, packed as the A operands of dk and dv. Keys at
+// or past C are no keys (bias -inf: P = 0); queries past Lq have lse = +inf
+// (P = 0). lse_s and delta_s start at query c0.
+template <int NT, bool DROP>
+__device__ __forceinline__ void grads_step(
+    float (&S)[1][NT][4], float (&dP)[1][NT][4], uint32_t (&Ads)[NT / 2][4],
+    uint32_t (&Apd)[NT / 2][4], const float* bias_s, const float* lse_s,
+    const float* delta_s, int c0, int kin0, int C, float scale,
+    const Dropout& drop, uint32_t bh, uint32_t j, int lane) {
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+  // the (bh, chunk) term of the mask hash; see dropout_keep in hashing.cuh
+  const uint32_t base = drop.seed + bh * 0x27D4EB2Fu + j * 0x165667B1u;
+  float kb[2];                                    // the two keys' bias
+  uint32_t kterm[2];                              // ... and hash terms
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kin = kin0 + g + 8 * hf;
+    kb[hf] = kin < C ? bias_s[g + 8 * hf] : -INFINITY;
+    kterm[hf] = (uint32_t)kin * 0x85EBCA77u ^ base;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + 8 * n + t2);
+    const float2 dl2 = *reinterpret_cast<const float2*>(delta_s + 8 * n + t2);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float s = fmaf(S[0][n][2 * hf + e], scale, kb[hf]);
+        const float p = amma::exp_fast(s - (e ? lse2.y : lse2.x));
+        float dp = dP[0][n][2 * hf + e];
+        float pd = p;
+        if (DROP) {
+          const uint32_t c = (uint32_t)(c0 + 8 * n + t2 + e);   // the query
+          const bool keep =
+              murmur_fin(c * 0x9E3779B1u ^ kterm[hf]) >= drop.threshold;
+          dp = keep ? dp * drop.inv_keep : 0.0f;
+          pd = keep ? p * drop.inv_keep : 0.0f;
+        }
+        S[0][n][2 * hf + e] = p * (dp - (e ? dl2.y : dl2.x));
+        dP[0][n][2 * hf + e] = pd;
+      }
+    }
+  }
+  amma::pack_scores<NT>(Ads, S);
+  amma::pack_scores<NT>(Apd, dP);
+}
+
+// The scores pass of a step over MG atoms of 16 queries from atom m0 on:
+// S^T = k q^T and dP^T = v do^T of the warp's 16 keys (Ks, Vs) against those
+// queries, one 16-deep slice of the head dim at a time, then grads_step;
+// the packed A operands of dk and dv go to Ads[m0 ..] and Apd[m0 ..]. The
+// slices are a loop, not unrolled: the fragments in flight are then one
+// slice's, not four's, which leaves the registers to dq.
+template <int MG, int M, bool DROP>
+__device__ __forceinline__ void scores_pass(
+    uint32_t (&Ads)[M][4], uint32_t (&Apd)[M][4], int m0,
+    const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
+    const __nv_bfloat16* Qs, const __nv_bfloat16* dOs, const float* bias_s,
+    const float* lse_s, const float* delta_s, int kin0, int C, float scale,
+    const Dropout& drop, uint32_t bh, uint32_t j, int lane) {
+  constexpr int NT = 2 * MG;                      // n-tiles of 8 queries
+  const int c0 = 16 * m0;
+  float S[1][NT][4], dP[1][NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[0][n][e] = dP[0][n][e] = 0.0f;
+  }
+  const int a = (lane & 15) * amma::LDT + (lane >> 4) * 8;
+  const int b = (c0 + (lane & 7) + ((lane >> 4) << 3)) * amma::LDT
+                + ((lane >> 3) & 1) * 8;
+#pragma unroll 1
+  for (int kk = 0; kk < amma::HD / 16; ++kk) {
+    uint32_t ak[4], av[4];
+    amma::ldsm_x4(ak, Ks + a + kk * 16);
+    amma::ldsm_x4(av, Vs + a + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bq[4], bo[4];
+      amma::ldsm_x4(bq, Qs + 16 * np * amma::LDT + b + kk * 16);
+      amma::ldsm_x4(bo, dOs + 16 * np * amma::LDT + b + kk * 16);
+      amma::mma_bf16(S[0][2 * np], ak, bq[0], bq[1]);
+      amma::mma_bf16(S[0][2 * np + 1], ak, bq[2], bq[3]);
+      amma::mma_bf16(dP[0][2 * np], av, bo[0], bo[1]);
+      amma::mma_bf16(dP[0][2 * np + 1], av, bo[2], bo[3]);
+    }
+  }
+  uint32_t pa[MG][4], pb[MG][4];
+  grads_step<NT, DROP>(S, dP, pa, pb, bias_s, lse_s + c0, delta_s + c0, c0,
+                       kin0, C, scale, drop, bh, j, lane);
+#pragma unroll
+  for (int m = 0; m < MG; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      Ads[m0 + m][e] = pa[m][e];
+      Apd[m0 + m][e] = pb[m][e];
+    }
+  }
+}
+
+// The warp's [16, HD / 2] fp32 accumulator times `mul`, as bf16 into the
+// rows of `dst` (shared memory, row stride LDT, at the half's first column).
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const float (&d)[1][amma::DT / 2][4],
+                                           float mul, int lane) {
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < amma::DT / 2; ++n) {
+    *reinterpret_cast<uint32_t*>(dst + g * amma::LDT + 8 * n + t2) =
+        amma::pack_bf16(d[0][n][0] * mul, d[0][n][1] * mul);
+    *reinterpret_cast<uint32_t*>(dst + (g + 8) * amma::LDT + 8 * n + t2) =
+        amma::pack_bf16(d[0][n][2] * mul, d[0][n][3] * mul);
+  }
+}
+
+// Rows [r0, min(r0 + 16, limit)) of a row-major matrix with row stride `ld`
+// (elements; `dst` at column 0 of the head in row 0) from `src` [16, LDT]:
+// whole 128-byte rows, 16 bytes a lane and a store.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld,
+                                           const __nv_bfloat16* src, int r0,
+                                           int limit, int lane) {
+#pragma unroll
+  for (int k = 0; k < BWD_KW * (amma::HD / 8) / 32; ++k) {
+    const int i = lane + 32 * k;
+    const int r = i >> 3;
+    const int c = (i & 7) * 8;
+    if (r0 + r < limit) {
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(src + r * amma::LDT + c);
+    }
+  }
+}
+
+// delta[row] = sum over the head dim of dout * out in fp32, for each of the
+// n_rows rows (row, query, head) of 64 elements; eight lanes a row.
+__global__ void cross_delta_kernel(const __nv_bfloat16* __restrict__ out,
+                                   const __nv_bfloat16* __restrict__ dout,
+                                   float* __restrict__ delta, int n_rows) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = t >> 3;
+  const int c = (int)(t & 7) * 8;
+  float s = 0.0f;
+  if (row < (size_t)n_rows) {
+    const uint4 o = *reinterpret_cast<const uint4*>(out + row * amma::HD + c);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + row * amma::HD + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 a = __bfloat1622float2(o2[k]);
+      const float2 b = __bfloat1622float2(g2[k]);
+      s = fmaf(a.x, b.x, s);
+      s = fmaf(a.y, b.y, s);
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if ((t & 7) == 0 && row < (size_t)n_rows) delta[row] = s;
+}
+
+// One (run, head, row): the run's chunks [j0, j1), every warp walking its
+// own quarter of each 64-key step with its own ring; dk and dv of every key
+// written as the walk passes it, dq summed over the run in each warp's
+// registers and over the warps in warp order at the end. With one run the
+// block writes dq, otherwise its fp32 partial.
+template <int M, bool DROP>
+__global__ void __launch_bounds__(BWD_THREADS)
 cross_bwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ kv,
                  const float* __restrict__ kv_bias,
                  const float* __restrict__ lse,
-                 const __nv_bfloat16* __restrict__ out,
+                 const float* __restrict__ delta,
                  const __nv_bfloat16* __restrict__ dout,
-                 float* __restrict__ dq_part, __nv_bfloat16* __restrict__ dkv,
-                 int Lq, int Lk, int nh, int C, float scale, Dropout drop) {
+                 float* __restrict__ dq_part, __nv_bfloat16* __restrict__ dq,
+                 __nv_bfloat16* __restrict__ dkv, int Lq, int Lk, int nh,
+                 int C, int chunks_per_run, float scale, Dropout drop) {
+  constexpr int R = M * 16;                       // query rows held
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + TR * LDT;
-  __nv_bfloat16* Ks = dOs + TR * LDT;
-  __nv_bfloat16* Vs = Ks + TR * LDT;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  unsigned char* wbase = smem + 4 * TILE_BYTES + warp * (2 * S_BYTES);
-  float* Sw = reinterpret_cast<float*>(wbase);
-  float* dPw = reinterpret_cast<float*>(wbase + S_BYTES);
-  // [64 keys, LDP] bf16 each, shared: warp w writes rows [16w, 16w + 16)
-  __nv_bfloat16* PdT = reinterpret_cast<__nv_bfloat16*>(
-      smem + 4 * TILE_BYTES + WARPS * (2 * S_BYTES));
-  __nv_bfloat16* dST = PdT + TR * LDP;
-  float* lse_s = reinterpret_cast<float*>(dST + TR * LDP);
-  float* delta_s = lse_s + TR;
+  __nv_bfloat16* dOs = Qs + R * amma::LDT;
+  float* lse_s = reinterpret_cast<float*>(dOs + R * amma::LDT);
+  float* delta_s = lse_s + R;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(delta_s + R)
+                        + warp * BWD_STAGES * BWD_SLOT;
 
-  const int j = blockIdx.x;
+  const int run = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int H = nh * HD;
-  const int n_chunks = Lk / C;
-  const int c0 = j * C;
-  const __nv_bfloat16* kvb = kv + (size_t)b * Lk * 2 * H;
+  const int B = gridDim.z;
+  const int H = nh * amma::HD;
+  const size_t kv_row0 = (size_t)b * Lk * 2 * H + h * amma::HD;
+  const __nv_bfloat16* kb = kv + kv_row0;
+  const __nv_bfloat16* vb = kb + H;
+  __nv_bfloat16* dkb = dkv + kv_row0;
+  __nv_bfloat16* dvb = dkb + H;
   const float* bias = kv_bias + (size_t)b * Lk;
   const uint32_t bh = (uint32_t)(b * nh + h);
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  const int n_ct = (C + TR - 1) / TR;
+  const int n_chunks = Lk / C;
+  const int j0 = run * chunks_per_run;
+  const int j1 = min(n_chunks, j0 + chunks_per_run);
+  const int n_ct = (C + BWD_KT - 1) / BWD_KT;   // steps of a chunk
+  const int n_steps = (j1 - j0) * n_ct;
 
-  load_tile(Qs, q + (size_t)b * Lq * H, H, h * HD, 0, Lq);
-  load_tile(dOs, dout + (size_t)b * Lq * H, H, h * HD, 0, Lq);
+  // the next step to load: chunk pj, step pt of it; a warp whose 16 keys
+  // lie past the chunk's end loads nothing and later skips the step
+  int pj = j0, pt = 0;
+  auto prefetch = [&](int slot) {
+    if (pj < j1) {
+      const int kin0 = pt * BWD_KT + warp * BWD_KW;
+      if (kin0 < C) {
+        __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(
+            ring + slot * BWD_SLOT);
+        __nv_bfloat16* Vs = Ks + BWD_KW * amma::LDT;
+        float* Bs = reinterpret_cast<float*>(Vs + BWD_KW * amma::LDT);
+        const int r0 = pj * C + kin0;
+        const int limit = (pj + 1) * C;
+        amma::load_rows_async<BWD_KW>(Ks, kb, 2 * H, r0, limit, lane, 32);
+        amma::load_rows_async<BWD_KW>(Vs, vb, 2 * H, r0, limit, lane, 32);
+        if (lane < BWD_KW) {
+          const bool ok = r0 + lane < limit;
+          amma::cp_async4(Bs + lane, bias + (ok ? r0 + lane : 0), ok);
+        }
+      }
+      if (++pt == n_ct) {
+        pt = 0;
+        ++pj;
+      }
+    }
+    amma::cp_async_commit();     // an empty group keeps the count in step
+  };
+
+  const size_t q0 = (size_t)b * Lq * H + h * amma::HD;
+  amma::load_rows_async<R>(Qs, q + q0, H, 0, Lq, tid, BWD_THREADS);
+  amma::load_rows_async<R>(dOs, dout + q0, H, 0, Lq, tid, BWD_THREADS);
+  amma::cp_async_commit();
+  for (int r = tid; r < R; r += BWD_THREADS) {
+    const size_t stat = ((size_t)b * Lq + r) * nh + h;
+    lse_s[r] = r < Lq ? lse[stat] : INFINITY;      // no query: P = 0
+    delta_s[r] = r < Lq ? delta[stat] : 0.0f;
+  }
+#pragma unroll
+  for (int s = 0; s < BWD_STAGES - 1; ++s) prefetch(s);
+  amma::cp_async_wait<BWD_STAGES - 1>();           // Q and dO have landed
+  __syncthreads();                                // ... every warp's part
+
+  float dQ[M][amma::DT][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int n = 0; n < amma::DT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dQ[m][n][e] = 0.0f;
+    }
+  }
+
+  int cj = j0, ct = 0;                            // the step in hand
+  for (int i = 0; i < n_steps; ++i) {
+    amma::cp_async_wait<BWD_STAGES - 2>();         // step i has landed
+    __syncwarp();                                 // ... for every lane,
+    prefetch((i + BWD_STAGES - 1) % BWD_STAGES);    // and step i-1 is free
+    const int kin0 = ct * BWD_KT + warp * BWD_KW;
+    if (kin0 < C) {
+      unsigned char* slot = ring + (i % BWD_STAGES) * BWD_SLOT;
+      __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(slot);
+      __nv_bfloat16* Vs = Ks + BWD_KW * amma::LDT;
+      const float* Bs = reinterpret_cast<const float*>(Vs + BWD_KW * amma::LDT);
+      // S^T = k q^T and dP^T = v do^T: up to 32 queries in one pass; past
+      // that, where dq takes 96-128 registers, 16 a pass
+      uint32_t Ads[M][4], Apd[M][4];
+      constexpr int MG = M > 2 ? 1 : M;
+#pragma unroll
+      for (int m0 = 0; m0 < M; m0 += MG) {
+        scores_pass<MG, M, DROP>(Ads, Apd, m0, Ks, Vs, Qs, dOs, Bs, lse_s,
+                                 delta_s, kin0, C, scale, drop, bh,
+                                 (uint32_t)cj, lane);
+      }
+      __syncwarp();                                // the values are spent
+      float d[1][amma::DT / 2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {       // dv = P_d^T do
+        key_rows<M>(d, Apd, dOs + half * amma::HD / 2, lane);
+        stage_rows(Vs + half * amma::HD / 2, d, 1.0f, lane);
+      }
+      // dq += dS k: the A operand of query atom m is dS^T's 8x8 blocks
+      // (keys 0-7 | 8-15) x (queries 16m .. +7 | 16m + 8 .. +15), transposed
+      uint32_t Aq[M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        Aq[m][0] = transpose8x8(Ads[m][0]);
+        Aq[m][1] = transpose8x8(Ads[m][2]);
+        Aq[m][2] = transpose8x8(Ads[m][1]);
+        Aq[m][3] = transpose8x8(Ads[m][3]);
+      }
+      mma_rows<M, amma::DT>(dQ, Aq, Ks, lane);
+      __syncwarp();                                // the keys are spent
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {       // dk = dS^T q * scale
+        key_rows<M>(d, Ads, Qs + half * amma::HD / 2, lane);
+        stage_rows(Ks + half * amma::HD / 2, d, scale, lane);
+      }
+      __syncwarp();
+      const int r0 = cj * C + kin0;
+      const int limit = (cj + 1) * C;
+      store_rows(dkb, 2 * H, Ks, r0, limit, lane);
+      store_rows(dvb, 2 * H, Vs, r0, limit, lane);
+    }
+    if (++ct == n_ct) {
+      ct = 0;
+      ++cj;
+    }
+  }
+  amma::cp_async_wait<0>();
+  __syncthreads();              // the walk's shared memory is free
+
+  // merge the four warps' dq, in warp order
+  float* dq_s = reinterpret_cast<float*>(smem);          // [4, R, BWD_LDQ]
   {
-    // delta and lse of the 64 query rows: two threads per row
-    const int r = threadIdx.x >> 1;
-    const int hf = threadIdx.x & 1;
-    float dlt = 0.0f;
-    if (r < Lq) {
-      const __nv_bfloat16* o = out + ((size_t)b * Lq + r) * H + h * HD;
-      const __nv_bfloat16* g = dout + ((size_t)b * Lq + r) * H + h * HD;
-      for (int jj = 0; jj < HD / 2; ++jj) {
-        const int c = hf + 2 * jj;
-        dlt += __bfloat162float(g[c]) * __bfloat162float(o[c]);
-      }
-    }
-    dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
-    if (hf == 0) {
-      delta_s[r] = r < Lq ? dlt : 0.0f;
-      lse_s[r] = r < Lq ? lse[((size_t)b * Lq + r) * nh + h] : 0.0f;
-    }
-  }
-
-  FragC dq[HD / 16];
+    const int g = lane >> 2;
+    const int t2 = (lane & 3) * 2;
 #pragma unroll
-  for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(dq[f], 0.0f);
-  for (int t = 0; t < n_ct; ++t) {
-    const int kin = t * TR + warp * 16 + row;     // this lane pair's key
-    const int key = c0 + kin;
-    __syncthreads();
-    load_tile(Ks, kvb, 2 * H, h * HD, c0 + t * TR, c0 + C);
-    load_tile(Vs, kvb, 2 * H, H + h * HD, c0 + t * TR, c0 + C);
-    __syncthreads();
-    product_abt(Ks + warp * 16 * LDT, Qs, Sw);    // S^T = k q^T
-    product_abt(Vs + warp * 16 * LDT, dOs, dPw);  // dP^T = v do^T
-    __syncwarp();
-    const float kbias = kin < C ? bias[key] : 0.0f;
-    for (int jj = 0; jj < TR / 2; ++jj) {
-      const int c = half + 2 * jj;                  // query row
-      float pd = 0.0f, ds = 0.0f;
-      if (c < Lq && kin < C) {
-        const float P = expf(Sw[row * LDS + c] * scale + kbias - lse_s[c]);
-        float dp = dPw[row * LDS + c];
-        pd = P;
-        if (drop.on) {
-          const bool keep = dropout_keep(drop.seed, bh, (uint32_t)j,
-                                         (uint32_t)c, (uint32_t)kin,
-                                         drop.threshold);
-          dp = keep ? dp * drop.inv_keep : 0.0f;
-          pd = keep ? P * drop.inv_keep : 0.0f;
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * m + 8 * hf + g;
+#pragma unroll
+        for (int n = 0; n < amma::DT; ++n) {
+          *reinterpret_cast<float2*>(dq_s + (warp * R + r) * BWD_LDQ + 8 * n
+                                     + t2) =
+              make_float2(dQ[m][n][2 * hf], dQ[m][n][2 * hf + 1]);
         }
-        ds = P * (dp - delta_s[c]);
-      }
-      PdT[(warp * 16 + row) * LDP + c] = __float2bfloat16(pd);
-      dST[(warp * 16 + row) * LDP + c] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    {
-      // dk = dS^T q * scale and dv = P_d^T do for this warp's 16 keys
-      FragC dk[HD / 16], dv[HD / 16];
-#pragma unroll
-      for (int f = 0; f < HD / 16; ++f) {
-        wmma::fill_fragment(dk[f], 0.0f);
-        wmma::fill_fragment(dv[f], 0.0f);
-      }
-      accumulate_pb(dk, dST + warp * 16 * LDP, Qs);
-      accumulate_pb(dv, PdT + warp * 16 * LDP, dOs);
-      __nv_bfloat16* dst = dkv + ((size_t)b * Lk + key) * 2 * H + h * HD;
-      stage_acc(Sw, dk);
-      __syncwarp();
-      if (kin < C) {
-        for (int jj = 0; jj < HD / 2; ++jj) {
-          const int c = half + 2 * jj;
-          dst[c] = __float2bfloat16(Sw[row * LDS + c] * scale);
-        }
-      }
-      __syncwarp();
-      stage_acc(Sw, dv);
-      __syncwarp();
-      if (kin < C) {
-        for (int jj = 0; jj < HD / 2; ++jj) {
-          const int c = half + 2 * jj;
-          dst[H + c] = __float2bfloat16(Sw[row * LDS + c]);
-        }
-      }
-    }
-    __syncthreads();  // every warp's dS^T rows are in place
-    // dq rows [16w, 16w + 16) += dS[q, keys] . k[keys, :]; dS read
-    // column-major out of dS^T
-#pragma unroll
-    for (int kk = 0; kk < TR; kk += 16) {
-      FragAc a;
-      wmma::load_matrix_sync(a, dST + kk * LDP + warp * 16, LDP);
-#pragma unroll
-      for (int f = 0; f < HD / 16; ++f) {
-        FragBr bk;
-        wmma::load_matrix_sync(bk, Ks + kk * LDT + f * 16, LDT);
-        wmma::mma_sync(dq[f], a, bk, dq[f]);
       }
     }
   }
-  __syncwarp();
-  stage_acc(Sw, dq);
-  __syncwarp();
-  const int qr = warp * 16 + row;
-  if (qr < Lq) {
-    float* dst = dq_part + (((size_t)b * n_chunks + j) * Lq + qr) * H + h * HD;
-    for (int jj = 0; jj < HD / 2; ++jj) {
-      const int c = half + 2 * jj;
-      dst[c] = Sw[row * LDS + c] * scale;
+  __syncthreads();
+  const bool last = gridDim.x == 1;
+  for (int i = tid; i < Lq * amma::HD; i += BWD_THREADS) {
+    const int r = i / amma::HD;
+    const int c = i % amma::HD;
+    float acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < BWD_WARPS; ++w) acc += dq_s[(w * R + r) * BWD_LDQ + c];
+    acc *= scale;
+    const size_t o = ((size_t)b * Lq + r) * H + h * amma::HD + c;
+    if (last) {
+      dq[o] = __float2bfloat16(acc);
+    } else {
+      dq_part[(size_t)run * B * Lq * H + o] = acc;
     }
   }
 }
 
-// dq[b, q, :] = sum over chunks, in chunk order, of the fp32 partials.
+// dq[i] = sum over the runs, in run order, of the fp32 partials
+// dq_part [n_runs, n].
 __global__ void cross_dq_reduce_kernel(const float* __restrict__ dq_part,
-                                       __nv_bfloat16* __restrict__ dq, int B,
-                                       int n_chunks, int LqH) {
+                                       __nv_bfloat16* __restrict__ dq,
+                                       int n_runs, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * LqH) return;
-  const size_t b = i / LqH;
-  const size_t r = i % LqH;
-  const float* src = dq_part + b * n_chunks * LqH + r;
+  if (i >= n) return;
   float s = 0.0f;
-  for (int j = 0; j < n_chunks; ++j) s += src[(size_t)j * LqH];
+  for (int r = 0; r < n_runs; ++r) s += dq_part[(size_t)r * n + i];
   dq[i] = __float2bfloat16(s);
 }
 
+template <int M>
+cudaError_t launch_cross_bwd(dim3 grid, cudaStream_t stream,
+                             const __nv_bfloat16* q, const __nv_bfloat16* kv,
+                             const float* kv_bias, const float* lse,
+                             const float* delta, const __nv_bfloat16* dout,
+                             float* dq_part, __nv_bfloat16* dq,
+                             __nv_bfloat16* dkv, int Lq, int Lk, int nh,
+                             int C, int chunks_per_run, float scale,
+                             Dropout drop) {
+  const auto kernel = drop.on ? cross_bwd_kernel<M, true>
+                              : cross_bwd_kernel<M, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem(M));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, BWD_THREADS, bwd_smem(M), stream>>>(
+      q, kv, kv_bias, lse, delta, dout, dq_part, dq, dkv, Lq, Lk, nh, C,
+      chunks_per_run, scale, drop);
+  return cudaGetLastError();
+}
+
+// Blocks of the M-atom backward kernel a multiprocessor of the current
+// device holds at once, with dropout off and on.
+template <int M>
+cudaError_t bwd_residency(int* off, int* on) {
+  const auto k0 = cross_bwd_kernel<M, false>;
+  const auto k1 = cross_bwd_kernel<M, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k0, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem(M));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem(M));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(off, k0, BWD_THREADS,
+                                                        bwd_smem(M));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(on, k1, BWD_THREADS,
+                                                        bwd_smem(M));
+  }
+  return err;
+}
+
 bool bad_shape(int B, int Lq, int Lk, int nh, int hd, int C) {
-  return hd != HD || B <= 0 || Lq <= 0 || Lq > TR || Lk <= 0 || nh <= 0 ||
-         C <= 0 || Lk % C != 0 || B > 65535 || nh > 65535;
+  return hd != amma::HD || B <= 0 || Lq <= 0 || Lq > MAX_QUERIES || Lk <= 0
+         || nh <= 0 || C <= 0 || Lk % C != 0 || B > 65535 || nh > 65535;
 }
 
 }  // namespace
@@ -510,7 +863,7 @@ extern "C" int emdr2_flash_cross_attention_bf16(
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const float scale = 1.0f / sqrtf((float)HD);
+  const float scale = 1.0f / sqrtf((float)amma::HD);
   const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
                                     inv_keep);
   cudaStream_t s = (cudaStream_t)stream;
@@ -550,43 +903,90 @@ extern "C" int emdr2_flash_cross_attention_bf16(
   return (int)cudaGetLastError();
 }
 
-// Backward: inputs as the forward plus lse, out and dout [B, Lq, H];
-// dq_part [B, Lk/key_chunk, Lq, H] fp32 scratch; dq [B, Lq, H] bf16 and
-// dkv [B, Lk, 2H] bf16 (every element written). Two launches on `stream`,
-// in order. Returns a cudaError_t (0 = launched).
+// Backward: inputs as the forward plus lse [B, Lq, nh] fp32 and out, dout
+// [B, Lq, H] bf16; delta [B, Lq, nh] fp32 scratch. The chunks are dealt to
+// n_runs blocks per (head, row) in runs of ceil(chunks / n_runs), none
+// empty; with more than one run dq_part [n_runs, B, Lq, H] is fp32 scratch.
+// Writes dq [B, Lq, H] and dkv [B, Lk, 2H] bf16, every element. Launches on
+// `stream`, in order: delta, the walk, and with more than one run the sum of
+// the dq partials. Returns a cudaError_t (0 = launched).
 extern "C" int emdr2_flash_cross_attention_bwd_bf16(
     const void* q, const void* kv, const void* kv_bias, const void* lse,
-    const void* out, const void* dout, void* dq_part, void* dq, void* dkv,
-    int B, int Lq, int Lk, int nh, int hd, int key_chunk, unsigned int seed,
-    unsigned int threshold, int drop_on, float keep_frac, float inv_keep,
-    void* stream) {
-  if (bad_shape(B, Lq, Lk, nh, hd, key_chunk)) {
+    const void* out, const void* dout, void* delta, void* dq_part, void* dq,
+    void* dkv, int B, int Lq, int Lk, int nh, int hd, int key_chunk,
+    int n_runs, unsigned int seed, unsigned int threshold, int drop_on,
+    float keep_frac, float inv_keep, void* stream) {
+  if (bad_shape(B, Lq, Lk, nh, hd, key_chunk) || n_runs < 1 ||
+      n_runs > 65535 || delta == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
   const int n_chunks = Lk / key_chunk;
-  if (n_chunks > 65535) return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)HD);
+  const int per_run = (n_chunks + n_runs - 1) / n_runs;
+  if ((n_runs - 1) * per_run >= n_chunks ||
+      (n_runs > 1 && dq_part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float scale = 1.0f / sqrtf((float)amma::HD);
+  const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
+                                    inv_keep);
   cudaStream_t s = (cudaStream_t)stream;
-  cross_bwd_kernel<<<dim3(n_chunks, nh, B), THREADS, BWD_SMEM, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kv),
-      static_cast<const float*>(kv_bias), static_cast<const float*>(lse),
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(dq_part),
-      static_cast<__nv_bfloat16*>(dkv), Lq, Lk, nh, key_chunk, scale,
-      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int LqH = Lq * nh * HD;
-  const size_t n = (size_t)B * LqH;
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* kvp = static_cast<const __nv_bfloat16*>(kv);
+  const float* bp = static_cast<const float*>(kv_bias);
+  const float* lp = static_cast<const float*>(lse);
+  const __nv_bfloat16* gp = static_cast<const __nv_bfloat16*>(dout);
+  float* dp = static_cast<float*>(delta);
+  float* pp = static_cast<float*>(dq_part);
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(dq);
+  __nv_bfloat16* dkvp = static_cast<__nv_bfloat16*>(dkv);
+
+  const int n_rows = B * Lq * nh;
   const int threads = 256;
+  cross_delta_kernel<<<(unsigned)(((size_t)n_rows * 8 + threads - 1)
+                                  / threads),
+                       threads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(out), gp, dp, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid(n_runs, nh, B);
+  const int atoms = (Lq + 15) / 16;              // 16-query atoms a warp
+  switch (atoms < BWD_MIN_ATOMS ? BWD_MIN_ATOMS : atoms) {   // carries
+    case 2:
+      err = launch_cross_bwd<2>(grid, s, qp, kvp, bp, lp, dp, gp, pp, dqp,
+                                dkvp, Lq, Lk, nh, key_chunk, per_run, scale,
+                                drop);
+      break;
+    case 3:
+      err = launch_cross_bwd<3>(grid, s, qp, kvp, bp, lp, dp, gp, pp, dqp,
+                                dkvp, Lq, Lk, nh, key_chunk, per_run, scale,
+                                drop);
+      break;
+    default:
+      err = launch_cross_bwd<4>(grid, s, qp, kvp, bp, lp, dp, gp, pp, dqp,
+                                dkvp, Lq, Lk, nh, key_chunk, per_run, scale,
+                                drop);
+  }
+  if (err != cudaSuccess || n_runs == 1) return (int)err;
+  const size_t n = (size_t)B * Lq * nh * amma::HD;
   cross_dq_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
-                           0, s>>>(static_cast<const float*>(dq_part),
-                                   static_cast<__nv_bfloat16*>(dq), B,
-                                   n_chunks, LqH);
+                           0, s>>>(pp, dqp, n_runs, n);
   return (int)cudaGetLastError();
+}
+
+// The backward walk's layout, for reports: out[0] = slots of a warp's ring,
+// out[1] = threads a block; then for M = 2..4 atoms of 16 queries, out[1 +
+// M] = dynamic shared memory of a block in bytes, out[5 + M] and out[9 + M]
+// = blocks of that kernel (dropout off, on) a multiprocessor of the current
+// device holds at once, by the runtime's occupancy query (out[2], out[6]
+// and out[10] are not written: there is no one-atom kernel). Returns a
+// cudaError_t (0 = all read).
+extern "C" int emdr2_flash_cross_attention_bwd_layout(int* out) {
+  out[0] = BWD_STAGES;
+  out[1] = BWD_THREADS;
+  for (int m = BWD_MIN_ATOMS; m <= 4; ++m) out[1 + m] = bwd_smem(m);
+  cudaError_t err = bwd_residency<2>(out + 7, out + 11);
+  if (err == cudaSuccess) err = bwd_residency<3>(out + 8, out + 12);
+  if (err == cudaSuccess) err = bwd_residency<4>(out + 9, out + 13);
+  return (int)err;
 }

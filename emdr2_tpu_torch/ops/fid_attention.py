@@ -33,16 +33,16 @@ plain PyTorch version beside it, which rounds where the TPU kernel rounds
 and, backward, follows the TPU kernel's formula. Each kernel's wrapper
 counts its launches in ``.launches``.
 
-K1, K4 (each forward and backward) and the K2 forward kernel are built on
-``csrc/attention_mma.cuh`` (mma.sync and wgmma products with the scores in
-registers, cp.async rings, one online-softmax step). K1 and K4 share the
-walks of ``csrc/attention_flash.cuh``, one forward and one backward pair
-over tensors given by strides: self-attention on the slab is their
-one-chunk case, saving (rowmax, 1/l) where K4 saves lse. K2's forward also
-splits the keys over blocks and combines fp32 partials in split order
-(``flash_cross_attention_split_reference`` is that arithmetic in plain
-PyTorch). The K2 backward kernel alone still uses the WMMA tiles of
-``csrc/attention_tiles.cuh``.
+Every kernel is built on ``csrc/attention_mma.cuh`` (mma.sync and wgmma
+products with the scores in registers, cp.async rings, one online-softmax
+step). K1 and K4 share the walks of ``csrc/attention_flash.cuh``, one
+forward and one backward pair over tensors given by strides: self-attention
+on the slab is their one-chunk case, saving (rowmax, 1/l) where K4 saves
+lse. K2, forward and backward, splits the keys over blocks in runs of whole
+chunks and sums fp32 partials in run order
+(``flash_cross_attention_split_reference`` and
+``flash_cross_attention_bwd_split_reference`` are that arithmetic in plain
+PyTorch).
 
 What the kernels take is stated once, in ``kernel_limits``: a
 configuration outside it is refused on the card, at construction and at
@@ -412,16 +412,13 @@ def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
                                          chunks, seed, rate), rate)
 
 
-def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
-                                        nh: int, key_chunk: int,
-                                        seed: Optional[int] = None,
-                                        rate: float = 0.0
-                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch backward of the TPU kernel (``_xslab_bwd_kernel``): per
-    chunk, ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled),
-    ``dS = P (dP - delta)``; dk = dS^T q * scale and dv = P_d^T do per key,
-    dq = sum over chunks of dS k * scale (fp32). Returns (dq [B, Lq, H],
-    dkv [B, Lk, 2H]) in the inputs' dtypes."""
+def _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh: int,
+                      key_chunk: int, seed, rate: float):
+    """The TPU kernel's backward (``_xslab_bwd_kernel``), chunk by chunk in
+    order: ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled), ``dS =
+    P (dP - delta)``. Yields (the chunk's key slice, its fp32 dq term dS k *
+    scale [B, nh, Lq, hd], dk = dS^T q * scale and dv = P_d^T do [B, nh, C,
+    hd] in kv's dtype)."""
     B, Lq, H = q.shape
     Lk = kv.shape[1]
     qh, kh, vh, hd = _cross_heads(q, kv, nh)
@@ -433,9 +430,6 @@ def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
     delta = (do * o).sum(dim=-1, keepdim=True)
     bias = kv_bias.float()
     bh = _bh(B, nh, q.device)
-    dq = torch.zeros((B, nh, Lq, hd), device=q.device)
-    dk = torch.empty((B, nh, Lk, hd), dtype=kv.dtype, device=q.device)
-    dv = torch.empty((B, nh, Lk, hd), dtype=kv.dtype, device=q.device)
     for j in range(Lk // key_chunk):
         sl = slice(j * key_chunk, (j + 1) * key_chunk)
         kf = kh[:, :, sl].float()
@@ -452,13 +446,73 @@ def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
         else:
             pd = p
         ds = p * (dp - delta)
-        dq = dq + torch.matmul(ds, kf) * scale
-        dk[:, :, sl] = (torch.matmul(ds.transpose(-1, -2), qf) * scale
-                        ).to(kv.dtype)
-        dv[:, :, sl] = torch.matmul(pd.transpose(-1, -2), do).to(kv.dtype)
+        yield (sl, torch.matmul(ds, kf) * scale,
+               (torch.matmul(ds.transpose(-1, -2), qf) * scale).to(kv.dtype),
+               torch.matmul(pd.transpose(-1, -2), do).to(kv.dtype))
+
+
+def _cross_bwd_sum(q, kv, nh: int, terms, ends) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """(dq [B, Lq, H] in q's dtype, dkv [B, Lk, 2H]) from the chunks' terms
+    (``_cross_bwd_chunks``): dk and dv placed at their keys; the dq terms
+    summed in chunk order into a run's fp32 partial, which is added to dq
+    after each chunk index in ``ends``."""
+    B, Lq, H = q.shape
+    Lk = kv.shape[1]
+    hd = H // nh
+    dq = torch.zeros((B, nh, Lq, hd), device=q.device)
+    run = torch.zeros_like(dq)
+    dk = torch.empty((B, nh, Lk, hd), dtype=kv.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    for j, (sl, dq_j, dk_j, dv_j) in enumerate(terms):
+        run = run + dq_j
+        if j in ends:
+            dq = dq + run
+            run = torch.zeros_like(dq)
+        dk[:, :, sl] = dk_j
+        dv[:, :, sl] = dv_j
     dq = dq.to(q.dtype).permute(0, 2, 1, 3).reshape(B, Lq, H)
     dkv = torch.stack([dk, dv], dim=0).permute(1, 3, 0, 2, 4)
     return dq, dkv.reshape(B, Lk, 2 * H)
+
+
+def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
+                                        nh: int, key_chunk: int,
+                                        seed: Optional[int] = None,
+                                        rate: float = 0.0
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of the TPU kernel (``_xslab_bwd_kernel``): per
+    chunk, ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled),
+    ``dS = P (dP - delta)``; dk = dS^T q * scale and dv = P_d^T do per key,
+    dq = sum over chunks of dS k * scale (fp32). Returns (dq [B, Lq, H],
+    dkv [B, Lk, 2H]) in the inputs' dtypes."""
+    terms = _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh, key_chunk,
+                              seed, rate)
+    return _cross_bwd_sum(q, kv, nh, terms, {kv.shape[1] // key_chunk - 1})
+
+
+def flash_cross_attention_bwd_split_reference(q, kv, kv_bias, lse, out, dout,
+                                              nh: int, key_chunk: int,
+                                              n_splits: int,
+                                              seed: Optional[int] = None,
+                                              rate: float = 0.0
+                                              ) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """The arithmetic of the backward kernel's key split, in plain PyTorch:
+    the chunks are dealt to ``n_splits`` runs of whole chunks as
+    ``flash_cross_attention_split_reference`` deals them, each run's dq
+    terms summed into an fp32 partial, and the partials summed in run order;
+    dk and dv are the unsplit backward's. Equals
+    ``flash_cross_attention_bwd_reference`` up to rounding. Nothing on the
+    card's path calls it: the tests hold the run sums with it, and
+    ``chip_smoke.py`` holds the kernel's forced runs to it."""
+    n_chunks = kv.shape[1] // key_chunk
+    per_run = _split_chunks(n_chunks, n_splits)[1]
+    ends = {min(n_chunks, j0 + per_run) - 1
+            for j0 in range(0, n_chunks, per_run)}
+    terms = _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh, key_chunk,
+                              seed, rate)
+    return _cross_bwd_sum(q, kv, nh, terms, ends)
 
 
 def _check_cross(q, kv, kv_bias, nh, key_chunk):
@@ -512,6 +566,9 @@ def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
 # blocks the forward wants in flight before it stops splitting the keys, per
 # multiprocessor (four fit at once; more, smaller ones even out the tail)
 _CROSS_BLOCKS_PER_SM = 8
+# and the backward (fewer fit at once; at the reader shape 17 runs of 3
+# chunks beat 10 of 5 and 50 of 1: chip_smoke.py's run sweep)
+_CROSS_BWD_BLOCKS_PER_SM = 16
 
 
 def _split_chunks(n_chunks: int, n_splits: int) -> Tuple[int, int]:
@@ -524,12 +581,14 @@ def _split_chunks(n_chunks: int, n_splits: int) -> Tuple[int, int]:
     return -(-n_chunks // per_split), per_split
 
 
-def _cross_splits(B: int, nh: int, n_chunks: int, device) -> int:
-    """Key splits of the forward kernel: enough that B*nh*splits blocks fill
-    the card (the reader shape has 96 (head, row) pairs for 132
-    multiprocessors), one when the rows alone do (the teacher shape)."""
+def _cross_splits(B: int, nh: int, n_chunks: int, device,
+                  per_sm: int = _CROSS_BLOCKS_PER_SM) -> int:
+    """Key splits (runs) of the kernels: enough that B*nh*splits blocks
+    fill the card, ``per_sm`` a multiprocessor (the reader shape has 96
+    (head, row) pairs for 132 multiprocessors), one when the rows alone do
+    (the teacher shape)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-_CROSS_BLOCKS_PER_SM * sms // (B * nh))
+    want = -(-per_sm * sms // (B * nh))
     return _split_chunks(n_chunks, want)[0]
 
 
@@ -582,13 +641,29 @@ def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
                                    rate: float = 0.0
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq [B, Lq, H], dkv [B, Lk, 2H]) of ``flash_cross_attention``: the
-    kernels on CUDA (per-chunk fp32 dq partials summed in chunk order, so
-    the result is deterministic), the plain version on CPU."""
+    kernel on CUDA, the plain version on CPU.
+
+    The kernel deals the key chunks to runs of whole chunks, several blocks
+    per (head, row) as the forward does, writes dk and dv of every key once,
+    and sums the runs' fp32 dq partials in run order (no atomics: the
+    result repeats bit for bit; one count in ``.launches``)."""
     _check_cross(q, kv, kv_bias, nh, key_chunk)
     _dropout_args(seed, rate)
     if q.device.type == "cpu":
         return flash_cross_attention_bwd_reference(
             q, kv, kv_bias, lse, out, dout, nh, key_chunk, seed, rate)
+    return _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh,
+                                  key_chunk, seed, rate)
+
+
+def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
+                           key_chunk: int, seed: Optional[int], rate: float,
+                           n_runs: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the CUDA tensors against the kernel's limits and launch it.
+    ``n_runs``: runs of whole chunks a (head, row), reduced until none is
+    empty; ``None`` takes ``_cross_splits``' choice (the tests force
+    others)."""
     B, Lq, H = q.shape
     Lk = kv.shape[1]
     dout = dout.contiguous()
@@ -601,14 +676,21 @@ def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
                          f"{tuple(q.shape)}, out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
     n_chunks = Lk // key_chunk
-    dq_part = torch.empty((B, n_chunks, Lq, H), dtype=torch.float32,
-                          device=q.device)
+    if n_runs is None:
+        n_runs = _cross_splits(B, nh, n_chunks, q.device,
+                               _CROSS_BWD_BLOCKS_PER_SM)
+    else:
+        n_runs = _split_chunks(n_chunks, n_runs)[0]
+    delta = torch.empty((B, Lq, nh), dtype=torch.float32, device=q.device)
+    dq_part = (torch.empty((n_runs, B, Lq, H), dtype=torch.float32,
+                           device=q.device) if n_runs > 1 else None)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
     err = build.load().emdr2_flash_cross_attention_bwd_bf16(
         q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), lse.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), dq_part.data_ptr(), dq.data_ptr(),
-        dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk,
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        dq_part.data_ptr() if dq_part is not None else None, dq.data_ptr(),
+        dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk, n_runs,
         *_dropout_args(seed, rate), _stream(q))
     build.check(err, "flash_cross_attention_backward")
     build.count_launch(flash_cross_attention_backward)

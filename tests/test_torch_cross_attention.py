@@ -2,8 +2,9 @@
 JAX Pallas kernel ``flash_cross_attention`` run in interpret mode: output,
 lse, dq and dkv (the JAX dkv arrives in [B, Lk, 2H] after its own swap),
 with one and several key chunks, a padded key tail, and dropout; and the
-key split of the CUDA forward (partials per run of whole chunks, combined in
-split order) against the unsplit plain version.
+key split of the CUDA kernels (forward: partials per run of whole chunks,
+combined in split order; backward: the runs' dq partials summed in run
+order) against the unsplit plain versions and the JAX VJP.
 
 Tolerance: both sides compute in fp32 and differ only in summation order:
 atol 1e-5, rtol 1e-4.
@@ -23,6 +24,8 @@ from emdr2_tpu.ops.fid_attention import (  # noqa: E402
 from emdr2_tpu_torch.ops import fid_attention  # noqa: E402
 from emdr2_tpu_torch.ops.fid_attention import (  # noqa: E402
     flash_cross_attention,
+    flash_cross_attention_bwd_reference,
+    flash_cross_attention_bwd_split_reference,
     flash_cross_attention_forward,
     flash_cross_attention_reference,
     flash_cross_attention_split_reference,
@@ -101,6 +104,66 @@ def test_split_and_combine_equals_unsplit_walk(n_splits, rate):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **tol)
     assert lse[0].max().item() < -9e8                 # the padded row's lse
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_backward_runs_equal_unsplit_backward_and_jax(n_splits, rate):
+    """The backward kernel's run sums: seven chunks of 16 keys dealt to 1,
+    2, 3 (3 + 3 + 1) and 7 runs; keys past 37 are padding (a ragged chunk,
+    then whole runs of padding), row 0 is padded throughout (P = 1 from its
+    lse) and row 2 from key 18. dq and dkv of the plain run-split backward
+    against the unsplit plain backward and the JAX VJP (interpret mode).
+    fp32 on every side, another summation order: atol = rtol = 1e-5."""
+    nh, chunk = 2, 16
+    q, kv, bias, g = make_inputs(3, 5, 7 * chunk, nh, real=37,
+                                 seed=10 + n_splits)
+    bias[0] = -1e9
+
+    def f(a, b):
+        return jax_flash_cross_attention(a, b, jnp.asarray(bias),
+                                         jnp.uint32(SEED), nh, chunk, True,
+                                         rate)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(kv))
+    want_dq, want_dkv = vjp(jnp.asarray(g))
+
+    q, kv, bias, g = (torch.as_tensor(x) for x in (q, kv, bias, g))
+    out, lse = flash_cross_attention_reference(q, kv, bias, nh, chunk, SEED,
+                                               rate)
+    args = (q, kv, bias, lse, out, g, nh, chunk)
+    plain_dq, plain_dkv = flash_cross_attention_bwd_reference(*args, SEED,
+                                                              rate)
+    dq, dkv = flash_cross_attention_bwd_split_reference(*args, n_splits, SEED,
+                                                        rate)
+    assert torch.isfinite(dq).all() and torch.isfinite(dkv).all()
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dq.numpy(), plain_dq.numpy(), **tol)
+    assert torch.equal(dkv, plain_dkv)               # dk, dv: no sum over runs
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), **tol)
+    np.testing.assert_allclose(dkv.numpy(), np.asarray(want_dkv), **tol)
+    # padded keys of the rows with a live key get exactly zero dk and dv;
+    # the fully padded row's keys do not (P = 1 on every key)
+    assert (dkv[1, 37:] == 0).all() and (dkv[2, 18:] == 0).all()
+    assert (dkv[0] != 0).any()
+
+
+def test_backward_runs_are_dealt_as_the_forward_splits():
+    """One chunk a run and one run for everything give the unsplit sums
+    exactly; a run count above the chunks is cut to one chunk a run."""
+    nh, chunk = 2, 16
+    q, kv, bias, g = (torch.as_tensor(x) for x in
+                      make_inputs(2, 4, 3 * chunk, nh, real=40, seed=5))
+    out, lse = flash_cross_attention_reference(q, kv, bias, nh, chunk)
+    args = (q, kv, bias, lse, out, g, nh, chunk)
+    plain = flash_cross_attention_bwd_reference(*args)
+    for n in (1, 3, 50):
+        got = flash_cross_attention_bwd_split_reference(*args, n)
+        assert torch.equal(got[1], plain[1])
+        if n == 1:
+            assert torch.equal(got[0], plain[0])
+    assert torch.equal(flash_cross_attention_bwd_split_reference(*args, 3)[0],
+                       flash_cross_attention_bwd_split_reference(*args, 50)[0])
 
 
 def test_split_counts_leave_no_split_empty():

@@ -317,6 +317,88 @@ def test_cross_attention_key_splits_match_plain(cuda, Lk, chunk, real,
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk,chunk,real,n_runs", [
+    (32, 3584, 512, 1200, 1),     # seven chunks walked by one block
+    (32, 3584, 512, 1200, 2),     # 4 + 3
+    (32, 3584, 512, 1200, 3),     # 3 + 3 + 1; the last two all padding
+    (32, 3584, 512, 1200, 5),     # reduced to four runs of 2, 2, 2, 1
+    (32, 3584, 512, 1200, 7),
+    (40, 3584, 512, 1200, 3),     # three atoms of 16 queries
+    (64, 1024, 256, 700, 2),      # four atoms
+    (8, 144, 48, 100, 3),         # one atom; chunks shorter than a step
+    (32, 25600, 256, 20000, None),    # the wrapper's own choice
+])
+def test_cross_attention_backward_runs_match_plain(cuda, Lq, Lk, chunk, real,
+                                                   n_runs, rate):
+    """The backward kernel over forced runs of whole chunks against the
+    plain backward and its run-split form; row 0 fully padded (P = 1 from
+    its lse: held to the plain result, not only finite), row 1 padded from
+    real // 2 (its padded keys get exactly zero dk and dv); repeats are
+    bit-identical."""
+    q, kv, bias, dout = _cross_inputs(2, Lq, Lk, real,
+                                      seed=Lk + Lq + (n_runs or 0))
+    bias[0, :] = -1e9
+    out, lse = fid_attention.flash_cross_attention_reference(
+        q, kv, bias, NH, chunk, 31, rate)
+    args = (q, kv, bias, lse, out, dout, NH, chunk)
+    before = fid_attention.flash_cross_attention_backward.launches
+    dq, dkv = fid_attention._launch_cross_backward(*args, 31, rate, n_runs)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_cross_attention_backward.launches == before + 1
+    want_dq, want_dkv = fid_attention.flash_cross_attention_bwd_reference(
+        *args, 31, rate)
+    _assert_close(dq, want_dq)
+    _assert_close(dkv, want_dkv)
+    if n_runs is not None:
+        split_dq, _ = fid_attention.flash_cross_attention_bwd_split_reference(
+            *args, n_runs, 31, rate)
+        _assert_close(dq, split_dq)
+    _assert_close(dq[0], want_dq[0])
+    _assert_close(dkv[0], want_dkv[0])
+    assert (dkv[1, real // 2:] == 0).all()
+    again = fid_attention._launch_cross_backward(*args, 31, rate, n_runs)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], dkv)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cross_attention_backward_reader_shape_chunk_256(cuda, rate):
+    """The reader's shape under key chunk 256 (8 rows of 32 queries over
+    25,600 keys, each row padded from its own length), through autograd:
+    padded keys get exactly zero dk and dv, the gradients match the plain
+    backward on two rows, and a repeat is bit-identical."""
+    g = _gen(256)
+    B, Lq, Lk, H = 8, 32, 25_600, NH * 64
+    q = torch.randn(B, Lq, H, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(B, Lk, 2 * H, device=cuda, generator=g
+                     ).to(torch.bfloat16)
+    real = torch.randint(Lk // 2, Lk - 100, (B,), device=cuda, generator=g)
+    bias = torch.where(torch.arange(Lk, device=cuda)[None, :] < real[:, None],
+                       0.0, -1e9).float()
+    dout = torch.randn(B, Lq, H, device=cuda, generator=g).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        a = q.clone().requires_grad_(True)
+        b = kv.clone().requires_grad_(True)
+        out = fid_attention.flash_cross_attention(a, b, bias, NH, 256, 5, rate)
+        out.backward(dout)
+        grads.append((a.grad, b.grad))
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    dq, dkv = grads[0]
+    for r in range(B):
+        assert (dkv[r, real[r]:] == 0).all()
+    _, lse = fid_attention.flash_cross_attention_forward(q, kv, bias, NH, 256,
+                                                         5, rate)
+    rows = slice(0, 2)
+    want_dq, want_dkv = fid_attention.flash_cross_attention_bwd_reference(
+        q[rows], kv[rows], bias[rows], lse[rows], out.detach()[rows],
+        dout[rows], NH, 256, 5, rate)
+    _assert_close(dq[rows], want_dq)
+    _assert_close(dkv[rows], want_dkv)
+
+
 def test_cross_attention_fully_masked_row_stays_finite(cuda):
     q, kv, bias, dout = _cross_inputs(2, 32, 512, 512, seed=8)
     bias[0] = -1e9
