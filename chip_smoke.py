@@ -7,9 +7,10 @@
    (one nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version at the shapes the
    serving and training paths give it, and times both with CUDA events:
-   flash self-attention (K1) forward at [8, 64, 2304], [400, 256, 2304] and
-   [400, 512, 2304] (bf16, 12 heads, one row fully padded; the saved
-   (rowmax, 1/l) held against the plain statistics) and with dropout 0.1,
+   flash self-attention (K1) forward at [8, 64, 2304], [128, 256, 2304] (the
+   index builder's batch), [400, 256, 2304] and [400, 512, 2304] (bf16, 12
+   heads, one row fully padded; the saved (rowmax, 1/l) held against the
+   plain statistics) and with dropout 0.1,
    its backward at [8, 64], [400, 256] and [400, 512] (gradients checked on
    32 rows, timed on all); the registers, spills and shared memory of the
    K1, K2-bwd, K4 and K5 kernels are printed by name, and a spill fails the
@@ -78,6 +79,27 @@
    moment), from which one more step runs. Prints ms per iteration and per
    stage, peak memory, and the checkpoint's bytes and seconds (async
    stage, background write, synchronous save, load).
+
+7. The evidence-index build at the same widths: ``EvidenceIndexBuilder``
+   embeds 32,768 synthetic passages at Lc=256, batch 128, by the host path
+   (fp16 rows in host RAM) and by the device path (bf16 rows on the card):
+   passages/s, peak memory and K1-fwd's 3,072 launches of each; the paths'
+   rows agree and 64 sampled rows equal ``retriever.embed_context``. Then
+   ``ShardedEvidenceIndex.update`` of a 1,310,720-row int8 index (the
+   reference's shard a GPU) from a host fp16 array and from a device tensor:
+   the swap's stall; and the full-shard pass time at the measured rates.
+8. The loop with a live ``AsyncIndexRefresher`` (the flagship layout, B=8,
+   prefetch 0, 8 iterations, a 16,384-passage corpus and int8 index, reload
+   interval 2), then 3 iterations without it: ms per iteration with an embed
+   pass in flight and without, passages/s while training, each swap's ms,
+   ``refresh_count`` >= 1, peak memory; the first swapped index held to the
+   embedding of the tower handed over at ``start``; no thread left.
+9. The command line: ``tools.create_doc_index.main`` and
+   ``tasks.run.main(["--task", "OPENQA", ...])`` by their argv with the
+   flagship flags, ``--async-indexer --index-reload-interval 2
+   --index-quantize int8 --train-iters 4 --save-interval 2`` and 8 valid
+   examples (rc 0, the tracker at 4, "valid EM" printed), then
+   ``QAPipeline.load`` from that save answers 8 questions.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -296,14 +318,15 @@ def flash_kernel_report(ptxas_log: str) -> None:
 
 
 def k1_phase(dev, gen):
-    """K1 forward at the query tower's, the context tower's and the
-    reader's shapes, rate 0, with one fully padded row: the output and the
-    saved statistics against their plain versions."""
+    """K1 forward at the query tower's, the index builder's (a batch of
+    128 passages), the context tower's and the reader's shapes, rate 0,
+    with one fully padded row: the output and the saved statistics against
+    their plain versions."""
     from emdr2_tpu_torch.ops.fid_attention import (
         flash_self_attention, flash_self_attention_forward,
         flash_self_attention_reference, flash_self_attention_stats_reference)
     rows = []
-    for B, L in ((8, 64), (400, 256), (400, 512)):
+    for B, L in ((8, 64), (128, 256), (400, 256), (400, 512)):
         qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen
                           ).to(torch.bfloat16)
         lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
@@ -1114,14 +1137,15 @@ def recall_at(ids, oracle, group=128):
     return hits / oracle.numel(), (misses, collided)
 
 
-def make_world(cfg, tmpdir, dev, gen, n_docs=20_000, n_rows=N_INDEX):
-    """Tokenizer with the published vocab sizes, a synthetic corpus of
-    ``n_docs`` passages on disk, and an ``n_rows`` index made on ``dev``."""
+def make_corpus(cfg, tmpdir, n_docs=20_000):
+    """Tokenizer with the published vocab sizes (its vocabulary written to
+    ``<tmpdir>/vocab.txt``) and a synthetic corpus of ``n_docs`` passages
+    at ``<tmpdir>/wiki_{text,title}``, the files the command-line tools
+    read."""
     from emdr2_tpu_torch.data.evidence import EvidenceCorpus
     from emdr2_tpu_torch.data.indexed_dataset import (
         MMapIndexedDataset, MMapIndexedDatasetBuilder)
     from emdr2_tpu_torch.data.tokenizer import BertWordPieceTokenizer, toy_vocab
-    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
 
     words = ["what", "is", "the", "color", "of", "item"]
     base = len(toy_vocab(words))
@@ -1130,11 +1154,13 @@ def make_world(cfg, tmpdir, dev, gen, n_docs=20_000, n_rows=N_INDEX):
     # +100 sentinel ids) pads to the reader's published 30720
     n_words = cfg.retriever.encoder.vocab_size - 70 - base
     vocab = toy_vocab(words + [f"w{i}" for i in range(n_words)])
+    with open(os.path.join(tmpdir, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
     tok = BertWordPieceTokenizer(vocab, vocab_extra_ids=100)
     rng = np.random.RandomState(SEED)
     lo, hi = base, len(vocab)
-    text_p, title_p = os.path.join(tmpdir, "text"), os.path.join(tmpdir,
-                                                                 "title")
+    text_p = os.path.join(tmpdir, "wiki_text")
+    title_p = os.path.join(tmpdir, "wiki_title")
     with MMapIndexedDatasetBuilder(text_p) as b:
         for n in rng.randint(90, 140, size=n_docs):
             b.add_item(rng.randint(lo, hi, size=n).tolist())
@@ -1143,6 +1169,14 @@ def make_world(cfg, tmpdir, dev, gen, n_docs=20_000, n_rows=N_INDEX):
             b.add_item([lo + (i // 3) % (hi - lo), lo + 7])
     corpus = EvidenceCorpus(MMapIndexedDataset(text_p),
                             MMapIndexedDataset(title_p))
+    return tok, corpus
+
+
+def make_world(cfg, tmpdir, dev, gen, n_docs=20_000, n_rows=N_INDEX):
+    """``make_corpus`` and an ``n_rows`` index made on ``dev``."""
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+
+    tok, corpus = make_corpus(cfg, tmpdir, n_docs)
     emb = torch.randn(n_rows, cfg.index.embed_dim, device=dev, generator=gen)
     pids = 1 + np.arange(n_rows) % n_docs
     index = ShardedEvidenceIndex(cfg.index, emb, passage_ids=pids,
@@ -1691,6 +1725,404 @@ def engine_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
                     load_s=load_s))
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _empty_cache(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def index_phase(cfg, dev, gen, n_docs=32_768, n_rows=N_INDEX, batch=128,
+                n_check=64):
+    """The evidence-index build at the flagship widths:
+    ``EvidenceIndexBuilder`` embeds ``n_docs`` passages at
+    Lc=``cfg.retriever.seq_len`` in batches of ``batch``, by the host path
+    (fp16 rows in host RAM) and by the device path (rows in
+    ``cfg.index.dtype`` on the card): passages/s, peak memory and K1-fwd's
+    launches of each; the two paths' rows agree, and ``n_check`` sampled
+    rows equal ``retriever.embed_context`` on the same passages. Then the
+    swap's stall: ``ShardedEvidenceIndex.update`` of an int8 index of
+    ``n_rows`` rows (the reference's shard a GPU) from a host fp16 array and
+    from a device tensor."""
+    from emdr2_tpu_torch.models import EMDR2Model
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, corpus = make_corpus(cfg, tmpdir, n_docs)
+        model = EMDR2Model(cfg, device=dev, generator=gen)
+        builder = EvidenceIndexBuilder(cfg, model, corpus, tok.cls_id,
+                                       tok.sep_id, tok.pad_id,
+                                       batch_size=batch)
+        with torch.inference_mode():              # warm-up: one batch
+            builder._embed(model, np.arange(1, batch + 1))
+        log(f"index set-up {time.perf_counter() - t0:.1f} s: {n_docs} "
+            f"passages, batch {batch}, Lc {cfg.retriever.seq_len}")
+        paths = {}
+        for name in ("host", "device"):
+            _reset_peak(dev)
+            _reset_counts()
+            t0 = time.perf_counter()
+            rows = (builder.embed_corpus() if name == "host"
+                    else builder.embed_corpus_device(None, n_docs))
+            _sync(dev)
+            sec = time.perf_counter() - t0
+            paths[name] = dict(
+                rows=rows, seconds=sec, per_s=n_docs / sec,
+                peak_bytes=_peak(dev),
+                launches=_read_counts(("flash_self_attention",))[
+                    "flash_self_attention"])
+            # 12 a batch on the card; the plain version on the CPU
+            want = (-(-n_docs // batch) * cfg.retriever.encoder.num_layers
+                    if dev.type == "cuda" else 0)
+            if paths[name]["launches"] != want:
+                raise AssertionError(f"index {name} path: K1-fwd launched "
+                                     f"{paths[name]['launches']} times, "
+                                     f"want {want}")
+            log(f"index {name} path: {n_docs} passages in {sec:.3f} s = "
+                f"{n_docs / sec:.1f} passages/s, peak memory "
+                f"{paths[name]['peak_bytes'] / 2**30:.2f} GiB, K1-fwd "
+                f"launches {paths[name]['launches']}")
+        host = torch.from_numpy(paths["host"]["rows"]).to(dev)
+        dev_rows = paths["device"].pop("rows")
+        if dev_rows.dtype != cfg.index.dtype or tuple(dev_rows.shape) != (
+                n_docs, cfg.index.embed_dim):
+            raise AssertionError(f"device path rows {dev_rows.dtype} "
+                                 f"{tuple(dev_rows.shape)}")
+        # fp16 against cfg.index.dtype (bf16) roundings of the same fp32
+        agree = _check("index: device path against host path", dev_rows,
+                       host, FWD_TOL)
+        doc_ids = np.sort(np.random.RandomState(SEED).choice(
+            n_docs, n_check, replace=False)) + 1
+        ids, types = builder._format_rows(doc_ids)
+        with torch.inference_mode():
+            want = model.retriever.embed_context(
+                torch.as_tensor(ids).long().to(dev),
+                torch.as_tensor(types).long().to(dev))
+        sampled = _check("index: sampled rows against embed_context",
+                         host[doc_ids - 1], want, FWD_TOL)
+        log(f"index: device rows against host rows: max abs err "
+            f"{agree[0]:.3e}, mean {agree[1]:.3e} (tol {FWD_TOL} x max|ref| "
+            f"{agree[2]:.3e}); {n_check} sampled host rows against "
+            f"retriever.embed_context: max abs err {sampled[0]:.3e}, mean "
+            f"{sampled[1]:.3e} (same tol, max|ref| {sampled[2]:.3e})")
+        del host, dev_rows, want, model, builder
+        for name in paths:
+            paths[name].pop("rows", None)
+        res.update(paths, agree=agree[:2], sampled=sampled[:2])
+    _empty_cache(dev)
+
+    # the swap's stall at the reference's shard a GPU
+    emb = torch.randn(n_rows, cfg.index.embed_dim, device=dev, generator=gen)
+    index = ShardedEvidenceIndex(cfg.index, emb, device=dev)
+    host_rows = emb.to(torch.float16).cpu().numpy()
+    dev_rows = emb.to(cfg.index.dtype)
+    del emb
+    stalls = {"host": [], "device": []}
+    for name, rows, reps in (("host", host_rows, 2), ("device", dev_rows, 3)):
+        for _ in range(reps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            index.update(rows)
+            t1 = time.perf_counter()
+            _sync(dev)
+            stalls[name].append(((t1 - t0) * 1e3,
+                                 (time.perf_counter() - t0) * 1e3))
+        log(f"index: update of the {n_rows}-row int8 index from the {name} "
+            f"({tuple(rows.shape)} {rows.dtype}): " + ", ".join(
+                f"{h:.1f} ms on the host thread, {t:.1f} ms until the card "
+                f"is done" for h, t in stalls[name]))
+    del index, host_rows, dev_rows
+    _empty_cache(dev)
+    res["stalls"] = stalls
+    res["full_shard_s"] = {name: n_rows / res[name]["per_s"]
+                           for name in ("host", "device")}
+    log(f"index: one full-shard pass of {n_rows} passages at these rates: "
+        + ", ".join(f"{name} path {s:.1f} s"
+                    for name, s in res["full_shard_s"].items()))
+    return res
+
+
+def refresh_phase(cfg, dev, gen, n_docs=16_384, batch=8, iters=8,
+                  plain_iters=3, reload_interval=2, n_check=64,
+                  total_iters=1000):
+    """``training.engine.train`` at full width with a live
+    ``AsyncIndexRefresher`` over an ``n_docs``-passage corpus and int8
+    index (``reload_interval``, prefetch 0), ``iters`` iterations; then
+    ``plain_iters`` more without a refresher. The instrumentation wraps the
+    refresher's ``maybe_swap`` (each swap's stall on the trainer thread)
+    and its builder's ``embed_corpus`` (each completed pass's window), and
+    the loop's printer (each iteration's end); ``on_refresh`` samples
+    ``n_check`` rows of the index after the first swap, which are held to
+    an embedding made with a copy of the tower taken at the hand-off."""
+    import copy
+    import dataclasses
+    import threading
+
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    from emdr2_tpu_torch.ops import mips
+    from emdr2_tpu_torch.retrieval.builder import (EvidenceIndexBuilder,
+                                                   context_tower)
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.training import engine
+    from emdr2_tpu_torch.training.async_refresh import AsyncIndexRefresher
+    from emdr2_tpu_torch.training.step import METRICS
+
+    def loop_cfg(train_iters):
+        return cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=batch, train_iters=train_iters,
+            log_interval=1, save_interval=10 ** 6, eval_interval=10 ** 6,
+            index_reload_interval=reload_interval, seed=SEED))
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
+                                        n_docs)
+        qa = os.path.join(tmpdir, "qa.tsv")
+        with open(qa, "w") as f:
+            for i in range(batch * (iters + plain_iters + 1)):
+                f.write(f"what is the color of item w{7 * i}\t"
+                        f"['w{3 * i} w{i}', 'w{5 * i}']\n")
+        ds = OpenQADataset([qa], tok, cfg.retriever.query_seq_len,
+                           cfg.reader.decoder_seq_len, seed=SEED)
+        task = E2EQATask(cfg, tok, corpus, index,
+                         total_train_iters=total_iters, device=dev)
+        model = task.init_state(SEED).model
+        start_weights = {k: v.detach().to("cpu", copy=True) for k, v in
+                         context_tower(model).state_dict().items()}
+        builder = EvidenceIndexBuilder(cfg, model, corpus, tok.cls_id,
+                                       tok.sep_id, tok.pad_id)
+        check_rows = np.sort(np.random.RandomState(SEED + 1).choice(
+            n_docs, n_check, replace=False))
+        first = {}
+
+        def on_refresh(step):
+            if not first:
+                rows = mips.dequantize_int8(index.embeddings, index.scales,
+                                            cfg.index.group_size)
+                first.update(step=step, rows=rows[check_rows].clone(),
+                             scales=index.scales[check_rows //
+                                                 cfg.index.group_size])
+
+        refresher = AsyncIndexRefresher(builder, index, reload_interval,
+                                        on_refresh=on_refresh)
+        passes, swaps, ends = [], [], []
+        embed = builder.embed_corpus
+
+        def timed_embed(module=None, progress=None):
+            t0 = time.perf_counter()
+            out = embed(module, progress)
+            passes.append((t0, time.perf_counter()))
+            return out
+
+        builder.embed_corpus = timed_embed
+        maybe_swap = refresher.maybe_swap
+
+        def timed_swap(step, model):
+            t0 = time.perf_counter()
+            swapped = maybe_swap(step, model)
+            if swapped:
+                swaps.append((step, (time.perf_counter() - t0) * 1e3))
+            return swapped
+
+        refresher.maybe_swap = timed_swap
+
+        def printer(line):
+            if "ms_per_iter" in line:
+                ends.append(time.perf_counter())
+            log(line)
+
+        log(f"refresh set-up {time.perf_counter() - t0:.1f} s: {n_docs} "
+            f"passages, int8 index, batch {batch}, reload interval "
+            f"{reload_interval}")
+        _reset_peak(dev)
+        _reset_counts()
+        train_log = engine.TrainLog(1, printer)
+        t_start = time.perf_counter()
+        final = engine.train(task, ds, loop_cfg(iters), refresher=refresher,
+                             printer=printer, log=train_log)
+        _sync(dev)
+        train_s = time.perf_counter() - t_start
+        launches = _read_counts(tuple(_counters()))
+        peak = _peak(dev)
+        alive = [t.name for t in threading.enumerate() if t.name.startswith(
+            ("index-refresh", "batch-prefetch", "ckpt-write"))]
+        history = train_log.history
+        if final != iters or [h["iteration"] for h in history] != list(
+                range(1, iters + 1)) or alive:
+            raise AssertionError(f"refresh run ended at {final}, history "
+                                 f"{history}, threads left {alive}")
+        for h in history:
+            if not all(np.isfinite(h[k]) for k in METRICS):
+                raise AssertionError(f"non-finite metrics: {h}")
+        if refresher.refresh_count < 1 or refresher.error is not None \
+                or len(swaps) != refresher.refresh_count or not first:
+            raise AssertionError(f"refresh_count "
+                                 f"{refresher.refresh_count}, swaps {swaps}, "
+                                 f"error {refresher.error!r}")
+
+        # iterations whose window overlaps a completed embed pass by half
+        starts = [t_start] + ends[:-1]
+        busy = []
+        for s, e in zip(starts, ends):
+            overlap = sum(max(0.0, min(e, pe) - max(s, ps))
+                          for ps, pe in passes)
+            busy.append(overlap >= 0.5 * (e - s))
+        with_embed = [h["ms_per_iter"] for h, b in zip(history, busy) if b]
+        without = [h["ms_per_iter"] for h, b in zip(history, busy)
+                   if not b]
+
+        plain_log = engine.TrainLog(1, log)
+        engine.train(task, ds, loop_cfg(iters + plain_iters), printer=log,
+                     log=plain_log)
+        _sync(dev)
+
+        # the first swapped index against the tower at the hand-off
+        tower = copy.deepcopy(context_tower(model)).requires_grad_(False)
+        tower.load_state_dict(start_weights)
+        ids, types = builder._format_rows(check_rows + 1)
+        with torch.inference_mode():
+            want = tower.embed(torch.as_tensor(ids).long().to(dev),
+                               torch.as_tensor(types).long().to(dev)).float()
+        err = (first["rows"] - want).abs()
+        # one int8 step of the row's group, plus the bf16 forward tolerance
+        limit = first["scales"][:, None] + FWD_TOL[0] * want.abs().max()
+        steps_err = (err / first["scales"][:, None]).max().item()
+        if not bool((err <= limit).all()):
+            raise AssertionError(f"swapped rows differ from the hand-off "
+                                 f"tower's embedding by {err.max().item()}")
+        del tower, want, task, model
+    _empty_cache(dev)
+    pass_s = [pe - ps for ps, pe in passes]
+    return dict(history=history, plain_history=plain_log.history,
+                with_embed=with_embed, without=without, swaps=swaps,
+                refresh_count=refresher.refresh_count, pass_s=pass_s,
+                per_s=[n_docs / s for s in pass_s], launches=launches,
+                peak_bytes=peak, train_s=train_s, first_swap=first["step"],
+                check_err=err.max().item(), check_steps=steps_err)
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_phase(cfg, dev, n_docs=16_384, batch=8, iters=4, n_valid=8,
+              model_args=()):
+    """The command line on one corpus: the offline index
+    (``tools.create_doc_index.main``), then ``tasks.run.main`` with the
+    flagship flags, the async indexer at interval 2, an int8 index, an
+    interval checkpoint at 2 and a valid set of ``n_valid``; then
+    ``QAPipeline.load`` from that save, with the run's configuration,
+    answers ``n_valid`` questions. ``model_args`` (none: the published
+    widths) go to both tools; ``cfg`` sizes the vocabulary."""
+    import contextlib
+
+    from emdr2_tpu_torch.serving import QAPipeline
+    from emdr2_tpu_torch.tasks import run as run_cli
+    from emdr2_tpu_torch.tools import create_doc_index
+    from emdr2_tpu_torch.training import checkpointing as ckpt
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        make_corpus(cfg, tmpdir, n_docs)
+        vocab = os.path.join(tmpdir, "vocab.txt")
+        prefix = os.path.join(tmpdir, "wiki")
+        emb = os.path.join(tmpdir, "emb")
+        save = os.path.join(tmpdir, "run")
+        files = {}
+        for name, n, offset in (("train", batch * iters, 0),
+                                ("valid", n_valid, 10_000)):
+            files[name] = os.path.join(tmpdir, f"{name}.tsv")
+            with open(files[name], "w") as f:
+                for i in range(offset, offset + n):
+                    f.write(f"what is the color of item w{7 * i}\t"
+                            f"['w{3 * i} w{i}', 'w{5 * i}']\n")
+        log(f"cli set-up {time.perf_counter() - t0:.1f} s: {n_docs} "
+            f"passages")
+        tee = _Tee(sys.stdout)
+        seconds = {}
+        _reset_counts()
+        with contextlib.redirect_stdout(tee):
+            t0 = time.perf_counter()
+            rc_index = create_doc_index.main([
+                "--evidence-data-path", prefix, "--vocab-file", vocab,
+                "--embedding-path", emb, "--batch-size", "128",
+                "--fid-flash-attention", "--device", dev.type,
+                *model_args])
+            _sync(dev)
+            seconds["create_doc_index"] = time.perf_counter() - t0
+            index_launches = _read_counts(("flash_self_attention",))
+            _reset_counts()
+            t0 = time.perf_counter()
+            argv = [
+                "--task", "OPENQA", "--vocab-file", vocab,
+                "--train-data", files["train"],
+                "--valid-data", files["valid"],
+                "--evidence-data-path", prefix, "--embedding-path", emb,
+                "--save", save, "--fid-flash-attention", "--remat",
+                "--no-remat-towers", "--async-indexer",
+                "--index-reload-interval", "2", "--index-quantize", "int8",
+                "--train-iters", str(iters), "--save-interval", "2",
+                "--batch-size", str(batch), "--log-interval", "1",
+                "--device", dev.type, *model_args]
+            rc_run = run_cli.main(argv)
+            _sync(dev)
+            seconds["run"] = time.perf_counter() - t0
+        launches = _read_counts(tuple(_counters()))
+        out = "".join(tee.parts)
+        if rc_index != 0 or rc_run != 0 or "valid EM" not in out \
+                or ckpt.latest_iteration(save) != iters \
+                or f"wrote {n_docs} embeddings" not in out:
+            raise AssertionError(f"cli: create_doc_index rc {rc_index}, "
+                                 f"run rc {rc_run}, latest iteration "
+                                 f"{ckpt.latest_iteration(save)}")
+        _empty_cache(dev)
+        t0 = time.perf_counter()
+        run_cfg = run_cli.make_config(run_cli.build_parser().parse_args(argv))
+        pipe = QAPipeline.load(save, vocab, prefix, emb, cfg=run_cfg,
+                               device=dev, batch_size=batch, kv_quant="int8")
+        seconds["load"] = time.perf_counter() - t0
+        questions = [f"what is the color of item w{7 * i}"
+                     for i in range(n_valid)]
+        t0 = time.perf_counter()
+        answers = pipe.ask(questions)
+        seconds["ask"] = time.perf_counter() - t0
+        if len(answers) != n_valid or not all(isinstance(a, str)
+                                              for a in answers):
+            raise AssertionError(f"cli: QAPipeline.load answers {answers!r}")
+        del pipe
+    _empty_cache(dev)
+    valid = [line.strip() for line in out.splitlines() if "valid EM" in line]
+    return dict(seconds=seconds, launches=launches,
+                index_launches=index_launches, valid=valid, answers=answers)
+
+
 # classes of device kernels in a profile, by the first substring of the
 # kernel's name that matches (in this order)
 KERNEL_CLASSES = (
@@ -1910,10 +2342,52 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} never launched in the engine phase")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the evidence-index build, its live refresh in the loop, and the
+    # command line around them
+    ix = index_phase(cfg, dev, gen)
+    rf = refresh_phase(tcfg, dev, gen)
+    log("refresh: ms per iteration with an embed pass in flight "
+        + ", ".join(f"{m:.1f}" for m in rf["with_embed"])
+        + "; without " + ", ".join(f"{m:.1f}" for m in rf["without"])
+        + "; with no refresher " + ", ".join(
+            f"{h['ms_per_iter']:.1f}" for h in rf["plain_history"])
+        + f"; {len(rf['history'])} iterations in {rf['train_s']:.3f} s")
+    log(f"refresh: {len(rf['pass_s'])} completed embed passes while "
+        f"training: " + ", ".join(f"{s:.3f} s ({p:.1f} passages/s)"
+                                  for s, p in zip(rf["pass_s"],
+                                                  rf["per_s"]))
+        + "; swaps (iteration, ms of maybe_swap on the trainer thread) "
+        + ", ".join(f"({i}, {ms:.1f})" for i, ms in rf["swaps"])
+        + f"; refresh_count {rf['refresh_count']}; peak memory "
+        f"{rf['peak_bytes'] / 2**30:.2f} GiB; launches {rf['launches']}")
+    log(f"refresh: the index swapped at iteration {rf['first_swap']} "
+        f"against the hand-off tower's embedding: max abs err "
+        f"{rf['check_err']:.3e} = {rf['check_steps']:.3f} int8 steps of "
+        f"its group (limit: one step + {FWD_TOL[0]} x max|ref|)")
+    for name in ("flash_self_attention", "candidate_scan"):
+        if rf["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in the refresh "
+                                 f"phase")
+    cl = cli_phase(cfg, dev)
+    log(f"cli: seconds {cl['seconds']}; {cl['valid']}; create_doc_index "
+        f"launches {cl['index_launches']}; run launches {cl['launches']}; "
+        f"QAPipeline.load answers {cl['answers'][:2]!r}")
+    for name in ("flash_self_attention", "flash_self_attention_backward",
+                 "flash_cross_attention", "flash_cross_attention_backward",
+                 "candidate_scan"):
+        if cl["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched by the command line")
+    if cl["index_launches"]["flash_self_attention"] <= 0:
+        raise AssertionError("create_doc_index never launched K1-fwd")
+
     if tr["top"] is not None:
         log_profile("warm train step", tr["top"])
 
     k1_main = k1[-1]                                   # [400, 512, 2304]
+    k1_embed = next(r for r in k1 if (r["B"], r["L"]) == (128, 256))
     k1_bwd_main = k1_bwd[-1]                           # [400, 512]
     k2_main = next(r for r in k2 if r["shape"] == "reader"
                    and r["chunk"] == 512 and r["rate"] == RATE)
@@ -1953,7 +2427,13 @@ def main() -> int:
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": k1_main["library_ms"],
-         "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"]},
+         "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"],
+         "launches_refresh": rf["launches"]["flash_self_attention"],
+         "launches_index_build": ix["host"]["launches"],
+         "ms_embedder": k1_embed["ms"],
+         "plain_ms_embedder": k1_embed["plain_ms"],
+         "bound_ms_embedder": k1_embed["bound_ms"],
+         "library_ms_embedder": k1_embed["library_ms"]},
         {"name": "flash_self_attention_backward", "route": "cuda",
          "launches_engine": eng["flash_self_attention_backward"],
          "source": csrc + "flash_self_attention.cu",
@@ -2003,6 +2483,7 @@ def main() -> int:
          "launches_train": train["candidate_scan"],
          "launches_generation": gen_beam["candidate_scan"],
          "launches_eval": evl["candidate_scan"],
+         "launches_refresh": rf["launches"]["candidate_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in k3),
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],

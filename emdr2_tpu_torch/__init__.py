@@ -4,8 +4,11 @@ It mirrors the JAX package's module paths and class names and imports
 neither jax nor emdr2_tpu. It carries the question-answering serving path
 (``serving.QAPipeline``: greedy, beam search, int8 cross K/V), the OpenQA
 training step (``tasks.E2EQATask.train_step``) and evaluation
-(``E2EQATask.evaluate_em`` / ``validation_loss``) on one device, the card
-unless the caller asks for the CPU, with hand-written CUDA kernels for
+(``E2EQATask.evaluate_em`` / ``validation_loss``), the evidence-index build
+and its refresh during training (``retrieval.builder``,
+``training.async_refresh``) and the OPENQA command line (``tasks.run``,
+``tools``) on one device, the card unless the caller asks for the CPU, with
+hand-written CUDA kernels for
 flash self-attention forward and backward, FiD flash cross-attention
 forward and backward, the general flash forward
 (``ops/fid_attention.py``), the int8 decode attention

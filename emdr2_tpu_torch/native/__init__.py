@@ -3,8 +3,9 @@
 ``store_ops.cpp`` beside this file (the port's own copy of the JAX
 package's source; a test holds their code lines identical) is compiled with
 g++ on first use into ``emdr2_tpu_torch/_build/``. The bindings below are the JAX
-package's, unchanged; callers keep their pure-Python paths if the build
-fails, as there.
+package's, unchanged. ``MMapIndexedDataset.batch_padded`` keeps its
+pure-Python path if the build fails, as there; the evidence-index builder
+does not (``retrieval/builder.py``): a failed build raises there.
 """
 
 from __future__ import annotations
@@ -79,6 +80,14 @@ def batch_gather_padded(bin_buf: np.ndarray, pointers: np.ndarray,
     return out
 
 
+_FORMAT_BY_DTYPES = {
+    (np.dtype(np.uint16), np.dtype(np.uint16)): "format_context_u16_u16",
+    (np.dtype(np.int32), np.dtype(np.int32)): "format_context_i32_i32",
+    (np.dtype(np.uint16), np.dtype(np.int32)): "format_context_u16_i32",
+    (np.dtype(np.int32), np.dtype(np.uint16)): "format_context_i32_u16",
+}
+
+
 _POSTPROCESS_DTYPES = {np.dtype(np.uint16): 0, np.dtype(np.int32): 1}
 
 
@@ -129,3 +138,29 @@ def batch_postprocess(titles, texts, win: np.ndarray, pos: np.ndarray,
         _ptr(reader, ctypes.c_int32), _ptr(reader_one, ctypes.c_int32),
         _ptr(k_out, ctypes.c_int32))
     return ctx_ids, ctx_types, reader, reader_one, k_out
+
+
+def batch_context_format(titles, texts, doc_ids: np.ndarray, max_len: int,
+                         cls_id: int, sep_id: int, pad_id: int):
+    """Format [CLS] title [SEP] text [SEP] pad rows for many (1-based)
+    doc_ids straight from two MMapIndexedDatasets. Returns (ids, types)
+    int32 [n, max_len]."""
+    key = (np.dtype(titles.dtype), np.dtype(texts.dtype))
+    fn = getattr(get_lib(), _FORMAT_BY_DTYPES[key])
+    doc_ids = np.ascontiguousarray(doc_ids, np.int64)
+    n = len(doc_ids)
+    ids = np.empty((n, max_len), np.int32)
+    types = np.empty((n, max_len), np.int32)
+    t_bin = titles._bin.view(np.uint8)
+    d_bin = texts._bin.view(np.uint8)
+    fn(_ptr(t_bin, ctypes.c_uint8),
+       _ptr(np.ascontiguousarray(titles.pointers, np.int64), ctypes.c_int64),
+       _ptr(np.ascontiguousarray(titles.sizes, np.int32), ctypes.c_int32),
+       _ptr(d_bin, ctypes.c_uint8),
+       _ptr(np.ascontiguousarray(texts.pointers, np.int64), ctypes.c_int64),
+       _ptr(np.ascontiguousarray(texts.sizes, np.int32), ctypes.c_int32),
+       _ptr(doc_ids, ctypes.c_int64), ctypes.c_int64(n),
+       ctypes.c_int64(max_len), ctypes.c_int32(cls_id),
+       ctypes.c_int32(sep_id), ctypes.c_int32(pad_id),
+       _ptr(ids, ctypes.c_int32), _ptr(types, ctypes.c_int32))
+    return ids, types

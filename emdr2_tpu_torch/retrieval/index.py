@@ -8,6 +8,19 @@ so the candidate scan never copies the index; pad rows are masked in the
 search (``n_valid``). Host embeddings are cast or quantized on the host
 before upload (the final bytes cross the link); embeddings that already
 live on the device are cast or quantized there.
+
+Streams. ``update`` runs on the trainer's stream while a search may run on
+another one (the prefetch worker's) and a refresh may hand in a tensor
+made on a third (the embedder's). Three rules keep the swap safe without a
+device-wide synchronize:
+
+- a search records its stream on the (rows, scales) it read, so the
+  caching allocator does not hand their memory to another stream when an
+  ``update`` drops them while the search's kernel is still queued;
+- ``update`` makes its stream wait for the ``ready`` event of a tensor
+  made on another stream before reading it, and records its stream on it;
+- ``update`` records an event after writing the new (rows, scales), and a
+  search waits for it before reading them.
 """
 
 from __future__ import annotations
@@ -44,8 +57,10 @@ class ShardedEvidenceIndex:
         self.n_real = n
         g = cfg.group_size
         self.n_padded = -(-n // g) * g
-        # (rows, scales) swapped as one tuple: a search snapshots the pair
-        self._data: Tuple[torch.Tensor, Optional[torch.Tensor]] = (
+        # (rows, scales, written) swapped as one tuple: a search snapshots
+        # it whole; ``written`` (CUDA only) is recorded after the pair
+        self._data: Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.cuda.Event]] = (
             self._to_device(embeddings))
         if passage_ids is None:
             passage_ids = np.arange(1, n + 1, dtype=np.int64)
@@ -62,27 +77,52 @@ class ShardedEvidenceIndex:
         return self._data[1]
 
     def _to_device(self, embeddings):
-        """Embeddings (numpy on the host, or a tensor anywhere) -> a fresh
-        (rows, scales) pair on ``self.device``; the cast or quantization
-        runs where the embeddings are."""
+        """Embeddings (numpy on the host, or a tensor anywhere; ``n_real``
+        or ``n_padded`` rows) -> a fresh (rows, scales, written) triple on
+        ``self.device``; the cast or quantization runs where the embeddings
+        are. Padded input keeps its tail rows (the search masks them)
+        unless the index is quantized: then they are zeroed, so they do not
+        enter the last group's scale."""
         t = torch.as_tensor(embeddings)
-        if self.n_padded != self.n_real:
-            t = F.pad(t, (0, 0, 0, self.n_padded - self.n_real))
+        if self.quantized and t.shape[0] != self.n_real:
+            t = t[:self.n_real]
+        if t.shape[0] != self.n_padded:
+            t = F.pad(t, (0, 0, 0, self.n_padded - t.shape[0]))
         if self.quantized:
             q8, scales = quantize_int8(t, self.cfg.group_size)
-            return (q8.to(self.device).contiguous(),
-                    scales.to(self.device))
-        return t.to(self.cfg.dtype).to(self.device).contiguous(), None
+            rows, scales = (q8.to(self.device).contiguous(),
+                            scales.to(self.device))
+        else:
+            rows, scales = (t.to(self.cfg.dtype).to(self.device).contiguous(),
+                            None)
+        written = None
+        if self.device.type == "cuda":
+            written = torch.cuda.Event()
+            written.record(torch.cuda.current_stream(self.device))
+        return rows, scales, written
 
     def update(self, embeddings: Union[np.ndarray, torch.Tensor],
-               passage_ids: Optional[np.ndarray] = None) -> None:
+               passage_ids: Optional[np.ndarray] = None,
+               ready: Optional[torch.cuda.Event] = None) -> None:
         """Swap in fresh embeddings of the same shape — from the host, or a
-        tensor already on the device (the JAX ``swap_device_array``)."""
-        if tuple(embeddings.shape) != (self.n_real, self.cfg.embed_dim):
+        tensor already on the device (the JAX ``swap_device_array``, which
+        takes the ``n_padded`` rows an embedder writes). ``ready``: the
+        event after which a device tensor made on another stream is
+        complete; the current stream waits for it."""
+        if tuple(embeddings.shape) not in ((self.n_real, self.cfg.embed_dim),
+                                           (self.n_padded,
+                                            self.cfg.embed_dim)):
             raise ValueError(f"update must keep the shape "
-                             f"{(self.n_real, self.cfg.embed_dim)}")
+                             f"{(self.n_real, self.cfg.embed_dim)} (or "
+                             f"{self.n_padded} padded rows)")
         if passage_ids is not None:
             self.row_to_passage_id = passage_ids
+        if isinstance(embeddings, torch.Tensor) and embeddings.is_cuda:
+            stream = torch.cuda.current_stream(embeddings.device)
+            if ready is not None:
+                stream.wait_event(ready)
+            # its maker may free it as soon as this returns
+            embeddings.record_stream(stream)
         self._data = self._to_device(embeddings)
 
     def search(self, query_embeds: torch.Tensor, k: Optional[int] = None
@@ -94,7 +134,17 @@ class ShardedEvidenceIndex:
         # int8 index: queries stay fp32 (mips_topk quantizes per query)
         q = query_embeds.to(self.device,
                             torch.float32 if self.quantized else cfg.dtype)
-        emb, scales = self._data
+        emb, scales, written = self._data
+        if written is not None:
+            # the pair was written on the updater's stream; it is read on
+            # this one, and may be dropped by an update while the scan
+            # below is still queued (the allocator ignores the stream
+            # that made a tensor, so this is a no-op there)
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(written)
+            for t in (emb, scales):
+                if t is not None:
+                    t.record_stream(stream)
         n_valid = self.n_real if self.n_padded != self.n_real else None
         vals, idx = mips_topk(q, emb, k, exact=cfg.exact,
                               chunk_rows=cfg.chunk_rows,

@@ -1,7 +1,9 @@
 """Serving: an end-to-end question-answering pipeline (port of
 ``emdr2_tpu/serving.py:QAPipeline``).
 
-    pipeline = QAPipeline(cfg, model, tokenizer, corpus, index)
+    pipeline = QAPipeline.load(checkpoint_dir, vocab_file, evidence_prefix,
+                               embedding_path)   # or QAPipeline(cfg, model,
+                                                 # tokenizer, corpus, index)
     answers = pipeline.ask(["who wrote hamlet?", ...])
 
 Each batch: embed the questions with the BERT query tower, search the
@@ -10,8 +12,8 @@ on the host (C++), FiD-encode the retrieved passages (the flash
 self-attention kernel), project the cross-attention K/V once, and decode
 over a KV cache: greedily, or with ``beam_size > 1`` by length-normalized
 beam search; ``kv_quant="int8"`` stores the cross K/V as int8 rows read by
-the decode-attention kernel. Loading a trained checkpoint
-(``QAPipeline.load``) comes in later work.
+the decode-attention kernel. ``QAPipeline.load`` builds the whole pipeline
+from the files a training run and the index tools write.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from emdr2_tpu_torch.models.decoding import (DecoderSession,
                                              bf16_eval_params, greedy_decode)
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
+from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
 
 
@@ -62,11 +65,49 @@ class QAPipeline:
         self.session = DecoderSession(self.model, self.max_decode_len,
                                       kv_quant=kv_quant, timer=timer)
 
+    # ---------------------------------------------------------------- loading
+
+    @classmethod
+    def load(cls, checkpoint_dir: str, vocab_file: str,
+             evidence_prefix: str, embedding_path: str,
+             cfg: Optional[EMDR2Config] = None, device=DEFAULT_DEVICE,
+             **kw) -> "QAPipeline":
+        """The tokenizers of ``vocab_file`` (model vocabs padded to them),
+        the corpus at ``evidence_prefix``, the index of the
+        ``EmbeddingStore`` (or reference ``.pkl``) at ``embedding_path``,
+        and the parameters of the latest checkpoint of a training run in
+        ``checkpoint_dir``, on ``device`` (the card unless the caller names
+        another). ``cfg`` defaults to ``EMDR2Config()``; ``kw`` go to the
+        constructor."""
+        from emdr2_tpu_torch.data.tokenizer import build_tokenizers
+        from emdr2_tpu_torch.tasks.openqa_main import (load_store,
+                                                       padded_vocab_cfg)
+        from emdr2_tpu_torch.training import checkpointing as ck
+
+        device = resolve_device(device)
+        bert_tok, t5_tok = build_tokenizers(vocab_file)
+        cfg = padded_vocab_cfg(cfg or EMDR2Config(), bert_tok, t5_tok)
+        corpus = EvidenceCorpus.load(evidence_prefix + "_text",
+                                     evidence_prefix + "_title")
+        store = load_store(embedding_path)
+        index = ShardedEvidenceIndex(cfg.index,
+                                     np.asarray(store.embeddings, np.float32),
+                                     passage_ids=np.asarray(store.ids),
+                                     device=device)
+        model = EMDR2Model(cfg, device=device)
+        ck.load_model_params(checkpoint_dir, model)
+        return cls(cfg, model, t5_tok, corpus, index, **kw)
+
     def _ids(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.long).to(self.device)
 
-    @torch.inference_mode()
     def _build_batch(self, questions: Sequence[str]) -> EMDR2Batch:
+        return self._build(questions)[0]
+
+    @torch.inference_mode()
+    def _build(self, questions: Sequence[str]
+               ) -> Tuple[EMDR2Batch, np.ndarray]:
+        """(the device batch, the retrieved passage ids [B, k])."""
         cfg = self.cfg
         B = len(questions)
         rows, lens = [], []
@@ -104,18 +145,22 @@ class QAPipeline:
                 labels=self._ids(zeros),
                 loss_mask=torch.zeros((B, Ld), dtype=torch.float32,
                                       device=self.device))
-        return batch
+        return batch, pids
 
-    def ask(self, questions: Sequence[str]) -> List[str]:
-        """Answer questions; pads the tail batch so shapes stay fixed."""
-        answers: List[str] = []
+    def ask(self, questions: Sequence[str],
+            return_passages: bool = False) -> List:
+        """Answer questions; pads the tail batch so shapes stay fixed. With
+        ``return_passages`` each answer comes as ``(answer, passage ids)``,
+        the ids the search returned for its question (the JAX method takes
+        the flag and ignores it)."""
+        answers: List = []
         B = self.batch_size
         for s in range(0, len(questions), B):
             chunk = list(questions[s: s + B])
             real = len(chunk)
             while len(chunk) < B:
                 chunk.append(chunk[-1])
-            batch = self._build_batch(chunk)
+            batch, pids = self._build(chunk)
             if self.beam_size == 1:
                 hyps = greedy_decode(self.session, batch, self.tok.bos_id,
                                      self.tok.eos_id)
@@ -123,8 +168,10 @@ class QAPipeline:
                 hyps = beam_search_decode(self.session, batch,
                                           self.tok.bos_id, self.tok.eos_id,
                                           beam_size=self.beam_size)
-            for hyp in hyps[:real]:
-                answers.append(self.tok.detokenize(hyp).strip())
+            for hyp, row in zip(hyps[:real], pids[:real]):
+                text = self.tok.detokenize(hyp).strip()
+                answers.append((text, row.tolist()) if return_passages
+                               else text)
         return answers
 
     @torch.inference_mode()

@@ -1,0 +1,199 @@
+"""Task command line: ``python -m emdr2_tpu_torch.tasks.run --task OPENQA``
+(port of ``emdr2_tpu/tasks/run.py``).
+
+The flags are the JAX CLI's, the surface ``examples/openqa/emdr2_nq.sh``
+drives, mapped onto the dataclass config. One process on one device:
+``--device`` (default ``cuda``; ``cpu`` to run without a card) takes the
+place of the JAX CLI's platform environment, mesh and multi-host flags
+(``--dp``, ``--tp``, ``--embed-devices``, ``--coordinator-address``,
+``--num-processes``, ``--process-id``) and of ``--rng-impl``; the RETRIEVER
+task and its flags are not ported yet. The kernels' limits
+(``ops.fid_attention.kernel_limits``) are checked on the flags before
+anything is built.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("emdr2_tpu_torch", description=__doc__)
+    p.add_argument("--task", choices=["OPENQA"], required=True)
+    p.add_argument("--device", default="cuda",
+                   help="where to train and evaluate (default the card; "
+                        "'cpu' to run without one)")
+
+    g = p.add_argument_group("model")
+    g.add_argument("--hidden-size", type=int, default=768)
+    g.add_argument("--num-layers", type=int, default=12)
+    g.add_argument("--num-attention-heads", type=int, default=12)
+    g.add_argument("--ffn-hidden-size", type=int, default=3072)
+    g.add_argument("--seq-length", type=int, default=512,
+                   help="reader sequence length")
+    g.add_argument("--seq-length-ret", type=int, default=256,
+                   help="retriever context length")
+    g.add_argument("--seq-length-query", type=int, default=64)
+    g.add_argument("--seq-length-dec", type=int, default=32)
+    g.add_argument("--remat", action="store_true",
+                   help="activation checkpointing in the transformer stacks")
+    g.add_argument("--remat-policy", choices=["nothing", "dots_no_batch"],
+                   default="nothing",
+                   help="what the per-layer checkpoint saves ('nothing': "
+                        "full recompute; 'dots_no_batch' is not ported yet "
+                        "and raises)")
+    g.add_argument("--no-remat-towers", action="store_true",
+                   help="keep --remat on the reader but store the dual-"
+                        "encoder towers' activations (no recompute)")
+    g.add_argument("--fid-flash-attention", action="store_true",
+                   help="the flash kernels for the encoders' self-attention "
+                        "and the FiD decoder's cross-attention")
+    g.add_argument("--flash-key-chunk", type=int, default=512)
+
+    g = p.add_argument_group("emdr2")
+    g.add_argument("--topk-retrievals", type=int, default=50)
+    g.add_argument("--update-retriever", action="store_true", default=True)
+    g.add_argument("--no-update-retriever", dest="update_retriever",
+                   action="store_false")
+    g.add_argument("--retriever-score-scaling", action="store_true",
+                   default=True)
+    g.add_argument("--ret-kldiv", action="store_true")
+    g.add_argument("--allow-trivial-doc", action="store_true", default=True)
+    g.add_argument("--async-indexer", action="store_true",
+                   help="re-embed the evidence during training and swap "
+                        "the index in every --index-reload-interval steps")
+    g.add_argument("--index-reload-interval", type=int, default=500)
+    g.add_argument("--index-quantize", choices=["none", "int8"],
+                   default="none",
+                   help="int8: store the MIPS index as int8 rows + per-128-"
+                        "row fp32 scales")
+
+    g = p.add_argument_group("training")
+    g.add_argument("--batch-size", type=int, default=8,
+                   help="questions per step")
+    g.add_argument("--epochs", type=int, default=10)
+    g.add_argument("--train-iters", type=int, default=None)
+    g.add_argument("--lr", type=float, default=2e-5)
+    g.add_argument("--min-lr", type=float, default=0.0)
+    g.add_argument("--lr-decay-style", default="linear",
+                   choices=["linear", "cosine", "exponential", "constant"])
+    g.add_argument("--warmup", type=float, default=0.01)
+    g.add_argument("--weight-decay", type=float, default=0.1)
+    g.add_argument("--clip-grad", type=float, default=1.0)
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--log-interval", type=int, default=20)
+    g.add_argument("--save-interval", type=int, default=500)
+    g.add_argument("--eval-interval", type=int, default=500)
+    g.add_argument("--exit-interval", type=int, default=None)
+    g.add_argument("--sync-save", action="store_true",
+                   help="block the loop on interval checkpoint saves "
+                        "(default: stage to host, write in the background)")
+    g.add_argument("--timeout-minutes", type=float, default=None,
+                   help="checkpoint and exit cleanly after this wall-clock "
+                        "budget")
+    g.add_argument("--prefetch-depth", type=int, default=0,
+                   help="batches built ahead by a worker thread (0 = off)")
+    g.add_argument("--beam-size", type=int, default=1)
+    g.add_argument("--sampling", action="store_true",
+                   help="multinomial-sampling decode for EM eval instead of "
+                        "greedy; only with beam-size 1")
+    g.add_argument("--max-decode-len", type=int, default=32)
+    g.add_argument("--decode-kv-int8", action="store_true",
+                   help="store the cross-K/V slab int8 during EM eval "
+                        "decode (the int8 decode-attention kernel)")
+    g.add_argument("--eval-batch-size", type=int, default=None,
+                   help="batch for the EM-eval decode (default: the train "
+                        "batch)")
+    g.add_argument("--eval-only", action="store_true",
+                   help="skip training; run EM eval on --valid-data from "
+                        "--load")
+
+    g = p.add_argument_group("data")
+    g.add_argument("--vocab-file", required=True)
+    g.add_argument("--train-data", nargs="+", default=None)
+    g.add_argument("--valid-data", nargs="+", default=None)
+    g.add_argument("--evidence-data-path", default=None,
+                   help="prefix of the pre-tokenized evidence (expects "
+                        "<prefix>_text/_title mmap datasets)")
+    g.add_argument("--embedding-path", default=None,
+                   help="EmbeddingStore prefix for precomputed evidence "
+                        "embeddings (or reference .pkl to ingest)")
+    g.add_argument("--save", default=None, help="checkpoint dir")
+    g.add_argument("--load", default=None, help="resume checkpoint dir")
+    g.add_argument("--pretrained-dpr-load", default=None,
+                   help="init the retriever from a checkpoint's retriever "
+                        "at iteration 0")
+    g.add_argument("--pretrained-t5-load", default=None,
+                   help="init the reader from a checkpoint's reader at "
+                        "iteration 0")
+    return p
+
+
+def check_kernel_limits(args) -> None:
+    """Refuse flags the attention kernels cannot run, before anything is
+    built (no fallback to the plain versions on the card)."""
+    import torch
+
+    from emdr2_tpu_torch.ops import fid_attention as fa
+
+    if torch.device(args.device).type != "cuda":
+        return
+    head_dim = args.hidden_size // args.num_attention_heads
+    for what, decoder_len in (("the towers", None),
+                              ("the reader", args.seq_length_dec)):
+        fa.check_kernel_limits(f"--fid-flash-attention, {what}",
+                               torch.bfloat16, head_dim, decoder_len,
+                               args.fid_flash_attention)
+
+
+def make_config(args):
+    from emdr2_tpu_torch import config as C
+
+    enc = C.TransformerConfig(
+        hidden_size=args.hidden_size, num_layers=args.num_layers,
+        num_heads=args.num_attention_heads, ffn_size=args.ffn_hidden_size,
+        num_tokentypes=2,
+        remat=args.remat and not args.no_remat_towers,
+        remat_policy=args.remat_policy,
+        fid_flash_attention=args.fid_flash_attention,
+        flash_key_chunk=args.flash_key_chunk)
+    t5c = dataclasses.replace(enc, num_tokentypes=0, remat=args.remat)
+    return C.EMDR2Config(
+        retriever=C.RetrieverConfig(
+            encoder=enc, embed_dim=args.hidden_size,
+            seq_len=args.seq_length_ret, query_seq_len=args.seq_length_query),
+        reader=C.ReaderConfig(
+            transformer=t5c, seq_len=args.seq_length,
+            decoder_seq_len=args.seq_length_dec),
+        index=C.IndexConfig(
+            embed_dim=args.hidden_size, topk=args.topk_retrievals,
+            allow_trivial_doc=args.allow_trivial_doc,
+            quantize=args.index_quantize),
+        train=C.TrainConfig(
+            batch_size=args.batch_size, train_iters=args.train_iters,
+            epochs=args.epochs, seed=args.seed,
+            log_interval=args.log_interval, save_interval=args.save_interval,
+            eval_interval=args.eval_interval, exit_interval=args.exit_interval,
+            index_reload_interval=args.index_reload_interval,
+            async_save=not args.sync_save,
+            optimizer=C.OptimizerConfig(
+                lr=args.lr, min_lr=args.min_lr,
+                weight_decay=args.weight_decay, clip_grad=args.clip_grad,
+                lr_decay_style=args.lr_decay_style, warmup=args.warmup)),
+        update_retriever=args.update_retriever,
+        retriever_score_scaling=args.retriever_score_scaling,
+        use_kl_div_loss=args.ret_kldiv,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    check_kernel_limits(args)
+    from emdr2_tpu_torch.tasks.openqa_main import run_openqa
+    return run_openqa(args, make_config(args))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

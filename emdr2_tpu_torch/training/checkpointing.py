@@ -8,7 +8,8 @@ PyTorch files in place of orbax).
   (the dropout masks derive from seed and step, so a resumed run repeats
   the uninterrupted one);
 - ``load_checkpoint`` with ``load_optim=False`` / an iteration override;
-- partial loaders ``load_retriever_params`` / ``load_reader_params``;
+- partial loaders ``load_retriever_params`` / ``load_reader_params``, and
+  ``load_model_params`` (the parameters alone, e.g. for serving);
 - ``remove_stale_checkpoints`` pruning.
 
 Durability: a checkpoint is written into a temporary directory beside its
@@ -217,6 +218,13 @@ def _load_submodule(root: str, iteration: Optional[int], prefix: str,
            if k.startswith(prefix)}
     module.load_state_dict(sub, strict=True)
     return module
+
+
+def load_model_params(root: str, model: torch.nn.Module,
+                      iteration: Optional[int] = None) -> torch.nn.Module:
+    """Every parameter of the checkpoint into ``model`` (an ``EMDR2Model``
+    of the same configuration); no optimizer state is read."""
+    return _load_submodule(root, iteration, "", model)
 
 
 def load_retriever_params(root: str, retriever: torch.nn.Module,

@@ -851,3 +851,154 @@ def test_decode_attention_int8_refuses_wrong_inputs(cuda):
         decode_attention.decode_cross_attention_int8(
             q, k8.transpose(2, 3).contiguous().transpose(2, 3), ks, v8, vs,
             bias)
+
+
+# ---- the evidence index on the card: the swap, the builder, the refresher
+
+def test_index_swap_outlives_a_search_on_another_stream(cuda):
+    """Fault C4: a search queued on a reader stream behind a long kernel
+    still reads the rows it snapshotted after ``update`` (on the writer
+    stream that made them) has dropped them and new tensors were allocated
+    over their memory: its ids are those of a search on the old index."""
+    from emdr2_tpu_torch.config import IndexConfig
+    from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
+
+    g = _gen(21)
+    n, d = 65_536, 768
+    writer, reader = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def swap_and_overwrite(rows):
+        index.update(rows)
+        return [torch.full((n, d), 127, dtype=torch.int8, device=cuda)
+                for _ in range(64)]
+
+    with torch.cuda.stream(writer):
+        old = torch.randn(n, d, device=cuda, generator=g)
+        new = -old
+        index = ShardedEvidenceIndex(IndexConfig(quantize="int8"), old,
+                                     device=cuda)
+        q = torch.randn(8, d, device=cuda, generator=g)
+        # rehearse the section below once: a kernel's first launch (module
+        # loading) and a fresh cudaMalloc both wait for the whole device,
+        # which would let the sleeping search finish and hide the fault
+        torch.empty(4 << 30, dtype=torch.int8, device=cuda)
+        with torch.cuda.stream(reader):
+            torch.cuda._sleep(1000)
+            index.search(q, k=50)
+        swap_and_overwrite(new)
+        index.update(old)
+        want = index.search(q, k=50)[1].clone()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(reader):
+        torch.cuda._sleep(1_000_000_000)             # ~0.5 s of cycles
+        got = index.search(q, k=50)[1]
+    with torch.cuda.stream(writer):
+        over = swap_and_overwrite(new)  # as many blocks as the cache holds
+    assert not reader.query(), "the search ran before the update: no test"
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(index.search(q, k=50)[1], want)
+    del over
+
+
+def _card_cfg(flash=True):
+    """A two-layer BERT-shaped configuration at head dim 64 in bf16 (what
+    the kernels take), contexts of 64 tokens, a bf16 index of 128-d rows."""
+    import dataclasses
+
+    from emdr2_tpu_torch.config import (tiny_config, with_flash_attention,
+                                        with_transformers)
+
+    hd64 = {"hidden_size": 128, "num_heads": 2, "dtype": torch.bfloat16,
+            "fid_flash_attention": flash}
+    cfg = with_transformers(tiny_config(), hd64, hd64)
+    return cfg.replace(
+        retriever=dataclasses.replace(cfg.retriever, embed_dim=128,
+                                      seq_len=64),
+        index=dataclasses.replace(cfg.index, embed_dim=128, group_size=128,
+                                  dtype=torch.bfloat16))
+
+
+def _card_world(tmp_path, cuda, n_docs):
+    """``_card_cfg()``, a corpus of ``n_docs`` passages, a model from a
+    seed on the card and a builder at batch 128."""
+    import numpy as np
+
+    from emdr2_tpu_torch.data.evidence import EvidenceCorpus
+    from emdr2_tpu_torch.data.indexed_dataset import MMapIndexedDatasetBuilder
+    from emdr2_tpu_torch.models.emdr2 import EMDR2Model
+    from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
+
+    cfg = _card_cfg()
+    rng = np.random.RandomState(0)
+    for name, lo, hi in (("title", 1, 4), ("text", 20, 70)):
+        with MMapIndexedDatasetBuilder(str(tmp_path / name)) as b:
+            for _ in range(n_docs):
+                b.add_item(rng.randint(5, 500, size=rng.randint(lo, hi))
+                           .tolist())
+    corpus = EvidenceCorpus.load(str(tmp_path / "text"),
+                                 str(tmp_path / "title"))
+    model = EMDR2Model(cfg, device=cuda, generator=_gen(5))
+    return cfg, corpus, model, EvidenceIndexBuilder(
+        cfg, model, corpus, 101, 102, 0, batch_size=128)
+
+
+def test_builder_rows_on_the_card_match_the_plain_route(cuda, tmp_path):
+    """The builder's rows through the flash self-attention kernel, by the
+    host and the device path, against the same weights with plain
+    attention on the card (bf16 tolerance)."""
+    from emdr2_tpu_torch.models.emdr2 import EMDR2Model
+    from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
+
+    cfg, corpus, model, builder = _card_world(tmp_path, cuda, 300)
+    plain = EMDR2Model(_card_cfg(flash=False), device=cuda)
+    plain.load_state_dict(model.state_dict())
+    fid_attention.flash_self_attention.launches = 0
+    host = builder.embed_corpus()
+    assert fid_attention.flash_self_attention.launches == 3 * 2   # 3 batches
+    dev = builder.embed_corpus_device(None, 384)
+    want = EvidenceIndexBuilder(cfg, plain, corpus, 101, 102, 0,
+                                batch_size=128).embed_corpus()
+    assert dev.dtype == torch.bfloat16 and tuple(dev.shape) == (384, 128)
+    _assert_close(torch.from_numpy(host).float(),
+                  torch.from_numpy(want).float())
+    _assert_close(dev[:300].float().cpu(), torch.from_numpy(host).float())
+
+
+@pytest.mark.parametrize("zero_copy", [False, True])
+def test_refresher_snapshot_unchanged_by_a_step_during_an_embed(
+        cuda, tmp_path, zero_copy):
+    """An optimizer step on the live tower while the embedder runs does
+    not reach the pass in flight: the swapped rows are those of the
+    weights handed over at ``start``."""
+    import copy
+
+    from emdr2_tpu_torch.config import IndexConfig
+    from emdr2_tpu_torch.retrieval.builder import context_tower
+    from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
+    from emdr2_tpu_torch.training.async_refresh import AsyncIndexRefresher
+
+    cfg, corpus, model, builder = _card_world(tmp_path, cuda, 4096)
+    index = ShardedEvidenceIndex(
+        IndexConfig(embed_dim=128, dtype=torch.bfloat16),
+        torch.zeros(4096, 128), device=cuda)
+    tower = context_tower(model)
+    handed = copy.deepcopy(tower)
+    r = AsyncIndexRefresher(builder, index, reload_interval=1,
+                            zero_copy=zero_copy)
+    r.start(model)
+    opt = torch.optim.SGD(tower.parameters(), lr=1.0)
+    for p in tower.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()                                     # in place, mid-pass
+    assert r.wait_for_result(timeout=300)
+    for a, b in zip(r._snapshot.parameters(), handed.parameters()):
+        assert torch.equal(a, b)
+    assert r.maybe_swap(1, model)
+    r.stop()
+    assert r.error is None and not r._thread.is_alive()
+    want = torch.from_numpy(builder.embed_corpus(handed)).float()
+    _assert_close(index.embeddings[:4096].float().cpu(), want)
+    # the fresh weights were published at the swap
+    for a, b in zip(r._snapshot.parameters(), tower.parameters()):
+        assert torch.equal(a, b)
