@@ -21,8 +21,12 @@
    split under key chunk 256 (100 chunks) and with seven chunks dealt to 1,
    2, 3 and 7 splits (forward) or runs (backward), whole splits and one row
    padded; the MIPS candidate scan
-   (K3) over a 1,310,720 x 768 index in bf16 and int8, nq in {8, 512}, plus
-   top-50 recall of the whole search against an exact fp32 search; the
+   (K3) over a 1,310,720 x 768 index in bf16 and int8: both of its kernels
+   (CUDA-core and tensor-core) forced at nq in {8, 9, 16, 32, 64, 128}, each
+   held to the plain version, for the crossover, and the dispatch at nq in
+   {8, 64, 512, 3,610} against the plain version (in blocks of 512
+   queries), beside the score GEMM alone, plus top-50 recall of the whole
+   search against an exact search (float64 sums); the
    general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
    key chunks of 256, dropout 0 and 0.1, at a small Lq != Lk shape and on
    1,024 tokens in key chunks of 512; its
@@ -100,6 +104,21 @@
    --index-quantize int8 --train-iters 4 --save-interval 2`` and 8 valid
    examples (rc 0, the tracker at 4, "valid EM" printed), then
    ``QAPipeline.load`` from that save answers 8 questions.
+10. The RETRIEVER task: ``DPRTask.train_step`` at BERT-base x 2, global
+   batch 128 with one hard negative (256 contexts), dropout 0.1, under no
+   remat, ``remat_policy="nothing"`` and ``"dots_no_batch"`` (ms per step,
+   peak memory, K1 launches), then ``validate`` in the 30+30 layout.
+11. Retrieval evaluation: 16,384 passages embedded by a DPR context tower
+   into a 1,310,720-row index (random rows beyond), bf16 and int8, and
+   ``OpenRetrievalEvaluator.evaluate_recall`` of 3,610 questions at k=100 in
+   one search (the tensor-core K3); rows and recall held to an exact
+   search.
+12. Two OPENQA steps at B=4 under ``--remat-policy nothing`` and
+   ``dots_no_batch`` (ms, peak memory).
+13. The RETRIEVER command line (``tasks.run --task RETRIEVER``: 4
+   iterations, saves, validation, post-train recall), ``checkpoint_surgery
+   extract`` loaded into an OPENQA model, and ``tools.evaluate_retrieval``,
+   whose recall must equal the run's.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -112,6 +131,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -318,15 +338,17 @@ def flash_kernel_report(ptxas_log: str) -> None:
 
 
 def k1_phase(dev, gen):
-    """K1 forward at the query tower's, the index builder's (a batch of
-    128 passages), the context tower's and the reader's shapes, rate 0,
+    """K1 forward at the query tower's (serving batch 8 and the DPR step's
+    128 queries), the index builder's (a batch of 128 passages), the DPR
+    step's 256 contexts, the context tower's and the reader's shapes, rate 0,
     with one fully padded row: the output and the saved statistics against
     their plain versions."""
     from emdr2_tpu_torch.ops.fid_attention import (
         flash_self_attention, flash_self_attention_forward,
         flash_self_attention_reference, flash_self_attention_stats_reference)
     rows = []
-    for B, L in ((8, 64), (128, 256), (400, 256), (400, 512)):
+    for B, L in ((8, 64), (128, 64), (128, 256), (256, 256), (400, 256),
+                 (400, 512)):
         qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen
                           ).to(torch.bfloat16)
         lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
@@ -421,7 +443,8 @@ def k1_dropout_phase(dev, gen):
 
 
 def k1_bwd_phase(dev, gen, check_rows=32, profile=False):
-    """K1 backward at the towers' and the reader's shapes, dropout 0.1:
+    """K1 backward at the towers' (the OPENQA step's and the DPR step's:
+    128 queries, 256 contexts) and the reader's shapes, dropout 0.1:
     gradients held against the plain backward on the first ``check_rows``
     rows (its fp32 [B, nh, L, L] tensors), both timed on all rows.
     ``profile`` adds the device time of the forward kernel and of the
@@ -431,7 +454,7 @@ def k1_bwd_phase(dev, gen, check_rows=32, profile=False):
         flash_self_attention_backward, flash_self_attention_bwd_reference,
         flash_self_attention_forward)
     rows = []
-    for B, L in ((8, 64), (400, 256), (400, 512)):
+    for B, L in ((8, 64), (128, 64), (256, 256), (400, 256), (400, 512)):
         qkv, bias, dout = _self_inputs(dev, gen, B, L)
         out, stats = flash_self_attention_forward(qkv, bias, 12, DROP_SEED,
                                                   RATE)
@@ -480,7 +503,8 @@ def k1_bwd_phase(dev, gen, check_rows=32, profile=False):
                     kernel()
             log_profile(f"K1 forward and backward at [{B}, {L}] dropout "
                         f"{RATE}, five calls each",
-                        profile_call(five_each, f"k1_profile_{L}.txt", 4))
+                        profile_call(five_each, f"k1_profile_{B}x{L}.txt",
+                                     4))
         del qkv, bias, dout, out, stats, got
         torch.cuda.empty_cache()
     return rows
@@ -719,78 +743,266 @@ def k2_split_phase(dev, gen):
     return rows
 
 
-def k3_phase(dev, gen):
+K3_NQ = (8, 64, 512, 3610)          # serving, just above the crossover,
+                                    # the evaluator's batches (NQ-test)
+K3_SWEEP_NQ = (8, 9, 16, 32, 64, 128)  # both kernels forced: the crossover
+K3_EXTRA = 8                        # exact rows kept past the k-th
+TIE_EPS = 4                         # a boundary tie: scores within this
+                                    # many fp32 eps of |k-th score|
+K3_BLOCK = 512                      # plain comparisons, queries a block
+
+
+def _k3_queries(name, nq, dev, gen):
+    """(fp32 queries, the scan's queries: bf16, or int8 per-query
+    quantized as ``mips_topk`` does)."""
+    qf = torch.randn(nq, 768, device=dev, generator=gen)
+    return qf, (qf.to(torch.bfloat16) if name == "bf16"
+                else quantize_queries(qf))
+
+
+def _score_matmul(q, index):
+    """The one library call for the score matrix alone (not the same
+    function: no per-group top-2; a yardstick only): a bf16 GEMM, or
+    ``torch._int_mm`` (int8 in, int32 out, which wants more than 16 rows:
+    the queries are padded to a multiple of 32)."""
+    if q.dtype == torch.int8:
+        pad = -q.shape[0] % 32
+        qp = torch.nn.functional.pad(q, (0, 0, 0, pad)) if pad else q
+        return torch._int_mm(qp, index.T)
+    return torch.matmul(q, index.T)
+
+
+def _exact_top(qf, rows_f, n_valid, k, q_dtype=None):
+    """Exact top-(k + K3_EXTRA) (float64 scores, rows) over the stored rows
+    (fp32 values, summed in float64), in query blocks: the rows past the
+    k-th are the ones a boundary tie may trade in."""
+    rows_d = rows_f[:n_valid].double()
+    vals, idx = [], []
+    for s in range(0, qf.shape[0], K3_BLOCK):
+        q = qf[s:s + K3_BLOCK]
+        if q_dtype is not None:
+            q = q.to(q_dtype)
+        v, i = torch.topk(torch.matmul(q.double(), rows_d.T), k + K3_EXTRA,
+                          dim=1)
+        vals.append(v)
+        idx.append(i)
+    del rows_d
+    return torch.cat(vals), torch.cat(idx)
+
+
+def quantize_queries(qf):
+    """int8 queries quantized per query, as ``mips_topk`` does."""
+    qs = qf.abs().amax(dim=1).clamp(min=1e-30) / 127.0
+    return torch.clamp(torch.round(qf / qs[:, None]), -127,
+                       127).to(torch.int8)
+
+
+def explain_misses(ids, oracle, oracle_vals, k, ties=False, group=128):
+    """Sort the misses of the search's rows ``ids`` [nq, k] against the
+    exact top-k (the first k of ``oracle``, the exact top-(k + K3_EXTRA)
+    rows with their float64 scores ``oracle_vals``) by what the search
+    gives up by design. ``collided``: the row's group holds >= 3 of the
+    true top-k (the scan keeps two a group). ``ties`` (counted when
+    ``ties``): a retrieved row outside the true top-k scores within TIE_EPS
+    fp32 eps of |k-th score| of the missed one, each retrieved row paired
+    with one miss (the lowest miss with the best such row first), so an
+    order of sums other than the exact search's may trade the two. Returns
+    the counts, the widest tie in eps of |k-th score| (``tie_eps``), and
+    the misses neither explains, [(query, row)]."""
+    eps = torch.finfo(torch.float32).eps
+    out = dict(misses=0, collided=0, ties=0, tie_eps=0.0, unexplained=[])
+    for qi, (got, ext, v) in enumerate(zip(ids.tolist(), oracle.tolist(),
+                                           oracle_vals.tolist())):
+        want = ext[:k]
+        score = dict(zip(ext, v))
+        unit = eps * abs(v[k - 1])
+        groups = [w // group for w in want]
+        # rows outside the k-th place keep no score past the extended list
+        intruders = sorted((score.get(x, -math.inf)
+                            for x in set(got) - set(want)), reverse=True)
+        for w in sorted(set(want) - set(got), key=score.get):
+            out["misses"] += 1
+            if groups.count(w // group) >= 3:
+                out["collided"] += 1
+                continue
+            gap = (score[w] - intruders[0]) / unit if intruders else math.inf
+            if ties and gap <= TIE_EPS:
+                out["ties"] += 1
+                out["tie_eps"] = max(out["tie_eps"], gap)
+                intruders.pop(0)
+            else:
+                out["unexplained"].append((qi, w))
+    return out
+
+
+def describe_int8_miss(qf, index, scales, n_valid, qi, w, k,
+                       group=128):
+    """What ``mips_topk`` did with true top-``k`` row ``w`` of int8 query
+    ``qi``: its exact score beside the k-th, its rank among the scan's
+    scaled candidates, and its exact re-rank score beside the k-th
+    re-ranked one."""
     from emdr2_tpu_torch.ops import mips
-    rows = []
+    q = qf[qi:qi + 1]
+    q8 = quantize_queries(q)
+    qs = (q.abs().amax(dim=1).clamp(min=1e-30) / 127.0)[0]
+    rows = mips.dequantize_int8(index, scales, group)[:n_valid]
+    exact = torch.matmul(q, rows.T)[0]
+    top = torch.topk(exact, k + 1).values
+    cv, ci = mips.candidate_scan_reference(q8, index, n_valid, group, 2)
+    cv = cv[0] * scales.repeat(2) * qs
+    pos = (ci[0] == w).nonzero()
+    cand_rank = (int((cv > cv[pos[0, 0]]).sum()) if len(pos) else None)
+    got_vals, _ = mips.mips_topk(q, index, k, n_valid=n_valid,
+                                 shard_scales=scales)
+    rerank = (mips._rerank_scores(q, index[w][None, None, :])[0, 0]
+              * scales[w // group]).item()
+    return (f"query {qi} row {w}: exact score {exact[w].item():.6f}, k-th "
+            f"{top[k - 1].item():.6f}, (k+1)-th {top[k].item():.6f}; rank "
+            f"among the scan's scaled candidates {cand_rank}; re-rank score "
+            f"{rerank:.6f} against the k-th retrieved "
+            f"{got_vals[0, -1].item():.6f}")
+
+
+def misses_text(ex, k):
+    return (f"misses {ex['misses']}: in a group holding >= 3 of the true "
+            f"top-{k} {ex['collided']}, boundary ties {ex['ties']} (widest "
+            f"{ex['tie_eps']:.3f} fp32 eps of |k-th score|), unexplained "
+            f"{ex['unexplained']}")
+
+
+def k3_phase(dev, gen):
+    """K3 over 1,310,720 x 768 rows, bf16 and int8: the crossover sweep
+    (both kernels forced at nq in K3_SWEEP_NQ), then the dispatch at nq in
+    K3_NQ held to the plain version (in blocks of K3_BLOCK queries: a plain
+    [3,610, 1.31M] fp32 score matrix is 19 GB), timed beside the plain
+    version, the score matrix's library GEMM and the bound, and the whole
+    search's recall@50 against an exact search."""
+    from emdr2_tpu_torch.ops import mips
+    rows, sweep = [], []
     n_valid = N_INDEX - 1000
     emb = torch.randn(N_INDEX, 768, device=dev, generator=gen)
     emb[n_valid:] = 0.0
-    stored = {"bf16": emb.to(torch.bfloat16)}
+    stored = {"bf16": (emb.to(torch.bfloat16), None)}
     stored["int8"] = mips.quantize_int8(emb, 128)
     del emb
     for name in ("bf16", "int8"):
-        for nq in (8, 512):
-            qf = torch.randn(nq, 768, device=dev, generator=gen)
-            if name == "bf16":
-                index, scales = stored["bf16"], None
-                q = qf.to(torch.bfloat16)
-            else:
-                index, scales = stored["int8"]
-                qs = qf.abs().amax(dim=1).clamp(min=1e-30) / 127.0
-                q = torch.clamp(torch.round(qf / qs[:, None]), -127,
-                                127).to(torch.int8)
+        index, scales = stored[name]
+        for nq in K3_SWEEP_NQ:
+            _, q = _k3_queries(name, nq, dev, gen)
+            # each kernel forced and held to the plain version, then timed
+            wv, wi = mips.candidate_scan_reference(q, index, n_valid, 128, 2)
+            t, err = {}, {}
+            for route in ("cuda_core", "tensor_core"):
+                v, i = mips._launch(q, index, n_valid, 128, 2, route)
+                torch.cuda.synchronize()
+                ok = (torch.equal(v, wv) and torch.equal(i, wi)
+                      if name == "int8" else
+                      bool(((v - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all()))
+                err[route] = (v - wv).abs().max().item()
+                if not ok:
+                    raise AssertionError(f"K3 {name} nq={nq} {route} kernel "
+                                         f"disagrees: max_abs_err "
+                                         f"{err[route]:.3e}")
+                del v, i
+                t[route] = time_ms(lambda r=route: mips._launch(
+                    q, index, n_valid, 128, 2, r))
+            del wv, wi
+            sweep.append(dict(dtype=name, nq=nq, **t,
+                              max_abs_err=max(err.values())))
+            log(f"K3 crossover {name} nq={nq}: CUDA-core kernel "
+                f"{t['cuda_core']:.4f} ms (max_abs_err {err['cuda_core']:.3e}"
+                f"), tensor-core kernel {t['tensor_core']:.4f} ms (max_abs_err "
+                f"{err['tensor_core']:.3e})")
+        for nq in K3_NQ:
+            qf, q = _k3_queries(name, nq, dev, gen)
+            route = mips.scan_route(nq, 128)
             gv, gi = mips.candidate_scan(q, index, n_valid, 128, 2)
             torch.cuda.synchronize()
+            ok, max_err, agree = True, 0.0, 0
+            for s in range(0, nq, K3_BLOCK):
+                wv, wi = mips.candidate_scan_reference(
+                    q[s:s + K3_BLOCK], index, n_valid, 128, 2)
+                v, i = gv[s:s + K3_BLOCK], gi[s:s + K3_BLOCK]
+                if name == "int8":
+                    ok &= torch.equal(v, wv) and torch.equal(i, wi)
+                else:
+                    ok &= bool(((v - wv).abs() <= 1e-3 * wv.abs()
+                                + 1e-3).all())
+                max_err = max(max_err, (v - wv).abs().max().item())
+                agree += (i == wi).sum().item()
+                del wv, wi
+            id_agree = agree / gi.numel()
             # the scales are applied outside the scan, so they do not count
             bound_ms, bound_by = bound(nbytes(q, index, gv, gi),
                                        2 * nq * N_INDEX * 768, name)
-            wv, wi = mips.candidate_scan_reference(q, index, n_valid, 128, 2)
-            if name == "int8":
-                ok = torch.equal(gv, wv) and torch.equal(gi, wi)
-                max_err = (gv - wv).abs().max().item()
-            else:
-                ok = bool(((gv - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all())
-                max_err = (gv - wv).abs().max().item()
-            id_agree = (gi == wi).float().mean().item()
-            del gv, gi, wv, wi
+            del gv, gi
             ms = time_ms(lambda: mips.candidate_scan(q, index, n_valid, 128,
                                                      2))
-            plain_ms = time_ms(lambda: mips.candidate_scan_reference(
-                q, index, n_valid, 128, 2), reps=10, warmup=1)
+            plain_ms = time_ms(lambda: [
+                mips.candidate_scan_reference(q[s:s + K3_BLOCK], index,
+                                              n_valid, 128, 2)
+                for s in range(0, nq, K3_BLOCK)], reps=3, warmup=1)
+            matmul_ms = time_ms(lambda: _score_matmul(q, index), reps=5,
+                                warmup=1)
             index_bytes = nbytes(index)
-            # top-50 recall of the whole search vs exact fp32 over the
-            # stored rows (rows past n_valid excluded)
+            # top-50 recall of the whole search vs an exact search over the
+            # stored rows (float64 sums; rows past n_valid excluded)
             vals, ids = mips.mips_topk(qf, index, 50, n_valid=n_valid,
                                        shard_scales=scales)
             rows_f = (index.float() if scales is None
                       else mips.dequantize_int8(index, scales, 128))
-            qe = qf.to(torch.bfloat16).float() if scales is None else qf
-            exact = torch.matmul(qe, rows_f[:n_valid].T)
-            oracle = torch.topk(exact, 50, dim=1).indices
-            del rows_f, exact
-            recall, collided = recall_at(ids, oracle)
-            log(f"K3 candidate_scan {name} nq={nq} N={N_INDEX}: "
-                f"{'equal' if name == 'int8' else 'within 1e-3*|v|+1e-3'}="
-                f"{ok} max_abs_err {max_err:.3e} id_agreement {id_agree:.6f} "
-                f"| kernel {ms:.4f} ms ({index_bytes / ms / 1e6:.1f} GB/s of "
-                f"3350 GB/s data sheet) | plain {plain_ms:.4f} ms | bound "
-                f"{bound_ms:.4f} ms by {bound_by} | "
-                f"recall@50 {recall:.6f} (misses {collided[0]}, of them in "
-                f"a group holding >= 3 of the true top-50: {collided[1]})")
+            oracle_vals, oracle = _exact_top(
+                qf, rows_f, n_valid, 50,
+                torch.bfloat16 if scales is None else None)
+            del rows_f
+            recall, _ = recall_at(ids, oracle[:, :50])
+            # the kernel's order of sums (bf16), or the re-rank's float64
+            # sums rounded to fp32 (int8), may trade a row at the 50th place
+            # with one just outside when the two score within a few fp32
+            # eps: above the serving batch such a miss is counted apart
+            ex = explain_misses(ids, oracle, oracle_vals, 50, ties=nq > 8)
+            log(f"K3 candidate_scan {name} nq={nq} N={N_INDEX} ({route} "
+                f"kernel): {'equal' if name == 'int8' else 'within '}"
+                f"{'' if name == 'int8' else '1e-3*|v|+1e-3'}={ok} "
+                f"max_abs_err {max_err:.3e} id_agreement {id_agree:.6f} | "
+                f"kernel {ms:.4f} ms ({index_bytes / ms / 1e6:.1f} GB/s, "
+                f"{2 * nq * N_INDEX * 768 / ms / 1e9:.1f} TOP/s) | plain "
+                f"{plain_ms:.4f} ms | score GEMM alone {matmul_ms:.4f} ms | "
+                f"bound {bound_ms:.4f} ms by {bound_by} | recall@50 "
+                f"{recall:.6f} ({misses_text(ex, 50)})")
             if not ok:
                 raise AssertionError(f"K3 {name} nq={nq} disagrees")
             # per-group top-2 loses a row only when three true winners share
             # a 128-row group (~2e-4 per query at k=50, N=1.31M): the serving
-            # batch must be exact, and any miss at nq=512 must be such one
-            if (nq <= 8 and recall != 1.0) or collided[0] != collided[1]:
+            # batch must be exact, and any miss at larger nq must be such
+            # one, or a boundary tie
+            if name == "int8":
+                for qi, w in ex["unexplained"]:
+                    log("K3 int8 miss: " + describe_int8_miss(
+                        qf, index, scales, n_valid, qi, w, 50))
+            if (nq <= 8 and recall != 1.0) or ex["unexplained"]:
                 raise AssertionError(f"K3 {name} nq={nq} recall {recall}, "
-                                     f"misses {collided}")
-            rows.append(dict(dtype=name, nq=nq, max_abs_err=max_err, ms=ms,
-                             plain_ms=plain_ms, gbps=index_bytes / ms / 1e6,
-                             recall=recall, bound_ms=bound_ms,
-                             bound_by=bound_by))
+                                     f"{misses_text(ex, 50)}")
+            rows.append(dict(dtype=name, nq=nq, route=route,
+                             max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             matmul_ms=matmul_ms,
+                             gbps=index_bytes / ms / 1e6, recall=recall,
+                             id_agree=id_agree, bound_ms=bound_ms,
+                             bound_by=bound_by, misses=ex["misses"],
+                             ties=ex["ties"], tie_eps=ex["tie_eps"]))
     del stored
-    return rows
+    crossover = {}
+    for name in ("bf16", "int8"):
+        runs = [r for r in sweep if r["dtype"] == name]
+        # the smallest nq from which the tensor-core kernel stays faster
+        crossover[name] = next(
+            (r["nq"] for i, r in enumerate(runs)
+             if all(x["tensor_core"] < x["cuda_core"] for x in runs[i:])),
+            None)
+    log(f"K3 crossover: the tensor-core kernel is faster from nq = "
+        f"{crossover} on (of {list(K3_SWEEP_NQ)}); the dispatch takes it "
+        f"from mips.TENSOR_CORE_MIN_NQ = {mips.TENSOR_CORE_MIN_NQ}")
+    return dict(rows=rows, sweep=sweep, crossover=crossover)
 
 
 def k4_phase(dev, gen, profile=False):
@@ -1212,8 +1424,10 @@ def _counters():
 
 
 def _reset_counts():
+    from emdr2_tpu_torch.ops import mips
     for fn in _counters().values():
         fn.launches = 0
+    mips.candidate_scan.tensor_core_launches = 0
 
 
 def _read_counts(names):
@@ -1446,7 +1660,8 @@ def eval_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
 
 
 def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
-                steps=3, total_iters=1000, profile=False):
+                steps=3, total_iters=1000, profile=False,
+                profile_table="train_step_profile.txt"):
     """Drive ``E2EQATask.train_step``; returns {"metrics", "launches",
     "stage_ms", ...}. The flagship schedule warms up over 1% of
     ``total_iters``, so the first update's lr is 0 and the later ones are
@@ -1508,7 +1723,7 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
         if profile:
             batch_p = next(batches)
             top = profile_call(lambda: task.train_step(batch_p),
-                               "train_step_profile.txt")
+                               profile_table)
     for i, row in enumerate(rows):
         if not all(np.isfinite(row[k]) for k in METRICS):
             raise AssertionError(f"train step {i}: non-finite metrics {row}")
@@ -2123,6 +2338,408 @@ def cli_phase(cfg, dev, n_docs=16_384, batch=8, iters=4, n_valid=8,
                 index_launches=index_launches, valid=valid, answers=answers)
 
 
+def _words(cfg):
+    """The synthetic vocabulary's filler words (``make_corpus``)."""
+    from emdr2_tpu_torch.data.tokenizer import toy_vocab
+    base = len(toy_vocab(["what", "is", "the", "color", "of", "item"]))
+    return cfg.retriever.encoder.vocab_size - 70 - base
+
+
+def make_dpr_json(path, n, n_words, rng, offset=0, easy=0, hard=1):
+    """``n`` DPR-format examples about item w<7i>: a positive of 90-140
+    filler words (a context of about Lc = 256 tokens once formatted), and
+    ``hard`` hard and ``easy`` easy negatives likewise."""
+    def ctx(i):
+        words = " ".join(f"w{j}" for j in rng.randint(
+            0, n_words, size=rng.randint(90, 140)))
+        return {"title": f"w{i % n_words}", "text": words}
+
+    rows = [{"question": f"what is the color of item w{7 * i}",
+             "answers": [f"w{3 * i}"], "positive_ctxs": [ctx(i)],
+             "hard_negative_ctxs": [ctx(i + 1) for _ in range(hard)],
+             "negative_ctxs": [ctx(i + 2) for _ in range(easy)]}
+            for i in range(offset, offset + n)]
+    with open(path, "w") as f:
+        json.dump(rows, f)
+    return path
+
+
+# the three per-layer checkpoint layouts of a stack
+REMAT_LAYOUTS = (("no remat", {"remat": False}),
+                 ("nothing", {"remat": True, "remat_policy": "nothing"}),
+                 ("dots_no_batch", {"remat": True,
+                                    "remat_policy": "dots_no_batch"}))
+
+
+def dpr_phase(cfg, dev, batch=128, hard_negs=1, steps=3, valid_batches=2,
+              valid_batch=16, profile=False):
+    """``DPRTask.train_step`` at BERT-base x 2 (``cfg.retriever``), global
+    batch ``batch`` with ``hard_negs`` hard negatives (2 x batch contexts),
+    Lq 64, Lc 256, dropout 0.1, AdamW 2e-5 / wd 0.1 / clip 1.0, score
+    scaling: one warm-up step and ``steps`` timed ones under each layout of
+    REMAT_LAYOUTS (ms per step, peak memory, K1 launches during the timed
+    steps); then ``validate`` on ``valid_batches`` batches of
+    ``valid_batch`` in the 30+30 layout (976 context rows a batch).
+    ``profile`` adds one more step of each layout under torch.profiler
+    (device time against wall time)."""
+    import dataclasses
+
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRDataset, DPRTask
+
+    res = {"layouts": {}}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, _ = make_corpus(cfg, tmpdir, n_docs=16)
+        rng = np.random.RandomState(SEED)
+        n_words = _words(cfg)
+        train = make_dpr_json(os.path.join(tmpdir, "train.json"),
+                              batch * (steps + 1), n_words, rng,
+                              hard=hard_negs)
+        valid = make_dpr_json(os.path.join(tmpdir, "valid.json"),
+                              valid_batch * valid_batches, n_words, rng,
+                              offset=10_000, easy=30, hard=30)
+        rc = cfg.retriever
+        ds = DPRDataset(train, tok, rc.query_seq_len, rc.seq_len,
+                        hard_negs=hard_negs, seed=SEED)
+        batches = list(ds.epoch_batches(batch, seed=SEED))
+        vds = DPRDataset(valid, tok, rc.query_seq_len, rc.seq_len,
+                         evaluate=True)
+        vbatches = list(vds.epoch_batches(valid_batch, seed=0,
+                                          shuffle=False))
+        log(f"dpr set-up {time.perf_counter() - t0:.1f} s: {len(batches)} "
+            f"batches of {batch} questions x {1 + hard_negs} contexts "
+            f"(Lq {rc.query_seq_len}, Lc {rc.seq_len}), {len(vbatches)} "
+            f"validation batches of {vbatches[0].ctx_ids.shape[0]} context "
+            f"rows")
+    opt = OptimizerConfig(lr=2e-5, weight_decay=0.1, clip_grad=1.0)
+    for name, fields in REMAT_LAYOUTS:
+        lcfg = dataclasses.replace(rc, encoder=dataclasses.replace(
+            rc.encoder, **fields))
+        task = DPRTask(lcfg, opt, total_train_iters=1000, score_scaling=True,
+                       device=dev)
+        state = task.init_state(SEED)
+        probe = state.model.retriever.context_model.encoder.layer(
+            0).mlp.wi.kernel
+        float(task.train_step(batches[0])["loss"])         # warm-up
+        _reset_peak(dev)
+        _reset_counts()
+        runs = []
+        for b in batches[1:steps + 1]:
+            lr = state.optimizer.schedule(state.optimizer.count)
+            before = probe.detach().clone()
+            t0 = time.perf_counter()
+            m = task.train_step(b)
+            row = {k: float(v) for k, v in m.items()}      # syncs the card
+            row.update(ms=(time.perf_counter() - t0) * 1e3, lr=lr,
+                       moved=not torch.equal(before, probe.detach()))
+            runs.append(row)
+        launches = _read_counts(("flash_self_attention",
+                                 "flash_self_attention_backward"))
+        peak = _peak(dev)
+        for i, row in enumerate(runs):
+            if not (np.isfinite(row["loss"]) and row["grad_norm"] > 0
+                    and (row["lr"] == 0 or row["moved"])):
+                raise AssertionError(f"dpr {name} step {i}: {row}")
+        if not any(r["lr"] > 0 for r in runs):
+            raise AssertionError("dpr: no step with a non-zero lr")
+        for k, n in launches.items():
+            if n <= 0 and dev.type == "cuda":
+                raise AssertionError(f"dpr {name}: {k} never launched")
+        res["layouts"][name] = dict(steps=runs, peak_bytes=peak,
+                                    launches=launches)
+        if profile:
+            log_profile(f"warm DPR step, {name}", profile_call(
+                lambda: float(task.train_step(batches[1])["loss"]),
+                f"dpr_step_profile_{name.replace(' ', '_')}.txt"))
+        log(f"dpr {name}: ms per step " + ", ".join(
+            f"{r['ms']:.1f}" for r in runs) + f"; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches during {len(runs)} steps "
+            f"{launches}; loss " + ", ".join(f"{r['loss']:.4f}" for r in runs)
+            + "; correct " + ", ".join(
+                f"{r['correct_prediction_count']:.0f}/{batch}" for r in runs)
+            + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4f}"
+                                        for r in runs))
+        if name == REMAT_LAYOUTS[-1][0]:
+            _sync(dev)
+            t0 = time.perf_counter()
+            v = task.validate(vbatches)
+            _sync(dev)
+            res["validate"] = dict(metrics=v,
+                                   seconds=time.perf_counter() - t0)
+            if not all(np.isfinite(x) for x in v.values()):
+                raise AssertionError(f"dpr validate: {v}")
+            log(f"dpr validate: {len(vbatches)} batches of {valid_batch} x "
+                f"{vbatches[0].ctx_ids.shape[0]} context rows in "
+                f"{res['validate']['seconds']:.3f} s: " + ", ".join(
+                    f"{k} {x:.4f}" for k, x in v.items()))
+        del task, state, probe
+        _empty_cache(dev)
+    return res
+
+
+def retrieval_eval_phase(cfg, dev, gen, n_docs=16_384, n_rows=N_INDEX,
+                         n_questions=3610, k=100):
+    """The retrieval evaluation at NQ-test's size: ``EvidenceIndexBuilder``
+    embeds ``n_docs`` synthetic passages with a DPR context tower (seeded
+    weights), the index is padded with random rows to ``n_rows`` (bf16,
+    then int8), and ``OpenRetrievalEvaluator.evaluate_recall`` scores
+    ``n_questions`` synthetic questions at ``k``: one search of all of them
+    (the tensor-core K3). Prints the search's ms and the evaluation's
+    seconds; the retrieved rows must equal an exact search on the card
+    (the collision rule; boundary ties counted apart) and the recall dict
+    the one computed from the exact rows."""
+    import dataclasses
+    import functools
+
+    from emdr2_tpu_torch.data.qa_dataset import QAExample
+    from emdr2_tpu_torch.models.bert import DualEncoder
+    from emdr2_tpu_torch.ops import mips
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
+    from emdr2_tpu_torch.retrieval.evaluate import OpenRetrievalEvaluator
+    from emdr2_tpu_torch.retrieval.qa_validation import (SimpleTokenizer,
+                                                         has_answer)
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRModel
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        tok, corpus = make_corpus(cfg, tmpdir, n_docs)
+        model = DPRModel(cfg.retriever, dev, gen).eval()
+        builder = EvidenceIndexBuilder(cfg, model, corpus, tok.cls_id,
+                                       tok.sep_id, tok.pad_id,
+                                       batch_size=128)
+        _reset_counts()
+        t1 = time.perf_counter()
+        rows = builder.embed_corpus()
+        _sync(dev)
+        res["embed_s"] = time.perf_counter() - t1
+        res["embed_launches"] = _read_counts(("flash_self_attention",))
+        emb = torch.cat([torch.from_numpy(rows).to(dev).float(),
+                         torch.randn(n_rows - n_docs, cfg.index.embed_dim,
+                                     device=dev, generator=gen)])
+        pids = 1 + np.arange(n_rows) % n_docs
+        n_words = _words(cfg)
+        examples = [QAExample(i, f"what is the color of item w{7 * i}",
+                              [f"w{(3 * i) % n_words} w{i % n_words}",
+                               f"w{(5 * i) % n_words}"])
+                    for i in range(n_questions)]
+
+        @functools.lru_cache(maxsize=None)
+        def doc_text(pid):
+            return tok.detokenize(corpus.doc_tokens(int(pid)))
+
+        log(f"retrieval eval set-up {time.perf_counter() - t0:.1f} s: "
+            f"{n_docs} passages embedded in {res['embed_s']:.3f} s "
+            f"(K1-fwd launches {res['embed_launches']}), index padded with "
+            f"random rows to {n_rows}, {n_questions} questions, k={k}")
+        for name in ("bf16", "int8"):
+            icfg = dataclasses.replace(
+                cfg.index, topk=k, dtype=torch.bfloat16,
+                quantize="int8" if name == "int8" else "none")
+            index = ShardedEvidenceIndex(icfg, emb, passage_ids=pids,
+                                         device=dev)
+            ev = OpenRetrievalEvaluator(
+                model.retriever, index, tok, cfg.retriever.query_seq_len,
+                embed_method=DualEncoder.embed_query)
+            dump = os.path.join(tmpdir, f"dump_{name}.json")
+            _reset_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            recall = ev.evaluate_recall(examples, k=k, doc_text_fn=doc_text,
+                                        dump_path=dump)
+            total_s = time.perf_counter() - t0
+            launches = _read_counts(("flash_self_attention",
+                                     "candidate_scan"))
+            launches["candidate_scan_tensor_core"] = \
+                mips.candidate_scan.tensor_core_launches
+            if dev.type == "cuda" and (
+                    launches["candidate_scan_tensor_core"] <= 0
+                    or launches["flash_self_attention"] <= 0):
+                raise AssertionError(f"retrieval eval {name}: launches "
+                                     f"{launches}")
+            q = ev.encode_queries([e.question for e in examples])
+            search_ms = (time_ms(lambda: index.search(q, k), reps=3,
+                                 warmup=1) if dev.type == "cuda"
+                         else float("nan"))
+            _, got = index.search(q, k)
+            stored = (mips.dequantize_int8(index.embeddings, index.scales,
+                                           icfg.group_size)
+                      if name == "int8" else index.embeddings.float())
+            oracle_vals, oracle = _exact_top(
+                q, stored, n_rows, k,
+                None if name == "int8" else torch.bfloat16)
+            del stored
+            hit, _ = recall_at(got, oracle[:, :k])
+            ex = explain_misses(got, oracle, oracle_vals, k, ties=True)
+            # the recall of the exact rows, from the evaluation's own hits
+            # where the passage lists agree
+            with open(dump) as f:
+                hits = [d["hits"] for d in json.load(f)]
+            exact_pids = index.lookup_passage_ids(
+                oracle[:, :k].cpu().numpy())
+            got_pids = index.lookup_passage_ids(got.cpu().numpy())
+            tk = SimpleTokenizer()
+            top = [0] * k
+            differ = 0
+            for i, e in enumerate(examples):
+                h = hits[i]
+                if not np.array_equal(exact_pids[i], got_pids[i]):
+                    differ += 1
+                    h = [has_answer(e.answers, doc_text(p), tk)
+                         for p in exact_pids[i]]
+                first = next((j for j, x in enumerate(h) if x), None)
+                if first is not None:
+                    for j in range(first, k):
+                        top[j] += 1
+            exact_recall = {key: top[int(key.split("@")[1]) - 1]
+                            / n_questions for key in recall}
+            res[name] = dict(recall=recall, exact_recall=exact_recall,
+                             seconds=total_s, search_ms=search_ms,
+                             launches=launches, id_recall=hit,
+                             misses=ex["misses"], ties=ex["ties"],
+                             tie_eps=ex["tie_eps"], lists_differ=differ)
+            log(f"retrieval eval {name}: evaluate_recall over {n_questions} "
+                f"questions at k={k} in {total_s:.3f} s; one search of all "
+                f"of them {search_ms:.4f} ms; launches {launches}; recall "
+                f"{recall}; against an exact search on the card: row recall "
+                f"{hit:.6f}, {misses_text(ex, k)}; {differ} questions with "
+                f"another passage list; recall of the exact rows "
+                f"{exact_recall}")
+            if ex["unexplained"] or exact_recall != recall:
+                raise AssertionError(f"retrieval eval {name}: "
+                                     f"{misses_text(ex, k)}; recall {recall} "
+                                     f"against {exact_recall}")
+            del index, ev, q, got, oracle, oracle_vals
+            _empty_cache(dev)
+        del emb, model, builder
+    _empty_cache(dev)
+    return res
+
+
+def retriever_cli_phase(cfg, dev, n_docs=16_384, batch=16, iters=4,
+                        n_dev=64, model_args=()):
+    """The RETRIEVER command line on one corpus: ``tasks.run.main`` with
+    ``--task RETRIEVER`` for ``iters`` iterations at ``batch``, an interval
+    save at 2, validation in the 30+30 layout and the post-train recall on
+    ``n_dev`` questions; ``tools.checkpoint_surgery extract --submodel
+    retriever`` of the save, loaded by ``load_retriever_params`` into an
+    OPENQA model; ``tools.evaluate_retrieval`` on the store the run built,
+    whose recall must equal the run's."""
+    import contextlib
+
+    from emdr2_tpu_torch.data.tokenizer import build_tokenizers
+    from emdr2_tpu_torch.models import EMDR2Model
+    from emdr2_tpu_torch.tasks import run as run_cli
+    from emdr2_tpu_torch.tasks.openqa_main import padded_vocab_cfg
+    from emdr2_tpu_torch.tools import checkpoint_surgery, evaluate_retrieval
+    from emdr2_tpu_torch.training import checkpointing as ckpt
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        make_corpus(cfg, tmpdir, n_docs)
+        vocab = os.path.join(tmpdir, "vocab.txt")
+        prefix = os.path.join(tmpdir, "wiki")
+        emb = os.path.join(tmpdir, "emb")
+        save = os.path.join(tmpdir, "dpr")
+        rng = np.random.RandomState(SEED)
+        n_words = _words(cfg)
+        train = make_dpr_json(os.path.join(tmpdir, "train.json"),
+                              batch * iters, n_words, rng)
+        valid = make_dpr_json(os.path.join(tmpdir, "valid.json"), batch,
+                              n_words, rng, offset=10_000, easy=30, hard=30)
+        dev_csv = os.path.join(tmpdir, "dev.csv")
+        with open(dev_csv, "w") as f:
+            for i in range(n_dev):
+                f.write(f"what is the color of item w{7 * i}\t"
+                        f"['w{3 * i} w{i}', 'w{5 * i}']\n")
+        log(f"retriever cli set-up {time.perf_counter() - t0:.1f} s")
+        tee = _Tee(sys.stdout)
+        _reset_counts()
+        with contextlib.redirect_stdout(tee):
+            t0 = time.perf_counter()
+            rc = run_cli.main([
+                "--task", "RETRIEVER", "--vocab-file", vocab,
+                "--train-data", train, "--valid-data", valid,
+                "--evidence-data-path", prefix, "--embedding-path", emb,
+                "--qa-file-dev", dev_csv, "--save", save,
+                "--fid-flash-attention", "--train-iters", str(iters),
+                "--epochs", "1", "--save-interval", "2",
+                "--batch-size", str(batch), "--log-interval", "1",
+                "--device", dev.type, *model_args])
+            _sync(dev)
+            seconds["run"] = time.perf_counter() - t0
+            launches = _read_counts(("flash_self_attention",
+                                     "flash_self_attention_backward",
+                                     "candidate_scan"))
+            out = "".join(tee.parts)
+            t0 = time.perf_counter()
+            extracted = os.path.join(tmpdir, "extracted")
+            rc_ext = checkpoint_surgery.main([
+                "extract", "--load", save, "--submodel", "retriever",
+                "--save", extracted])
+            seconds["extract"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tee.parts.clear()
+            rc_eval = evaluate_retrieval.main([
+                "--qa-data", dev_csv, "--evidence-data-path", prefix,
+                "--embedding-path", emb, "--vocab-file", vocab,
+                "--load", extracted, "--fid-flash-attention",
+                "--device", dev.type, *model_args])
+            _sync(dev)
+            seconds["evaluate_retrieval"] = time.perf_counter() - t0
+            eval_out = "".join(tee.parts)
+        dev_line = [line for line in out.splitlines()
+                    if "DEV retrieval" in line]
+        eval_line = [line for line in eval_out.splitlines()
+                     if line.startswith(dev_csv)]
+        if rc != 0 or rc_ext != 0 or rc_eval != 0 \
+                or ckpt.latest_iteration(save) != iters \
+                or len(dev_line) != 1 or len(eval_line) != 1 \
+                or " epoch 0 |" not in out:
+            raise AssertionError(f"retriever cli: rc {rc} / {rc_ext} / "
+                                 f"{rc_eval}, latest "
+                                 f"{ckpt.latest_iteration(save)}, lines "
+                                 f"{dev_line} {eval_line}")
+        run_recall = {kv.split()[0]: float(kv.split()[1])
+                      for kv in dev_line[0].split("|")[1:]}
+        tool_recall = {kv.split("=")[0]: float(kv.split("=")[1])
+                       for kv in eval_line[0].split()[2:]}
+        if run_recall != tool_recall:
+            raise AssertionError(f"retriever cli: the run's DEV recall "
+                                 f"{run_recall} against evaluate_retrieval's "
+                                 f"{tool_recall}")
+        for name in ("flash_self_attention",
+                     "flash_self_attention_backward", "candidate_scan"):
+            if launches[name] <= 0 and dev.type == "cuda":
+                raise AssertionError(f"retriever cli: {name} never "
+                                     f"launched")
+        # the DPR save's retriever into an OPENQA model of the run's flags
+        t0 = time.perf_counter()
+        bert_tok, t5_tok = build_tokenizers(vocab)
+        run_cfg = padded_vocab_cfg(run_cli.make_config(
+            run_cli.build_parser().parse_args(
+                ["--task", "OPENQA", "--vocab-file", vocab,
+                 "--fid-flash-attention", *model_args])), bert_tok, t5_tok)
+        model = EMDR2Model(run_cfg, device=dev)
+        ckpt.load_retriever_params(extracted, model.retriever)
+        seconds["load_into_openqa"] = time.perf_counter() - t0
+        saved, _ = ckpt.read_payload(save)
+        for key, v in model.retriever.state_dict().items():
+            if not torch.equal(v.cpu(), saved["model"]["retriever." + key]):
+                raise AssertionError(f"retriever cli: {key} differs after "
+                                     f"the extract")
+        del model, saved
+    _empty_cache(dev)
+    log(f"retriever cli: seconds {seconds}; launches {launches}; "
+        f"{[line.strip() for line in out.splitlines() if 'epoch' in line]}"
+        f"; {dev_line[0].strip()}; evaluate_retrieval: "
+        f"{eval_line[0].strip()}")
+    return dict(seconds=seconds, launches=launches, recall=run_recall)
+
+
 # classes of device kernels in a profile, by the first substring of the
 # kernel's name that matches (in this order)
 KERNEL_CLASSES = (
@@ -2191,7 +2808,9 @@ def profile_call(fn, table_name, n_top=15):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more warm train step, one warm "
+                    help="profile one more warm train step (also at B=4 "
+                         "under each remat policy, and a DPR step under "
+                         "each layout), one warm "
                          "greedy batch with each cross-K/V form, K4-fwd "
                          "beside SDPA, K4's backward through autograd by "
                          "both routes, and K1's kernels at each shape")
@@ -2202,7 +2821,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from emdr2_tpu_torch.config import EMDR2Config, IndexConfig
     from emdr2_tpu_torch.config import with_flash_attention, with_transformers
-    from emdr2_tpu_torch.ops import build
+    from emdr2_tpu_torch.ops import build, mips
 
     card = gpu_name_and_power()
     log(f"nvidia-smi name, power.limit: {card}")
@@ -2383,11 +3002,44 @@ def main() -> int:
     if cl["index_launches"]["flash_self_attention"] <= 0:
         raise AssertionError("create_doc_index never launched K1-fwd")
 
+    # the RETRIEVER task (DPR training under the three remat layouts), the
+    # retrieval evaluation at NQ-test's size, the OPENQA step under
+    # dots_no_batch, and the RETRIEVER command line with its tools
+    dp = dpr_phase(cfg, dev, profile=args.profile)
+    _empty_cache(dev)
+    rv = retrieval_eval_phase(cfg, dev, gen)
+    remat_b4 = {}
+    for policy in ("nothing", "dots_no_batch"):
+        pcfg = with_transformers(cfg, {"remat": False},
+                                 {"remat": True, "remat_policy": policy})
+        r = train_phase(pcfg, dev, gen, batch=4, steps=2,
+                        profile=args.profile,
+                        profile_table=f"train_step_profile_b4_{policy}.txt")
+        remat_b4[policy] = r
+        if r["top"] is not None:
+            log_profile(f"warm train step at B=4, {policy}", r["top"])
+        log(f"train B=4 --remat-policy {policy}: " + "; ".join(
+            f"{name} " + ", ".join(f"{m:.2f}" for m in ms)
+            for name, ms in r["stage_ms"].items())
+            + f" ms; peak memory {r['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches {r['launches']}")
+        for name, n in r["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched in the B=4 "
+                                     f"{policy} steps")
+        _empty_cache(dev)
+    rcl = retriever_cli_phase(cfg, dev)
+
     if tr["top"] is not None:
         log_profile("warm train step", tr["top"])
 
     k1_main = k1[-1]                                   # [400, 512, 2304]
     k1_embed = next(r for r in k1 if (r["B"], r["L"]) == (128, 256))
+    k1_dpr = {f"{B}x{L}": next(r for r in k1 if (r["B"], r["L"]) == (B, L))
+              for B, L in ((128, 64), (256, 256))}
+    k1_bwd_dpr = {f"{B}x{L}": next(r for r in k1_bwd
+                                   if (r["B"], r["L"]) == (B, L))
+                  for B, L in ((128, 64), (256, 256))}
     k1_bwd_main = k1_bwd[-1]                           # [400, 512]
     k2_main = next(r for r in k2 if r["shape"] == "reader"
                    and r["chunk"] == 512 and r["rate"] == RATE)
@@ -2397,7 +3049,12 @@ def main() -> int:
                       and r["rate"] == RATE)
     k2_chunk256 = next(r for r in k2_split if r["shape"] == "reader256"
                        and r["rate"] == RATE)
-    k3_main = next(r for r in k3 if r["dtype"] == "int8" and r["nq"] == 8)
+    k3_main = next(r for r in k3["rows"] if r["dtype"] == "int8"
+                   and r["nq"] == 8)
+    k3_tc = {f"{r['dtype']}_nq{r['nq']}": r for r in k3["rows"]
+             if r["route"] == "tensor_core"}
+    dpr_launches = {name: lay["launches"]
+                    for name, lay in dp["layouts"].items()}
     k4_main = next(r for r in k4 if r["shape"] == "reader"
                    and r["rate"] == 0.0)
     k4_drop = next(r for r in k4 if r["shape"] == "reader"
@@ -2430,6 +3087,13 @@ def main() -> int:
          "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"],
          "launches_refresh": rf["launches"]["flash_self_attention"],
          "launches_index_build": ix["host"]["launches"],
+         "launches_dpr": {name: n["flash_self_attention"]
+                          for name, n in dpr_launches.items()},
+         "launches_retrieval_eval":
+             rv["int8"]["launches"]["flash_self_attention"],
+         "dpr_shapes": {key: {f: r[f] for f in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+             for key, r in k1_dpr.items()},
          "ms_embedder": k1_embed["ms"],
          "plain_ms_embedder": k1_embed["plain_ms"],
          "bound_ms_embedder": k1_embed["bound_ms"],
@@ -2439,6 +3103,11 @@ def main() -> int:
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:414",
          "launches": train["flash_self_attention_backward"],
+         "launches_dpr": {name: n["flash_self_attention_backward"]
+                          for name, n in dpr_launches.items()},
+         "dpr_shapes": {key: {f: r[f] for f in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+             for key, r in k1_bwd_dpr.items()},
          "max_abs_err": max(r["max_abs_err"] for r in k1_bwd),
          "ms": k1_bwd_main["ms"], "plain_ms": k1_bwd_main["plain_ms"],
          "bound_ms": k1_bwd_main["bound_ms"],
@@ -2484,10 +3153,21 @@ def main() -> int:
          "launches_generation": gen_beam["candidate_scan"],
          "launches_eval": evl["candidate_scan"],
          "launches_refresh": rf["launches"]["candidate_scan"],
-         "max_abs_err": max(r["max_abs_err"] for r in k3),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in k3["rows"] + k3["sweep"]),
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         # the tensor-core route (candidate_scan.cu's mma.sync kernel)
+         "launches_tensor_core_retrieval_eval":
+             rv["int8"]["launches"]["candidate_scan_tensor_core"]
+             + rv["bf16"]["launches"]["candidate_scan_tensor_core"],
+         "tensor_core": {key: {f: r[f] for f in (
+             "ms", "plain_ms", "matmul_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for key, r in k3_tc.items()},
+         "crossover_nq": k3["crossover"],
+         "tensor_core_min_nq": mips.TENSOR_CORE_MIN_NQ,
+         "crossover_sweep_ms": k3["sweep"]},
         {"name": "decode_cross_attention_int8", "route": "cuda",
          "launches_engine": eng["decode_cross_attention_int8"],
          "source": csrc + "decode_attention.cu",

@@ -6,8 +6,10 @@ neither jax nor emdr2_tpu. It carries the question-answering serving path
 training step (``tasks.E2EQATask.train_step``) and evaluation
 (``E2EQATask.evaluate_em`` / ``validation_loss``), the evidence-index build
 and its refresh during training (``retrieval.builder``,
-``training.async_refresh``) and the OPENQA command line (``tasks.run``,
-``tools``) on one device, the card unless the caller asks for the CPU, with
+``training.async_refresh``), DPR training of the retriever
+(``tasks.dense_retriever``) and its recall@k (``retrieval.evaluate``), the
+OPENQA and RETRIEVER command line (``tasks.run``) and the checkpoint tools
+(``tools``) on one device, the card unless the caller asks for the CPU, with
 hand-written CUDA kernels for
 flash self-attention forward and backward, FiD flash cross-attention
 forward and backward, the general flash forward

@@ -44,12 +44,13 @@ class TransformerConfig:
     gelu_variant: str = "erf"        # erf | tanh
     dtype: torch.dtype = torch.bfloat16  # compute dtype; params stay fp32
     # Per-layer activation checkpointing in training
-    # (torch.utils.checkpoint). Only "nothing" (save no activation inside a
-    # layer: the backward re-runs its forward) is ported; "dots_no_batch"
-    # (save the projection and MLP products) raises.
+    # (torch.utils.checkpoint): "nothing" saves no activation inside a layer
+    # (the backward re-runs its forward); "dots_no_batch" saves the
+    # projection and MLP products and recomputes the rest (attention).
     remat: bool = False
     remat_policy: str = "nothing"    # nothing | dots_no_batch
-    # layer parameter sharing: not ported yet (TransformerStack refuses it)
+    # layer parameter sharing: None = no sharing; else num_layers calls over
+    # this many layers, in the order of param_sharing_style
     num_unique_layers: Optional[int] = None
     param_sharing_style: str = "grouped"  # grouped | spaced
     # Encoder self-attention and the decoder's FiD cross-attention run the

@@ -134,6 +134,7 @@ class DecoderSession:
         B, Lk = enc_hidden.shape[:2]
         nh, hd = cfg.num_heads, cfg.head_dim
         decoder = self.model.reader.decoder
+        decoder.check_decode()
         outs = []
         for i in range(cfg.num_layers):
             kv = decoder.layer(i).cross_attention.key_value(enc_hidden)

@@ -34,9 +34,11 @@ the step (``None`` when evaluating). Hidden dropout (``packed_dropout``)
 runs on the embeddings and on each residual branch, attention dropout inside
 the flash kernels or on the materialized probabilities; each site's seed is
 ``drop.site(i)`` for a fixed ``i`` (the ``_SITE_*`` indices), each layer's
-stream ``drop.fold(layer)``. ``TransformerStack`` checkpoints each layer
-(``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``: the
-recompute gets the same seeds, so the same masks.
+stream ``drop.fold(i)`` for the i-th layer call. ``TransformerStack``
+checkpoints each layer call (``torch.utils.checkpoint``, non-reentrant,
+under the ``remat_policy``) when ``cfg.remat``, and shares layers under
+``num_unique_layers``: the recompute gets the same seeds, so the same
+masks.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from emdr2_tpu_torch.config import TransformerConfig
 from emdr2_tpu_torch.ops.decode_attention import decode_cross_attention_int8
@@ -434,51 +437,106 @@ class TransformerLayer(nn.Module):
         return x + self.mlp(self.ln_mlp(x))
 
 
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_no_batch(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots_no_batch"``
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``): save the
+    products with no batch dimension (``aten.mm`` / ``aten.addmm``: the
+    projections and the MLP, which ``matmul`` folds to 2-D), recompute the
+    rest. Attention products have batch dimensions and the flash kernels
+    run inside autograd Functions, so attention is recomputed, and every
+    ``torch.empty`` a kernel fills is made anew by the recompute."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MM_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_no_batch_context():
+    return create_selective_checkpoint_contexts(_dots_no_batch)
+
+
 class TransformerStack(nn.Module):
-    """A stack of layers (``layer_0`` ...) + final LayerNorm; with
-    ``cfg.remat``, each layer is checkpointed while gradients are on."""
+    """A stack of ``cfg.num_layers`` layer calls + final LayerNorm.
+
+    Layer parameter sharing: with ``cfg.num_unique_layers`` = u < L only u
+    layers are built (``layer_0`` ... ``layer_{u-1}``, the flax names); call
+    i runs layer ``i % u`` (``param_sharing_style="grouped"``) or
+    ``i // (L / u)`` ("spaced"), with the dropout seeds of call i, so every
+    call draws its own masks. KV-cached decoding refuses a shared stack, as
+    the JAX package does.
+
+    With ``cfg.remat`` each call is checkpointed while gradients are on
+    (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="nothing"``
+    saves no activation inside it (the backward re-runs its forward),
+    ``"dots_no_batch"`` saves the 2-D products (:func:`_dots_no_batch`)."""
 
     def __init__(self, cfg: TransformerConfig,
                  has_cross_attention: bool = False, device=None):
         super().__init__()
-        if cfg.num_unique_layers not in (None, cfg.num_layers):
-            raise NotImplementedError("layer parameter sharing is not "
-                                      "ported yet")
-        if cfg.remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet (only "
-                f"'nothing': every layer re-runs its forward)")
+        n_unique = cfg.num_unique_layers or cfg.num_layers
+        if cfg.num_layers % n_unique:
+            raise ValueError(f"{cfg.num_layers} layers cannot share "
+                             f"{n_unique} unique layers")
+        if cfg.param_sharing_style not in ("grouped", "spaced"):
+            raise ValueError(f"param_sharing_style must be 'grouped' or "
+                             f"'spaced', got {cfg.param_sharing_style!r}")
+        if cfg.remat_policy not in ("nothing", "dots_no_batch"):
+            raise ValueError(f"remat_policy must be 'nothing' or "
+                             f"'dots_no_batch', got {cfg.remat_policy!r}")
         self.cfg = cfg
-        for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}",
+        self.num_unique = n_unique
+        for u in range(n_unique):
+            self.add_module(f"layer_{u}",
                             TransformerLayer(cfg, has_cross_attention, device))
         self.ln_final = LayerNorm(cfg.hidden_size, cfg.layernorm_epsilon,
                                   device)
 
-    def layer(self, i: int) -> TransformerLayer:
-        return getattr(self, f"layer_{i}")
+    def layer(self, u: int) -> TransformerLayer:
+        """The unique layer ``u`` (``layer_{u}``)."""
+        return getattr(self, f"layer_{u}")
+
+    def unique_index(self, i: int) -> int:
+        """The unique layer that call ``i`` runs."""
+        u, L = self.num_unique, self.cfg.num_layers
+        if self.cfg.param_sharing_style == "grouped":
+            return i % u
+        return i // (L // u)
+
+    def check_decode(self) -> None:
+        """Refuse KV-cached decoding over shared layers (their caches would
+        collide)."""
+        if self.num_unique != self.cfg.num_layers:
+            raise ValueError("KV-cached decoding is incompatible with layer "
+                             "parameter sharing")
 
     def _run(self, fn, *args):
         if self.cfg.remat and torch.is_grad_enabled():
             # the masks come from the seeds in ``args``, not from torch's
             # generators: the recompute needs no RNG state restored
+            kw = {}
+            if self.cfg.remat_policy == "dots_no_batch":
+                kw["context_fn"] = _dots_no_batch_context
             return checkpoint(fn, *args, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, **kw)
         return fn(*args)
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         for i in range(self.cfg.num_layers):
-            x = self._run(self.layer(i).encode, x, kv_bias, fold(drop, i))
+            x = self._run(self.layer(self.unique_index(i)).encode, x, kv_bias,
+                          fold(drop, i))
         return self.ln_final(x)
 
     def decode_full(self, x, enc_out, self_bias, kv_bias, cross_bias,
                     drop: Optional[DropoutSeeds] = None):
         for i in range(self.cfg.num_layers):
-            x = self._run(self.layer(i).decode_full, x, enc_out, self_bias,
-                          kv_bias, cross_bias, fold(drop, i))
+            x = self._run(self.layer(self.unique_index(i)).decode_full, x,
+                          enc_out, self_bias, kv_bias, cross_bias,
+                          fold(drop, i))
         return self.ln_final(x)
 
     def decode(self, x, cache: DecodeCache, cross_kvs, cross_bias):
+        self.check_decode()
         for i in range(self.cfg.num_layers):
             x = self.layer(i).decode(x, cache, i, cross_kvs[i], cross_bias)
         cache.index += x.shape[-2]

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "emdr2_decode_attention_layout": [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "emdr2_candidate_scan_mma_bf16":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "emdr2_candidate_scan_mma_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -150,11 +153,12 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (called where a wrapper has launched
-    its kernel; under the lock, so no count is lost between threads)."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (or to the attribute ``counter``)
+    where a wrapper has launched its kernel; under the lock, so no count is
+    lost between threads."""
     with _lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def check(err: int, what: str) -> None:

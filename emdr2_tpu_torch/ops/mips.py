@@ -102,6 +102,30 @@ def candidate_scan_reference(queries: torch.Tensor, index: torch.Tensor,
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+# The candidate scan has two kernels (``csrc/candidate_scan.cu``): the
+# CUDA-core scan, which reads the index at near the memory rate for a
+# serving batch, and the tensor-core scan (mma.sync), which the products
+# bound at large query batches. ``candidate_scan`` takes the tensor-core one
+# from this many queries on (groups of 128 rows), in both types: the first
+# count above a serving batch of 8. The CUDA-core kernel serves 9-32 queries
+# with one 32-query tile, as slowly at 9 as at 32: over 1,310,720 x 768 rows
+# on an NVIDIA H100 80GB HBM3 at 700 W the tensor-core kernel takes about
+# half its time at 9 queries in int8 and a seventh in bf16 (``chip_smoke.py``
+# k3 phase, PERF.md section 6). At 8 the CUDA-core kernel is ahead on the
+# int8 index (the flagship's); on a bf16 index the tensor-core kernel would
+# win there too, but the serving batch keeps one kernel in both types
+# (PERF.md section 7).
+TENSOR_CORE_MIN_NQ = 9
+TENSOR_CORE_GROUP = 128
+
+
+def scan_route(nq: int, group_size: int) -> str:
+    """The kernel ``candidate_scan`` launches for ``nq`` queries:
+    ``"tensor_core"`` or ``"cuda_core"``."""
+    return ("tensor_core" if nq >= TENSOR_CORE_MIN_NQ
+            and group_size == TENSOR_CORE_GROUP else "cuda_core")
+
+
 def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
                    group_size: int = 128, cands_per_group: int = 2
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,7 +134,8 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
 
     Returns (vals fp32, idx int32), each [nq, cands_per_group * N / G];
     column ``c = rank * (N/G) + group``. int8 values are raw int32 dots cast
-    to fp32 (scales are applied by the caller)."""
+    to fp32 (scales are applied by the caller). On the card the kernel is
+    the one :func:`scan_route` names."""
     nq, d = queries.shape
     N, d2 = index.shape
     G = group_size
@@ -120,6 +145,20 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     if index.device.type == "cpu":
         return candidate_scan_reference(queries, index, n_valid, G,
                                         cands_per_group)
+    return _launch(queries, index, n_valid, G, cands_per_group,
+                   scan_route(nq, G))
+
+
+def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
+            group_size: int, cands_per_group: int, route: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one kernel of the scan on CUDA tensors: ``route`` is
+    ``"cuda_core"`` or ``"tensor_core"`` (the tests and ``chip_smoke.py``
+    force each to hold both to the plain version and to time the
+    crossover)."""
+    nq, d = queries.shape
+    N = index.shape[0]
+    G = group_size
     if index.device.type != "cuda" or queries.device != index.device:
         raise ValueError(f"candidate_scan: unsupported devices "
                          f"{queries.device} / {index.device}")
@@ -132,6 +171,11 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
         raise ValueError(f"kernel needs d*itemsize % 128 == 0, group in "
                          f"32..256 (multiple of 32) and 1-2 candidates; got "
                          f"d={d}, group={G}, cands={cands_per_group}")
+    if route == "tensor_core" and G != TENSOR_CORE_GROUP:
+        raise ValueError(f"the tensor-core scan takes groups of "
+                         f"{TENSOR_CORE_GROUP} rows; got group {G}")
+    if route not in ("cuda_core", "tensor_core"):
+        raise ValueError(f"unknown route {route!r}")
     if not (queries.is_contiguous() and index.is_contiguous()):
         raise ValueError("candidate_scan needs contiguous inputs")
     if queries.data_ptr() % 16 or index.data_ptr() % 16:
@@ -140,20 +184,29 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     vals = torch.empty((nq, cols), dtype=torch.float32, device=index.device)
     idx = torch.empty((nq, cols), dtype=torch.int32, device=index.device)
     lib = build.load()
-    fn = (lib.emdr2_candidate_scan_i8 if index.dtype == torch.int8
-          else lib.emdr2_candidate_scan_bf16)
+    i8 = index.dtype == torch.int8
+    if route == "tensor_core":
+        fn = (lib.emdr2_candidate_scan_mma_i8 if i8
+              else lib.emdr2_candidate_scan_mma_bf16)
+    else:
+        fn = (lib.emdr2_candidate_scan_i8 if i8
+              else lib.emdr2_candidate_scan_bf16)
     err = fn(queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
              idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
              cands_per_group,
              torch.cuda.current_stream(index.device).cuda_stream)
-    build.check(err, "candidate_scan")
+    build.check(err, f"candidate_scan ({route})")
     build.count_launch(candidate_scan)
+    if route == "tensor_core":
+        build.count_launch(candidate_scan, "tensor_core_launches")
     return vals, idx
 
 
 # kernel launches since the last reset (a run proves its path went through
-# the kernel by reading this)
+# the kernel by reading this): every launch of either kernel, and those of
+# the tensor-core kernel alone
 candidate_scan.launches = 0
+candidate_scan.tensor_core_launches = 0
 
 
 def _blocked_window_topk(cand_vals: torch.Tensor, m: int,

@@ -1,15 +1,15 @@
-"""Task command line: ``python -m emdr2_tpu_torch.tasks.run --task OPENQA``
-(port of ``emdr2_tpu/tasks/run.py``).
+"""Task command line: ``python -m emdr2_tpu_torch.tasks.run --task
+OPENQA|RETRIEVER`` (port of ``emdr2_tpu/tasks/run.py``).
 
-The flags are the JAX CLI's, the surface ``examples/openqa/emdr2_nq.sh``
-drives, mapped onto the dataclass config. One process on one device:
-``--device`` (default ``cuda``; ``cpu`` to run without a card) takes the
-place of the JAX CLI's platform environment, mesh and multi-host flags
-(``--dp``, ``--tp``, ``--embed-devices``, ``--coordinator-address``,
-``--num-processes``, ``--process-id``) and of ``--rng-impl``; the RETRIEVER
-task and its flags are not ported yet. The kernels' limits
-(``ops.fid_attention.kernel_limits``) are checked on the flags before
-anything is built.
+The flags are the JAX CLI's, the surface ``examples/openqa/emdr2_nq.sh`` and
+``examples/dense-retriever/dpr_nq.sh`` drive, mapped onto the dataclass
+config. One process on one device: ``--device`` (default ``cuda``; ``cpu``
+to run without a card) takes the place of the JAX CLI's platform
+environment, mesh and multi-host flags (``--dp``, ``--tp``,
+``--embed-devices``, ``--coordinator-address``, ``--num-processes``,
+``--process-id``) and of ``--rng-impl``; ``--batch-size`` is the global
+batch. The kernels' limits (``ops.fid_attention.kernel_limits``) are
+checked on the flags before anything is built.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("emdr2_tpu_torch", description=__doc__)
-    p.add_argument("--task", choices=["OPENQA"], required=True)
+    p.add_argument("--task", choices=["OPENQA", "RETRIEVER"], required=True)
     p.add_argument("--device", default="cuda",
                    help="where to train and evaluate (default the card; "
                         "'cpu' to run without one)")
@@ -41,9 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="activation checkpointing in the transformer stacks")
     g.add_argument("--remat-policy", choices=["nothing", "dots_no_batch"],
                    default="nothing",
-                   help="what the per-layer checkpoint saves ('nothing': "
-                        "full recompute; 'dots_no_batch' is not ported yet "
-                        "and raises)")
+                   help="what the per-layer checkpoint saves: 'nothing' = "
+                        "full recompute (least memory); 'dots_no_batch' = "
+                        "save the projection and MLP products, so the "
+                        "backward recomputes only attention")
     g.add_argument("--no-remat-towers", action="store_true",
                    help="keep --remat on the reader but store the dual-"
                         "encoder towers' activations (no recompute)")
@@ -107,8 +108,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batch for the EM-eval decode (default: the train "
                         "batch)")
     g.add_argument("--eval-only", action="store_true",
-                   help="skip training; run EM eval on --valid-data from "
-                        "--load")
+                   help="skip training: OPENQA runs EM eval on --valid-data "
+                        "from --load, RETRIEVER the recall evaluation")
+    g.add_argument("--train-hard-neg", type=int, default=1,
+                   help="RETRIEVER: hard negatives per question")
+    g.add_argument("--val-av-rank-hard-neg", type=int, default=30,
+                   help="RETRIEVER: hard negatives per query in the "
+                        "average-rank validation")
+    g.add_argument("--val-av-rank-other-neg", type=int, default=30)
+    g.add_argument("--report-topk-accuracies", type=int, nargs="+",
+                   default=[1, 5, 20, 100])
+    g.add_argument("--match", default="string", choices=["string", "regex"],
+                   help="answer-matching mode for recall evaluation")
 
     g = p.add_argument_group("data")
     g.add_argument("--vocab-file", required=True)
@@ -122,6 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "embeddings (or reference .pkl to ingest)")
     g.add_argument("--save", default=None, help="checkpoint dir")
     g.add_argument("--load", default=None, help="resume checkpoint dir")
+    g.add_argument("--qa-file-dev", default=None,
+                   help="QA csv for post-train retrieval recall (RETRIEVER)")
+    g.add_argument("--qa-file-test", default=None)
     g.add_argument("--pretrained-dpr-load", default=None,
                    help="init the retriever from a checkpoint's retriever "
                         "at iteration 0")
@@ -191,6 +205,9 @@ def make_config(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     check_kernel_limits(args)
+    if args.task == "RETRIEVER":
+        from emdr2_tpu_torch.tasks.retriever_main import run_retriever
+        return run_retriever(args, make_config(args))
     from emdr2_tpu_torch.tasks.openqa_main import run_openqa
     return run_openqa(args, make_config(args))
 

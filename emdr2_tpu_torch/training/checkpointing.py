@@ -10,7 +10,13 @@ PyTorch files in place of orbax).
 - ``load_checkpoint`` with ``load_optim=False`` / an iteration override;
 - partial loaders ``load_retriever_params`` / ``load_reader_params``, and
   ``load_model_params`` (the parameters alone, e.g. for serving);
-- ``remove_stale_checkpoints`` pruning.
+- ``remove_stale_checkpoints`` pruning; ``read_payload`` / ``write_payload``
+  for the tools that rewrite checkpoints (``tools/checkpoint_surgery.py``,
+  ``tools/convert_reference_checkpoint.py``).
+
+The model is any ``nn.Module``: an ``EMDR2Model``, or the RETRIEVER task's
+``DPRModel``, which holds its dual encoder under ``retriever`` as the EMDR2
+model does, so ``load_retriever_params`` reads both kinds of checkpoint.
 
 Durability: a checkpoint is written into a temporary directory beside its
 place, flushed to disk and renamed; the tracker is written only after that,
@@ -176,8 +182,10 @@ def save_checkpoint(root: str, state: TrainState, iteration: int,
 
 # ------------------------------------------------------------------- loading
 
-def _read(root: str, iteration: Optional[int], mmap: bool = False
-          ) -> Tuple[Dict[str, Any], int]:
+def read_payload(root: str, iteration: Optional[int] = None,
+                 mmap: bool = False) -> Tuple[Dict[str, Any], int]:
+    """The saved dict of a checkpoint (``"model"``: the state_dict, and
+    what else was saved) and its iteration (default: the tracker's)."""
     root = os.path.abspath(root)
     finalize_async_saves()    # a staged save may be the one to restore
     if iteration is None:
@@ -189,6 +197,15 @@ def _read(root: str, iteration: Optional[int], mmap: bool = False
                       mmap=mmap), iteration
 
 
+def write_payload(root: str, iteration: int, payload: Dict[str, Any]) -> str:
+    """Write a saved dict as the checkpoint of ``iteration``, durably, then
+    advance the tracker (synchronous)."""
+    root = os.path.abspath(root)
+    os.makedirs(root, exist_ok=True)
+    finalize_async_saves()
+    return _write(root, iteration, payload)
+
+
 def load_checkpoint(root: str, state: TrainState,
                     iteration: Optional[int] = None,
                     load_optim: bool = True) -> Tuple[TrainState, int]:
@@ -198,7 +215,11 @@ def load_checkpoint(root: str, state: TrainState,
     With ``load_optim=False`` only the parameters are restored: the
     optimizer's state, its update count, the step and the seed of ``state``
     (usually fresh) are kept, for fine-tuning from a checkpoint."""
-    payload, iteration = _read(root, iteration)
+    payload, iteration = read_payload(root, iteration)
+    if load_optim and "optimizer" not in payload:
+        raise ValueError(f"{root} iteration {iteration} holds no optimizer "
+                         f"state (a stripped or converted checkpoint): load "
+                         f"it with load_optim=False")
     state.model.load_state_dict(payload["model"], strict=True)
     if load_optim:
         state.optimizer.adamw.load_state_dict(payload["optimizer"])
@@ -213,7 +234,7 @@ def _load_submodule(root: str, iteration: Optional[int], prefix: str,
     """Load only the parameters under ``prefix`` of a checkpoint into
     ``module`` (strictly: every key must be there). The file is memory
     mapped, so the rest of it is not read."""
-    payload, _ = _read(root, iteration, mmap=True)
+    payload, _ = read_payload(root, iteration, mmap=True)
     sub = {k[len(prefix):]: v for k, v in payload["model"].items()
            if k.startswith(prefix)}
     module.load_state_dict(sub, strict=True)
@@ -222,15 +243,16 @@ def _load_submodule(root: str, iteration: Optional[int], prefix: str,
 
 def load_model_params(root: str, model: torch.nn.Module,
                       iteration: Optional[int] = None) -> torch.nn.Module:
-    """Every parameter of the checkpoint into ``model`` (an ``EMDR2Model``
-    of the same configuration); no optimizer state is read."""
+    """Every parameter of the checkpoint into ``model`` (a module of the
+    configuration that saved it); no optimizer state is read."""
     return _load_submodule(root, iteration, "", model)
 
 
 def load_retriever_params(root: str, retriever: torch.nn.Module,
                           iteration: Optional[int] = None) -> torch.nn.Module:
-    """The dual encoder only, into ``retriever`` (``EMDR2Model.retriever``
-    or a module of its class)."""
+    """The dual encoder only (the keys under ``retriever.`` of an EMDR2 or a
+    DPR checkpoint), into ``retriever`` (``EMDR2Model.retriever``,
+    ``DPRModel.retriever``, or a ``DualEncoder``)."""
     return _load_submodule(root, iteration, "retriever.", retriever)
 
 

@@ -1,13 +1,15 @@
-"""Loss functions of the OpenQA step (port of
-``emdr2_tpu/training/losses.py``): the reader cross-entropy, the EMDR2
-marginalized retriever loss, its KL-divergence variant, and their sum.
+"""Loss functions (port of ``emdr2_tpu/training/losses.py``): the reader
+cross-entropy, the EMDR2 marginalized retriever loss, its KL-divergence
+variant, their sum, and the DPR in-batch contrastive loss.
 
-The vocab-parallel cross-entropy (tensor parallelism) waits for multi-GPU.
+The vocab-parallel cross-entropy (tensor parallelism) and the all-gather
+form of the DPR loss wait for multi-GPU.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -90,3 +92,34 @@ def emdr2_total_loss(lm_logits, topk_log_probs, gold_log_probs, labels,
         aux = aux._replace(lm_loss=lm_loss)
         ret_loss = aux.retriever_loss
     return lm_loss + ret_loss, aux
+
+
+def dpr_in_batch_loss(query_embeds: torch.Tensor,
+                      context_embeds: torch.Tensor, hidden_size: int,
+                      score_scaling: bool = False,
+                      labels: Optional[torch.Tensor] = None,
+                      axis_name: Optional[str] = None):
+    """DPR contrastive NLL with in-batch negatives, in one process.
+
+    query_embeds [b, d]; context_embeds [c, d] with c >= b (positives first,
+    then hard negatives). Scores are fp32 ``q . c``, divided by
+    sqrt(hidden_size) under ``score_scaling``; the loss is the mean
+    log-softmax NLL of ``labels`` (default ``arange(b)``). Returns (loss,
+    correct), ``correct`` the count of rows whose argmax is the label, as
+    a 0-d fp32 tensor. ``axis_name`` (the JAX form that all-gathers the
+    contexts over data-parallel shards) is not ported: multi-GPU comes
+    later."""
+    if axis_name is not None:
+        raise NotImplementedError("the all-gather form of dpr_in_batch_loss "
+                                  "waits for the multi-GPU port")
+    b = query_embeds.shape[0]
+    if labels is None:
+        labels = torch.arange(b, device=query_embeds.device)
+    labels = labels.to(query_embeds.device).long()
+    scores = torch.matmul(query_embeds.float(), context_embeds.float().T)
+    if score_scaling:
+        scores = scores / math.sqrt(hidden_size)
+    log_probs = torch.log_softmax(scores, dim=1)
+    nll = -log_probs.gather(1, labels[:, None])[:, 0]
+    correct = (log_probs.argmax(dim=1) == labels).sum().float()
+    return nll.mean(), correct

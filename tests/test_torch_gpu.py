@@ -467,16 +467,243 @@ def test_candidate_scan_matches_plain(cuda, dtype, nq, cands):
         q = torch.randn(nq, d, device=cuda, generator=g).to(dtype)
         e = torch.randn(n, d, device=cuda, generator=g).to(dtype)
     n_valid = n - 200                        # one and a half masked groups
+    # the dispatch, the CUDA-core kernel forced, and groups of 64 (which
+    # only the CUDA-core kernel takes), each against the plain version
+    for G, route in ((128, None), (128, "cuda_core"), (64, None)):
+        if route is None:
+            gv, gi = mips.candidate_scan(q, e, n_valid, G, cands)
+        else:
+            gv, gi = mips._launch(q, e, n_valid, G, cands, route)
+        torch.cuda.synchronize()
+        wv, wi = mips.candidate_scan_reference(q, e, n_valid, G, cands)
+        if dtype == torch.int8:
+            assert torch.equal(gv, wv) and torch.equal(gi, wi)
+        else:
+            assert ((gv - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all()
+            # ids may differ only where two rows' scores are within
+            # tolerance
+            diff = gi != wi
+            assert diff.float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nq", [64, 100, 512])
+@pytest.mark.parametrize("cands", [1, 2])
+def test_candidate_scan_tensor_core_matches_plain(cuda, dtype, nq, cands):
+    """The tensor-core scan (mma.sync) against the plain version: masked
+    rows (a whole group and part of one), a group of 128 equal rows (every
+    query ties across it: the lowest rows win), query rows past nq in the
+    last tile; and the dispatch sends these batches to it."""
+    g = _gen(1000 + nq)
+    n, d, G = 128 * 96, 768, 128
+    if dtype == torch.int8:
+        q = torch.randint(-127, 128, (nq, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+        e = torch.randint(-127, 128, (n, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+    else:
+        q = torch.randn(nq, d, device=cuda, generator=g).to(dtype)
+        e = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    e[256:384] = e[5]                        # one group of equal rows
+    n_valid = n - 200                        # one and a half masked groups
+    assert mips.scan_route(nq, G) == "tensor_core"
+    before = mips.candidate_scan.tensor_core_launches
     gv, gi = mips.candidate_scan(q, e, n_valid, G, cands)
     torch.cuda.synchronize()
+    assert mips.candidate_scan.tensor_core_launches == before + 1
     wv, wi = mips.candidate_scan_reference(q, e, n_valid, G, cands)
+    groups = n // G
+    tied = gi[:, 2]
+    assert (tied == 256).all()
+    if cands == 2:
+        assert (gi[:, groups + 2] == 257).all()
+        # the fully masked group: (NEG_INF, its first row) twice
+        assert (gi[:, groups - 1] == n - G).all()
+        assert (gi[:, 2 * groups - 1] == n - G).all()
+        assert (gv[:, 2 * groups - 1] == mips.NEG_INF).all()
     if dtype == torch.int8:
         assert torch.equal(gv, wv) and torch.equal(gi, wi)
     else:
         assert ((gv - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all()
-        # ids may differ only where two rows' scores are within tolerance
-        diff = gi != wi
-        assert diff.float().mean().item() < 1e-3
+        assert (gi != wi).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("route", ["cuda_core", "tensor_core"])
+def test_candidate_scan_beyond_65535_groups(cuda, route):
+    """An int8 index of 66,000 groups of 128 rows (8,448,000 x 768, 6.5 GB):
+    more groups than a grid dimension other than x holds. The first and the
+    last 1,000 groups, the masked tail among them, against the plain
+    version on those rows."""
+    g = _gen(11)
+    groups, d, nq, G = 66_000, 768, 16, 128
+    n = groups * G
+    q = torch.randint(-127, 128, (nq, d), device=cuda, generator=g,
+                      dtype=torch.int8)
+    e = torch.randint(-127, 128, (n, d), device=cuda, generator=g,
+                      dtype=torch.int8)
+    n_valid = n - 200
+    gv, gi = mips._launch(q, e, n_valid, G, 2, route)
+    torch.cuda.synchronize()
+    for g0 in (0, groups - 1000):
+        rows = e[g0 * G:(g0 + 1000) * G]
+        wv, wi = mips.candidate_scan_reference(q, rows, n_valid - g0 * G, G,
+                                               2)
+        cols = torch.cat([torch.arange(g0, g0 + 1000),
+                          groups + torch.arange(g0, g0 + 1000)]).to(cuda)
+        assert torch.equal(gv[:, cols], wv)
+        assert torch.equal(gi[:, cols], wi + g0 * G)
+    del e
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_candidate_scan_routes_agree(cuda, dtype):
+    """Both kernels forced on the same inputs below the crossover: int8
+    equal, bf16 within the candidate tolerance; a group other than 128 is
+    refused by the tensor-core route."""
+    g = _gen(7)
+    n, d, nq = 128 * 40, 768, 8
+    if dtype == torch.int8:
+        q = torch.randint(-127, 128, (nq, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+        e = torch.randint(-127, 128, (n, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+    else:
+        q = torch.randn(nq, d, device=cuda, generator=g).to(dtype)
+        e = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    cv, ci = mips._launch(q, e, n - 50, 128, 2, "cuda_core")
+    tv, ti = mips._launch(q, e, n - 50, 128, 2, "tensor_core")
+    if dtype == torch.int8:
+        assert torch.equal(cv, tv) and torch.equal(ci, ti)
+    else:
+        assert ((cv - tv).abs() <= 1e-3 * cv.abs() + 1e-3).all()
+    with pytest.raises(ValueError, match="groups of 128"):
+        mips._launch(q, e, n, 64, 2, "tensor_core")
+    assert mips.scan_route(mips.TENSOR_CORE_MIN_NQ - 1, 128) == "cuda_core"
+    assert mips.scan_route(mips.TENSOR_CORE_MIN_NQ, 64) == "cuda_core"
+
+
+def _bert(cuda, flash=True, dtype=torch.bfloat16, **fields):
+    """A BERT encoder with head dim 64 on the card (bf16 unless ``dtype``
+    says otherwise), weights from seed 3."""
+    import dataclasses
+
+    from emdr2_tpu_torch.config import tiny_config
+    from emdr2_tpu_torch.models.bert import BertEncoder
+    from emdr2_tpu_torch.models.layers import init_weights
+
+    cfg = dataclasses.replace(
+        tiny_config().retriever.encoder, hidden_size=128, num_heads=2,
+        ffn_size=256, dtype=dtype, vocab_size=512,
+        fid_flash_attention=flash, **fields)
+    model = BertEncoder(cfg, device=cuda)
+    init_weights(model, _gen(3))
+    return model
+
+
+def _fwd_bwd(model, ids, w):
+    out = model(ids)
+    (out.float() * w).sum().backward()
+    return out, {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_shared_stack_with_dots_no_batch_on_the_card(cuda):
+    """12 layer calls over 6 unique layers (spaced), remat dots_no_batch,
+    flash kernels on. Against the same stack without remat: the same
+    output and gradients bit for bit (no product is recomputed, attention
+    is recomputed by the deterministic kernel), and K1-fwd launched again
+    by the recompute. Against 12 unshared layers holding the same weights
+    per call: the same output, and each shared gradient the sum of its two
+    calls'. Against the plain route (flash off) in fp32: the output and
+    every gradient no further from it, on average and at most, than twice
+    the plain route's own bf16 distance (a 12-call bf16 stack compounds
+    each call's rounding in the deepest layers' gradients, so a fixed
+    per-kernel tolerance does not apply)."""
+    shared = dict(num_layers=12, num_unique_layers=6,
+                  param_sharing_style="spaced")
+    kern = _bert(cuda, remat=True, remat_policy="dots_no_batch", **shared)
+    assert sum(1 for n, _ in kern.encoder.named_children()
+               if n.startswith("layer_")) == 6
+    g = _gen(4)
+    ids = torch.randint(2, 500, (4, 96), device=cuda, generator=g)
+    ids[1, 50:] = 0
+    w = torch.randn(4, 96, 128, device=cuda, generator=g) / 384
+    fwd0 = fid_attention.flash_self_attention.launches
+    bwd0 = fid_attention.flash_self_attention_backward.launches
+    out, grads = _fwd_bwd(kern, ids, w)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_self_attention.launches == fwd0 + 24
+    assert fid_attention.flash_self_attention_backward.launches == bwd0 + 12
+
+    stored = _bert(cuda, **shared)
+    stored.load_state_dict(kern.state_dict())
+    s_out, s_grads = _fwd_bwd(stored, ids, w)
+    diffs = {n: (grads[n] - s_grads[n]).abs().max().item() for n in grads}
+    assert torch.equal(out, s_out) and max(diffs.values()) == 0.0, diffs
+
+    unshared = _bert(cuda, num_layers=12)
+    sd = {}
+    for k, v in kern.state_dict().items():
+        if k.startswith("encoder.layer_"):
+            u, rest = k.split(".", 2)[1:]
+            for i in range(12):
+                if kern.encoder.unique_index(i) == int(u[len("layer_"):]):
+                    sd[f"encoder.layer_{i}.{rest}"] = v
+        else:
+            sd[k] = v
+    unshared.load_state_dict(sd)
+    u_out, u_grads = _fwd_bwd(unshared, ids, w)
+    assert torch.equal(out, u_out)
+    for name, grad in grads.items():
+        if name.startswith("encoder.layer_"):
+            u, rest = name.split(".", 2)[1:]
+            calls = [i for i in range(12)
+                     if kern.encoder.unique_index(i) == int(u[len("layer_"):])]
+            want = u_grads[f"encoder.layer_{calls[1]}.{rest}"] + \
+                u_grads[f"encoder.layer_{calls[0]}.{rest}"]
+        else:
+            want = u_grads[name]
+        assert torch.equal(grad, want), name
+
+    ref = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        plain = _bert(cuda, flash=False, dtype=dtype, **shared)
+        plain.load_state_dict(kern.state_dict())
+        ref[dtype] = _fwd_bwd(plain, ids, w)
+    (o32, g32), (o16, g16) = ref[torch.float32], ref[torch.bfloat16]
+
+    def no_further(got, bf16, want, what):
+        err, own = (got.float() - want).abs(), (bf16.float() - want).abs()
+        floor = 1e-6 * want.abs().max().item()
+        assert err.mean().item() <= 2 * own.mean().item() + floor, what
+        assert err.max().item() <= 2 * own.max().item() + floor, what
+
+    no_further(out, o16, o32, "output")
+    for name, grad in grads.items():
+        no_further(grad, g16[name], g32[name], name)
+
+
+def test_dual_encoder_refuses_what_the_kernels_do_not_take(cuda):
+    """At construction on the card (fp32 activations, head dim 32), and a
+    model built on the CPU and moved to the card at its first forward."""
+    import dataclasses
+
+    from emdr2_tpu_torch.config import tiny_config
+    from emdr2_tpu_torch.models.bert import DualEncoder
+
+    tiny = tiny_config().retriever
+    flash = dataclasses.replace(tiny, encoder=dataclasses.replace(
+        tiny.encoder, fid_flash_attention=True))
+    with pytest.raises(TypeError, match="bf16"):
+        DualEncoder(flash, device=cuda)
+    hd32 = dataclasses.replace(flash, encoder=dataclasses.replace(
+        flash.encoder, dtype=torch.bfloat16, hidden_size=64, num_heads=2))
+    with pytest.raises(ValueError, match="head_dim 64"):
+        DualEncoder(hd32, device=cuda)
+    DualEncoder(tiny, device=cuda)                      # flash off
+    moved = DualEncoder(flash, device="cpu").to(cuda)
+    ids = torch.ones(2, 8, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        moved(ids, ids)
 
 
 # ---- K4-fwd: the general per-head kernel on strided views of a slab ----

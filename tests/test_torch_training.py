@@ -158,9 +158,16 @@ def test_optimizer_matches_optax_chain(warmup):
 
 
 def test_remat_policy_dots_no_batch_is_refused():
+    """``dots_no_batch`` is ported now (tests/test_torch_stack_options.py):
+    the model takes it, and refuses a policy name it does not know."""
     cfg = tiny_config()
-    enc = dataclasses.replace(cfg.retriever.encoder, remat=True,
-                              remat_policy="dots_no_batch")
-    with pytest.raises(NotImplementedError):
-        EMDR2Model(cfg.replace(retriever=dataclasses.replace(
-            cfg.retriever, encoder=enc)), device="cpu")
+    for policy, ok in (("dots_no_batch", True), ("dots", False)):
+        enc = dataclasses.replace(cfg.retriever.encoder, remat=True,
+                                  remat_policy=policy)
+        mcfg = cfg.replace(retriever=dataclasses.replace(cfg.retriever,
+                                                         encoder=enc))
+        if ok:
+            EMDR2Model(mcfg, device="cpu")
+        else:
+            with pytest.raises(ValueError):
+                EMDR2Model(mcfg, device="cpu")
