@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --dp-cards N       (N cards: the ranks phase alone)
 
 1. Builds the hand-written CUDA kernels from ``emdr2_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel).
@@ -119,6 +120,16 @@
    iterations, saves, validation, post-train recall), ``checkpoint_surgery
    extract`` loaded into an OPENQA model, and ``tools.evaluate_retrieval``,
    whose recall must equal the run's.
+14. One step repeats bit for bit: the embedding lookups' backward at a
+   step's shapes (``F.embedding`` against ``layers.embedding``), then a DPR
+   step at 128 and an OPENQA step at B=8 each twice from one state,
+   fingerprinted module by module (``utils/repeat.py``).
+15. Data parallelism: (a) one rank over NCCL, the DPR step and the int8
+   search bit-equal to the plain path; (b) two ranks sharing the card over
+   gloo (subprocesses: ``--dp-rank R --dp-spec PATH``), each with half of
+   one index, against one process: searches, step-1 losses, bit-equal
+   replicas, ``evaluate_em``. ``--dp-cards N`` runs only this phase over
+   NCCL, a rank a card, beside one card at the same batch a rank.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -129,6 +140,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -2742,6 +2754,676 @@ def retriever_cli_phase(cfg, dev, n_docs=16_384, batch=16, iters=4,
 
 # classes of device kernels in a profile, by the first substring of the
 # kernel's name that matches (in this order)
+# ---------------------------------------------------------------------------
+# C5: one step repeats bit for bit; data parallelism (torch.distributed)
+# ---------------------------------------------------------------------------
+
+def _dpr_batches(cfg, tmpdir, batch, n_batches, rank=0, world=1,
+                 seed=SEED):
+    """Global DPR batches of ``batch`` questions with one hard negative
+    each (so no negative is drawn at random), this rank's slice of each."""
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRDataset
+    tmpdir = tempfile.mkdtemp(dir=tmpdir)       # beside another corpus
+    tok, _ = make_corpus(cfg, tmpdir, n_docs=16)
+    rng = np.random.RandomState(seed)
+    path = make_dpr_json(os.path.join(tmpdir, "dpr.json"),
+                         batch * n_batches, _words(cfg), rng, hard=1)
+    rc = cfg.retriever
+    ds = DPRDataset(path, tok, rc.query_seq_len, rc.seq_len, hard_negs=1,
+                    seed=seed)
+    return list(ds.epoch_batches(batch, seed=seed, rank=rank,
+                                 world_size=world))
+
+
+def _qa_dataset(cfg, tok, tmpdir, n):
+    """``n`` questions with one reference each (no answer is drawn at
+    random, so a rank's slice samples what one process samples)."""
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    path = os.path.join(tmpdir, f"qa_{n}.tsv")
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(f"what is the color of item w{7 * i}\t['w{3 * i}']\n")
+    return OpenQADataset([path], tok, cfg.retriever.query_seq_len,
+                         cfg.reader.decoder_seq_len, seed=SEED)
+
+
+def _diff_text(result):
+    if result["first_difference"] is None:
+        return "bit-equal"
+    i, a, b = result["first_difference"]
+    return (f"{result['differing']} of {result['entries']} entries differ; "
+            f"the first at {i}: {a} against {b}")
+
+
+def _lookup_backward_check(cfg, dev, reps=5):
+    """The embedding lookups of a step (a tower's tokentype and word
+    tables under 65,536 lookups, the reader's shared table under 204,800)
+    by ``F.embedding`` and by ``layers.embedding``: does each weight
+    gradient repeat over ``reps`` runs, and what does its backward cost
+    (ms, CUDA events)."""
+    import torch.nn.functional as F
+
+    from emdr2_tpu_torch.models.layers import embedding
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    h = cfg.retriever.encoder.hidden_size
+    out = {}
+    for name, rows, n in (
+            ("tokentype", 2, 65_536),
+            ("word", cfg.retriever.encoder.vocab_size, 65_536),
+            ("reader", cfg.reader.transformer.vocab_size, 204_800)):
+        u = torch.rand(n, device=dev, generator=g)
+        ids = (u ** 4 * rows).long().clamp_(max=rows - 1)   # skewed ids
+        dout = torch.randn(n, h, device=dev, generator=g)
+        for how, fn in (("F.embedding", F.embedding),
+                        ("layers.embedding", embedding)):
+            w = torch.zeros(rows, h, device=dev, requires_grad=True)
+
+            def run():
+                w.grad = None
+                fn(ids, w).backward(dout)
+                return w.grad
+
+            grads = [run().clone() for _ in range(reps)]
+            repeats = all(torch.equal(grads[0], x) for x in grads)
+            out[f"{name} {how}"] = dict(
+                repeats=repeats,
+                ms=time_ms(run) if dev.type == "cuda" else float("nan"))
+    log("c5 lookup backward (rows x lookups: tokentype 2 x 65,536, word "
+        f"{cfg.retriever.encoder.vocab_size} x 65,536, reader "
+        f"{cfg.reader.transformer.vocab_size} x 204,800; {reps} runs): "
+        + "; ".join(f"{k} repeats={v['repeats']} {v['ms']:.4f} ms"
+                    for k, v in out.items()))
+    for key, v in out.items():
+        if "layers" in key and not v["repeats"]:
+            raise AssertionError(f"c5: {key} does not repeat")
+    return out
+
+
+def c5_phase(cfg, tcfg, dev, gen, dpr_batch=128, qa_batch=8,
+             n_rows=N_INDEX, n_docs=20_000):
+    """A DPR step (global batch ``dpr_batch``, dropout 0.1) and an OPENQA
+    step (``qa_batch``, ``tcfg``: --remat --no-remat-towers) each run twice
+    from one saved state (``utils.repeat.repeat_step``: every module
+    output, incoming gradient, parameter gradient, metric and updated
+    parameter fingerprinted bit for bit). Fails with the first differing
+    module."""
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
+    from emdr2_tpu_torch.utils.repeat import repeat_step
+
+    res = {"lookup": _lookup_backward_check(cfg, dev)}
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        batches = _dpr_batches(cfg, tmpdir, dpr_batch, 2)
+    task = DPRTask(cfg.retriever, OptimizerConfig(lr=2e-5), 1000,
+                   device=dev)
+    task.init_state(SEED)
+    task.train_step(batches[0])
+    t0 = time.perf_counter()
+    r = repeat_step(task, batches[1])
+    res["dpr"] = dict(equal=r["equal"], entries=r["entries"],
+                      text=_diff_text(r),
+                      loss=[float(m["loss"]) for m in r["metrics"]],
+                      seconds=time.perf_counter() - t0)
+    log(f"c5 DPR step at {dpr_batch}, twice from one state: "
+        f"{res['dpr']['text']} over {r['entries']} fingerprints; loss "
+        f"{res['dpr']['loss'][0]:.8f} / {res['dpr']['loss'][1]:.8f}")
+    del task, batches, r
+    _empty_cache(dev)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tok, corpus, index = make_world(tcfg, tmpdir, dev, gen, n_docs,
+                                        n_rows)
+        ds = _qa_dataset(tcfg, tok, tmpdir, 2 * qa_batch)
+        task = E2EQATask(tcfg, tok, corpus, index, total_train_iters=1000,
+                         device=dev)
+        task.init_state(SEED)
+        qbatches = list(ds.epoch_batches(qa_batch, seed=SEED))
+        task.train_step(qbatches[0])
+        t0 = time.perf_counter()
+        r = repeat_step(task, qbatches[1])
+        res["openqa"] = dict(equal=r["equal"], entries=r["entries"],
+                             text=_diff_text(r),
+                             loss=[float(m["loss"]) for m in r["metrics"]],
+                             seconds=time.perf_counter() - t0)
+        del task, index
+    res["launches"] = _read_counts(tuple(_counters()))
+    log(f"c5 OPENQA step at B={qa_batch}, twice from one state: "
+        f"{res['openqa']['text']} over {res['openqa']['entries']} "
+        f"fingerprints; loss {res['openqa']['loss'][0]:.8f} / "
+        f"{res['openqa']['loss'][1]:.8f}; launches {res['launches']}")
+    _empty_cache(dev)
+    for name in ("dpr", "openqa"):
+        if not res[name]["equal"]:
+            raise AssertionError(f"c5: the {name} step does not repeat: "
+                                 f"{res[name]['text']}")
+    return res
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_rows(cfg, dev, n_rows, seed):
+    """The dp phase's index rows: [n_rows, d] fp32 from ``seed``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(n_rows, cfg.index.embed_dim, device=dev, generator=g)
+
+
+def _dp_cfgs(cfg, rate):
+    """(OPENQA under --remat --remat-policy nothing, DPR retriever) at
+    dropout ``rate``."""
+    from emdr2_tpu_torch.config import with_transformers
+    fields = {"hidden_dropout": rate, "attention_dropout": rate,
+              "remat": True, "remat_policy": "nothing"}
+    qcfg = with_transformers(cfg, fields, fields)
+    rc = cfg.retriever
+    rcfg = dataclasses.replace(rc, encoder=dataclasses.replace(
+        rc.encoder, hidden_dropout=rate, attention_dropout=rate))
+    return qcfg, rcfg
+
+
+def _fingerprint_params(model) -> str:
+    from emdr2_tpu_torch.utils.repeat import fingerprint
+    return repr([fingerprint(p) for p in model.parameters()])
+
+
+def _same_or_tie(ids, vals, want_ids, want_vals, k):
+    """Rows of each query equal as sets, or traded only at a boundary tie
+    (scores within TIE_EPS fp32 eps of |k-th score|); -> (equal share,
+    ties, unexplained)."""
+    eps = TIE_EPS * float(np.finfo(np.float32).eps)
+    equal = ties = bad = 0
+    for i in range(ids.shape[0]):
+        a, b = set(ids[i].tolist()), set(want_ids[i].tolist())
+        if a == b:
+            equal += 1
+            continue
+        kth = abs(float(want_vals[i, k - 1]))
+        lo = float(want_vals[i, k - 1]) - eps * max(kth, 1.0)
+        va = dict(zip(ids[i].tolist(), vals[i].tolist()))
+        vb = dict(zip(want_ids[i].tolist(), want_vals[i].tolist()))
+        if all(va[x] >= lo for x in a - b) and all(vb[x] >= lo
+                                                   for x in b - a):
+            ties += 1
+        else:
+            bad += 1
+    return equal / ids.shape[0], ties, bad
+
+
+def dp_one_rank_phase(cfg, dev, dpr_batch=128, n_rows=N_INDEX,
+                      backend="nccl"):
+    """(a) One rank over ``backend`` (NCCL on the card), world size 1,
+    rendezvous over TCP on localhost: the DPR step through the
+    distributed path (the gathered loss, the bucketed gradient all-reduce)
+    against the plain step from the same state, and the sharded search
+    (int8, nq 8 and 512) against the plain search: bit for bit."""
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.parallel import DataParallel
+    from emdr2_tpu_torch.parallel import distributed as dist_lib
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
+    from emdr2_tpu_torch.utils.repeat import first_difference, recorded_step
+
+    dist_lib.init_process_group(f"127.0.0.1:{_free_port()}", 1, 0, backend,
+                                timeout_s=120,
+                                device=dev if backend == "nccl" else None)
+    res = {}
+    try:
+        dp = DataParallel.from_process_group()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            batches = _dpr_batches(cfg, tmpdir, dpr_batch, 1)
+        opt = OptimizerConfig(lr=2e-5)
+        entries = []
+        for group in (None, dp):
+            task = DPRTask(cfg.retriever, opt, 1000, device=dev, dp=group)
+            task.init_state(SEED)
+            if group is not None:
+                # the counts of the distributed path alone
+                _reset_counts()
+            _, e = recorded_step(task, batches[0])
+            if group is not None:
+                launches = _read_counts(tuple(_counters()))
+            entries.append(e)
+            del task
+        diff = first_difference(*entries)
+        res["dpr"] = dict(equal=diff is None, entries=len(entries[0]),
+                          diff=None if diff is None else repr(diff)[:600])
+        _empty_cache(dev)
+        icfg = dataclasses.replace(cfg.index, quantize="int8")
+        rows = _dp_rows(cfg, dev, n_rows, SEED + 17)
+        plain = ShardedEvidenceIndex(icfg, rows, device=dev)
+        sharded = ShardedEvidenceIndex(icfg, rows, device=dev, dp=dp)
+        del rows
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 18)
+        search = {}
+        for nq in (8, 512):
+            q = torch.randn(nq, cfg.index.embed_dim, device=dev, generator=g)
+            want = plain.search(q, k=50)
+            _reset_counts()
+            got = sharded.search(q, k=50)
+            launches_nq = _read_counts(("candidate_scan",))
+            search[nq] = dict(equal=bool(torch.equal(got[0], want[0])
+                                         and torch.equal(got[1], want[1])),
+                              launches=launches_nq["candidate_scan"])
+        res["search"] = search
+        res["launches"] = launches
+        res["bytes_moved"] = dict(dp.bytes_moved)
+        del plain, sharded
+    finally:
+        dist_lib.shutdown()
+    _empty_cache(dev)
+    log(f"dp (a) one rank over {backend}: DPR step at {dpr_batch} through "
+        f"the distributed path against the plain one: "
+        f"{'bit-equal' if res['dpr']['equal'] else res['dpr']['diff']} over "
+        f"{res['dpr']['entries']} fingerprints; sharded int8 search nq 8 / "
+        f"512: " + ", ".join(f"{'bit-equal' if s['equal'] else 'DIFFERS'} "
+                             f"({s['launches']} K3 launches)"
+                             for s in search.values())
+        + f"; launches {res['launches']}; bytes moved "
+        f"{res['bytes_moved']}")
+    if not res["dpr"]["equal"] or not all(s["equal"] for s in
+                                          search.values()):
+        raise AssertionError("dp (a): the one-rank distributed path is not "
+                             "bit-equal to the plain path")
+    return res
+
+
+# the ranks phase: two ranks sharing the card (global batches DP_SIZES: 2
+# / 64 / 4 a rank), or --dp-cards N ranks on cards of their own
+# (DP_CARD_SIZES a rank, timed against one card at the same batch; the
+# checks at DP_CARD_CHECK_SIZES a rank, against one card at their global
+# batch, which fits on it)
+DP_WORLD = 2
+DP_SIZES = {"qa": 4, "dpr": 128, "eval": 8}
+DP_CARD_SIZES = {"qa": 8, "dpr": 128, "eval": 8}
+DP_CARD_CHECK_SIZES = {"qa": 2, "dpr": 32}
+DP_QA_STEPS = 3
+DP_CHECK_STEPS = 2
+DP_EVAL_QUESTIONS = 16
+DP_SEARCH_NQ = (8, 512)
+DP_LOSS_RTOL = 1e-2
+# the global gradient norm of a check step against one process: a sum in
+# place of the mean over the ranks, or a share not scaled to the global
+# batch, moves it by a factor of the world size (>= 50 times this limit)
+DP_GRAD_RTOL = 1e-2
+
+
+def _dp_world(cfg, tmpdir, dev, n_rows, n_docs, dp=None):
+    """Tokenizer, corpus and the dp phase's index (every rank holds its
+    block of the same rows)."""
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    tok, corpus = make_corpus(cfg, tmpdir, n_docs)
+    rows = _dp_rows(cfg, dev, n_rows, SEED + 19)
+    pids = 1 + np.arange(n_rows) % n_docs
+    index = ShardedEvidenceIndex(cfg.index, rows, passage_ids=pids,
+                                 device=dev, dp=dp)
+    del rows
+    return tok, corpus, index
+
+
+def _dp_searches(cfg, dev, n_rows, dp=None):
+    """Per dtype and nq: this rank's (vals, ids) of the dp phase's
+    queries (every rank holds its block of one index)."""
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    rank, world = (dp.rank, dp.world_size) if dp is not None else (0, 1)
+    out = {}
+    rows = _dp_rows(cfg, dev, n_rows, SEED + 17)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 18)
+    queries = {nq: torch.randn(nq, cfg.index.embed_dim, device=dev,
+                               generator=g)
+               for nq in DP_SEARCH_NQ}
+    for quant in ("none", "int8"):
+        index = ShardedEvidenceIndex(
+            dataclasses.replace(cfg.index, quantize=quant), rows,
+            device=dev, dp=dp)
+        for nq, q in queries.items():
+            per = nq // world
+            vals, ids = index.search(q[rank * per:(rank + 1) * per], k=50)
+            out[f"{quant}_{nq}"] = (vals.cpu().numpy(), ids.cpu().numpy())
+        del index
+    del rows
+    return out
+
+
+def _dp_runs(cfg, dev, tmpdir, n_rows, n_docs, n_questions, dp=None,
+             sizes=DP_SIZES, checks=DP_SIZES, eval_batch=None):
+    """What the ranks phase runs, on one rank of ``dp`` (or in one process):
+    the searches; ``evaluate_em`` of the initial state, greedy over int8
+    K/V, at the global batch ``eval_batch`` (default ``sizes["eval"]``);
+    ``DP_CHECK_STEPS`` OPENQA and DPR steps at dropout 0 at the global
+    batches ``checks`` (each step's loss and global gradient norm; the
+    learning rate has no warmup, so the second step follows an update);
+    ``DP_QA_STEPS`` OPENQA and DPR steps at dropout 0.1 at the global
+    batches ``sizes`` (their times, and the parameters' fingerprints).
+    The training questions are ``n_questions`` (one set for the ranks and
+    for one process: the shuffled order depends on it). Returns the
+    results and the stage times."""
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
+    from emdr2_tpu_torch.tasks import e2eqa
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    rank, world = (dp.rank, dp.world_size) if dp is not None else (0, 1)
+    ranks = {"rank": rank, "world_size": world}
+    out = {"ms": {}}
+    out["search"] = _dp_searches(cfg, dev, n_rows, dp)
+    _empty_cache(dev)
+    tok, corpus, index = _dp_world(cfg, tmpdir, dev, n_rows, n_docs, dp)
+    ds = _qa_dataset(cfg, tok, tmpdir, n_questions)
+    opt = OptimizerConfig(lr=2e-5, weight_decay=0.1, clip_grad=1.0,
+                          warmup=0.0)
+
+    def run_steps(name, task, batches):
+        losses, norms, ms = [], [], []
+        _reset_peak(dev)
+        for batch in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            m = task.train_step(batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        out[name] = dict(loss=losses, grad_norm=norms, ms=ms,
+                         peak=_peak(dev), stage_ms=dict(task.timer.ms))
+
+    for rate in (0.0, 0.1):
+        qcfg, _ = _dp_cfgs(cfg, rate)
+        bs = checks["qa"] if rate == 0.0 else sizes["qa"]
+        qcfg = qcfg.replace(train=dataclasses.replace(
+            qcfg.train, batch_size=bs, optimizer=opt))
+        task = E2EQATask(qcfg, tok, corpus, index, total_train_iters=1000,
+                         device=dev, dp=dp, timer=StageTimer(dev))
+        task.init_state(SEED)
+        if rate == 0.0:
+            rec = []
+            metric = e2eqa.metric_max_over_ground_truths
+
+            def recording(m, text, refs):
+                rec.append(text)
+                return metric(m, text, refs)
+
+            e2eqa.metric_max_over_ground_truths = recording
+            try:
+                t0 = time.perf_counter()
+                em = task.evaluate_em(
+                    _qa_dataset(cfg, tok, tmpdir, DP_EVAL_QUESTIONS),
+                    batch_size=eval_batch or sizes["eval"], kv_quant="int8")
+                out["ms"]["evaluate_em"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                e2eqa.metric_max_over_ground_truths = metric
+            out["em"] = dict(em=em, texts=rec)
+        steps = DP_CHECK_STEPS if rate == 0.0 else DP_QA_STEPS
+        run_steps(f"openqa_{rate}", task,
+                  list(ds.epoch_batches(bs, seed=SEED, **ranks))[:steps])
+        if rate > 0:
+            out["openqa_params"] = _fingerprint_params(task.state.model)
+        del task
+        _empty_cache(dev)
+    del index
+    _empty_cache(dev)
+    for rate in (0.0, 0.1):
+        _, rcfg = _dp_cfgs(cfg, rate)
+        bs = checks["dpr"] if rate == 0.0 else sizes["dpr"]
+        steps = DP_CHECK_STEPS if rate == 0.0 else DP_QA_STEPS
+        task = DPRTask(rcfg, opt, 1000, device=dev, dp=dp,
+                       timer=StageTimer(dev))
+        task.init_state(SEED)
+        run_steps(f"dpr_{rate}", task, _dpr_batches(
+            cfg, tmpdir, bs, steps, rank=rank, world=world))
+        if rate > 0:
+            out["dpr_params"] = _fingerprint_params(task.state.model)
+        del task
+        _empty_cache(dev)
+    return out
+
+
+def _stages_text(stage_ms) -> str:
+    return ", ".join(f"{k} " + "/".join(f"{m:.1f}" for m in v)
+                     for k, v in stage_ms.items())
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of the ranks phase (``chip_smoke.py --dp-rank R --dp-spec
+    PATH``) on the spec's device for it, over the spec's backend."""
+    from emdr2_tpu_torch.ops import build
+    from emdr2_tpu_torch.parallel import DataParallel
+    from emdr2_tpu_torch.parallel import distributed as dist_lib
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["devices"][rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load()
+    cfg = torch.load(spec["cfg"], weights_only=False)
+    dist_lib.init_process_group(spec["address"], spec["world"], rank,
+                                spec["backend"], timeout_s=spec["timeout"],
+                                device=dev)
+    try:
+        dp = DataParallel.from_process_group()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            out = _dp_runs(cfg, dev, tmpdir, spec["n_rows"], spec["n_docs"],
+                           spec["n_questions"], dp, spec["sizes"],
+                           spec["checks"])
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = _read_counts(tuple(_counters()))
+        out["bytes_moved"] = dict(dp.bytes_moved)
+        for key, v in out["search"].items():
+            out["search"][key] = (v[0].tolist(), v[1].tolist())
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist_lib.shutdown()
+    return 0
+
+
+def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
+                   world=DP_WORLD, cards=False):
+    """The ranks as subprocesses of this script with a timeout, each with
+    its block of the same index, against one process. (b)
+    ``cards=False``: two ranks sharing ``dev`` over gloo, at the global
+    batches ``DP_SIZES``, against one process at them. ``cards=True``
+    (``--dp-cards N``): ``world`` ranks over NCCL, rank r on card r, at
+    ``DP_CARD_SIZES`` a rank, timed against one card at those sizes, with
+    the check steps at ``DP_CARD_CHECK_SIZES`` a rank. Held in both: the
+    searches (bf16 and int8, nq 8 and 512) give one process's rows under
+    the recall rule; the losses of the two check steps at dropout 0
+    (OPENQA at 2 a rank, DPR at 64 a rank in (b)) lie within
+    ``DP_LOSS_RTOL`` of one process at the global batch, their global
+    gradient norms within ``DP_GRAD_RTOL``; at dropout 0.1 the ranks'
+    parameters are bit-equal after 3 steps; ``evaluate_em`` over 16
+    questions, greedy over int8 K/V (K5), generates one process's texts
+    (one process at the batch of a rank: the same rows a batch) and its
+    EM."""
+    what = (f"(cards: {world} over "
+            f"{'NCCL' if dev.type == 'cuda' else 'gloo'})" if cards
+            else "(b)")
+    per_rank = DP_CARD_SIZES if cards else {
+        k: v // world for k, v in DP_SIZES.items()}
+    sizes = {k: v * world for k, v in per_rank.items()}
+    checks_at = ({k: v * world for k, v in DP_CARD_CHECK_SIZES.items()}
+                 if cards else sizes)
+    n_questions = max(DP_EVAL_QUESTIONS, sizes["qa"] * DP_QA_STEPS,
+                      checks_at["qa"] * DP_CHECK_STEPS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ref = _dp_runs(cfg, dev, tmpdir, n_rows, n_docs, n_questions,
+                       sizes=per_rank if cards else sizes, checks=checks_at,
+                       eval_batch=per_rank["eval"])
+    ref_s = time.perf_counter() - t0
+    _empty_cache(dev)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        torch.save(cfg, os.path.join(tmpdir, "cfg.pt"))
+        # one card each over NCCL; on the CPU (a rehearsal) gloo
+        own = cards and dev.type == "cuda"
+        devices = ([f"cuda:{r}" for r in range(world)] if own
+                   else [str(dev)] * world)
+        spec = {"devices": devices, "cfg": os.path.join(tmpdir, "cfg.pt"),
+                "world": world, "backend": "nccl" if own else "gloo",
+                "sizes": sizes, "checks": checks_at,
+                "n_questions": n_questions,
+                "n_rows": n_rows, "n_docs": n_docs,
+                "out": tmpdir, "timeout": timeout / 2,
+                "address": f"file://{os.path.join(tmpdir, 'store')}"}
+        path = os.path.join(tmpdir, "spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--dp-rank", str(r), "--dp-spec", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"dp {what} rank {r} failed "
+                                     f"(rc {p.returncode}):\n{text[-6000:]}")
+        got = []
+        for r in range(world):
+            with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+    res = {"ref_seconds": ref_s, "ranks_seconds": ranks_s, "ranks": got,
+           "ref": {k: v for k, v in ref.items() if k != "search"}}
+    # searches: each rank's rows of the one-process search
+    search = {}
+    for key, (want_vals, want_ids) in ref["search"].items():
+        nq = want_ids.shape[0]
+        per = nq // world
+        ids = np.concatenate([np.asarray(g["search"][key][1]) for g in got])
+        vals = np.concatenate([np.asarray(g["search"][key][0])
+                               for g in got])
+        share, ties, bad = _same_or_tie(ids, vals, want_ids, want_vals, 50)
+        search[key] = dict(equal_share=share, ties=ties, unexplained=bad,
+                           exact=bool(np.array_equal(ids, want_ids)))
+        assert per * world == nq
+    res["search"] = search
+    checks = {}
+    limits = {}
+    for name in ("openqa", "dpr"):
+        for key, limit in (("loss", DP_LOSS_RTOL),
+                           ("grad_norm", DP_GRAD_RTOL)):
+            for step in range(DP_CHECK_STEPS):
+                want = ref[f"{name}_0.0"][key][step]
+                rel = max(abs(g[f"{name}_0.0"][key][step] - want)
+                          / abs(want) for g in got)
+                checks[f"{name}_{key}_{step + 1}_rel"] = rel
+                limits[f"{name}_{key}_{step + 1}_rel"] = limit
+        checks[f"{name}_replicas_equal"] = all(
+            g[f"{name}_params"] == got[0][f"{name}_params"] for g in got)
+    checks["em"] = (list(ref["em"]["em"]), [list(g["em"]["em"])
+                                            for g in got])
+    texts = []
+    per = per_rank["eval"]
+    for i in range(-(-DP_EVAL_QUESTIONS // sizes["eval"])):
+        for g in got:
+            texts += g["em"]["texts"][i * per:(i + 1) * per]
+    want_texts = dict(zip(range(DP_EVAL_QUESTIONS), ref["em"]["texts"]))
+    checks["texts_equal_share"] = (
+        sum(t == want_texts.get(i) for i, t in
+            enumerate(texts[:DP_EVAL_QUESTIONS])) / DP_EVAL_QUESTIONS)
+    res["checks"] = checks
+    res["launches"] = {k: sum(g["launches"][k] for g in got)
+                       for k in got[0]["launches"]}
+    for r, g in enumerate(got):
+        log(f"dp {what} rank {r}: OPENQA step ms at dropout 0.1 "
+            + ", ".join(f"{m:.1f}" for m in g["openqa_0.1"]["ms"])
+            + f" (peak {g['openqa_0.1']['peak'] / 2**30:.2f} GiB); DPR "
+            "step ms " + ", ".join(f"{m:.1f}" for m in g["dpr_0.1"]["ms"])
+            + f" (peak {g['dpr_0.1']['peak'] / 2**30:.2f} GiB); stages "
+            f"(the optimizer's holds the gradient all-reduce): OPENQA "
+            + _stages_text(g["openqa_0.1"]["stage_ms"]) + "; DPR "
+            + _stages_text(g["dpr_0.1"]["stage_ms"]) + "; "
+            f"evaluate_em {g['ms']['evaluate_em']:.1f} ms; bytes moved "
+            f"{g['bytes_moved']}; {g['seconds']:.1f} s; launches "
+            f"{g['launches']}")
+    ref_sizes = per_rank if cards else sizes
+    log(f"dp {what} one process (references, {ref_s:.1f} s): OPENQA B="
+        f"{ref_sizes['qa']} step ms {ref['openqa_0.1']['ms']} peak "
+        f"{ref['openqa_0.1']['peak'] / 2**30:.2f} GiB ("
+        + _stages_text(ref["openqa_0.1"]["stage_ms"]) + f"); DPR "
+        f"{ref_sizes['dpr']} step ms {ref['dpr_0.1']['ms']} peak "
+        f"{ref['dpr_0.1']['peak'] / 2**30:.2f} GiB ("
+        + _stages_text(ref["dpr_0.1"]["stage_ms"]) + "); evaluate_em "
+        f"{ref['ms']['evaluate_em']:.1f} ms")
+    log(f"dp {what} {world} ranks ({ranks_s:.1f} s): "
+        f"searches {search}; the {DP_CHECK_STEPS} check steps at dropout "
+        f"0 (global batches {checks_at}) relative to one process: "
+        + ", ".join(f"{k} {checks[k]:.3e}" for k in limits)
+        + f" (limits: loss {DP_LOSS_RTOL}, grad_norm {DP_GRAD_RTOL}); "
+        f"values one process / rank 0: " + ", ".join(
+            f"{name}_{key} {ref[f'{name}_0.0'][key]} / "
+            f"{got[0][f'{name}_0.0'][key]}" for name in ("openqa", "dpr")
+            for key in ("loss", "grad_norm"))
+        + f"; replicas bit-equal after {DP_QA_STEPS} steps at dropout "
+        f"0.1: OPENQA {checks['openqa_replicas_equal']}, DPR "
+        f"{checks['dpr_replicas_equal']}; EM one process / ranks "
+        f"{checks['em']}; generated texts equal to one process's "
+        f"{checks['texts_equal_share']:.4f}")
+    failures = [k for k, s in search.items() if s["unexplained"]]
+    failures += [k for k, limit in limits.items() if not checks[k] <= limit]
+    failures += [k for k in ("openqa_replicas_equal", "dpr_replicas_equal",
+                             "texts_equal_share") if checks[k] != 1]
+    if any(e != checks["em"][0] for e in checks["em"][1]):
+        failures.append("em")
+    if failures:
+        raise AssertionError(f"dp {what} failed: {failures}")
+    return res
+
+
+def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
+    """``chip_smoke.py --dp-cards N``: the ranks phase over NCCL, rank r on
+    card r, at the flagship widths; prints its results as one JSON line
+    and the ``{"ok": ...}`` line."""
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--dp-cards {world} needs {world} cards, "
+                             f"{torch.cuda.device_count()} visible")
+    _reset_counts()
+    res = dp_ranks_phase(_flagship_cfg(), dev, world=world, cards=True)
+    summary = {"dp_cards": world, "checks": res["checks"],
+               "search": res["search"], "launches": res["launches"],
+               "ranks": [{k: g[k] for k in ("openqa_0.1", "dpr_0.1",
+                                            "bytes_moved", "seconds")}
+                         for g in res["ranks"]],
+               "one_card": {k: res["ref"][k] for k in ("openqa_0.1",
+                                                       "dpr_0.1")}}
+    log(f"chip_smoke --dp-cards {world} total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps(summary))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _flagship_cfg():
+    from emdr2_tpu_torch.config import EMDR2Config, IndexConfig
+    from emdr2_tpu_torch.config import with_flash_attention
+    return with_flash_attention(EMDR2Config(index=IndexConfig(
+        quantize="int8")))
+
+
 KERNEL_CLASSES = (
     ("K1 flash self-attention", ("RowMaxInv",)),
     ("K4 general flash attention", ("aflash::Lse",)),
@@ -2814,13 +3496,22 @@ def main() -> int:
                          "greedy batch with each cross-K/V form, K4-fwd "
                          "beside SDPA, K4's backward through autograd by "
                          "both routes, and K1's kernels at each shape")
+    ap.add_argument("--dp-cards", type=int, default=None,
+                    help="run only the data-parallel phase, over NCCL with "
+                         "this many ranks, one a card, against one card at "
+                         "the same batch a rank")
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # a rank of the ranks phase
+    ap.add_argument("--dp-spec", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_rank is not None:
+        sys.path.insert(0, REPO)
+        return dp_rank_main(args.dp_spec, args.dp_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from emdr2_tpu_torch.config import EMDR2Config, IndexConfig
-    from emdr2_tpu_torch.config import with_flash_attention, with_transformers
+    from emdr2_tpu_torch.config import with_transformers
     from emdr2_tpu_torch.ops import build, mips
 
     card = gpu_name_and_power()
@@ -2838,6 +3529,8 @@ def main() -> int:
     info = build.build(extra_flags=("-Xptxas", "-v"))
     log(f"kernel build: {info['seconds']:.1f} s (built={info['built']}) "
         f"-> {os.path.relpath(info['path'], REPO)}")
+    if args.dp_cards is not None:
+        return dp_cards_main(args.dp_cards, dev, card, t_start)
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas:", line.strip())
@@ -2854,7 +3547,7 @@ def main() -> int:
     k5 = k5_phase(dev, gen)
     torch.cuda.empty_cache()
 
-    cfg = with_flash_attention(EMDR2Config(index=IndexConfig(quantize="int8")))
+    cfg = _flagship_cfg()
     res = slice_phase(cfg, dev, gen, profile=args.profile)
     for name, ms in res["stage_ms"].items():
         log(f"slice stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
@@ -3029,6 +3722,25 @@ def main() -> int:
                                      f"{policy} steps")
         _empty_cache(dev)
     rcl = retriever_cli_phase(cfg, dev)
+    _empty_cache(dev)
+
+    # C5: a DPR step and an OPENQA step, each twice from one state, bit
+    # for bit; then data parallelism: one rank over NCCL against the plain
+    # path, two ranks sharing the card over gloo against one process
+    c5 = c5_phase(cfg, tcfg, dev, gen)
+    dpa = dp_one_rank_phase(cfg, dev)
+    dpb = dp_ranks_phase(cfg, dev)
+    c5l, dpl = c5["launches"], dict(dpb["launches"])
+    for name, n in dpa["launches"].items():
+        dpl[name] = dpl.get(name, 0) + n
+    dpl["candidate_scan"] += sum(s["launches"]
+                                 for s in dpa["search"].values())
+    for name in ("flash_self_attention", "flash_self_attention_backward",
+                 "flash_cross_attention", "flash_cross_attention_backward",
+                 "candidate_scan", "decode_cross_attention_int8"):
+        if dpl[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"data-parallel path")
 
     if tr["top"] is not None:
         log_profile("warm train step", tr["top"])
@@ -3073,6 +3785,8 @@ def main() -> int:
     # paths' counts beside it
     summary = {"kernels": [
         {"name": "flash_self_attention", "route": "cuda",
+         "launches_c5": c5l["flash_self_attention"],
+         "launches_dp": dpl["flash_self_attention"],
          "launches_engine": eng["flash_self_attention"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:383",
@@ -3099,6 +3813,8 @@ def main() -> int:
          "bound_ms_embedder": k1_embed["bound_ms"],
          "library_ms_embedder": k1_embed["library_ms"]},
         {"name": "flash_self_attention_backward", "route": "cuda",
+         "launches_c5": c5l["flash_self_attention_backward"],
+         "launches_dp": dpl["flash_self_attention_backward"],
          "launches_engine": eng["flash_self_attention_backward"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:414",
@@ -3114,6 +3830,8 @@ def main() -> int:
          "bound_by": k1_bwd_main["bound_by"],
          "library_ms": k1_bwd_main["library_ms"]},
         {"name": "flash_cross_attention", "route": "cuda",
+         "launches_c5": c5l["flash_cross_attention"],
+         "launches_dp": dpl["flash_cross_attention"],
          "launches_engine": eng["flash_cross_attention"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:562",
@@ -3127,6 +3845,8 @@ def main() -> int:
          "library_ms_teacher": k2_teacher["library_ms"],
          "ms_key_chunk_256": k2_chunk256["ms"]},
         {"name": "flash_cross_attention_backward", "route": "cuda",
+         "launches_c5": c5l["flash_cross_attention_backward"],
+         "launches_dp": dpl["flash_cross_attention_backward"],
          "launches_engine": eng["flash_cross_attention_backward"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:612",
@@ -3145,6 +3865,8 @@ def main() -> int:
          "ms_by_runs": {str(n): t for n, t
                         in k2_main["bwd_ms_by_runs"].items()}},
         {"name": "candidate_scan", "route": "cuda",
+         "launches_c5": c5l["candidate_scan"],
+         "launches_dp": dpl["candidate_scan"],
          "launches_engine": eng["candidate_scan"],
          "source": csrc + "candidate_scan.cu",
          "replaces": "emdr2_tpu/ops/mips.py:116",
@@ -3169,6 +3891,8 @@ def main() -> int:
          "tensor_core_min_nq": mips.TENSOR_CORE_MIN_NQ,
          "crossover_sweep_ms": k3["sweep"]},
         {"name": "decode_cross_attention_int8", "route": "cuda",
+         "launches_c5": c5l["decode_cross_attention_int8"],
+         "launches_dp": dpl["decode_cross_attention_int8"],
          "launches_engine": eng["decode_cross_attention_int8"],
          "source": csrc + "decode_attention.cu",
          "replaces": "emdr2_tpu/ops/decode_attention.py:105",
@@ -3188,6 +3912,8 @@ def main() -> int:
          "bound_ms_one_row": k5_greedy["bound_ms"],
          "sdpa_bf16_slab_ms_one_row": k5_greedy["sdpa_bf16_ms"]},
         {"name": "fid_cross_attention", "route": "cuda",
+         "launches_c5": c5l["fid_cross_attention"],
+         "launches_dp": dpl["fid_cross_attention"],
          "launches_engine": eng["fid_cross_attention"],
          "source": csrc + "fid_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:68",
@@ -3198,6 +3924,8 @@ def main() -> int:
          "library_ms": k4_main["library_ms"],
          "ms_dropout": k4_drop["ms"], "plain_ms_dropout": k4_drop["plain_ms"]},
         {"name": "fid_cross_attention_backward", "route": "cuda",
+         "launches_c5": c5l["fid_cross_attention_backward"],
+         "launches_dp": dpl["fid_cross_attention_backward"],
          "source": csrc + "fid_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:120",
          "launches": eng["fid_cross_attention_backward"],

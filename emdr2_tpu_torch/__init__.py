@@ -9,7 +9,8 @@ and its refresh during training (``retrieval.builder``,
 ``training.async_refresh``), DPR training of the retriever
 (``tasks.dense_retriever``) and its recall@k (``retrieval.evaluate``), the
 OPENQA and RETRIEVER command line (``tasks.run``) and the checkpoint tools
-(``tools``) on one device, the card unless the caller asks for the CPU, with
+(``tools``), on one device or over data-parallel ranks, one process a card
+(``parallel``), the card unless the caller asks for the CPU, with
 hand-written CUDA kernels for
 flash self-attention forward and backward, FiD flash cross-attention
 forward and backward, the general flash forward

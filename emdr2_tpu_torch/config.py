@@ -2,8 +2,9 @@
 
 The same frozen dataclasses and field names as the JAX package, so a config
 reads the same in both. Differences: ``dtype`` fields are ``torch.dtype``s,
-and there is no ``mesh`` field (the port runs on one device). ``MeshConfig``
-and the TPU query tiling come with the slices that need them.
+and there is no ``mesh`` field: the port's parallelism is one process per
+data-parallel rank (``parallel/``), laid out by ``MeshConfig``. The TPU
+query tiling is not ported.
 
 Defaults reproduce the flagship NQ recipe: BERT-base retriever, T5-base
 reader, top-50 retrieval, sequence lengths 512/256/64/32.
@@ -114,6 +115,18 @@ class IndexConfig:
     cands_per_group: int = 2
     exact: bool = False              # exact top-k instead of the scan
     quantize: str = "none"           # "none" | "int8"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The parallel layout. ``dp`` ranks of data parallelism, one process
+    each; ``tp`` (tensor parallelism) and ``embed_devices`` (an embedder
+    group disjoint from the trainers) keep the JAX package's fields but
+    only their one-device values are ported (``parallel.mesh``)."""
+
+    dp: int = 1
+    tp: int = 1
+    embed_devices: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

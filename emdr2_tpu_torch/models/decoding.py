@@ -22,7 +22,7 @@ produced EOS. All of it runs under ``torch.inference_mode``, no dropout.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,11 +166,18 @@ class DecoderSession:
     @torch.inference_mode()
     def token_loop(self, kvs, enc_flat_ids, bos_id: int, eos_id: int,
                    rng: Optional[torch.Generator] = None,
-                   sample: bool = False) -> torch.Tensor:
+                   sample: bool = False,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Argmax token loop, or with ``sample`` a draw from each step's
         categorical by ``rng`` (a generator on the model's device) ->
         [B, max_decode_len] ids (0 past the exit). Stops once every row has
-        emitted EOS."""
+        emitted EOS.
+
+        A draw is by inverse CDF from one uniform a row a step, the
+        uniforms of the global batch drawn in one call: ``rows`` = (this
+        batch's first global row, the global batch's rows) under data
+        parallelism, so rank r's rows get the draws a single process gets
+        for them (every rank seeds ``rng`` alike)."""
         if sample and rng is None:
             raise ValueError("sampling decode needs an rng generator")
         with stage(self.timer, "decode"):
@@ -184,8 +191,10 @@ class DecoderSession:
             for pos in range(self.max_decode_len):
                 lp = self._step_lp(tok, enc_flat_ids, kvs, cache, pos)
                 if sample:
-                    ys = torch.multinomial(torch.exp(lp), 1,
-                                           generator=rng)[:, 0]
+                    first, total = rows if rows is not None else (0, B)
+                    u = torch.rand(total, generator=rng, device=dev,
+                                   dtype=torch.float32)[first:first + B]
+                    ys = _inverse_cdf(lp, u)
                 else:
                     ys = torch.argmax(lp, dim=-1)    # first max on ties
                 out[:, pos] = ys
@@ -253,6 +262,14 @@ class DecoderSession:
                 torch.arange(B, device=dev), best_row]
 
 
+def _inverse_cdf(lp: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Row i's token: the first whose cumulative probability exceeds
+    u[i] times the row's total (log-probs lp [B, V], u [B] in [0, 1))."""
+    c = torch.cumsum(torch.exp(lp), dim=-1)
+    ys = torch.searchsorted(c, (u * c[:, -1])[:, None], right=True)[:, 0]
+    return ys.clamp_(max=lp.shape[-1] - 1)
+
+
 def _strip_eos(rows: np.ndarray, eos_id: int) -> List[List[int]]:
     """Cut at first EOS; empty -> [1]."""
     outs = []
@@ -267,13 +284,17 @@ def _strip_eos(rows: np.ndarray, eos_id: int) -> List[List[int]]:
 def greedy_decode(session: DecoderSession, batch: EMDR2Batch,
                   bos_id: int, eos_id: int,
                   rng: Optional[torch.Generator] = None,
-                  sample: bool = False) -> List[List[int]]:
+                  sample: bool = False,
+                  rows: Optional[Tuple[int, int]] = None) -> List[List[int]]:
     """Greedy (or, with ``sample``, multinomial-sampling) generation for
     every row of ``batch``. Sampling draws from ``rng``, a
     ``torch.Generator`` on the model's device: the same seed reproduces the
-    tokens (they are not those of ``jax.random.categorical``)."""
+    tokens (they are not those of ``jax.random.categorical``). ``rows``:
+    (first global row, global rows) of a data-parallel slice
+    (``DecoderSession.token_loop``)."""
     kvs, enc_flat_ids = session.encode(batch)
-    out = session.token_loop(kvs, enc_flat_ids, bos_id, eos_id, rng, sample)
+    out = session.token_loop(kvs, enc_flat_ids, bos_id, eos_id, rng, sample,
+                             rows)
     return _strip_eos(out.cpu().numpy(), eos_id)
 
 

@@ -131,10 +131,48 @@ class FusedDense(Dense):
                          device=device)
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient repeats bit for bit.
+
+    PyTorch's CUDA backward of an embedding lookup sums the gradients of a
+    repeated id in no fixed order when the table is small beside the
+    lookups (a 2-row tokentype table under 8,192 lookups, a 512-row table
+    under 16,384); PyTorch's deterministic mode gives it a fixed order.
+    The backward turns that mode on for this one call (warn-only, then
+    back as it was): the call runs no cuBLAS, which is what the mode would
+    otherwise need ``CUBLAS_WORKSPACE_CONFIG`` for. Another thread's ops
+    queued in that window may also take a deterministic route, or warn."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        enabled = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            dw = torch.ops.aten.embedding_dense_backward(
+                grad.contiguous(), ids, ctx.rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        return None, dw
+
+
+def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, weight)`` with a repeatable weight gradient
+    (``_Lookup``)."""
+    return _Lookup.apply(ids, weight)
+
+
 class Embeddings(nn.Module):
     """Word + learned absolute position (+ tokentype) embeddings, summed in
     fp32 and then cast to the compute dtype; ``attend`` is the tied LM
-    head."""
+    head. Every lookup takes ``embedding``, whose gradient repeats."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -158,16 +196,16 @@ class Embeddings(nn.Module):
 
     def forward(self, ids, position_offset: int = 0, tokentype_ids=None,
                 drop: Optional[DropoutSeeds] = None):
-        x = F.embedding(ids, self.word_embeddings)
+        x = embedding(ids, self.word_embeddings)
         pos = torch.arange(position_offset, position_offset + ids.shape[-1],
                            device=ids.device)
-        x = x + F.embedding(pos, self.position_embeddings)
+        x = x + embedding(pos, self.position_embeddings)
         if self.tokentype_embeddings is not None:
             if tokentype_ids is None:
                 tokentype_ids = torch.zeros_like(ids)
-            x = x + F.embedding(tokentype_ids, self.tokentype_embeddings)
+            x = x + embedding(tokentype_ids, self.tokentype_embeddings)
         return packed_dropout(x.to(self.cfg.dtype), self.cfg.hidden_dropout,
-                              _site(drop, _SITE_EMBED))
+                              _site(drop, _SITE_EMBED), _rows(drop, x))
 
     def attend(self, hidden):
         """hidden [..., H] -> fp32 logits over the tied word embeddings."""
@@ -204,20 +242,26 @@ def _site(drop: Optional[DropoutSeeds], index: int) -> Optional[int]:
     return None if drop is None else drop.site(index)
 
 
+def _rows(drop: Optional[DropoutSeeds], x: torch.Tensor) -> int:
+    """The hidden dropout's first global row of ``x`` on this rank."""
+    return 0 if drop is None else drop.row_offset(x.shape[0])
+
+
 def _attend(q, k, v, bias, dtype, rate: float = 0.0,
-            seed: Optional[int] = None):
+            seed: Optional[int] = None, shard: int = 0):
     """Materialized-score attention over heads: q [B, nh, Lq, hd], k/v
     [B, nh, Lk, hd], bias broadcastable to [B, nh, Lq, Lk] (or None) ->
     [B, nh, Lq, hd] in ``dtype``. q is scaled in ``dtype``, scores and the
     softmax are fp32, probs are cast to ``dtype`` (then dropped out when a
-    ``seed`` is given) before the P.V product."""
+    ``seed`` is given; rows offset by data-parallel rank ``shard``) before
+    the P.V product."""
     hd = q.shape[-1]
     q = q * (hd ** -0.5)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias
     probs = packed_dropout(torch.softmax(scores, dim=-1).to(dtype), rate,
-                           seed)
+                           seed, shard * q.shape[0])
     return torch.matmul(probs, v.to(dtype))
 
 
@@ -250,20 +294,23 @@ class Attention(nn.Module):
                                          self.cfg.hidden_size)
 
     def _dropout(self, drop, site):
-        """(rate, seed) of an attention-dropout site; rate 0 off training."""
+        """(rate, seed, kernel seed, rank) of an attention-dropout site:
+        the site's seed for materialized attention (``_attend`` offsets
+        the rows by the rank), the rank-folded one for the kernels; rate 0
+        off training."""
         rate = self.cfg.attention_dropout
         if drop is None or rate == 0.0:
-            return 0.0, None
-        return rate, drop.site(site)
+            return 0.0, None, None, 0
+        return rate, drop.site(site), drop.kernel_seed(site), drop.shard
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         """Padding-masked self-attention: x [B, L, H], kv_bias [B, L]."""
         cfg = self.cfg
-        rate, seed = self._dropout(drop, _SITE_SELF_ATTN)
+        rate, seed, kseed, shard = self._dropout(drop, _SITE_SELF_ATTN)
         qkv = self.qkv(x)                                   # [B, L, 3H]
         if cfg.fid_flash_attention and x.shape[-2] <= cfg.flash_key_chunk:
             o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads,
-                                     seed, rate)
+                                     kseed, rate)
         elif cfg.fid_flash_attention:
             # longer than one key chunk: the general kernel, on the slab
             # itself when the chunk divides the length (one gradient slab,
@@ -280,25 +327,25 @@ class Attention(nn.Module):
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v = F.pad(v, (0, 0, 0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
-                o = fid_cross_attention(q, k, v, kvb, seed, key_chunk,
+                o = fid_cross_attention(q, k, v, kvb, kseed, key_chunk,
                                         rate).reshape(B, L, cfg.hidden_size)
             else:
-                o = fid_self_attention(qkv, kvb, cfg.num_heads, seed,
+                o = fid_self_attention(qkv, kvb, cfg.num_heads, kseed,
                                        key_chunk, rate)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
             o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],
-                                    cfg.dtype, rate, seed))
+                                    cfg.dtype, rate, seed, shard))
         return self.out(o.to(cfg.dtype))
 
     def decode_full(self, x, self_bias, drop: Optional[DropoutSeeds] = None):
         """Whole-prefix decoder self-attention, materialized: x [B, L, H],
         self_bias [B, 1, L, L] (causal and padding)."""
         cfg = self.cfg
-        rate, seed = self._dropout(drop, _SITE_SELF_ATTN)
+        rate, seed, _, shard = self._dropout(drop, _SITE_SELF_ATTN)
         q, k, v = (self._heads(t) for t in self.qkv(x).chunk(3, dim=-1))
         return self.out(self._merge(_attend(q, k, v, self_bias, cfg.dtype,
-                                            rate, seed)))
+                                            rate, seed, shard)))
 
     def cross_full(self, x, enc_out, kv_bias=None, cross_bias=None,
                    drop: Optional[DropoutSeeds] = None):
@@ -308,7 +355,7 @@ class Attention(nn.Module):
         multiple at -1e9 bias; otherwise materialized scores under
         ``cross_bias`` [B, 1, Ld, Lk]."""
         cfg = self.cfg
-        rate, seed = self._dropout(drop, _SITE_CROSS_ATTN)
+        rate, seed, kseed, shard = self._dropout(drop, _SITE_CROSS_ATTN)
         q = self.query(x)                                   # [B, Ld, H]
         kv = self.key_value(enc_out)                        # [B, Lk, 2H]
         if kv_bias is not None and cfg.fid_flash_attention:
@@ -321,11 +368,11 @@ class Attention(nn.Module):
                 kv = F.pad(kv, (0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
             o = flash_cross_attention(q, kv.contiguous(), kvb.contiguous(),
-                                      cfg.num_heads, key_chunk, seed, rate)
+                                      cfg.num_heads, key_chunk, kseed, rate)
             return self.out(o.to(cfg.dtype))
         k, v = (self._heads(t) for t in kv.chunk(2, dim=-1))
         return self.out(self._merge(_attend(self._heads(q), k, v, cross_bias,
-                                            cfg.dtype, rate, seed)))
+                                            cfg.dtype, rate, seed, shard)))
 
     def decode(self, x, cache: DecodeCache, layer: int):
         """Incremental self-attention of the new positions x [B, Lq, H] over
@@ -409,7 +456,8 @@ class TransformerLayer(nn.Module):
 
     def _resid(self, y, r, drop, site):
         """``r + dropout(y)``."""
-        return r + packed_dropout(y, self.hidden_dropout, _site(drop, site))
+        return r + packed_dropout(y, self.hidden_dropout, _site(drop, site),
+                                  _rows(drop, y))
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         x = self._resid(self.self_attention.encode(self.ln_self(x), kv_bias,

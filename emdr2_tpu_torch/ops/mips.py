@@ -318,3 +318,59 @@ def mips_topk(queries: torch.Tensor, shard: torch.Tensor, k: int, *,
 
     vals, pos = torch.topk(cand_vals, k, dim=1)
     return vals, torch.gather(cand_idx, 1, pos).long()
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of candidate columns [nq, m] by value, descending, a
+    tie going to the lower column (as ``jax.lax.top_k`` breaks it;
+    ``torch.topk`` promises no order on ties, so this is a stable sort)."""
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    pos = order[:, :k]
+    return torch.gather(vals, 1, pos), torch.gather(ids, 1, pos)
+
+
+def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
+                      k: int, dp, *, n_real: Optional[int] = None,
+                      exact: bool = False, chunk_rows: int = 8192,
+                      group_size: int = 128, cands_per_group: int = 2,
+                      local_scales: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k search of every rank's queries against the index whose rows
+    the ranks of ``dp`` (``parallel.mesh.DataParallel``) hold in contiguous
+    blocks of ``local_shard.shape[0]`` rows (port of
+    ``emdr2_tpu.ops.mips.sharded_mips_topk`` and the index's search).
+
+    local_queries [b, d] (this rank's; equal b on every rank),
+    local_shard [N/W, d] -> (scores [b, k] fp32, global row ids [b, k]).
+    ``n_real``: rows at or past it (zero padding) never win.
+
+    1. all-gather the queries -> [W * b, d];
+    2. the local search (``mips_topk``: the K3 scan and its re-rank);
+    3. local row ids + rank * N/W -> global ids;
+    4. all-gather (vals, ids) -> [W, W * b, k];
+    5. merge the W * k candidates of each query (``merge_topk``);
+    6. keep this rank's b rows.
+    With one rank the collectives copy nothing and the merge keeps the
+    local order, so the result is the local search's."""
+    b = local_queries.shape[0]
+    w, rank = dp.world_size, dp.rank
+    shard_rows = local_shard.shape[0]
+    start = rank * shard_rows
+    n_valid = None
+    if n_real is not None and n_real < start + shard_rows:
+        n_valid = max(0, min(n_real - start, shard_rows))
+    all_q = dp.all_gather_rows(local_queries)
+    vals, idx = mips_topk(all_q, local_shard, k, exact=exact,
+                          chunk_rows=chunk_rows, group_size=group_size,
+                          cands_per_group=cands_per_group, n_valid=n_valid,
+                          shard_scales=local_scales)
+    idx = idx + start
+    if n_real is not None:
+        vals = torch.where(idx < n_real, vals, torch.full_like(vals, NEG_INF))
+    av = dp.all_gather(vals)                           # [W, W*b, k]
+    ai = dp.all_gather(idx)
+    av = av.permute(1, 0, 2).reshape(w * b, w * k)
+    ai = ai.permute(1, 0, 2).reshape(w * b, w * k)
+    mvals, mids = merge_topk(av, ai, k)
+    return mvals[rank * b:(rank + 1) * b], mids[rank * b:(rank + 1) * b]

@@ -1,0 +1,15 @@
+"""Data parallelism across processes, one per rank (``torch.distributed``)."""
+
+from emdr2_tpu_torch.parallel.distributed import (  # noqa: F401
+    default_backend,
+    init_distributed,
+    init_process_group,
+    is_coordinator,
+    process_count,
+    process_index,
+)
+from emdr2_tpu_torch.parallel.mesh import (  # noqa: F401
+    DataParallel,
+    check_mesh_config,
+    row_range,
+)

@@ -10,14 +10,15 @@ holding doc i+1 (``embed_corpus``; ``build_store`` wraps it in an
 ``cfg.index.dtype`` on the device (``embed_corpus_device``), which
 ``ShardedEvidenceIndex.update`` swaps in without a host round trip.
 
-One device: the JAX builder's ``place_params`` (weights onto an embedder
-mesh) and ``row_partition`` (one block of rows per host) belong to the
-multi-GPU port and have no counterpart here.
+``embed_corpus(row_partition=(start, stop))`` embeds one data-parallel
+rank's block of index rows (the JAX builder's ``row_partition``); the JAX
+builder's ``place_params`` (weights onto an embedder mesh) waits for the
+disjoint embedder group (ROADMAP A3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +73,12 @@ class EvidenceIndexBuilder:
             self.cfg.retriever.seq_len, self.cls_id, self.sep_id,
             self.pad_id)
 
-    def _batches(self):
-        """(lo, hi, doc_ids) per batch; the tail batch is padded with
-        copies of its last doc so every batch has ``batch_size`` rows."""
-        n, bs = len(self.corpus), self.batch_size
-        for lo in range(0, n, bs):
+    def _batches(self, start: int = 0, stop: Optional[int] = None):
+        """(lo, hi, doc_ids) per batch of rows [start, stop) (default all);
+        the tail batch is padded with copies of its last doc so every batch
+        has ``batch_size`` rows."""
+        n, bs = len(self.corpus) if stop is None else stop, self.batch_size
+        for lo in range(start, n, bs):
             hi = min(lo + bs, n)
             doc_ids = np.arange(lo + 1, hi + 1)
             if hi - lo < bs:
@@ -92,22 +94,29 @@ class EvidenceIndexBuilder:
 
     @torch.inference_mode()
     def embed_corpus(self, module: Optional[torch.nn.Module] = None,
-                     progress: Optional[Callable[[int, int], None]] = None
+                     progress: Optional[Callable[[int, int], None]] = None,
+                     row_partition: Optional[Tuple[int, int]] = None
                      ) -> np.ndarray:
         """[len(corpus), d] fp16 on the host, row i = doc i+1. The copy of
         one batch to the host waits only for that batch: the next one is
-        already queued, and is formatted while the device runs it."""
+        already queued, and is formatted while the device runs it.
+
+        ``row_partition=(start, stop)``: only the index rows [start, stop)
+        that hold passages (a data-parallel rank's
+        ``index.process_row_range()``), as [min(stop, N) - start, d]."""
         module = self.model if module is None else module
         n = len(self.corpus)
-        out = np.zeros((n, self.cfg.index.embed_dim), np.float16)
+        start, stop = row_partition if row_partition is not None else (0, n)
+        start, stop = min(start, n), min(stop, n)
+        out = np.zeros((stop - start, self.cfg.index.embed_dim), np.float16)
         pending = None
 
         def finish(lo, hi, emb):
-            out[lo:hi] = emb[:hi - lo].cpu().numpy()
+            out[lo - start:hi - start] = emb[:hi - lo].cpu().numpy()
             if progress is not None:
-                progress(hi, n)
+                progress(hi - start, stop - start)
 
-        for lo, hi, doc_ids in self._batches():
+        for lo, hi, doc_ids in self._batches(start, stop):
             emb = self._embed(module, doc_ids).to(torch.float16)
             if pending is not None:
                 finish(*pending)
@@ -142,10 +151,7 @@ class EvidenceIndexBuilder:
 
     def build_store(self, module: Optional[torch.nn.Module] = None,
                     path: Optional[str] = None) -> EmbeddingStore:
-        emb = self.embed_corpus(module)
-        store = EmbeddingStore(emb.shape[1], np.float16)
-        store.ids = np.arange(1, len(emb) + 1, dtype=np.int64)
-        store.embeddings = emb
+        store = EmbeddingStore.of_rows(self.embed_corpus(module))
         if path is not None:
             store.save(path)
         return store

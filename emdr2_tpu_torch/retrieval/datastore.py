@@ -38,6 +38,15 @@ class EmbeddingStore:
         self.ids: Optional[np.ndarray] = None
         self.embeddings: Optional[np.ndarray] = None
 
+    @classmethod
+    def of_rows(cls, embeddings: np.ndarray) -> "EmbeddingStore":
+        """A store of fp16 rows, row i holding passage i + 1 (what the
+        index builder writes)."""
+        store = cls(embeddings.shape[1], np.float16)
+        store.ids = np.arange(1, len(embeddings) + 1, dtype=np.int64)
+        store.embeddings = embeddings
+        return store
+
     # ---- accumulation (parity with add_block_data, emdr2_index.py:44-60) ----
 
     def add_block(self, ids: Sequence[int], embeddings: np.ndarray) -> None:

@@ -1,11 +1,17 @@
 """Retrieval evaluator: recall@k of the dense retriever over the whole index
-(port of ``emdr2_tpu/retrieval/evaluate.py``) on one device.
+(port of ``emdr2_tpu/retrieval/evaluate.py``).
 
 Questions are embedded by the query tower in static batches (the tail
 padded), all of them are searched in one call of the index (one candidate
 scan over the resident rows: the tensor-core kernel at large query
 batches), and ``calculate_matches`` scores the retrieved passages'
 texts against the answers.
+
+The questions are cut in equal contiguous slices over the ranks of the
+index's data-parallel group (``index.dp``; one slice on one rank), the
+last padded with copies of the last question; each rank embeds and
+searches its slice, the results are all-gathered, rank 0 does the host
+matching and every rank gets its recall dict.
 """
 
 from __future__ import annotations
@@ -65,11 +71,18 @@ class OpenRetrievalEvaluator:
     @torch.inference_mode()
     def retrieve(self, questions: Sequence[str], k: int):
         """-> (passage_ids [n, k] numpy, scores [n, k] numpy): one search
-        of the index over all n questions."""
-        q = self.encode_queries(questions)
+        of the index over all n questions, each rank of ``index.dp``
+        embedding and searching its slice (all of them on one rank)."""
+        dp = self.index.dp
+        n = len(questions)
+        per = -(-n // dp.world_size)
+        padded = list(questions) + [questions[-1]] * (per * dp.world_size - n)
+        q = self.encode_queries(padded[dp.rank * per:(dp.rank + 1) * per])
         scores, rows = self.index.search(q, k=k)
-        pids = self.index.lookup_passage_ids(rows.cpu().numpy())
-        return pids, scores.float().cpu().numpy()
+        rows = dp.all_gather_rows(rows)[:n]
+        scores = dp.all_gather_rows(scores.float())[:n]
+        return (self.index.lookup_passage_ids(rows.cpu().numpy()),
+                scores.cpu().numpy())
 
     def evaluate_recall(self, examples: Sequence[QAExample], k: int,
                         doc_text_fn: Callable[[int], str],
@@ -78,10 +91,19 @@ class OpenRetrievalEvaluator:
                         dump_path: Optional[str] = None) -> dict:
         """recall@k over QA examples: {"recall@j": fraction} for each j of
         ``report_at`` (capped at k); with ``dump_path``, the per-question
-        top-k passage ids and hits as JSON."""
+        top-k passage ids and hits as JSON. Over a sharded index every
+        rank calls it; rank 0 matches and writes the dump."""
         questions = [e.question for e in examples]
         answers = [e.answers for e in examples]
         pids, scores = self.retrieve(questions, k)
+        dp = self.index.dp
+        result = (self._recall(questions, answers, pids, scores, k,
+                               doc_text_fn, match_type, report_at, dump_path)
+                  if dp.rank == 0 else None)
+        return dp.broadcast_object(result)
+
+    def _recall(self, questions, answers, pids, scores, k, doc_text_fn,
+                match_type, report_at, dump_path) -> dict:
         closest = [(pids[i].tolist(), scores[i].tolist())
                    for i in range(len(questions))]
         stats = calculate_matches(doc_text_fn, answers, closest,

@@ -1,7 +1,13 @@
-"""Resident evidence index with MIPS search (one-device port of
+"""Resident evidence index with MIPS search (port of
 ``emdr2_tpu/retrieval/index.py:ShardedEvidenceIndex``).
 
-The [N, d] embedding matrix lives on one device, in ``cfg.dtype`` or, with
+Without ``dp`` the [N, d] embedding matrix lives on one device. With a
+data-parallel group ``dp`` (``parallel.mesh.DataParallel``) rank r holds
+only its block of rows, ``process_row_range()``: the padded rows split in
+W equal blocks of a whole number of groups; ``search`` runs
+``ops.mips.sharded_mips_topk`` over the group and returns global row ids,
+and ``update_from_process_local`` swaps in this rank's rows alone. Rows
+live in ``cfg.dtype`` or, with
 ``cfg.quantize == "int8"``, as int8 rows plus one fp32 scale per
 ``group_size`` rows. Rows are padded with zeros to a multiple of the group
 so the candidate scan never copies the index; pad rows are masked in the
@@ -32,18 +38,27 @@ import torch
 import torch.nn.functional as F
 
 from emdr2_tpu_torch.config import IndexConfig
-from emdr2_tpu_torch.ops.mips import NEG_INF, mips_topk, quantize_int8
+from emdr2_tpu_torch.ops.mips import (NEG_INF, mips_topk, quantize_int8,
+                                      sharded_mips_topk)
+from emdr2_tpu_torch.parallel.mesh import DataParallel
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class ShardedEvidenceIndex:
     """Flat MIPS index, on the card unless ``device`` says otherwise;
-    ``row_to_passage_id`` maps rows to corpus passage ids on the host."""
+    ``row_to_passage_id`` maps (global) rows to corpus passage ids on the
+    host.
+
+    ``dp``: the data-parallel group whose ranks hold the rows (default
+    ``DataParallel.local()``: one device holds them all). ``embeddings`` is the whole [N, d] matrix (each rank keeps
+    its block), or with ``local=True`` this rank's block alone (up to
+    ``process_row_range()`` rows; ``n_real`` then gives N)."""
 
     def __init__(self, cfg: IndexConfig,
                  embeddings: Union[np.ndarray, torch.Tensor],
                  passage_ids: Optional[np.ndarray] = None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, dp=None, local: bool = False,
+                 n_real: Optional[int] = None):
         if cfg.quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', "
                              f"got {cfg.quantize!r}")
@@ -51,22 +66,40 @@ class ShardedEvidenceIndex:
         if d != cfg.embed_dim:
             raise ValueError(f"embeddings are {d}-d, config says "
                              f"{cfg.embed_dim}")
+        if local and n_real is None:
+            raise ValueError("local rows need n_real")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.quantized = cfg.quantize == "int8"
+        self.dp = dp = dp if dp is not None else DataParallel.local()
+        n = n_real if local else n
         self.n_real = n
         g = cfg.group_size
-        self.n_padded = -(-n // g) * g
+        # every rank holds an equal block of whole groups
+        per_rank = -(-n // dp.world_size)
+        self.shard_rows = -(-per_rank // g) * g
+        self.n_padded = self.shard_rows * dp.world_size
         # (rows, scales, written) swapped as one tuple: a search snapshots
         # it whole; ``written`` (CUDA only) is recorded after the pair
         self._data: Tuple[torch.Tensor, Optional[torch.Tensor],
                           Optional[torch.cuda.Event]] = (
-            self._to_device(embeddings))
+            self._to_device(embeddings if local
+                            else self._own_rows(embeddings)))
         if passage_ids is None:
             passage_ids = np.arange(1, n + 1, dtype=np.int64)
         if passage_ids.shape != (n,):
             raise ValueError(f"passage_ids {passage_ids.shape} for {n} rows")
         self.row_to_passage_id = passage_ids
+
+    def process_row_range(self) -> Tuple[int, int]:
+        """This rank's [start, stop) of the padded rows (all of them on
+        one rank)."""
+        return self.dp.row_range(self.n_padded)
+
+    def _own_rows(self, embeddings):
+        """This rank's rows of the whole matrix (up to n_real)."""
+        start, stop = self.process_row_range()
+        return embeddings[start:min(stop, embeddings.shape[0])]
 
     @property
     def embeddings(self) -> torch.Tensor:
@@ -77,17 +110,19 @@ class ShardedEvidenceIndex:
         return self._data[1]
 
     def _to_device(self, embeddings):
-        """Embeddings (numpy on the host, or a tensor anywhere; ``n_real``
-        or ``n_padded`` rows) -> a fresh (rows, scales, written) triple on
-        ``self.device``; the cast or quantization runs where the embeddings
-        are. Padded input keeps its tail rows (the search masks them)
-        unless the index is quantized: then they are zeroed, so they do not
-        enter the last group's scale."""
+        """This rank's rows (numpy on the host, or a tensor anywhere; its
+        real rows or its whole padded block) -> a fresh (rows, scales,
+        written) triple on ``self.device``; the cast or quantization runs
+        where the embeddings are. Padded input keeps its tail rows (the
+        search masks them) unless the index is quantized: then they are
+        zeroed, so they do not enter the last group's scale."""
         t = torch.as_tensor(embeddings)
-        if self.quantized and t.shape[0] != self.n_real:
-            t = t[:self.n_real]
-        if t.shape[0] != self.n_padded:
-            t = F.pad(t, (0, 0, 0, self.n_padded - t.shape[0]))
+        start, stop = self.process_row_range()
+        real = max(0, min(self.n_real, stop) - start)
+        if self.quantized and t.shape[0] != real:
+            t = t[:real]
+        if t.shape[0] != self.shard_rows:
+            t = F.pad(t, (0, 0, 0, self.shard_rows - t.shape[0]))
         if self.quantized:
             q8, scales = quantize_int8(t, self.cfg.group_size)
             rows, scales = (q8.to(self.device).contiguous(),
@@ -115,6 +150,24 @@ class ShardedEvidenceIndex:
             raise ValueError(f"update must keep the shape "
                              f"{(self.n_real, self.cfg.embed_dim)} (or "
                              f"{self.n_padded} padded rows)")
+        self._swap(self._own_rows(embeddings), passage_ids, ready)
+
+    def update_from_process_local(self, local_rows, passage_ids=None,
+                                  ready=None) -> None:
+        """Swap in this rank's rows alone (``process_row_range()``: its
+        real rows or the whole padded block); no rows cross between ranks.
+        The refresh under data parallelism, where each rank embeds its own
+        range."""
+        start, stop = self.process_row_range()
+        real = max(0, min(self.n_real, stop) - start)
+        if (local_rows.shape[0] not in (real, stop - start)
+                or local_rows.shape[1] != self.cfg.embed_dim):
+            raise ValueError(f"rank rows {tuple(local_rows.shape)}: want "
+                             f"{real} (or {stop - start}) x "
+                             f"{self.cfg.embed_dim}")
+        self._swap(local_rows, passage_ids, ready)
+
+    def _swap(self, embeddings, passage_ids, ready) -> None:
         if passage_ids is not None:
             self.row_to_passage_id = passage_ids
         if isinstance(embeddings, torch.Tensor) and embeddings.is_cuda:
@@ -128,7 +181,8 @@ class ShardedEvidenceIndex:
     def search(self, query_embeds: torch.Tensor, k: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """query_embeds [nq, d] -> (scores [nq, k] fp32, row ids [nq, k]),
-        on the index device."""
+        on the index device. With ``dp`` every rank calls it with its own
+        queries (equal nq) and gets global row ids."""
         cfg = self.cfg
         k = k if k is not None else cfg.topk
         # int8 index: queries stay fp32 (mips_topk quantizes per query)
@@ -145,6 +199,11 @@ class ShardedEvidenceIndex:
             for t in (emb, scales):
                 if t is not None:
                     t.record_stream(stream)
+        if self.dp.distributed:
+            return sharded_mips_topk(
+                q, emb, k, self.dp, n_real=self.n_real, exact=cfg.exact,
+                chunk_rows=cfg.chunk_rows, group_size=cfg.group_size,
+                cands_per_group=cfg.cands_per_group, local_scales=scales)
         n_valid = self.n_real if self.n_padded != self.n_real else None
         vals, idx = mips_topk(q, emb, k, exact=cfg.exact,
                               chunk_rows=cfg.chunk_rows,

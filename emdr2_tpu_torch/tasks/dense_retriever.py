@@ -1,5 +1,6 @@
 """DPR-style dense retriever training, ``--task RETRIEVER`` (port of
-``emdr2_tpu/tasks/dense_retriever.py``) on one device.
+``emdr2_tpu/tasks/dense_retriever.py``), on one device or over a
+data-parallel group.
 
 Supervised contrastive training of the dual encoder with in-batch negatives
 plus hard negatives, and the 30+30-negative average-rank / top-k
@@ -30,6 +31,7 @@ from emdr2_tpu_torch.data.tokenizer import BertWordPieceTokenizer
 from emdr2_tpu_torch.models.bert import DualEncoder
 from emdr2_tpu_torch.models.layers import init_weights
 from emdr2_tpu_torch.training import step as step_lib
+from emdr2_tpu_torch.parallel.mesh import DataParallel
 from emdr2_tpu_torch.training.losses import dpr_in_batch_loss
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
@@ -161,16 +163,35 @@ class DPRDataset:
                         labels=np.arange(B, dtype=np.int32))
 
     def epoch_batches(self, batch_size: int, seed: int, shuffle: bool = True,
-                      drop_last: bool = True):
+                      drop_last: bool = True, rank: int = 0,
+                      world_size: int = 1):
         """``drop_last=False`` yields the ragged tail batch too (validation
-        scores every example); training drops it."""
+        scores every example); training drops it. ``batch_size`` is the
+        global batch; with ``world_size > 1`` each rank gets the batch of
+        its contiguous slice of every global batch (its own positives
+        first, then its hard negatives), ``ceil(len / world_size)`` rows.
+        A ragged tail that does not divide over the ranks is padded with
+        copies of its last row, labelled -1 (``validate`` drops them); a
+        training batch that does not divide is refused."""
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
         end = (len(order) - len(order) % batch_size if drop_last
                else len(order))
         for s in range(0, end, batch_size):
-            yield self.batch(order[s: s + batch_size])
+            rows = order[s: s + batch_size]
+            per = -(-len(rows) // world_size)
+            if drop_last and per * world_size != len(rows):
+                raise ValueError(f"a batch of {len(rows)} does not divide "
+                                 f"over {world_size} ranks")
+            mine = rows[rank * per:(rank + 1) * per]
+            n_real = len(mine)
+            batch = self.batch(np.concatenate(
+                [mine, np.full(per - n_real, rows[-1])]))
+            if n_real < per:
+                batch = batch._replace(labels=np.where(
+                    np.arange(per) < n_real, batch.labels, -1))
+            yield batch
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +225,10 @@ class DPRTask:
 
     def __init__(self, cfg: RetrieverConfig, opt_cfg: OptimizerConfig,
                  total_train_iters: int, score_scaling: bool = True,
-                 device=DEFAULT_DEVICE, timer: Optional[StageTimer] = None):
+                 device=DEFAULT_DEVICE, timer: Optional[StageTimer] = None,
+                 dp: Optional[DataParallel] = None):
         self.cfg = cfg
+        self.dp = dp
         self.opt_cfg = opt_cfg
         self.total_train_iters = total_train_iters
         self.score_scaling = score_scaling
@@ -229,7 +252,7 @@ class DPRTask:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         optimizer = step_lib.make_optimizer(model, self.opt_cfg,
-                                            self.total_train_iters)
+                                            self.total_train_iters, self.dp)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
                                          optimizer=optimizer)
         return self.state
@@ -246,25 +269,33 @@ class DPRTask:
 
     def train_step(self, batch: DPRBatch) -> Dict[str, torch.Tensor]:
         """Forward of both towers with dropout -> ``dpr_in_batch_loss`` ->
-        backward -> clip -> AdamW, in place. Metrics are 0-d tensors on
-        the device (no host sync)."""
+        backward -> (mean over ``dp``) -> clip -> AdamW, in place. Metrics
+        are 0-d tensors on the device (no host sync), those of the global
+        batch under ``dp``: the mean loss and the count of correct rows.
+        ``batch`` is this rank's (``DPRDataset.epoch_batches(rank=,
+        world_size=)``)."""
         state = self.state
+        dp = self.dp
         with stage(self.timer, "forward_backward"):
             state.optimizer.zero_grad()
             q, c = state.model(self._ids(batch.query_ids),
                                self._ids(batch.ctx_ids),
                                context_types=self._ids(batch.ctx_types),
-                               drop=state.dropout_seeds())
+                               drop=state.dropout_seeds(
+                                   dp.rank if dp is not None else 0))
             loss, correct = dpr_in_batch_loss(
                 q, c, hidden_size=self.cfg.encoder.hidden_size,
                 score_scaling=self.score_scaling,
-                labels=self._ids(batch.labels))
+                labels=self._ids(batch.labels), dp=dp)
             loss.backward()
         with stage(self.timer, "optimizer"):
             grad_norm = state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(),
-                "correct_prediction_count": correct.detach(),
+        loss, correct = loss.detach(), correct.detach()
+        if dp is not None and dp.distributed:
+            both = dp.all_reduce_sum_(torch.stack([loss, correct]))
+            loss, correct = both[0] / dp.world_size, both[1]
+        return {"loss": loss, "correct_prediction_count": correct,
                 "grad_norm": grad_norm}
 
     @torch.no_grad()
@@ -273,7 +304,13 @@ class DPRTask:
                  ) -> Dict[str, float]:
         """Scores each query against all context rows of its batch (B
         positives + B * 60 negatives in the 30+30 layout); returns the
-        average rank of the positive and the top-k accuracies."""
+        average rank of the positive and the top-k accuracies. Under
+        ``dp`` each rank passes its batches, scores its queries against
+        the contexts of every rank (all-gathered into the global batch's
+        layout, without the padding rows of a ragged tail: label -1) and
+        the counts are summed over the ranks."""
+        dp = self.dp
+        distributed = dp is not None and dp.distributed
         total = 0
         rank_sum = 0.0
         topk_hits = {k: 0 for k in report_topk}
@@ -281,15 +318,39 @@ class DPRTask:
             q, c = self.state.model(
                 self._ids(batch.query_ids), self._ids(batch.ctx_ids),
                 context_types=self._ids(batch.ctx_types))
-            scores = torch.matmul(q, c.T).cpu().numpy()
+            labels = np.asarray(batch.labels)
+            n = int((labels >= 0).sum())
+            if distributed:
+                # the global batch's layout: every rank's positives, then
+                # every rank's negatives (ties rank as in one process)
+                b = len(labels)
+                counts = dp.all_gather(torch.tensor([n])).flatten()
+                g = dp.all_gather(c)                    # [W, c_local, d]
+                keep = (torch.arange(b)[None] < counts[:, None]).to(
+                    g.device)                           # [W, b]
+                d = g.shape[-1]
+                c = torch.cat([
+                    g[:, :b][keep],
+                    g[:, b:].reshape(g.shape[0], b, -1, d)[keep]
+                    .reshape(-1, d)])
+                labels = int(counts[:dp.rank].sum()) + np.arange(n)
+            scores = torch.matmul(q[:n], c.T).cpu().numpy()
             if self.score_scaling:
                 scores = scores / np.sqrt(self.cfg.encoder.hidden_size)
             order = np.argsort(-scores, axis=1)
-            ranks = np.argmax(order == batch.labels[:, None], axis=1)
+            ranks = np.argmax(order == labels[:n, None], axis=1)
             rank_sum += ranks.sum()
             for k in report_topk:
                 topk_hits[k] += int((ranks < k).sum())
-            total += len(batch.labels)
+            total += n
+        if distributed:
+            counts = dp.all_reduce_sum_(torch.tensor(
+                [float(total), float(rank_sum)]
+                + [float(topk_hits[k]) for k in report_topk],
+                dtype=torch.float64))
+            total, rank_sum = int(counts[0]), float(counts[1])
+            topk_hits = {k: int(counts[2 + i])
+                         for i, k in enumerate(report_topk)}
         out = {"average_rank": rank_sum / max(total, 1),
                "top1_accuracy": topk_hits.get(1, 0) / max(total, 1)}
         for k in report_topk:

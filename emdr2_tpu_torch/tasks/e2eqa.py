@@ -15,10 +15,18 @@ no gradient over a dataset; ``evaluate_em`` generates an answer per example
 (greedy, sampling or beam search over ``models/decoding.py``, optionally
 with the int8 cross K/V) and scores exact match against the references.
 
-There is no mesh: the port runs on one device, so evaluation feeds whole
-batches (the JAX package's per-process slicing and allgather have nothing
-to do). ``training/engine.py`` loops over ``train_step``; with its
-prefetcher a worker thread runs stages A and B of the next batches on a
+Data parallelism (``dp``, a ``parallel.mesh.DataParallel``): each rank
+holds its block of the index (``ShardedEvidenceIndex(..., dp=dp)``), and
+``train_step`` takes this rank's slice of the global batch
+(``cfg.train.batch_size`` questions, cut by ``DistributedBatchSampler``);
+stage A searches the whole index for the slice's queries, the step
+reduces over the ranks, and the metrics are the global batch's.
+``validation_loss`` and ``evaluate_em`` walk the same global batches on
+every rank, each feeding its contiguous slice (``_slice_qa_batch``), and
+merge the results: the losses through their global normalizers, the
+per-row scores through an all-gather and a per-uid dedupe.
+``training/engine.py`` loops over ``train_step``; with its prefetcher (one
+process only) a worker thread runs stages A and B of the next batches on a
 stream of its own, and embeds the queries with a snapshot of the query
 tower (``enable_prefetch_snapshots``), because the optimizer updates the
 live tower in place.
@@ -42,6 +50,7 @@ from emdr2_tpu_torch.models.decoding import (DecoderSession,
                                              beam_search_decode,
                                              greedy_decode)
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
+from emdr2_tpu_torch.parallel.mesh import DataParallel
 from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
 from emdr2_tpu_torch.training import step as step_lib
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -60,7 +69,8 @@ class E2EQATask:
     def __init__(self, cfg: EMDR2Config, t5_tokenizer: BertWordPieceTokenizer,
                  corpus: EvidenceCorpus, index: ShardedEvidenceIndex,
                  total_train_iters: int = 1000, device=DEFAULT_DEVICE,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 dp: Optional[DataParallel] = None):
         self.cfg = cfg
         self.tok = t5_tokenizer
         self.corpus = corpus
@@ -68,11 +78,20 @@ class E2EQATask:
         self.total_train_iters = total_train_iters
         self.device = resolve_device(device)
         self.timer = timer
+        self.dp = dp
+        if dp is not None and dp.world_size > 1:
+            if getattr(index, "dp", None) is None:
+                raise ValueError("under data parallelism the index must be "
+                                 "sharded over the same group "
+                                 "(ShardedEvidenceIndex(..., dp=dp))")
+            if cfg.train.batch_size % dp.world_size:
+                raise ValueError(f"global batch {cfg.train.batch_size} does "
+                                 f"not divide over {dp.world_size} ranks")
         self.state: Optional[step_lib.TrainState] = None
         self._step_fn = step_lib.make_train_step(
-            cfg, eos_id=t5_tokenizer.eos_id, timer=timer)
+            cfg, eos_id=t5_tokenizer.eos_id, timer=timer, dp=dp)
         self._eval_fn = step_lib.make_eval_forward(
-            cfg, eos_id=t5_tokenizer.eos_id)
+            cfg, eos_id=t5_tokenizer.eos_id, dp=dp)
         # decoder sessions by (max_decode_len, kv_quant)
         self._sessions: Dict[Tuple[int, Optional[str]], DecoderSession] = {}
         # the prefetch worker's copy of the query tower, the lock that
@@ -85,8 +104,31 @@ class E2EQATask:
 
     @property
     def global_batch_size(self) -> int:
-        """Questions per train step (one device: the configured batch)."""
+        """Questions per train step over all ranks: the configured batch."""
         return self.cfg.train.batch_size
+
+    @property
+    def world_size(self) -> int:
+        return self.dp.world_size if self.dp is not None else 1
+
+    @property
+    def rank(self) -> int:
+        return self.dp.rank if self.dp is not None else 0
+
+    def _rank_slice(self, batch: QABatch, batch_size: int) -> QABatch:
+        """This rank's contiguous rows of a global batch of
+        ``batch_size``."""
+        if self.world_size == 1:
+            return batch
+        per = batch_size // self.world_size
+        return _slice_qa_batch(batch, self.rank * per, (self.rank + 1) * per)
+
+    def _check_divides(self, batch_size: int) -> None:
+        if batch_size % self.world_size:
+            raise ValueError(
+                f"batch_size {batch_size} must divide evenly over "
+                f"{self.world_size} ranks: a truncated slice would drop the "
+                f"remainder rows of every batch")
 
     # ------------------------------------------------------------------ setup
 
@@ -102,7 +144,7 @@ class E2EQATask:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         optimizer = step_lib.make_optimizer(model, self.cfg.train.optimizer,
-                                            self.total_train_iters)
+                                            self.total_train_iters, self.dp)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
                                          optimizer=optimizer)
         self._retrieval_snapshot = None    # a copy of another model's tower
@@ -240,8 +282,11 @@ class E2EQATask:
         The tail batch is not dropped: it is padded to ``batch_size`` with
         copies of its last row whose ``loss_mask`` is zeroed, so the padded
         rows add no tokens to the token-normalized losses, and each batch's
-        means weigh in by its count of real examples."""
+        means weigh in by its count of real examples. Under data
+        parallelism every rank walks the same global batches and feeds its
+        slice; ``batch_size`` must divide over the ranks."""
         batch_size = batch_size or self.global_batch_size
+        self._check_divides(batch_size)
         totals: Dict[str, float] = {}
         n = 0
         for bi, batch in enumerate(dataset.epoch_batches(
@@ -251,7 +296,8 @@ class E2EQATask:
             real = len(batch.query_uid)
             if real < batch_size:
                 batch = _pad_qa_batch(batch, batch_size, zero_loss_mask=True)
-            device_batch = self.build_device_batch(batch)
+            device_batch = self.build_device_batch(
+                self._rank_slice(batch, batch_size))
             with stage(self.timer, "eval_forward"):
                 m = self._eval_fn(self.state, device_batch)
                 for k, v in m.items():
@@ -274,9 +320,19 @@ class E2EQATask:
         length-normalized beam search. The tail batch is padded with copies
         of its last row; scores are kept per uid, so a padded copy counts
         once. ``kv_quant="int8"`` stores the decode cross K/V as int8.
-        ``batch_size`` defaults to ``global_batch_size``."""
+        ``batch_size`` defaults to ``global_batch_size``.
+
+        Under data parallelism every rank walks the same global batches,
+        decodes its slice (``batch_size`` must divide over the ranks), and
+        the per-row (uid, score) records of all ranks are all-gathered and
+        deduped by uid; sampling takes rank 0's ``sample_seed`` and draws
+        by global row."""
         cfg = self.cfg
         batch_size = batch_size or self.global_batch_size
+        self._check_divides(batch_size)
+        if sample and self.dp is not None:
+            sample_seed = self.dp.broadcast_object(sample_seed)
+        per = batch_size // self.world_size
         max_decode_len = max_decode_len or cfg.reader.decoder_seq_len
         model = self.state.model
         key = (max_decode_len, kv_quant)
@@ -285,30 +341,42 @@ class E2EQATask:
                 model, max_decode_len, kv_quant=kv_quant, timer=self.timer)
         session = self._sessions[key]
         session.model = model              # the state's current weights
-        scores: Dict[int, float] = {}
+        row_uids: list = []
+        row_scores: list = []
         for bi, batch in enumerate(dataset.epoch_batches(
                 batch_size, seed=0, shuffle=False, drop_last=False)):
             if max_batches is not None and bi >= max_batches:
                 break
             if len(batch.query_uid) < batch_size:
                 batch = _pad_qa_batch(batch, batch_size)
-            device_batch = self.build_device_batch(batch)
+            local = self._rank_slice(batch, batch_size)
+            device_batch = self.build_device_batch(local)
             if beam_size == 1:
                 rng = None
                 if sample:
                     rng = torch.Generator(device=self.device)
                     rng.manual_seed(_fold_sample_seed(sample_seed, bi))
                 hyps = greedy_decode(session, device_batch, self.tok.bos_id,
-                                     self.tok.eos_id, rng=rng, sample=sample)
+                                     self.tok.eos_id, rng=rng, sample=sample,
+                                     rows=(self.rank * per, batch_size))
             else:
                 hyps = beam_search_decode(session, device_batch,
                                           self.tok.bos_id, self.tok.eos_id,
                                           beam_size=beam_size)
-            for uid, refs, hyp in zip(batch.query_uid.tolist(),
-                                      batch.references, hyps):
+            for uid, refs, hyp in zip(local.query_uid.tolist(),
+                                      local.references, hyps):
                 text = self.tok.detokenize(hyp).strip()
-                scores[uid] = metric_max_over_ground_truths(
-                    exact_match_score, text, refs)
+                row_uids.append(uid)
+                row_scores.append(metric_max_over_ground_truths(
+                    exact_match_score, text, refs))
+        if self.world_size > 1:
+            # equal counts on every rank: the same batches, ``per`` rows
+            # each; padded copies land on any rank, so dedupe after
+            row_uids = self.dp.all_gather(torch.tensor(
+                row_uids, dtype=torch.int64)).reshape(-1).tolist()
+            row_scores = self.dp.all_gather(torch.tensor(
+                row_scores, dtype=torch.float32)).reshape(-1).tolist()
+        scores: Dict[int, float] = dict(zip(row_uids, row_scores))
         n = len(scores)
         return (100.0 * sum(scores.values()) / max(n, 1)), n
 
@@ -317,6 +385,14 @@ def _fold_sample_seed(sample_seed: int, batch_index: int) -> int:
     """One generator seed per (``sample_seed``, batch): distinct batches draw
     from distinct streams, and a run repeats."""
     return (sample_seed * 1_000_003 + batch_index) % (2 ** 63)
+
+
+def _slice_qa_batch(batch: QABatch, start: int, stop: int) -> QABatch:
+    """Rows [start, stop) of a global batch: a rank's contiguous slice, as
+    ``DistributedBatchSampler`` cuts it."""
+    return QABatch(*[
+        f[start:stop] if isinstance(f, np.ndarray) else list(f)[start:stop]
+        for f in batch])
 
 
 def _pad_qa_batch(batch: QABatch, batch_size: int,

@@ -1,5 +1,8 @@
 """OPENQA task wiring: datasets, model, index, refresh, train loop, EM eval
-(port of ``emdr2_tpu/tasks/openqa_main.py:run_openqa``), on one device.
+(port of ``emdr2_tpu/tasks/openqa_main.py:run_openqa``), on one device or
+over a data-parallel group (``dp``): each rank holds its block of the index
+rows, feeds its slice of every global batch and evaluates its slice; rank
+0 writes the checkpoints and prints.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ def load_store(embedding_path: str):
     return EmbeddingStore.load(embedding_path)
 
 
-def run_openqa(args, cfg) -> int:
+def run_openqa(args, cfg, dp=None) -> int:
     from emdr2_tpu_torch.data.evidence import EvidenceCorpus
     from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
     from emdr2_tpu_torch.data.tokenizer import build_tokenizers
@@ -68,27 +71,30 @@ def run_openqa(args, cfg) -> int:
     index = ShardedEvidenceIndex(cfg.index,
                                  np.asarray(store.embeddings, np.float32),
                                  passage_ids=np.asarray(store.ids),
-                                 device=device)
+                                 device=device, dp=dp)
+    dp = index.dp                     # DataParallel.local() without dp
+    coordinator = dp.rank == 0
+    say = print if coordinator else (lambda *a, **k: None)
 
     B = cfg.train.batch_size
     total_iters = (cfg.train.train_iters if cfg.train.train_iters
                    else cfg.train.epochs * (len(train_ds) // B))
     task = E2EQATask(cfg, t5_tok, corpus, index,
-                     total_train_iters=total_iters, device=device)
+                     total_train_iters=total_iters, device=device, dp=dp)
     task.init_state(cfg.train.seed)
     model = task.state.model
 
     resumed = False
     if args.load and ck.latest_iteration(args.load) is not None:
-        _, it = ck.load_checkpoint(args.load, task.state)
+        _, it = ck.load_checkpoint(args.load, task.state, dp=dp)
         resumed = True
-        print(f"resumed from {args.load} at iteration {it}")
+        say(f"resumed from {args.load} at iteration {it}")
     if not resumed and args.pretrained_dpr_load:
         ck.load_retriever_params(args.pretrained_dpr_load, model.retriever)
-        print(f"initialized retriever from {args.pretrained_dpr_load}")
+        say(f"initialized retriever from {args.pretrained_dpr_load}")
     if not resumed and args.pretrained_t5_load:
         ck.load_reader_params(args.pretrained_t5_load, model.reader)
-        print(f"initialized reader from {args.pretrained_t5_load}")
+        say(f"initialized reader from {args.pretrained_t5_load}")
 
     def evaluate():
         return task.evaluate_em(
@@ -105,7 +111,7 @@ def run_openqa(args, cfg) -> int:
         if cfg.reader.transformer.dtype == torch.bfloat16:
             bf16_eval_params(model)
         em, n = evaluate()
-        print(f" eval-only | EM {em:.2f} over {n}")
+        say(f" eval-only | EM {em:.2f} over {n}")
         return 0
 
     refresher = None
@@ -124,14 +130,14 @@ def run_openqa(args, cfg) -> int:
         if valid_ds is None:
             return None
         em, n = evaluate()
-        print(f" iteration {iteration} | valid EM {em:.2f} over {n}")
+        say(f" iteration {iteration} | valid EM {em:.2f} over {n}")
         return {"valid_em": em, "valid_n": n}
 
     final = engine.train(task, train_ds, cfg, refresher=refresher,
                          save_dir=args.save, eval_callback=eval_cb,
                          prefetch_depth=args.prefetch_depth,
-                         timeout_minutes=args.timeout_minutes)
+                         timeout_minutes=args.timeout_minutes, dp=dp)
     if valid_ds is not None:
         em, n = evaluate()
-        print(f" final ({final} iters) | valid EM {em:.2f} over {n}")
+        say(f" final ({final} iters) | valid EM {em:.2f} over {n}")
     return 0

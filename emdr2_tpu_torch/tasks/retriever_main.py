@@ -6,6 +6,12 @@ after training (or alone with ``--eval-only``), the evidence index built
 with the trained context tower and recall@k on ``--qa-file-dev`` /
 ``--qa-file-test``.
 
+Over a data-parallel group (``dp``) each rank trains on its slice of every
+global batch (its own positives and hard negatives; the in-batch loss
+gathers every rank's contexts), validates its slice, embeds its block of
+the evidence rows for the recall evaluation, and rank 0 writes the
+checkpoints, the embedding store and the log.
+
 Checkpoints hold the dual encoder under ``retriever.``, so
 ``tools.checkpoint_surgery`` and OPENQA's ``--pretrained-dpr-load`` take
 them as they take an EMDR2 checkpoint (the two-stage DPR -> EMDR2 recipe).
@@ -17,16 +23,20 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
 
-def run_retriever(args, cfg) -> int:
+def run_retriever(args, cfg, dp=None) -> int:
+    """``dp``: the data-parallel group (default one rank)."""
     from emdr2_tpu_torch.data.tokenizer import build_tokenizers
+    from emdr2_tpu_torch.parallel import DataParallel
     from emdr2_tpu_torch.tasks.dense_retriever import DPRDataset, DPRTask
     from emdr2_tpu_torch.training import checkpointing as ck
     from emdr2_tpu_torch.utils.device import resolve_device
 
     if not args.train_data and not args.eval_only:
         raise SystemExit("--train-data (DPR json) required for RETRIEVER")
+    dp = dp if dp is not None else DataParallel.local()
     device = resolve_device(args.device)
     bert_tok, _ = build_tokenizers(args.vocab_file)
     enc = dataclasses.replace(cfg.retriever.encoder,
@@ -49,12 +59,16 @@ def run_retriever(args, cfg) -> int:
     steps_per_epoch = len(train_ds) // B if train_ds is not None else 0
     total = cfg.train.train_iters or cfg.train.epochs * steps_per_epoch
     task = DPRTask(rcfg, cfg.train.optimizer, total_train_iters=max(total, 1),
-                   score_scaling=cfg.retriever_score_scaling, device=device)
+                   score_scaling=cfg.retriever_score_scaling, device=device,
+                   dp=dp)
     task.init_state(cfg.train.seed)
+    coordinator = dp.rank == 0
+    say = print if coordinator else (lambda *a, **k: None)
+    ranks = {"rank": dp.rank, "world_size": dp.world_size}
 
     if args.load and ck.latest_iteration(args.load) is not None:
-        _, it = ck.load_checkpoint(args.load, task.get_state())
-        print(f"resumed retriever from {args.load} at iteration {it}")
+        _, it = ck.load_checkpoint(args.load, task.get_state(), dp=dp)
+        say(f"resumed retriever from {args.load} at iteration {it}")
 
     def save(iteration, async_save: bool = False):
         if args.save:
@@ -62,8 +76,10 @@ def run_retriever(args, cfg) -> int:
             # the end-of-epoch save is synchronous, so a resume or the
             # post-train evaluation always finds a durable checkpoint
             ck.save_checkpoint(args.save, task.get_state(), iteration,
-                               async_save=async_save and cfg.train.async_save)
-            ck.remove_stale_checkpoints(args.save, keep_last=2)
+                               async_save=async_save and cfg.train.async_save,
+                               dp=dp)
+            if coordinator:
+                ck.remove_stale_checkpoints(args.save, keep_last=2)
 
     if not args.eval_only:
         it = task.state.step
@@ -74,13 +90,13 @@ def run_retriever(args, cfg) -> int:
                 if it >= total:
                     break
                 for bi, batch in enumerate(train_ds.epoch_batches(
-                        B, seed=cfg.train.seed + epoch)):
+                        B, seed=cfg.train.seed + epoch, **ranks)):
                     if epoch == start_epoch and bi < start_offset:
                         continue  # taken before the resume
                     m = task.train_step(batch)
                     it += 1
                     if it % cfg.train.log_interval == 0:
-                        print(f" iteration {it:8d}/{total} | loss "
+                        say(f" iteration {it:8d}/{total} | loss "
                               f"{float(m['loss']):.4f} | correct "
                               f"{float(m['correct_prediction_count']):.0f}"
                               f"/{B}")
@@ -91,27 +107,28 @@ def run_retriever(args, cfg) -> int:
                 if valid_ds is not None:
                     v = task.validate(
                         valid_ds.epoch_batches(B, seed=0, shuffle=False,
-                                               drop_last=False),
+                                               drop_last=False, **ranks),
                         report_topk=args.report_topk_accuracies)
                     stats = " | ".join(f"{k} {val:.4f}"
                                        for k, val in v.items())
-                    print(f" epoch {epoch} | {stats}")
+                    say(f" epoch {epoch} | {stats}")
                 save(it)
         finally:
             ck.finalize_async_saves()
 
     if args.evidence_data_path and (args.qa_file_dev or args.qa_file_test):
-        post_train_eval(args, cfg, rcfg, bert_tok, task)
+        post_train_eval(args, cfg, rcfg, bert_tok, task, dp)
     return 0
 
 
-def post_train_eval(args, cfg, rcfg, bert_tok, task) -> None:
+def post_train_eval(args, cfg, rcfg, bert_tok, task, dp) -> None:
     """Embed the evidence with the task's context tower, index it, and
-    print recall@k of the query tower on the QA files."""
+    print recall@k of the query tower on the QA files. Each rank of ``dp``
+    embeds its block of rows; rank 0 gathers them for the store."""
     from emdr2_tpu_torch.data.evidence import EvidenceCorpus
     from emdr2_tpu_torch.data.qa_dataset import read_qa_csv
     from emdr2_tpu_torch.models.bert import DualEncoder
-    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.retrieval import EmbeddingStore, ShardedEvidenceIndex
     from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
     from emdr2_tpu_torch.retrieval.evaluate import OpenRetrievalEvaluator
 
@@ -120,16 +137,27 @@ def post_train_eval(args, cfg, rcfg, bert_tok, task) -> None:
     builder = EvidenceIndexBuilder(
         cfg.replace(retriever=rcfg), task.model, corpus, bert_tok.cls_id,
         bert_tok.sep_id, bert_tok.pad_id)
-    print(f" building evidence index over {len(corpus)} passages ...")
-    store = builder.build_store(path=args.embedding_path)
-
+    coordinator = dp.rank == 0
+    say = print if coordinator else (lambda *a, **k: None)
+    say(f" building evidence index over {len(corpus)} passages ...")
     icfg = dataclasses.replace(
         cfg.index, embed_dim=rcfg.embed_dim,
         topk=max(cfg.index.topk, args.report_topk_accuracies[-1]))
-    index = ShardedEvidenceIndex(icfg,
-                                 np.asarray(store.embeddings, np.float32),
-                                 passage_ids=np.asarray(store.ids),
-                                 device=task.device)
+    n = len(corpus)
+    index = ShardedEvidenceIndex(
+        icfg, np.zeros((0, icfg.embed_dim), np.float32),
+        passage_ids=np.arange(1, n + 1, dtype=np.int64), device=task.device,
+        dp=dp, local=True, n_real=n)
+    start, stop = index.process_row_range()
+    rows = builder.embed_corpus(row_partition=(start, stop))
+    index.update_from_process_local(rows)
+    if args.embedding_path:
+        block = np.zeros((stop - start, icfg.embed_dim), np.float16)
+        block[:len(rows)] = rows
+        every = dp.all_gather_rows(torch.from_numpy(block))[:n]
+        if coordinator:
+            EmbeddingStore.of_rows(every.numpy()).save(args.embedding_path)
+        dp.barrier()
     evaluator = OpenRetrievalEvaluator(
         task.model.retriever, index, bert_tok,
         query_seq_len=rcfg.query_seq_len,
@@ -146,4 +174,5 @@ def post_train_eval(args, cfg, rcfg, bert_tok, task) -> None:
             read_qa_csv(path), k=icfg.topk, doc_text_fn=doc_text,
             match_type=args.match, report_at=args.report_topk_accuracies)
         stats = " | ".join(f"{k} {v:.4f}" for k, v in result.items())
-        print(f" {name} retrieval | {stats}")
+        say(f" {name} retrieval | {stats}")
+

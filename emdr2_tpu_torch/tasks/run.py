@@ -3,13 +3,22 @@ OPENQA|RETRIEVER`` (port of ``emdr2_tpu/tasks/run.py``).
 
 The flags are the JAX CLI's, the surface ``examples/openqa/emdr2_nq.sh`` and
 ``examples/dense-retriever/dpr_nq.sh`` drive, mapped onto the dataclass
-config. One process on one device: ``--device`` (default ``cuda``; ``cpu``
-to run without a card) takes the place of the JAX CLI's platform
-environment, mesh and multi-host flags (``--dp``, ``--tp``,
-``--embed-devices``, ``--coordinator-address``, ``--num-processes``,
-``--process-id``) and of ``--rng-impl``; ``--batch-size`` is the global
-batch. The kernels' limits (``ops.fid_attention.kernel_limits``) are
-checked on the flags before anything is built.
+config. ``--device`` (default ``cuda``; ``cpu`` to run without a card)
+takes the place of the JAX CLI's platform environment and ``--rng-impl``.
+
+Data parallelism: one process per rank, launched by hand, N of
+
+    python -m emdr2_tpu_torch.tasks.run ... --num-processes N \
+        --process-id I --coordinator-address HOST:PORT [--dp N]
+
+(or the ``EMDR2_COORDINATOR`` / ``EMDR2_NUM_PROCESSES`` /
+``EMDR2_PROCESS_ID`` variables). Rank I takes ``cuda:I`` of the visible
+cards (modulo their count) and NCCL, or gloo with ``--device cpu``;
+``--dp`` defaults to the process count and must equal it. The global batch is ``--batch-size`` x
+dp, as in the JAX CLI. ``--tp`` above 1 and ``--embed-devices`` above 0
+are refused (ROADMAP A3). The kernels' limits
+(``ops.fid_attention.kernel_limits``) are checked on the flags before
+anything is built.
 """
 
 from __future__ import annotations
@@ -121,6 +130,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--match", default="string", choices=["string", "regex"],
                    help="answer-matching mode for recall evaluation")
 
+    g = p.add_argument_group("data parallelism")
+    g.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks (default: the process count)")
+    g.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: only 1 is ported")
+    g.add_argument("--embed-devices", type=int, default=0,
+                   help="a disjoint embedder group: only 0 is ported")
+    g.add_argument("--coordinator-address", default=None,
+                   help="host:port of the rendezvous (rank 0's)")
+    g.add_argument("--num-processes", type=int, default=None,
+                   help="the number of processes, one a rank")
+    g.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank")
+
     g = p.add_argument_group("data")
     g.add_argument("--vocab-file", required=True)
     g.add_argument("--train-data", nargs="+", default=None)
@@ -162,6 +185,33 @@ def check_kernel_limits(args) -> None:
                                args.fid_flash_attention)
 
 
+def setup_data_parallel(args):
+    """Join the launch (``parallel.init_distributed``, with the device's
+    backend) and check the layout -> the ``DataParallel`` group
+    (``DataParallel.local()`` for one process). Sets ``args.device`` to
+    this rank's device."""
+    import torch
+
+    from emdr2_tpu_torch.config import MeshConfig
+    from emdr2_tpu_torch.parallel import (DataParallel, check_mesh_config,
+                                          init_distributed)
+    dev = torch.device(args.device)
+    if (dev.type == "cuda" and dev.index is None
+            and args.process_id is not None and torch.cuda.is_available()):
+        dev = torch.device("cuda", args.process_id % torch.cuda.device_count())
+        args.device = str(dev)
+    joined = init_distributed(args.coordinator_address, args.num_processes,
+                              args.process_id, device=dev)
+    dp = (DataParallel.from_process_group() if joined
+          else DataParallel.local())
+    if args.dp is None:
+        args.dp = dp.world_size
+    check_mesh_config(MeshConfig(dp=args.dp, tp=args.tp,
+                                 embed_devices=args.embed_devices),
+                      dp.world_size)
+    return dp
+
+
 def make_config(args):
     from emdr2_tpu_torch import config as C
 
@@ -186,7 +236,8 @@ def make_config(args):
             allow_trivial_doc=args.allow_trivial_doc,
             quantize=args.index_quantize),
         train=C.TrainConfig(
-            batch_size=args.batch_size, train_iters=args.train_iters,
+            batch_size=args.batch_size * (args.dp or 1),
+            train_iters=args.train_iters,
             epochs=args.epochs, seed=args.seed,
             log_interval=args.log_interval, save_interval=args.save_interval,
             eval_interval=args.eval_interval, exit_interval=args.exit_interval,
@@ -203,13 +254,18 @@ def make_config(args):
 
 
 def main(argv=None) -> int:
+    from emdr2_tpu_torch.parallel import distributed
     args = build_parser().parse_args(argv)
     check_kernel_limits(args)
-    if args.task == "RETRIEVER":
-        from emdr2_tpu_torch.tasks.retriever_main import run_retriever
-        return run_retriever(args, make_config(args))
-    from emdr2_tpu_torch.tasks.openqa_main import run_openqa
-    return run_openqa(args, make_config(args))
+    dp = setup_data_parallel(args)
+    try:
+        if args.task == "RETRIEVER":
+            from emdr2_tpu_torch.tasks.retriever_main import run_retriever
+            return run_retriever(args, make_config(args), dp=dp)
+        from emdr2_tpu_torch.tasks.openqa_main import run_openqa
+        return run_openqa(args, make_config(args), dp=dp)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,16 @@ so the index and the embedder's weights are always one refresh interval
 stale (the paper's stale-index approximation), and ``maybe_swap`` never
 blocks the trainer.
 
-One card, one process. The embedder is a thread on a CUDA stream of its
+Data parallelism (the index's group ``index.dp``): ``SynchronousRefresher``
+has each rank embed its own block of index rows
+(``embed_corpus(row_partition=)``, all of them on one rank) and swap it in
+locally (``update_from_process_local``): no rows cross between ranks. The
+asynchronous refresher refuses more than one rank: its embedder would
+share the trainers' devices and issue collectives beside theirs, which
+the JAX package refuses too; it needs an embedder group of its own
+(``--embed-devices``, not ported yet, ROADMAP A3).
+
+Per process, one card. The embedder is a thread on a CUDA stream of its
 own (the pattern of ``training/prefetch.py``), so its kernels run beside
 the train step's. Weights: the optimizer updates the live tower in place,
 so ``_publish_weights`` copies it (device to device, on the trainer's
@@ -61,7 +70,16 @@ class AsyncIndexRefresher:
         builder embeds with (its context tower); that module is what the
         snapshot copies. ``zero_copy``: keep the fresh rows on the device
         (about ``n_padded x d`` in ``cfg.index.dtype`` beside the live
-        index for the whole pass) instead of host RAM."""
+        index for the whole pass) instead of host RAM. An index held by
+        more than one rank is refused (module docstring)."""
+        world = index.dp.world_size
+        if world > 1:
+            raise NotImplementedError(
+                f"the asynchronous index refresher with {world} "
+                f"data-parallel ranks: its embedder would share the "
+                f"trainers' devices and race their collectives; it needs "
+                f"a disjoint embedder group (--embed-devices, not ported "
+                f"yet, ROADMAP A3). Use the synchronous refresher")
         self.builder = builder
         self.index = index
         self.reload_interval = reload_interval
@@ -201,7 +219,8 @@ class AsyncIndexRefresher:
 
 class SynchronousRefresher:
     """Re-embeds inline at each boundary with the live weights (no
-    overlap): the baseline the asynchronous refresher is held to."""
+    overlap): the baseline the asynchronous refresher is held to. Each
+    rank of the index's group embeds and swaps its own rows."""
 
     def __init__(self, builder: EvidenceIndexBuilder,
                  index: ShardedEvidenceIndex, reload_interval: int,
@@ -219,7 +238,9 @@ class SynchronousRefresher:
     def maybe_swap(self, step: int, model) -> bool:
         if step - self._last_reload_step < self.reload_interval:
             return False
-        self.index.update(self.builder.embed_corpus(self.extract(model)))
+        self.index.update_from_process_local(self.builder.embed_corpus(
+            self.extract(model),
+            row_partition=self.index.process_row_range()))
         self._last_reload_step = step
         self.refresh_count += 1
         return True

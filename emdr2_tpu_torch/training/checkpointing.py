@@ -153,14 +153,29 @@ def _write(root: str, iteration: int, payload: Dict[str, Any]) -> str:
 
 
 def save_checkpoint(root: str, state: TrainState, iteration: int,
-                    async_save: bool = False) -> str:
+                    async_save: bool = False, dp=None) -> str:
     """Write the full train state, then the tracker.
 
     ``async_save=True`` returns once the state is staged on the host (the
     caller may go on mutating it); the disk write and the tracker update
     happen in the background. Use it for interval saves; keep exit and
-    final saves synchronous so they are durable before return."""
+    final saves synchronous so they are durable before return.
+
+    Under data parallelism (``dp``) the replicas are equal, so rank 0
+    alone writes; every rank then waits at a barrier (after a synchronous
+    save the files are on disk when it opens)."""
     root = os.path.abspath(root)
+    if dp is not None and dp.distributed and dp.rank != 0:
+        dp.barrier()
+        return iter_dir(root, iteration)
+    path = _save(root, state, iteration, async_save)
+    if dp is not None and dp.distributed:
+        dp.barrier()
+    return path
+
+
+def _save(root: str, state: TrainState, iteration: int,
+          async_save: bool) -> str:
     os.makedirs(root, exist_ok=True)
     finalize_async_saves()    # at most one in flight; ordered tracker writes
     payload = _stage(state)
@@ -208,13 +223,21 @@ def write_payload(root: str, iteration: int, payload: Dict[str, Any]) -> str:
 
 def load_checkpoint(root: str, state: TrainState,
                     iteration: Optional[int] = None,
-                    load_optim: bool = True) -> Tuple[TrainState, int]:
+                    load_optim: bool = True,
+                    dp=None) -> Tuple[TrainState, int]:
     """Restore a checkpoint into ``state`` (an initialized TrainState of the
     same configuration; it is updated in place) -> (state, iteration).
 
     With ``load_optim=False`` only the parameters are restored: the
     optimizer's state, its update count, the step and the seed of ``state``
-    (usually fresh) are kept, for fine-tuning from a checkpoint."""
+    (usually fresh) are kept, for fine-tuning from a checkpoint. Under
+    data parallelism (``dp``) rank 0 first drains its background write,
+    then every rank reads the same files, so the replicas restore bit for
+    bit alike."""
+    if dp is not None and dp.distributed:
+        if dp.rank == 0:
+            finalize_async_saves()
+        dp.barrier()
     payload, iteration = read_payload(root, iteration)
     if load_optim and "optimizer" not in payload:
         raise ValueError(f"{root} iteration {iteration} holds no optimizer "

@@ -9,6 +9,14 @@ and the handshake points of an index refresher.
 Unlike the JAX loop, every exit path (an exception included) stops the
 refresher and the prefetch worker and drains an in-flight checkpoint write,
 so a raising step leaves no live embedder and no thread behind.
+
+Data parallelism (``dp``): every rank runs this loop in lockstep over the
+same global batches, each feeding its contiguous slice
+(``epoch_batches(rank=, world_size=)``); rank 0 writes the checkpoints
+and logs; the time budget is decided together (an all-reduce), so no rank
+leaves while the others wait in a collective. The prefetcher is refused
+there: its worker thread would issue the search's collectives beside the
+step's, in no agreed order (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -57,6 +65,20 @@ class TrainLog:
             self._t0 = time.perf_counter()
 
 
+def _silent(_: str) -> None:
+    pass
+
+
+def _past(deadline: float, dp) -> bool:
+    """Whether the time budget is spent, on any rank (one all-reduce under
+    data parallelism, so every rank takes the same exit)."""
+    late = time.perf_counter() > deadline
+    if dp is None or not dp.distributed:
+        return late
+    import torch
+    return bool(dp.all_reduce_sum_(torch.tensor([float(late)])) > 0)
+
+
 def train(task, dataset, cfg: EMDR2Config,
           refresher=None,
           save_dir: Optional[str] = None,
@@ -65,7 +87,7 @@ def train(task, dataset, cfg: EMDR2Config,
           prefetch_depth: int = 0,
           timeout_minutes: Optional[float] = None,
           printer: Callable[[str], None] = print,
-          log: Optional[TrainLog] = None) -> int:
+          log: Optional[TrainLog] = None, dp=None) -> int:
     """Run the training loop; returns the final iteration.
 
     ``task`` is an ``E2EQATask`` with an initialized state (a resumed one
@@ -84,12 +106,24 @@ def train(task, dataset, cfg: EMDR2Config,
     ``cfg.train.async_save``; the exit, time-budget and final saves are
     synchronous, durable before return. ``log`` (optional) is the
     ``TrainLog`` to push to, for a caller that reads its ``history``.
+    ``dp``: the data-parallel group (module docstring).
 
     The metrics writer is closed, the refresher and the prefetch worker
     are stopped and a background checkpoint write is drained on every exit
     path: normal completion, time budget, ``exit_interval`` and an
     exception on its way out."""
     tcfg = cfg.train
+    distributed = dp is not None and dp.world_size > 1
+    if distributed and prefetch_depth > 0:
+        raise ValueError(
+            f"--prefetch-depth {prefetch_depth} with {dp.world_size} "
+            f"data-parallel ranks: the prefetch worker's search collectives "
+            f"would race the step's; prefetch under data parallelism is not "
+            f"ported yet (ROADMAP A3). Use --prefetch-depth 0")
+    dist_kw = ({"rank": dp.rank, "world_size": dp.world_size}
+               if distributed else {})
+    if distributed and dp.rank != 0:
+        printer = _silent
     B = task.global_batch_size
     batches_per_epoch = len(dataset) // B
     total_iters = (tcfg.train_iters if tcfg.train_iters is not None
@@ -112,7 +146,7 @@ def train(task, dataset, cfg: EMDR2Config,
     def save(it: int, async_save: bool = False) -> None:
         if save_dir is not None:
             ckpt_lib.save_checkpoint(save_dir, task.state, it,
-                                     async_save=async_save)
+                                     async_save=async_save, dp=dp)
 
     refresh_count = 0
     epoch = start_epoch
@@ -123,7 +157,8 @@ def train(task, dataset, cfg: EMDR2Config,
         if refresher is not None:
             refresher.start(task.state.model)
         while iteration < total_iters and batches_per_epoch > 0:
-            epoch_batches = dataset.epoch_batches(B, seed=tcfg.seed + epoch)
+            epoch_batches = dataset.epoch_batches(B, seed=tcfg.seed + epoch,
+                                                  **dist_kw)
             if prefetch_depth > 0:
                 # the worker embeds stage-A queries with a copy of the query
                 # tower refreshed after every step: the optimizer updates
@@ -151,8 +186,9 @@ def train(task, dataset, cfg: EMDR2Config,
                     if save_dir is not None:
                         # a checkpoint at every refresh, for fault tolerance
                         save(iteration, tcfg.async_save)
-                        ckpt_lib.remove_stale_checkpoints(save_dir,
-                                                          keep_last=2)
+                        if not distributed or dp.rank == 0:
+                            ckpt_lib.remove_stale_checkpoints(save_dir,
+                                                              keep_last=2)
 
                 timers("step").start()
                 if prefetch_depth > 0:   # an already built device batch
@@ -181,7 +217,7 @@ def train(task, dataset, cfg: EMDR2Config,
                         writer.scalars({k: float(v)
                                         for k, v in eval_metrics.items()},
                                        iteration)
-                if deadline is not None and time.perf_counter() > deadline:
+                if deadline is not None and _past(deadline, dp):
                     if refresher is not None:
                         refresher.stop(wait=False)
                         refresher = None

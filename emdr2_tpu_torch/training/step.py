@@ -17,6 +17,15 @@ than PyTorch's habits, so the port takes the JAX package's steps:
 Weight decay skips biases, the LM bias and every LayerNorm (``decay_mask``,
 the JAX package's rule on the same names). The state is updated in place:
 the model's parameters and the optimizer's moments are PyTorch tensors.
+
+Data parallelism (``dp``, a ``parallel.mesh.DataParallel``): each rank
+runs the step on its slice of the global batch, with the losses' global
+normalizers (``training/losses.py``), and ``Optimizer.step`` replaces the
+gradients by their mean over the ranks *before* the clip, so the clip sees
+the global norm and every rank applies the same update. The reduction is
+an explicit all-reduce in fixed buckets in parameter order (no
+``DistributedDataParallel`` hooks), the counterpart of the compiler's psum
+in the JAX step; it leaves the remat layouts as they are.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import torch
 from emdr2_tpu_torch.config import EMDR2Config, OptimizerConfig
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold_seed
-from emdr2_tpu_torch.training.losses import emdr2_total_loss
+from emdr2_tpu_torch.parallel.mesh import DataParallel
+from emdr2_tpu_torch.training.losses import emdr2_total_loss, scale_for_mean
 from emdr2_tpu_torch.training.schedules import schedule_from_config
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
 
@@ -56,12 +66,16 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class Optimizer:
     """Global-norm clip -> AdamW (two parameter groups: decayed and not)
-    with the learning rate of ``schedule`` at the update count."""
+    with the learning rate of ``schedule`` at the update count. With a
+    data-parallel group ``dp`` the gradients are first averaged over its
+    ranks."""
 
     def __init__(self, model: EMDR2Model, cfg: OptimizerConfig,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float],
+                 dp: Optional[DataParallel] = None):
         self.cfg = cfg
         self.schedule = schedule
+        self.dp = dp
         mask = decay_mask(model)
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
@@ -81,8 +95,10 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Clip, update, count; returns the global gradient norm (before
-        the clip)."""
+        """Average over the ranks (under ``dp``), clip, update, count;
+        returns the global gradient norm (before the clip)."""
+        if self.dp is not None:
+            self.dp.all_reduce_grads_(self.params)
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -106,8 +122,9 @@ class Optimizer:
 
 
 def make_optimizer(model: EMDR2Model, cfg: OptimizerConfig,
-                   total_iters: int) -> Optimizer:
-    return Optimizer(model, cfg, schedule_from_config(cfg, total_iters))
+                   total_iters: int,
+                   dp: Optional[DataParallel] = None) -> Optimizer:
+    return Optimizer(model, cfg, schedule_from_config(cfg, total_iters), dp)
 
 
 @dataclasses.dataclass
@@ -120,50 +137,69 @@ class TrainState:
     model: EMDR2Model
     optimizer: Optimizer
 
-    def dropout_seeds(self) -> DropoutSeeds:
-        """This step's seeds: a pure function of (seed, step)."""
-        return DropoutSeeds(fold_seed(self.seed, self.step))
+    def dropout_seeds(self, shard: int = 0) -> DropoutSeeds:
+        """This step's seeds: a pure function of (seed, step), on
+        data-parallel rank ``shard``."""
+        return DropoutSeeds(fold_seed(self.seed, self.step), shard)
 
 
 METRICS = ("loss", "lm_loss", "retriever_loss", "retriever_utility",
            "null_block_lm_loss", "grad_norm")
 
 
+def _global_metrics(values: Dict[str, torch.Tensor],
+                    dp: Optional[DataParallel]) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each metric summed over ``dp`` (one
+    all-reduce); the values themselves in one process."""
+    if dp is None or not dp.distributed:
+        return values
+    keys = list(values)
+    total = dp.all_reduce_sum_(torch.stack([values[k].detach().float()
+                                            for k in keys]))
+    return {k: total[i] for i, k in enumerate(keys)}
+
+
 def make_train_step(cfg: EMDR2Config, eos_id: int,
-                    timer: Optional[StageTimer] = None) -> Callable:
+                    timer: Optional[StageTimer] = None,
+                    dp: Optional[DataParallel] = None) -> Callable:
     """-> step_fn(state, batch) -> (state, metrics): forward with dropout
-    -> loss -> backward -> clip -> AdamW, in place. Metrics are 0-d
-    tensors on the model's device. ``timer`` records the
-    ``forward_backward`` and ``optimizer`` stages."""
+    -> loss -> backward -> (mean over ``dp``) -> clip -> AdamW, in place.
+    Metrics are 0-d tensors on the model's device, those of the global
+    batch under ``dp``. ``timer`` records the ``forward_backward`` and
+    ``optimizer`` stages."""
+    shard = dp.rank if dp is not None else 0
 
     def step_fn(state: TrainState, batch: EMDR2Batch):
         model = state.model
         with stage(timer, "forward_backward"):
             state.optimizer.zero_grad()
-            out = model(batch, drop=state.dropout_seeds())
+            out = model(batch, drop=state.dropout_seeds(shard))
             total, aux = emdr2_total_loss(
                 out.lm_logits, out.topk_log_probs, out.gold_log_probs,
                 batch.labels, batch.loss_mask, eos_id=eos_id,
                 update_retriever=cfg.update_retriever,
-                use_kl_div=cfg.use_kl_div_loss)
-            total.backward()
+                use_kl_div=cfg.use_kl_div_loss, dp=dp)
+            scale_for_mean(total, dp).backward()
         with stage(timer, "optimizer"):
             grad_norm = state.optimizer.step()
         state.step += 1
-        metrics = {"loss": total.detach(), "lm_loss": aux.lm_loss.detach(),
-                   "retriever_loss": aux.retriever_loss.detach(),
-                   "retriever_utility": aux.retriever_utility.detach(),
-                   "null_block_lm_loss": aux.null_block_lm_loss.detach(),
-                   "grad_norm": grad_norm}
+        metrics = _global_metrics(
+            {"loss": total.detach(), "lm_loss": aux.lm_loss.detach(),
+             "retriever_loss": aux.retriever_loss.detach(),
+             "retriever_utility": aux.retriever_utility.detach(),
+             "null_block_lm_loss": aux.null_block_lm_loss.detach()}, dp)
+        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return step_fn
 
 
-def make_eval_forward(cfg: EMDR2Config, eos_id: int) -> Callable:
+def make_eval_forward(cfg: EMDR2Config, eos_id: int,
+                      dp: Optional[DataParallel] = None) -> Callable:
     """-> eval_fn(state, batch) -> {"loss", "lm_loss", "retriever_loss"}:
-    the step's forward and loss with no dropout and no gradient. Metrics
-    are 0-d tensors on the model's device."""
+    the step's forward and loss with no dropout and no gradient, of the
+    global batch under ``dp``. Metrics are 0-d tensors on the model's
+    device."""
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: EMDR2Batch):
@@ -172,8 +208,8 @@ def make_eval_forward(cfg: EMDR2Config, eos_id: int) -> Callable:
             out.lm_logits, out.topk_log_probs, out.gold_log_probs,
             batch.labels, batch.loss_mask, eos_id=eos_id,
             update_retriever=cfg.update_retriever,
-            use_kl_div=cfg.use_kl_div_loss)
-        return {"loss": total, "lm_loss": aux.lm_loss,
-                "retriever_loss": aux.retriever_loss}
+            use_kl_div=cfg.use_kl_div_loss, dp=dp)
+        return _global_metrics({"loss": total, "lm_loss": aux.lm_loss,
+                                "retriever_loss": aux.retriever_loss}, dp)
 
     return eval_fn

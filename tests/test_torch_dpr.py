@@ -124,9 +124,20 @@ def test_dpr_in_batch_loss_matches_jax(scaling, labels):
 
 
 def test_dpr_loss_all_gather_form_waits_for_multi_gpu():
-    q = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError):
-        dpr_in_batch_loss(q, q, hidden_size=4, axis_name="dp")
+    """The all-gather form is ported: it takes the data-parallel group as
+    ``dp`` (the JAX ``axis_name`` keyword is not the port's), and a
+    one-process group gives the plain loss. Two ranks against the JAX
+    global loss: tests/test_torch_parallel.py."""
+    from emdr2_tpu_torch.parallel import DataParallel
+    rng = np.random.RandomState(1)
+    q = torch.tensor(rng.randn(3, 8).astype(np.float32))
+    c = torch.tensor(rng.randn(6, 8).astype(np.float32))
+    with pytest.raises(TypeError):
+        dpr_in_batch_loss(q, c, hidden_size=8, axis_name="dp")
+    want = dpr_in_batch_loss(q, c, hidden_size=8, score_scaling=True)
+    got = dpr_in_batch_loss(q, c, hidden_size=8, score_scaling=True,
+                            dp=DataParallel.local())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # --------------------------------------------------------------- the dataset

@@ -1229,3 +1229,117 @@ def test_refresher_snapshot_unchanged_by_a_step_during_an_embed(
     # the fresh weights were published at the swap
     for a, b in zip(r._snapshot.parameters(), tower.parameters()):
         assert torch.equal(a, b)
+
+
+# ---- one step repeats bit for bit (C5), and the one-rank NCCL search ----
+
+def _dropout_card_cfg():
+    from emdr2_tpu_torch.config import with_transformers
+    drop = {"hidden_dropout": 0.1, "attention_dropout": 0.1}
+    return with_transformers(_card_cfg(), drop, drop)
+
+
+def _first_difference_text(result):
+    if result["first_difference"] is None:
+        return "equal"
+    i, a, b = result["first_difference"]
+    return f"{result['differing']} entries differ; first at {i}: {a} vs {b}"
+
+
+def test_dpr_step_repeats_bit_for_bit(cuda):
+    """``DPRTask.train_step`` run twice from one saved state on the card:
+    every module output, every incoming and parameter gradient, the
+    metrics and the updated parameters are equal bit for bit. The context
+    tower looks its 2-row tokentype table up 16,384 times (the lookup whose
+    CUDA backward did not repeat)."""
+    import numpy as np
+
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRBatch, DPRTask
+    from emdr2_tpu_torch.utils.repeat import repeat_step
+
+    rc = _dropout_card_cfg().retriever
+    B, Lq, Lc = 128, 32, 64
+    rng = np.random.RandomState(0)
+    q = rng.randint(5, 500, size=(B, Lq)).astype(np.int32)
+    c = rng.randint(5, 500, size=(2 * B, Lc)).astype(np.int32)
+    types = np.zeros_like(c)
+    types[:, Lc // 4:] = 1
+    batch = DPRBatch(q, np.zeros_like(q), c, types,
+                     labels=np.arange(B, dtype=np.int32))
+    task = DPRTask(rc, OptimizerConfig(lr=1e-3, warmup=0.0),
+                   total_train_iters=10, device=cuda)
+    task.init_state(3)
+    task.train_step(batch)
+    for _ in range(2):
+        result = repeat_step(task, batch)
+        assert result["equal"], _first_difference_text(result)
+        a, b = result["metrics"]
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_openqa_step_repeats_bit_for_bit(cuda, tmp_path):
+    """``E2EQATask.train_step`` (retrieval, the three towers, the reader
+    and the teacher, dropout 0.1) run twice from one saved state on the
+    card: equal bit for bit, gradients and parameters included."""
+    import numpy as np
+
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    from emdr2_tpu_torch.data.tokenizer import (BertWordPieceTokenizer,
+                                                toy_vocab)
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.utils.repeat import repeat_step
+
+    cfg, corpus, _, _ = _card_world(tmp_path, cuda, 300)
+    cfg = cfg.replace(retriever=_dropout_card_cfg().retriever,
+                      reader=_dropout_card_cfg().reader)
+    tok = BertWordPieceTokenizer(
+        toy_vocab(["what", "is", "the", "color", "of", "item"]
+                  + [f"w{i}" for i in range(300)]), vocab_extra_ids=10)
+    qa = tmp_path / "qa.tsv"
+    qa.write_text("".join(f"what is the color of item w{i}\t['w{3 * i}']\n"
+                          for i in range(8)))
+    ds = OpenQADataset([str(qa)], tok, cfg.retriever.query_seq_len,
+                       cfg.reader.decoder_seq_len)
+    emb = torch.randn(len(corpus), 128, device=cuda, generator=_gen(9))
+    index = ShardedEvidenceIndex(cfg.index, emb, device=cuda)
+    task = E2EQATask(cfg, tok, corpus, index, total_train_iters=10,
+                     device=cuda)
+    task.init_state(4)
+    batches = list(ds.epoch_batches(4, seed=0))
+    task.train_step(batches[0])
+    result = repeat_step(task, batches[1])
+    assert result["equal"], _first_difference_text(result)
+
+
+def test_sharded_search_over_one_rank_nccl_equals_mips_topk(cuda, tmp_path):
+    """``sharded_mips_topk`` over a one-rank NCCL group (the collectives
+    run, the merge sorts the candidates stably) returns ``mips_topk``'s
+    values and rows bit for bit, in bf16 and in int8."""
+    from emdr2_tpu_torch.parallel import DataParallel
+    from emdr2_tpu_torch.parallel import distributed as dist_lib
+
+    dist_lib.init_process_group(f"file://{tmp_path / 'store'}", 1, 0,
+                                "nccl", timeout_s=60, device=cuda)
+    try:
+        dp = DataParallel.from_process_group()
+        g = _gen(11)
+        rows = torch.randn(40_960, 256, device=cuda, generator=g)
+        for nq in (8, 64):
+            q = torch.randn(nq, 256, device=cuda, generator=g)
+            bf16 = rows.to(torch.bfloat16)
+            want = mips.mips_topk(q.to(torch.bfloat16), bf16, 20)
+            got = mips.sharded_mips_topk(q.to(torch.bfloat16), bf16, 20, dp,
+                                         n_real=40_960)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            q8, scales = mips.quantize_int8(rows, 128)
+            want = mips.mips_topk(q, q8, 20, shard_scales=scales)
+            got = mips.sharded_mips_topk(q, q8, 20, dp, n_real=40_960,
+                                         local_scales=scales)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        assert dp.bytes_moved["all_gather"] > 0
+    finally:
+        dist_lib.shutdown()
