@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --dp-cards N       (N cards: the ranks phase alone)
+    python3 chip_smoke.py --dp-cards N       (N cards: the ranks phase alone,
+                                             and with 4 the embedder group)
 
 1. Builds the hand-written CUDA kernels from ``emdr2_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel).
@@ -130,6 +131,19 @@
    one index, against one process: searches, step-1 losses, bit-equal
    replicas, ``evaluate_em``. ``--dp-cards N`` runs only this phase over
    NCCL, a rank a card, beside one card at the same batch a rank.
+16. The embedder group: two ranks sharing the card over gloo, each running
+   ``engine.train`` under the flagship layout with its
+   ``AsyncIndexRefresher`` on the card (``--embed-devices 0``) and
+   ``prefetch_depth=1``, an int8 index over 16,384 passages, reload
+   interval 2, 6 iterations at 2 questions a rank, then 1 without the
+   refresher: the ranks swap at the same iterations, the rows after the
+   first swap are the hand-off tower's, the replicas bit-equal, the
+   losses finite; ms per iteration with a pass in flight and without, the
+   swap's stall, a rank's block of 655,360 int8 rows swapped in.
+   ``--dp-cards 4`` adds the disjoint layout after its ranks phase: two
+   trainers on cards 0-1 over NCCL at 8 questions a rank beside their
+   embedders on cards 2-3 (32,768 passages, 8 + 3 iterations); the same
+   checks, and no K1 launch at the builder's shape on a trainer card.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -2152,9 +2166,9 @@ def refresh_phase(cfg, dev, gen, n_docs=16_384, batch=8, iters=8,
         passes, swaps, ends = [], [], []
         embed = builder.embed_corpus
 
-        def timed_embed(module=None, progress=None):
+        def timed_embed(*args, **kw):
             t0 = time.perf_counter()
-            out = embed(module, progress)
+            out = embed(*args, **kw)
             passes.append((t0, time.perf_counter()))
             return out
 
@@ -3213,19 +3227,61 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
         _reset_counts()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmpdir:
-            out = _dp_runs(cfg, dev, tmpdir, spec["n_rows"], spec["n_docs"],
-                           spec["n_questions"], dp, spec["sizes"],
-                           spec["checks"])
+            if spec.get("kind") == "embedder":
+                out = _embedder_run(cfg, dev, tmpdir, spec, dp)
+            else:
+                out = _dp_runs(cfg, dev, tmpdir, spec["n_rows"],
+                               spec["n_docs"], spec["n_questions"], dp,
+                               spec["sizes"], spec["checks"])
+                out["launches"] = _read_counts(tuple(_counters()))
+                for key, v in out["search"].items():
+                    out["search"][key] = (v[0].tolist(), v[1].tolist())
         out["seconds"] = time.perf_counter() - t0
-        out["launches"] = _read_counts(tuple(_counters()))
         out["bytes_moved"] = dict(dp.bytes_moved)
-        for key, v in out["search"].items():
-            out["search"][key] = (v[0].tolist(), v[1].tolist())
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist_lib.shutdown()
     return 0
+
+
+def _run_ranks(cfg, what: str, timeout: float, spec: dict) -> list:
+    """Run the ranks of ``spec`` (its ``devices``, ``world`` and
+    ``backend``; ``kind`` "dp" or "embedder") as subprocesses of this
+    script (``--dp-rank R --dp-spec PATH``) with ``timeout``, every one
+    killed on the way out; -> each rank's results, by rank."""
+    world = spec["world"]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        torch.save(cfg, os.path.join(tmpdir, "cfg.pt"))
+        spec = dict(spec, cfg=os.path.join(tmpdir, "cfg.pt"), out=tmpdir,
+                    timeout=timeout / 2,
+                    address=f"file://{os.path.join(tmpdir, 'store')}")
+        path = os.path.join(tmpdir, "spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--dp-rank", str(r), "--dp-spec", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"{what} rank {r} failed "
+                                     f"(rc {p.returncode}):\n{text[-6000:]}")
+        got = []
+        for r in range(world):
+            with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+    return got
 
 
 def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
@@ -3263,46 +3319,16 @@ def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
                        eval_batch=per_rank["eval"])
     ref_s = time.perf_counter() - t0
     _empty_cache(dev)
-    with tempfile.TemporaryDirectory() as tmpdir:
-        torch.save(cfg, os.path.join(tmpdir, "cfg.pt"))
-        # one card each over NCCL; on the CPU (a rehearsal) gloo
-        own = cards and dev.type == "cuda"
-        devices = ([f"cuda:{r}" for r in range(world)] if own
-                   else [str(dev)] * world)
-        spec = {"devices": devices, "cfg": os.path.join(tmpdir, "cfg.pt"),
-                "world": world, "backend": "nccl" if own else "gloo",
-                "sizes": sizes, "checks": checks_at,
-                "n_questions": n_questions,
-                "n_rows": n_rows, "n_docs": n_docs,
-                "out": tmpdir, "timeout": timeout / 2,
-                "address": f"file://{os.path.join(tmpdir, 'store')}"}
-        path = os.path.join(tmpdir, "spec.json")
-        with open(path, "w") as f:
-            json.dump(spec, f)
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
-             "--dp-rank", str(r), "--dp-spec", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
-            for r in range(world)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=timeout)[0].decode())
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        ranks_s = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"dp {what} rank {r} failed "
-                                     f"(rc {p.returncode}):\n{text[-6000:]}")
-        got = []
-        for r in range(world):
-            with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
-                got.append(json.load(f))
+    # one card each over NCCL; on the CPU (a rehearsal) gloo
+    own = cards and dev.type == "cuda"
+    t0 = time.perf_counter()
+    got = _run_ranks(cfg, f"dp {what}", timeout, {
+        "devices": ([f"cuda:{r}" for r in range(world)] if own
+                    else [str(dev)] * world),
+        "world": world, "backend": "nccl" if own else "gloo",
+        "sizes": sizes, "checks": checks_at, "n_questions": n_questions,
+        "n_rows": n_rows, "n_docs": n_docs})
+    ranks_s = time.perf_counter() - t0
     res = {"ref_seconds": ref_s, "ranks_seconds": ranks_s, "ranks": got,
            "ref": {k: v for k, v in ref.items() if k != "search"}}
     # searches: each rank's rows of the one-process search
@@ -3391,6 +3417,335 @@ def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
     return res
 
 
+# the embedder phase: every rank trains under the flagship recipe's
+# asynchronous refresher and prefetch at depth 1, its embedder on its own
+# card (EMB_SHARED: two ranks sharing the card over gloo, embed-devices 0)
+# or on a card of its own (EMB_CARDS, ``--dp-cards``: two trainers over
+# NCCL beside two embedder cards); sizes a rank
+EMB_WORLD = 2
+EMB_SHARED = {"docs": 16_384, "qa": 2, "iters": 6, "plain_iters": 1}
+EMB_CARDS = {"docs": 32_768, "qa": 8, "iters": 8, "plain_iters": 3}
+EMB_RELOAD = 2
+EMB_CHECK_ROWS = 64
+EMB_BUILDER_SHAPE = (128, 256)      # K1's batch of passages in the builder
+EMB_SWAP_REPS = 3
+
+
+def _embedder_run(cfg, dev, tmpdir, spec, dp):
+    """One rank of the embedder phase: ``engine.train`` over an int8 index
+    of ``sizes["docs"]`` passages (this rank holding its block) with an
+    ``AsyncIndexRefresher`` (reload interval ``EMB_RELOAD``) whose builder
+    runs on the rank's embedder devices (``parallel.embed_devices``),
+    ``prefetch_depth=1``, ``iters`` iterations at ``sizes["qa"]`` questions
+    a rank; then ``plain_iters`` more without the refresher. Records each
+    iteration's ms and whether an embed pass overlapped it by half, each
+    pass's window, each ``maybe_swap`` that swapped (iteration, ms of the
+    trainer thread's stall: the agreement all-reduce and the swap, the
+    card synchronized on both sides), the launches (counts set to 0 just
+    before the refreshed run and read just after; K1's by card at the
+    builder's shape), peak memory per device, and after the first swap
+    ``EMB_CHECK_ROWS`` of the rank's rows against a copy of the tower
+    taken at the hand-off. Last, the swap of a block of ``swap_rows`` /
+    W int8 rows made and quantized on the embedder's device, timed
+    ``EMB_SWAP_REPS`` times, and held bit for bit to the rows moved first
+    and quantized on the trainer's device."""
+    import copy
+    import threading
+
+    from emdr2_tpu_torch.config import MeshConfig
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    from emdr2_tpu_torch.ops import mips
+    from emdr2_tpu_torch.parallel import check_mesh_config, embed_devices
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.retrieval.builder import (EvidenceIndexBuilder,
+                                                   context_tower)
+    from emdr2_tpu_torch.tasks import E2EQATask
+    from emdr2_tpu_torch.training import engine
+    from emdr2_tpu_torch.training.step import METRICS
+    from emdr2_tpu_torch.training.async_refresh import AsyncIndexRefresher
+
+    cuda = dev.type == "cuda"
+    mesh = MeshConfig(dp=dp.world_size, embed_devices=spec["embed_devices"])
+    check_mesh_config(mesh, dp.world_size,
+                      torch.cuda.device_count() if cuda else None)
+    edevs = embed_devices(mesh, dp.rank, dev)
+    edev = edevs[0]
+    devices = [dev] + [d for d in edevs if d != dev]
+    sizes = spec["sizes"]
+    n_docs, batch = sizes["docs"], sizes["qa"] * dp.world_size
+    iters, plain_iters = sizes["iters"], sizes["plain_iters"]
+
+    def sync():
+        if cuda:
+            for d in devices:
+                torch.cuda.synchronize(d)
+
+    def sync_trainer():
+        # the trainer's stream alone: the embedder's keeps running (a
+        # copy from its card is on a stream the trainer's waits for)
+        if cuda:
+            torch.cuda.current_stream(dev).synchronize()
+
+    def loop_cfg(train_iters):
+        return cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=batch, train_iters=train_iters,
+            log_interval=1, save_interval=10 ** 6, eval_interval=10 ** 6,
+            index_reload_interval=EMB_RELOAD, seed=SEED))
+
+    tok, corpus = make_corpus(cfg, tmpdir, n_docs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 23)
+    index = ShardedEvidenceIndex(
+        cfg.index, torch.randn(n_docs, cfg.index.embed_dim, device=dev,
+                               generator=g), device=dev, dp=dp)
+    ds = _qa_dataset(cfg, tok, tmpdir, batch * (iters + plain_iters + 2))
+    task = E2EQATask(loop_cfg(iters), tok, corpus, index,
+                     total_train_iters=1000, device=dev, dp=dp)
+    model = task.init_state(SEED).model
+    start_weights = {k: v.detach().to("cpu", copy=True) for k, v in
+                     context_tower(model).state_dict().items()}
+    builder = EvidenceIndexBuilder(cfg, model, corpus, tok.cls_id,
+                                   tok.sep_id, tok.pad_id, devices=edevs)
+    lo, hi = index.process_row_range()
+    real = max(0, min(hi, n_docs) - lo)
+    scans = index.shard_rows > cfg.index.chunk_rows
+    check_rows = np.sort(np.random.RandomState(SEED + 1 + dp.rank).choice(
+        real, EMB_CHECK_ROWS, replace=False))
+    first = {}
+
+    def on_refresh(step):
+        if not first:
+            rows = mips.dequantize_int8(index.embeddings, index.scales,
+                                        cfg.index.group_size)
+            first.update(step=step, rows=rows[check_rows].cpu(),
+                         scales=index.scales[
+                             check_rows // cfg.index.group_size].cpu())
+
+    refresher = AsyncIndexRefresher(builder, index, EMB_RELOAD,
+                                    on_refresh=on_refresh,
+                                    zero_copy=spec["embed_devices"] > 0)
+    passes, swaps, agree_ms, ends = [], [], [], []
+    for name in ("embed_corpus", "embed_corpus_device"):
+        def timed(*args, _fn=getattr(builder, name), **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            if isinstance(out, torch.Tensor) and out.is_cuda:
+                # the rows are queued on this thread's stream: the pass
+                # ends when they are written
+                torch.cuda.current_stream(out.device).synchronize()
+            passes.append((t0, time.perf_counter()))
+            return out
+        setattr(builder, name, timed)
+    maybe_swap = refresher.maybe_swap
+
+    def timed_swap(step, model):
+        boundary = step - refresher._last_reload_step >= EMB_RELOAD
+        if boundary:
+            sync_trainer()
+        t0 = time.perf_counter()
+        swapped = maybe_swap(step, model)
+        if boundary:
+            sync_trainer()
+            ms = (time.perf_counter() - t0) * 1e3
+            (swaps.append((step, ms)) if swapped else agree_ms.append(ms))
+        return swapped
+
+    refresher.maybe_swap = timed_swap
+
+    def printer(line):
+        if "ms_per_iter" in line:
+            ends.append(time.perf_counter())
+
+    for d in devices:
+        _reset_peak(d)
+    _reset_counts()
+    train_log = engine.TrainLog(1, printer)
+    t_start = time.perf_counter()
+    final = engine.train(task, ds, loop_cfg(iters), refresher=refresher,
+                         prefetch_depth=1, dp=dp, printer=printer,
+                         log=train_log)
+    sync()
+    train_s = time.perf_counter() - t_start
+    launches = _read_counts(tuple(_counters()))
+    by_shape = dict(fa.flash_self_attention.launches_by_shape)
+    peaks = {str(d): _peak(d) for d in devices}
+    alive = [t.name for t in threading.enumerate() if t.name.startswith(
+        ("index-refresh", "batch-prefetch"))]
+    history = train_log.history
+    if final != iters or len(history) != iters or alive:
+        raise AssertionError(f"embedder run ended at {final}, history "
+                             f"{history}, threads left {alive}")
+    if refresher.error is not None or not first:
+        raise AssertionError(f"refresh_count {refresher.refresh_count}, "
+                             f"swaps {swaps}, error {refresher.error!r}")
+    starts = [t_start] + ends[:-1]
+    busy = [sum(max(0.0, min(e, pe) - max(s, ps)) for ps, pe in passes)
+            >= 0.5 * (e - s) for s, e in zip(starts, ends)]
+    plain_log = engine.TrainLog(1, lambda line: None)
+    engine.train(task, ds, loop_cfg(iters + plain_iters), prefetch_depth=1,
+                 dp=dp, printer=lambda line: None, log=plain_log)
+    sync()
+    fingerprint = _fingerprint_params(task.state.model)
+
+    # the first swapped block against the tower handed over at start
+    tower = copy.deepcopy(context_tower(model)).requires_grad_(False)
+    tower.load_state_dict(start_weights)
+    tower = tower.to(edev)
+    ids, types = builder._format_rows(check_rows + lo + 1)
+    with torch.inference_mode():
+        want = tower.embed(torch.as_tensor(ids).long().to(edev),
+                           torch.as_tensor(types).long().to(edev)
+                           ).float().cpu()
+    err = (first["rows"] - want).abs()
+    limit = first["scales"][:, None] + FWD_TOL[0] * want.abs().max()
+    check = dict(err=err.max().item(),
+                 steps=(err / first["scales"][:, None]).max().item(),
+                 ok=bool((err <= limit).all()))
+    losses_finite = all(np.isfinite(h[k]) for h in history
+                        + plain_log.history for k in METRICS)
+    del tower, want, task, model, builder, refresher, index
+    for d in devices:
+        _empty_cache(d)
+
+    # a block of a full shard's rows, made and quantized where the
+    # embedder runs, swapped in card to card
+    block_ms, block_equal = [], True
+    n_rows = spec["swap_rows"]
+    icfg = dataclasses.replace(cfg.index, quantize="int8")
+    index = ShardedEvidenceIndex(
+        icfg, torch.zeros(n_rows // dp.world_size, icfg.embed_dim,
+                          device=dev), device=dev, dp=dp, local=True,
+        n_real=n_rows)
+    g = torch.Generator(device=edev)
+    g.manual_seed(SEED + 29 + dp.rank)
+    for _ in range(EMB_SWAP_REPS):
+        rows = torch.randn(index.shard_rows, icfg.embed_dim, device=edev,
+                           generator=g).to(icfg.dtype)
+        block = index.local_block(rows)
+        ready = torch.cuda.Event() if cuda else None
+        if cuda:
+            ready.record(torch.cuda.current_stream(edev))
+        sync()
+        t0 = time.perf_counter()
+        index.update_from_process_local(block, ready=ready)
+        sync()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+        want_rows, want_scales = index.local_block(rows.to(dev))
+        block_equal &= bool(torch.equal(index.embeddings, want_rows)
+                            and torch.equal(index.scales, want_scales))
+        del rows, block, want_rows, want_scales
+    del index
+    for d in devices:
+        _empty_cache(d)
+    pass_s = [pe - ps for ps, pe in passes]
+    return dict(
+        devices=[str(d) for d in devices], embedder=[str(d) for d in edevs],
+        ms=[h["ms_per_iter"] for h in history],
+        with_embed=[h["ms_per_iter"] for h, b in zip(history, busy) if b],
+        without=[h["ms_per_iter"] for h, b in zip(history, busy) if not b],
+        plain=[h["ms_per_iter"] for h in plain_log.history],
+        pass_s=pass_s, per_s=[real / s for s in pass_s], block_rows=real,
+        swaps=swaps, agree_ms=agree_ms, first_step=first["step"],
+        refresh_count=len(swaps), check=check, scans=scans,
+        losses_finite=losses_finite, fingerprint=fingerprint,
+        launches=launches,
+        builder_launches={dev_name: n for (dev_name, B, L), n in
+                          by_shape.items() if (B, L) == EMB_BUILDER_SHAPE},
+        peaks=peaks, train_s=train_s, block_ms=block_ms,
+        block_equal=block_equal, block_shard_rows=n_rows // dp.world_size)
+
+
+def embedder_phase(cfg, dev, cards=False, timeout=900, sizes=None):
+    """Two ranks with their embedders (``_embedder_run``) as subprocesses.
+    ``cards=False``: sharing ``dev`` over gloo, ``--embed-devices 0``, at
+    ``EMB_SHARED``. ``cards=True`` (``--dp-cards``): trainers on cards 0-1
+    over NCCL, their embedders on cards 2-3 (``--embed-devices 2``), at
+    ``EMB_CARDS``; on the CPU a rehearsal of the same layout over gloo.
+    Held: the ranks swap at the same iterations, at least once; after the
+    first swap each rank's sampled rows equal the hand-off tower's
+    embedding within one int8 step of their group plus the bf16 forward
+    tolerance (``refresh_phase``'s rule); the replicas are bit-equal after
+    the runs; the losses finite; K1, K2 and K3 launched; the block swapped
+    card to card bit-equal to the one quantized on the trainer's card;
+    with cards, no K1 launch at the builder's shape on a trainer card.
+    ``sizes`` replaces the sizes a rank (a rehearsal on the CPU)."""
+    on_cards = cards and dev.type == "cuda"
+    sizes = sizes or (EMB_CARDS if cards else EMB_SHARED)
+    what = (f"embedder (cards: {EMB_WORLD} trainers over "
+            f"{'NCCL' if on_cards else 'gloo'} beside {EMB_WORLD} "
+            f"embedders)" if cards else "embedder (shared card, gloo)")
+    t0 = time.perf_counter()
+    got = _run_ranks(cfg, what, timeout, {
+        "kind": "embedder",
+        "devices": ([f"cuda:{r}" for r in range(EMB_WORLD)] if on_cards
+                    else [str(dev)] * EMB_WORLD),
+        "world": EMB_WORLD, "backend": "nccl" if on_cards else "gloo",
+        "embed_devices": EMB_WORLD if cards else 0, "sizes": sizes,
+        "swap_rows": N_INDEX if dev.type == "cuda" else 4096})
+    seconds = time.perf_counter() - t0
+    for r, g in enumerate(got):
+        log(f"{what} rank {r} on {g['devices']} (embedder {g['embedder']}):"
+            f" ms per iteration with an embed pass in flight "
+            + ", ".join(f"{m:.1f}" for m in g["with_embed"]) + "; without "
+            + ", ".join(f"{m:.1f}" for m in g["without"])
+            + "; with no refresher " + ", ".join(f"{m:.1f}"
+                                                 for m in g["plain"])
+            + f"; passes of {g['block_rows']} passages: "
+            + ", ".join(f"{s:.3f} s ({p:.1f} passages/s)"
+                        for s, p in zip(g["pass_s"], g["per_s"]))
+            + "; swaps (iteration, ms of the stall) "
+            + ", ".join(f"({i}, {ms:.1f})" for i, ms in g["swaps"])
+            + "; agreements that did not swap (ms) "
+            + ", ".join(f"{ms:.1f}" for ms in g["agree_ms"])
+            + f"; the block of {g['block_shard_rows']} int8 rows card to "
+            f"card: " + ", ".join(f"{ms:.2f}" for ms in g["block_ms"])
+            + f" ms, bit-equal {g['block_equal']}; peaks "
+            + ", ".join(f"{d} {b / 2**30:.2f} GiB"
+                        for d, b in g["peaks"].items())
+            + f"; K1 at the builder's {EMB_BUILDER_SHAPE} by card "
+            f"{g['builder_launches']}; K3 scans a block "
+            f"({'yes' if g['scans'] else 'no: the exact product'}); launches "
+            f"{g['launches']}; first swap "
+            f"at {g['first_step']}: max abs err {g['check']['err']:.3e} = "
+            f"{g['check']['steps']:.3f} int8 steps; {g['seconds']:.1f} s")
+    failures = []
+    steps = [[i for i, _ in g["swaps"]] for g in got]
+    if not steps[0] or any(s != steps[0] for s in steps):
+        failures.append(f"swap iterations {steps}")
+    if any(g["first_step"] != got[0]["first_step"] for g in got):
+        failures.append("first swap")
+    failures += [f"rank {r} rows" for r, g in enumerate(got)
+                 if not g["check"]["ok"]]
+    if any(g["fingerprint"] != got[0]["fingerprint"] for g in got):
+        failures.append("replicas")
+    failures += [f"rank {r} losses" for r, g in enumerate(got)
+                 if not g["losses_finite"]]
+    failures += [f"rank {r} block swap" for r, g in enumerate(got)
+                 if not g["block_equal"]]
+    launches = {k: sum(g["launches"][k] for g in got)
+                for k in got[0]["launches"]}
+    # K3 scans a rank's block only above chunk_rows (smaller blocks take
+    # the exact product, as the JAX search does)
+    needed = ["flash_self_attention", "flash_self_attention_backward",
+              "flash_cross_attention", "flash_cross_attention_backward"]
+    if all(g["scans"] for g in got):
+        needed.append("candidate_scan")
+    failures += [f"{k} never launched" for k in needed
+                 if dev.type == "cuda" and launches[k] <= 0]
+    if on_cards:
+        for g in got:
+            trainer = g["devices"][0]
+            if g["builder_launches"].get(trainer, 0) != 0:
+                failures.append(f"K1 at the builder's shape on {trainer}")
+            if not all(g["builder_launches"].get(d, 0) > 0
+                       for d in g["embedder"]):
+                failures.append(f"no builder launch on {g['embedder']}")
+    log(f"{what}: {seconds:.1f} s; swap iterations {steps}")
+    if failures:
+        raise AssertionError(f"{what} failed: {failures}")
+    return dict(ranks=got, launches=launches, seconds=seconds)
+
+
 def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
     """``chip_smoke.py --dp-cards N``: the ranks phase over NCCL, rank r on
     card r, at the flagship widths; prints its results as one JSON line
@@ -3400,13 +3755,27 @@ def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
                              f"{torch.cuda.device_count()} visible")
     _reset_counts()
     res = dp_ranks_phase(_flagship_cfg(), dev, world=world, cards=True)
+    emb = None
+    if world >= 2 * EMB_WORLD:
+        # the disjoint embedder layout: two trainers beside two embedders
+        from emdr2_tpu_torch.config import with_transformers
+        _empty_cache(dev)
+        emb = embedder_phase(with_transformers(
+            _flagship_cfg(), {"remat": False}, {"remat": True}), dev,
+            cards=True)
     summary = {"dp_cards": world, "checks": res["checks"],
                "search": res["search"], "launches": res["launches"],
                "ranks": [{k: g[k] for k in ("openqa_0.1", "dpr_0.1",
                                             "bytes_moved", "seconds")}
                          for g in res["ranks"]],
                "one_card": {k: res["ref"][k] for k in ("openqa_0.1",
-                                                       "dpr_0.1")}}
+                                                       "dpr_0.1")},
+               "embedder": emb and [
+                   {k: g[k] for k in (
+                       "devices", "embedder", "with_embed", "without",
+                       "plain", "pass_s", "per_s", "swaps", "agree_ms",
+                       "block_ms", "peaks", "builder_launches", "check",
+                       "seconds")} for g in emb["ranks"]]}
     log(f"chip_smoke --dp-cards {world} total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
@@ -3730,6 +4099,11 @@ def main() -> int:
     c5 = c5_phase(cfg, tcfg, dev, gen)
     dpa = dp_one_rank_phase(cfg, dev)
     dpb = dp_ranks_phase(cfg, dev)
+    # the asynchronous refresh and prefetch across ranks: two ranks share
+    # the card over gloo, each with its embedder on it (--embed-devices 0)
+    _empty_cache(dev)
+    emb = embedder_phase(tcfg, dev)
+    eml = emb["launches"]
     c5l, dpl = c5["launches"], dict(dpb["launches"])
     for name, n in dpa["launches"].items():
         dpl[name] = dpl.get(name, 0) + n
@@ -3787,6 +4161,7 @@ def main() -> int:
         {"name": "flash_self_attention", "route": "cuda",
          "launches_c5": c5l["flash_self_attention"],
          "launches_dp": dpl["flash_self_attention"],
+         "launches_embedder": eml["flash_self_attention"],
          "launches_engine": eng["flash_self_attention"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:383",
@@ -3815,6 +4190,7 @@ def main() -> int:
         {"name": "flash_self_attention_backward", "route": "cuda",
          "launches_c5": c5l["flash_self_attention_backward"],
          "launches_dp": dpl["flash_self_attention_backward"],
+         "launches_embedder": eml["flash_self_attention_backward"],
          "launches_engine": eng["flash_self_attention_backward"],
          "source": csrc + "flash_self_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:414",
@@ -3832,6 +4208,7 @@ def main() -> int:
         {"name": "flash_cross_attention", "route": "cuda",
          "launches_c5": c5l["flash_cross_attention"],
          "launches_dp": dpl["flash_cross_attention"],
+         "launches_embedder": eml["flash_cross_attention"],
          "launches_engine": eng["flash_cross_attention"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:562",
@@ -3847,6 +4224,7 @@ def main() -> int:
         {"name": "flash_cross_attention_backward", "route": "cuda",
          "launches_c5": c5l["flash_cross_attention_backward"],
          "launches_dp": dpl["flash_cross_attention_backward"],
+         "launches_embedder": eml["flash_cross_attention_backward"],
          "launches_engine": eng["flash_cross_attention_backward"],
          "source": csrc + "flash_cross_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:612",
@@ -3867,6 +4245,7 @@ def main() -> int:
         {"name": "candidate_scan", "route": "cuda",
          "launches_c5": c5l["candidate_scan"],
          "launches_dp": dpl["candidate_scan"],
+         "launches_embedder": eml["candidate_scan"],
          "launches_engine": eng["candidate_scan"],
          "source": csrc + "candidate_scan.cu",
          "replaces": "emdr2_tpu/ops/mips.py:116",
@@ -3893,6 +4272,7 @@ def main() -> int:
         {"name": "decode_cross_attention_int8", "route": "cuda",
          "launches_c5": c5l["decode_cross_attention_int8"],
          "launches_dp": dpl["decode_cross_attention_int8"],
+         "launches_embedder": eml["decode_cross_attention_int8"],
          "launches_engine": eng["decode_cross_attention_int8"],
          "source": csrc + "decode_attention.cu",
          "replaces": "emdr2_tpu/ops/decode_attention.py:105",
@@ -3914,6 +4294,7 @@ def main() -> int:
         {"name": "fid_cross_attention", "route": "cuda",
          "launches_c5": c5l["fid_cross_attention"],
          "launches_dp": dpl["fid_cross_attention"],
+         "launches_embedder": eml["fid_cross_attention"],
          "launches_engine": eng["fid_cross_attention"],
          "source": csrc + "fid_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:68",
@@ -3926,6 +4307,7 @@ def main() -> int:
         {"name": "fid_cross_attention_backward", "route": "cuda",
          "launches_c5": c5l["fid_cross_attention_backward"],
          "launches_dp": dpl["fid_cross_attention_backward"],
+         "launches_embedder": eml["fid_cross_attention_backward"],
          "source": csrc + "fid_attention.cu",
          "replaces": "emdr2_tpu/ops/fid_attention.py:120",
          "launches": eng["fid_cross_attention_backward"],

@@ -119,10 +119,11 @@ class IndexConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The parallel layout. ``dp`` ranks of data parallelism, one process
-    each; ``tp`` (tensor parallelism) and ``embed_devices`` (an embedder
-    group disjoint from the trainers) keep the JAX package's fields but
-    only their one-device values are ported (``parallel.mesh``)."""
+    """The parallel layout (``parallel.mesh``). ``dp`` ranks of data
+    parallelism, one process and one card each; ``embed_devices`` cards
+    after them that re-embed the evidence for the ranks (0: each rank's
+    embedder shares its card); ``tp`` (tensor parallelism) keeps the JAX
+    package's field, and only 1 is ported."""
 
     dp: int = 1
     tp: int = 1

@@ -7,7 +7,11 @@ plain C interface, on first use, into ``emdr2_tpu_torch/_build/``
 library is loaded with ctypes: pointers and the stream are passed as
 ``c_void_p``, sizes as ``c_int``, and every entry point returns the
 ``cudaGetLastError()`` of its launch, which :func:`check` turns into an
-exception. A missing ``nvcc`` or a failed build raises with the compiler's
+exception. :func:`launch` calls an entry point with the tensors' card as
+the calling thread's current device: the launch and its
+``cudaFuncSetAttribute`` go to the runtime's current device, which in a
+thread of its own (an embedder on another card than its process's trainer)
+need not be the tensors'. A missing ``nvcc`` or a failed build raises with the compiler's
 output; nothing falls back.
 """
 
@@ -22,6 +26,8 @@ import subprocess
 import threading
 import time
 from typing import Optional
+
+import torch
 
 _OPS = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_OPS, "csrc")
@@ -153,12 +159,27 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(wrapper, counter: str = "launches") -> None:
-    """Add one to ``wrapper.launches`` (or to the attribute ``counter``)
-    where a wrapper has launched its kernel; under the lock, so no count is
-    lost between threads."""
+def count_launch(wrapper, counter: str = "launches", key=None) -> None:
+    """Add one to ``wrapper.launches`` (or to the attribute ``counter``;
+    with ``key``, to that entry of the dict ``counter``) where a wrapper
+    has launched its kernel; under the lock, so no count is lost between
+    threads."""
     with _lock:
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        if key is None:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        else:
+            counts = getattr(wrapper, counter)
+            counts[key] = counts.get(key, 0) + 1
+
+
+def launch(entry: str, what: str, device: torch.device, *args) -> None:
+    """Call the library's ``entry`` with ``device`` (the tensors' card) as
+    the calling thread's current CUDA device, and raise (naming ``what``)
+    if the launch failed."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args)
+    check(err, what)
 
 
 def check(err: int, what: str) -> None:

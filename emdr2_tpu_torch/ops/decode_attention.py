@@ -301,7 +301,6 @@ def _launch(q, k8, kscale, v8, vscale, kv_bias,
         if t.data_ptr() % 16:
             raise ValueError("decode_cross_attention_int8: inputs must be "
                              "16-byte aligned")
-    lib = build.load()
     stages_per_block, n_blocks = plan or split_plan(B, nh, Lk, q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -309,12 +308,12 @@ def _launch(q, k8, kscale, v8, vscale, kv_bias,
         rows = min(MAX_KERNEL_ROWS, R - r0)
         part = torch.empty((B, nh, n_blocks, rows, hd + 2),
                            dtype=torch.float32, device=q.device)
-        err = lib.emdr2_decode_attention_int8(
-            q.data_ptr(), k8.data_ptr(), kscale.data_ptr(), v8.data_ptr(),
-            vscale.data_ptr(), kv_bias.data_ptr(), part.data_ptr(),
-            out.data_ptr(), B, R, r0, rows, nh, hd, Lk, stages_per_block,
-            n_blocks, stream)
-        build.check(err, "decode_cross_attention_int8")
+        build.launch(
+            "emdr2_decode_attention_int8", "decode_cross_attention_int8",
+            q.device, q.data_ptr(), k8.data_ptr(), kscale.data_ptr(),
+            v8.data_ptr(), vscale.data_ptr(), kv_bias.data_ptr(),
+            part.data_ptr(), out.data_ptr(), B, R, r0, rows, nh, hd, Lk,
+            stages_per_block, n_blocks, stream)
         build.count_launch(decode_cross_attention_int8)
     return out
 

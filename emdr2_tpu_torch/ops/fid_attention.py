@@ -262,12 +262,14 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
     out = torch.empty((B, L, H), dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty((B, nh, 2, L), dtype=torch.float32,
                          device=qkv.device) if with_stats else None)
-    err = build.load().emdr2_flash_self_attention_bf16(
-        qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
+    build.launch(
+        "emdr2_flash_self_attention_bf16", "flash_self_attention",
+        qkv.device, qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
         stats.data_ptr() if stats is not None else None, B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
-    build.check(err, "flash_self_attention")
     build.count_launch(flash_self_attention)
+    build.count_launch(flash_self_attention, "launches_by_shape",
+                       (str(qkv.device), B, L))
     return out, stats
 
 
@@ -298,11 +300,13 @@ def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
                          f"{tuple(dout.shape)}, stats {tuple(stats.shape)}")
     delta = torch.empty((B, nh, L), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    err = build.load().emdr2_flash_self_attention_bwd_bf16(
-        qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, L, nh, 64,
+    build.launch(
+        "emdr2_flash_self_attention_bwd_bf16",
+        "flash_self_attention_backward",
+        qkv.device, qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+        dqkv.data_ptr(), B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
-    build.check(err, "flash_self_attention_backward")
     build.count_launch(flash_self_attention_backward)
     return dqkv
 
@@ -626,12 +630,13 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
                                dtype=torch.float32, device=q.device)
         part_ml = torch.empty((n_splits, B, nh, Lq, 2), dtype=torch.float32,
                               device=q.device)
-    err = build.load().emdr2_flash_cross_attention_bf16(
-        q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), part_acc.data_ptr() if n_splits > 1 else None,
+    build.launch(
+        "emdr2_flash_cross_attention_bf16", "flash_cross_attention",
+        q.device, q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
+        part_acc.data_ptr() if n_splits > 1 else None,
         part_ml.data_ptr() if n_splits > 1 else None, B, Lq, Lk, nh, 64,
         key_chunk, n_splits, *_dropout_args(seed, rate), _stream(q))
-    build.check(err, "flash_cross_attention")
     build.count_launch(flash_cross_attention)
     return out, lse
 
@@ -686,13 +691,14 @@ def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
                            device=q.device) if n_runs > 1 else None)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
-    err = build.load().emdr2_flash_cross_attention_bwd_bf16(
-        q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(), lse.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+    build.launch(
+        "emdr2_flash_cross_attention_bwd_bf16",
+        "flash_cross_attention_backward",
+        q.device, q.data_ptr(), kv.data_ptr(), kv_bias.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dq_part.data_ptr() if dq_part is not None else None, dq.data_ptr(),
         dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk, n_runs,
         *_dropout_args(seed, rate), _stream(q))
-    build.check(err, "flash_cross_attention_backward")
     build.count_launch(flash_cross_attention_backward)
     return dq, dkv
 
@@ -888,11 +894,12 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
     kv_bias = kv_bias.contiguous()
     out = torch.empty((B, Lq, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * nh, Lq, 1), dtype=torch.float32, device=q.device)
-    err = build.load().emdr2_fid_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), *strides, B, Lq, Lk, nh, hd,
+    build.launch(
+        "emdr2_fid_attention_bf16", "fid_cross_attention",
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), *strides, B, Lq,
+        Lk, nh, hd,
         key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
-    build.check(err, "fid_cross_attention")
     build.count_launch(fid_cross_attention)
     return out, lse
 
@@ -948,13 +955,14 @@ def fid_cross_attention_backward(q, k, v, kv_bias, lse, out, dout,
     dq, dk, dv = grads
     grad_strides = [x for name, t in (("dq", dq), ("dk", dk), ("dv", dv))
                     for x in _head_strides(name, t)]
-    err = build.load().emdr2_fid_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(),
-        lse.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+    build.launch(
+        "emdr2_fid_attention_bwd_bf16", "fid_cross_attention_backward",
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_bias.data_ptr(), lse.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, *grad_strides,
         B, Lq, Lk, nh, hd, key_chunk, *_dropout_args(seed, dropout_rate),
         _stream(q))
-    build.check(err, "fid_cross_attention_backward")
     build.count_launch(fid_cross_attention_backward)
     return dq, dk, dv
 
@@ -1051,6 +1059,8 @@ def fid_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor, nh: int,
 # kernel launches since the last reset (a run proves its path went through
 # each kernel by reading these)
 flash_self_attention.launches = 0
+# ... and by (device, B, L): which card ran which shape
+flash_self_attention.launches_by_shape = {}
 flash_self_attention_backward.launches = 0
 flash_cross_attention.launches = 0
 flash_cross_attention_backward.launches = 0

@@ -183,19 +183,14 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     cols = cands_per_group * (N // G)
     vals = torch.empty((nq, cols), dtype=torch.float32, device=index.device)
     idx = torch.empty((nq, cols), dtype=torch.int32, device=index.device)
-    lib = build.load()
-    i8 = index.dtype == torch.int8
-    if route == "tensor_core":
-        fn = (lib.emdr2_candidate_scan_mma_i8 if i8
-              else lib.emdr2_candidate_scan_mma_bf16)
-    else:
-        fn = (lib.emdr2_candidate_scan_i8 if i8
-              else lib.emdr2_candidate_scan_bf16)
-    err = fn(queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
-             cands_per_group,
-             torch.cuda.current_stream(index.device).cuda_stream)
-    build.check(err, f"candidate_scan ({route})")
+    entry = ("emdr2_candidate_scan_"
+             + ("mma_" if route == "tensor_core" else "")
+             + ("i8" if index.dtype == torch.int8 else "bf16"))
+    build.launch(entry, f"candidate_scan ({route})", index.device,
+                 queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
+                 cands_per_group,
+                 torch.cuda.current_stream(index.device).cuda_stream)
     build.count_launch(candidate_scan)
     if route == "tensor_core":
         build.count_launch(candidate_scan, "tensor_core_launches")

@@ -11,5 +11,6 @@ from emdr2_tpu_torch.parallel.distributed import (  # noqa: F401
 from emdr2_tpu_torch.parallel.mesh import (  # noqa: F401
     DataParallel,
     check_mesh_config,
+    embed_devices,
     row_range,
 )

@@ -10,9 +10,17 @@ gradients with the others before the optimizer (``training/step.py``).
 is the one-rank group of a single process, whose collectives return their
 input without a call.
 
-Tensor parallelism (``MeshConfig.tp > 1``) and an embedder group disjoint
-from the trainers (``MeshConfig.embed_devices > 0``) are not ported yet
-(ROADMAP A3); ``check_mesh_config`` refuses them.
+The embedder group (``MeshConfig.embed_devices > 0``, the JAX
+``build_meshes``' disjoint sub-mesh, the reference's indexer ranks): rank r
+trains on card r and the next ``embed_devices`` visible cards re-embed the
+evidence, no card doing both. The function ``embed_devices`` hands rank r
+its share of them: ``embed_devices / dp`` cards of its own when there are at
+least as many embedder cards as ranks, else one card that ``dp /
+embed_devices`` ranks share. Each rank's embedder works for that rank
+alone (``training/async_refresh.py``) and issues no collective, so the
+group needs no process group of its own. Tensor parallelism
+(``MeshConfig.tp > 1``) is not ported yet (ROADMAP A3);
+``check_mesh_config`` refuses it.
 """
 
 from __future__ import annotations
@@ -30,22 +38,56 @@ from emdr2_tpu_torch.parallel import distributed as dist_lib
 GRAD_BUCKET_BYTES = 32 * 2 ** 20
 
 
-def check_mesh_config(cfg: MeshConfig, world_size: int) -> None:
-    """Raise unless ``cfg`` is a pure data-parallel layout over
-    ``world_size`` processes."""
+def check_mesh_config(cfg: MeshConfig, world_size: int,
+                      n_cards: Optional[int] = None) -> None:
+    """Raise unless ``cfg`` is a data-parallel layout over ``world_size``
+    processes, with an embedder group that divides over its ranks and,
+    given ``n_cards`` (the visible cards; None on the CPU, where every
+    device is the host), fits beside the trainers."""
     if cfg.tp != 1:
         raise NotImplementedError(
             f"--tp {cfg.tp}: tensor parallelism (vocab-parallel "
             f"cross-entropy, head-sharded kernels) is not ported yet "
             f"(ROADMAP A3); use --tp 1")
-    if cfg.embed_devices != 0:
-        raise NotImplementedError(
-            f"--embed-devices {cfg.embed_devices}: an embedder process "
-            f"group disjoint from the trainers is not ported yet (ROADMAP "
-            f"A3); use --embed-devices 0")
+    dp, embed = cfg.dp, cfg.embed_devices
+    if embed < 0:
+        raise ValueError(f"--embed-devices {embed} must be 0 or more")
+    if embed and embed % dp and dp % embed:
+        raise ValueError(
+            f"--embed-devices {embed} does not divide over --dp {dp}: the "
+            f"embedder cards must be a multiple of the ranks (each rank "
+            f"takes embed-devices / dp cards) or divide them (dp / "
+            f"embed-devices ranks share a card)")
+    if embed and n_cards is not None and dp + embed > n_cards:
+        raise ValueError(
+            f"--dp {dp} --embed-devices {embed} needs dp + embed-devices = "
+            f"{dp + embed} visible cards (trainers on cards 0..{dp - 1}, "
+            f"embedders after them), {n_cards} visible")
     if cfg.dp != world_size:
         raise ValueError(f"--dp {cfg.dp} needs {cfg.dp} processes, one a "
                          f"rank; this launch has {world_size}")
+
+
+def embed_devices(cfg: MeshConfig, rank: int,
+                  device: torch.device) -> List[torch.device]:
+    """Rank ``rank``'s embedder devices beside its trainer ``device``
+    (card ``rank``): cards ``dp + rank * E/dp ...`` of its own when E >=
+    dp, else card ``dp + rank // (dp/E)``, shared; the trainer's own card
+    without an embedder group; on the CPU as many CPU devices (the
+    layout's code runs unchanged there). The JAX ``build_meshes`` puts the
+    embedder sub-mesh on the devices after the train mesh in the same
+    way."""
+    dp, embed = cfg.dp, cfg.embed_devices
+    if embed == 0:
+        return [device]
+    if embed >= dp:
+        per = embed // dp
+        idx = [dp + rank * per + i for i in range(per)]
+    else:
+        idx = [dp + rank // (dp // embed)]
+    if device.type != "cuda":
+        return [device] * len(idx)
+    return [torch.device("cuda", i) for i in idx]
 
 
 def row_range(n_padded: int, rank: int, world_size: int) -> Tuple[int, int]:

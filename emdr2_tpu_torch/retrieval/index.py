@@ -25,6 +25,10 @@ device-wide synchronize:
   ``update`` drops them while the search's kernel is still queued;
 - ``update`` makes its stream wait for the ``ready`` event of a tensor
   made on another stream before reading it, and records its stream on it;
+  a tensor on another card (an embedder's, ``update_from_process_local``)
+  is read by the copy on that card's current stream, which waits and is
+  recorded instead, and PyTorch's copy makes the trainer's stream wait for
+  the copy;
 - ``update`` records an event after writing the new (rows, scales), and a
   search waits for it before reading them.
 """
@@ -109,13 +113,17 @@ class ShardedEvidenceIndex:
     def scales(self) -> Optional[torch.Tensor]:
         return self._data[1]
 
-    def _to_device(self, embeddings):
+    def local_block(self, embeddings) -> Tuple[torch.Tensor,
+                                               Optional[torch.Tensor]]:
         """This rank's rows (numpy on the host, or a tensor anywhere; its
-        real rows or its whole padded block) -> a fresh (rows, scales,
-        written) triple on ``self.device``; the cast or quantization runs
-        where the embeddings are. Padded input keeps its tail rows (the
-        search masks them) unless the index is quantized: then they are
-        zeroed, so they do not enter the last group's scale."""
+        real rows or its whole padded block) -> (rows, scales) as the index
+        holds them, computed where the embeddings are: padded to
+        ``shard_rows``, cast, or quantized to int8 rows and group scales.
+        Padded input keeps its tail rows (the search masks them) unless the
+        index is quantized: then they are zeroed, so they do not enter the
+        last group's scale. An embedder on a card of its own runs this
+        there, so an int8 block crosses to the trainer's card at half the
+        bytes of its bf16 rows (``update_from_process_local``)."""
         t = torch.as_tensor(embeddings)
         start, stop = self.process_row_range()
         real = max(0, min(self.n_real, stop) - start)
@@ -124,17 +132,26 @@ class ShardedEvidenceIndex:
         if t.shape[0] != self.shard_rows:
             t = F.pad(t, (0, 0, 0, self.shard_rows - t.shape[0]))
         if self.quantized:
-            q8, scales = quantize_int8(t, self.cfg.group_size)
-            rows, scales = (q8.to(self.device).contiguous(),
-                            scales.to(self.device))
-        else:
-            rows, scales = (t.to(self.cfg.dtype).to(self.device).contiguous(),
-                            None)
+            return quantize_int8(t, self.cfg.group_size)
+        return t.to(self.cfg.dtype), None
+
+    def _place(self, block):
+        """(rows, scales) -> a fresh (rows, scales, written) triple on
+        ``self.device``; ``written`` (CUDA only) is recorded after it."""
+        rows, scales = block
+        rows = rows.to(self.device).contiguous()
+        if scales is not None:
+            scales = scales.to(self.device)
         written = None
         if self.device.type == "cuda":
             written = torch.cuda.Event()
             written.record(torch.cuda.current_stream(self.device))
         return rows, scales, written
+
+    def _to_device(self, embeddings):
+        """This rank's rows -> (rows, scales, written) on ``self.device``;
+        the cast or quantization runs where the embeddings are."""
+        return self._place(self.local_block(embeddings))
 
     def update(self, embeddings: Union[np.ndarray, torch.Tensor],
                passage_ids: Optional[np.ndarray] = None,
@@ -155,9 +172,21 @@ class ShardedEvidenceIndex:
     def update_from_process_local(self, local_rows, passage_ids=None,
                                   ready=None) -> None:
         """Swap in this rank's rows alone (``process_row_range()``: its
-        real rows or the whole padded block); no rows cross between ranks.
-        The refresh under data parallelism, where each rank embeds its own
-        range."""
+        real rows or the whole padded block), or the (rows, scales) pair
+        ``local_block`` made of them; no rows cross between ranks. The
+        refresh under data parallelism, where each rank embeds its own
+        range. A block on another card (an embedder's) is copied card to
+        card after ``ready``, the event after its last write."""
+        if isinstance(local_rows, tuple):
+            rows, scales = local_rows
+            if (tuple(rows.shape) != (self.shard_rows, self.cfg.embed_dim)
+                    or (scales is None) == self.quantized):
+                raise ValueError(f"a block of {tuple(rows.shape)} rows "
+                                 f"(scales {scales is not None}): want "
+                                 f"{self.shard_rows} x {self.cfg.embed_dim}"
+                                 f", scales {self.quantized}")
+            self._swap(local_rows, passage_ids, ready, prepared=True)
+            return
         start, stop = self.process_row_range()
         real = max(0, min(self.n_real, stop) - start)
         if (local_rows.shape[0] not in (real, stop - start)
@@ -167,16 +196,26 @@ class ShardedEvidenceIndex:
                              f"{self.cfg.embed_dim}")
         self._swap(local_rows, passage_ids, ready)
 
-    def _swap(self, embeddings, passage_ids, ready) -> None:
+    def _swap(self, embeddings, passage_ids, ready,
+              prepared: bool = False) -> None:
+        """Make the tensors of ``embeddings`` (rows, or a prepared (rows,
+        scales) pair) safe to read here, then place them. A CUDA tensor is
+        read by the copy on the current stream of its own card (the
+        trainer's stream when it lives there): that stream waits for
+        ``ready`` and is recorded on the tensor, whose maker may free it as
+        soon as this returns; a copy from another card also makes the
+        trainer's stream wait for it (PyTorch's copy between devices)."""
         if passage_ids is not None:
             self.row_to_passage_id = passage_ids
-        if isinstance(embeddings, torch.Tensor) and embeddings.is_cuda:
-            stream = torch.cuda.current_stream(embeddings.device)
-            if ready is not None:
-                stream.wait_event(ready)
-            # its maker may free it as soon as this returns
-            embeddings.record_stream(stream)
-        self._data = self._to_device(embeddings)
+        parts = embeddings if prepared else (embeddings,)
+        for t in parts:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                stream = torch.cuda.current_stream(t.device)
+                if ready is not None:
+                    stream.wait_event(ready)
+                t.record_stream(stream)
+        self._data = (self._place(embeddings) if prepared
+                      else self._to_device(embeddings))
 
     def search(self, query_embeds: torch.Tensor, k: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:

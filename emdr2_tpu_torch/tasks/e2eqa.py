@@ -25,11 +25,15 @@ reduces over the ranks, and the metrics are the global batch's.
 every rank, each feeding its contiguous slice (``_slice_qa_batch``), and
 merge the results: the losses through their global normalizers, the
 per-row scores through an all-gather and a per-uid dedupe.
-``training/engine.py`` loops over ``train_step``; with its prefetcher (one
-process only) a worker thread runs stages A and B of the next batches on a
+``training/engine.py`` loops over ``train_step``. With its prefetcher in
+one process a worker thread runs stages A and B of the next batches on a
 stream of its own, and embeds the queries with a snapshot of the query
 tower (``enable_prefetch_snapshots``), because the optimizer updates the
-live tower in place.
+live tower in place. Under data parallelism the search's collectives
+stay on the main thread: it queues stage A of a later batch
+(``search_async``) right after a step, with the live tower in stream
+order, and a worker waits for the result and runs stage B
+(``build_device_batch(retrieved=...)``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,23 @@ from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from emdr2_tpu_torch.utils.metrics import (exact_match_score,
                                            metric_max_over_ground_truths)
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
+
+
+class PendingSearch:
+    """A search queued by ``E2EQATask.search_async``: its row ids and
+    scores on their way to the host, and the event after their copy."""
+
+    def __init__(self, index, rows: torch.Tensor, scores: torch.Tensor,
+                 done: Optional[torch.cuda.Event]):
+        self.index, self.rows, self.scores, self.done = (index, rows, scores,
+                                                         done)
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(passage ids, scores) on the host, once the copy has landed."""
+        if self.done is not None:
+            self.done.synchronize()
+        return (self.index.lookup_passage_ids(self.rows.numpy()),
+                self.scores.numpy())
 
 
 class E2EQATask:
@@ -210,17 +231,30 @@ class E2EQATask:
     # --------------------------------------------------------------- stage A
 
     @torch.no_grad()
-    def retrieve(self, query_bert_ids: np.ndarray
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-        """Fresh query embeddings (from the snapshot when one is set) ->
-        MIPS top-k -> (passage ids, scores) on the host. Fetches K+1 when
-        trivial docs must be dropped."""
+    def search_async(self, query_bert_ids: np.ndarray) -> "PendingSearch":
+        """The device part of stage A, queued on the calling thread's
+        current stream: fresh query embeddings (from the snapshot when one
+        is set) -> the MIPS top-k (under data parallelism
+        ``sharded_mips_topk`` and its collectives) -> the rows and scores
+        copied toward the host. ``PendingSearch.result()`` waits for them,
+        and issues nothing on the device. Fetches K+1 when trivial docs
+        must be dropped."""
         cfg = self.cfg
         k = cfg.index.topk + (0 if cfg.index.allow_trivial_doc else 1)
         q = self._embed_query(self._ids(query_bert_ids))
         scores, rows = self.index.search(q, k=k)
-        return (self.index.lookup_passage_ids(rows.cpu().numpy()),
-                scores.cpu().numpy())
+        done = None
+        if rows.is_cuda:
+            rows = rows.to("cpu", non_blocking=True)
+            scores = scores.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return PendingSearch(self.index, rows, scores, done)
+
+    def retrieve(self, query_bert_ids: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Stage A -> (passage ids, scores) on the host."""
+        return self.search_async(query_bert_ids).result()
 
     # --------------------------------------------------------------- stage B
 

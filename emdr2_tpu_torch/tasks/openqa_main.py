@@ -2,7 +2,9 @@
 (port of ``emdr2_tpu/tasks/openqa_main.py:run_openqa``), on one device or
 over a data-parallel group (``dp``): each rank holds its block of the index
 rows, feeds its slice of every global batch and evaluates its slice; rank
-0 writes the checkpoints and prints.
+0 writes the checkpoints and prints. With ``--async-indexer`` each rank's
+embedder re-embeds its block on the rank's embedder cards
+(``--embed-devices``) or on its own card.
 """
 
 from __future__ import annotations
@@ -116,15 +118,22 @@ def run_openqa(args, cfg, dp=None) -> int:
 
     refresher = None
     if args.async_indexer:
-        builder = EvidenceIndexBuilder(cfg, model, corpus, t5_tok.cls_id,
-                                       t5_tok.sep_id, t5_tok.pad_id)
-        # one card holds the trainer and the embedder: the fresh rows wait
-        # in host RAM and are uploaded at the swap, rather than sitting on
-        # the card beside the live index and the step for a whole pass (the
-        # JAX rule: zero-copy only with a disjoint embedder)
+        # the embedder's tower lives on the rank's embedder cards
+        # (--embed-devices; placed there by the refresher at start), or on
+        # its own card without them
+        disjoint = args.embed_devices > 0
+        builder = EvidenceIndexBuilder(
+            cfg, model, corpus, t5_tok.cls_id, t5_tok.sep_id, t5_tok.pad_id,
+            devices=getattr(args, "embedder_devices", None) or [device])
+        # the JAX rule: zero-copy only with a disjoint embedder, whose fresh
+        # block waits on its own card; on a card it shares with the
+        # trainer it would sit beside the live index and the step for a
+        # whole pass, so the rows wait in host RAM and are uploaded at the
+        # swap
         refresher = AsyncIndexRefresher(
             builder, index, reload_interval=cfg.train.index_reload_interval,
-            zero_copy=False)
+            zero_copy=disjoint,
+            on_refresh=lambda it: say(f" index refreshed at iteration {it}"))
 
     def eval_cb(iteration):
         if valid_ds is None:

@@ -9,14 +9,18 @@ takes the place of the JAX CLI's platform environment and ``--rng-impl``.
 Data parallelism: one process per rank, launched by hand, N of
 
     python -m emdr2_tpu_torch.tasks.run ... --num-processes N \
-        --process-id I --coordinator-address HOST:PORT [--dp N]
+        --process-id I --coordinator-address HOST:PORT [--dp N] \
+        [--embed-devices E]
 
 (or the ``EMDR2_COORDINATOR`` / ``EMDR2_NUM_PROCESSES`` /
 ``EMDR2_PROCESS_ID`` variables). Rank I takes ``cuda:I`` of the visible
 cards (modulo their count) and NCCL, or gloo with ``--device cpu``;
 ``--dp`` defaults to the process count and must equal it. The global batch is ``--batch-size`` x
-dp, as in the JAX CLI. ``--tp`` above 1 and ``--embed-devices`` above 0
-are refused (ROADMAP A3). The kernels' limits
+dp, as in the JAX CLI. ``--embed-devices E`` puts the OPENQA refresher's
+embedders on the E cards after the N trainers' (``parallel.mesh
+.embed_devices``; E a multiple or a divisor of N, N + E cards
+visible): the reference's 8 trainers beside 8 indexers. ``--tp`` above 1
+is refused (ROADMAP A3). The kernels' limits
 (``ops.fid_attention.kernel_limits``) are checked on the flags before
 anything is built.
 """
@@ -136,7 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tp", type=int, default=1,
                    help="tensor parallelism: only 1 is ported")
     g.add_argument("--embed-devices", type=int, default=0,
-                   help="a disjoint embedder group: only 0 is ported")
+                   help="cards after the trainers' that re-embed the "
+                        "evidence for --async-indexer (0: each rank's own "
+                        "card); a multiple of --dp or a divisor of it")
     g.add_argument("--coordinator-address", default=None,
                    help="host:port of the rendezvous (rank 0's)")
     g.add_argument("--num-processes", type=int, default=None,
@@ -189,12 +195,14 @@ def setup_data_parallel(args):
     """Join the launch (``parallel.init_distributed``, with the device's
     backend) and check the layout -> the ``DataParallel`` group
     (``DataParallel.local()`` for one process). Sets ``args.device`` to
-    this rank's device."""
+    this rank's device and ``args.embedder_devices`` to its embedder's
+    (``parallel.embed_devices``: the cards after the trainers', or the
+    rank's own without ``--embed-devices``)."""
     import torch
 
     from emdr2_tpu_torch.config import MeshConfig
     from emdr2_tpu_torch.parallel import (DataParallel, check_mesh_config,
-                                          init_distributed)
+                                          embed_devices, init_distributed)
     dev = torch.device(args.device)
     if (dev.type == "cuda" and dev.index is None
             and args.process_id is not None and torch.cuda.is_available()):
@@ -206,9 +214,12 @@ def setup_data_parallel(args):
           else DataParallel.local())
     if args.dp is None:
         args.dp = dp.world_size
-    check_mesh_config(MeshConfig(dp=args.dp, tp=args.tp,
-                                 embed_devices=args.embed_devices),
-                      dp.world_size)
+    mesh = MeshConfig(dp=args.dp, tp=args.tp,
+                      embed_devices=args.embed_devices)
+    check_mesh_config(mesh, dp.world_size,
+                      torch.cuda.device_count() if dev.type == "cuda"
+                      else None)
+    args.embedder_devices = embed_devices(mesh, dp.rank, dev)
     return dp
 
 

@@ -18,36 +18,44 @@ so the index and the embedder's weights are always one refresh interval
 stale (the paper's stale-index approximation), and ``maybe_swap`` never
 blocks the trainer.
 
-Data parallelism (the index's group ``index.dp``): ``SynchronousRefresher``
-has each rank embed its own block of index rows
-(``embed_corpus(row_partition=)``, all of them on one rank) and swap it in
-locally (``update_from_process_local``): no rows cross between ranks. The
-asynchronous refresher refuses more than one rank: its embedder would
-share the trainers' devices and issue collectives beside theirs, which
-the JAX package refuses too; it needs an embedder group of its own
-(``--embed-devices``, not ported yet, ROADMAP A3).
+Where the embedder runs: on the builder's devices. With an embedder group
+(``--embed-devices``, ``parallel.mesh.embed_devices``) those are cards of
+their own, the reference's indexer ranks; without one, the trainer's card.
+``_publish_weights`` copies the live tower onto them
+(``EvidenceIndexBuilder.place_params``, card to card on the trainer's
+stream) and records an event there; the embedder's streams wait for it
+before their first read, and the next copy comes only after the worker has
+finished reading (its result is complete when it is posted). The result:
+by default fp16 rows in host RAM, uploaded at the swap (``embed_corpus``);
+with ``zero_copy`` (the default on a disjoint embedder, as in the JAX
+CLI) the block stays on the embedder's card, cast or quantized there
+(``ShardedEvidenceIndex.local_block``: int8 rows and scales, half the bytes
+of bf16), and the swap copies it card to card after the event of its last
+write (``update_from_process_local``).
 
-Per process, one card. The embedder is a thread on a CUDA stream of its
-own (the pattern of ``training/prefetch.py``), so its kernels run beside
-the train step's. Weights: the optimizer updates the live tower in place,
-so ``_publish_weights`` copies it (device to device, on the trainer's
-stream) into a snapshot module and records an event; the worker's stream
-waits for that event before its first read, and the next copy comes only
-after the worker has finished reading (its result is complete when it is
-posted). Swap: by default the rows come back to host RAM in fp16 and are
-uploaded at the swap (``embed_corpus``); ``zero_copy=True`` keeps them on
-the device (``embed_corpus_device``) and hands ``ShardedEvidenceIndex
-.update`` the tensor with the event after its last write. ``stop`` cancels
-a pass in flight between two batches: its result would be dropped anyway.
+Data parallelism (the index's group ``index.dp``): each rank's embedder
+embeds that rank's block of index rows only (``process_row_range()``) and
+issues no collective, so it may run beside the trainers' collectives. The
+swap is decided together: at an interval boundary every rank all-reduces
+"my block is ready" (and "my embedder failed") on the trainer thread, in
+program order with the step's collectives, and all ranks swap and publish
+fresh weights at the same step, or none does. Otherwise one rank would
+search a newer index than another and ``sharded_mips_topk`` would merge
+rows of two versions. The JAX package gets the common step from its single
+controller; the reference from its ``NEW_INDEX_READY`` broadcast.
+
+``SynchronousRefresher`` has each rank embed its own block inline with the
+live weights and swap it in (no overlap): the baseline the asynchronous
+refresher is held to. ``stop`` cancels a pass in flight between two
+batches: its result would be dropped anyway.
 """
 
 from __future__ import annotations
 
 import contextlib
-import copy
 import threading
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -65,33 +73,26 @@ class AsyncIndexRefresher:
                  index: ShardedEvidenceIndex, reload_interval: int,
                  extract_retriever: Callable[[Any], Any] = context_tower,
                  on_refresh: Optional[Callable[[int], None]] = None,
-                 zero_copy: bool = False):
+                 zero_copy: Optional[bool] = None):
         """``extract_retriever`` maps the live model to the module the
         builder embeds with (its context tower); that module is what the
-        snapshot copies. ``zero_copy``: keep the fresh rows on the device
-        (about ``n_padded x d`` in ``cfg.index.dtype`` beside the live
-        index for the whole pass) instead of host RAM. An index held by
-        more than one rank is refused (module docstring)."""
-        world = index.dp.world_size
-        if world > 1:
-            raise NotImplementedError(
-                f"the asynchronous index refresher with {world} "
-                f"data-parallel ranks: its embedder would share the "
-                f"trainers' devices and race their collectives; it needs "
-                f"a disjoint embedder group (--embed-devices, not ported "
-                f"yet, ROADMAP A3). Use the synchronous refresher")
+        snapshot copies. ``zero_copy``: keep the fresh block on the
+        embedder's device (about ``shard_rows x d`` in the index's form
+        beside what that device holds, for the whole pass) instead of host
+        RAM; default: when the builder's device is not the index's."""
         self.builder = builder
         self.index = index
         self.reload_interval = reload_interval
         self.extract = extract_retriever
         self.on_refresh = on_refresh
-        self.zero_copy = zero_copy
+        self.zero_copy = (builder.device != index.device if zero_copy is None
+                          else zero_copy)
         self._cuda = builder.device.type == "cuda"
 
-        self._snapshot: Optional[torch.nn.Module] = None
+        self._snapshot: Optional[List[torch.nn.Module]] = None
         self._published: Optional[torch.cuda.Event] = None
         self._weights_ready = threading.Event()
-        self._result = None                  # (rows, ready event or None)
+        self._result = None                  # (block or rows, ready event)
         self._result_lock = threading.Lock()
         self._stop = threading.Event()
         self._last_reload_step = 0
@@ -117,32 +118,47 @@ class AsyncIndexRefresher:
     @torch.no_grad()
     def _publish_weights(self, model) -> None:
         live = self.extract(model)
-        if self._snapshot is None:
-            # a Parameter's deepcopy leaves its .grad behind
-            self._snapshot = copy.deepcopy(live).requires_grad_(False).eval()
-        else:
-            torch._foreach_copy_(list(self._snapshot.parameters()),
-                                 list(live.parameters()))
+        self._snapshot = self.builder.place_params(live, self._snapshot)
         if self._cuda:
+            # after the copies, on the stream that updates the live tower
             self._published = torch.cuda.Event()
-            self._published.record(
-                torch.cuda.current_stream(self.builder.device))
+            self._published.record(torch.cuda.current_stream(
+                next(live.parameters()).device))
         self._weights_ready.set()
 
+    def _agree(self, ready: bool) -> bool:
+        """Whether every rank's block is ready (one all-reduce on the
+        trainer thread under data parallelism); raises on every rank if
+        any rank's embedder failed."""
+        dp = self.index.dp
+        failed = self.error is not None
+        if dp.world_size > 1:
+            flags = dp.all_reduce_sum_(torch.tensor(
+                [float(not ready), float(failed)]))
+            ready, any_failed = bool(flags[0] == 0), bool(flags[1] > 0)
+        else:
+            any_failed = failed
+        if any_failed:
+            raise RuntimeError("async embedder failed" + (
+                "" if failed else " on another rank")) from self.error
+        return ready
+
     def maybe_swap(self, step: int, model) -> bool:
-        """Call every train step. At an interval boundary, if the embedder
-        has finished, swap the index and hand over fresh weights; never
-        waits for the embedder."""
-        if self.error is not None:
+        """Call every train step, on every rank at the same steps. At an
+        interval boundary, if every rank's embedder has finished, swap the
+        index and hand over fresh weights; never waits for an embedder."""
+        if self.error is not None and self.index.dp.world_size == 1:
             raise RuntimeError("async embedder failed") from self.error
         if step - self._last_reload_step < self.reload_interval:
             return False
         with self._result_lock:
-            result, self._result = self._result, None
-        if result is None:
+            ready = self._result is not None
+        if not self._agree(ready):
             return False
-        rows, ready = result
-        self.index.update(rows, ready=ready)
+        with self._result_lock:
+            result, self._result = self._result, None
+        block, ready_event = result
+        self.index.update_from_process_local(block, ready=ready_event)
         self._last_reload_step = step
         self.refresh_count += 1
         self._publish_weights(model)
@@ -177,40 +193,45 @@ class AsyncIndexRefresher:
         if self._stop.is_set():
             raise _Cancelled()
 
-    def _embed_pass(self, stream) -> None:
-        if stream is not None:
+    def _embed_pass(self, streams) -> None:
+        for stream in streams:
             stream.wait_event(self._published)
+        part = self.index.process_row_range()
+        ready = None
         if self.zero_copy:
             rows = self.builder.embed_corpus_device(
-                self._snapshot, self.index.n_padded,
-                progress=self._check_stop)
-            ready = None
-            if stream is not None:
+                self._snapshot, progress=self._check_stop,
+                row_partition=part)
+            # cast or quantized where the rows are: the embedder's card
+            block = self.index.local_block(rows)
+            if streams:
                 ready = torch.cuda.Event()
-                ready.record(stream)
+                ready.record(torch.cuda.current_stream(self.builder.device))
                 # the result is posted complete: maybe_swap never waits,
                 # and the next weights may overwrite the snapshot
                 ready.synchronize()
         else:
-            rows = self.builder.embed_corpus(self._snapshot,
-                                             progress=self._check_stop)
-            ready = None
+            block = self.builder.embed_corpus(
+                self._snapshot, progress=self._check_stop,
+                row_partition=part)
         with self._result_lock:
-            self._result = (rows, ready)
+            self._result = (block, ready)
 
     def _worker(self) -> None:
-        stream = (torch.cuda.Stream(self.builder.device) if self._cuda
-                  else None)
+        # a stream of its own on each embedder device, so its kernels run
+        # beside the train step's
+        streams = ([torch.cuda.Stream(d) for d in self.builder.devices]
+                   if self._cuda else [])
         try:
-            with torch.inference_mode(), (
-                    torch.cuda.stream(stream) if stream is not None
-                    else contextlib.nullcontext()):
+            with torch.inference_mode(), contextlib.ExitStack() as ctx:
+                for stream in streams:
+                    ctx.enter_context(torch.cuda.stream(stream))
                 while not self._stop.is_set():
                     self._weights_ready.wait()
                     if self._stop.is_set():
                         return
                     self._weights_ready.clear()
-                    self._embed_pass(stream)
+                    self._embed_pass(streams)
         except _Cancelled:
             return
         except Exception as e:  # surfaced on the trainer's thread

@@ -14,9 +14,9 @@ Data parallelism (``dp``): every rank runs this loop in lockstep over the
 same global batches, each feeding its contiguous slice
 (``epoch_batches(rank=, world_size=)``); rank 0 writes the checkpoints
 and logs; the time budget is decided together (an all-reduce), so no rank
-leaves while the others wait in a collective. The prefetcher is refused
-there: its worker thread would issue the search's collectives beside the
-step's, in no agreed order (ROADMAP A3).
+leaves while the others wait in a collective. The prefetcher there is
+``DataParallelPrefetcher``: the search's collectives stay on this thread,
+in the same order as the step's on every rank (``training/prefetch.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from typing import Callable, Dict, List, Optional
 
 from emdr2_tpu_torch.config import EMDR2Config
 from emdr2_tpu_torch.training import checkpointing as ckpt_lib
-from emdr2_tpu_torch.training.prefetch import BatchPrefetcher
+from emdr2_tpu_torch.training.prefetch import (BatchPrefetcher,
+                                              DataParallelPrefetcher)
 from emdr2_tpu_torch.utils import monitoring
 from emdr2_tpu_torch.utils.timers import Timers
 
@@ -102,7 +103,8 @@ def train(task, dataset, cfg: EMDR2Config,
     iteration)`` may return a metrics dict (e.g. ``{"valid_em": ...}``),
     which is written to TensorBoard at that iteration. With
     ``prefetch_depth > 0`` a worker thread builds the next batches
-    (``training/prefetch.py``). Interval saves follow
+    (``training/prefetch.py``; under data parallelism the searches stay
+    on this thread). Interval saves follow
     ``cfg.train.async_save``; the exit, time-budget and final saves are
     synchronous, durable before return. ``log`` (optional) is the
     ``TrainLog`` to push to, for a caller that reads its ``history``.
@@ -114,12 +116,6 @@ def train(task, dataset, cfg: EMDR2Config,
     exception on its way out."""
     tcfg = cfg.train
     distributed = dp is not None and dp.world_size > 1
-    if distributed and prefetch_depth > 0:
-        raise ValueError(
-            f"--prefetch-depth {prefetch_depth} with {dp.world_size} "
-            f"data-parallel ranks: the prefetch worker's search collectives "
-            f"would race the step's; prefetch under data parallelism is not "
-            f"ported yet (ROADMAP A3). Use --prefetch-depth 0")
     dist_kw = ({"rank": dp.rank, "world_size": dp.world_size}
                if distributed else {})
     if distributed and dp.rank != 0:
@@ -150,7 +146,7 @@ def train(task, dataset, cfg: EMDR2Config,
 
     refresh_count = 0
     epoch = start_epoch
-    prefetcher: Optional[BatchPrefetcher] = None
+    prefetcher = None
     try:
         # the full config as TensorBoard text, fenced so it renders verbatim
         writer.text("config", "```\n" + pprint.pformat(cfg) + "\n```")
@@ -159,7 +155,11 @@ def train(task, dataset, cfg: EMDR2Config,
         while iteration < total_iters and batches_per_epoch > 0:
             epoch_batches = dataset.epoch_batches(B, seed=tcfg.seed + epoch,
                                                   **dist_kw)
-            if prefetch_depth > 0:
+            if prefetch_depth > 0 and distributed:
+                # stage A's collectives on this thread, the rest on a worker
+                epoch_batches = prefetcher = DataParallelPrefetcher(
+                    task, epoch_batches, depth=prefetch_depth)
+            elif prefetch_depth > 0:
                 # the worker embeds stage-A queries with a copy of the query
                 # tower refreshed after every step: the optimizer updates
                 # the live one in place

@@ -1,0 +1,59 @@
+#!/bin/bash
+# DPR-style dense retriever training on NQ with the PyTorch port, on NVIDIA
+# cards; the hyperparameters of examples/dense-retriever/dpr_nq.sh (the
+# reference's): 16 questions a rank (global batch 128 at DP=8), one hard
+# negative each, 40 epochs, lr 2e-5 with 1% linear warmup; after training
+# the evidence is embedded by row range over the ranks and the recall on
+# the dev and test questions reported.
+#
+# One process a rank, rank r on card r; DP=1 for one card. Arguments after
+# the script's own are passed to every rank and win over its flags.
+
+set -euo pipefail
+
+DATA_DIR=${DATA_DIR:-data}
+DP=${DP:-8}
+COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
+
+pids=()
+for ((rank = 0; rank < DP; rank++)); do
+  python -m emdr2_tpu_torch.tasks.run \
+      --task RETRIEVER \
+      --device cuda \
+      --vocab-file "${VOCAB_FILE:-$DATA_DIR/bert-large-uncased-vocab.txt}" \
+      --train-data "${TRAIN_DATA:-$DATA_DIR/nq-dpr-train.json}" \
+      --valid-data "${VALID_DATA:-$DATA_DIR/nq-dpr-dev.json}" \
+      --dp "$DP" \
+      --num-processes "$DP" \
+      --process-id "$rank" \
+      --coordinator-address "$COORDINATOR" \
+      --batch-size 16 \
+      --epochs 40 \
+      --train-hard-neg 1 \
+      --seq-length-ret 256 --seq-length-query 64 \
+      --lr 2e-5 --lr-decay-style linear --warmup 0.01 \
+      --weight-decay 0.1 --clip-grad 1.0 \
+      --retriever-score-scaling \
+      --fid-flash-attention \
+      --save "${CHECKPOINT_PATH:-checkpoints/dpr-nq}" \
+      --load "${CHECKPOINT_PATH:-checkpoints/dpr-nq}" \
+      --save-interval 500 \
+      --val-av-rank-other-neg 30 --val-av-rank-hard-neg 30 \
+      --report-topk-accuracies 1 5 20 100 \
+      --evidence-data-path "${EVIDENCE:-$DATA_DIR/wikipedia-evidence}" \
+      --embedding-path "${EMBEDDINGS_OUT:-$DATA_DIR/dpr-evidence-embeddings}" \
+      --qa-file-dev "${QA_FILE_DEV:-$DATA_DIR/nq-dev.csv}" \
+      --qa-file-test "${QA_FILE_TEST:-$DATA_DIR/nq-test.csv}" \
+      --log-interval 20 "$@" &
+  pids+=($!)
+done
+
+# a rank that fails takes the others down: they would wait in a collective
+rc=0
+for pid in "${pids[@]}"; do
+  if ! wait "$pid"; then
+    rc=1
+    kill "${pids[@]}" 2>/dev/null || true
+  fi
+done
+exit $rc

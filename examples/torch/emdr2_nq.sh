@@ -1,0 +1,89 @@
+#!/bin/bash
+# EMDR2 end-to-end training on Natural Questions with the PyTorch port, on
+# NVIDIA cards: the flagship recipe. The hyperparameters are those of
+# examples/openqa/emdr2_nq.sh (the reference's): BERT-base retriever and
+# T5-base reader, top-50 retrieval, 8 questions a rank (global batch 64 at
+# DP=8), 10 epochs, lr 2e-5 with 1% linear warmup, the index re-embedded
+# and swapped every 500 steps.
+#
+# One process a rank: DP trainers on cards 0..DP-1, their embedders on the
+# EMBED_DEVICES cards after them (DP=8 EMBED_DEVICES=8 is the reference's
+# layout of 8 trainers beside 8 indexers; EMBED_DEVICES a multiple or a
+# divisor of DP). EMBED_DEVICES=0 embeds on each trainer's own card. One
+# card: DP=1 EMBED_DEVICES=0. Arguments after the script's own are passed
+# to every rank and win over its flags.
+
+set -euo pipefail
+
+DATA_DIR=${DATA_DIR:-data}
+VOCAB_FILE=${VOCAB_FILE:-$DATA_DIR/bert-large-uncased-vocab.txt}
+EVIDENCE=${EVIDENCE:-$DATA_DIR/wikipedia-evidence}        # tools.build_evidence output prefix
+EMBEDDINGS=${EMBEDDINGS:-$DATA_DIR/mss-emdr2-evidence-embeddings}  # or reference .pkl
+TRAIN_DATA=${TRAIN_DATA:-$DATA_DIR/nq-train.csv}
+VALID_DATA=${VALID_DATA:-$DATA_DIR/nq-dev.csv}
+CHECKPOINT_PATH=${CHECKPOINT_PATH:-checkpoints/emdr2-nq}
+DP=${DP:-8}
+EMBED_DEVICES=${EMBED_DEVICES:-8}
+COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
+
+pids=()
+for ((rank = 0; rank < DP; rank++)); do
+  python -m emdr2_tpu_torch.tasks.run \
+      --task OPENQA \
+      --device cuda \
+      --vocab-file "$VOCAB_FILE" \
+      --train-data "$TRAIN_DATA" \
+      --valid-data "$VALID_DATA" \
+      --evidence-data-path "$EVIDENCE" \
+      --embedding-path "$EMBEDDINGS" \
+      --save "$CHECKPOINT_PATH" \
+      --load "$CHECKPOINT_PATH" \
+      --dp "$DP" \
+      --num-processes "$DP" \
+      --process-id "$rank" \
+      --coordinator-address "$COORDINATOR" \
+      --batch-size "${BATCH_PER_RANK:-8}" \
+      --epochs 10 \
+      --topk-retrievals 50 \
+      --seq-length 512 \
+      --seq-length-ret 256 \
+      --seq-length-dec 32 \
+      --lr 2e-5 \
+      --lr-decay-style linear \
+      --warmup 0.01 \
+      --weight-decay 0.1 \
+      --clip-grad 1.0 \
+      --retriever-score-scaling \
+      --update-retriever \
+      --allow-trivial-doc \
+      --async-indexer \
+      --embed-devices "$EMBED_DEVICES" \
+      --fid-flash-attention \
+      --remat \
+      --no-remat-towers \
+      `# the reader's stacks recompute in the backward, the towers keep` \
+      `# their activations: B=8 fits an 80 GB card (PERF.md)` \
+      --index-reload-interval 500 \
+      --index-quantize int8 \
+      `# int8 rows + per-128-row scales, half the bytes of bf16, with an` \
+      `# exact re-rank of the candidates` \
+      --prefetch-depth 1 \
+      `# stage A's search queued after each step on this thread, the host` \
+      `# postprocess of the next batch on a worker beside the step` \
+      --log-interval 20 \
+      --save-interval 500 \
+      --eval-interval 500 \
+      --max-decode-len 32 \
+      --beam-size 1 "$@" &
+  pids+=($!)
+done
+
+# a rank that fails takes the others down: they would wait in a collective
+rc=0
+for pid in "${pids[@]}"; do
+  if ! wait "$pid"; then
+    rc=1
+    kill "${pids[@]}" 2>/dev/null || true
+  fi
+done
+exit $rc

@@ -8,6 +8,8 @@ Tolerance: the rows are fp16 (host path) or ``cfg.index.dtype`` (fp32 on
 rtol 1e-3, atol 1e-3. Store files and formatted ids are held bit for bit.
 """
 
+import copy
+import dataclasses
 import os
 import pickle
 
@@ -120,6 +122,72 @@ def test_builder_rows_equal_the_model_context_embedding(builders):
                                              torch.tensor(types).long())
     got = builder.embed_corpus()[doc_ids - 1]
     _close(got, want.numpy())
+
+
+def test_embedder_devices_place_params_and_row_blocks(builders):
+    """An embedder on two devices (batch i on device i mod 2; CPU here, the
+    same code as on two cards) with the copies ``place_params`` made of the
+    tower embeds bit for bit what one device embeds; a copy follows the
+    weights it is refreshed from; a rank's block (``row_partition``) is
+    those rows by either path, its padding zero."""
+    _, _, builder, model, index = builders
+    cpu = torch.device("cpu")
+    tower = context_tower(model)
+    two = EvidenceIndexBuilder(builder.cfg, model, builder.corpus,
+                               builder.cls_id, builder.sep_id,
+                               builder.pad_id, batch_size=BATCH,
+                               devices=[cpu, cpu])
+    placed = two.place_params(tower)
+    assert len(placed) == 2 and all(p is not tower for p in placed)
+    assert not any(q.requires_grad for p in placed for q in p.parameters())
+    want = builder.embed_corpus()
+    np.testing.assert_array_equal(two.embed_corpus(placed), want)
+    np.testing.assert_array_equal(two.embed_corpus(), want)
+    np.testing.assert_array_equal(
+        two.embed_corpus_device(placed, index.n_padded).numpy(),
+        builder.embed_corpus_device(None, index.n_padded).numpy())
+    # a rank's block [24, 64) of the 64 padded rows: 36 passages, 4 pads
+    block = builder.embed_corpus_device(None, row_partition=(24, 64))
+    assert tuple(block.shape) == (40, 64)
+    np.testing.assert_array_equal(
+        block[:N_DOCS - 24].numpy(),
+        builder.embed_corpus_device(None, 64)[24:N_DOCS].numpy())
+    np.testing.assert_array_equal(
+        two.embed_corpus(placed, row_partition=(24, 64)), want[24:])
+    # the copies follow the weights handed over later
+    moved = copy.deepcopy(tower)
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1.5)
+    assert two.place_params(moved, placed) is placed
+    np.testing.assert_array_equal(two.embed_corpus(placed),
+                                  builder.embed_corpus(moved))
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_a_block_made_where_the_rows_are_swaps_in_bit_equal(builders,
+                                                            quantize):
+    """``local_block`` run where the rows are (an embedder's card) and
+    swapped in by ``update_from_process_local`` gives the index the host
+    path's ``_to_device`` gives for the same rows: int8 rows and scales
+    (or cast rows) bit for bit; a block of the wrong form is refused."""
+    _, _, builder, _, _ = builders
+    cfg = dataclasses.replace(builder.cfg.index, quantize=quantize)
+    rows = builder.embed_corpus_device(None, 64)
+    want = ShardedEvidenceIndex(cfg, np.zeros((N_DOCS, 64), np.float32),
+                                device="cpu")
+    want.update(rows)
+    got = ShardedEvidenceIndex(cfg, np.zeros((N_DOCS, 64), np.float32),
+                               device="cpu")
+    block = got.local_block(rows)
+    assert (block[1] is not None) == (quantize == "int8")
+    got.update_from_process_local(block)
+    assert torch.equal(got.embeddings, want.embeddings)
+    if quantize == "int8":
+        assert got.embeddings.dtype == torch.int8
+        assert torch.equal(got.scales, want.scales)
+    with pytest.raises(ValueError, match="block"):
+        got.update_from_process_local((block[0][:8], block[1]))
 
 
 def test_build_store_roundtrips_through_both_packages(builders, tmp_path):

@@ -1219,7 +1219,8 @@ def test_refresher_snapshot_unchanged_by_a_step_during_an_embed(
         p.grad = torch.ones_like(p)
     opt.step()                                     # in place, mid-pass
     assert r.wait_for_result(timeout=300)
-    for a, b in zip(r._snapshot.parameters(), handed.parameters()):
+    (snapshot,) = r._snapshot                      # one copy, one device
+    for a, b in zip(snapshot.parameters(), handed.parameters()):
         assert torch.equal(a, b)
     assert r.maybe_swap(1, model)
     r.stop()
@@ -1227,8 +1228,110 @@ def test_refresher_snapshot_unchanged_by_a_step_during_an_embed(
     want = torch.from_numpy(builder.embed_corpus(handed)).float()
     _assert_close(index.embeddings[:4096].float().cpu(), want)
     # the fresh weights were published at the swap
-    for a, b in zip(r._snapshot.parameters(), tower.parameters()):
+    for a, b in zip(snapshot.parameters(), tower.parameters()):
         assert torch.equal(a, b)
+
+
+# ---- the embedder on a card of its own ----------------------------------
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: an embedder card beside the "
+                    "trainer's")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_the_tensors_card_from_another_threads_device(
+        two_cards):
+    """A thread whose current device is card 0 launches K1 and K3 on
+    tensors of card 1 (an embedder thread beside its process's trainer):
+    each wrapper launches on the tensors' card, and the results equal the
+    plain versions there; K1's count by card names card 1."""
+    import threading
+
+    _, card1 = two_cards
+    g = torch.Generator(device=card1)
+    g.manual_seed(11)
+    qkv = torch.randn(4, 256, 3 * NH * 64, device=card1, generator=g
+                      ).to(torch.bfloat16)
+    bias = torch.zeros(4, 256, device=card1)
+    bias[-1, 100:] = -1e9
+    q = torch.randint(-127, 128, (8, 768), device=card1, generator=g,
+                      dtype=torch.int8)
+    e = torch.randint(-127, 128, (128 * 64, 768), device=card1, generator=g,
+                      dtype=torch.int8)
+    fid_attention.flash_self_attention.launches_by_shape = {}
+    out = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        assert torch.cuda.current_device() == 0
+        out["k1"] = fid_attention.flash_self_attention(qkv, bias, NH)
+        out["k3"] = mips.candidate_scan(q, e, e.shape[0], 128, 2)
+        torch.cuda.synchronize(card1)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and set(out) == {"k1", "k3"}
+    want = fid_attention.flash_self_attention_reference(qkv, bias, NH)
+    assert out["k1"].device == card1
+    _assert_close(out["k1"], want)
+    wv, wi = mips.candidate_scan_reference(q, e, e.shape[0], 128, 2)
+    assert torch.equal(out["k3"][0], wv) and torch.equal(out["k3"][1], wi)
+    assert fid_attention.flash_self_attention.launches_by_shape == {
+        ("cuda:1", 4, 256): 1}
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_refresh_on_an_embedder_card_swaps_in_the_hand_off_rows(
+        two_cards, tmp_path, quantize):
+    """The index on card 0, the builder's copy of the tower on card 1: the
+    asynchronous refresher (zero-copy by default there) embeds on card 1
+    only, quantizes there, and the swap copies the block card to card: the
+    index then holds what ``_to_device`` makes of the same rows, bit for
+    bit, and the rows are the hand-off tower's (bf16 tolerance)."""
+    import dataclasses
+
+    from emdr2_tpu_torch.retrieval.builder import (EvidenceIndexBuilder,
+                                                   context_tower)
+    from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
+    from emdr2_tpu_torch.training.async_refresh import AsyncIndexRefresher
+
+    card0, card1 = two_cards
+    cfg, corpus, model, _ = _card_world(tmp_path, card0, 1000)
+    icfg = dataclasses.replace(cfg.index, quantize=quantize)
+    builder = EvidenceIndexBuilder(cfg, model, corpus, 101, 102, 0,
+                                   batch_size=128, devices=[card1])
+    index = ShardedEvidenceIndex(icfg, torch.zeros(1000, 128), device=card0)
+    r = AsyncIndexRefresher(builder, index, reload_interval=1)
+    assert r.zero_copy
+    fid_attention.flash_self_attention.launches_by_shape = {}
+    r.start(model)
+    assert r.wait_for_result(timeout=300)
+    assert r.maybe_swap(1, model)
+    r.stop()
+    assert r.error is None
+    assert index.embeddings.device == card0
+    assert {k[0] for k in fid_attention.flash_self_attention
+            .launches_by_shape} == {"cuda:1"}
+    rows = builder.embed_corpus_device(None, row_partition=(0, 1024))
+    assert rows.device == card1
+    want = ShardedEvidenceIndex(icfg, torch.zeros(1000, 128), device=card0)
+    want.update(rows.to(card0))
+    assert torch.equal(index.embeddings, want.embeddings)
+    if quantize == "int8":
+        assert torch.equal(index.scales, want.scales)
+    host = torch.from_numpy(builder.embed_corpus(context_tower(model)))
+    host = host.float()
+    if quantize == "none":
+        _assert_close(index.embeddings[:1000].float().cpu(), host)
+    else:
+        # one int8 step of the row's group, plus the bf16 tolerance
+        step = index.scales.repeat_interleave(128)[:1000, None].cpu()
+        got = index.embeddings[:1000].float().cpu() * step
+        assert ((got - host).abs() <= step + 2e-2 * host.abs().max()).all()
 
 
 # ---- one step repeats bit for bit (C5), and the one-rank NCCL search ----

@@ -62,6 +62,7 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "test_torch_parallel_workers.py")
 WORKER_TIMEOUT_S = 300
 N_ROWS, NQ, K = 20_000, 6, 10  # the search: > chunk_rows a rank
+EMBED_DEVICES = 2             # the embedder group beside the 2 ranks
 
 
 def _wait(procs, out, timeout):
@@ -143,8 +144,9 @@ def runs(tmp_path_factory):
                       "qa": str(root / "qa.csv"), "n_examples": N_EXAMPLES},
             "engine": {"save": str(root / "ckpt")},
             "dpr_task": dpr_task,
-            "cases": ["mips", "dpr_loss", "dpr_task", "openqa", "engine",
-                      "refresh", "recall"]}
+            "embed_devices": EMBED_DEVICES,
+            "cases": ["mips", "refresh", "dpr_loss", "dpr_task", "openqa",
+                      "engine", "recall", "embedder", "prefetch"]}
     out_dir = root / "out"
     out_dir.mkdir()
     spec_run = dict(spec, world_size=WORLD, out=str(out_dir),
@@ -156,7 +158,11 @@ def runs(tmp_path_factory):
                               stderr=subprocess.STDOUT, env=env)
              for r in range(WORLD)]
     try:
+        # before the steps, which donate the weights' buffers
+        embedded = _jax_embedding(jcfg, mesh, jtask.model, tok, corpus,
+                                  noisy)
         ref = _jax_references(jtask, mesh, ds, mips, dpr)
+        ref["embedder"] = embedded
     except BaseException:
         for p in procs:
             p.kill()
@@ -293,6 +299,14 @@ def _one_process_refresh(spec, tok, corpus, ds):
     q = task.state.model.embed_query(task._ids(batch.query_bert_ids)).float()
     vals, ids = index.search(q.detach(), k=cfg.index.topk)
     return index.embeddings.clone(), vals, ids
+
+
+def _jax_embedding(jcfg, mesh, model, tok, corpus, params):
+    """The JAX builder's rows of the whole corpus with ``params`` (fp16 on
+    the host): what the ranks' first asynchronous swap must hold."""
+    from emdr2_tpu.retrieval.builder import EvidenceIndexBuilder as JaxBuilder
+    return JaxBuilder(jcfg, mesh, model, corpus, tok.cls_id, tok.sep_id,
+                      tok.pad_id, batch_size=16).embed_corpus(params)
 
 
 def _jax_references(jtask, mesh, ds, mips, dpr):
@@ -476,7 +490,8 @@ def test_evaluate_em_matches_jax(runs, mode):
 
 def test_engine_save_and_restore_across_ranks(runs):
     """engine.train on 2 ranks: rank 0 alone writes the checkpoint; every
-    rank restores it bit for bit; prefetch under dp > 1 is refused."""
+    rank restores it bit for bit; two more iterations under the
+    prefetcher of a data-parallel rank keep the replicas bit-equal."""
     _, got = runs
     e0, e1 = (res["engine"] for res in got)
     # the interval save at 2 and the final save, both by rank 0
@@ -485,17 +500,21 @@ def test_engine_save_and_restore_across_ranks(runs):
     for e in (e0, e1):
         assert e["iteration"] == 2 and e["step"] == (2, 2)
         assert e["params_equal"] and e["adam_equal"]
-        assert "ROADMAP A3" in e["prefetch_refused"]
+        assert e["prefetched"] == 4
     assert all(torch.equal(e0["params"][k], e1["params"][k])
                for k in e0["params"])
+    a, b = e0["prefetched_params"], e1["prefetched_params"]
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert any(not torch.equal(a[k], e0["params"][k]) for k in a)
 
 
 def test_refresh_under_dp_embeds_each_ranks_rows(runs):
     """Each rank embeds its own row range and swaps it in; the search after
     the swap equals the one-process refresh's; the asynchronous refresher
-    is refused above one rank. Rows and scores are fp32 products of
-    another process (summation order: rtol 1e-5); a rank's rows taken from
-    another range would differ by O(1)."""
+    over the same group swaps in the same rows (fp16 host rows made on its
+    thread: 1e-3). Rows and scores are fp32 products of another process
+    (summation order: rtol 1e-5); a rank's rows taken from another range
+    would differ by O(1)."""
     ref, got = runs
     rows, vals, ids = ref["refresh"]
     per = B // WORLD
@@ -511,7 +530,108 @@ def test_refresh_under_dp_embeds_each_ranks_rows(runs):
         np.testing.assert_allclose(f["vals"].numpy(),
                                    vals[r * per:(r + 1) * per].numpy(),
                                    rtol=1e-5, atol=1e-6)
-        assert "ROADMAP A3" in f["async_refused"]
+        assert f["async_swapped"]
+        np.testing.assert_allclose(f["async_rows"].numpy(),
+                                   f["rows"].numpy(), atol=1e-3)
+
+
+# ------------------------------------------- the embedder group and prefetch
+
+def test_embedder_layout_and_its_refusals():
+    """``parallel.mesh``: rank r trains on card r, its embedder on the
+    cards after the trainers' (E/dp of its own, or one that dp/E ranks
+    share), never a trainer's; a count that does not divide, too few
+    cards and --tp 2 are refused by name; on the CPU the layout's devices
+    are the host, and without an embedder group the trainer's card."""
+    from emdr2_tpu_torch.config import MeshConfig as Mesh
+    from emdr2_tpu_torch.parallel import check_mesh_config, embed_devices
+    layouts = {(8, 8): [[8 + r] for r in range(8)],
+               (2, 4): [[2, 3], [4, 5]],
+               (4, 2): [[4], [4], [5], [5]],
+               (2, 1): [[2], [2]],
+               (2, 0): [[0], [1]]}
+    for (dp, e), want in layouts.items():
+        mesh = Mesh(dp=dp, embed_devices=e)
+        check_mesh_config(mesh, dp, n_cards=dp + e)
+        got = [[d.index for d in embed_devices(mesh, r,
+                                               torch.device("cuda", r))]
+               for r in range(dp)]
+        assert got == want
+        if e:
+            assert all(i >= dp for cards in got for i in cards)
+    cpu = torch.device("cpu")
+    assert embed_devices(Mesh(dp=2, embed_devices=4), 1, cpu) == [cpu, cpu]
+    assert embed_devices(Mesh(dp=2), 1, cpu) == [cpu]
+    with pytest.raises(ValueError, match="does not divide"):
+        check_mesh_config(Mesh(dp=2, embed_devices=3), 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        check_mesh_config(Mesh(dp=4, embed_devices=6), 4, n_cards=10)
+    with pytest.raises(ValueError, match="needs dp \\+ embed-devices = 4"):
+        check_mesh_config(Mesh(dp=2, embed_devices=2), 2, n_cards=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        check_mesh_config(Mesh(dp=2, tp=2), 2)
+    check_mesh_config(Mesh(dp=2, embed_devices=2), 2)      # CPU: no count
+
+
+def test_first_async_swap_holds_the_handed_over_weights_rows(runs):
+    """(a) At --dp 2 --embed-devices 2 each rank's embedder embeds its own
+    block (zero-copy, on its embedder device) with the weights handed over
+    at ``start``: after the first swap the rank's block equals the JAX
+    builder's rows of those weights (fp16 host rows: atol 1e-3)."""
+    ref, got = runs
+    want = ref["embedder"].astype(np.float32)
+    n = want.shape[0]
+    blocks = []
+    for r, res in enumerate(got):
+        e = res["embedder"]
+        assert e["devices"] == ["cpu"] and e["zero_copy"]
+        start, stop = e["row_range"]
+        real = max(0, min(stop, n) - start)
+        rows = e["first_rows"].float().numpy()
+        assert rows.shape[0] == stop - start < n
+        np.testing.assert_allclose(rows[:real], want[start:start + real],
+                                   atol=1e-3)
+        blocks.append(rows[:real])
+    np.testing.assert_allclose(np.concatenate(blocks), want, atol=1e-3)
+
+
+def test_ranks_swap_together_when_the_last_block_is_ready(runs):
+    """(b) Rank 1's embedder held back until its iteration 3: rank 0's
+    block is ready from iteration 1 on, and still no rank swaps before
+    both are ready; both swap at iteration 3, and every later swap at one
+    iteration on both ranks. The replicas stay bit-equal and the losses
+    finite, prefetching at depth 1 throughout."""
+    _, got = runs
+    c0, c1 = (res["embedder"]["calls"] for res in got)
+    assert [c[0] for c in c0] == [c[0] for c in c1] == list(range(5))
+    for (step, ready0, swapped0), (_, ready1, swapped1) in zip(c0, c1):
+        assert swapped0 == swapped1, (c0, c1)
+        if swapped0:
+            assert ready0 and ready1
+    assert [c[1] for c in c0[1:3]] == [True, True]
+    assert [c[1] for c in c1[1:3]] == [False, False]
+    assert not any(c[2] for c in c0[:3])
+    e0, e1 = (res["embedder"] for res in got)
+    assert e0["first_step"] == e1["first_step"] == 3
+    assert e0["refresh_count"] == e1["refresh_count"] >= 1
+    assert e0["final"] == e1["final"] == 5
+    assert e0["losses"] == e1["losses"] and len(e0["losses"]) == 5
+    assert all(np.isfinite(v) for v in e0["losses"])
+    assert all(torch.equal(e0["params"][k], e1["params"][k])
+               for k in e0["params"])
+
+
+def test_frozen_retriever_prefetch_under_dp_equals_plain_run(runs):
+    """(c) With the query tower frozen, stale selection is the same
+    selection: three iterations at dp 2 under the prefetcher of a
+    data-parallel rank (depth 1) log what the plain dp 2 run logs, bit for
+    bit (the rule of test_torch_prefetch.py's frozen-retriever test)."""
+    _, got = runs
+    for res in got:
+        plain, prefetched = res["prefetch"][0], res["prefetch"][1]
+        assert len(plain) == len(prefetched) == 3
+        assert plain == prefetched
+    assert got[0]["prefetch"] == got[1]["prefetch"]
 
 
 # ------------------------------------------------------------ command line
@@ -595,7 +715,7 @@ def test_cli_runs_two_processes(cli_dir):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "tensor parallelism"),
-    (["--embed-devices", "1"], "disjoint from the trainers"),
+    (["--dp", "2", "--embed-devices", "3"], "does not divide"),
     (["--dp", "2"], "needs 2 processes"),
 ])
 def test_cli_refuses_layouts_it_does_not_port(cli_dir, flags, item):

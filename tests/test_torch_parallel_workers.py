@@ -182,16 +182,17 @@ def case_engine(spec, dp):
     adam_b = fresh.state.optimizer.adamw.state_dict()["state"]
     same_adam = all(torch.equal(adam_a[i][n], adam_b[i][n])
                     for i in adam_a for n in ("exp_avg", "exp_avg_sq"))
-    try:
-        engine.train(task, ds, cfg, prefetch_depth=2, dp=dp)
-        prefetch_refused = None
-    except ValueError as err:
-        prefetch_refused = str(err)
+    # two more iterations under the prefetcher of a data-parallel rank
+    more = cfg.replace(train=dataclasses.replace(cfg.train, train_iters=4))
+    prefetched = engine.train(task, ds, more, prefetch_depth=2, dp=dp,
+                              printer=lambda s: None)
     who = [dist_lib.process_index(), dist_lib.process_count(),
            dist_lib.is_coordinator()]
     return {"iteration": it, "params_equal": same, "adam_equal": same_adam,
             "who": who,
-            "writes": writes, "prefetch_refused": prefetch_refused,
+            "writes": writes, "prefetched": prefetched,
+            "prefetched_params": {k: v.clone() for k, v in
+                                  task.state.model.state_dict().items()},
             "params": saved,
             "step": (fresh.state.step, fresh.state.optimizer.count),
             "files": sorted(os.listdir(e["save"]))}
@@ -210,14 +211,16 @@ def case_refresh(spec, dp):
     task, _ = _task(spec, dp, index=index)
     builder = EvidenceIndexBuilder(cfg, task.state.model, corpus, tok.cls_id,
                                    tok.sep_id, tok.pad_id, batch_size=16)
-    try:
-        AsyncIndexRefresher(builder, index, reload_interval=1)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
     refresher = SynchronousRefresher(builder, index, reload_interval=1)
     start, stop = index.process_row_range()
     swapped = refresher.maybe_swap(1, task.state.model)
+    # the asynchronous refresher over the same group, the same weights
+    index2 = ShardedEvidenceIndex(cfg.index, spec["emb"], device="cpu", dp=dp)
+    refresher2 = AsyncIndexRefresher(builder, index2, reload_interval=1)
+    refresher2.start(task.state.model)
+    assert refresher2.wait_for_result(timeout=120)
+    async_swapped = refresher2.maybe_swap(1, task.state.model)
+    refresher2.stop()
     batch = next(ds.epoch_batches(spec["batch"], seed=0, shuffle=False))
     per = spec["batch"] // dp.world_size
     # the global batch's queries, embedded as one process embeds them (a
@@ -227,7 +230,8 @@ def case_refresh(spec, dp):
     vals, ids = index.search(q.detach(), k=cfg.index.topk)
     return {"swapped": swapped, "row_range": (start, stop),
             "rows": index.embeddings.clone(), "vals": vals, "ids": ids,
-            "async_refused": refused}
+            "async_swapped": async_swapped,
+            "async_rows": index2.embeddings.clone()}
 
 
 def case_dpr_task(spec, dp):
@@ -278,7 +282,110 @@ def case_recall(spec, dp):
         report_at=[1, 5, 10])
 
 
-CASES = {"mips": case_mips, "dpr_task": case_dpr_task, "recall": case_recall,
+def case_embedder(spec, dp):
+    """``engine.train`` at ``--dp 2 --embed-devices 2`` (CPU devices stand
+    for the cards) with the asynchronous refresher (zero-copy, reload
+    interval 1) and the prefetcher at depth 1. Rank 1's embedder is held
+    back until its iteration 3, and rank 0 waits for its own result before
+    its first boundary, so rank 0 is ready two boundaries before rank 1.
+    Records, at every ``maybe_swap`` call, the iteration, whether this
+    rank's block was ready and whether the index was swapped; the block
+    after the first swap; the losses."""
+    import dataclasses
+    import threading
+
+    from emdr2_tpu_torch.config import MeshConfig
+    from emdr2_tpu_torch.parallel import check_mesh_config, embed_devices
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
+    from emdr2_tpu_torch.training import engine
+    from emdr2_tpu_torch.training.async_refresh import AsyncIndexRefresher
+    mesh = MeshConfig(dp=dp.world_size, embed_devices=spec["embed_devices"])
+    check_mesh_config(mesh, dp.world_size)
+    cfg = spec["cfg"]
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=spec["batch"], train_iters=5, log_interval=1,
+        save_interval=10 ** 6, eval_interval=10 ** 6))
+    tok, corpus, ds = _world(spec)
+    index = ShardedEvidenceIndex(cfg.index, spec["emb"], device="cpu", dp=dp)
+    task, _ = _task(spec, dp, cfg, index=index)
+    devices = embed_devices(mesh, dp.rank, torch.device("cpu"))
+    builder = EvidenceIndexBuilder(cfg, task.state.model, corpus, tok.cls_id,
+                                   tok.sep_id, tok.pad_id, batch_size=16,
+                                   devices=devices)
+    first = {}
+
+    def on_refresh(step):
+        if not first:
+            first.update(step=step, rows=index.embeddings.clone())
+
+    # zero-copy on a disjoint embedder, as the command line passes it
+    refresher = AsyncIndexRefresher(builder, index, reload_interval=1,
+                                    on_refresh=on_refresh,
+                                    zero_copy=mesh.embed_devices > 0)
+    gate = threading.Event()
+    if dp.rank == 0:
+        gate.set()
+    embed = builder.embed_corpus_device
+
+    def gated(*args, **kw):
+        assert gate.wait(120)
+        return embed(*args, **kw)
+
+    builder.embed_corpus_device = gated
+    calls = []
+    swap = refresher.maybe_swap
+
+    def watched(step, model):
+        if not first and step >= 1 and (dp.rank == 0 or step == 3):
+            gate.set()
+            assert refresher.wait_for_result(timeout=120)
+        with refresher._result_lock:
+            ready = refresher._result is not None
+        swapped = swap(step, model)
+        calls.append((step, ready, swapped))
+        return swapped
+
+    refresher.maybe_swap = watched
+    log = engine.TrainLog(1, lambda s: None)
+    final = engine.train(task, ds, cfg, refresher=refresher,
+                         prefetch_depth=1, dp=dp, printer=lambda s: None,
+                         log=log)
+    start, stop = index.process_row_range()
+    return {"final": final, "calls": calls, "first_step": first["step"],
+            "first_rows": first["rows"], "row_range": (start, stop),
+            "devices": [str(d) for d in devices],
+            "zero_copy": refresher.zero_copy,
+            "losses": [h["loss"] for h in log.history],
+            "refresh_count": refresher.refresh_count,
+            "params": {k: v.clone()
+                       for k, v in task.state.model.state_dict().items()}}
+
+
+def case_prefetch(spec, dp):
+    """``engine.train`` with the retriever frozen, three iterations without
+    the prefetcher and three under ``DataParallelPrefetcher`` (depth 1),
+    from the same weights: each run's history."""
+    import dataclasses
+
+    from emdr2_tpu_torch.training import engine
+    cfg = spec["cfg"].replace(update_retriever=False)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=spec["batch"], train_iters=3, log_interval=1,
+        save_interval=10 ** 6, eval_interval=10 ** 6))
+    out = {}
+    for depth in (0, 1):
+        task, ds = _task(spec, dp, cfg)
+        log = engine.TrainLog(1, lambda s: None)
+        engine.train(task, ds, cfg, prefetch_depth=depth, dp=dp,
+                     printer=lambda s: None, log=log)
+        out[depth] = [{k: v for k, v in h.items() if k != "ms_per_iter"}
+                      for h in log.history]
+    return out
+
+
+CASES = {"mips": case_mips, "embedder": case_embedder,
+         "prefetch": case_prefetch, "dpr_task": case_dpr_task, "recall": case_recall,
          "dpr_loss": case_dpr_loss,
          "openqa": case_openqa, "engine": case_engine,
          "refresh": case_refresh}
