@@ -3223,12 +3223,17 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
                                 spec["backend"], timeout_s=spec["timeout"],
                                 device=dev)
     try:
-        dp = DataParallel.from_process_group()
+        dp = DataParallel.from_process_group(tp=spec.get("tp", 1))
         _reset_counts()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmpdir:
             if spec.get("kind") == "embedder":
                 out = _embedder_run(cfg, dev, tmpdir, spec, dp)
+            elif spec.get("kind") == "tp":
+                out = _tp_runs(cfg, dev, tmpdir, spec["sizes"],
+                               spec["n_questions"], dp)
+                out["launches"] = _read_counts(tuple(_counters()))
+                out["dp_rank"], out["tp_rank"] = dp.rank, dp.tp.rank
             else:
                 out = _dp_runs(cfg, dev, tmpdir, spec["n_rows"],
                                spec["n_docs"], spec["n_questions"], dp,
@@ -3763,7 +3768,25 @@ def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
         emb = embedder_phase(with_transformers(
             _flagship_cfg(), {"remat": False}, {"remat": True}), dev,
             cards=True)
-    summary = {"dp_cards": world, "checks": res["checks"],
+    tps = []
+    if world >= 4:
+        # tensor parallelism over NCCL: --tp 2 on cards 0-1 at the
+        # flagship step's B=8, then --dp 2 --tp 2 on four cards
+        for layout in TP_CARDS:
+            _empty_cache(dev)
+            t0 = time.perf_counter()
+            r = tp_phase(_flagship_cfg(), dev, cards=True, layout=layout)
+            log(f"tp phase dp {layout['dp']} x tp {layout['tp']}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            tps.append({"sizes": r["sizes"], "checks": r["checks"],
+                        "launches_by_rank": r["launches_by_rank"],
+                        "one_card": {k: r["ref"][k] for k in (
+                            "openqa_0.0", "openqa_0.1", "dpr_0.0")},
+                        "ranks": [{k: g[k] for k in (
+                            "dp_rank", "tp_rank", "openqa_0.0",
+                            "openqa_0.1", "dpr_0.0", "seconds")}
+                            for g in r["ranks"]]})
+    summary = {"dp_cards": world, "checks": res["checks"], "tp": tps,
                "search": res["search"], "launches": res["launches"],
                "ranks": [{k: g[k] for k in ("openqa_0.1", "dpr_0.1",
                                             "bytes_moved", "seconds")}
@@ -3784,6 +3807,316 @@ def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the tensor-parallel phase: the ranks of a [dp, tp] grid (world rank
+# dp_idx * tp + tp_idx), each replica's heads, MLP columns and vocabulary
+# split over its tp ranks, the index's blocks over all of them. Sizes are
+# global batches; "check_qa" the check steps' batch (against one process
+# at the same batch), "qa" the timed steps' at dropout 0.1
+TP_SHARED = {"dp": 1, "tp": 2, "check_qa": 2, "qa": 2, "dpr": 32,
+             "eval": 2}
+TP_CARDS = ({"dp": 1, "tp": 2, "check_qa": 8, "qa": 8, "dpr": 64,
+             "eval": 8},
+            {"dp": 2, "tp": 2, "check_qa": 4, "qa": 16, "dpr": 64,
+             "eval": 8})
+TP_CHECK_STEPS = 2
+TP_DROP_STEPS = 2
+TP_EVAL_QUESTIONS = 4
+TP_N_ROWS = 131_072         # a block of 65,536 / 32,768 rows: the K3 scan
+TP_N_DOCS = 8_192
+TP_COUNTED = ("flash_self_attention", "flash_self_attention_backward",
+              "flash_cross_attention", "flash_cross_attention_backward",
+              "candidate_scan", "decode_cross_attention_int8")
+
+
+def _tp_cfg(cfg, rate):
+    """The flagship recipe (--remat --no-remat-towers) at dropout
+    ``rate``."""
+    from emdr2_tpu_torch.config import with_transformers
+    drop = {"hidden_dropout": rate, "attention_dropout": rate}
+    qcfg = with_transformers(cfg, dict(drop, remat=False),
+                             dict(drop, remat=True, remat_policy="nothing"))
+    rc = cfg.retriever
+    rcfg = dataclasses.replace(rc, encoder=dataclasses.replace(
+        rc.encoder, remat=False, **drop))
+    return qcfg, rcfg
+
+
+def _split_fingerprints(model):
+    """(fingerprint of the parameters every tp rank holds whole, of all
+    of this rank's parameters)."""
+    from emdr2_tpu_torch.parallel.tensor import split_of
+    from emdr2_tpu_torch.utils.repeat import fingerprint
+    named = list(model.named_parameters())
+    return (repr([fingerprint(p) for n, p in named if split_of(n) is None]),
+            repr([fingerprint(p) for _, p in named]))
+
+
+def _tp_runs(cfg, dev, tmpdir, sizes, n_questions, dp=None):
+    """What one rank of the tp phase runs (or one process, ``dp=None``):
+    ``evaluate_em`` of the initial state over ``TP_EVAL_QUESTIONS``
+    questions, greedy over int8 K/V (K5 on the rank's heads);
+    ``TP_CHECK_STEPS`` OPENQA steps at dropout 0 at ``sizes["check_qa"]``
+    (loss and global gradient norm); ``TP_DROP_STEPS`` at dropout 0.1 at
+    ``sizes["qa"]`` (their times, the peak, the bytes each tp collective
+    moved, the fingerprints); one DPR step at dropout 0 at
+    ``sizes["dpr"]``. Batches are global: each replica feeds its slice of
+    the ``n_questions`` training questions (one set for the ranks and one
+    process: the shuffled order depends on it)."""
+    from emdr2_tpu_torch.config import OptimizerConfig
+    from emdr2_tpu_torch.tasks import E2EQATask, e2eqa
+    from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    rank, world = (dp.rank, dp.world_size) if dp is not None else (0, 1)
+    ranks = {"rank": rank, "world_size": world}
+    out = {"ms": {}}
+    tok, corpus, index = _dp_world(cfg, tmpdir, dev, TP_N_ROWS, TP_N_DOCS,
+                                   dp)
+    ds = _qa_dataset(cfg, tok, tmpdir, n_questions)
+    opt = OptimizerConfig(lr=2e-5, weight_decay=0.1, clip_grad=1.0,
+                          warmup=0.0)
+
+    def moved():
+        if dp is None:
+            return {}
+        return {f"tp_{k}": v for k, v in dp.tp.bytes_moved.items()} | {
+            f"dp_{k}": v for k, v in dp.bytes_moved.items()} | {
+            f"world_{k}": v for k, v in dp.world.bytes_moved.items()}
+
+    def run_steps(name, task, batches):
+        losses, norms, ms = [], [], []
+        before = moved()
+        _reset_peak(dev)
+        for batch in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            m = task.train_step(batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        after = moved()
+        out[name] = dict(loss=losses, grad_norm=norms, ms=ms,
+                         peak=_peak(dev), stage_ms=dict(task.timer.ms),
+                         bytes_per_step={k: (after[k] - before.get(k, 0))
+                                         / len(batches) for k in after})
+
+    for rate in (0.0, 0.1):
+        qcfg, _ = _tp_cfg(cfg, rate)
+        bs = sizes["check_qa"] if rate == 0.0 else sizes["qa"]
+        qcfg = qcfg.replace(train=dataclasses.replace(
+            qcfg.train, batch_size=bs, optimizer=opt))
+        task = E2EQATask(qcfg, tok, corpus, index, total_train_iters=1000,
+                         device=dev, dp=dp, timer=StageTimer(dev))
+        task.init_state(SEED)
+        if rate == 0.0:
+            rec = []
+            metric = e2eqa.metric_max_over_ground_truths
+
+            def recording(m, text, refs):
+                rec.append(text)
+                return metric(m, text, refs)
+
+            e2eqa.metric_max_over_ground_truths = recording
+            try:
+                t0 = time.perf_counter()
+                em = task.evaluate_em(
+                    _qa_dataset(cfg, tok, tmpdir, TP_EVAL_QUESTIONS),
+                    batch_size=sizes["eval"], kv_quant="int8")
+                out["ms"]["evaluate_em"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                e2eqa.metric_max_over_ground_truths = metric
+            out["em"] = dict(em=em, texts=rec)
+        steps = TP_CHECK_STEPS if rate == 0.0 else TP_DROP_STEPS
+        run_steps(f"openqa_{rate}", task,
+                  list(ds.epoch_batches(bs, seed=SEED, **ranks))[:steps])
+        if rate > 0:
+            out["whole_params"], out["all_params"] = _split_fingerprints(
+                task.state.model)
+        del task
+        _empty_cache(dev)
+    del index
+    _empty_cache(dev)
+    _, rcfg = _tp_cfg(cfg, 0.0)
+    task = DPRTask(rcfg, opt, 1000, device=dev, dp=dp, timer=StageTimer(dev))
+    task.init_state(SEED)
+    run_steps("dpr_0.0", task, _dpr_batches(cfg, tmpdir, sizes["dpr"], 1,
+                                             rank=rank, world=world))
+    del task
+    _empty_cache(dev)
+    return out
+
+
+def tp_kernel_checks(dev, gen):
+    """K1 (forward, backward), K2 (forward, backward) and K5 on a tp
+    rank's 6 heads (a [B, L, 3H/2] slab, H/2 = 384) at the shapes the tp
+    path gives them, each against its plain version on the same inputs."""
+    from emdr2_tpu_torch.ops import decode_attention as da
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    nh, H = 6, 384
+    out = {}
+    qkv = torch.randn(8, 512, 3 * H, device=dev, generator=gen
+                      ).to(torch.bfloat16)
+    lens = torch.randint(1, 513, (8,), device=dev, generator=gen)
+    bias = torch.where(torch.arange(512, device=dev)[None] < lens[:, None],
+                       0.0, -1e9).float()
+    dout = torch.randn(8, 512, H, device=dev, generator=gen
+                       ).to(torch.bfloat16)
+    got, stats = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
+                                                 RATE)
+    want = fa.flash_self_attention_reference(qkv, bias, nh, DROP_SEED, RATE)
+    out["k1_fwd"] = _check("K1-fwd at 6 heads", got, want, FWD_TOL)
+    dq = fa.flash_self_attention_backward(qkv, bias, got, dout, nh,
+                                          DROP_SEED, RATE, stats)
+    dwant = fa.flash_self_attention_bwd_reference(qkv, bias, got, dout, nh,
+                                                  DROP_SEED, RATE)
+    out["k1_bwd"] = _check("K1-bwd at 6 heads", dq, dwant)
+    del qkv, dout, dq, dwant
+    q = torch.randn(2, 32, H, device=dev, generator=gen).to(torch.bfloat16)
+    kv = torch.randn(2, 25_600, 2 * H, device=dev, generator=gen
+                     ).to(torch.bfloat16)
+    kb = torch.zeros(2, 25_600, device=dev)
+    kb[:, 24_000:] = -1e9
+    dout = torch.randn(2, 32, H, device=dev, generator=gen
+                       ).to(torch.bfloat16)
+    o, lse = fa.flash_cross_attention_forward(q, kv, kb, nh, 512, DROP_SEED,
+                                              RATE)
+    ow, lw = fa.flash_cross_attention_reference(q, kv, kb, nh, 512,
+                                                DROP_SEED, RATE)
+    out["k2_fwd"] = _check("K2-fwd at 6 heads", o, ow, FWD_TOL)
+    g = fa.flash_cross_attention_backward(q, kv, kb, lse, o, dout, nh, 512,
+                                          DROP_SEED, RATE)
+    gw = fa.flash_cross_attention_bwd_reference(q, kv, kb, lse, o, dout, nh,
+                                                512, DROP_SEED, RATE)
+    out["k2_bwd_dq"] = _check("K2-bwd dq at 6 heads", g[0], gw[0])
+    out["k2_bwd_dkv"] = _check("K2-bwd dkv at 6 heads", g[1], gw[1])
+    del kv, g, gw
+    qd = torch.randn(8, 1, nh, 64, device=dev, generator=gen
+                     ).to(torch.bfloat16)
+    kf = torch.randn(8, nh, 25_600, 64, device=dev, generator=gen)
+    vf = torch.randn(8, nh, 25_600, 64, device=dev, generator=gen)
+    k8, ks = da.quantize_kv_rows(kf)
+    v8, vs = da.quantize_kv_rows(vf)
+    db = torch.zeros(8, 25_600, device=dev)
+    got = da.decode_cross_attention_int8(qd, k8, ks, v8, vs, db)
+    want = da.decode_cross_attention_int8_plain(qd, k8, ks, v8, vs, db)
+    out["k5"] = _check("K5 at 6 heads", got, want, FWD_TOL)
+    _empty_cache(dev)
+    log("tp kernel checks at a rank's 6 heads (max abs err, mean, max "
+        "|ref|): " + ", ".join(f"{k} {v[0]:.3e}/{v[1]:.3e}/{v[2]:.3e}"
+                               for k, v in out.items()))
+    return out
+
+
+def tp_phase(cfg, dev, cards=False, layout=None, timeout=900):
+    """The ranks of a ``[dp, tp]`` grid as subprocesses of this script
+    against one process from the same state. Default (one card): two
+    gloo ranks share ``dev`` at ``--tp 2`` (``TP_SHARED``); ``cards=True``
+    (``--dp-cards 4``): NCCL, rank r on card r, at ``layout`` (one of
+    ``TP_CARDS``). Held: the losses and global gradient norms of the
+    check steps at dropout 0 within ``DP_LOSS_RTOL`` / ``DP_GRAD_RTOL``
+    of one process at the same global batch; after the steps at dropout
+    0.1 the parameters every tp rank holds whole bit-equal on the tp
+    ranks of a replica, and each rank's parameters bit-equal to its
+    counterpart's in another replica; K1, K2, K3 and K5 launched on every
+    rank; the DPR step's loss and norm within the same limits."""
+    sizes = dict(layout or TP_SHARED)
+    dp_n, tp_n = sizes["dp"], sizes["tp"]
+    world = dp_n * tp_n
+    what = (f"(cards: dp {dp_n} x tp {tp_n} over "
+            f"{'NCCL' if dev.type == 'cuda' else 'gloo'})" if cards
+            else f"(one card: tp {tp_n} over gloo)")
+    # one process: the check steps at the same global batch, the timed
+    # steps at a replica's batch (what one card holds)
+    ref_sizes = dict(sizes, qa=sizes["qa"] // dp_n)
+    n_questions = max(TP_EVAL_QUESTIONS, sizes["qa"] * TP_DROP_STEPS,
+                      sizes["check_qa"] * TP_CHECK_STEPS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ref = _tp_runs(cfg, dev, tmpdir, ref_sizes, n_questions)
+    ref_s = time.perf_counter() - t0
+    _empty_cache(dev)
+    own = cards and dev.type == "cuda"
+    t0 = time.perf_counter()
+    got = _run_ranks(cfg, f"tp {what}", timeout, {
+        "kind": "tp", "tp": tp_n,
+        "devices": ([f"cuda:{r}" for r in range(world)] if own
+                    else [str(dev)] * world),
+        "world": world, "backend": "nccl" if own else "gloo",
+        "sizes": sizes, "n_questions": n_questions})
+    ranks_s = time.perf_counter() - t0
+    checks, limits = {}, {}
+    for name, steps in (("openqa", TP_CHECK_STEPS), ("dpr", 1)):
+        for key, limit in (("loss", DP_LOSS_RTOL),
+                           ("grad_norm", DP_GRAD_RTOL)):
+            for step in range(steps):
+                want = ref[f"{name}_0.0"][key][step]
+                checks[f"{name}_{key}_{step + 1}_rel"] = max(
+                    abs(g[f"{name}_0.0"][key][step] - want) / abs(want)
+                    for g in got)
+                limits[f"{name}_{key}_{step + 1}_rel"] = limit
+    grid = {(g["dp_rank"], g["tp_rank"]): g for g in got}
+    checks["whole_params_equal_over_tp"] = all(
+        g["whole_params"] == grid[(d, 0)]["whole_params"]
+        for (d, _), g in grid.items())
+    checks["replicas_equal_over_dp"] = all(
+        g["all_params"] == grid[(0, t)]["all_params"]
+        for (_, t), g in grid.items())
+    # the kernels launch on a card only (the plain versions run on the
+    # CPU, where this phase rehearses)
+    missing = [(r, k) for r, g in enumerate(got) for k in TP_COUNTED
+               if g["launches"][k] <= 0 and dev.type == "cuda"]
+    # a replica's texts: its rows of each evaluation batch
+    per, n_eval = sizes["eval"] // dp_n, len(ref["em"]["texts"])
+    checks["texts_equal_share"] = []
+    for g in got:
+        d = g["dp_rank"]
+        want = [t for i in range(0, n_eval, sizes["eval"])
+                for t in ref["em"]["texts"][i + d * per:i + (d + 1) * per]]
+        checks["texts_equal_share"].append(
+            sum(a == b for a, b in zip(g["em"]["texts"], want))
+            / max(len(want), 1))
+    for r, g in enumerate(got):
+        o = g["openqa_0.1"]
+        log(f"tp {what} rank {r} (dp {g['dp_rank']}, tp {g['tp_rank']}): "
+            f"OPENQA step ms at dropout 0.1 (B={sizes['qa']} global) "
+            + ", ".join(f"{m:.1f}" for m in o["ms"])
+            + f"; peak {o['peak'] / 2**30:.2f} GiB; bytes a step "
+            f"{o['bytes_per_step']}; stages " + _stages_text(o["stage_ms"])
+            + f"; check steps {g['openqa_0.0']['ms']} ms; DPR B="
+            f"{sizes['dpr']} {g['dpr_0.0']['ms']} ms (peak "
+            f"{g['dpr_0.0']['peak'] / 2**30:.2f} GiB); evaluate_em "
+            f"{g['ms']['evaluate_em']:.1f} ms EM {g['em']['em']}; "
+            f"{g['seconds']:.1f} s; launches {g['launches']}")
+    log(f"tp {what} one process (references, {ref_s:.1f} s): OPENQA B="
+        f"{ref_sizes['qa']} step ms {ref['openqa_0.1']['ms']} peak "
+        f"{ref['openqa_0.1']['peak'] / 2**30:.2f} GiB; check steps B="
+        f"{sizes['check_qa']} {ref['openqa_0.0']['ms']} ms peak "
+        f"{ref['openqa_0.0']['peak'] / 2**30:.2f} GiB; DPR "
+        f"{ref['dpr_0.0']['ms']} ms; EM {ref['em']['em']}")
+    log(f"tp {what} {world} ranks ({ranks_s:.1f} s): the check steps "
+        f"relative to one process: "
+        + ", ".join(f"{k} {checks[k]:.3e}" for k in limits)
+        + f" (limits: loss {DP_LOSS_RTOL}, grad_norm {DP_GRAD_RTOL}); "
+        f"values one process / rank 0: " + ", ".join(
+            f"{name}_{key} {ref[f'{name}_0.0'][key]} / "
+            f"{got[0][f'{name}_0.0'][key]}" for name in ("openqa", "dpr")
+            for key in ("loss", "grad_norm"))
+        + f"; whole parameters bit-equal over tp after {TP_DROP_STEPS} "
+        f"steps at dropout 0.1: {checks['whole_params_equal_over_tp']}; "
+        f"replicas bit-equal over dp: {checks['replicas_equal_over_dp']}; "
+        f"generated texts equal to one process's (greedy int8, a share "
+        f"by rank) {checks['texts_equal_share']}")
+    failures = [k for k, limit in limits.items() if not checks[k] <= limit]
+    failures += [k for k in ("whole_params_equal_over_tp",
+                             "replicas_equal_over_dp") if not checks[k]]
+    failures += [f"{k} never launched on rank {r}" for r, k in missing]
+    if failures:
+        raise AssertionError(f"tp {what} failed: {failures}")
+    return {"ref_seconds": ref_s, "ranks_seconds": ranks_s, "ranks": got,
+            "ref": ref, "checks": checks, "sizes": sizes,
+            "launches_by_rank": [dict(g["launches"]) for g in got]}
 
 
 def _flagship_cfg():
@@ -4104,6 +4437,14 @@ def main() -> int:
     _empty_cache(dev)
     emb = embedder_phase(tcfg, dev)
     eml = emb["launches"]
+    # tensor parallelism: two gloo ranks share the card at --tp 2, each on
+    # its 6 of the 12 heads (the kernels checked at those shapes first)
+    _empty_cache(dev)
+    tpk = tp_kernel_checks(dev, gen)
+    t0 = time.perf_counter()
+    tp = tp_phase(_flagship_cfg(), dev)
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s (one process "
+        f"{tp['ref_seconds']:.1f} s, the ranks {tp['ranks_seconds']:.1f} s)")
     c5l, dpl = c5["launches"], dict(dpb["launches"])
     for name, n in dpa["launches"].items():
         dpl[name] = dpl.get(name, 0) + n
@@ -4325,6 +4666,18 @@ def main() -> int:
          "three_tensor_route_backward_bytes":
              k4_bwd_main["three_tensor_route_bytes"]},
     ]}
+    # each kernel's launches on the tp path, by rank, and its error at a
+    # rank's 6 heads where it was checked there
+    tp_err = {"flash_self_attention": "k1_fwd",
+              "flash_self_attention_backward": "k1_bwd",
+              "flash_cross_attention": "k2_fwd",
+              "flash_cross_attention_backward": "k2_bwd_dq",
+              "decode_cross_attention_int8": "k5"}
+    for row in summary["kernels"]:
+        row["launches_tp"] = [n.get(row["name"], 0)
+                              for n in tp["launches_by_rank"]]
+        if row["name"] in tp_err:
+            row["max_abs_err_6_heads"] = tpk[tp_err[row["name"]]][0]
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(card)

@@ -3,7 +3,8 @@
 The same frozen dataclasses and field names as the JAX package, so a config
 reads the same in both. Differences: ``dtype`` fields are ``torch.dtype``s,
 and there is no ``mesh`` field: the port's parallelism is one process per
-data-parallel rank (``parallel/``), laid out by ``MeshConfig``. The TPU
+rank of a ``[dp, tp]`` grid (``parallel/``), laid out by ``MeshConfig``;
+the tensor-parallel group reaches the modules as their ``tp`` argument. The TPU
 query tiling is not ported.
 
 Defaults reproduce the flagship NQ recipe: BERT-base retriever, T5-base
@@ -119,11 +120,12 @@ class IndexConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The parallel layout (``parallel.mesh``). ``dp`` ranks of data
-    parallelism, one process and one card each; ``embed_devices`` cards
-    after them that re-embed the evidence for the ranks (0: each rank's
-    embedder shares its card); ``tp`` (tensor parallelism) keeps the JAX
-    package's field, and only 1 is ported."""
+    """The parallel layout (``parallel.mesh``): a ``[dp, tp]`` grid of
+    ranks, one process and one card each (world rank ``dp_idx * tp +
+    tp_idx``): ``dp`` replicas, each split over ``tp`` ranks (its heads,
+    MLP width and vocabulary; ``parallel/tensor.py``); ``embed_devices``
+    cards after the ``dp * tp`` trainers' that re-embed the evidence for
+    them (0: each rank's embedder shares its card)."""
 
     dp: int = 1
     tp: int = 1

@@ -16,14 +16,25 @@ the layout changes are:
 like the params, so the same layout changes apply) and its update count
 into the port's ``Optimizer``, so a port run can go on from the middle of a
 JAX run.
+
+Tensor parallelism: ``shard_params(full, tp_rank, tp)`` cuts a whole
+``state_dict`` into the part that tp rank ``tp_rank`` of ``tp`` holds, as
+the JAX ``param_shardings`` place the same parameters on that index of a
+mesh's ``tp`` axis (``parallel.tensor.split_of``: ``FusedDense`` by heads
+within each of its n blocks, ``query`` / ``wi`` and their biases by
+columns, ``out`` / ``wo`` by rows, the word embeddings and the LM bias by
+the vocabulary); ``gather_params(local, tp)`` joins the ``tp`` ranks'
+parts again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from emdr2_tpu_torch.parallel.tensor import shard_state, split_of
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -83,3 +94,27 @@ def load_adam_from_jax(optimizer, model: torch.nn.Module, mu: Mapping,
             "exp_avg_sq": second[name].to(p.device, p.dtype),
         }
     optimizer.count = int(count)
+
+
+def shard_params(full: Mapping[str, torch.Tensor], tp_rank: int, tp: int
+                 ) -> Dict[str, torch.Tensor]:
+    """The part of the whole ``state_dict`` ``full`` that tp rank
+    ``tp_rank`` of ``tp`` holds (module docstring)."""
+    if not 0 <= tp_rank < tp:
+        raise ValueError(f"tp rank {tp_rank} of {tp}")
+    return shard_state(full, tp_rank, tp)
+
+
+def gather_params(local: Sequence[Mapping[str, torch.Tensor]], tp: int
+                  ) -> Dict[str, torch.Tensor]:
+    """The whole ``state_dict`` of the ``tp`` ranks' parts ``local`` (in
+    tp rank order): ``gather_params([shard_params(full, t, tp) for t in
+    range(tp)], tp)`` is ``full``."""
+    if len(local) != tp:
+        raise ValueError(f"{len(local)} parts for tp {tp}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, first in local[0].items():
+        split = split_of(name)
+        out[name] = (first if split is None or tp == 1
+                     else split.join([part[name] for part in local]))
+    return out

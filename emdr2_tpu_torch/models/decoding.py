@@ -18,6 +18,12 @@ index, as ``jax.lax.top_k`` breaks them.
 
 The loops are host loops of eager steps that exit early once every row has
 produced EOS. All of it runs under ``torch.inference_mode``, no dropout.
+
+Under tensor parallelism each rank holds the cross K/V and the cache of
+its ``nh / tp`` heads (the int8 form and K5 too, as the JAX
+``decode_cross_attention_int8_sharded`` runs it), and each step's logits
+are gathered over tp before the top-k or the draw
+(``T5Model.decode_step``), so every rank picks the same tokens.
 """
 
 from __future__ import annotations
@@ -132,7 +138,7 @@ class DecoderSession:
         of k."""
         cfg = self.model.config.reader.transformer
         B, Lk = enc_hidden.shape[:2]
-        nh, hd = cfg.num_heads, cfg.head_dim
+        nh, hd = self._heads(), cfg.head_dim
         decoder = self.model.reader.decoder
         decoder.check_decode()
         outs = []
@@ -151,9 +157,13 @@ class DecoderSession:
                 outs.append((kv[0].float().contiguous(), kv[1].contiguous()))
         return outs
 
+    def _heads(self) -> int:
+        """The decoder heads of this rank (``num_heads / tp``)."""
+        return self.model.reader.decoder.layer(0).self_attention.nh
+
     def new_cache(self, rows: int, device) -> DecodeCache:
         cfg = self.model.config.reader.transformer
-        return DecodeCache(cfg.num_layers, rows, cfg.num_heads,
+        return DecodeCache(cfg.num_layers, rows, self._heads(),
                            self.max_decode_len, cfg.head_dim, cfg.dtype,
                            device)
 

@@ -26,6 +26,7 @@ from emdr2_tpu_torch.models.layers import DecodeCache, init_weights
 from emdr2_tpu_torch.models.t5 import T5Model
 from emdr2_tpu_torch.ops.fid_attention import check_kernel_limits
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
+from emdr2_tpu_torch.parallel.mesh import Group, check_tp_divides
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -45,7 +46,7 @@ class EMDR2Batch(NamedTuple):
 
 
 class EMDR2Output(NamedTuple):
-    lm_logits: torch.Tensor             # [B, Ld, V] fp32
+    lm_logits: torch.Tensor             # [B, Ld, V] fp32 ([.., V/tp] under tp)
     topk_log_probs: torch.Tensor        # [B, K] fp32 (grad -> dual encoder)
     gold_log_probs: torch.Tensor        # [B, K, Ld] fp32, no gradient
 
@@ -53,16 +54,22 @@ class EMDR2Output(NamedTuple):
 class EMDR2Model(nn.Module):
 
     def __init__(self, config: EMDR2Config, device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tp: Optional[Group] = None):
         """Parameters are made on ``device`` (the card unless the caller
         names another; no card there raises) and initialized from
         ``generator`` like the JAX package's init (load converted weights
         with ``load_state_dict`` to replace them). On a card a configuration
         that the attention kernels do not take
         (``ops.fid_attention.kernel_limits``) raises here, before any work:
-        nothing is routed to a plain version."""
+        nothing is routed to a plain version. ``tp``: the tensor-parallel
+        group the model splits over (its heads, MLP widths and vocabulary
+        must divide by its size); each rank holds the parts of what one
+        process initializes from the same generator."""
         super().__init__()
         device = resolve_device(device)
+        if tp is not None:
+            check_tp_divides(tp.world_size, config)
         if device.type == "cuda":
             for name, cfg, decoder_len in (
                     ("retriever.encoder", config.retriever.encoder, None),
@@ -72,8 +79,9 @@ class EMDR2Model(nn.Module):
                                     cfg.dtype, cfg.head_dim, decoder_len,
                                     cfg.fid_flash_attention)
         self.config = config
-        self.retriever = DualEncoder(config.retriever, device)
-        self.reader = T5Model(config.reader.transformer, device)
+        self.tp = tp if tp is not None else Group.local()
+        self.retriever = DualEncoder(config.retriever, device, tp)
+        self.reader = T5Model(config.reader.transformer, device, tp)
         init_weights(self, generator)
 
     def embed_query(self, query_bert_ids):

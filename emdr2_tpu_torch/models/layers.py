@@ -39,6 +39,17 @@ checkpoints each layer call (``torch.utils.checkpoint``, non-reentrant,
 under the ``remat_policy``) when ``cfg.remat``, and shares layers under
 ``num_unique_layers``: the recompute gets the same seeds, so the same
 masks.
+
+Tensor parallelism (``tp``, a ``parallel.mesh.Group`` of more than one
+rank; ``parallel/tensor.py``): ``Dense`` is column-parallel (``query``,
+``wi``, the fused ``qkv`` / ``key_value`` by heads) or row-parallel
+(``out``, ``wo``: the partial products summed over tp in the compute
+dtype, then the whole bias); ``Attention`` runs on the rank's ``nh / tp``
+heads, the kernels included; ``Embeddings`` looks up the rank's
+``V / tp`` rows (other ids masked, then a sum over tp) and ``attend``
+gives the rank's ``V / tp`` logits. Every parameter is initialized as the
+whole one would be from the same generator, then cut, so a split model
+holds the parts of the unsplit one.
 """
 
 from __future__ import annotations
@@ -59,6 +70,9 @@ from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
                                                flash_cross_attention,
                                                flash_self_attention)
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold, packed_dropout
+from emdr2_tpu_torch.parallel.mesh import Group
+from emdr2_tpu_torch.parallel.tensor import (COLUMN, ROW, Split, copy_to_tp,
+                                             is_split, reduce_from_tp)
 
 # dropout sites of one layer (DropoutSeeds.site)
 _SITE_SELF_ATTN, _SITE_SELF_RESID = 0, 1
@@ -98,37 +112,73 @@ class LayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(orig)
 
 
+def _normal_(p: nn.Parameter, std: float, generator, split, tp) -> None:
+    """``p`` <- N(0, std): drawn whole and cut when ``p`` is a tp part, so
+    every rank holds its part of what one process draws."""
+    with torch.no_grad():
+        if split is None or not is_split(tp):
+            p.normal_(0.0, std, generator=generator)
+            return
+        whole = torch.empty(tuple(p.shape[:split.axis])
+                            + (p.shape[split.axis] * tp.world_size,)
+                            + tuple(p.shape[split.axis + 1:]),
+                            dtype=p.dtype, device=p.device)
+        whole.normal_(0.0, std, generator=generator)
+        p.copy_(split.take(whole, tp.rank, tp.world_size))
+
+
 class Dense(nn.Module):
     """``y = x @ kernel + bias`` in ``dtype``; kernel [in, out] (flax
-    layout)."""
+    layout). ``split`` over ``tp``: ``COLUMN`` (this rank's output
+    columns, its part of the bias; the input's gradient summed over tp),
+    ``ROW`` (this rank's input rows; the partial products summed over tp
+    in ``dtype``, then the whole bias), a fused ``Split(1, n)`` (the n
+    blocks each cut by heads), or None (whole)."""
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype,
-                 init_std: float = 0.02, device=None):
+                 init_std: float = 0.02, device=None,
+                 tp: Optional[Group] = None, split: Optional[Split] = None):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
-        self.kernel = _param(in_features, features, device=device)
-        self.bias = _param(features, device=device)
+        self.tp = tp if tp is not None else Group.local()
+        self.split = split
+        n = self.tp.world_size if split is not None else 1
+        row = split == ROW
+        self.kernel = _param(in_features // n if row else in_features,
+                             features if row else features // n,
+                             device=device)
+        self.bias = _param(features if row else features // n,
+                           device=device)
 
     def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.kernel.normal_(0.0, self.init_std, generator=generator)
+        _normal_(self.kernel, self.init_std, generator, self.split, self.tp)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.split == ROW:
+            y = reduce_from_tp(torch.matmul(x, self.kernel.to(self.dtype)),
+                               self.tp)
+        else:
+            if self.split is not None:
+                x = copy_to_tp(x, self.tp)
+            y = torch.matmul(x, self.kernel.to(self.dtype))
         return y + self.bias.to(self.dtype)
 
 
 class FusedDense(Dense):
     """``n_split`` fused projections in one matmul; kernel [D, n*H] is the
     flax [D, n, H] kernel reshaped, so the output is the flat slab
-    [..., n*H] ([q | k | v] for n=3, [k | v] for n=2)."""
+    [..., n*H] ([q | k | v] for n=3, [k | v] for n=2). Under ``tp`` each
+    block is cut by heads: the rank's slab is [..., n*H/tp], the
+    [q | k | v] of its ``nh / tp`` heads."""
 
     def __init__(self, in_features: int, n_split: int, features: int,
-                 dtype: torch.dtype, init_std: float = 0.02, device=None):
+                 dtype: torch.dtype, init_std: float = 0.02, device=None,
+                 tp: Optional[Group] = None):
         super().__init__(in_features, n_split * features, dtype, init_std,
-                         device=device)
+                         device=device, tp=tp, split=Split(1, n_split))
 
 
 class _Lookup(torch.autograd.Function):
@@ -172,13 +222,19 @@ def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 class Embeddings(nn.Module):
     """Word + learned absolute position (+ tokentype) embeddings, summed in
     fp32 and then cast to the compute dtype; ``attend`` is the tied LM
-    head. Every lookup takes ``embedding``, whose gradient repeats."""
+    head. Every lookup takes ``embedding``, whose gradient repeats. Under
+    ``tp`` the rank holds word rows ``[t * V/tp, (t+1) * V/tp)``: ids
+    outside them look up zeros and the ranks' lookups are summed (each id
+    has one owner, so the sum is exact), and ``attend`` gives the rank's
+    ``V / tp`` logits."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: Optional[Group] = None):
         super().__init__()
         self.cfg = cfg
-        self.word_embeddings = _param(cfg.vocab_size, cfg.hidden_size,
-                                      device=device)
+        self.tp = tp if tp is not None else Group.local()
+        self.word_embeddings = _param(cfg.vocab_size // self.tp.world_size,
+                                      cfg.hidden_size, device=device)
         self.position_embeddings = _param(cfg.max_position_embeddings,
                                           cfg.hidden_size, device=device)
         if cfg.num_tokentypes > 0:
@@ -188,15 +244,28 @@ class Embeddings(nn.Module):
             self.tokentype_embeddings = None
 
     def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            for p in (self.word_embeddings, self.position_embeddings,
-                      self.tokentype_embeddings):
-                if p is not None:
-                    p.normal_(0.0, self.cfg.init_std, generator=generator)
+        _normal_(self.word_embeddings, self.cfg.init_std, generator, ROW,
+                 self.tp)
+        for p in (self.position_embeddings, self.tokentype_embeddings):
+            if p is not None:
+                _normal_(p, self.cfg.init_std, generator, None, None)
+
+    def lookup(self, ids):
+        """The word embeddings of ``ids`` (fp32), the vocab-parallel lookup
+        under tp."""
+        if not is_split(self.tp):
+            return embedding(ids, self.word_embeddings)
+        rows = self.word_embeddings.shape[0]
+        start = self.tp.rank * rows
+        mine = (ids >= start) & (ids < start + rows)
+        x = embedding(torch.where(mine, ids - start, torch.zeros_like(ids)),
+                      self.word_embeddings)
+        x = torch.where(mine[..., None], x, torch.zeros((), device=x.device))
+        return reduce_from_tp(x, self.tp)
 
     def forward(self, ids, position_offset: int = 0, tokentype_ids=None,
                 drop: Optional[DropoutSeeds] = None):
-        x = embedding(ids, self.word_embeddings)
+        x = self.lookup(ids)
         pos = torch.arange(position_offset, position_offset + ids.shape[-1],
                            device=ids.device)
         x = x + embedding(pos, self.position_embeddings)
@@ -208,9 +277,10 @@ class Embeddings(nn.Module):
                               _site(drop, _SITE_EMBED), _rows(drop, x))
 
     def attend(self, hidden):
-        """hidden [..., H] -> fp32 logits over the tied word embeddings."""
+        """hidden [..., H] -> fp32 logits over the tied word embeddings
+        (this rank's ``V / tp`` of them under tp)."""
         w = self.word_embeddings.to(hidden.dtype).float()
-        return torch.matmul(hidden.float(), w.T)
+        return torch.matmul(copy_to_tp(hidden, self.tp).float(), w.T)
 
 
 class DecodeCache:
@@ -248,20 +318,21 @@ def _rows(drop: Optional[DropoutSeeds], x: torch.Tensor) -> int:
 
 
 def _attend(q, k, v, bias, dtype, rate: float = 0.0,
-            seed: Optional[int] = None, shard: int = 0):
+            seed: Optional[int] = None, shard: int = 0, tp_shard: int = 0):
     """Materialized-score attention over heads: q [B, nh, Lq, hd], k/v
     [B, nh, Lk, hd], bias broadcastable to [B, nh, Lq, Lk] (or None) ->
     [B, nh, Lq, hd] in ``dtype``. q is scaled in ``dtype``, scores and the
     softmax are fp32, probs are cast to ``dtype`` (then dropped out when a
-    ``seed`` is given; rows offset by data-parallel rank ``shard``) before
-    the P.V product."""
+    ``seed`` is given, at global coordinates: rows offset by data-parallel
+    rank ``shard``, heads by tensor-parallel rank ``tp_shard``) before the
+    P.V product."""
     hd = q.shape[-1]
     q = q * (hd ** -0.5)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias
     probs = packed_dropout(torch.softmax(scores, dim=-1).to(dtype), rate,
-                           seed, shard * q.shape[0])
+                           seed, shard * q.shape[0], tp_shard * q.shape[1])
     return torch.matmul(probs, v.to(dtype))
 
 
@@ -271,46 +342,59 @@ class Attention(nn.Module):
     session to precompute the cross K/V)."""
 
     def __init__(self, cfg: TransformerConfig, cross_attention: bool = False,
-                 device=None):
+                 device=None, tp: Optional[Group] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp if tp is not None else Group.local()
         h, dt = cfg.hidden_size, cfg.dtype
         out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
         if cross_attention:
-            self.query = Dense(h, h, dt, cfg.init_std, device=device)
+            self.query = Dense(h, h, dt, cfg.init_std, device=device,
+                               tp=tp, split=COLUMN)
             self.key_value = FusedDense(h, 2, h, dt, cfg.init_std,
-                                        device=device)
+                                        device=device, tp=tp)
         else:
-            self.qkv = FusedDense(h, 3, h, dt, cfg.init_std, device=device)
-        self.out = Dense(h, h, dt, out_std, device=device)
+            self.qkv = FusedDense(h, 3, h, dt, cfg.init_std, device=device,
+                                  tp=tp)
+        self.out = Dense(h, h, dt, out_std, device=device, tp=tp, split=ROW)
+
+    @property
+    def nh(self) -> int:
+        """The heads this rank runs: ``num_heads / tp``."""
+        return self.cfg.num_heads // self.tp.world_size
+
+    @property
+    def width(self) -> int:
+        """This rank's part of the hidden width: ``nh * head_dim``."""
+        return self.nh * self.cfg.head_dim
 
     def _heads(self, t):
-        cfg = self.cfg
-        return t.view(*t.shape[:-1], cfg.num_heads,
-                      cfg.head_dim).transpose(-3, -2)
+        return t.view(*t.shape[:-1], self.nh,
+                      self.cfg.head_dim).transpose(-3, -2)
 
-    def _merge(self, o):      # [B, nh, L, hd] -> [B, L, H]
-        return o.transpose(1, 2).reshape(o.shape[0], o.shape[2],
-                                         self.cfg.hidden_size)
+    def _merge(self, o):      # [B, nh, L, hd] -> [B, L, nh * hd]
+        return o.transpose(1, 2).reshape(o.shape[0], o.shape[2], self.width)
 
     def _dropout(self, drop, site):
-        """(rate, seed, kernel seed, rank) of an attention-dropout site:
-        the site's seed for materialized attention (``_attend`` offsets
-        the rows by the rank), the rank-folded one for the kernels; rate 0
-        off training."""
+        """(rate, seed, kernel seed, dp rank, tp rank) of an
+        attention-dropout site: the site's seed for materialized attention
+        (``_attend`` offsets the rows and heads by the ranks), the
+        rank-folded one for the kernels; rate 0 off training."""
         rate = self.cfg.attention_dropout
         if drop is None or rate == 0.0:
-            return 0.0, None, None, 0
-        return rate, drop.site(site), drop.kernel_seed(site), drop.shard
+            return 0.0, None, None, 0, 0
+        return (rate, drop.site(site), drop.kernel_seed(site), drop.shard,
+                drop.tp_shard)
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         """Padding-masked self-attention: x [B, L, H], kv_bias [B, L]."""
         cfg = self.cfg
-        rate, seed, kseed, shard = self._dropout(drop, _SITE_SELF_ATTN)
-        qkv = self.qkv(x)                                   # [B, L, 3H]
+        nh = self.nh
+        rate, seed, kseed, shard, tshard = self._dropout(drop,
+                                                         _SITE_SELF_ATTN)
+        qkv = self.qkv(x)                                   # [B, L, 3H/tp]
         if cfg.fid_flash_attention and x.shape[-2] <= cfg.flash_key_chunk:
-            o = flash_self_attention(qkv, kv_bias.float(), cfg.num_heads,
-                                     kseed, rate)
+            o = flash_self_attention(qkv, kv_bias.float(), nh, kseed, rate)
         elif cfg.fid_flash_attention:
             # longer than one key chunk: the general kernel, on the slab
             # itself when the chunk divides the length (one gradient slab,
@@ -321,31 +405,30 @@ class Attention(nn.Module):
             kvb = kv_bias.float()
             rem = L % key_chunk
             if rem:
-                q, k, v = (t.view(B, L, cfg.num_heads, cfg.head_dim)
+                q, k, v = (t.view(B, L, nh, cfg.head_dim)
                            for t in qkv.chunk(3, dim=-1))
                 pad = key_chunk - rem
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v = F.pad(v, (0, 0, 0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
                 o = fid_cross_attention(q, k, v, kvb, kseed, key_chunk,
-                                        rate).reshape(B, L, cfg.hidden_size)
+                                        rate).reshape(B, L, self.width)
             else:
-                o = fid_self_attention(qkv, kvb, cfg.num_heads, kseed,
-                                       key_chunk, rate)
+                o = fid_self_attention(qkv, kvb, nh, kseed, key_chunk, rate)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
             o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],
-                                    cfg.dtype, rate, seed, shard))
+                                    cfg.dtype, rate, seed, shard, tshard))
         return self.out(o.to(cfg.dtype))
 
     def decode_full(self, x, self_bias, drop: Optional[DropoutSeeds] = None):
         """Whole-prefix decoder self-attention, materialized: x [B, L, H],
         self_bias [B, 1, L, L] (causal and padding)."""
         cfg = self.cfg
-        rate, seed, _, shard = self._dropout(drop, _SITE_SELF_ATTN)
+        rate, seed, _, shard, tshard = self._dropout(drop, _SITE_SELF_ATTN)
         q, k, v = (self._heads(t) for t in self.qkv(x).chunk(3, dim=-1))
         return self.out(self._merge(_attend(q, k, v, self_bias, cfg.dtype,
-                                            rate, seed, shard)))
+                                            rate, seed, shard, tshard)))
 
     def cross_full(self, x, enc_out, kv_bias=None, cross_bias=None,
                    drop: Optional[DropoutSeeds] = None):
@@ -355,9 +438,10 @@ class Attention(nn.Module):
         multiple at -1e9 bias; otherwise materialized scores under
         ``cross_bias`` [B, 1, Ld, Lk]."""
         cfg = self.cfg
-        rate, seed, kseed, shard = self._dropout(drop, _SITE_CROSS_ATTN)
-        q = self.query(x)                                   # [B, Ld, H]
-        kv = self.key_value(enc_out)                        # [B, Lk, 2H]
+        rate, seed, kseed, shard, tshard = self._dropout(drop,
+                                                         _SITE_CROSS_ATTN)
+        q = self.query(x)                                   # [B, Ld, H/tp]
+        kv = self.key_value(enc_out)                        # [B, Lk, 2H/tp]
         if kv_bias is not None and cfg.fid_flash_attention:
             Lk = kv.shape[1]
             key_chunk = min(cfg.flash_key_chunk, Lk)
@@ -368,11 +452,12 @@ class Attention(nn.Module):
                 kv = F.pad(kv, (0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
             o = flash_cross_attention(q, kv.contiguous(), kvb.contiguous(),
-                                      cfg.num_heads, key_chunk, kseed, rate)
+                                      self.nh, key_chunk, kseed, rate)
             return self.out(o.to(cfg.dtype))
         k, v = (self._heads(t) for t in kv.chunk(2, dim=-1))
         return self.out(self._merge(_attend(self._heads(q), k, v, cross_bias,
-                                            cfg.dtype, rate, seed, shard)))
+                                            cfg.dtype, rate, seed, shard,
+                                            tshard)))
 
     def decode(self, x, cache: DecodeCache, layer: int):
         """Incremental self-attention of the new positions x [B, Lq, H] over
@@ -389,7 +474,8 @@ class Attention(nn.Module):
     def cross(self, x, kv, kv_bias):
         """Cross-attention of x [Bq, Lq, H] over precomputed encoder K/V of
         kvB examples with the key-side bias kv_bias [kvB, Lk]. ``kv`` is
-        (k, v), pre-headed [kvB, nh, Lk, hd], or their int8 form (k8,
+        (k, v), pre-headed [kvB, nh, Lk, hd] (this rank's heads), or their
+        int8 form (k8,
         kscale, v8, vscale) with the key rows padded
         (``ops.decode_attention``), which runs the K5 decode kernel.
 
@@ -397,7 +483,7 @@ class Attention(nn.Module):
         extra query rows against that example's K/V, so the slab is read
         once per step whatever the beam width, never repeated."""
         cfg = self.cfg
-        nh, hd = cfg.num_heads, cfg.head_dim
+        nh, hd = self.nh, cfg.head_dim
         q = self.query(x)
         Bq, Lq = q.shape[0], q.shape[1]
         kvB = kv[0].shape[0]
@@ -417,20 +503,22 @@ class Attention(nn.Module):
             k, v = kv
             o = _attend(qh.transpose(1, 2), k, v, kvb[:, None, None, :],
                         cfg.dtype).transpose(1, 2)
-        return self.out(o.reshape(Bq, Lq, cfg.hidden_size))
+        return self.out(o.reshape(Bq, Lq, self.width))
 
 
 class MLP(nn.Module):
-    """h -> ffn -> gelu -> h."""
+    """h -> ffn -> gelu -> h (``wi`` column-parallel, ``wo`` row-parallel
+    under tp)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: Optional[Group] = None):
         super().__init__()
         self.cfg = cfg
         out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
         self.wi = Dense(cfg.hidden_size, cfg.ffn_size, cfg.dtype,
-                        cfg.init_std, device=device)
+                        cfg.init_std, device=device, tp=tp, split=COLUMN)
         self.wo = Dense(cfg.ffn_size, cfg.hidden_size, cfg.dtype, out_std,
-                        device=device)
+                        device=device, tp=tp, split=ROW)
 
     def forward(self, x):
         return self.wo(gelu(self.wi(x), self.cfg.gelu_variant))
@@ -441,18 +529,19 @@ class TransformerLayer(nn.Module):
     adds."""
 
     def __init__(self, cfg: TransformerConfig,
-                 has_cross_attention: bool = False, device=None):
+                 has_cross_attention: bool = False, device=None,
+                 tp: Optional[Group] = None):
         super().__init__()
         eps = cfg.layernorm_epsilon
         self.hidden_dropout = cfg.hidden_dropout
         self.ln_self = LayerNorm(cfg.hidden_size, eps, device)
-        self.self_attention = Attention(cfg, device=device)
+        self.self_attention = Attention(cfg, device=device, tp=tp)
         if has_cross_attention:
             self.ln_cross = LayerNorm(cfg.hidden_size, eps, device)
             self.cross_attention = Attention(cfg, cross_attention=True,
-                                             device=device)
+                                             device=device, tp=tp)
         self.ln_mlp = LayerNorm(cfg.hidden_size, eps, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tp)
 
     def _resid(self, y, r, drop, site):
         """``r + dropout(y)``."""
@@ -495,7 +584,13 @@ def _dots_no_batch(ctx, op, *args, **kwargs):
     projections and the MLP, which ``matmul`` folds to 2-D), recompute the
     rest. Attention products have batch dimensions and the flash kernels
     run inside autograd Functions, so attention is recomputed, and every
-    ``torch.empty`` a kernel fills is made anew by the recompute."""
+    ``torch.empty`` a kernel fills is made anew by the recompute. Under tp
+    the row-parallel layers' all-reduce (``c10d`` ops) is recomputed like
+    the rest, on every rank alike: the recompute issues the forward's
+    collectives again, in the same order on every tp rank, as a layer
+    checkpointed under ``"nothing"`` does. (Saving it is not an option:
+    the collective works in place, and a cached result would leave the
+    recomputed tensor unsummed.)"""
     return (CheckpointPolicy.MUST_SAVE if op in _MM_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
@@ -520,7 +615,8 @@ class TransformerStack(nn.Module):
     ``"dots_no_batch"`` saves the 2-D products (:func:`_dots_no_batch`)."""
 
     def __init__(self, cfg: TransformerConfig,
-                 has_cross_attention: bool = False, device=None):
+                 has_cross_attention: bool = False, device=None,
+                 tp: Optional[Group] = None):
         super().__init__()
         n_unique = cfg.num_unique_layers or cfg.num_layers
         if cfg.num_layers % n_unique:
@@ -536,7 +632,8 @@ class TransformerStack(nn.Module):
         self.num_unique = n_unique
         for u in range(n_unique):
             self.add_module(f"layer_{u}",
-                            TransformerLayer(cfg, has_cross_attention, device))
+                            TransformerLayer(cfg, has_cross_attention, device,
+                                             tp))
         self.ln_final = LayerNorm(cfg.hidden_size, cfg.layernorm_epsilon,
                                   device)
 

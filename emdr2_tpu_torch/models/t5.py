@@ -8,6 +8,14 @@ K2 flash kernel when configured), and ``decode_step`` runs new positions
 incrementally for generation over a ``DecodeCache`` and cross-attention K/V
 precomputed per layer. ``decode_gold_log_probs`` is the teacher's head: an
 online logsumexp over vocab chunks, never holding the [*, L, V] logits.
+
+Tensor parallelism (``tp``): the layers split over it (``models/layers.py``)
+and so does the vocabulary: ``decode`` gives the rank's [B, Ld, V/tp]
+logits (the reader loss is vocab-parallel, ``training/losses.py``),
+``decode_step`` the whole [B, Lq, V] (gathered over tp, so every rank
+picks the same tokens), and ``decode_gold_log_probs`` combines the ranks'
+online logsumexps with a max and a sum over tp (the JAX
+``_vocab_parallel_gold_log_probs``).
 """
 
 from __future__ import annotations
@@ -22,20 +30,24 @@ from emdr2_tpu_torch.data import masks
 from emdr2_tpu_torch.models.layers import (DecodeCache, Embeddings,
                                            TransformerStack)
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
+from emdr2_tpu_torch.parallel.mesh import Group
+from emdr2_tpu_torch.parallel.tensor import gather_from_tp, is_split
 
 
 class T5Model(nn.Module):
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 tp: Optional[Group] = None):
         super().__init__()
         self.cfg = cfg
-        self.shared_embeddings = Embeddings(cfg, device)
-        self.encoder = TransformerStack(cfg, device=device)
+        self.tp = tp if tp is not None else Group.local()
+        self.shared_embeddings = Embeddings(cfg, device, tp)
+        self.encoder = TransformerStack(cfg, device=device, tp=tp)
         self.decoder = TransformerStack(cfg, has_cross_attention=True,
-                                        device=device)
-        self.lm_bias = nn.Parameter(torch.empty(cfg.vocab_size,
-                                                dtype=torch.float32,
-                                                device=device))
+                                        device=device, tp=tp)
+        self.lm_bias = nn.Parameter(torch.empty(
+            cfg.vocab_size // self.tp.world_size, dtype=torch.float32,
+            device=device))
 
     def reset_parameters(self, generator=None):
         nn.init.zeros_(self.lm_bias)
@@ -67,7 +79,8 @@ class T5Model(nn.Module):
 
     def decode(self, dec_ids, enc_hidden, enc_dec_mask,
                drop: Optional[DropoutSeeds] = None):
-        """Whole-prefix decoder -> [B, Ld, V] fp32 logits."""
+        """Whole-prefix decoder -> [B, Ld, V] fp32 logits (this rank's
+        [B, Ld, V/tp] under tp)."""
         x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
         return self.shared_embeddings.attend(x) + self.lm_bias
 
@@ -76,34 +89,59 @@ class T5Model(nn.Module):
         """Gold-token log-probs [B, Ld] fp32 of the whole-prefix decoder,
         the LM head taken as an online logsumexp over 4 vocab chunks (a
         dense head when the vocab does not divide by 4): exact up to
-        summation order against ``decode``."""
+        summation order against ``decode``. Under tp each rank runs the
+        online pass over its ``V / tp`` rows, then the ranks' maxima (a
+        max over tp), rescaled sums of exps and masked gold picks (one sum
+        over tp) combine: no [*, L, V] tensor, no gathered vocabulary."""
         x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
-        emb = self.shared_embeddings.word_embeddings          # [V, H] fp32
+        emb = self.shared_embeddings.word_embeddings      # [V/tp, H] fp32
         V = emb.shape[0]
+        base0 = self.tp.rank * V if is_split(self.tp) else 0
         xf = x.float()
         if V % 4:
             logits = (self.shared_embeddings.attend(x)
                       + self.lm_bias).float()
-            lse = torch.logsumexp(logits, dim=-1)
-            picked = logits.gather(-1, labels[..., None])[..., 0]
-            return picked - lse
+            if not is_split(self.tp):
+                lse = torch.logsumexp(logits, dim=-1)
+                picked = logits.gather(-1, labels[..., None])[..., 0]
+                return picked - lse
+            m = logits.amax(dim=-1)
+            s = torch.exp(logits - m[..., None]).sum(dim=-1)
+            mine = (labels >= base0) & (labels < base0 + V)
+            idx = (labels - base0).clamp(0, V - 1)
+            val = logits.gather(-1, idx[..., None])[..., 0]
+            picked = torch.where(mine, val, torch.zeros_like(val))
+            return self._combine_vocab(m, s, picked)
         chunk = V // 4
         m = torch.full(labels.shape, -float("inf"), device=x.device)
         s = torch.zeros(labels.shape, device=x.device)
         picked = torch.zeros(labels.shape, device=x.device)
         for c in range(4):
-            base = c * chunk
-            w = emb[base:base + chunk].to(x.dtype).float()
-            lc = torch.matmul(xf, w.T) + self.lm_bias[base:base + chunk]
+            lo = c * chunk
+            w = emb[lo:lo + chunk].to(x.dtype).float()
+            lc = torch.matmul(xf, w.T) + self.lm_bias[lo:lo + chunk]
             m_new = torch.maximum(m, lc.amax(dim=-1))
             s = (s * torch.exp(m - m_new)
                  + torch.exp(lc - m_new[..., None]).sum(dim=-1))
+            base = base0 + lo
             in_chunk = (labels >= base) & (labels < base + chunk)
             idx = (labels - base).clamp(0, chunk - 1)
             val = lc.gather(-1, idx[..., None])[..., 0]
             picked = torch.where(in_chunk, val, picked)
             m = m_new
-        return picked - (torch.log(s) + m)
+        return self._combine_vocab(m, s, picked)
+
+    def _combine_vocab(self, m, s, picked):
+        """gold - logsumexp from a rank's (max, sum of exp(l - max), masked
+        gold pick) over its vocabulary rows: with one rank the rows are the
+        whole vocabulary; under tp a max over the ranks (no gradient: the
+        shift cancels), then one sum of the rescaled sums and the picks."""
+        if not is_split(self.tp):
+            return picked - (torch.log(s) + m)
+        g = self.tp.all_reduce_max_(m.detach().clone())
+        both = self.tp.all_reduce_sum_(torch.stack(
+            [s * torch.exp(m - g), picked]))
+        return both[1] - (torch.log(both[0]) + g)
 
     def _decode_step_hidden(self, dec_ids, cross_kvs, cross_bias,
                             cache: DecodeCache, position_offset: int = 0):
@@ -114,8 +152,10 @@ class T5Model(nn.Module):
 
     def decode_step(self, dec_ids, cross_kvs, cross_bias, cache: DecodeCache,
                     position_offset: int = 0):
-        """Incremental decoder -> [B, Lq, V] fp32 logits. ``cross_bias``
-        [B, Lk] is the key-side bias of the encoder positions."""
+        """Incremental decoder -> [B, Lq, V] fp32 logits, whole on every
+        rank (gathered over tp). ``cross_bias`` [B, Lk] is the key-side
+        bias of the encoder positions."""
         x = self._decode_step_hidden(dec_ids, cross_kvs, cross_bias, cache,
                                      position_offset)
-        return self.shared_embeddings.attend(x) + self.lm_bias
+        return gather_from_tp(self.shared_embeddings.attend(x)
+                              + self.lm_bias, self.tp)

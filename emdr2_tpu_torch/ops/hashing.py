@@ -18,13 +18,17 @@ int32 keeps the hidden-dropout mask at 4 bytes per element: a
 [400, 512, 768] activation takes one 0.63 GB hash tensor and one temporary
 of that size while its mask is made.
 
-Data parallelism (one process a rank) keeps the JAX package's two rules on
-its ``dp`` mesh. The attention kernels hash *local* (batch * head) indices,
-so rank r adds r * 0x9E3779B1 (uint32 wrap) to their seed (``shard_seed``,
-the JAX ``_shard_seed`` on the ``dp`` axis). ``PackedDropout`` hashes
-*global* element coordinates (its iota is global under GSPMD), so rank r's
-rows are offset by r * (its rows) (``packed_dropout(..., row_offset=)``).
-``DropoutSeeds.shard`` carries the rank to both.
+A ``[dp, tp]`` grid of ranks (one process a rank) keeps the JAX package's
+three rules on its mesh. The attention kernels hash *local* (batch * head)
+indices, so the rank at (dp index d, tp index t) adds d * 0x9E3779B1 +
+t * 0x85EBCA77 (uint32 wrap) to their seed (``shard_seed``, the JAX
+``_shard_seed`` over ``(dp, tp)``). ``PackedDropout`` hashes *global*
+element coordinates (its iota is global under GSPMD): on the replicated
+[B, L, D] activations rank d's rows are offset by d * (its rows), the same
+mask on every tp rank (``packed_dropout(..., row_offset=)``); on the
+materialized attention probabilities [B, nh/tp, Lq, Lk] the heads are
+offset by t * nh/tp as well (``head_offset=``). ``DropoutSeeds.shard`` and
+``DropoutSeeds.tp_shard`` carry the two indices.
 
 Seeds: the JAX package draws one seed per site from flax rngs, which the
 port cannot reproduce. Here a site's seed is a pure function of the step's
@@ -109,21 +113,22 @@ def keep_mask(seed: int, bh: torch.Tensor, rate: float, rows: int,
     return _uint_ge_(murmur_fin_(x), attention_threshold(rate))
 
 
-def shard_seed(seed: int, rank: int) -> int:
-    """The attention kernels' seed on data-parallel rank ``rank``:
-    ``seed + rank * 0x9E3779B1`` (uint32), the JAX ``_shard_seed`` on the
-    ``dp`` axis (its ``tp`` index is 0)."""
-    return (seed + rank * MIX_PRIMES[0]) & _M32
+def shard_seed(seed: int, rank: int, tp_rank: int = 0) -> int:
+    """The attention kernels' seed on data-parallel rank ``rank`` and
+    tensor-parallel rank ``tp_rank``: ``seed + rank * 0x9E3779B1 + tp_rank
+    * 0x85EBCA77`` (uint32), the JAX ``_shard_seed`` over ``(dp, tp)``."""
+    return (seed + rank * MIX_PRIMES[0] + tp_rank * MIX_PRIMES[1]) & _M32
 
 
 def packed_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-                   row_offset: int = 0) -> torch.Tensor:
+                   row_offset: int = 0, head_offset: int = 0) -> torch.Tensor:
     """Inverted dropout of ``PackedDropout``: the keep bit of element
     (i0, i1, ...) is murmur_fin(seed ^ i0*P0 ^ i1*P1 ^ ...) >= t with
     t = round(rate * 2^32) (rounded, unlike the attention mask's
     truncation), and kept elements are scaled by 2^32 / (2^32 - t) rounded
     to ``x.dtype``. ``row_offset`` is added to i0 (a data-parallel rank's
-    first global row). ``seed=None`` (evaluation) or rate 0 returns
+    first global row), ``head_offset`` to i1 (a tensor-parallel rank's
+    first global head). ``seed=None`` (evaluation) or rate 0 returns
     ``x``."""
     if seed is None or rate == 0.0:
         return x
@@ -136,8 +141,10 @@ def packed_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
         shape = [1] * x.dim()
         shape[axis] = n
         idx = torch.arange(n, device=x.device, dtype=torch.int32)
-        if axis == 0 and row_offset:
-            idx += _i32(row_offset)
+        offset = (row_offset if axis == 0
+                  else head_offset if axis == 1 else 0)
+        if offset:
+            idx += _i32(offset)
         idx = (idx * _i32(MIX_PRIMES[axis % len(MIX_PRIMES)])).view(shape)
         if h is None:
             idx ^= _i32(seed)
@@ -162,33 +169,38 @@ class DropoutSeeds:
     sub-stream (a model part, a layer), ``site(i)`` the uint32 seed of one
     dropout site inside it; both are pure functions of the step seed and
     the indices, so a recompute under activation checkpointing sees the
-    same seeds as the forward. ``shard`` is the data-parallel rank (0 in
-    one process): the same site seeds on every rank, folded by the rank
-    for the attention kernels (``kernel_seed``) and offset by the rank's
-    rows for the hidden dropout (``row_offset``)."""
+    same seeds as the forward. ``shard`` is the data-parallel rank and
+    ``tp_shard`` the tensor-parallel one (0 in one process): the same site
+    seeds on every rank, folded by both for the attention kernels
+    (``kernel_seed``), offset by the rank's rows for the hidden dropout
+    (``row_offset``), and by its rows and heads for the materialized
+    attention dropout (``layers._attend``)."""
 
-    __slots__ = ("seed", "shard")
+    __slots__ = ("seed", "shard", "tp_shard")
 
-    def __init__(self, seed: int, shard: int = 0):
+    def __init__(self, seed: int, shard: int = 0, tp_shard: int = 0):
         self.seed = seed & _M32
         self.shard = shard
+        self.tp_shard = tp_shard
 
     def fold(self, index: int) -> "DropoutSeeds":
-        return DropoutSeeds(fold_seed(self.seed, index), self.shard)
+        return DropoutSeeds(fold_seed(self.seed, index), self.shard,
+                            self.tp_shard)
 
     def site(self, index: int) -> int:
         return fold_seed(self.seed, 1_000_003 + index)
 
     def kernel_seed(self, index: int) -> int:
         """Site ``index``'s seed for an attention kernel on this rank."""
-        return shard_seed(self.site(index), self.shard)
+        return shard_seed(self.site(index), self.shard, self.tp_shard)
 
     def row_offset(self, rows: int) -> int:
         """The first global row of this rank's ``rows`` rows."""
         return self.shard * rows
 
     def __repr__(self) -> str:
-        return f"DropoutSeeds({self.seed:#010x}, shard={self.shard})"
+        return (f"DropoutSeeds({self.seed:#010x}, shard={self.shard}, "
+                f"tp_shard={self.tp_shard})")
 
 
 def fold(drop: Optional[DropoutSeeds], index: int) -> Optional[DropoutSeeds]:

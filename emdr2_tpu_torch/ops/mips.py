@@ -332,26 +332,32 @@ def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
                       local_scales: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k search of every rank's queries against the index whose rows
-    the ranks of ``dp`` (``parallel.mesh.DataParallel``) hold in contiguous
-    blocks of ``local_shard.shape[0]`` rows (port of
-    ``emdr2_tpu.ops.mips.sharded_mips_topk`` and the index's search).
+    the ranks of ``dp.world`` hold in contiguous blocks of
+    ``local_shard.shape[0]`` rows, by world rank (port of
+    ``emdr2_tpu.ops.mips.sharded_mips_topk`` and the index's search,
+    ``emdr2_tpu/retrieval/index.py:329-337``). ``dp`` is a
+    ``parallel.mesh.DataParallel``: its ranks feed different queries, its
+    tp ranks (``dp.tp``) the same ones; a ``Group`` without ``world`` is
+    both.
 
     local_queries [b, d] (this rank's; equal b on every rank),
     local_shard [N/W, d] -> (scores [b, k] fp32, global row ids [b, k]).
     ``n_real``: rows at or past it (zero padding) never win.
 
-    1. all-gather the queries -> [W * b, d];
+    1. all-gather the queries over dp -> [D * b, d] (D = dp ranks; the tp
+       ranks hold the same ones, so no gather over tp);
     2. the local search (``mips_topk``: the K3 scan and its re-rank);
-    3. local row ids + rank * N/W -> global ids;
-    4. all-gather (vals, ids) -> [W, W * b, k];
+    3. local row ids + world rank * N/W -> global ids;
+    4. all-gather (vals, ids) over the world -> [W, D * b, k];
     5. merge the W * k candidates of each query (``merge_topk``);
-    6. keep this rank's b rows.
+    6. keep this rank's b rows (its dp slice).
     With one rank the collectives copy nothing and the merge keeps the
     local order, so the result is the local search's."""
     b = local_queries.shape[0]
-    w, rank = dp.world_size, dp.rank
+    blocks = getattr(dp, "world", dp)
+    w = blocks.world_size
     shard_rows = local_shard.shape[0]
-    start = rank * shard_rows
+    start = blocks.rank * shard_rows
     n_valid = None
     if n_real is not None and n_real < start + shard_rows:
         n_valid = max(0, min(n_real - start, shard_rows))
@@ -363,9 +369,11 @@ def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
     idx = idx + start
     if n_real is not None:
         vals = torch.where(idx < n_real, vals, torch.full_like(vals, NEG_INF))
-    av = dp.all_gather(vals)                           # [W, W*b, k]
-    ai = dp.all_gather(idx)
-    av = av.permute(1, 0, 2).reshape(w * b, w * k)
-    ai = ai.permute(1, 0, 2).reshape(w * b, w * k)
+    nq = all_q.shape[0]
+    av = blocks.all_gather(vals)                       # [W, D*b, k]
+    ai = blocks.all_gather(idx)
+    av = av.permute(1, 0, 2).reshape(nq, w * k)
+    ai = ai.permute(1, 0, 2).reshape(nq, w * k)
     mvals, mids = merge_topk(av, ai, k)
+    rank = dp.rank
     return mvals[rank * b:(rank + 1) * b], mids[rank * b:(rank + 1) * b]

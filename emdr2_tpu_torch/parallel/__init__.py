@@ -1,4 +1,5 @@
-"""Data parallelism across processes, one per rank (``torch.distributed``)."""
+"""Data and tensor parallelism across processes, one per rank
+(``torch.distributed``)."""
 
 from emdr2_tpu_torch.parallel.distributed import (  # noqa: F401
     default_backend,
@@ -10,7 +11,9 @@ from emdr2_tpu_torch.parallel.distributed import (  # noqa: F401
 )
 from emdr2_tpu_torch.parallel.mesh import (  # noqa: F401
     DataParallel,
+    Group,
     check_mesh_config,
+    check_tp_divides,
     embed_devices,
     row_range,
 )

@@ -5,9 +5,10 @@ The JAX package forms one global device mesh from N processes
 (``jax.distributed.initialize``) and lets the compiler insert the
 collectives. Here each process is one data-parallel rank with one device,
 and the collectives are explicit: ``init_distributed`` makes the process
-group, ``DataParallel`` (``parallel/mesh.py``) carries it, and the helpers
-below are the only collectives the port calls: ``all_reduce``, the list
-form of ``all_gather``, ``broadcast`` and ``broadcast_object_list``.
+group, ``DataParallel`` (``parallel/mesh.py``) carries it and the dp and
+tp groups made from it, and the helpers below are the only collectives the
+port calls: ``all_reduce``, the list form of ``all_gather``, ``broadcast``
+and ``broadcast_object_list``.
 
 Backends. NCCL when each rank has a card of its own; gloo on the CPU, and
 when ranks share one card (NCCL refuses two ranks on one device). The
@@ -127,10 +128,11 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """``obj`` of rank ``src`` on every rank (``broadcast_object_list``)."""
+def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:
+    """``obj`` of world rank ``src`` on every rank of ``group`` (default:
+    every rank; ``broadcast_object_list``)."""
     if not dist.is_initialized():
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    dist.broadcast_object_list(box, src=src, group=group)
     return box[0]

@@ -1,14 +1,28 @@
-"""The data-parallel group and the index's row partition (port of
-``emdr2_tpu/parallel/mesh.py``).
+"""The ``[dp, tp]`` grid of ranks, its process groups and the index's row
+partition (port of ``emdr2_tpu/parallel/mesh.py``).
 
 The JAX package builds a ``[dp, tp]`` device mesh and expresses every
-parallel layout as a sharding against it. The port keeps one axis, ``dp``:
-one process per rank, each feeding a contiguous slice of the global batch,
-holding a contiguous block of the evidence index's rows, and reducing its
-gradients with the others before the optimizer (``training/step.py``).
-``DataParallel`` is that group and its collectives; ``DataParallel.local()``
-is the one-rank group of a single process, whose collectives return their
-input without a call.
+parallel layout as a sharding against it. The port runs one process per
+rank of the same grid, row-major: world rank ``dp_idx * tp + tp_idx``.
+
+- ``dp``: each data-parallel rank feeds a contiguous slice of the global
+  batch and reduces its gradients with the others before the optimizer
+  (``training/step.py``). Its group holds the ranks with the same tp
+  index.
+- ``tp``: the ranks with the same dp index hold one replica between them,
+  its heads, MLP columns and vocabulary split Megatron-style
+  (``parallel/tensor.py``, ``models/layers.py``), and feed the same rows.
+- the evidence index's rows split over all ``dp * tp`` ranks (the JAX
+  ``index_sharding``), the block of rank r being ``row_range(..., r,
+  dp * tp)``.
+
+``DataParallel`` is the dp group and its collectives, and carries the two
+others: ``.tp`` (a ``Group`` over the rank's tp ranks) and ``.world``
+(every rank: the index's blocks, the coordinator's side effects).
+``DataParallel.local()`` is the one-rank grid of a single process, whose
+collectives return their input without a call. With ``tp = 1`` the dp
+group is the default group and ``.world`` is the dp group itself, so every
+group and layout is the one of a data-parallel launch.
 
 The embedder group (``MeshConfig.embed_devices > 0``, the JAX
 ``build_meshes``' disjoint sub-mesh, the reference's indexer ranks): rank r
@@ -18,9 +32,9 @@ its share of them: ``embed_devices / dp`` cards of its own when there are at
 least as many embedder cards as ranks, else one card that ``dp /
 embed_devices`` ranks share. Each rank's embedder works for that rank
 alone (``training/async_refresh.py``) and issues no collective, so the
-group needs no process group of its own. Tensor parallelism
-(``MeshConfig.tp > 1``) is not ported yet (ROADMAP A3);
-``check_mesh_config`` refuses it.
+group needs no process group of its own. The trainers take cards
+``0 .. dp*tp - 1`` (card = world rank), the embedders the cards after them
+(the JAX ``build_meshes``' ``n_train = dp * tp``).
 """
 
 from __future__ import annotations
@@ -39,52 +53,87 @@ GRAD_BUCKET_BYTES = 32 * 2 ** 20
 
 
 def check_mesh_config(cfg: MeshConfig, world_size: int,
-                      n_cards: Optional[int] = None) -> None:
-    """Raise unless ``cfg`` is a data-parallel layout over ``world_size``
-    processes, with an embedder group that divides over its ranks and,
-    given ``n_cards`` (the visible cards; None on the CPU, where every
-    device is the host), fits beside the trainers."""
-    if cfg.tp != 1:
-        raise NotImplementedError(
-            f"--tp {cfg.tp}: tensor parallelism (vocab-parallel "
-            f"cross-entropy, head-sharded kernels) is not ported yet "
-            f"(ROADMAP A3); use --tp 1")
-    dp, embed = cfg.dp, cfg.embed_devices
+                      n_cards: Optional[int] = None,
+                      model=None) -> None:
+    """Raise unless ``cfg`` is a ``[dp, tp]`` layout over ``world_size``
+    processes (``dp * tp`` of them), with an embedder group that divides
+    over its ``dp * tp`` trainers and, given ``n_cards`` (the visible
+    cards; None on the CPU, where every device is the host), fits beside
+    them. ``model`` (an ``EMDR2Config``, a ``RetrieverConfig`` or a
+    ``TransformerConfig``): ``tp`` must divide the heads, the MLP width and
+    the vocabulary of each of its transformers (``check_tp_divides``)."""
+    dp, tp, embed = cfg.dp, cfg.tp, cfg.embed_devices
+    if tp < 1 or dp < 1:
+        raise ValueError(f"--dp {dp} --tp {tp}: both must be 1 or more")
+    if model is not None:
+        check_tp_divides(tp, model)
+    n = dp * tp
     if embed < 0:
         raise ValueError(f"--embed-devices {embed} must be 0 or more")
-    if embed and embed % dp and dp % embed:
+    if embed and embed % n and n % embed:
         raise ValueError(
-            f"--embed-devices {embed} does not divide over --dp {dp}: the "
-            f"embedder cards must be a multiple of the ranks (each rank "
-            f"takes embed-devices / dp cards) or divide them (dp / "
-            f"embed-devices ranks share a card)")
-    if embed and n_cards is not None and dp + embed > n_cards:
+            f"--embed-devices {embed} does not divide over the {n} trainer "
+            f"ranks (dp {dp} x tp {tp}): the embedder cards must be a "
+            f"multiple of the ranks (each rank takes embed-devices / "
+            f"(dp*tp) cards) or divide them (dp*tp / embed-devices ranks "
+            f"share a card)")
+    if embed and n_cards is not None and n + embed > n_cards:
+        trainers = "dp" if tp == 1 else "dp * tp"
         raise ValueError(
-            f"--dp {dp} --embed-devices {embed} needs dp + embed-devices = "
-            f"{dp + embed} visible cards (trainers on cards 0..{dp - 1}, "
-            f"embedders after them), {n_cards} visible")
-    if cfg.dp != world_size:
-        raise ValueError(f"--dp {cfg.dp} needs {cfg.dp} processes, one a "
+            f"--dp {dp} --tp {tp} --embed-devices {embed} needs {trainers} "
+            f"+ embed-devices = {n + embed} visible cards (trainers on cards "
+            f"0..{n - 1}, embedders after them), {n_cards} visible")
+    if n != world_size:
+        raise ValueError(f"--dp {dp} --tp {tp} needs {n} processes, one a "
                          f"rank; this launch has {world_size}")
+
+
+def _transformers(model):
+    """(name, TransformerConfig) of each transformer in ``model``."""
+    if hasattr(model, "retriever"):                    # EMDR2Config
+        return [("the towers", model.retriever.encoder),
+                ("the reader", model.reader.transformer)]
+    if hasattr(model, "encoder"):                      # RetrieverConfig
+        return [("the towers", model.encoder)]
+    return [("the transformer", model)]
+
+
+def check_tp_divides(tp: int, model,
+                     fields: Sequence[str] = ("num_heads", "ffn_size",
+                                              "vocab_size")) -> None:
+    """Raise, naming the size, unless ``tp`` divides ``num_heads``,
+    ``ffn_size`` and ``vocab_size`` (``fields``) of every transformer of
+    ``model``: a layout that does not divide is refused, never run at
+    tp = 1 or padded."""
+    if tp == 1:
+        return
+    for name, t in _transformers(model):
+        for field in fields:
+            size = getattr(t, field)
+            if size % tp:
+                raise ValueError(
+                    f"--tp {tp} does not divide {field} {size} of {name}: "
+                    f"tensor parallelism splits the heads, the MLP width "
+                    f"and the vocabulary over the tp ranks")
 
 
 def embed_devices(cfg: MeshConfig, rank: int,
                   device: torch.device) -> List[torch.device]:
     """Rank ``rank``'s embedder devices beside its trainer ``device``
-    (card ``rank``): cards ``dp + rank * E/dp ...`` of its own when E >=
-    dp, else card ``dp + rank // (dp/E)``, shared; the trainer's own card
-    without an embedder group; on the CPU as many CPU devices (the
-    layout's code runs unchanged there). The JAX ``build_meshes`` puts the
-    embedder sub-mesh on the devices after the train mesh in the same
-    way."""
-    dp, embed = cfg.dp, cfg.embed_devices
+    (card ``rank``, a world rank of the ``dp * tp`` trainers): cards
+    ``n + rank * E/n ...`` of its own when E >= n = dp * tp, else card
+    ``n + rank // (n/E)``, shared; the trainer's own card without an
+    embedder group; on the CPU as many CPU devices (the layout's code runs
+    unchanged there). The JAX ``build_meshes`` puts the embedder sub-mesh
+    on the devices after the train mesh in the same way."""
+    n, embed = cfg.dp * cfg.tp, cfg.embed_devices
     if embed == 0:
         return [device]
-    if embed >= dp:
-        per = embed // dp
-        idx = [dp + rank * per + i for i in range(per)]
+    if embed >= n:
+        per = embed // n
+        idx = [n + rank * per + i for i in range(per)]
     else:
-        idx = [dp + rank // (dp // embed)]
+        idx = [n + rank // (n // embed)]
     if device.type != "cuda":
         return [device] * len(idx)
     return [torch.device("cuda", i) for i in idx]
@@ -100,32 +149,32 @@ def row_range(n_padded: int, rank: int, world_size: int) -> Tuple[int, int]:
     return rank * rows, (rank + 1) * rows
 
 
-class DataParallel:
-    """A data-parallel group: ``rank`` of ``world_size`` over the default
-    process group with ``backend`` (None: one process, no group). Counts
-    the bytes each collective sends from this rank (``bytes_moved``, by
-    the name of the collective)."""
+class Group:
+    """Ranks of one process group (``group``; None: the default group)
+    and their collectives: ``rank`` of ``world_size``, ``ranks`` the world
+    ranks of its members by group rank, ``backend`` None for one process
+    (every collective then returns its input without a call). Counts the
+    bytes each collective sends from this rank (``bytes_moved``, by the
+    name of the collective)."""
 
     def __init__(self, rank: int, world_size: int,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, group=None,
+                 ranks: Optional[Sequence[int]] = None):
         self.rank = rank
         self.world_size = world_size
         self.backend = backend
+        self.group = group
+        self.ranks = list(ranks) if ranks is not None else list(
+            range(world_size))
         self.bytes_moved: Dict[str, int] = defaultdict(int)
 
     @classmethod
-    def local(cls) -> "DataParallel":
+    def local(cls) -> "Group":
         """One process, one rank: every collective is the identity."""
         return cls(0, 1)
 
-    @classmethod
-    def from_process_group(cls) -> "DataParallel":
-        """The default group of an initialized ``torch.distributed``."""
-        if not dist.is_initialized():
-            raise RuntimeError("torch.distributed is not initialized "
-                               "(parallel.distributed.init_process_group)")
-        return cls(dist.get_rank(), dist.get_world_size(),
-                   dist.get_backend())
+    def __deepcopy__(self, memo):
+        return self            # a module's copy shares its process group
 
     @property
     def distributed(self) -> bool:
@@ -134,8 +183,9 @@ class DataParallel:
         return self.backend is not None
 
     def __repr__(self) -> str:
-        return (f"DataParallel(rank={self.rank}, world_size="
-                f"{self.world_size}, backend={self.backend!r})")
+        return (f"{type(self).__name__}(rank={self.rank}, world_size="
+                f"{self.world_size}, backend={self.backend!r}, ranks="
+                f"{self.ranks})")
 
     # ---- transport -------------------------------------------------------
 
@@ -151,19 +201,26 @@ class DataParallel:
 
     # ---- collectives -----------------------------------------------------
 
-    def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
+    def _all_reduce_(self, t: torch.Tensor, op, name: str) -> torch.Tensor:
         if not self.distributed:
             return t
-        self._count("all_reduce", t)
+        self._count(name, t)
         dev = self._transport_device()
         if t.device != dev:
             moved = t.to(dev)
-            dist.all_reduce(moved)
+            dist.all_reduce(moved, op=op, group=self.group)
             t.copy_(moved)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, op=op, group=self.group)
         return t
+
+    def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns ``t``."""
+        return self._all_reduce_(t, dist.ReduceOp.SUM, "all_reduce")
+
+    def all_reduce_max_(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over the ranks, in place."""
+        return self._all_reduce_(t, dist.ReduceOp.MAX, "all_reduce_max")
 
     def all_reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
         """Mean of ``t`` over the ranks, in place; returns ``t``."""
@@ -182,7 +239,7 @@ class DataParallel:
         self._count("all_gather", t)
         src = t.detach().contiguous().to(self._transport_device())
         parts = [torch.empty_like(src) for _ in range(self.world_size)]
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         return torch.stack(parts).to(t.device)
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -191,9 +248,11 @@ class DataParallel:
         return g.reshape(-1, *t.shape[1:])
 
     def broadcast_object(self, obj, src: int = 0):
+        """``obj`` of the group's rank ``src`` on every rank."""
         if not self.distributed:
             return obj
-        return dist_lib.broadcast_object(obj, src=src)
+        return dist_lib.broadcast_object(obj, src=self.ranks[src],
+                                         group=self.group)
 
     def barrier(self) -> None:
         """Wait for every rank (an all-reduce of one element, so the order
@@ -201,6 +260,74 @@ class DataParallel:
         if self.distributed:
             self.all_reduce_sum_(torch.zeros(1,
                                              device=self._transport_device()))
+
+    # ---- the index's rows --------------------------------------------------
+
+    def row_range(self, n_padded: int) -> Tuple[int, int]:
+        return row_range(n_padded, self.rank, self.world_size)
+
+
+class DataParallel(Group):
+    """The data-parallel group of a ``[dp, tp]`` grid (module docstring):
+    the ranks with this rank's tp index. ``tp`` is the rank's
+    tensor-parallel ``Group``, ``world`` the ``Group`` of every rank (the
+    dp group itself when tp = 1)."""
+
+    def __init__(self, rank: int, world_size: int,
+                 backend: Optional[str] = None, group=None,
+                 ranks: Optional[Sequence[int]] = None,
+                 tp: Optional[Group] = None, world: Optional[Group] = None):
+        super().__init__(rank, world_size, backend, group, ranks)
+        self.tp = tp if tp is not None else Group.local()
+        self.world = world if world is not None else self
+
+    @classmethod
+    def local(cls) -> "DataParallel":
+        """One process, one rank: every collective is the identity."""
+        return cls(0, 1)
+
+    @classmethod
+    def from_process_group(cls, tp: int = 1) -> "DataParallel":
+        """The dp group of an initialized ``torch.distributed`` laid out
+        as ``[world / tp, tp]``. Every rank makes every dp and tp group
+        (``dist.new_group``, in the same order on all of them); with
+        ``tp = 1`` the dp group is the default group and no group is
+        made."""
+        if not dist.is_initialized():
+            raise RuntimeError("torch.distributed is not initialized "
+                               "(parallel.distributed.init_process_group)")
+        rank, world, backend = (dist.get_rank(), dist.get_world_size(),
+                                dist.get_backend())
+        if tp == 1:
+            return cls(rank, world, backend)
+        if world % tp:
+            raise ValueError(f"--tp {tp} does not divide the {world} "
+                             f"processes")
+        dp = world // tp
+        dp_idx, tp_idx = divmod(rank, tp)
+        whole = Group(rank, world, backend)
+        dp_groups = [[d * tp + t for d in range(dp)] for t in range(tp)]
+        tp_groups = [[d * tp + t for t in range(tp)] for d in range(dp)]
+        made = {}
+        for ranks in dp_groups + tp_groups:
+            made[tuple(ranks)] = dist.new_group(ranks)
+
+        def group(ranks, idx):
+            if len(ranks) == 1:
+                return Group.local()
+            return Group(idx, len(ranks), backend, made[tuple(ranks)], ranks)
+
+        tp_group = group(tp_groups[dp_idx], tp_idx)
+        mine = dp_groups[tp_idx]
+        if len(mine) == 1:
+            return cls(0, 1, tp=tp_group, world=whole)
+        return cls(dp_idx, dp, backend, made[tuple(mine)], mine,
+                   tp=tp_group, world=whole)
+
+    @property
+    def is_coordinator(self) -> bool:
+        """World rank 0: the rank that writes checkpoints and prints."""
+        return self.world.rank == 0
 
     def all_reduce_grads_(self, params: Sequence[torch.nn.Parameter],
                           bucket_bytes: int = GRAD_BUCKET_BYTES) -> None:
@@ -220,11 +347,6 @@ class DataParallel:
                 n = g.numel()
                 p.grad = flat[offset:offset + n].view_as(g)
                 offset += n
-
-    # ---- the index's rows --------------------------------------------------
-
-    def row_range(self, n_padded: int) -> Tuple[int, int]:
-        return row_range(n_padded, self.rank, self.world_size)
 
 
 def _buckets(params: Sequence[torch.nn.Parameter], bucket_bytes: int

@@ -21,6 +21,12 @@ with onto each of them once per refresh (the JAX builder's
 batch i of a pass runs on device i mod their count, so one host thread
 keeps every card busy, and ``embed_corpus_device`` gathers the rows on
 the first.
+
+A tower split over tensor-parallel ranks (``parallel/tensor.py``) is never
+embedded with as it is: each rank embeds its own block of rows, which a
+split tower's collectives would mix. ``place_params`` gathers it whole over
+tp (``tensor.unsharded_copy``, on the calling thread, every tp rank
+alike) and the embedder runs the whole copy, as one process would.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ import torch
 from emdr2_tpu_torch.config import EMDR2Config
 from emdr2_tpu_torch.data.evidence import EvidenceCorpus
 from emdr2_tpu_torch.native import batch_context_format
+from emdr2_tpu_torch.parallel.tensor import (all_gather_params, is_split,
+                                             module_tp, unsharded_copy)
 from emdr2_tpu_torch.retrieval.datastore import EmbeddingStore
 
 
@@ -91,7 +99,21 @@ class EvidenceIndexBuilder:
         gradients: made on the first call, and with ``placed`` (an earlier
         call's result) the weights are copied into them in place, device to
         device on the calling thread's current streams (a copy between
-        cards waits for the current streams of both)."""
+        cards waits for the current streams of both). A tp-split
+        ``module`` is first gathered whole (a collective over its tp
+        group: every tp rank calls this at the same point)."""
+        tp = module_tp(module)
+        if is_split(tp) and placed is None:
+            whole = unsharded_copy(module)
+            return [copy.deepcopy(whole).to(dev).requires_grad_(False).eval()
+                    for dev in self.devices]
+        if is_split(tp):
+            whole = all_gather_params(
+                {n: p.detach() for n, p in module.named_parameters()}, tp)
+            for twin in placed:
+                for n, d in twin.named_parameters():
+                    d.copy_(whole[n])
+            return placed
         if placed is None:
             placed = []
             for dev in self.devices:
@@ -119,8 +141,9 @@ class EvidenceIndexBuilder:
                 raise ValueError(f"{len(module)} modules for "
                                  f"{len(self.devices)} devices")
             return list(module)
-        if len(self.devices) == 1 and next(
-                module.parameters()).device == self.device:
+        if (len(self.devices) == 1
+                and next(module.parameters()).device == self.device
+                and not is_split(module_tp(module))):
             return [module]
         return self.place_params(module)
 

@@ -72,7 +72,8 @@ class OpenRetrievalEvaluator:
     def retrieve(self, questions: Sequence[str], k: int):
         """-> (passage_ids [n, k] numpy, scores [n, k] numpy): one search
         of the index over all n questions, each rank of ``index.dp``
-        embedding and searching its slice (all of them on one rank)."""
+        embedding and searching its slice (all of them on one rank; the tp
+        ranks of a replica the same slice)."""
         dp = self.index.dp
         n = len(questions)
         per = -(-n // dp.world_size)
@@ -92,15 +93,15 @@ class OpenRetrievalEvaluator:
         """recall@k over QA examples: {"recall@j": fraction} for each j of
         ``report_at`` (capped at k); with ``dump_path``, the per-question
         top-k passage ids and hits as JSON. Over a sharded index every
-        rank calls it; rank 0 matches and writes the dump."""
+        rank calls it; world rank 0 matches and writes the dump."""
         questions = [e.question for e in examples]
         answers = [e.answers for e in examples]
         pids, scores = self.retrieve(questions, k)
-        dp = self.index.dp
+        ranks = self.index.blocks
         result = (self._recall(questions, answers, pids, scores, k,
                                doc_text_fn, match_type, report_at, dump_path)
-                  if dp.rank == 0 else None)
-        return dp.broadcast_object(result)
+                  if ranks.rank == 0 else None)
+        return ranks.broadcast_object(result)
 
     def _recall(self, questions, answers, pids, scores, k, doc_text_fn,
                 match_type, report_at, dump_path) -> dict:

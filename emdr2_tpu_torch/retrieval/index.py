@@ -2,11 +2,13 @@
 ``emdr2_tpu/retrieval/index.py:ShardedEvidenceIndex``).
 
 Without ``dp`` the [N, d] embedding matrix lives on one device. With a
-data-parallel group ``dp`` (``parallel.mesh.DataParallel``) rank r holds
-only its block of rows, ``process_row_range()``: the padded rows split in
-W equal blocks of a whole number of groups; ``search`` runs
-``ops.mips.sharded_mips_topk`` over the group and returns global row ids,
-and ``update_from_process_local`` swaps in this rank's rows alone. Rows
+data-parallel group ``dp`` (``parallel.mesh.DataParallel``) the rows split
+over every rank of its grid, ``dp.world`` (``dp * tp`` ranks, the JAX
+``index_sharding``): rank r holds only its block, ``process_row_range()``,
+the padded rows split in W equal blocks of a whole number of groups;
+``search`` runs ``ops.mips.sharded_mips_topk`` (the queries gathered over
+dp, the candidates over the world) and returns global row ids, and
+``update_from_process_local`` swaps in this rank's rows alone. Rows
 live in ``cfg.dtype`` or, with
 ``cfg.quantize == "int8"``, as int8 rows plus one fp32 scale per
 ``group_size`` rows. Rows are padded with zeros to a multiple of the group
@@ -76,13 +78,15 @@ class ShardedEvidenceIndex:
         self.device = resolve_device(device)
         self.quantized = cfg.quantize == "int8"
         self.dp = dp = dp if dp is not None else DataParallel.local()
+        # the ranks that hold the blocks: every rank of the grid
+        self.blocks = blocks = getattr(dp, "world", dp)
         n = n_real if local else n
         self.n_real = n
         g = cfg.group_size
         # every rank holds an equal block of whole groups
-        per_rank = -(-n // dp.world_size)
+        per_rank = -(-n // blocks.world_size)
         self.shard_rows = -(-per_rank // g) * g
-        self.n_padded = self.shard_rows * dp.world_size
+        self.n_padded = self.shard_rows * blocks.world_size
         # (rows, scales, written) swapped as one tuple: a search snapshots
         # it whole; ``written`` (CUDA only) is recorded after the pair
         self._data: Tuple[torch.Tensor, Optional[torch.Tensor],
@@ -97,8 +101,8 @@ class ShardedEvidenceIndex:
 
     def process_row_range(self) -> Tuple[int, int]:
         """This rank's [start, stop) of the padded rows (all of them on
-        one rank)."""
-        return self.dp.row_range(self.n_padded)
+        one rank), by its world rank."""
+        return self.blocks.row_range(self.n_padded)
 
     def _own_rows(self, embeddings):
         """This rank's rows of the whole matrix (up to n_real)."""
@@ -238,7 +242,7 @@ class ShardedEvidenceIndex:
             for t in (emb, scales):
                 if t is not None:
                     t.record_stream(stream)
-        if self.dp.distributed:
+        if self.blocks.distributed:
             return sharded_mips_topk(
                 q, emb, k, self.dp, n_real=self.n_real, exact=cfg.exact,
                 chunk_rows=cfg.chunk_rows, group_size=cfg.group_size,

@@ -31,7 +31,9 @@ from emdr2_tpu_torch.data.tokenizer import BertWordPieceTokenizer
 from emdr2_tpu_torch.models.bert import DualEncoder
 from emdr2_tpu_torch.models.layers import init_weights
 from emdr2_tpu_torch.training import step as step_lib
-from emdr2_tpu_torch.parallel.mesh import DataParallel
+from emdr2_tpu_torch.parallel.mesh import (DataParallel, Group,
+                                           check_tp_divides)
+from emdr2_tpu_torch.parallel.tensor import shard_for
 from emdr2_tpu_torch.training.losses import dpr_in_batch_loss
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
@@ -200,13 +202,16 @@ class DPRDataset:
 
 class DPRModel(nn.Module):
     """The dual encoder under the name ``retriever`` (the checkpoint key
-    prefix an EMDR2 model gives it too)."""
+    prefix an EMDR2 model gives it too), split over ``tp``."""
 
     def __init__(self, cfg: RetrieverConfig, device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tp: Optional[Group] = None):
         super().__init__()
+        if tp is not None:
+            check_tp_divides(tp.world_size, cfg)
         self.config = cfg
-        self.retriever = DualEncoder(cfg, resolve_device(device))
+        self.retriever = DualEncoder(cfg, resolve_device(device), tp)
         init_weights(self, generator)
 
     def forward(self, *args, **kwargs):
@@ -243,14 +248,16 @@ class DPRTask:
     def init_state(self, seed: int,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None
                    ) -> step_lib.TrainState:
-        """Parameters from ``seed`` (or ``state_dict``: keys
-        ``retriever.*``), a fresh optimizer, step 0; dropout masks derive
-        from ``seed`` and the step."""
+        """Parameters from ``seed`` (or ``state_dict``: the whole
+        parameters, keys ``retriever.*``, cut here for this tp rank), a
+        fresh optimizer, step 0; dropout masks derive from ``seed`` and the
+        step."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        model = DPRModel(self.cfg, self.device, gen)
+        tp = self.dp.tp if self.dp is not None else None
+        model = DPRModel(self.cfg, self.device, gen, tp)
         if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
+            model.load_state_dict(shard_for(state_dict, tp), strict=True)
         optimizer = step_lib.make_optimizer(model, self.opt_cfg,
                                             self.total_train_iters, self.dp)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
@@ -282,7 +289,8 @@ class DPRTask:
                                self._ids(batch.ctx_ids),
                                context_types=self._ids(batch.ctx_types),
                                drop=state.dropout_seeds(
-                                   dp.rank if dp is not None else 0))
+                                   dp.rank if dp is not None else 0,
+                                   dp.tp.rank if dp is not None else 0))
             loss, correct = dpr_in_batch_loss(
                 q, c, hidden_size=self.cfg.encoder.hidden_size,
                 score_scaling=self.score_scaling,

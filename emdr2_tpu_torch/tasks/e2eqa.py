@@ -34,6 +34,12 @@ stay on the main thread: it queues stage A of a later batch
 (``search_async``) right after a step, with the live tower in stream
 order, and a worker waits for the result and runs stage B
 (``build_device_batch(retrieved=...)``).
+
+Tensor parallelism (``dp.tp``, the rank's tp group): the model splits over
+it (``EMDR2Model(tp=...)``), the tp ranks of a replica feed the same slice
+and search the index whose blocks lie on every rank (``dp.world``), and
+evaluation decodes the same tokens on each of them (the step's logits are
+gathered over tp).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from emdr2_tpu_torch.models.decoding import (DecoderSession,
                                              greedy_decode)
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.parallel.mesh import DataParallel
+from emdr2_tpu_torch.parallel.tensor import shard_for
 from emdr2_tpu_torch.retrieval.index import ShardedEvidenceIndex
 from emdr2_tpu_torch.training import step as step_lib
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -100,7 +107,7 @@ class E2EQATask:
         self.device = resolve_device(device)
         self.timer = timer
         self.dp = dp
-        if dp is not None and dp.world_size > 1:
+        if dp is not None and dp.world.world_size > 1:
             if getattr(index, "dp", None) is None:
                 raise ValueError("under data parallelism the index must be "
                                  "sharded over the same group "
@@ -157,13 +164,16 @@ class E2EQATask:
                    state_dict: Optional[Dict[str, torch.Tensor]] = None
                    ) -> step_lib.TrainState:
         """Parameters from ``seed`` (or ``state_dict``, e.g. converted JAX
-        weights), a fresh optimizer, step 0; dropout masks derive from
-        ``seed`` and the step."""
+        weights: the whole parameters, cut here for this tp rank), a fresh
+        optimizer, step 0; dropout masks derive from ``seed`` and the
+        step."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        model = EMDR2Model(self.cfg, device=self.device, generator=gen)
+        tp = self.dp.tp if self.dp is not None else None
+        model = EMDR2Model(self.cfg, device=self.device, generator=gen,
+                           tp=tp)
         if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
+            model.load_state_dict(shard_for(state_dict, tp), strict=True)
         optimizer = step_lib.make_optimizer(model, self.cfg.train.optimizer,
                                             self.total_train_iters, self.dp)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
@@ -360,12 +370,13 @@ class E2EQATask:
         decodes its slice (``batch_size`` must divide over the ranks), and
         the per-row (uid, score) records of all ranks are all-gathered and
         deduped by uid; sampling takes rank 0's ``sample_seed`` and draws
-        by global row."""
+        by global row. The tp ranks of a replica decode the same slice to
+        the same tokens."""
         cfg = self.cfg
         batch_size = batch_size or self.global_batch_size
         self._check_divides(batch_size)
         if sample and self.dp is not None:
-            sample_seed = self.dp.broadcast_object(sample_seed)
+            sample_seed = self.dp.world.broadcast_object(sample_seed)
         per = batch_size // self.world_size
         max_decode_len = max_decode_len or cfg.reader.decoder_seq_len
         model = self.state.model

@@ -1,8 +1,9 @@
 """OPENQA task wiring: datasets, model, index, refresh, train loop, EM eval
 (port of ``emdr2_tpu/tasks/openqa_main.py:run_openqa``), on one device or
-over a data-parallel group (``dp``): each rank holds its block of the index
-rows, feeds its slice of every global batch and evaluates its slice; rank
-0 writes the checkpoints and prints. With ``--async-indexer`` each rank's
+over a ``[dp, tp]`` grid of ranks (``dp``, whose ``.tp`` splits the
+model): each rank holds its block of the index rows, each replica feeds
+its slice of every global batch and evaluates its slice; world rank 0
+writes the checkpoints and prints. With ``--async-indexer`` each rank's
 embedder re-embeds its block on the rank's embedder cards
 (``--embed-devices``) or on its own card.
 """
@@ -75,7 +76,7 @@ def run_openqa(args, cfg, dp=None) -> int:
                                  passage_ids=np.asarray(store.ids),
                                  device=device, dp=dp)
     dp = index.dp                     # DataParallel.local() without dp
-    coordinator = dp.rank == 0
+    coordinator = dp.world.rank == 0
     say = print if coordinator else (lambda *a, **k: None)
 
     B = cfg.train.batch_size

@@ -6,11 +6,12 @@ after training (or alone with ``--eval-only``), the evidence index built
 with the trained context tower and recall@k on ``--qa-file-dev`` /
 ``--qa-file-test``.
 
-Over a data-parallel group (``dp``) each rank trains on its slice of every
-global batch (its own positives and hard negatives; the in-batch loss
-gathers every rank's contexts), validates its slice, embeds its block of
-the evidence rows for the recall evaluation, and rank 0 writes the
-checkpoints, the embedding store and the log.
+Over a ``[dp, tp]`` grid (``dp``, whose ``.tp`` splits the towers) each
+replica trains on its slice of every global batch (its own positives and
+hard negatives; the in-batch loss gathers every replica's contexts) and
+validates its slice, each rank embeds its block of the evidence rows for
+the recall evaluation (with the tower gathered whole), and world rank 0
+writes the checkpoints, the embedding store and the log.
 
 Checkpoints hold the dual encoder under ``retriever.``, so
 ``tools.checkpoint_surgery`` and OPENQA's ``--pretrained-dpr-load`` take
@@ -62,7 +63,7 @@ def run_retriever(args, cfg, dp=None) -> int:
                    score_scaling=cfg.retriever_score_scaling, device=device,
                    dp=dp)
     task.init_state(cfg.train.seed)
-    coordinator = dp.rank == 0
+    coordinator = dp.world.rank == 0
     say = print if coordinator else (lambda *a, **k: None)
     ranks = {"rank": dp.rank, "world_size": dp.world_size}
 
@@ -137,7 +138,7 @@ def post_train_eval(args, cfg, rcfg, bert_tok, task, dp) -> None:
     builder = EvidenceIndexBuilder(
         cfg.replace(retriever=rcfg), task.model, corpus, bert_tok.cls_id,
         bert_tok.sep_id, bert_tok.pad_id)
-    coordinator = dp.rank == 0
+    coordinator = dp.world.rank == 0
     say = print if coordinator else (lambda *a, **k: None)
     say(f" building evidence index over {len(corpus)} passages ...")
     icfg = dataclasses.replace(
@@ -154,10 +155,10 @@ def post_train_eval(args, cfg, rcfg, bert_tok, task, dp) -> None:
     if args.embedding_path:
         block = np.zeros((stop - start, icfg.embed_dim), np.float16)
         block[:len(rows)] = rows
-        every = dp.all_gather_rows(torch.from_numpy(block))[:n]
+        every = index.blocks.all_gather_rows(torch.from_numpy(block))[:n]
         if coordinator:
             EmbeddingStore.of_rows(every.numpy()).save(args.embedding_path)
-        dp.barrier()
+        index.blocks.barrier()
     evaluator = OpenRetrievalEvaluator(
         task.model.retriever, index, bert_tok,
         query_seq_len=rcfg.query_seq_len,

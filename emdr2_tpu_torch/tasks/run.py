@@ -6,21 +6,23 @@ The flags are the JAX CLI's, the surface ``examples/openqa/emdr2_nq.sh`` and
 config. ``--device`` (default ``cuda``; ``cpu`` to run without a card)
 takes the place of the JAX CLI's platform environment and ``--rng-impl``.
 
-Data parallelism: one process per rank, launched by hand, N of
+Data and tensor parallelism: one process per rank, launched by hand, N of
 
     python -m emdr2_tpu_torch.tasks.run ... --num-processes N \
-        --process-id I --coordinator-address HOST:PORT [--dp N] \
-        [--embed-devices E]
+        --process-id I --coordinator-address HOST:PORT [--dp D] \
+        [--tp T] [--embed-devices E]
 
 (or the ``EMDR2_COORDINATOR`` / ``EMDR2_NUM_PROCESSES`` /
-``EMDR2_PROCESS_ID`` variables). Rank I takes ``cuda:I`` of the visible
-cards (modulo their count) and NCCL, or gloo with ``--device cpu``;
-``--dp`` defaults to the process count and must equal it. The global batch is ``--batch-size`` x
-dp, as in the JAX CLI. ``--embed-devices E`` puts the OPENQA refresher's
-embedders on the E cards after the N trainers' (``parallel.mesh
-.embed_devices``; E a multiple or a divisor of N, N + E cards
-visible): the reference's 8 trainers beside 8 indexers. ``--tp`` above 1
-is refused (ROADMAP A3). The kernels' limits
+``EMDR2_PROCESS_ID`` variables). N = D x T: rank I (``dp_idx * T +
+tp_idx``) takes ``cuda:I`` of the visible cards (modulo their count) and
+NCCL, or gloo with ``--device cpu``; ``--dp`` defaults to N / T. Each of
+the D replicas splits its heads, MLP width and vocabulary over its T
+ranks (a T that does not divide them is refused). The global batch is
+``--batch-size`` x D, as in the JAX CLI. ``--embed-devices E`` puts the
+OPENQA refresher's embedders on the E cards after the N trainers'
+(``parallel.mesh.embed_devices``; E a multiple or a divisor of N, N + E
+cards visible): the reference's 8 trainers beside 8 indexers. The
+kernels' limits
 (``ops.fid_attention.kernel_limits``) are checked on the flags before
 anything is built.
 """
@@ -134,15 +136,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--match", default="string", choices=["string", "regex"],
                    help="answer-matching mode for recall evaluation")
 
-    g = p.add_argument_group("data parallelism")
+    g = p.add_argument_group("data and tensor parallelism")
     g.add_argument("--dp", type=int, default=None,
-                   help="data-parallel ranks (default: the process count)")
+                   help="data-parallel ranks (default: the process count "
+                        "/ --tp)")
     g.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism: only 1 is ported")
+                   help="tensor-parallel ranks: each replica's heads, MLP "
+                        "width and vocabulary split over --tp processes "
+                        "(world = dp * tp, card = world rank); must divide "
+                        "the heads, the MLP width and the vocabulary")
     g.add_argument("--embed-devices", type=int, default=0,
-                   help="cards after the trainers' that re-embed the "
-                        "evidence for --async-indexer (0: each rank's own "
-                        "card); a multiple of --dp or a divisor of it")
+                   help="cards after the trainers' (dp * tp of them) that "
+                        "re-embed the evidence for --async-indexer (0: each "
+                        "rank's own card); a multiple of dp * tp or a "
+                        "divisor of it")
     g.add_argument("--coordinator-address", default=None,
                    help="host:port of the rendezvous (rank 0's)")
     g.add_argument("--num-processes", type=int, default=None,
@@ -193,33 +200,42 @@ def check_kernel_limits(args) -> None:
 
 def setup_data_parallel(args):
     """Join the launch (``parallel.init_distributed``, with the device's
-    backend) and check the layout -> the ``DataParallel`` group
-    (``DataParallel.local()`` for one process). Sets ``args.device`` to
-    this rank's device and ``args.embedder_devices`` to its embedder's
-    (``parallel.embed_devices``: the cards after the trainers', or the
-    rank's own without ``--embed-devices``)."""
+    backend) and check the ``[dp, tp]`` layout -> the ``DataParallel``
+    group, carrying the tp and world groups (``DataParallel.local()`` for
+    one process). ``--dp`` defaults to the processes / ``--tp``; the heads
+    and the MLP width must divide by ``--tp`` here, the vocabulary when the
+    model is built (its size comes from the tokenizer). Sets
+    ``args.device`` to this rank's device (card = world rank) and
+    ``args.embedder_devices`` to its embedder's (``parallel.embed_devices``:
+    the cards after the ``dp * tp`` trainers', or the rank's own without
+    ``--embed-devices``)."""
     import torch
 
     from emdr2_tpu_torch.config import MeshConfig
     from emdr2_tpu_torch.parallel import (DataParallel, check_mesh_config,
-                                          embed_devices, init_distributed)
+                                          check_tp_divides, embed_devices,
+                                          init_distributed)
     dev = torch.device(args.device)
     if (dev.type == "cuda" and dev.index is None
             and args.process_id is not None and torch.cuda.is_available()):
         dev = torch.device("cuda", args.process_id % torch.cuda.device_count())
         args.device = str(dev)
+    check_tp_divides(args.tp, make_config(args),
+                     fields=("num_heads", "ffn_size"))
     joined = init_distributed(args.coordinator_address, args.num_processes,
                               args.process_id, device=dev)
-    dp = (DataParallel.from_process_group() if joined
-          else DataParallel.local())
+    world = torch.distributed.get_world_size() if joined else 1
+    rank = torch.distributed.get_rank() if joined else 0
     if args.dp is None:
-        args.dp = dp.world_size
+        args.dp = max(world // args.tp, 1)
     mesh = MeshConfig(dp=args.dp, tp=args.tp,
                       embed_devices=args.embed_devices)
-    check_mesh_config(mesh, dp.world_size,
+    check_mesh_config(mesh, world,
                       torch.cuda.device_count() if dev.type == "cuda"
                       else None)
-    args.embedder_devices = embed_devices(mesh, dp.rank, dev)
+    dp = (DataParallel.from_process_group(tp=args.tp) if joined
+          else DataParallel.local())
+    args.embedder_devices = embed_devices(mesh, rank, dev)
     return dp
 
 

@@ -33,10 +33,16 @@ CLI) the block stays on the embedder's card, cast or quantized there
 of bf16), and the swap copies it card to card after the event of its last
 write (``update_from_process_local``).
 
-Data parallelism (the index's group ``index.dp``): each rank's embedder
-embeds that rank's block of index rows only (``process_row_range()``) and
-issues no collective, so it may run beside the trainers' collectives. The
-swap is decided together: at an interval boundary every rank all-reduces
+Data and tensor parallelism (the index's ranks, ``index.blocks``: every
+rank of the grid): each rank's embedder embeds that rank's block of index
+rows only (``process_row_range()``) and issues no collective, so it may run
+beside the trainers' collectives. Under tensor parallelism the embedder
+needs the whole context tower: ``_publish_weights`` gathers it over tp on
+the trainer's thread at each hand-off (``builder.place_params``, one
+all-gather per split parameter), so every collective stays on that
+thread, and the embedder runs it as one process would (the JAX embedder
+sub-mesh is ``(embed_devices, 1)``: tp = 1). The swap is decided together:
+at an interval boundary every rank all-reduces
 "my block is ready" (and "my embedder failed") on the trainer thread, in
 program order with the step's collectives, and all ranks swap and publish
 fresh weights at the same step, or none does. Otherwise one rank would
@@ -97,6 +103,9 @@ class AsyncIndexRefresher:
         self._stop = threading.Event()
         self._last_reload_step = 0
         self.refresh_count = 0
+        # the trainer thread's intra-op thread count, which the worker
+        # takes before its first product (``_worker``)
+        self._num_threads = torch.get_num_threads()
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="index-refresh")
         self._started = False
@@ -130,10 +139,10 @@ class AsyncIndexRefresher:
         """Whether every rank's block is ready (one all-reduce on the
         trainer thread under data parallelism); raises on every rank if
         any rank's embedder failed."""
-        dp = self.index.dp
+        ranks = self.index.blocks
         failed = self.error is not None
-        if dp.world_size > 1:
-            flags = dp.all_reduce_sum_(torch.tensor(
+        if ranks.world_size > 1:
+            flags = ranks.all_reduce_sum_(torch.tensor(
                 [float(not ready), float(failed)]))
             ready, any_failed = bool(flags[0] == 0), bool(flags[1] > 0)
         else:
@@ -147,7 +156,7 @@ class AsyncIndexRefresher:
         """Call every train step, on every rank at the same steps. At an
         interval boundary, if every rank's embedder has finished, swap the
         index and hand over fresh weights; never waits for an embedder."""
-        if self.error is not None and self.index.dp.world_size == 1:
+        if self.error is not None and self.index.blocks.world_size == 1:
             raise RuntimeError("async embedder failed") from self.error
         if step - self._last_reload_step < self.reload_interval:
             return False
@@ -218,6 +227,12 @@ class AsyncIndexRefresher:
             self._result = (block, ready)
 
     def _worker(self) -> None:
+        # A new thread's first CPU products run with MKL's machine-wide
+        # thread count: PyTorch sets a thread's own OpenMP and MKL counts
+        # only at its first parallel op, and a GEMM is not one. The
+        # trainer's count, set here before any work, makes the worker's
+        # products those of the trainer thread.
+        torch.set_num_threads(self._num_threads)
         # a stream of its own on each embedder device, so its kernels run
         # beside the train step's
         streams = ([torch.cuda.Stream(d) for d in self.builder.devices]

@@ -29,6 +29,14 @@ CUDA device) and waits for those copies; only then does it return, and the
 disk write and the tracker ride a background thread under the next steps.
 At most one save is in flight: every save, load and
 ``finalize_async_saves`` drains the previous one and re-raises its failure.
+
+Tensor parallelism (``dp.tp``): a checkpoint holds the whole parameters and
+Adam moments, the file that one process writes from the same state. The
+ranks of world rank 0's replica gather each split parameter and its two
+moments over tp (``parallel.tensor.all_gather_params``) before rank 0
+stages them; every rank loads the whole tensors and keeps its part
+(``parallel.tensor.shard_for``). So a checkpoint written at one tp loads
+at any other, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from emdr2_tpu_torch.parallel.tensor import (all_gather_params, is_split,
+                                             module_tp, shard_for)
 from emdr2_tpu_torch.training.step import TrainState
 
 TRACKER = "latest_checkpointed_iteration.txt"
@@ -102,14 +112,52 @@ def _to_host(tree: Any, place: Tuple, copies: List) -> Any:
     return tree
 
 
-def _stage(state: TrainState) -> Dict[str, Any]:
-    """The whole train state on the host. The copies are ordered after the
-    optimizer's update on the current stream and are complete on return
-    (one event, no device-wide synchronize)."""
+def _moment_names(state: TrainState) -> List[str]:
+    """The parameter names of AdamW's state indices (its ``state_dict``
+    numbers the parameters of its groups in order)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.adamw.param_groups
+            for p in g["params"]]
+
+
+def _map_moments(opt_state: Dict[str, Any], names: List[str], fn
+                 ) -> Dict[str, Any]:
+    """AdamW's ``state_dict`` with ``fn(name, tensor)`` applied to each
+    parameter's two moments, in index order."""
+    out = dict(opt_state)
+    out["state"] = {}
+    for i in sorted(opt_state["state"]):
+        entry = dict(opt_state["state"][i])
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in entry:
+                entry[key] = fn(names[i], entry[key])
+        out["state"][i] = entry
+    return out
+
+
+def _whole_state(state: TrainState, tp) -> Tuple[Dict, Dict]:
+    """(model state_dict, AdamW state_dict) with every tp-split tensor
+    gathered whole over ``tp`` (a collective: each tp rank calls it)."""
+    model = state.model.state_dict()
+    opt = state.optimizer.adamw.state_dict()
+    if not is_split(tp):
+        return model, opt
+    model = all_gather_params(model, tp)
+    return model, _map_moments(
+        opt, _moment_names(state),
+        lambda name, t: all_gather_params({name: t}, tp)[name])
+
+
+def _stage(state: TrainState, tp=None) -> Dict[str, Any]:
+    """The whole train state on the host (split tensors gathered over
+    ``tp``). The copies are ordered after the optimizer's update on the
+    current stream and are complete on return (one event, no device-wide
+    synchronize)."""
     copies: List = []
+    model, opt = _whole_state(state, tp)
     payload = {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.adamw.state_dict(),
+        "model": model,
+        "optimizer": opt,
         "count": state.optimizer.count,
         "step": state.step,
         "seed": state.seed,
@@ -161,24 +209,29 @@ def save_checkpoint(root: str, state: TrainState, iteration: int,
     happen in the background. Use it for interval saves; keep exit and
     final saves synchronous so they are durable before return.
 
-    Under data parallelism (``dp``) the replicas are equal, so rank 0
-    alone writes; every rank then waits at a barrier (after a synchronous
-    save the files are on disk when it opens)."""
+    Under data parallelism (``dp``) the replicas are equal, so world rank
+    0 alone writes, after the tp ranks of its replica have gathered the
+    split tensors with it; every rank then waits at a barrier (after a
+    synchronous save the files are on disk when it opens)."""
     root = os.path.abspath(root)
-    if dp is not None and dp.distributed and dp.rank != 0:
-        dp.barrier()
+    world = dp.world if dp is not None else None
+    tp = dp.tp if dp is not None else None
+    if world is not None and world.distributed and world.rank != 0:
+        if is_split(tp) and dp.rank == 0:
+            _whole_state(state, tp)            # rank 0's replica gathers
+        world.barrier()
         return iter_dir(root, iteration)
-    path = _save(root, state, iteration, async_save)
-    if dp is not None and dp.distributed:
-        dp.barrier()
+    path = _save(root, state, iteration, async_save, tp)
+    if world is not None and world.distributed:
+        world.barrier()
     return path
 
 
 def _save(root: str, state: TrainState, iteration: int,
-          async_save: bool) -> str:
+          async_save: bool, tp=None) -> str:
     os.makedirs(root, exist_ok=True)
     finalize_async_saves()    # at most one in flight; ordered tracker writes
-    payload = _stage(state)
+    payload = _stage(state, tp)
     if not async_save:
         return _write(root, iteration, payload)
 
@@ -231,21 +284,28 @@ def load_checkpoint(root: str, state: TrainState,
     With ``load_optim=False`` only the parameters are restored: the
     optimizer's state, its update count, the step and the seed of ``state``
     (usually fresh) are kept, for fine-tuning from a checkpoint. Under
-    data parallelism (``dp``) rank 0 first drains its background write,
-    then every rank reads the same files, so the replicas restore bit for
-    bit alike."""
-    if dp is not None and dp.distributed:
-        if dp.rank == 0:
+    data parallelism (``dp``) world rank 0 first drains its background
+    write, then every rank reads the same files, so the replicas restore
+    bit for bit alike; under ``dp.tp`` each keeps its part of the whole
+    tensors."""
+    world = dp.world if dp is not None else None
+    if world is not None and world.distributed:
+        if world.rank == 0:
             finalize_async_saves()
-        dp.barrier()
+        world.barrier()
+    tp = dp.tp if dp is not None else module_tp(state.model)
     payload, iteration = read_payload(root, iteration)
     if load_optim and "optimizer" not in payload:
         raise ValueError(f"{root} iteration {iteration} holds no optimizer "
                          f"state (a stripped or converted checkpoint): load "
                          f"it with load_optim=False")
-    state.model.load_state_dict(payload["model"], strict=True)
+    state.model.load_state_dict(shard_for(payload["model"], tp), strict=True)
     if load_optim:
-        state.optimizer.adamw.load_state_dict(payload["optimizer"])
+        opt = payload["optimizer"]
+        if is_split(tp):
+            opt = _map_moments(opt, _moment_names(state),
+                               lambda name, t: shard_for({name: t}, tp)[name])
+        state.optimizer.adamw.load_state_dict(opt)
         state.optimizer.count = int(payload["count"])
         state.step = int(payload["step"])
         state.seed = int(payload["seed"])
@@ -255,12 +315,13 @@ def load_checkpoint(root: str, state: TrainState,
 def _load_submodule(root: str, iteration: Optional[int], prefix: str,
                     module: torch.nn.Module) -> torch.nn.Module:
     """Load only the parameters under ``prefix`` of a checkpoint into
-    ``module`` (strictly: every key must be there). The file is memory
-    mapped, so the rest of it is not read."""
+    ``module`` (strictly: every key must be there; a tp-split module takes
+    its part). The file is memory mapped, so the rest of it is not
+    read."""
     payload, _ = read_payload(root, iteration, mmap=True)
     sub = {k[len(prefix):]: v for k, v in payload["model"].items()
            if k.startswith(prefix)}
-    module.load_state_dict(sub, strict=True)
+    module.load_state_dict(shard_for(sub, module_tp(module)), strict=True)
     return module
 
 

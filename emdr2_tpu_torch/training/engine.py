@@ -71,13 +71,14 @@ def _silent(_: str) -> None:
 
 
 def _past(deadline: float, dp) -> bool:
-    """Whether the time budget is spent, on any rank (one all-reduce under
-    data parallelism, so every rank takes the same exit)."""
+    """Whether the time budget is spent, on any rank (one all-reduce over
+    every rank of the grid, so all take the same exit)."""
     late = time.perf_counter() > deadline
-    if dp is None or not dp.distributed:
+    world = dp.world if dp is not None else None
+    if world is None or not world.distributed:
         return late
     import torch
-    return bool(dp.all_reduce_sum_(torch.tensor([float(late)])) > 0)
+    return bool(world.all_reduce_sum_(torch.tensor([float(late)])) > 0)
 
 
 def train(task, dataset, cfg: EMDR2Config,
@@ -118,7 +119,7 @@ def train(task, dataset, cfg: EMDR2Config,
     distributed = dp is not None and dp.world_size > 1
     dist_kw = ({"rank": dp.rank, "world_size": dp.world_size}
                if distributed else {})
-    if distributed and dp.rank != 0:
+    if dp is not None and not dp.is_coordinator:
         printer = _silent
     B = task.global_batch_size
     batches_per_epoch = len(dataset) // B
@@ -155,8 +156,10 @@ def train(task, dataset, cfg: EMDR2Config,
         while iteration < total_iters and batches_per_epoch > 0:
             epoch_batches = dataset.epoch_batches(B, seed=tcfg.seed + epoch,
                                                   **dist_kw)
-            if prefetch_depth > 0 and distributed:
-                # stage A's collectives on this thread, the rest on a worker
+            if prefetch_depth > 0 and dp is not None \
+                    and dp.world.world_size > 1:
+                # stage A's collectives (over dp, and the split towers'
+                # over tp) on this thread, the rest on a worker
                 epoch_batches = prefetcher = DataParallelPrefetcher(
                     task, epoch_batches, depth=prefetch_depth)
             elif prefetch_depth > 0:
@@ -186,7 +189,7 @@ def train(task, dataset, cfg: EMDR2Config,
                     if save_dir is not None:
                         # a checkpoint at every refresh, for fault tolerance
                         save(iteration, tcfg.async_save)
-                        if not distributed or dp.rank == 0:
+                        if dp is None or dp.is_coordinator:
                             ckpt_lib.remove_stale_checkpoints(save_dir,
                                                               keep_last=2)
 

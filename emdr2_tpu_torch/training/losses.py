@@ -10,8 +10,14 @@ count or row count, summed over the ranks), so that the global loss is the
 sum of the shares. ``scale_for_mean`` turns a share into the objective
 whose gradient, averaged over the ranks (``training/step.py``), is the
 global loss's gradient. The DPR loss all-gathers the contexts
-(``dpr_in_batch_loss``). The vocab-parallel cross-entropy (tensor
-parallelism) is not ported (ROADMAP A3).
+(``dpr_in_batch_loss``). Every collective here runs over ``dp``, the
+data-parallel group: the tp ranks of one replica hold the same rows, so
+gathering or summing over them too would count each row ``tp`` times.
+
+Under tensor parallelism (``tp``) the reader's logits are split over the
+vocabulary, and ``reader_cross_entropy`` takes them through
+``vocab_parallel_cross_entropy`` (the JAX function of that name, the
+reference's ``mpu/cross_entropy.py``): no rank holds the whole [B, L, V].
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from emdr2_tpu_torch.parallel.mesh import DataParallel
+from emdr2_tpu_torch.parallel.mesh import DataParallel, Group
+from emdr2_tpu_torch.parallel.tensor import is_split
 
 
 def _global_sum(x: torch.Tensor, dp: Optional[DataParallel]) -> torch.Tensor:
@@ -47,12 +54,59 @@ class EMDR2LossAux(NamedTuple):
     null_block_lm_loss: torch.Tensor
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """-log p(label) [B, L] fp32 of logits [B, L, V/tp] split over the
+    vocabulary by ``tp`` (rank t holds columns t*V/tp ...): the max over
+    tp (a constant for the gradient), one sum over tp of the sums of
+    exps and the masked gold picks. Backward: softmax minus one-hot on the
+    local columns, times the upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        lg = logits.float()
+        cols = lg.shape[-1]
+        start = tp.rank * cols
+        m = tp.all_reduce_max_(lg.amax(dim=-1))
+        e = torch.exp(lg - m[..., None])
+        mine = (labels >= start) & (labels < start + cols)
+        idx = (labels - start).clamp(0, cols - 1).long()
+        picked = lg.gather(-1, idx[..., None])[..., 0]
+        both = tp.all_reduce_sum_(torch.stack(
+            [e.sum(dim=-1), torch.where(mine, picked,
+                                        torch.zeros_like(picked))]))
+        ctx.save_for_backward(e.div_(both[0][..., None]), idx, mine)
+        ctx.dtype = logits.dtype
+        return torch.log(both[0]) + m - both[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        softmax, idx, mine = ctx.saved_tensors
+        g = softmax.clone()
+        g.scatter_add_(-1, idx[..., None],
+                       -mine[..., None].to(g.dtype))
+        g.mul_(grad[..., None])
+        return g.to(ctx.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 tp: Group) -> torch.Tensor:
+    """Per-token -log p [B, L] fp32 of ``logits`` [B, L, V/tp] split over
+    the vocabulary by ``tp`` (``_VocabParallelCE``; the JAX
+    ``vocab_parallel_cross_entropy``)."""
+    return _VocabParallelCE.apply(logits, labels, tp)
+
+
 def reader_cross_entropy(lm_logits: torch.Tensor, labels: torch.Tensor,
                          loss_mask: torch.Tensor,
-                         dp: Optional[DataParallel] = None) -> torch.Tensor:
+                         dp: Optional[DataParallel] = None,
+                         tp: Optional[Group] = None) -> torch.Tensor:
     """Token CE averaged over unmasked positions (of the global batch under
     ``dp``: this rank's share). lm_logits [B, L, V] fp32, labels [B, L],
-    loss_mask [B, L] float."""
+    loss_mask [B, L] float. Under ``tp`` lm_logits is this rank's
+    [B, L, V/tp] and the CE is vocab-parallel."""
+    if is_split(tp):
+        nll = vocab_parallel_cross_entropy(lm_logits, labels, tp)
+        return (nll * loss_mask).sum() / _global_sum(loss_mask.sum(), dp)
     log_probs = torch.log_softmax(lm_logits.float(), dim=-1)
     gold = log_probs.gather(-1, labels[..., None].long())[..., 0]
     return -(gold * loss_mask).sum() / _global_sum(loss_mask.sum(), dp)
@@ -107,12 +161,15 @@ def kl_div_retriever_loss(gold_log_probs: torch.Tensor,
 def emdr2_total_loss(lm_logits, topk_log_probs, gold_log_probs, labels,
                      loss_mask, eos_id: int, update_retriever: bool = True,
                      use_kl_div: bool = False,
-                     dp: Optional[DataParallel] = None):
+                     dp: Optional[DataParallel] = None,
+                     tp: Optional[Group] = None):
     """-> (reader CE + retriever loss, ``EMDR2LossAux``), under ``dp`` this
-    rank's shares of each. Masked labels are replaced with 0, as in the
+    rank's shares of each; under ``tp`` lm_logits is this rank's part of
+    the vocabulary. Masked labels are replaced with 0, as in the
     reference."""
     safe_labels = torch.where(loss_mask > 0, labels, torch.zeros_like(labels))
-    lm_loss = reader_cross_entropy(lm_logits, safe_labels, loss_mask, dp)
+    lm_loss = reader_cross_entropy(lm_logits, safe_labels, loss_mask, dp,
+                                   tp)
     zero = torch.zeros((), device=lm_loss.device)
     if not update_retriever:
         return lm_loss, EMDR2LossAux(lm_loss, zero, zero, zero)

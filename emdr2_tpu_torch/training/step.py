@@ -26,6 +26,13 @@ the global norm and every rank applies the same update. The reduction is
 an explicit all-reduce in fixed buckets in parameter order (no
 ``DistributedDataParallel`` hooks), the counterpart of the compiler's psum
 in the JAX step; it leaves the remat layouts as they are.
+
+Tensor parallelism (``dp.tp``): the ranks of one replica hold the parts of
+its split parameters (``parallel/tensor.py``) and the same whole ones. The
+gradient mean runs over the dp group only; the global norm sums the
+squares of the split parameters' parts over tp and counts the whole
+parameters once (their gradients are equal on the tp ranks), so every
+rank clips by the same norm, the norm of the unsplit gradient.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 from emdr2_tpu_torch.config import EMDR2Config, OptimizerConfig
 from emdr2_tpu_torch.models.emdr2 import EMDR2Batch, EMDR2Model
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold_seed
-from emdr2_tpu_torch.parallel.mesh import DataParallel
+from emdr2_tpu_torch.parallel.mesh import DataParallel, Group
+from emdr2_tpu_torch.parallel.tensor import is_split, split_of
 from emdr2_tpu_torch.training.losses import emdr2_total_loss, scale_for_mean
 from emdr2_tpu_torch.training.schedules import schedule_from_config
 from emdr2_tpu_torch.utils.timing import StageTimer, stage
@@ -58,17 +66,28 @@ def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
     return {name: not _no_decay(name) for name, _ in model.named_parameters()}
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+def global_norm(tensors: List[torch.Tensor],
+                split: Optional[List[bool]] = None,
+                tp: Optional[Group] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``).
+    Under ``tp``, ``split[i]`` marks the tensors that are this rank's part
+    of a split one: their squares are summed over tp (one all-reduce), the
+    others' counted once."""
+    norms = torch.stack([torch.linalg.vector_norm(t.float())
+                         for t in tensors])
+    if not is_split(tp):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(split, device=norms.device)
+    sq = norms * norms
+    parts = tp.all_reduce_sum_(torch.where(mask, sq, 0.0).sum()[None])[0]
+    return torch.sqrt(parts + torch.where(mask, 0.0, sq).sum())
 
 
 class Optimizer:
     """Global-norm clip -> AdamW (two parameter groups: decayed and not)
     with the learning rate of ``schedule`` at the update count. With a
     data-parallel group ``dp`` the gradients are first averaged over its
-    ranks."""
+    ranks; under its ``dp.tp`` the norm is that of the unsplit gradient."""
 
     def __init__(self, model: EMDR2Model, cfg: OptimizerConfig,
                  schedule: Callable[[int], float],
@@ -79,6 +98,8 @@ class Optimizer:
         mask = decay_mask(model)
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
+        self.tp = dp.tp if dp is not None else None
+        self.split = [split_of(n) is not None for n, _ in named]
         groups = [
             {"params": [p for n, p in named if mask[n]],
              "weight_decay": cfg.weight_decay},
@@ -103,7 +124,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.split, self.tp)
         # optax: g -> (g / norm) * max when norm >= max; on the device,
         # with no host sync (g / 1 * 1 is g exactly)
         keep = norm < self.cfg.clip_grad
@@ -137,10 +158,12 @@ class TrainState:
     model: EMDR2Model
     optimizer: Optimizer
 
-    def dropout_seeds(self, shard: int = 0) -> DropoutSeeds:
+    def dropout_seeds(self, shard: int = 0, tp_shard: int = 0
+                      ) -> DropoutSeeds:
         """This step's seeds: a pure function of (seed, step), on
-        data-parallel rank ``shard``."""
-        return DropoutSeeds(fold_seed(self.seed, self.step), shard)
+        data-parallel rank ``shard`` and tensor-parallel rank
+        ``tp_shard``."""
+        return DropoutSeeds(fold_seed(self.seed, self.step), shard, tp_shard)
 
 
 METRICS = ("loss", "lm_loss", "retriever_loss", "retriever_utility",
@@ -168,17 +191,19 @@ def make_train_step(cfg: EMDR2Config, eos_id: int,
     batch under ``dp``. ``timer`` records the ``forward_backward`` and
     ``optimizer`` stages."""
     shard = dp.rank if dp is not None else 0
+    tp = dp.tp if dp is not None else None
+    tp_shard = tp.rank if tp is not None else 0
 
     def step_fn(state: TrainState, batch: EMDR2Batch):
         model = state.model
         with stage(timer, "forward_backward"):
             state.optimizer.zero_grad()
-            out = model(batch, drop=state.dropout_seeds(shard))
+            out = model(batch, drop=state.dropout_seeds(shard, tp_shard))
             total, aux = emdr2_total_loss(
                 out.lm_logits, out.topk_log_probs, out.gold_log_probs,
                 batch.labels, batch.loss_mask, eos_id=eos_id,
                 update_retriever=cfg.update_retriever,
-                use_kl_div=cfg.use_kl_div_loss, dp=dp)
+                use_kl_div=cfg.use_kl_div_loss, dp=dp, tp=tp)
             scale_for_mean(total, dp).backward()
         with stage(timer, "optimizer"):
             grad_norm = state.optimizer.step()
@@ -201,6 +226,8 @@ def make_eval_forward(cfg: EMDR2Config, eos_id: int,
     global batch under ``dp``. Metrics are 0-d tensors on the model's
     device."""
 
+    tp = dp.tp if dp is not None else None
+
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: EMDR2Batch):
         out = state.model(batch, drop=None)
@@ -208,7 +235,7 @@ def make_eval_forward(cfg: EMDR2Config, eos_id: int,
             out.lm_logits, out.topk_log_probs, out.gold_log_probs,
             batch.labels, batch.loss_mask, eos_id=eos_id,
             update_retriever=cfg.update_retriever,
-            use_kl_div=cfg.use_kl_div_loss, dp=dp)
+            use_kl_div=cfg.use_kl_div_loss, dp=dp, tp=tp)
         return _global_metrics({"loss": total, "lm_loss": aux.lm_loss,
                                 "retriever_loss": aux.retriever_loss}, dp)
 

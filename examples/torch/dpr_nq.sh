@@ -6,17 +6,20 @@
 # the evidence is embedded by row range over the ranks and the recall on
 # the dev and test questions reported.
 #
-# One process a rank, rank r on card r; DP=1 for one card. Arguments after
-# the script's own are passed to every rank and win over its flags.
+# One process a rank, rank r on card r: DP x TP of them (TP=1 by default;
+# TP=2 splits each replica's towers over two cards, 16 questions a
+# replica); DP=1 for one card. Arguments after the script's own are
+# passed to every rank and win over its flags.
 
 set -euo pipefail
 
 DATA_DIR=${DATA_DIR:-data}
 DP=${DP:-8}
+TP=${TP:-1}
 COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
 
 pids=()
-for ((rank = 0; rank < DP; rank++)); do
+for ((rank = 0; rank < DP * TP; rank++)); do
   python -m emdr2_tpu_torch.tasks.run \
       --task RETRIEVER \
       --device cuda \
@@ -24,7 +27,8 @@ for ((rank = 0; rank < DP; rank++)); do
       --train-data "${TRAIN_DATA:-$DATA_DIR/nq-dpr-train.json}" \
       --valid-data "${VALID_DATA:-$DATA_DIR/nq-dpr-dev.json}" \
       --dp "$DP" \
-      --num-processes "$DP" \
+      --tp "$TP" \
+      --num-processes $((DP * TP)) \
       --process-id "$rank" \
       --coordinator-address "$COORDINATOR" \
       --batch-size 16 \

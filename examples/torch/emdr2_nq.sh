@@ -6,12 +6,15 @@
 # DP=8), 10 epochs, lr 2e-5 with 1% linear warmup, the index re-embedded
 # and swapped every 500 steps.
 #
-# One process a rank: DP trainers on cards 0..DP-1, their embedders on the
-# EMBED_DEVICES cards after them (DP=8 EMBED_DEVICES=8 is the reference's
-# layout of 8 trainers beside 8 indexers; EMBED_DEVICES a multiple or a
-# divisor of DP). EMBED_DEVICES=0 embeds on each trainer's own card. One
-# card: DP=1 EMBED_DEVICES=0. Arguments after the script's own are passed
-# to every rank and win over its flags.
+# One process a rank: DP x TP trainers on cards 0..DP*TP-1 (world rank
+# dp_idx * TP + tp_idx on card of that number; TP=1 by default, TP=2 splits
+# each replica's heads, MLP and vocabulary over two cards, the batch a
+# replica staying BATCH_PER_RANK), their embedders on the EMBED_DEVICES
+# cards after them (DP=8 EMBED_DEVICES=8 is the reference's layout of 8
+# trainers beside 8 indexers; EMBED_DEVICES a multiple or a divisor of
+# DP*TP). EMBED_DEVICES=0 embeds on each trainer's own card. One card:
+# DP=1 EMBED_DEVICES=0. Arguments after the script's own are passed to
+# every rank and win over its flags.
 
 set -euo pipefail
 
@@ -23,11 +26,12 @@ TRAIN_DATA=${TRAIN_DATA:-$DATA_DIR/nq-train.csv}
 VALID_DATA=${VALID_DATA:-$DATA_DIR/nq-dev.csv}
 CHECKPOINT_PATH=${CHECKPOINT_PATH:-checkpoints/emdr2-nq}
 DP=${DP:-8}
+TP=${TP:-1}
 EMBED_DEVICES=${EMBED_DEVICES:-8}
 COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
 
 pids=()
-for ((rank = 0; rank < DP; rank++)); do
+for ((rank = 0; rank < DP * TP; rank++)); do
   python -m emdr2_tpu_torch.tasks.run \
       --task OPENQA \
       --device cuda \
@@ -39,7 +43,8 @@ for ((rank = 0; rank < DP; rank++)); do
       --save "$CHECKPOINT_PATH" \
       --load "$CHECKPOINT_PATH" \
       --dp "$DP" \
-      --num-processes "$DP" \
+      --tp "$TP" \
+      --num-processes $((DP * TP)) \
       --process-id "$rank" \
       --coordinator-address "$COORDINATOR" \
       --batch-size "${BATCH_PER_RANK:-8}" \

@@ -1446,3 +1446,183 @@ def test_sharded_search_over_one_rank_nccl_equals_mips_topk(cuda, tmp_path):
         assert dp.bytes_moved["all_gather"] > 0
     finally:
         dist_lib.shutdown()
+
+
+# ---- tensor parallelism: the kernels on a tp rank's heads ----
+
+TP_NH = 6                         # a tp=2 rank's heads of the flagship 12
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_self_attention_on_a_tp_ranks_six_heads(cuda, rate):
+    """K1 forward and backward on a [B, L, 3H/2] slab of 6 heads (what a
+    rank at --tp 2 runs), against the plain versions."""
+    g = _gen(61)
+    H = TP_NH * 64
+    qkv = torch.randn(4, 512, 3 * H, device=cuda, generator=g
+                      ).to(torch.bfloat16)
+    bias = torch.zeros(4, 512, device=cuda)
+    bias[-1, 300:] = -1e9
+    dout = torch.randn(4, 512, H, device=cuda, generator=g
+                       ).to(torch.bfloat16)
+    x = qkv.clone().requires_grad_(True)
+    out = fid_attention.flash_self_attention(x, bias, TP_NH, 13, rate)
+    out.backward(dout)
+    _assert_close(out.detach(), fid_attention.flash_self_attention_reference(
+        qkv, bias, TP_NH, 13, rate))
+    _assert_close(x.grad, fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, out.detach(), dout, TP_NH, 13, rate))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cross_attention_on_a_tp_ranks_six_heads(cuda, rate):
+    """K2 forward and backward on q [B, 32, H/2] over kv [B, Lk, 2H/2] of
+    6 heads (the reader's FiD cross-attention on a rank at --tp 2)."""
+    g = _gen(62)
+    H = TP_NH * 64
+    q = torch.randn(2, 32, H, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(2, 6144, 2 * H, device=cuda, generator=g
+                     ).to(torch.bfloat16)
+    bias = torch.zeros(2, 6144, device=cuda)
+    bias[:, 5000:] = -1e9
+    dout = torch.randn(2, 32, H, device=cuda, generator=g).to(torch.bfloat16)
+    out, lse = fid_attention.flash_cross_attention_forward(
+        q, kv, bias, TP_NH, 512, 17, rate)
+    want, wlse = fid_attention.flash_cross_attention_reference(
+        q, kv, bias, TP_NH, 512, 17, rate)
+    _assert_close(out, want)
+    assert (lse - wlse).abs().max().item() <= 1e-3
+    dq, dkv = fid_attention.flash_cross_attention_backward(
+        q, kv, bias, lse, out, dout, TP_NH, 512, 17, rate)
+    wq, wkv = fid_attention.flash_cross_attention_bwd_reference(
+        q, kv, bias, lse, out, dout, TP_NH, 512, 17, rate)
+    _assert_close(dq, wq)
+    _assert_close(dkv, wkv)
+
+
+def test_decode_attention_int8_on_a_tp_ranks_six_heads(cuda):
+    """K5 over int8 K/V of 6 heads at the decode shape (evaluate_em on a
+    rank at --tp 2)."""
+    g = _gen(63)
+    q = torch.randn(8, 5, TP_NH, 64, device=cuda, generator=g
+                    ).to(torch.bfloat16)
+    kf = torch.randn(8, TP_NH, 25_600, 64, device=cuda, generator=g)
+    vf = torch.randn(8, TP_NH, 25_600, 64, device=cuda, generator=g)
+    k8, ks = decode_attention.quantize_kv_rows(kf)
+    v8, vs = decode_attention.quantize_kv_rows(vf)
+    bias = torch.zeros(8, 25_600, device=cuda)
+    bias[:, 25_000:] = -1e9
+    got = decode_attention.decode_cross_attention_int8(q, k8, ks, v8, vs,
+                                                       bias)
+    _assert_close(got, decode_attention.decode_cross_attention_int8_plain(
+        q, k8, ks, v8, vs, bias))
+
+
+def _tp_openqa_step(root, dev, dp=None):
+    """One OPENQA step at dropout 0 from seed 4 on ``dev`` over a
+    ``_card_world`` of 300 passages, split over ``dp.tp``: (loss, global
+    gradient norm, the whole parameters on the host)."""
+    import pathlib
+
+    from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
+    from emdr2_tpu_torch.data.tokenizer import (BertWordPieceTokenizer,
+                                                toy_vocab)
+    from emdr2_tpu_torch.parallel.tensor import all_gather_params
+    from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
+    from emdr2_tpu_torch.tasks import E2EQATask
+
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    cfg, corpus, _, _ = _card_world(root, dev, 300)
+    tok = BertWordPieceTokenizer(
+        toy_vocab(["what", "is", "the", "color", "of", "item"]
+                  + [f"w{i}" for i in range(300)]), vocab_extra_ids=10)
+    qa = root / "qa.tsv"
+    qa.write_text("".join(f"what is the color of item w{i}\t['w{3 * i}']\n"
+                          for i in range(8)))
+    ds = OpenQADataset([str(qa)], tok, cfg.retriever.query_seq_len,
+                       cfg.reader.decoder_seq_len)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    emb = torch.randn(len(corpus), 128, device=dev, generator=g)
+    index = ShardedEvidenceIndex(cfg.index, emb, device=dev, dp=dp)
+    task = E2EQATask(cfg, tok, corpus, index, total_train_iters=10,
+                     device=dev, dp=dp)
+    task.init_state(4)
+    m = task.train_step(next(ds.epoch_batches(4, seed=0)))
+    whole = all_gather_params(task.state.model.state_dict(),
+                              dp.tp if dp is not None else None)
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {k: v.cpu() for k, v in whole.items()})
+
+
+_TP_RANK = r"""
+import importlib.util
+import os
+import sys
+import torch
+sys.path.insert(0, sys.argv[5])
+from emdr2_tpu_torch.parallel import DataParallel
+from emdr2_tpu_torch.parallel import distributed as dist_lib
+# this file by its path: a ``tests`` package installed elsewhere would
+# shadow the repository's directory of that name
+spec = importlib.util.spec_from_file_location(
+    "gpu_tests", os.path.join(sys.argv[5], "tests", "test_torch_gpu.py"))
+gpu_tests = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(gpu_tests)
+_tp_openqa_step = gpu_tests._tp_openqa_step
+rank = int(sys.argv[1])
+dev = torch.device("cuda", rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist_lib.init_process_group(sys.argv[2], 2, rank, "nccl", timeout_s=120,
+                            device=dev)
+try:
+    dp = DataParallel.from_process_group(tp=2)
+    torch.save(_tp_openqa_step(sys.argv[3] + str(rank), dev, dp),
+               sys.argv[4] + str(rank) + ".pt")
+finally:
+    dist_lib.shutdown()
+"""
+
+
+def test_tp2_openqa_step_on_two_cards_equals_one_card(two_cards, tmp_path):
+    """One OPENQA step at --tp 2 over NCCL, rank r on card r (each on its
+    half of the heads, MLP columns and vocabulary, the index's rows over
+    both), against one card from the same seed: the loss and the global
+    gradient norm within 1e-2 (bf16, another order of sums); the gathered
+    parameters bit-equal on both ranks and within 1e-4 of the one card's
+    (the parts of one initialization, then one AdamW step of at most the
+    learning rate 2e-5 a parameter from gradients summed in another
+    order; a part cut from the wrong columns would be off by the init's
+    0.02)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(_TP_RANK)
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r),
+         f"file://{tmp_path / 'store'}", str(tmp_path / "world"),
+         str(tmp_path / "out"), repo], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    got = [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
+           for r in range(2)]
+    loss, norm, params = _tp_openqa_step(tmp_path / "one", two_cards[0])
+    assert all(torch.equal(got[0][2][k], got[1][2][k]) for k in params)
+    for g_loss, g_norm, g_params in got:
+        assert abs(g_loss - loss) <= 1e-2 * abs(loss)
+        assert abs(g_norm - norm) <= 1e-2 * abs(norm)
+        for k in params:
+            assert (g_params[k] - params[k]).abs().max().item() <= 1e-4, k

@@ -540,9 +540,11 @@ def test_refresh_under_dp_embeds_each_ranks_rows(runs):
 def test_embedder_layout_and_its_refusals():
     """``parallel.mesh``: rank r trains on card r, its embedder on the
     cards after the trainers' (E/dp of its own, or one that dp/E ranks
-    share), never a trainer's; a count that does not divide, too few
-    cards and --tp 2 are refused by name; on the CPU the layout's devices
-    are the host, and without an embedder group the trainer's card."""
+    share), never a trainer's; a count that does not divide and too few
+    cards are refused by name, and --tp 2 is taken over twice the
+    processes (its trainers on cards 0..dp*tp-1, the embedders after
+    them); on the CPU the layout's devices are the host, and without an
+    embedder group the trainer's card."""
     from emdr2_tpu_torch.config import MeshConfig as Mesh
     from emdr2_tpu_torch.parallel import check_mesh_config, embed_devices
     layouts = {(8, 8): [[8 + r] for r in range(8)],
@@ -568,7 +570,11 @@ def test_embedder_layout_and_its_refusals():
         check_mesh_config(Mesh(dp=4, embed_devices=6), 4, n_cards=10)
     with pytest.raises(ValueError, match="needs dp \\+ embed-devices = 4"):
         check_mesh_config(Mesh(dp=2, embed_devices=2), 2, n_cards=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    check_mesh_config(Mesh(dp=2, tp=2, embed_devices=2), 4, n_cards=6)
+    assert [[d.index for d in embed_devices(
+        Mesh(dp=2, tp=2, embed_devices=2), r, torch.device("cuda", r))]
+        for r in range(4)] == [[4], [4], [5], [5]]
+    with pytest.raises(ValueError, match="needs 4 processes"):
         check_mesh_config(Mesh(dp=2, tp=2), 2)
     check_mesh_config(Mesh(dp=2, embed_devices=2), 2)      # CPU: no count
 
@@ -714,7 +720,7 @@ def test_cli_runs_two_processes(cli_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "tensor parallelism"),
+    (["--tp", "3"], "tensor parallelism"),
     (["--dp", "2", "--embed-devices", "3"], "does not divide"),
     (["--dp", "2"], "needs 2 processes"),
 ])
@@ -725,7 +731,7 @@ def test_cli_refuses_layouts_it_does_not_port(cli_dir, flags, item):
                  + CLI_TASK + CLI_MODEL)
     assert item in str(err.value)
     if "--dp" not in flags:
-        assert "ROADMAP A3" in str(err.value)
+        assert "--tp 3 does not divide num_heads 2" in str(err.value)
 
 
 # ------------------------------------------------------ the dropout rule

@@ -109,6 +109,31 @@ def test_openqa_recipe_two_trainers_beside_two_embedders(datadir, tmp_path):
     assert latest_iteration(str(ckpt)) == 4            # 16 questions / 4
 
 
+def test_openqa_recipe_at_tp2_with_the_refresher(datadir, tmp_path):
+    """examples/torch/emdr2_nq.sh at DP=1 TP=2: one replica split over two
+    ranks (2 questions, 8 iterations) with the asynchronous refresh, whose
+    hand-off gathers the context tower whole over tp, and prefetch at
+    depth 1; world rank 0 alone prints and writes the checkpoint."""
+    from emdr2_tpu_torch.training.checkpointing import latest_iteration
+    ckpt = tmp_path / "ckpt"
+    env = recipe_env(
+        tmp_path, VOCAB_FILE=datadir / "vocab.txt",
+        EVIDENCE=datadir / "wiki", EMBEDDINGS=datadir / "emb",
+        TRAIN_DATA=datadir / "qa.csv", VALID_DATA=datadir / "qa.csv",
+        CHECKPOINT_PATH=ckpt, DP=1, TP=2, EMBED_DEVICES=0,
+        BATCH_PER_RANK=2)
+    out = run_script(
+        "examples/torch/emdr2_nq.sh", env,
+        TINY_ARGS + ["--topk-retrievals", "2", "--seq-length", "48",
+                     "--seq-length-dec", "8", "--max-decode-len", "4",
+                     "--flash-key-chunk", "8", "--index-reload-interval", "1",
+                     "--save-interval", "4", "--eval-interval", "100"])
+    assert "iteration        8/8" in out, out[-3000:]
+    assert "index refreshed at iteration" in out, out[-3000:]
+    assert out.count("final (8 iters)") == 1           # rank 0 alone
+    assert latest_iteration(str(ckpt)) == 8            # 16 questions / 2
+
+
 @pytest.fixture(scope="module")
 def dpr_run(datadir, tmp_path_factory):
     """examples/torch/dpr_nq.sh at DP=2 on the toy world -> (checkpoint
