@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --dp-cards N       (N cards: the ranks phase alone,
-                                             and with 4 the embedder group)
+                                             and with 4 the embedder group,
+                                             two hosts and tp)
 
 1. Builds the hand-written CUDA kernels from ``emdr2_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel).
@@ -144,6 +145,18 @@
    trainers on cards 0-1 over NCCL at 8 questions a rank beside their
    embedders on cards 2-3 (32,768 passages, 8 + 3 iterations); the same
    checks, and no K1 launch at the builder's shape on a trainer card.
+17. A launch across hosts: two emulated hosts of one rank each, each a
+   subprocess with its own ``CUDA_VISIBLE_DEVICES`` and torchrun's
+   variables, joining through ``parallel.init_distributed`` (the ranks
+   learn their hosts at the rendezvous; a rank takes the card of its
+   local rank on its host). Both hosts see card 0 and share it over gloo:
+   the dp phase (b)'s OPENQA work without DPR (K3 searches on each rank's
+   block, check steps at dropout 0, three steps at 0.1, ``evaluate_em``
+   over int8 K/V) held to (b)'s one-process references by the same rules.
+   ``--dp-cards 4`` adds two hosts of cards 0,1 and 2,3 over NCCL, a
+   trainer on each host's card 0 beside its embedder on its card 1
+   (the embedder phase's run and checks at 8 questions a rank); no two
+   ranks on one trainer card, no embedder card on another host, by UUID.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -3108,7 +3121,7 @@ def _dp_searches(cfg, dev, n_rows, dp=None):
 
 
 def _dp_runs(cfg, dev, tmpdir, n_rows, n_docs, n_questions, dp=None,
-             sizes=DP_SIZES, checks=DP_SIZES, eval_batch=None):
+             sizes=DP_SIZES, checks=DP_SIZES, eval_batch=None, dpr=True):
     """What the ranks phase runs, on one rank of ``dp`` (or in one process):
     the searches; ``evaluate_em`` of the initial state, greedy over int8
     K/V, at the global batch ``eval_batch`` (default ``sizes["eval"]``);
@@ -3118,8 +3131,8 @@ def _dp_runs(cfg, dev, tmpdir, n_rows, n_docs, n_questions, dp=None,
     ``DP_QA_STEPS`` OPENQA and DPR steps at dropout 0.1 at the global
     batches ``sizes`` (their times, and the parameters' fingerprints).
     The training questions are ``n_questions`` (one set for the ranks and
-    for one process: the shuffled order depends on it). Returns the
-    results and the stage times."""
+    for one process: the shuffled order depends on it). ``dpr=False``
+    leaves out the DPR steps. Returns the results and the stage times."""
     from emdr2_tpu_torch.config import OptimizerConfig
     from emdr2_tpu_torch.tasks import E2EQATask
     from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
@@ -3184,7 +3197,7 @@ def _dp_runs(cfg, dev, tmpdir, n_rows, n_docs, n_questions, dp=None,
         _empty_cache(dev)
     del index
     _empty_cache(dev)
-    for rate in (0.0, 0.1):
+    for rate in (0.0, 0.1) if dpr else ():
         _, rcfg = _dp_cfgs(cfg, rate)
         bs = checks["dpr"] if rate == 0.0 else sizes["dpr"]
         steps = DP_CHECK_STEPS if rate == 0.0 else DP_QA_STEPS
@@ -3207,28 +3220,40 @@ def _stages_text(stage_ms) -> str:
 
 def dp_rank_main(spec_path: str, rank: int) -> int:
     """One rank of the ranks phase (``chip_smoke.py --dp-rank R --dp-spec
-    PATH``) on the spec's device for it, over the spec's backend."""
+    PATH``) on the spec's device for it, over the spec's backend; a rank
+    of an emulated host (``kind`` "hosts") joins by torchrun's variables
+    instead (``parallel.init_distributed``), on the card of its local rank
+    among the cards its host sees."""
     from emdr2_tpu_torch.ops import build
-    from emdr2_tpu_torch.parallel import DataParallel
+    from emdr2_tpu_torch.parallel import DataParallel, rank_device
     from emdr2_tpu_torch.parallel import distributed as dist_lib
     with open(spec_path) as f:
         spec = json.load(f)
-    dev = torch.device(spec["devices"][rank])
+    layout = None
+    if spec.get("kind") == "hosts":
+        layout = dist_lib.init_distributed(
+            device=spec["device"], backend=spec["backend"],
+            timeout_s=spec["timeout"])
+        dev = rank_device(spec["device"], layout)
+    else:
+        dev = torch.device(spec["devices"][rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         build.load()
     cfg = torch.load(spec["cfg"], weights_only=False)
-    dist_lib.init_process_group(spec["address"], spec["world"], rank,
-                                spec["backend"], timeout_s=spec["timeout"],
-                                device=dev)
+    if layout is None:
+        dist_lib.init_process_group(spec["address"], spec["world"], rank,
+                                    spec["backend"],
+                                    timeout_s=spec["timeout"], device=dev)
     try:
         dp = DataParallel.from_process_group(tp=spec.get("tp", 1))
         _reset_counts()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmpdir:
-            if spec.get("kind") == "embedder":
-                out = _embedder_run(cfg, dev, tmpdir, spec, dp)
+            if spec.get("kind") == "embedder" or spec.get("mode") == \
+                    "embedder":
+                out = _embedder_run(cfg, dev, tmpdir, spec, dp, layout)
             elif spec.get("kind") == "tp":
                 out = _tp_runs(cfg, dev, tmpdir, spec["sizes"],
                                spec["n_questions"], dp)
@@ -3237,10 +3262,13 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
             else:
                 out = _dp_runs(cfg, dev, tmpdir, spec["n_rows"],
                                spec["n_docs"], spec["n_questions"], dp,
-                               spec["sizes"], spec["checks"])
+                               spec["sizes"], spec["checks"],
+                               dpr=spec.get("dpr", True))
                 out["launches"] = _read_counts(tuple(_counters()))
                 for key, v in out["search"].items():
                     out["search"][key] = (v[0].tolist(), v[1].tolist())
+            if layout is not None:
+                out["host"] = _host_cards(layout, dev, spec)
         out["seconds"] = time.perf_counter() - t0
         out["bytes_moved"] = dict(dp.bytes_moved)
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
@@ -3250,12 +3278,16 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
     return 0
 
 
-def _run_ranks(cfg, what: str, timeout: float, spec: dict) -> list:
+def _run_ranks(cfg, what: str, timeout: float, spec: dict,
+               envs=None) -> list:
     """Run the ranks of ``spec`` (its ``devices``, ``world`` and
-    ``backend``; ``kind`` "dp" or "embedder") as subprocesses of this
-    script (``--dp-rank R --dp-spec PATH``) with ``timeout``, every one
-    killed on the way out; -> each rank's results, by rank."""
+    ``backend``; ``kind`` "dp", "embedder", "tp" or "hosts") as
+    subprocesses of this script (``--dp-rank R --dp-spec PATH``), rank r
+    with the variables ``envs[r]`` added to this process's, with
+    ``timeout``, every one killed on the way out; -> each rank's results,
+    by rank."""
     world = spec["world"]
+    envs = envs or [{}] * world
     with tempfile.TemporaryDirectory() as tmpdir:
         torch.save(cfg, os.path.join(tmpdir, "cfg.pt"))
         spec = dict(spec, cfg=os.path.join(tmpdir, "cfg.pt"), out=tmpdir,
@@ -3267,8 +3299,8 @@ def _run_ranks(cfg, what: str, timeout: float, spec: dict) -> list:
         procs = [subprocess.Popen(
             [sys.executable, os.path.join(REPO, "chip_smoke.py"),
              "--dp-rank", str(r), "--dp-spec", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
-            for r in range(world)]
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, **envs[r])) for r in range(world)]
         logs = []
         try:
             for p in procs:
@@ -3335,45 +3367,13 @@ def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
         "n_rows": n_rows, "n_docs": n_docs})
     ranks_s = time.perf_counter() - t0
     res = {"ref_seconds": ref_s, "ranks_seconds": ranks_s, "ranks": got,
-           "ref": {k: v for k, v in ref.items() if k != "search"}}
-    # searches: each rank's rows of the one-process search
-    search = {}
-    for key, (want_vals, want_ids) in ref["search"].items():
-        nq = want_ids.shape[0]
-        per = nq // world
-        ids = np.concatenate([np.asarray(g["search"][key][1]) for g in got])
-        vals = np.concatenate([np.asarray(g["search"][key][0])
-                               for g in got])
-        share, ties, bad = _same_or_tie(ids, vals, want_ids, want_vals, 50)
-        search[key] = dict(equal_share=share, ties=ties, unexplained=bad,
-                           exact=bool(np.array_equal(ids, want_ids)))
-        assert per * world == nq
-    res["search"] = search
-    checks = {}
-    limits = {}
-    for name in ("openqa", "dpr"):
-        for key, limit in (("loss", DP_LOSS_RTOL),
-                           ("grad_norm", DP_GRAD_RTOL)):
-            for step in range(DP_CHECK_STEPS):
-                want = ref[f"{name}_0.0"][key][step]
-                rel = max(abs(g[f"{name}_0.0"][key][step] - want)
-                          / abs(want) for g in got)
-                checks[f"{name}_{key}_{step + 1}_rel"] = rel
-                limits[f"{name}_{key}_{step + 1}_rel"] = limit
-        checks[f"{name}_replicas_equal"] = all(
-            g[f"{name}_params"] == got[0][f"{name}_params"] for g in got)
-    checks["em"] = (list(ref["em"]["em"]), [list(g["em"]["em"])
-                                            for g in got])
-    texts = []
-    per = per_rank["eval"]
-    for i in range(-(-DP_EVAL_QUESTIONS // sizes["eval"])):
-        for g in got:
-            texts += g["em"]["texts"][i * per:(i + 1) * per]
-    want_texts = dict(zip(range(DP_EVAL_QUESTIONS), ref["em"]["texts"]))
-    checks["texts_equal_share"] = (
-        sum(t == want_texts.get(i) for i, t in
-            enumerate(texts[:DP_EVAL_QUESTIONS])) / DP_EVAL_QUESTIONS)
-    res["checks"] = checks
+           "ref": ref, "plan": {"per_rank": per_rank, "sizes": sizes,
+                                "checks": checks_at,
+                                "n_questions": n_questions,
+                                "n_rows": n_rows, "n_docs": n_docs}}
+    search, checks, limits, failures = _dp_checks(
+        ref, got, world, per_rank["eval"], sizes["eval"], ("openqa", "dpr"))
+    res["search"], res["checks"] = search, checks
     res["launches"] = {k: sum(g["launches"][k] for g in got)
                        for k in got[0]["launches"]}
     for r, g in enumerate(got):
@@ -3411,15 +3411,60 @@ def dp_ranks_phase(cfg, dev, n_rows=N_INDEX, n_docs=20_000, timeout=900,
         f"{checks['dpr_replicas_equal']}; EM one process / ranks "
         f"{checks['em']}; generated texts equal to one process's "
         f"{checks['texts_equal_share']:.4f}")
-    failures = [k for k, s in search.items() if s["unexplained"]]
-    failures += [k for k, limit in limits.items() if not checks[k] <= limit]
-    failures += [k for k in ("openqa_replicas_equal", "dpr_replicas_equal",
-                             "texts_equal_share") if checks[k] != 1]
-    if any(e != checks["em"][0] for e in checks["em"][1]):
-        failures.append("em")
     if failures:
         raise AssertionError(f"dp {what} failed: {failures}")
     return res
+
+
+def _dp_checks(ref, got, world, per_eval, global_eval, names):
+    """The ranks' results ``got`` held to one process's ``ref`` by the dp
+    phase's rules: each search's rows those of one process under the
+    recall rule (``TIE_EPS``); for each of ``names`` ("openqa", "dpr") the
+    losses and global gradient norms of the check steps at dropout 0
+    within ``DP_LOSS_RTOL`` / ``DP_GRAD_RTOL``, the replicas bit-equal
+    after the steps at dropout 0.1; ``evaluate_em``'s texts (``per_eval``
+    rows a rank of every global batch of ``global_eval``) and EM those of
+    one process. -> (search, checks, limits, failures)."""
+    search = {}
+    for key, (want_vals, want_ids) in ref["search"].items():
+        nq = want_ids.shape[0]
+        assert nq % world == 0
+        ids = np.concatenate([np.asarray(g["search"][key][1]) for g in got])
+        vals = np.concatenate([np.asarray(g["search"][key][0])
+                               for g in got])
+        share, ties, bad = _same_or_tie(ids, vals, want_ids, want_vals, 50)
+        search[key] = dict(equal_share=share, ties=ties, unexplained=bad,
+                           exact=bool(np.array_equal(ids, want_ids)))
+    checks = {}
+    limits = {}
+    for name in names:
+        for key, limit in (("loss", DP_LOSS_RTOL),
+                           ("grad_norm", DP_GRAD_RTOL)):
+            for step in range(DP_CHECK_STEPS):
+                want = ref[f"{name}_0.0"][key][step]
+                rel = max(abs(g[f"{name}_0.0"][key][step] - want)
+                          / abs(want) for g in got)
+                checks[f"{name}_{key}_{step + 1}_rel"] = rel
+                limits[f"{name}_{key}_{step + 1}_rel"] = limit
+        checks[f"{name}_replicas_equal"] = all(
+            g[f"{name}_params"] == got[0][f"{name}_params"] for g in got)
+    checks["em"] = (list(ref["em"]["em"]), [list(g["em"]["em"])
+                                            for g in got])
+    texts = []
+    for i in range(-(-DP_EVAL_QUESTIONS // global_eval)):
+        for g in got:
+            texts += g["em"]["texts"][i * per_eval:(i + 1) * per_eval]
+    want_texts = dict(zip(range(DP_EVAL_QUESTIONS), ref["em"]["texts"]))
+    checks["texts_equal_share"] = (
+        sum(t == want_texts.get(i) for i, t in
+            enumerate(texts[:DP_EVAL_QUESTIONS])) / DP_EVAL_QUESTIONS)
+    failures = [k for k, s in search.items() if s["unexplained"]]
+    failures += [k for k, limit in limits.items() if not checks[k] <= limit]
+    failures += [k for k in [f"{n}_replicas_equal" for n in names]
+                 + ["texts_equal_share"] if checks[k] != 1]
+    if any(e != checks["em"][0] for e in checks["em"][1]):
+        failures.append("em")
+    return search, checks, limits, failures
 
 
 # the embedder phase: every rank trains under the flagship recipe's
@@ -3436,13 +3481,15 @@ EMB_BUILDER_SHAPE = (128, 256)      # K1's batch of passages in the builder
 EMB_SWAP_REPS = 3
 
 
-def _embedder_run(cfg, dev, tmpdir, spec, dp):
+def _embedder_run(cfg, dev, tmpdir, spec, dp, layout=None):
     """One rank of the embedder phase: ``engine.train`` over an int8 index
     of ``sizes["docs"]`` passages (this rank holding its block) with an
     ``AsyncIndexRefresher`` (reload interval ``EMB_RELOAD``) whose builder
     runs on the rank's embedder devices (``parallel.embed_devices``),
     ``prefetch_depth=1``, ``iters`` iterations at ``sizes["qa"]`` questions
-    a rank; then ``plain_iters`` more without the refresher. Records each
+    a rank; then ``plain_iters`` more without the refresher (``layout``:
+    the rank's ``HostLayout`` in a launch across hosts, whose embedder
+    cards are its own host's). Records each
     iteration's ms and whether an embed pass overlapped it by half, each
     pass's window, each ``maybe_swap`` that swapped (iteration, ms of the
     trainer thread's stall: the agreement all-reduce and the swap, the
@@ -3472,8 +3519,9 @@ def _embedder_run(cfg, dev, tmpdir, spec, dp):
     cuda = dev.type == "cuda"
     mesh = MeshConfig(dp=dp.world_size, embed_devices=spec["embed_devices"])
     check_mesh_config(mesh, dp.world_size,
-                      torch.cuda.device_count() if cuda else None)
-    edevs = embed_devices(mesh, dp.rank, dev)
+                      torch.cuda.device_count() if cuda else None,
+                      layout=layout)
+    edevs = embed_devices(mesh, dp.rank, dev, layout)
     edev = edevs[0]
     devices = [dev] + [d for d in edevs if d != dev]
     sizes = spec["sizes"]
@@ -3688,6 +3736,17 @@ def embedder_phase(cfg, dev, cards=False, timeout=900, sizes=None):
         "embed_devices": EMB_WORLD if cards else 0, "sizes": sizes,
         "swap_rows": N_INDEX if dev.type == "cuda" else 4096})
     seconds = time.perf_counter() - t0
+    failures, launches, steps = _embedder_checks(what, got, dev, on_cards)
+    log(f"{what}: {seconds:.1f} s; swap iterations {steps}")
+    if failures:
+        raise AssertionError(f"{what} failed: {failures}")
+    return dict(ranks=got, launches=launches, seconds=seconds)
+
+
+def _embedder_checks(what, got, dev, on_cards):
+    """Log each rank of the embedder phase and hold them to its rules
+    (``embedder_phase``) -> (failures, launches summed over the ranks,
+    each rank's swap iterations)."""
     for r, g in enumerate(got):
         log(f"{what} rank {r} on {g['devices']} (embedder {g['embedder']}):"
             f" ms per iteration with an embed pass in flight "
@@ -3745,10 +3804,180 @@ def embedder_phase(cfg, dev, cards=False, timeout=900, sizes=None):
             if not all(g["builder_launches"].get(d, 0) > 0
                        for d in g["embedder"]):
                 failures.append(f"no builder launch on {g['embedder']}")
-    log(f"{what}: {seconds:.1f} s; swap iterations {steps}")
+    return failures, launches, steps
+
+
+# the two-host phase: a launch across hosts, each emulated host a group of
+# this script's subprocesses with its own CUDA_VISIBLE_DEVICES and
+# torchrun's variables (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
+# LOCAL_RANK, LOCAL_WORLD_SIZE, GROUP_RANK), one rank a host, each joining
+# through parallel.init_distributed. Default: both hosts see card 0 and the
+# two ranks share it over gloo, doing the dp phase (b)'s OPENQA work held
+# to its one-process references; --dp-cards 4: hosts of cards 0,1 and 2,3,
+# each a trainer on its card 0 beside its embedder on its card 1, NCCL
+HOSTS_VISIBLE = ("0", "0")
+HOSTS_CARDS_VISIBLE = ("0,1", "2,3")
+
+
+def _host_envs(visible, port):
+    """torchrun's variables of one rank a host, host h seeing the cards
+    ``visible[h]``, the rendezvous at 127.0.0.1:``port``."""
+    return [{"CUDA_VISIBLE_DEVICES": v, "RANK": str(h),
+             "WORLD_SIZE": str(len(visible)), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port), "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(h)}
+            for h, v in enumerate(visible)]
+
+
+def _host_cards(layout, dev, spec):
+    """A rank's place in a launch across hosts: its host and local rank,
+    and the UUIDs (``torch.cuda.get_device_properties(i).uuid``; None on
+    the CPU) of its trainer card, its embedder cards
+    (``parallel.embed_devices``) and every card its host shows it."""
+    from emdr2_tpu_torch.config import MeshConfig
+    from emdr2_tpu_torch.parallel import embed_devices
+
+    def uuid(d):
+        return (str(torch.cuda.get_device_properties(d).uuid)
+                if d.type == "cuda" else None)
+
+    mesh = MeshConfig(dp=len(layout.rank_hosts),
+                      embed_devices=spec.get("embed_devices", 0))
+    edevs = embed_devices(mesh, torch.distributed.get_rank(), dev, layout)
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [])
+    return dict(host=layout.host, name=layout.name,
+                local_rank=layout.local_rank,
+                visible_env=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                trainer=str(dev), trainer_uuid=uuid(dev),
+                embedder=[str(d) for d in edevs],
+                embedder_uuids=[uuid(d) for d in edevs],
+                visible_uuids=[uuid(d) for d in visible])
+
+
+def _card_failures(got, own_cards):
+    """Each rank on its own host; with ``own_cards`` (the hosts' cards
+    apart) no two ranks on one trainer card, and each embedder card one of
+    its own host's, no trainer's and no other host's. UUIDs are None on
+    the CPU, where only the hosts are held."""
+    hosts = [g["host"] for g in got]
+    failures = []
+    if sorted(h["host"] for h in hosts) != list(range(len(got))):
+        failures.append(f"hosts {[h['host'] for h in hosts]}")
+    if not own_cards or hosts[0]["trainer_uuid"] is None:
+        return failures
+    trainers = [h["trainer_uuid"] for h in hosts]
+    if len(set(trainers)) != len(trainers):
+        failures.append(f"ranks share a trainer card: {trainers}")
+    for r, h in enumerate(hosts):
+        others = {u for o in hosts if o["host"] != h["host"]
+                  for u in o["visible_uuids"]}
+        for u in h["embedder_uuids"]:
+            if u not in h["visible_uuids"] or u in others:
+                failures.append(f"rank {r}'s embedder card {u} is not its "
+                                f"host's alone")
+            if u in trainers:
+                failures.append(f"rank {r}'s embedder card {u} trains")
+    return failures
+
+
+def hosts_phase(cfg, dev, dpb=None, cards=False, timeout=900, sizes=None):
+    """Two emulated hosts of one rank each (``HOSTS_VISIBLE``: both see
+    card 0; ``cards=True``: ``HOSTS_CARDS_VISIBLE``), the ranks placed by
+    torchrun's variables at the rendezvous (``host_layout``): each takes
+    the card of its local rank among the cards its host sees. Default
+    (``dpb``: the dp phase (b)'s result): over gloo, the dp phase's work
+    without the DPR steps (``_dp_runs(dpr=False)``: the K3 searches on
+    each rank's block, the OPENQA check steps at dropout 0, three steps at
+    dropout 0.1, ``evaluate_em`` over int8 K/V) at (b)'s global batches,
+    held to (b)'s one-process references by ``_dp_checks``; every kernel
+    of the path launched. ``cards=True`` (``--dp-cards 4``): over NCCL,
+    ``engine.train`` with each rank's refresher on its host's embedder
+    card (``--embed-devices 2``: one a host) and prefetch 1 at
+    ``EMB_CARDS`` (8 questions a rank), held by the embedder phase's
+    rules (``_embedder_checks``); no two ranks on one trainer card, no
+    embedder card on another host. Each rank prints its cards' UUIDs; a
+    rank's step time, passages/s and swap time are printed with the
+    card's name and power limit. On the CPU a rehearsal over gloo
+    (``sizes`` replaces the embedder's sizes there)."""
+    on_cards = cards and dev.type == "cuda"
+    visible = HOSTS_CARDS_VISIBLE if cards else HOSTS_VISIBLE
+    world = len(visible)
+    what = (f"two hosts (cards {' and '.join(visible)}: a trainer beside "
+            f"its embedder a host, {'NCCL' if on_cards else 'gloo'})"
+            if cards else "two hosts (both see card 0, gloo)")
+    spec = {"kind": "hosts", "world": world, "device": dev.type,
+            "backend": "nccl" if on_cards else "gloo"}
+    if cards:
+        spec.update(mode="embedder", embed_devices=world,
+                    sizes=sizes or EMB_CARDS,
+                    swap_rows=N_INDEX if dev.type == "cuda" else 4096)
+    else:
+        plan = dpb["plan"]
+        spec.update(mode="dp", dpr=False, sizes=plan["sizes"],
+                    checks=plan["checks"], n_questions=plan["n_questions"],
+                    n_rows=plan["n_rows"], n_docs=plan["n_docs"])
+    t0 = time.perf_counter()
+    got = _run_ranks(cfg, what, timeout, spec,
+                     _host_envs(visible, _free_port()))
+    seconds = time.perf_counter() - t0
+    res = dict(ranks=got, seconds=seconds)
+    if cards:
+        failures, launches, steps = _embedder_checks(what, got, dev,
+                                                     on_cards)
+        times = [f"rank {r}: ms per iteration with a pass in flight "
+                 + ", ".join(f"{m:.1f}" for m in g["with_embed"])
+                 + ", without " + ", ".join(f"{m:.1f}" for m in g["without"])
+                 + ", with no refresher "
+                 + ", ".join(f"{m:.1f}" for m in g["plain"])
+                 + "; passages/s " + ", ".join(f"{p:.1f}"
+                                               for p in g["per_s"])
+                 + "; swaps (iteration, ms) " + ", ".join(
+                     f"({i}, {ms:.1f})" for i, ms in g["swaps"])
+                 for r, g in enumerate(got)]
+        res["swap_iterations"] = steps
+    else:
+        plan = dpb["plan"]
+        search, checks, limits, failures = _dp_checks(
+            dpb["ref"], got, world, plan["per_rank"]["eval"],
+            plan["sizes"]["eval"], ("openqa",))
+        launches = {k: sum(g["launches"][k] for g in got)
+                    for k in got[0]["launches"]}
+        # the OPENQA path's kernels, as in the tp phase (K4 is off it)
+        failures += [f"{k} never launched" for k in TP_COUNTED
+                     if dev.type == "cuda" and launches[k] <= 0]
+        times = [f"rank {r}: OPENQA step ms at dropout 0.1 "
+                 + ", ".join(f"{m:.1f}" for m in g["openqa_0.1"]["ms"])
+                 + f" at {plan['per_rank']['qa']} questions (peak "
+                 f"{g['openqa_0.1']['peak'] / 2**30:.2f} GiB; stages "
+                 + _stages_text(g["openqa_0.1"]["stage_ms"])
+                 + f"); evaluate_em {g['ms']['evaluate_em']:.1f} ms; bytes "
+                 f"moved {g['bytes_moved']}; launches {g['launches']}"
+                 for r, g in enumerate(got)]
+        log(f"{what}: searches {search}; the {DP_CHECK_STEPS} check steps "
+            f"at dropout 0 relative to one process: "
+            + ", ".join(f"{k} {checks[k]:.3e}" for k in limits)
+            + f" (limits: loss {DP_LOSS_RTOL}, grad_norm {DP_GRAD_RTOL}); "
+            f"replicas bit-equal after {DP_QA_STEPS} steps at dropout 0.1: "
+            f"{checks['openqa_replicas_equal']}; EM one process / ranks "
+            f"{checks['em']}; generated texts equal to one process's "
+            f"{checks['texts_equal_share']:.4f}")
+        res.update(search=search, checks=checks)
+    for r, g in enumerate(got):
+        h = g["host"]
+        log(f"{what} rank {r}: host {h['host']} ({h['name']}, "
+            f"CUDA_VISIBLE_DEVICES={h['visible_env']}), local rank "
+            f"{h['local_rank']}: trainer {h['trainer']} "
+            f"{h['trainer_uuid']}, embedder {h['embedder']} "
+            f"{h['embedder_uuids']}; {g['seconds']:.1f} s")
+    failures += _card_failures(got, on_cards)
+    res["launches"] = launches
+    log(f"{what}: " + "; ".join(times) + f"; {seconds:.1f} s in all; "
+        + (gpu_name_and_power() if dev.type == "cuda" else "the CPU"))
     if failures:
         raise AssertionError(f"{what} failed: {failures}")
-    return dict(ranks=got, launches=launches, seconds=seconds)
+    return res
 
 
 def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
@@ -3766,6 +3995,15 @@ def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
         from emdr2_tpu_torch.config import with_transformers
         _empty_cache(dev)
         emb = embedder_phase(with_transformers(
+            _flagship_cfg(), {"remat": False}, {"remat": True}), dev,
+            cards=True)
+    hosts = None
+    if world >= 2 * len(HOSTS_CARDS_VISIBLE):
+        # a launch across two hosts of two cards each: a trainer beside
+        # its embedder on each host
+        from emdr2_tpu_torch.config import with_transformers
+        _empty_cache(dev)
+        hosts = hosts_phase(with_transformers(
             _flagship_cfg(), {"remat": False}, {"remat": True}), dev,
             cards=True)
     tps = []
@@ -3798,7 +4036,15 @@ def dp_cards_main(world: int, dev, card: str, t_start: float) -> int:
                        "devices", "embedder", "with_embed", "without",
                        "plain", "pass_s", "per_s", "swaps", "agree_ms",
                        "block_ms", "peaks", "builder_launches", "check",
-                       "seconds")} for g in emb["ranks"]]}
+                       "seconds")} for g in emb["ranks"]],
+               "hosts": hosts and {
+                   "launches": hosts["launches"],
+                   "swap_iterations": hosts["swap_iterations"],
+                   "ranks": [{k: g[k] for k in (
+                       "host", "with_embed", "without", "plain", "pass_s",
+                       "per_s", "swaps", "agree_ms", "block_ms", "peaks",
+                       "builder_launches", "check", "seconds")}
+                       for g in hosts["ranks"]]}}
     log(f"chip_smoke --dp-cards {world} total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
@@ -4432,6 +4678,11 @@ def main() -> int:
     c5 = c5_phase(cfg, tcfg, dev, gen)
     dpa = dp_one_rank_phase(cfg, dev)
     dpb = dp_ranks_phase(cfg, dev)
+    # a launch across hosts: two emulated hosts of one rank each, both
+    # seeing card 0, placed by torchrun's variables, held to (b)'s
+    # one-process references
+    _empty_cache(dev)
+    hs = hosts_phase(cfg, dev, dpb)
     # the asynchronous refresh and prefetch across ranks: two ranks share
     # the card over gloo, each with its embedder on it (--embed-devices 0)
     _empty_cache(dev)
@@ -4678,6 +4929,7 @@ def main() -> int:
                               for n in tp["launches_by_rank"]]
         if row["name"] in tp_err:
             row["max_abs_err_6_heads"] = tpk[tp_err[row["name"]]][0]
+        row["launches_hosts"] = hs["launches"].get(row["name"], 0)
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(card)

@@ -25,16 +25,22 @@ group is the default group and ``.world`` is the dp group itself, so every
 group and layout is the one of a data-parallel launch.
 
 The embedder group (``MeshConfig.embed_devices > 0``, the JAX
-``build_meshes``' disjoint sub-mesh, the reference's indexer ranks): rank r
-trains on card r and the next ``embed_devices`` visible cards re-embed the
-evidence, no card doing both. The function ``embed_devices`` hands rank r
-its share of them: ``embed_devices / dp`` cards of its own when there are at
-least as many embedder cards as ranks, else one card that ``dp /
-embed_devices`` ranks share. Each rank's embedder works for that rank
-alone (``training/async_refresh.py``) and issues no collective, so the
-group needs no process group of its own. The trainers take cards
-``0 .. dp*tp - 1`` (card = world rank), the embedders the cards after them
-(the JAX ``build_meshes``' ``n_train = dp * tp``).
+``build_meshes``' disjoint sub-mesh, the reference's indexer ranks): each
+rank trains on its card and its host's next visible cards re-embed the
+evidence, no card doing both. On each of the launch's hosts
+(``distributed.HostLayout``) its ``t = dp * tp / n_hosts`` trainers take
+cards ``0 .. t-1`` (card = local rank) and its ``embed_devices / n_hosts``
+embedder cards are the ones after them; the function ``embed_devices``
+hands a rank its share of its host's: ``e / t`` cards of its own when the
+host has at least as many embedder cards as trainers, else one card that
+``t / e`` of them share. Each rank's embedder works for that rank alone
+(``training/async_refresh.py``), on a thread of the trainer's process, and
+issues no collective, so the group needs no process group of its own. On
+one host this is the JAX ``build_meshes``' layout (the embedders on the
+devices after the ``n_train = dp * tp`` trainers'); across hosts the JAX
+function takes the devices after the trainers in global order, which would
+put a rank's embedder on another host's card, where its process cannot
+drive it.
 """
 
 from __future__ import annotations
@@ -54,14 +60,16 @@ GRAD_BUCKET_BYTES = 32 * 2 ** 20
 
 def check_mesh_config(cfg: MeshConfig, world_size: int,
                       n_cards: Optional[int] = None,
-                      model=None) -> None:
+                      model=None, layout=None) -> None:
     """Raise unless ``cfg`` is a ``[dp, tp]`` layout over ``world_size``
     processes (``dp * tp`` of them), with an embedder group that divides
-    over its ``dp * tp`` trainers and, given ``n_cards`` (the visible
-    cards; None on the CPU, where every device is the host), fits beside
-    them. ``model`` (an ``EMDR2Config``, a ``RetrieverConfig`` or a
-    ``TransformerConfig``): ``tp`` must divide the heads, the MLP width and
-    the vocabulary of each of its transformers (``check_tp_divides``)."""
+    over the hosts of ``layout`` (a ``distributed.HostLayout``; default
+    one host that sees ``n_cards`` cards, None on the CPU, where every
+    device is the host) and on each over its trainers, and fits beside them
+    in each host's visible cards. ``model`` (an ``EMDR2Config``, a
+    ``RetrieverConfig`` or a ``TransformerConfig``): ``tp`` must divide the
+    heads, the MLP width and the vocabulary of each of its transformers
+    (``check_tp_divides``)."""
     dp, tp, embed = cfg.dp, cfg.tp, cfg.embed_devices
     if tp < 1 or dp < 1:
         raise ValueError(f"--dp {dp} --tp {tp}: both must be 1 or more")
@@ -70,22 +78,51 @@ def check_mesh_config(cfg: MeshConfig, world_size: int,
     n = dp * tp
     if embed < 0:
         raise ValueError(f"--embed-devices {embed} must be 0 or more")
-    if embed and embed % n and n % embed:
+    if layout is None:
+        layout = dist_lib.HostLayout.one_host(0, n, n_cards, "this host")
+    hosts = layout.n_hosts
+    t = max(n // hosts, 1)           # the trainers of a host
+    if embed % hosts:
         raise ValueError(
-            f"--embed-devices {embed} does not divide over the {n} trainer "
-            f"ranks (dp {dp} x tp {tp}): the embedder cards must be a "
-            f"multiple of the ranks (each rank takes embed-devices / "
-            f"(dp*tp) cards) or divide them (dp*tp / embed-devices ranks "
+            f"--embed-devices {embed} does not divide over the {hosts} "
+            f"hosts: each host's {t} trainer ranks embed on cards of their "
+            f"own host, so every host needs embed-devices / {hosts} of them")
+    e = embed // hosts
+    where = "" if hosts == 1 else (
+        f" ({e} a host: {hosts} hosts x {t} trainer ranks)")
+    if e and e % t and t % e:
+        raise ValueError(
+            f"--embed-devices {embed} does not divide over the {t} trainer "
+            f"ranks{where or f' (dp {dp} x tp {tp})'}: the embedder cards "
+            f"must be a multiple of the ranks (each rank takes embed-devices"
+            f" / (dp*tp) cards) or divide them (dp*tp / embed-devices ranks "
             f"share a card)")
-    if embed and n_cards is not None and n + embed > n_cards:
+    short = [(name, c) for name, c in zip(layout.names, layout.cards)
+             if e and c is not None and t + e > c]
+    if short and hosts == 1:
         trainers = "dp" if tp == 1 else "dp * tp"
         raise ValueError(
             f"--dp {dp} --tp {tp} --embed-devices {embed} needs {trainers} "
             f"+ embed-devices = {n + embed} visible cards (trainers on cards "
-            f"0..{n - 1}, embedders after them), {n_cards} visible")
+            f"0..{n - 1}, embedders after them), {short[0][1]} visible")
+    if short:
+        raise ValueError(
+            f"--dp {dp} --tp {tp} --embed-devices {embed} over {hosts} hosts "
+            f"needs {t} trainer + {e} embedder = {t + e} visible cards on "
+            f"each host (trainers on cards 0..{t - 1}, embedders after "
+            f"them): " + "; ".join(f"{name} sees {c}" for name, c in short))
     if n != world_size:
         raise ValueError(f"--dp {dp} --tp {tp} needs {n} processes, one a "
                          f"rank; this launch has {world_size}")
+
+
+def tp_groups_span_hosts(cfg: MeshConfig, layout) -> bool:
+    """True when the tp ranks of some replica (world ranks ``dp_idx * tp
+    .. dp_idx * tp + tp - 1``) run on more than one host of ``layout``:
+    allowed (the JAX mesh allows it), but their per-layer all-reduces then
+    cross the network between hosts."""
+    return any(len({layout.rank_hosts[d * cfg.tp + t]
+                    for t in range(cfg.tp)}) > 1 for d in range(cfg.dp))
 
 
 def _transformers(model):
@@ -117,23 +154,29 @@ def check_tp_divides(tp: int, model,
                     f"and the vocabulary over the tp ranks")
 
 
-def embed_devices(cfg: MeshConfig, rank: int,
-                  device: torch.device) -> List[torch.device]:
-    """Rank ``rank``'s embedder devices beside its trainer ``device``
-    (card ``rank``, a world rank of the ``dp * tp`` trainers): cards
-    ``n + rank * E/n ...`` of its own when E >= n = dp * tp, else card
-    ``n + rank // (n/E)``, shared; the trainer's own card without an
-    embedder group; on the CPU as many CPU devices (the layout's code runs
-    unchanged there). The JAX ``build_meshes`` puts the embedder sub-mesh
-    on the devices after the train mesh in the same way."""
+def embed_devices(cfg: MeshConfig, rank: int, device: torch.device,
+                  layout=None) -> List[torch.device]:
+    """Rank ``rank``'s embedder devices beside its trainer ``device``, on
+    its own host of ``layout`` (a ``distributed.HostLayout``; default one
+    host, where the local rank is ``rank``). With ``t`` trainers and ``e =
+    embed_devices / n_hosts`` embedder cards a host and ``l`` the rank's
+    local rank (its trainer card): cards ``t + l * e/t ...`` of its own
+    when e >= t, else card ``t + l // (t/e)``, shared; the trainer's own
+    card without an embedder group; on the CPU as many CPU devices (the
+    layout's code runs unchanged there). On one host this is the JAX
+    ``build_meshes``' embedder sub-mesh after the train mesh."""
     n, embed = cfg.dp * cfg.tp, cfg.embed_devices
     if embed == 0:
         return [device]
-    if embed >= n:
-        per = embed // n
-        idx = [n + rank * per + i for i in range(per)]
+    if layout is None:
+        layout = dist_lib.HostLayout.one_host(rank, n)
+    t, local = layout.local_world_size, layout.local_rank
+    e = embed // layout.n_hosts
+    if e >= t:
+        per = e // t
+        idx = [t + local * per + i for i in range(per)]
     else:
-        idx = [n + rank // (n // embed)]
+        idx = [t + local // (t // e)]
     if device.type != "cuda":
         return [device] * len(idx)
     return [torch.device("cuda", i) for i in idx]

@@ -15,7 +15,7 @@ index rows (the JAX builder's ``row_partition``), by either path.
 
 The embedder's devices (``devices``, default the model's): with an
 embedder group (``parallel.mesh.embed_devices``) they are cards of their
-own, beside the trainer's. ``place_params`` copies the tower to embed
+own, beside the trainer's on its host. ``place_params`` copies the tower to embed
 with onto each of them once per refresh (the JAX builder's
 ``place_params``, the reference's checkpoint hand-off through the disk);
 batch i of a pass runs on device i mod their count, so one host thread

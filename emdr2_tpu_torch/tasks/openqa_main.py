@@ -119,9 +119,9 @@ def run_openqa(args, cfg, dp=None) -> int:
 
     refresher = None
     if args.async_indexer:
-        # the embedder's tower lives on the rank's embedder cards
-        # (--embed-devices; placed there by the refresher at start), or on
-        # its own card without them
+        # the embedder's tower lives on the rank's embedder cards, on its
+        # own host (--embed-devices; placed there by the refresher at
+        # start), or on its own card without them
         disjoint = args.embed_devices > 0
         builder = EvidenceIndexBuilder(
             cfg, model, corpus, t5_tok.cls_id, t5_tok.sep_id, t5_tok.pad_id,

@@ -13,16 +13,26 @@ Data and tensor parallelism: one process per rank, launched by hand, N of
         [--tp T] [--embed-devices E]
 
 (or the ``EMDR2_COORDINATOR`` / ``EMDR2_NUM_PROCESSES`` /
-``EMDR2_PROCESS_ID`` variables). N = D x T: rank I (``dp_idx * T +
-tp_idx``) takes ``cuda:I`` of the visible cards (modulo their count) and
-NCCL, or gloo with ``--device cpu``; ``--dp`` defaults to N / T. Each of
-the D replicas splits its heads, MLP width and vocabulary over its T
-ranks (a T that does not divide them is refused). The global batch is
-``--batch-size`` x D, as in the JAX CLI. ``--embed-devices E`` puts the
-OPENQA refresher's embedders on the E cards after the N trainers'
-(``parallel.mesh.embed_devices``; E a multiple or a divisor of N, N + E
-cards visible): the reference's 8 trainers beside 8 indexers. The
-kernels' limits
+``EMDR2_PROCESS_ID`` variables), or by ``torchrun`` (``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and its ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``GROUP_RANK``), on one host or several. N = D x T:
+rank I (``dp_idx * T + tp_idx``) takes the card of its local rank on its
+host (``parallel.distributed.host_layout``: from torchrun's variables, or
+from the host names the ranks exchange at the rendezvous; on one host
+``cuda:I``) and NCCL, or gloo with ``--device cpu``; ``--dp`` defaults to N
+/ T. Every host runs N / hosts ranks. Each of the D replicas splits its
+heads, MLP width and vocabulary over its T ranks (a T that does not divide
+them is refused; a tp group may span hosts, which the start says). The
+global batch is ``--batch-size`` x D, as in the JAX CLI. ``--embed-devices
+E`` puts the OPENQA refresher's embedders on each host's E / hosts cards
+after its trainers' (``parallel.mesh.embed_devices``; E / hosts a multiple
+or a divisor of the trainers a host, trainers + embedders of a host within
+its visible cards): the reference's 8 trainers beside 8 indexers, on one
+host of 16 cards or two of 8. Across hosts the checkpoint and data paths
+must be on a filesystem every host sees: before the first collective the
+ranks agree that each sees ``--evidence-data-path`` and
+``--embedding-path``, and that all or none see a checkpoint at ``--load``,
+and all raise, naming the hosts and paths, if not. The kernels' limits
 (``ops.fid_attention.kernel_limits``) are checked on the flags before
 anything is built.
 """
@@ -143,13 +153,14 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks: each replica's heads, MLP "
                         "width and vocabulary split over --tp processes "
-                        "(world = dp * tp, card = world rank); must divide "
-                        "the heads, the MLP width and the vocabulary")
+                        "(world = dp * tp, card = local rank on its host); "
+                        "must divide the heads, the MLP width and the "
+                        "vocabulary")
     g.add_argument("--embed-devices", type=int, default=0,
-                   help="cards after the trainers' (dp * tp of them) that "
+                   help="cards after the trainers' on each host that "
                         "re-embed the evidence for --async-indexer (0: each "
-                        "rank's own card); a multiple of dp * tp or a "
-                        "divisor of it")
+                        "rank's own card), E / hosts a host; a multiple of "
+                        "the trainers a host or a divisor of them")
     g.add_argument("--coordinator-address", default=None,
                    help="host:port of the rendezvous (rank 0's)")
     g.add_argument("--num-processes", type=int, default=None,
@@ -200,43 +211,124 @@ def check_kernel_limits(args) -> None:
 
 def setup_data_parallel(args):
     """Join the launch (``parallel.init_distributed``, with the device's
-    backend) and check the ``[dp, tp]`` layout -> the ``DataParallel``
-    group, carrying the tp and world groups (``DataParallel.local()`` for
-    one process). ``--dp`` defaults to the processes / ``--tp``; the heads
+    backend: the ranks learn their hosts at the rendezvous) and check the
+    ``[dp, tp]`` layout on every host -> the ``DataParallel`` group,
+    carrying the tp and world groups (``DataParallel.local()`` for one
+    process). ``--dp`` defaults to the processes / ``--tp``; the heads
     and the MLP width must divide by ``--tp`` here, the vocabulary when the
     model is built (its size comes from the tokenizer). Sets
-    ``args.device`` to this rank's device (card = world rank) and
-    ``args.embedder_devices`` to its embedder's (``parallel.embed_devices``:
-    the cards after the ``dp * tp`` trainers', or the rank's own without
-    ``--embed-devices``)."""
+    ``args.device`` to this rank's device (``parallel.rank_device``: the
+    card of its local rank on its host), ``args.host_layout`` to its
+    ``HostLayout`` and ``args.embedder_devices`` to its embedder's
+    (``parallel.embed_devices``: its host's cards after that host's
+    trainers', or the rank's own without ``--embed-devices``)."""
     import torch
 
     from emdr2_tpu_torch.config import MeshConfig
-    from emdr2_tpu_torch.parallel import (DataParallel, check_mesh_config,
+    from emdr2_tpu_torch.parallel import (DataParallel, HostLayout,
+                                          check_mesh_config,
                                           check_tp_divides, embed_devices,
-                                          init_distributed)
-    dev = torch.device(args.device)
-    if (dev.type == "cuda" and dev.index is None
-            and args.process_id is not None and torch.cuda.is_available()):
-        dev = torch.device("cuda", args.process_id % torch.cuda.device_count())
-        args.device = str(dev)
+                                          init_distributed, rank_device,
+                                          tp_groups_span_hosts)
+    from emdr2_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(args.device)
     check_tp_divides(args.tp, make_config(args),
                      fields=("num_heads", "ffn_size"))
-    joined = init_distributed(args.coordinator_address, args.num_processes,
+    layout = init_distributed(args.coordinator_address, args.num_processes,
                               args.process_id, device=dev)
+    joined = layout is not None
     world = torch.distributed.get_world_size() if joined else 1
     rank = torch.distributed.get_rank() if joined else 0
+    cards = torch.cuda.device_count() if dev.type == "cuda" else None
+    if not joined:
+        layout = HostLayout.one_host(cards=cards)
+    dev = rank_device(dev, layout)
+    if dev.type == "cuda":
+        args.device = str(dev)
     if args.dp is None:
         args.dp = max(world // args.tp, 1)
     mesh = MeshConfig(dp=args.dp, tp=args.tp,
                       embed_devices=args.embed_devices)
-    check_mesh_config(mesh, world,
-                      torch.cuda.device_count() if dev.type == "cuda"
-                      else None)
+    check_mesh_config(mesh, world, layout=layout)
     dp = (DataParallel.from_process_group(tp=args.tp) if joined
           else DataParallel.local())
-    args.embedder_devices = embed_devices(mesh, rank, dev)
+    if joined and rank == 0:
+        span = tp_groups_span_hosts(mesh, layout) if args.tp > 1 else False
+        print(f"launch: {world} ranks on {layout.n_hosts} host(s) x "
+              f"{layout.local_world_size} (" + ", ".join(layout.names)
+              + f"); tp groups span hosts: {'yes' if span else 'no'}",
+              flush=True)
+    args.host_layout = layout
+    args.embedder_devices = embed_devices(mesh, rank, dev, layout)
     return dp
+
+
+def shared_inputs(args):
+    """(flag, path, seen here) of each input every rank reads from the
+    filesystem: the evidence (``--evidence-data-path``: its ``_text`` and
+    ``_title`` datasets), OPENQA's ``--embedding-path`` (an
+    ``EmbeddingStore`` or the reference's ``.pkl``) and a checkpoint at
+    ``--load`` (its tracker)."""
+    import os
+
+    from emdr2_tpu_torch.data.indexed_dataset import exists
+    from emdr2_tpu_torch.retrieval import EmbeddingStore
+    from emdr2_tpu_torch.training.checkpointing import latest_iteration
+    out = []
+    if args.evidence_data_path:
+        p = args.evidence_data_path
+        out.append(("--evidence-data-path", p,
+                    exists(p + "_text") and exists(p + "_title")))
+    if args.task == "OPENQA" and args.embedding_path:
+        p = args.embedding_path
+        out.append(("--embedding-path", p, os.path.exists(p)
+                    if p.endswith(".pkl") else EmbeddingStore.exists(p)))
+    if args.load:
+        out.append(("--load", args.load,
+                    latest_iteration(args.load) is not None))
+    return out
+
+
+def check_shared_inputs(args, dp) -> None:
+    """Before the first collective of a task: every rank of ``dp.world``
+    checks which of its ``shared_inputs`` it sees, and the ranks agree by
+    one all-reduce of the flags. Every rank raises alike, naming each
+    host that misses a path, unless every rank sees the evidence and the
+    embeddings and all or none see a checkpoint at ``--load`` (none: a
+    fresh start). Without the check a rank on a host without the shared
+    filesystem would raise alone, and the others would fail at their next
+    collective without naming the path (over NCCL only after the
+    rendezvous timeout)."""
+    import torch
+
+    world = dp.world
+    inputs = shared_inputs(args)
+    if not world.distributed or not inputs:
+        return
+    seen = torch.tensor([float(ok) for _, _, ok in inputs])
+    world.all_reduce_sum_(seen)
+    n = world.world_size
+    bad = [i for i, (flag, _, _) in enumerate(inputs)
+           if not (seen[i] == n or (flag == "--load" and seen[i] == 0))]
+    if not bad:
+        return
+    mine = (args.host_layout.name, world.rank,
+            [inputs[i][1:] for i in bad])
+    everyone = [None] * n
+    torch.distributed.all_gather_object(everyone, mine)
+    lines = []
+    for j, i in enumerate(bad):
+        missing = {}
+        for name, rank, seen_here in everyone:
+            path, ok = seen_here[j]
+            if not ok:
+                missing.setdefault((name, path), []).append(rank)
+        lines += [f"{inputs[i][0]} {path} is not visible on host {name} "
+                  f"(ranks {ranks})" for (name, path), ranks in
+                  missing.items()]
+    raise FileNotFoundError(
+        "; ".join(lines) + ": a launch across hosts reads the checkpoint "
+        "and the data from a filesystem every host sees")
 
 
 def make_config(args):
@@ -286,6 +378,7 @@ def main(argv=None) -> int:
     check_kernel_limits(args)
     dp = setup_data_parallel(args)
     try:
+        check_shared_inputs(args, dp)
         if args.task == "RETRIEVER":
             from emdr2_tpu_torch.tasks.retriever_main import run_retriever
             return run_retriever(args, make_config(args), dp=dp)

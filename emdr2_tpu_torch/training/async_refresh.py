@@ -20,7 +20,8 @@ blocks the trainer.
 
 Where the embedder runs: on the builder's devices. With an embedder group
 (``--embed-devices``, ``parallel.mesh.embed_devices``) those are cards of
-their own, the reference's indexer ranks; without one, the trainer's card.
+their own on the rank's own host (the worker is a thread of the trainer's
+process), the reference's indexer ranks; without one, the trainer's card.
 ``_publish_weights`` copies the live tower onto them
 (``EvidenceIndexBuilder.place_params``, card to card on the trainer's
 stream) and records an event there; the embedder's streams wait for it

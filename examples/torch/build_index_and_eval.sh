@@ -5,8 +5,21 @@
 # report recall@k on the dev and test questions. Arguments after the
 # script's own (model widths, --device) go to the embedding and the
 # evaluation and win over their flags.
+#
+# Hosts: the tools are one process each, on one card, so the build runs on
+# host 0 alone; run the script on every host with NNODES and NODE_RANK set
+# (as the training recipes take them) and the others return at once.
+# NPROC_PER_NODE, MASTER_ADDR and MASTER_PORT do not apply: no rendezvous.
 
 set -euo pipefail
+
+NNODES=${NNODES:-1}
+NODE_RANK=${NODE_RANK:-0}
+if ((NODE_RANK != 0)); then
+  echo "build_index_and_eval: host $NODE_RANK of $NNODES: the offline" \
+       "build runs on host 0"
+  exit 0
+fi
 
 DATA_DIR=${DATA_DIR:-data}
 VOCAB_FILE=${VOCAB_FILE:-$DATA_DIR/bert-large-uncased-vocab.txt}

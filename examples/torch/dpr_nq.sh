@@ -6,20 +6,42 @@
 # the evidence is embedded by row range over the ranks and the recall on
 # the dev and test questions reported.
 #
-# One process a rank, rank r on card r: DP x TP of them (TP=1 by default;
-# TP=2 splits each replica's towers over two cards, 16 questions a
-# replica); DP=1 for one card. Arguments after the script's own are
-# passed to every rank and win over its flags.
+# One process a rank: DP x TP of them (TP=1 by default; TP=2 splits each
+# replica's towers over two cards, 16 questions a replica); DP=1 for one
+# card. Hosts: run the script once on each of NNODES hosts (default 1),
+# with NODE_RANK 0 .. NNODES-1 and host 0's MASTER_ADDR and MASTER_PORT;
+# each starts its NPROC_PER_NODE (default DP*TP / NNODES) ranks, world
+# rank NODE_RANK * NPROC_PER_NODE + local, on the host's cards 0 ..
+# NPROC_PER_NODE-1, with torchrun's variables exported (as emdr2_nq.sh).
+# The data and CHECKPOINT_PATH must be on a filesystem every host sees.
+# COORDINATOR, if set, takes the place of MASTER_ADDR:MASTER_PORT.
+# Arguments after the script's own are passed to every rank and win over
+# its flags.
 
 set -euo pipefail
 
 DATA_DIR=${DATA_DIR:-data}
 DP=${DP:-8}
 TP=${TP:-1}
-COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
+NNODES=${NNODES:-1}
+NODE_RANK=${NODE_RANK:-0}
+NPROC_PER_NODE=${NPROC_PER_NODE:-$((DP * TP / NNODES))}
+MASTER_ADDR=${MASTER_ADDR:-localhost}
+MASTER_PORT=${MASTER_PORT:-29500}
+COORDINATOR=${COORDINATOR:-$MASTER_ADDR:$MASTER_PORT}
+WORLD=$((DP * TP))
+if ((NNODES * NPROC_PER_NODE != WORLD)); then
+  echo "NNODES $NNODES x NPROC_PER_NODE $NPROC_PER_NODE is not DP $DP x" \
+       "TP $TP = $WORLD ranks" >&2
+  exit 1
+fi
 
 pids=()
-for ((rank = 0; rank < DP * TP; rank++)); do
+for ((lr = 0; lr < NPROC_PER_NODE; lr++)); do
+  rank=$((NODE_RANK * NPROC_PER_NODE + lr))
+  RANK=$rank WORLD_SIZE=$WORLD LOCAL_RANK=$lr \
+  LOCAL_WORLD_SIZE=$NPROC_PER_NODE GROUP_RANK=$NODE_RANK \
+  MASTER_ADDR=$MASTER_ADDR MASTER_PORT=$MASTER_PORT \
   python -m emdr2_tpu_torch.tasks.run \
       --task RETRIEVER \
       --device cuda \
@@ -28,7 +50,7 @@ for ((rank = 0; rank < DP * TP; rank++)); do
       --valid-data "${VALID_DATA:-$DATA_DIR/nq-dpr-dev.json}" \
       --dp "$DP" \
       --tp "$TP" \
-      --num-processes $((DP * TP)) \
+      --num-processes "$WORLD" \
       --process-id "$rank" \
       --coordinator-address "$COORDINATOR" \
       --batch-size 16 \

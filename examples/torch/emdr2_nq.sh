@@ -6,15 +6,27 @@
 # DP=8), 10 epochs, lr 2e-5 with 1% linear warmup, the index re-embedded
 # and swapped every 500 steps.
 #
-# One process a rank: DP x TP trainers on cards 0..DP*TP-1 (world rank
-# dp_idx * TP + tp_idx on card of that number; TP=1 by default, TP=2 splits
-# each replica's heads, MLP and vocabulary over two cards, the batch a
-# replica staying BATCH_PER_RANK), their embedders on the EMBED_DEVICES
-# cards after them (DP=8 EMBED_DEVICES=8 is the reference's layout of 8
-# trainers beside 8 indexers; EMBED_DEVICES a multiple or a divisor of
-# DP*TP). EMBED_DEVICES=0 embeds on each trainer's own card. One card:
-# DP=1 EMBED_DEVICES=0. Arguments after the script's own are passed to
-# every rank and win over its flags.
+# One process a rank: DP x TP trainers (world rank dp_idx * TP + tp_idx;
+# TP=1 by default, TP=2 splits each replica's heads, MLP and vocabulary
+# over two cards, the batch a replica staying BATCH_PER_RANK), their
+# embedders on EMBED_DEVICES further cards (DP=8 EMBED_DEVICES=8 is the
+# reference's layout of 8 trainers beside 8 indexers; EMBED_DEVICES=0
+# embeds on each trainer's own card). One card: DP=1 EMBED_DEVICES=0.
+#
+# Hosts: run the script once on each of NNODES hosts (default 1), with
+# NODE_RANK 0 .. NNODES-1, MASTER_ADDR and MASTER_PORT host 0's
+# rendezvous. Each host starts its NPROC_PER_NODE (default DP*TP / NNODES)
+# ranks, world rank NODE_RANK * NPROC_PER_NODE + local, with torchrun's
+# variables exported (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+# GROUP_RANK, MASTER_ADDR, MASTER_PORT): local rank l trains on the host's
+# card l, and the host's EMBED_DEVICES / NNODES embedder cards follow its
+# trainers' (a multiple or a divisor of NPROC_PER_NODE). The reference's
+# layout on two hosts of 8 cards: NNODES=2 DP=8 EMBED_DEVICES=8, 4 + 4 a
+# host. Every host must see DATA_DIR and CHECKPOINT_PATH on a shared
+# filesystem (the ranks check before they start). COORDINATOR, if set,
+# takes the place of MASTER_ADDR:MASTER_PORT (a host:port or a file://
+# store). Arguments after the script's own are passed to every rank and
+# win over its flags.
 
 set -euo pipefail
 
@@ -28,10 +40,25 @@ CHECKPOINT_PATH=${CHECKPOINT_PATH:-checkpoints/emdr2-nq}
 DP=${DP:-8}
 TP=${TP:-1}
 EMBED_DEVICES=${EMBED_DEVICES:-8}
-COORDINATOR=${COORDINATOR:-localhost:29500}    # rank 0's rendezvous
+NNODES=${NNODES:-1}
+NODE_RANK=${NODE_RANK:-0}
+NPROC_PER_NODE=${NPROC_PER_NODE:-$((DP * TP / NNODES))}
+MASTER_ADDR=${MASTER_ADDR:-localhost}
+MASTER_PORT=${MASTER_PORT:-29500}
+COORDINATOR=${COORDINATOR:-$MASTER_ADDR:$MASTER_PORT}
+WORLD=$((DP * TP))
+if ((NNODES * NPROC_PER_NODE != WORLD)); then
+  echo "NNODES $NNODES x NPROC_PER_NODE $NPROC_PER_NODE is not DP $DP x" \
+       "TP $TP = $WORLD ranks" >&2
+  exit 1
+fi
 
 pids=()
-for ((rank = 0; rank < DP * TP; rank++)); do
+for ((lr = 0; lr < NPROC_PER_NODE; lr++)); do
+  rank=$((NODE_RANK * NPROC_PER_NODE + lr))
+  RANK=$rank WORLD_SIZE=$WORLD LOCAL_RANK=$lr \
+  LOCAL_WORLD_SIZE=$NPROC_PER_NODE GROUP_RANK=$NODE_RANK \
+  MASTER_ADDR=$MASTER_ADDR MASTER_PORT=$MASTER_PORT \
   python -m emdr2_tpu_torch.tasks.run \
       --task OPENQA \
       --device cuda \
@@ -44,7 +71,7 @@ for ((rank = 0; rank < DP * TP; rank++)); do
       --load "$CHECKPOINT_PATH" \
       --dp "$DP" \
       --tp "$TP" \
-      --num-processes $((DP * TP)) \
+      --num-processes "$WORLD" \
       --process-id "$rank" \
       --coordinator-address "$COORDINATOR" \
       --batch-size "${BATCH_PER_RANK:-8}" \

@@ -7,11 +7,15 @@ after its own flags (argparse keeps the last occurrence), and its ranks
 meet at a ``file://`` rendezvous. ``emdr2_nq.sh`` runs the reference's
 layout cut to two trainers beside two embedders (``DP=2
 EMBED_DEVICES=2``) with the asynchronous refresh and prefetch at depth 1
-that it ships.
+that it ships, and as two hosts of one rank each (``NNODES=2``, the script
+run once a host with its ``NODE_RANK``), which must train as the one-host
+launch does.
 """
 
 import json
 import os
+import re
+import socket
 import subprocess
 
 import pytest
@@ -132,6 +136,68 @@ def test_openqa_recipe_at_tp2_with_the_refresher(datadir, tmp_path):
     assert "index refreshed at iteration" in out, out[-3000:]
     assert out.count("final (8 iters)") == 1           # rank 0 alone
     assert latest_iteration(str(ckpt)) == 8            # 16 questions / 2
+
+
+def _final_metrics(out, iters):
+    """The last training log line (iteration ``iters``) without its time
+    per iteration."""
+    lines = [ln for ln in out.splitlines()
+             if f"iteration {iters:8d}/{iters}" in ln]
+    assert lines, out[-3000:]
+    return re.sub(r" \| ms_per_iter [^|]*", "", lines[-1]).strip()
+
+
+def test_openqa_recipe_as_two_hosts_trains_as_one_host(datadir, tmp_path):
+    """examples/torch/emdr2_nq.sh run once on each of two emulated hosts
+    (``NNODES=2``, ``NODE_RANK`` 0 and 1, ``NPROC_PER_NODE=1``), DP=2 with
+    EMBED_DEVICES=2 (one embedder a host) and the refresher on: the ranks
+    meet at ``MASTER_ADDR:MASTER_PORT`` by torchrun's variables, both
+    invocations end with rc 0, host 0 alone prints, and its final loss
+    line is the one-host launch's with the same flags (no index swap
+    within the 4 iterations, so the two runs do the same work)."""
+    flags = TINY_ARGS + ["--topk-retrievals", "2", "--seq-length", "48",
+                         "--seq-length-dec", "8", "--max-decode-len", "4",
+                         "--flash-key-chunk", "8",
+                         "--index-reload-interval", "100",
+                         "--save-interval", "100", "--eval-interval", "100"]
+    data = dict(VOCAB_FILE=datadir / "vocab.txt", EVIDENCE=datadir / "wiki",
+                EMBEDDINGS=datadir / "emb", TRAIN_DATA=datadir / "qa.csv",
+                VALID_DATA=datadir / "qa.csv", DP=2, EMBED_DEVICES=2,
+                BATCH_PER_RANK=2)
+    (tmp_path / "one").mkdir()
+    (tmp_path / "two").mkdir()
+    one = run_script("examples/torch/emdr2_nq.sh", recipe_env(
+        tmp_path / "one", CHECKPOINT_PATH=tmp_path / "one" / "ckpt", **data),
+        flags)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    hosts = []
+    for node in range(2):
+        env = recipe_env(tmp_path / "two", CHECKPOINT_PATH=tmp_path / "two"
+                         / "ckpt", NNODES=2, NODE_RANK=node,
+                         NPROC_PER_NODE=1, MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=port, **data)
+        del env["COORDINATOR"]
+        hosts.append(subprocess.Popen(
+            ["bash", os.path.join(REPO, "examples/torch/emdr2_nq.sh")]
+            + flags, env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in hosts:
+            outs.append(p.communicate(timeout=TIMEOUT_S)[0])
+    finally:
+        for p in hosts:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for node, (p, out) in enumerate(zip(hosts, outs)):
+        assert p.returncode == 0, f"host {node}:\n{out[-6000:]}"
+    assert "launch: 2 ranks on 2 host(s) x 1" in outs[0], outs[0][-3000:]
+    assert "iteration" not in outs[1]
+    assert _final_metrics(outs[0], 4) == _final_metrics(one, 4)
+    assert "final (4 iters) | valid EM" in outs[0]
 
 
 @pytest.fixture(scope="module")
