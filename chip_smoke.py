@@ -24,12 +24,15 @@
    split under key chunk 256 (100 chunks) and with seven chunks dealt to 1,
    2, 3 and 7 splits (forward) or runs (backward), whole splits and one row
    padded; the MIPS candidate scan
-   (K3) over a 1,310,720 x 768 index in bf16 and int8: both of its kernels
-   (CUDA-core and tensor-core) forced at nq in {8, 9, 16, 32, 64, 128}, each
-   held to the plain version, for the crossover, and the dispatch at nq in
-   {8, 64, 512, 3,610} against the plain version (in blocks of 512
+   (K3) over a 1,310,720 x 768 index in bf16 and int8: its kernels'
+   registers, shared memory and spills, both of its kernels (CUDA-core and
+   tensor-core) forced at nq in {1, 2, 4, 8, 9, 16, 32, 64, 128, 256}, each
+   held to the plain version, for each type's crossover, and the dispatch
+   at nq in {8, 64, 512, 3,610} against the plain version (in blocks of 512
    queries), beside the score GEMM alone, plus top-50 recall of the whole
-   search against an exact search (float64 sums); the
+   search against an exact search (float64 sums), an int8 search split
+   into scan, selection and re-rank at 512 and 3,610, and the widest bf16
+   boundary tie over two more random indexes; the
    general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
    key chunks of 256, dropout 0 and 0.1, at a small Lq != Lk shape and on
    1,024 tokens in key chunks of 512; its
@@ -784,7 +787,10 @@ def k2_split_phase(dev, gen):
 
 K3_NQ = (8, 64, 512, 3610)          # serving, just above the crossover,
                                     # the evaluator's batches (NQ-test)
-K3_SWEEP_NQ = (8, 9, 16, 32, 64, 128)  # both kernels forced: the crossover
+K3_SWEEP_NQ = (1, 2, 4, 8, 9, 16, 32, 64, 128, 256)  # both kernels forced:
+                                    # each type's crossover
+K3_TIE_SEEDS = (SEED + 1, SEED + 2)  # more bf16 indexes for the widest tie
+K3_SPLIT_NQ = (512, 3610)           # int8 mips_topk split into its parts
 K3_EXTRA = 8                        # exact rows kept past the k-th
 TIE_EPS = 4                         # a boundary tie: scores within this
                                     # many fp32 eps of |k-th score|
@@ -909,15 +915,121 @@ def misses_text(ex, k):
             f"{ex['unexplained']}")
 
 
-def k3_phase(dev, gen):
-    """K3 over 1,310,720 x 768 rows, bf16 and int8: the crossover sweep
-    (both kernels forced at nq in K3_SWEEP_NQ), then the dispatch at nq in
-    K3_NQ held to the plain version (in blocks of K3_BLOCK queries: a plain
-    [3,610, 1.31M] fp32 score matrix is 19 GB), timed beside the plain
-    version, the score matrix's library GEMM and the bound, and the whole
-    search's recall@50 against an exact search."""
+def k3_sass_counts():
+    """Instructions of the tensor-core scan kernels in the built library, by
+    ``cuobjdump -sass``: the warpgroup products (HGMMA bf16, IGMMA int8) and
+    the tensor-map loads (UTMALDG) and bulk copies (UBLKCP). Fails if a
+    kernel lacks its products or its loads; None without cuobjdump."""
+    import re
+
+    from emdr2_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("  K3: no cuobjdump beside nvcc, the SASS is not read")
+        return None
+    sass = subprocess.run([tool, "-sass", build.library_path()],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0]
+        if "candidate_scan_tc_kernel" not in name:
+            continue
+        c = {op: len(re.findall(r"\b" + op + r"\.", part))
+             for op in ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")}
+        products = c["IGMMA"] if "candidate_scan_tc_kernelIa" in name \
+            else c["HGMMA"]
+        if not products or not (c["UTMALDG"] or c["UBLKCP"]):
+            raise AssertionError(f"K3 {name}: SASS {c}")
+        counts[name] = c
+    if not counts:
+        raise AssertionError("K3: no tensor-core scan kernel in the SASS")
+    log(f"  K3 SASS of the tensor-core kernels (cuobjdump -sass): "
+        f"{sorted(set(map(str, counts.values())))} in {len(counts)} kernels")
+    return counts
+
+
+def k3_kernel_report():
+    """Registers, shared memory and spills of every scan kernel, from the
+    built library (``cudaFuncGetAttributes``); fails if a tensor-core
+    kernel spills."""
     from emdr2_tpu_torch.ops import mips
-    rows, sweep = [], []
+    rows = mips.kernel_info()
+    for r in rows:
+        log(f"  K3 {r['route']} {r['dtype']} {r['queries']} queries a block"
+            + (f", {r['cluster']} a cluster, a ring of {r['stages']} stages"
+               if r["route"] == "tensor_core" else "")
+            + f": {r['registers']} registers, {r['local_bytes']} local "
+            f"(spilled) bytes a thread, {r['static_smem']} static + "
+            f"{r['dynamic_smem']} dynamic shared bytes a block at d = 768")
+        if r["route"] == "tensor_core" and r["local_bytes"]:
+            raise AssertionError(f"K3 tensor-core kernel spills: {r}")
+    return rows
+
+
+def k3_topk_split(qf, index, scales, n_valid, k=50):
+    """ms of a whole int8 ``mips_topk`` and of its parts: the scan, the
+    float64 re-rank of the selected rows with its final top-k, and the
+    selection between them (the scales on the candidates, the top-M and the
+    gather of the M rows): the whole less the two."""
+    from emdr2_tpu_torch.ops import mips
+    nq = qf.shape[0]
+    q = quantize_queries(qf)
+    whole = time_ms(lambda: mips.mips_topk(qf, index, k, n_valid=n_valid,
+                                           shard_scales=scales), reps=5)
+    scan = time_ms(lambda: mips.candidate_scan(q, index, n_valid, 128, 2),
+                   reps=5)
+    m = 48 if k <= 20 else max(128, 2 * k)
+    cidx = torch.randint(0, n_valid, (nq, m), device=index.device)
+    rows = index[cidx]
+
+    def rerank():
+        s = mips._rerank_scores(qf, rows) * scales[cidx // 128]
+        s = torch.where(cidx < n_valid, s, torch.full_like(s, mips.NEG_INF))
+        v, p = torch.topk(s, k, dim=1)
+        return v, torch.gather(cidx, 1, p)
+    rr = time_ms(rerank, reps=5)
+    return dict(nq=nq, whole_ms=whole, scan_ms=scan, rerank_ms=rr,
+                selection_ms=whole - scan - rr)
+
+
+def k3_bf16_ties(dev, seed, nq=3610, k=50):
+    """The widest boundary tie of a bf16 search of ``nq`` random queries
+    over a random 1,310,720 x 768 index made from ``seed`` (the rows and
+    queries), against an exact search (float64 sums): in fp32 eps of
+    |k-th score|. A miss neither a collision nor a tie fails."""
+    from emdr2_tpu_torch.ops import mips
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_valid = N_INDEX - 1000
+    emb = torch.randn(N_INDEX, 768, device=dev, generator=g)
+    emb[n_valid:] = 0.0
+    index = emb.to(torch.bfloat16)
+    del emb
+    qf = torch.randn(nq, 768, device=dev, generator=g)
+    _, ids = mips.mips_topk(qf, index, k, n_valid=n_valid)
+    oracle_vals, oracle = _exact_top(qf, index.float(), n_valid, k,
+                                     torch.bfloat16)
+    ex = explain_misses(ids, oracle, oracle_vals, k, ties=True)
+    log(f"K3 bf16 seed {seed} nq={nq}: {misses_text(ex, k)}")
+    if ex["unexplained"]:
+        raise AssertionError(f"K3 bf16 seed {seed}: {misses_text(ex, k)}")
+    return ex["tie_eps"]
+
+
+def k3_phase(dev, gen):
+    """K3 over 1,310,720 x 768 rows, bf16 and int8: the kernels' registers
+    and shared memory; the crossover sweep (both kernels forced at nq in
+    K3_SWEEP_NQ), then the dispatch at nq in K3_NQ held to the plain
+    version (in blocks of K3_BLOCK queries: a plain [3,610, 1.31M] fp32
+    score matrix is 19 GB), timed beside the plain version, the score
+    matrix's library GEMM and the bound, and the whole search's recall@50
+    against an exact search; an int8 ``mips_topk`` split into scan,
+    selection and re-rank; the widest bf16 tie over more indexes."""
+    from emdr2_tpu_torch.ops import mips
+    kernels = k3_kernel_report()
+    sass = k3_sass_counts()
+    rows, sweep, split = [], [], []
     n_valid = N_INDEX - 1000
     emb = torch.randn(N_INDEX, 768, device=dev, generator=gen)
     emb[n_valid:] = 0.0
@@ -954,7 +1066,7 @@ def k3_phase(dev, gen):
                 f"{err['tensor_core']:.3e})")
         for nq in K3_NQ:
             qf, q = _k3_queries(name, nq, dev, gen)
-            route = mips.scan_route(nq, 128)
+            route = mips.scan_route(nq, 128, q.dtype)
             gv, gi = mips.candidate_scan(q, index, n_valid, 128, 2)
             torch.cuda.synchronize()
             ok, max_err, agree = True, 0.0, 0
@@ -1029,7 +1141,15 @@ def k3_phase(dev, gen):
                              id_agree=id_agree, bound_ms=bound_ms,
                              bound_by=bound_by, misses=ex["misses"],
                              ties=ex["ties"], tie_eps=ex["tie_eps"]))
+            if name == "int8" and nq in K3_SPLIT_NQ:
+                split.append(k3_topk_split(qf, index, scales, n_valid))
+                log(f"K3 int8 mips_topk nq={nq} k=50: {split[-1]}")
     del stored
+    ties = [r["tie_eps"] for r in rows if r["dtype"] == "bf16"]
+    ties += [k3_bf16_ties(dev, seed) for seed in K3_TIE_SEEDS]
+    log(f"K3 bf16: the widest boundary tie over seeds {SEED}, "
+        f"{', '.join(map(str, K3_TIE_SEEDS))}: {max(ties):.3f} fp32 eps of "
+        f"|k-th score| (TIE_EPS {TIE_EPS})")
     crossover = {}
     for name in ("bf16", "int8"):
         runs = [r for r in sweep if r["dtype"] == name]
@@ -1040,8 +1160,10 @@ def k3_phase(dev, gen):
             None)
     log(f"K3 crossover: the tensor-core kernel is faster from nq = "
         f"{crossover} on (of {list(K3_SWEEP_NQ)}); the dispatch takes it "
-        f"from mips.TENSOR_CORE_MIN_NQ = {mips.TENSOR_CORE_MIN_NQ}")
-    return dict(rows=rows, sweep=sweep, crossover=crossover)
+        f"from mips.TENSOR_CORE_MIN_NQ = "
+        f"{ {str(t): n for t, n in mips.TENSOR_CORE_MIN_NQ.items()} }")
+    return dict(rows=rows, sweep=sweep, crossover=crossover, split=split,
+                kernels=kernels, sass=sass, bf16_ties=max(ties))
 
 
 def k4_phase(dev, gen, profile=False):
@@ -2650,6 +2772,38 @@ def retrieval_eval_phase(cfg, dev, gen, n_docs=16_384, n_rows=N_INDEX,
                 raise AssertionError(f"retrieval eval {name}: "
                                      f"{misses_text(ex, k)}; recall {recall} "
                                      f"against {exact_recall}")
+            if name == "bf16":
+                # the widest boundary tie with the random rows past the
+                # passages drawn from more seeds (the same questions)
+                ties = [ex["tie_eps"]]
+                pad0 = emb[n_docs:].clone()
+                for seed in K3_TIE_SEEDS:
+                    del index
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(seed)
+                    emb[n_docs:] = torch.randn(n_rows - n_docs,
+                                               cfg.index.embed_dim,
+                                               device=dev, generator=g)
+                    index = ShardedEvidenceIndex(icfg, emb, passage_ids=pids,
+                                                 device=dev)
+                    _, got = index.search(q, k)
+                    oracle_vals, oracle = _exact_top(
+                        q, index.embeddings.float(), n_rows, k,
+                        torch.bfloat16)
+                    sx = explain_misses(got, oracle, oracle_vals, k,
+                                        ties=True)
+                    log(f"retrieval eval bf16, rows past the passages from "
+                        f"seed {seed}: {misses_text(sx, k)}")
+                    if sx["unexplained"]:
+                        raise AssertionError(f"retrieval eval bf16 seed "
+                                             f"{seed}: {misses_text(sx, k)}")
+                    ties.append(sx["tie_eps"])
+                emb[n_docs:] = pad0
+                del pad0
+                res[name]["tie_eps_seeds"] = max(ties)
+                log(f"retrieval eval bf16: the widest boundary tie over "
+                    f"{1 + len(K3_TIE_SEEDS)} seeds {max(ties):.3f} fp32 "
+                    f"eps of |k-th score| (TIE_EPS {TIE_EPS})")
             del index, ev, q, got, oracle, oracle_vals
             _empty_cache(dev)
         del emb, model, builder
@@ -4376,7 +4530,7 @@ KERNEL_CLASSES = (
     ("K1 flash self-attention", ("RowMaxInv",)),
     ("K4 general flash attention", ("aflash::Lse",)),
     ("K2 flash cross-attention", ("::cross_",)),
-    ("K3, K5", ("candidate_scan_kernel", "::decode_")),
+    ("K3, K5", ("candidate_scan", "::decode_")),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma",
                                   "cublas")),
     ("integer elementwise (the plain dropout hash)",
@@ -4859,7 +5013,11 @@ def main() -> int:
              "ms", "plain_ms", "matmul_ms", "bound_ms", "bound_by",
              "max_abs_err")} for key, r in k3_tc.items()},
          "crossover_nq": k3["crossover"],
-         "tensor_core_min_nq": mips.TENSOR_CORE_MIN_NQ,
+         "tensor_core_min_nq": {str(t).replace("torch.", ""): n for t, n
+                                in mips.TENSOR_CORE_MIN_NQ.items()},
+         "kernels": k3["kernels"], "sass": k3["sass"],
+         "topk_split_ms": k3["split"],
+         "bf16_widest_tie_eps": k3["bf16_ties"],
          "crossover_sweep_ms": k3["sweep"]},
         {"name": "decode_cross_attention_int8", "route": "cuda",
          "launches_c5": c5l["decode_cross_attention_int8"],

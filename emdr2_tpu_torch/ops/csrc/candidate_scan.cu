@@ -12,8 +12,8 @@
 // |dot| <= 768 * 127^2 < 2^24. Group and query scales of the int8 index are
 // applied outside, to the winners only.
 //
-// Two kernels, picked by the wrapper (ops/mips.py:candidate_scan) by the
-// number of queries:
+// Two kernels, picked by the wrapper (ops/mips.py:scan_route) by the number
+// of queries and the type:
 //
 // 1. The CUDA-core scan (candidate_scan_kernel), for serving batches. At
 //    nq = 8 it is memory bound, one pass over the index (2.0 GB bf16 or
@@ -26,31 +26,43 @@
 //    (warp shuffles, then one value per warp). At nq = 512 its scalar dot
 //    products bound it.
 //
-// 2. The tensor-core scan (candidate_scan_mma_kernel), for query batches at
-//    and above the crossover (retrieval evaluation sends thousands). There
-//    the products bound the scan: 2 nq N d operations against one read of
-//    the index. One block per (query tile of QT = 64 or 128, group of 128
-//    rows), on a one-dimensional grid (blockIdx.x = tile + tiles * group:
-//    any number of groups, where grid.y would stop at 65,535, 8.4M rows)
-//    that walks query tiles fastest, so the blocks that read one group run
-//    together and the group comes from device memory once and from L2 for
-//    the other tiles. The block's [QT + 128, 128 bytes] k-chunks
-//    of queries and rows stream through a three-stage cp.async ring; eight
-//    warps each hold a [32 queries, 128 / WN rows] tile of scores in
-//    registers, products by mma.sync (bf16 m16n8k16 into fp32, int8
-//    m16n8k32 into int32, exact like __dp4a), operands by ldmatrix. Both
-//    products take 32 bytes of each row a step, so one byte layout and one
-//    ldmatrix addressing serve both types. The top-2 of each query over
-//    the group comes straight from the accumulators: each thread's 2 x NT
-//    columns, then the four threads of a quad by shuffles, then the WN
-//    warps that share a query through shared memory (the ring's, reused).
-//    Later work: wgmma and TMA.
+// 2. The tensor-core scan (candidate_scan_tc_kernel), groups of 128 rows.
+//    The products bound it once the index is read once: 2 nq N d
+//    operations against N d bytes. What bound its first form (mma.sync on
+//    a (128-query tile, group) a block, both operands staged through a
+//    cp.async ring) was the traffic from L2 into shared memory: every query
+//    tile was read again for each of the 10,240 groups and every group
+//    again for each query tile, about 4 TB/s whatever the batch. So:
+//    - A persistent block keeps its query tile (64 or 128 queries) resident
+//      in shared memory and walks a contiguous run of groups; blocks with
+//      other query tiles walk the same runs, so each group comes from
+//      device memory once and from L2 for the others.
+//    - A cluster of CL = 2 or 4 blocks holds CL query tiles; each block
+//      loads 128 / CL rows of every ring stage and the Tensor Memory
+//      Accelerator multicasts them to all, so L2 sends each row once a
+//      cluster.
+//    - Products by wgmma (bf16 m64n128k16 into fp32, int8 m64n128k32 into
+//      int32, both operands K-major in swizzled shared memory): a
+//      warpgroup's accumulators hold 64 queries x the group's 128 rows,
+//      each thread 2 queries x 32 rows, so the per-group top-2 is 32
+//      inserts a query and two quad shuffles, with no shared memory.
+//    - One producer warp fills the ring by TMA (tensor maps with the 128-
+//      or 64-byte swizzle wgmma reads, mbarriers counting the bytes); two
+//      consumer warpgroups take the groups in turn, the turn handed over
+//      by named barriers as soon as a warpgroup has issued its group's
+//      products, so one warpgroup's top-2 runs under the other's products.
+//    - No atomics: each (query, group) is written by one thread, and two
+//      launches are bit-equal.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-#include "attention_mma.cuh"
+#include <algorithm>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -230,54 +242,11 @@ int launch(const void* queries, const void* index, void* vals, void* idx,
 // ---------------------------------------------------------------------------
 // The tensor-core scan.
 
-constexpr int MMA_G = 128;                 // rows a group (the block's N tile)
-constexpr int MMA_THREADS = 256;           // eight warps
-constexpr int MMA_KB = 128;                // bytes of each row a ring stage
-constexpr int MMA_LD = MMA_KB + 16;        // smem row stride: 144 bytes puts
-                                           // ldmatrix's eight rows in eight
-                                           // different bank quads
-constexpr int MMA_STAGES = 3;
-
-constexpr size_t mma_smem_bytes(int qt) {
-  return (size_t)MMA_STAGES * (qt + MMA_G) * MMA_LD;
-}
-
-// c[16, 8] += a[16, 32 bytes] . b[32 bytes, 8]: bf16 into fp32, or int8
-// into int32. The fragments are the same registers of the same bytes.
-__device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  amma::mma_bf16(c, a, b0, b1);
-}
-
-__device__ __forceinline__ void mma_step(int (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const uint8_t* p) {
-  amma::ldsm_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));
-}
-
 // A top-2 under `better`, rows distinct: (v1, i1) ahead of (v2, i2).
 struct Top2 {
   float v1, v2;
   int i1, i2;
 };
-
-__device__ __forceinline__ void top2_insert(Top2& t, float v, int i) {
-  if (better(v, i, t.v1, t.i1)) {
-    t.v2 = t.v1;
-    t.i2 = t.i1;
-    t.v1 = v;
-    t.i1 = i;
-  } else if (better(v, i, t.v2, t.i2)) {
-    t.v2 = v;
-    t.i2 = i;
-  }
-}
 
 // the top-2 of the union of two top-2s over disjoint rows
 __device__ __forceinline__ Top2 top2_merge(const Top2& a, const Top2& b) {
@@ -307,192 +276,571 @@ __device__ __forceinline__ Top2 top2_shfl_xor(const Top2& t, int off) {
   return o;
 }
 
-// One stage of the ring: the query tile's k-chunk kc (rows [0, QT), zeros
-// past nq) and the group's (rows [QT, QT + 128)), 16 bytes a cp.async.
-template <int QT>
-__device__ __forceinline__ void mma_load_stage(uint8_t* dst, const uint8_t* q,
-                                               const uint8_t* x, int q0,
-                                               int nq, int rb, int kc) {
-  constexpr int SEGS = MMA_KB / 16;
-  for (int i = threadIdx.x; i < (QT + MMA_G) * SEGS; i += MMA_THREADS) {
-    const int r = i / SEGS;
-    const int c = (i % SEGS) * 16;
-    const uint8_t* src;
-    bool ok = true;
-    if (r < QT) {
-      ok = q0 + r < nq;
-      src = q + (size_t)(ok ? q0 + r : 0) * rb;
-    } else {
-      src = x + (size_t)(r - QT) * rb;
-    }
-    amma::cp_async16(dst + r * MMA_LD + c, src + (size_t)kc * MMA_KB + c, ok);
-  }
+constexpr int TC_G = 128;                 // rows a group: the products' N
+constexpr int TC_CONSUMERS = 2;           // warpgroups that take groups in turn
+constexpr int TC_THREADS = 128 * (TC_CONSUMERS + 1);   // + the producer's
+constexpr int TC_PRODUCER_REGS = 40;      // registers a thread after the
+constexpr int TC_CONSUMER_REGS = 232;     // split (setmaxnreg)
+constexpr int TC_QB = 128;                // bytes of a resident query chunk
+constexpr int TC_MAX_STAGES = 16;
+constexpr int TC_SMEM_LIMIT = 232448;     // dynamic shared memory of a block
+
+// Bytes of each index row a ring stage holds: 128 (the 128-byte swizzle),
+// or 64 (the 64-byte swizzle) where 128 resident bf16 queries leave room
+// for only two stages of 128.
+template <typename T, int MA>
+constexpr int tc_stage_bytes() {
+  return sizeof(T) == 2 && MA == 2 ? 64 : 128;
 }
 
-template <typename Acc, int QT>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
-    candidate_scan_mma_kernel(const uint8_t* __restrict__ queries,
-                              const uint8_t* __restrict__ index,
-                              float* __restrict__ vals, int* __restrict__ idx,
-                              int nq, int N, int rb, int n_valid, int cands) {
-  constexpr int WM = QT / 32;              // warps along the queries
-  constexpr int WN = 8 / WM;               // warps along the group's rows
-  constexpr int NT = MMA_G / WN / 8;       // n-tiles of 8 rows a warp
-  constexpr int STAGE = (QT + MMA_G) * MMA_LD;
-  static_assert(WM * WN == 8 && NT % 2 == 0, "warp layout");
-  extern __shared__ __align__(128) uint8_t smem[];
+// Shared memory of a block: the resident query tile, `stages` ring stages,
+// their full and empty mbarriers and the query tile's two, and the slack
+// that aligns the tiles to 1024 bytes.
+__host__ __device__ constexpr int tc_smem_bytes(int qt, int rb, int kb,
+                                                int stages) {
+  return qt * rb + stages * TC_G * kb + (2 * stages + 2) * 8 + 1024;
+}
 
-  const int lane = threadIdx.x % 32;
+// The ring stages that fit beside the resident query tile.
+constexpr int tc_stages(int qt, int rb, int kb) {
+  return std::min(TC_MAX_STAGES,
+                  (TC_SMEM_LIMIT - tc_smem_bytes(qt, rb, kb, 0)) /
+                      (TC_G * kb + 16));
+}
+
+// Matrix descriptor of a K-major tile in shared memory under the
+// `sw`-byte swizzle (rows of sw bytes, 8-row groups 8 * sw bytes apart),
+// starting at `p` (a k-step of 32 bytes into a row advances p by 32).
+template <int SW>
+__device__ __forceinline__ uint64_t tc_desc(const void* p) {
+  uint64_t d = (uint64_t)((tma::smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;                       // leading offset: unused
+  d |= (uint64_t)((8 * SW) >> 4) << 32;         // stride offset
+  d |= (uint64_t)(SW == 128 ? 1 : 2) << 62;     // 128- or 64-byte swizzle
+  return d;
+}
+
+#define TC_ACC(c, d)                                                        \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),   \
+  c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),       \
+  c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),     \
+  c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),     \
+  c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),     \
+  c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]),     \
+  c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),     \
+  c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),     \
+  c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+
+#define TC_REGS                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 queries, 128 rows] (+)= A[64, 32 bytes] . B[128, 32 bytes]^T, both
+// K-major in shared memory (descriptors); scale_d = 0 starts the sum anew.
+// bf16 into fp32, or int8 into int32 (exact, like mma.sync and __dp4a).
+__device__ __forceinline__ void tc_mma(float (&d)[64], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TC_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TC_ACC("+f", d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tc_mma(int (&d)[64], uint64_t da, uint64_t db,
+                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " TC_REGS
+      ", %64, %65, p;\n"
+      "}\n"
+      : TC_ACC("+r", d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef TC_REGS
+#undef TC_ACC
+
+// Pin the accumulators around the asynchronous products: the compiler may
+// not move a read or a copy of them across these points.
+__device__ __forceinline__ void tc_fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void tc_fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void tc_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tc_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void tc_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 hand the products' turn between the two consumer
+// warpgroups (barrier 0 is __syncthreads').
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * TC_CONSUMERS)
+               : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(128 * TC_CONSUMERS)
+               : "memory");
+}
+
+// The items of the walk: query tile group qg (CL tiles, one a block of the
+// cluster) by slice of the groups; cluster c takes items c, c + clusters,
+// ... Each item's groups are [g0, g1), empty when there are more slices
+// than groups.
+struct TcItem {
+  int qg, g0, g1;
+};
+
+__device__ __forceinline__ TcItem tc_item(int it, int n_qg, int qpc,
+                                          int n_groups) {
+  const int slice = it / n_qg;
+  return {it % n_qg, (int)((long long)slice * n_groups / qpc),
+          (int)((long long)(slice + 1) * n_groups / qpc)};
+}
+
+// The top-2 of one query row over the 32 columns a thread holds (its lane
+// adds t2), taken in increasing column order, so a strict > keeps the lower
+// column on ties; selects, not branches. Columns at or past `live` score
+// NEG_INF (MASKED: the group holds rows past n_valid).
+template <bool MASKED, typename Acc>
+__device__ __forceinline__ Top2 tc_row_top2(const Acc (&d)[64], int h,
+                                            int live) {
+  float v1 = -INFINITY, v2 = -INFINITY;
+  int i1 = 0, i2 = 0;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * n + e;
+      float v = (float)d[4 * n + 2 * h + e];
+      if (MASKED) v = col < live ? v : NEG_INF;
+      const bool p1 = v > v1;
+      const bool p2 = v > v2;
+      v2 = p1 ? v1 : (p2 ? v : v2);
+      i2 = p1 ? i1 : (p2 ? col : i2);
+      v1 = p1 ? v : v1;
+      i1 = p1 ? col : i1;
+    }
+  }
+  return {v1, v2, i1, i2};
+}
+
+// A position in the ring's sequence of stages: the stage index c, its slot
+// and the parity of its slot's phase, moved forward without a division.
+struct RingPos {
+  int c, slot, phase;
+  __device__ __forceinline__ void advance(int k, int stages) {
+    c += k;
+    slot += k;
+    while (slot >= stages) {
+      slot -= stages;
+      phase ^= 1;
+    }
+  }
+};
+
+// One block: a producer warpgroup (one thread of it) that fills the ring by
+// TMA, with its registers given to the two consumer
+// warpgroups, which take the item's groups in turn (even, odd), each running
+// the products of all its group's k-chunks against the resident query tile
+// and then, while the other warpgroup's products run, the group's top-2.
+// With CL > 1 the blocks of a cluster hold CL query tiles and walk the same
+// groups; each block loads 128 / CL rows of every stage and multicasts them
+// to all, and a stage is refilled once every block's consumer released it.
+template <typename T, typename Acc, int MA, int KB, int CL>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    candidate_scan_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap xmap,
+                             float* __restrict__ vals, int* __restrict__ idx,
+                             int nq, int n_groups, int rb, int n_valid,
+                             int cands, int n_qg, int qpc, int stages) {
+  constexpr int QT = 64 * MA;
+  constexpr int STAGE = TC_G * KB;
+  constexpr int SLICE = TC_G / CL;         // rows of a stage a block loads
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = smem;                      // [rb / 128][QT][128], swizzled
+  uint8_t* ring = qs + QT * rb;            // [stages][128][KB], swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  uint64_t* empty = full + stages;
+  uint64_t* qfull = empty + stages;        // the query tile landed
+  uint64_t* qfree = qfull + 1;             // ... and is no longer read
+
   const int warp = threadIdx.x / 32;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int n_tiles = (nq + QT - 1) / QT;
-  const int q0 = (int)(blockIdx.x % n_tiles) * QT;
-  const int g = (int)(blockIdx.x / n_tiles);
-  const uint8_t* x = index + (size_t)g * MMA_G * rb;
+  const int lane = threadIdx.x % 32;
+  const uint32_t rank = CL > 1 ? tma::cluster_ctarank() : 0;
+  const int cluster = blockIdx.x / CL;
+  const int n_clusters = gridDim.x / CL;
+  const int items = n_qg * qpc;
+  const int kc_n = rb / KB;                // ring stages a group
 
-  Acc acc[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      tma::mbar_init(full + s, 1);
+      tma::mbar_init(empty + s, CL);
     }
+    tma::mbar_init(qfull, 1);
+    tma::mbar_init(qfree, TC_CONSUMERS);
+    tma::fence_mbar_init();
+  }
+  if (CL > 1) {
+    tma::cluster_sync();
+  } else {
+    __syncthreads();
   }
 
-  const int nk = rb / MMA_KB;
-#pragma unroll
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
-    if (s < nk) mma_load_stage<QT>(smem + s * STAGE, queries, x, q0, nq, rb, s);
-    amma::cp_async_commit();
-  }
-
-  // ldmatrix lanes: A rows of a 16-row atom, B rows of a pair of n-tiles
-  const int a_row = lane & 15;
-  const int a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) * 16;
-
-  for (int kc = 0; kc < nk; ++kc) {
-    amma::cp_async_wait<MMA_STAGES - 2>();
-    __syncthreads();  // chunk kc landed; the stage refilled below is free
-    const int nxt = kc + MMA_STAGES - 1;
-    if (nxt < nk) {
-      mma_load_stage<QT>(smem + (nxt % MMA_STAGES) * STAGE, queries, x, q0,
-                         nq, rb, nxt);
-    }
-    amma::cp_async_commit();
-    const uint8_t* st = smem + (kc % MMA_STAGES) * STAGE;
-    const uint8_t* qs = st + (wm * 32) * MMA_LD;
-    const uint8_t* xs = st + (QT + wn * NT * 8) * MMA_LD;
-#pragma unroll
-    for (int kk = 0; kk < MMA_KB / 32; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        ldsm(a[m], qs + (16 * m + a_row) * MMA_LD + kk * 32 + a_col);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm(b, xs + (16 * np + b_row) * MMA_LD + kk * 32 + b_col);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma_step(acc[m][2 * np], a[m], b[0], b[1]);
-          mma_step(acc[m][2 * np + 1], a[m], b[2], b[3]);
+  if (warp / 4 == TC_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        TC_PRODUCER_REGS));
+    if (warp == 4 * TC_CONSUMERS && lane == 0) {
+      RingPos p = {0, 0, 0};
+      int loaded = 0;
+      for (int it = cluster; it < items; it += n_clusters) {
+        const TcItem w = tc_item(it, n_qg, qpc, n_groups);
+        if (w.g1 <= w.g0) continue;
+        if (loaded > 0) tma::mbar_wait(qfree, (loaded - 1) & 1);
+        tma::mbar_expect(qfull, QT * rb);
+        const int q0 = (w.qg * CL + (int)rank) * QT;
+        for (int kq = 0; kq < rb / TC_QB; ++kq) {
+          tma::tma_load_2d(qs + kq * QT * TC_QB, &qmap, kq * TC_QB, q0, qfull);
+        }
+        ++loaded;
+        for (int g = w.g0; g < w.g1; ++g) {
+          for (int kc = 0; kc < kc_n; ++kc, p.advance(1, stages)) {
+            tma::mbar_wait(empty + p.slot, p.phase ^ 1);
+            tma::mbar_expect(full + p.slot, STAGE);
+            uint8_t* dst = ring + p.slot * STAGE + (int)rank * SLICE * KB;
+            const int y = g * TC_G + (int)rank * SLICE;
+            if (CL > 1) {
+              tma::tma_load_2d_multicast(dst, &xmap, kc * KB, y,
+                                         full + p.slot,
+                                         (uint16_t)((1 << CL) - 1));
+            } else {
+              tma::tma_load_2d(dst, &xmap, kc * KB, y, full + p.slot);
+            }
+          }
         }
       }
     }
-  }
-  amma::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: its bytes hold the warps' top-2s
-
-  // red[q][wn]: the top-2 of query q over warp column wn's rows
-  Top2* red = reinterpret_cast<Top2*>(smem);
-  const int gq = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  const int col0 = wn * NT * 8;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      Top2 t = {-INFINITY, -INFINITY, 0x7fffffff, 0x7fffffff};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + 8 * n + t2 + e;
-          const float v = g * MMA_G + col < n_valid
-                              ? (float)acc[m][n][2 * h + e]
-                              : NEG_INF;
-          top2_insert(t, v, col);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        TC_CONSUMER_REGS));
+    const int wg = warp / 4;               // consumer warpgroup 0 or 1
+    const int wl = threadIdx.x % 128;
+    const int n_cols = cands * n_groups;
+    const int t2 = (lane & 3) * 2;
+    Acc acc[MA][64];
+    int n = 0, loaded = 0;
+    RingPos p = {0, 0, 0};
+    // release a ring slot in every block of the cluster
+    auto release = [&](int slot) {
+      if (wl < CL) {
+        if (CL > 1) {
+          tma::mbar_arrive_cluster(empty + slot, (uint32_t)wl);
+        } else {
+          tma::mbar_arrive(empty + slot);
         }
       }
-      t = top2_merge(t, top2_shfl_xor(t, 1));
-      t = top2_merge(t, top2_shfl_xor(t, 2));
-      if ((lane & 3) == 0) red[(wm * 32 + 16 * m + 8 * h + gq) * WN + wn] = t;
+    };
+    for (int it = cluster; it < items; it += n_clusters) {
+      const TcItem w = tc_item(it, n_qg, qpc, n_groups);
+      if (w.g1 <= w.g0) continue;
+      tma::mbar_wait(qfull, loaded & 1);
+      ++loaded;
+      const int q0 = (w.qg * CL + (int)rank) * QT;
+      for (int j = wg; w.g0 + j < w.g1; j += 2) {
+        p.advance(n + j * kc_n - p.c, stages);   // this group's first stage
+        if (j > 0) turn_wait(1 + wg);
+        int held = 0;                        // the slot read last
+        for (int kc = 0; kc < kc_n; ++kc, p.advance(1, stages)) {
+          tma::mbar_wait(full + p.slot, p.phase);
+          const uint8_t* st = ring + p.slot * STAGE;
+#pragma unroll
+          for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
+          tc_wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < KB / 32; ++ks) {
+            const int kb = kc * KB + ks * 32;   // byte of the row
+            const uint8_t* qa = qs + (kb / TC_QB) * QT * TC_QB + kb % TC_QB;
+            const uint64_t db = tc_desc<KB>(st + ks * 32);
+#pragma unroll
+            for (int m = 0; m < MA; ++m) {
+              tc_mma(acc[m], tc_desc<TC_QB>(qa + m * 64 * TC_QB), db,
+                     kc > 0 || ks > 0 ? 1 : 0);
+            }
+          }
+          tc_commit();
+#pragma unroll
+          for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
+          if (kc > 0) {
+            tc_wait<1>();                   // the stage before has been read
+            release(held);
+          }
+          held = p.slot;
+        }
+        // the other warpgroup's products start while these finish and
+        // while this one takes the top-2
+        if (w.g0 + j + 1 < w.g1) turn_pass(2 - wg);
+        tc_wait<0>();
+#pragma unroll
+        for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
+        release(held);
+
+        const int g = w.g0 + j;
+        const int row0 = g * TC_G;
+        const bool whole = row0 + TC_G <= n_valid;
+        const int live = n_valid - row0 - t2;   // columns of this lane
+#pragma unroll
+        for (int m = 0; m < MA; ++m) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            Top2 t = whole ? tc_row_top2<false>(acc[m], h, live)
+                           : tc_row_top2<true>(acc[m], h, live);
+            t.i1 += t2;
+            t.i2 += t2;
+            t = top2_merge(t, top2_shfl_xor(t, 1));
+            t = top2_merge(t, top2_shfl_xor(t, 2));
+            // the runner-up is the best row once the winner scores NEG_INF
+            // (the reference's knock-out): with only NEG_INF rows left,
+            // that may be the winner itself
+            if (!better(t.v2, t.i2, NEG_INF, t.i1)) {
+              t.v2 = NEG_INF;
+              t.i2 = t.i1;
+            }
+            const int q = q0 + 64 * m + 16 * (warp % 4) + 8 * h + (lane >> 2);
+            if ((lane & 3) == 0 && q < nq) {
+              const size_t o = (size_t)q * n_cols + g;
+              vals[o] = t.v1;
+              idx[o] = row0 + t.i1;
+              if (cands == 2) {
+                vals[o + n_groups] = t.v2;
+                idx[o + n_groups] = row0 + t.i2;
+              }
+            }
+          }
+        }
+      }
+      n += (w.g1 - w.g0) * kc_n;
+      if (wl == 0) tma::mbar_arrive(qfree);
     }
   }
-  __syncthreads();
-
-  const int n_groups = N / MMA_G;
-  const int n_cols = cands * n_groups;
-  for (int q = threadIdx.x; q < QT; q += MMA_THREADS) {
-    if (q0 + q >= nq) break;
-    Top2 t = red[q * WN];
-#pragma unroll
-    for (int w = 1; w < WN; ++w) t = top2_merge(t, red[q * WN + w]);
-    // the runner-up is the best row once the winner scores NEG_INF (the
-    // reference's knock-out): with only NEG_INF rows left, that may be the
-    // winner itself
-    if (!better(t.v2, t.i2, NEG_INF, t.i1)) {
-      t.v2 = NEG_INF;
-      t.i2 = t.i1;
-    }
-    const size_t o = (size_t)(q0 + q) * n_cols + g;
-    vals[o] = t.v1;
-    idx[o] = g * MMA_G + t.i1;
-    if (cands == 2) {
-      vals[o + n_groups] = t.v2;
-      idx[o + n_groups] = g * MMA_G + t.i2;
-    }
+  // no block leaves while a block of its cluster may still signal it
+  if (CL > 1) {
+    __syncwarp();
+    tma::cluster_sync();
   }
 }
 
-template <typename Acc, int QT>
-int launch_mma(const void* queries, const void* index, void* vals, void* idx,
-               int nq, int N, int rb, int n_valid, int cands,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(QT);
-  auto kernel = candidate_scan_mma_kernel<Acc, QT>;
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled load_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                       cudaEnableDefault, &found) !=
+      cudaSuccess) {
+    return nullptr;
+  }
+#else
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                              cudaEnableDefault, &found) != cudaSuccess) {
+    return nullptr;
+  }
+#endif
+  return found == cudaDriverEntryPointSuccess ? (EncodeTiled)fn : nullptr;
+}
+
+// A [rows, rb] byte matrix, row-major, cut into boxes of box_rows rows by
+// box_bytes (64 or 128) bytes, swizzled by box_bytes; rows past the end
+// arrive as zeros.
+bool make_map(CUtensorMap* map, const void* base, int rows, int rb,
+              int box_bytes, int box_rows) {
+  static const EncodeTiled encode = load_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)rb, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)rb};
+  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// How many slices of the groups each query tile group is cut into: the
+// items (query tile group, slice) are dealt to the resident clusters in
+// rounds, so the walk takes rounds / slices of the groups' time; the fewest
+// slices within 1% of the least such time (each slice a block walks costs
+// it a reload of its query tile).
+int slices_per_query_group(int n_qg, int n_groups, int clusters) {
+  const int most = std::max(1, std::min(n_groups, 8 * clusters));
+  auto cost = [&](int k) {
+    return (double)((n_qg * k + clusters - 1) / clusters) / k;
+  };
+  double best = cost(1);
+  for (int k = 2; k <= most; ++k) best = std::min(best, cost(k));
+  int k = 1;
+  while (cost(k) > 1.01 * best) ++k;
+  return k;
+}
+
+// Clusters of CL blocks resident at once on `device` (0 if none fits).
+template <typename Kernel>
+int resident_clusters(Kernel kernel, int cl, int smem, int device) {
+  if (cl == 1) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      TC_THREADS, smem) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess) {
+      return 0;
+    }
+    return per_sm * sms;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cl);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    return 0;
+  }
+  return clusters;
+}
+
+template <typename T, typename Acc, int MA, int CL>
+int launch_tc(const void* queries, const void* index, void* vals, void* idx,
+              int nq, int N, int rb, int n_valid, int cands,
+              cudaStream_t stream) {
+  constexpr int QT = 64 * MA;
+  constexpr int KB = tc_stage_bytes<T, MA>();
+  auto kernel = candidate_scan_tc_kernel<T, Acc, MA, KB, CL>;
+  const int stages = tc_stages(QT, rb, KB);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const int smem = tc_smem_bytes(QT, rb, KB, stages);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((nq + QT - 1) / QT) * (N / MMA_G);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, MMA_THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(queries), static_cast<const uint8_t*>(index),
-      static_cast<float*>(vals), static_cast<int*>(idx), nq, N, rb, n_valid,
-      cands);
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  // the occupancy query is slow next to a launch: once a device and size
+  static int resident[64] = {0}, resident_smem[64] = {0};
+  if (device >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident_smem[device] != smem) {
+    resident[device] = resident_clusters(kernel, CL, smem, device);
+    resident_smem[device] = smem;
+  }
+  const int clusters_max = resident[device];
+  if (clusters_max <= 0) return (int)cudaErrorInvalidConfiguration;
+
+  CUtensorMap qmap, xmap;
+  if (!make_map(&qmap, queries, nq, rb, TC_QB, QT) ||
+      !make_map(&xmap, index, N, rb, KB, TC_G / CL)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_groups = N / TC_G;
+  const int tiles = (nq + QT - 1) / QT;
+  const int n_qg = (tiles + CL - 1) / CL;
+  const int qpc = slices_per_query_group(n_qg, n_groups, clusters_max);
+  const int clusters = std::min(clusters_max, n_qg * qpc);
+
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(clusters * CL);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, qmap, xmap, static_cast<float*>(vals),
+                           static_cast<int*>(idx), nq, n_groups, rb, n_valid,
+                           cands, n_qg, qpc, stages);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename Acc>
-int dispatch_mma(const void* queries, const void* index, void* vals,
-                 void* idx, int nq, int N, int d, int esize, int n_valid,
-                 int group, int cands, cudaStream_t stream) {
-  const int rb = d * esize;
-  if (nq <= 0 || N <= 0 || group != MMA_G || N % MMA_G || rb % MMA_KB ||
-      cands < 1 || cands > 2) {
+// The tile and the cluster for nq queries; `ma` / `cl` other than 0 force
+// them (tools/time_candidate_scan.py and the tests).
+template <typename T, typename Acc>
+int dispatch_tc(const void* queries, const void* index, void* vals, void* idx,
+                int nq, int N, int d, int n_valid, int group, int cands,
+                int ma, int cl, cudaStream_t stream) {
+  const int rb = d * (int)sizeof(T);
+  if (nq <= 0 || N <= 0 || group != TC_G || N % TC_G || rb % TC_QB ||
+      cands < 1 || cands > 2 || ma < 0 || ma > 2 ||
+      !(cl == 0 || cl == 1 || cl == 2 || cl == 4)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (nq <= 64) {
-    return launch_mma<Acc, 64>(queries, index, vals, idx, nq, N, rb, n_valid,
-                               cands, stream);
+  // int8 from 129 queries on: 128 queries a block halve the bytes a product
+  // needs; bf16 keeps 64, whose ring of 16 KB stages outruns 128 queries'
+  // of 8 KB. Multicast clusters ran slower than single blocks at every
+  // count measured (PERF.md section 6), so they are only forced.
+  if (ma == 0) {
+    constexpr int KB2 = tc_stage_bytes<T, 2>();
+    ma = sizeof(T) == 1 && nq > 128 && tc_stages(128, rb, KB2) >= 2 ? 2 : 1;
   }
-  return launch_mma<Acc, 128>(queries, index, vals, idx, nq, N, rb, n_valid,
-                              cands, stream);
+  if (cl == 0) cl = 1;
+#define TC_LAUNCH(MA_, CL_)                                                  \
+  if (ma == MA_ && cl == CL_) {                                              \
+    return launch_tc<T, Acc, MA_, CL_>(queries, index, vals, idx, nq, N, rb, \
+                                       n_valid, cands, stream);              \
+  }
+  TC_LAUNCH(1, 1)
+  TC_LAUNCH(1, 2)
+  TC_LAUNCH(1, 4)
+  TC_LAUNCH(2, 1)
+  TC_LAUNCH(2, 2)
+  TC_LAUNCH(2, 4)
+#undef TC_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 bool bad_args(int nq, int N, int d, int esize, int group, int cands) {
@@ -534,21 +882,91 @@ extern "C" int emdr2_candidate_scan_i8(const void* queries, const void* index,
                                  group, cands, s);
 }
 
-// The tensor-core scan: the same arguments and outputs, group 128 only.
-extern "C" int emdr2_candidate_scan_mma_bf16(const void* queries,
-                                             const void* index, void* vals,
-                                             void* idx, int nq, int N, int d,
-                                             int n_valid, int group,
-                                             int cands, void* stream) {
-  return dispatch_mma<float>(queries, index, vals, idx, nq, N, d, 2, n_valid,
-                             group, cands, (cudaStream_t)stream);
+
+// The tensor-core scan: the same arguments and outputs, group 128 only;
+// `ma` (1 or 2: 64 or 128 queries a block) and `cl` (1, 2 or 4 blocks a
+// cluster) force the layout, 0 leaves it to the number of queries.
+extern "C" int emdr2_candidate_scan_tc_bf16(const void* queries,
+                                            const void* index, void* vals,
+                                            void* idx, int nq, int N, int d,
+                                            int n_valid, int group, int cands,
+                                            int ma, int cl, void* stream) {
+  return dispatch_tc<__nv_bfloat16, float>(queries, index, vals, idx, nq, N,
+                                           d, n_valid, group, cands, ma, cl,
+                                           (cudaStream_t)stream);
 }
 
-extern "C" int emdr2_candidate_scan_mma_i8(const void* queries,
-                                           const void* index, void* vals,
-                                           void* idx, int nq, int N, int d,
-                                           int n_valid, int group, int cands,
-                                           void* stream) {
-  return dispatch_mma<int>(queries, index, vals, idx, nq, N, d, 1, n_valid,
-                           group, cands, (cudaStream_t)stream);
+extern "C" int emdr2_candidate_scan_tc_i8(const void* queries,
+                                          const void* index, void* vals,
+                                          void* idx, int nq, int N, int d,
+                                          int n_valid, int group, int cands,
+                                          int ma, int cl, void* stream) {
+  return dispatch_tc<int8_t, int>(queries, index, vals, idx, nq, N, d,
+                                  n_valid, group, cands, ma, cl,
+                                  (cudaStream_t)stream);
+}
+
+// What the compiler made of each kernel, KERNEL_INFO ints a kernel into
+// `out` (at most `cap` kernels): type (0 bf16, 1 int8), route (0 CUDA-core,
+// 1 tensor-core), queries a block, blocks a cluster, registers a thread,
+// static shared bytes, local (spilled) bytes a thread, the dynamic shared
+// bytes it launches with at d = 768, the ring's stages there (0: none).
+// Returns the number of kernels, or minus a cudaError_t.
+namespace {
+
+constexpr int KERNEL_INFO = 9;
+
+struct KernelRow {
+  const void* fn;
+  int type, route, tile, cl, smem, stages;
+};
+
+template <typename T, typename Acc, int QT>
+KernelRow core_row() {
+  const int qbytes = 768 * (int)sizeof(T);
+  return {(const void*)candidate_scan_kernel<T, Acc, QT>,
+          sizeof(T) == 1, 0, QT, 1,
+          QT * qbytes + TC_G * RSTRIDE + QT * (TC_G / 32) * 8 + QT * 4, 0};
+}
+
+template <typename T, typename Acc, int MA, int CL>
+KernelRow tc_row() {
+  constexpr int KB = tc_stage_bytes<T, MA>();
+  const int rb = 768 * (int)sizeof(T);
+  const int stages = tc_stages(64 * MA, rb, KB);
+  return {(const void*)candidate_scan_tc_kernel<T, Acc, MA, KB, CL>,
+          sizeof(T) == 1, 1, 64 * MA, CL,
+          tc_smem_bytes(64 * MA, rb, KB, stages), stages};
+}
+
+}  // namespace
+
+extern "C" int emdr2_candidate_scan_kernels(int* out, int cap) {
+  const KernelRow rows[] = {
+      core_row<__nv_bfloat16, float, 8>(), core_row<__nv_bfloat16, float, 32>(),
+      core_row<int8_t, int, 8>(),          core_row<int8_t, int, 32>(),
+      tc_row<__nv_bfloat16, float, 1, 1>(), tc_row<__nv_bfloat16, float, 1, 2>(),
+      tc_row<__nv_bfloat16, float, 1, 4>(), tc_row<__nv_bfloat16, float, 2, 1>(),
+      tc_row<__nv_bfloat16, float, 2, 2>(), tc_row<__nv_bfloat16, float, 2, 4>(),
+      tc_row<int8_t, int, 1, 1>(),          tc_row<int8_t, int, 1, 2>(),
+      tc_row<int8_t, int, 1, 4>(),          tc_row<int8_t, int, 2, 1>(),
+      tc_row<int8_t, int, 2, 2>(),          tc_row<int8_t, int, 2, 4>(),
+  };
+  const int n = (int)(sizeof(rows) / sizeof(rows[0]));
+  for (int i = 0; i < n && i < cap; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, rows[i].fn);
+    if (err != cudaSuccess) return -(int)err;
+    int* o = out + i * KERNEL_INFO;
+    o[0] = rows[i].type;
+    o[1] = rows[i].route;
+    o[2] = rows[i].tile;
+    o[3] = rows[i].cl;
+    o[4] = a.numRegs;
+    o[5] = (int)a.sharedSizeBytes;
+    o[6] = (int)a.localSizeBytes;
+    o[7] = rows[i].smem;
+    o[8] = rows[i].stages;
+  }
+  return n;
 }

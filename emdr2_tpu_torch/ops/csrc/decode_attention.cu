@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int HD = 64;
@@ -91,60 +93,10 @@ constexpr int smem_bytes(int R) {
          WARPS * R * PS * 4 + STAGES * 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(arrivals)
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of copies to come.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
-// aligned) by the copy engine; their arrival is counted on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Wait until the phase of `bar` with this parity is complete. A copy that
-// never lands must not hang the card: after about a second the block traps.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 31)) {
-      __trap();
-    }
-  }
-}
+using tma::bulk_load;
+using tma::mbar_expect;
+using tma::mbar_init;
+using tma::mbar_wait;
 
 // Four int8 -> fp32, exactly, without the conversion unit: with the sign
 // bit flipped a byte is u = x + 128 in 0..255; placed in the low mantissa

@@ -104,26 +104,26 @@ def candidate_scan_reference(queries: torch.Tensor, index: torch.Tensor,
 
 # The candidate scan has two kernels (``csrc/candidate_scan.cu``): the
 # CUDA-core scan, which reads the index at near the memory rate for a
-# serving batch, and the tensor-core scan (mma.sync), which the products
-# bound at large query batches. ``candidate_scan`` takes the tensor-core one
-# from this many queries on (groups of 128 rows), in both types: the first
-# count above a serving batch of 8. The CUDA-core kernel serves 9-32 queries
-# with one 32-query tile, as slowly at 9 as at 32: over 1,310,720 x 768 rows
-# on an NVIDIA H100 80GB HBM3 at 700 W the tensor-core kernel takes about
-# half its time at 9 queries in int8 and a seventh in bf16 (``chip_smoke.py``
-# k3 phase, PERF.md section 6). At 8 the CUDA-core kernel is ahead on the
-# int8 index (the flagship's); on a bf16 index the tensor-core kernel would
-# win there too, but the serving batch keeps one kernel in both types
-# (PERF.md section 7).
-TENSOR_CORE_MIN_NQ = 9
+# serving batch, and the tensor-core scan (wgmma, its ring filled by TMA),
+# which the products bound at large query batches. ``candidate_scan`` takes
+# the tensor-core one from ``TENSOR_CORE_MIN_NQ[dtype]`` queries on (groups
+# of 128 rows, rows of at most ``TENSOR_CORE_MAX_ROW_BYTES``), each type at
+# its own crossover, measured over 1,310,720 x 768 rows on an NVIDIA H100
+# 80GB HBM3 at 700 W (``chip_smoke.py`` k3 sweep, PERF.md section 6).
+TENSOR_CORE_MIN_NQ = {torch.bfloat16: 1, torch.int8: 1}
 TENSOR_CORE_GROUP = 128
+TENSOR_CORE_MAX_ROW_BYTES = 3072    # 64 resident queries and two stages
 
 
-def scan_route(nq: int, group_size: int) -> str:
-    """The kernel ``candidate_scan`` launches for ``nq`` queries:
-    ``"tensor_core"`` or ``"cuda_core"``."""
-    return ("tensor_core" if nq >= TENSOR_CORE_MIN_NQ
-            and group_size == TENSOR_CORE_GROUP else "cuda_core")
+def scan_route(nq: int, group_size: int, dtype: torch.dtype,
+               d: int = 768) -> str:
+    """The kernel ``candidate_scan`` launches for ``nq`` queries of ``d``
+    values of ``dtype`` (bf16 or int8): ``"tensor_core"`` or
+    ``"cuda_core"``."""
+    row_bytes = d * torch.empty((), dtype=dtype).element_size()
+    return ("tensor_core" if nq >= TENSOR_CORE_MIN_NQ[dtype]
+            and group_size == TENSOR_CORE_GROUP
+            and row_bytes <= TENSOR_CORE_MAX_ROW_BYTES else "cuda_core")
 
 
 def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
@@ -145,17 +145,23 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     if index.device.type == "cpu":
         return candidate_scan_reference(queries, index, n_valid, G,
                                         cands_per_group)
+    if index.dtype not in TENSOR_CORE_MIN_NQ:
+        raise TypeError(f"kernel takes bf16 x bf16 or int8 x int8, got "
+                        f"{queries.dtype} x {index.dtype}")
     return _launch(queries, index, n_valid, G, cands_per_group,
-                   scan_route(nq, G))
+                   scan_route(nq, G, index.dtype, d))
 
 
 def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
-            group_size: int, cands_per_group: int, route: str
+            group_size: int, cands_per_group: int, route: str,
+            layout: Tuple[int, int] = (0, 0)
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one kernel of the scan on CUDA tensors: ``route`` is
     ``"cuda_core"`` or ``"tensor_core"`` (the tests and ``chip_smoke.py``
     force each to hold both to the plain version and to time the
-    crossover)."""
+    crossover). ``layout`` = (query atoms, cluster) forces the tensor-core
+    kernel's 64 (1) or 128 (2) queries a block and 1, 2 or 4 blocks a
+    cluster; 0 leaves either to the kernel."""
     nq, d = queries.shape
     N = index.shape[0]
     G = group_size
@@ -171,11 +177,17 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
         raise ValueError(f"kernel needs d*itemsize % 128 == 0, group in "
                          f"32..256 (multiple of 32) and 1-2 candidates; got "
                          f"d={d}, group={G}, cands={cands_per_group}")
-    if route == "tensor_core" and G != TENSOR_CORE_GROUP:
+    if route == "tensor_core" and (
+            G != TENSOR_CORE_GROUP
+            or d * index.element_size() > TENSOR_CORE_MAX_ROW_BYTES):
         raise ValueError(f"the tensor-core scan takes groups of "
-                         f"{TENSOR_CORE_GROUP} rows; got group {G}")
+                         f"{TENSOR_CORE_GROUP} rows of at most "
+                         f"{TENSOR_CORE_MAX_ROW_BYTES} bytes; got group {G}, "
+                         f"{d * index.element_size()} bytes")
     if route not in ("cuda_core", "tensor_core"):
         raise ValueError(f"unknown route {route!r}")
+    if layout[0] not in (0, 1, 2) or layout[1] not in (0, 1, 2, 4):
+        raise ValueError(f"unknown tensor-core layout {layout}")
     if not (queries.is_contiguous() and index.is_contiguous()):
         raise ValueError("candidate_scan needs contiguous inputs")
     if queries.data_ptr() % 16 or index.data_ptr() % 16:
@@ -183,18 +195,45 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     cols = cands_per_group * (N // G)
     vals = torch.empty((nq, cols), dtype=torch.float32, device=index.device)
     idx = torch.empty((nq, cols), dtype=torch.int32, device=index.device)
-    entry = ("emdr2_candidate_scan_"
-             + ("mma_" if route == "tensor_core" else "")
-             + ("i8" if index.dtype == torch.int8 else "bf16"))
-    build.launch(entry, f"candidate_scan ({route})", index.device,
-                 queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
-                 cands_per_group,
+    kind = "i8" if index.dtype == torch.int8 else "bf16"
+    args = [queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
+            cands_per_group]
+    if route == "tensor_core":
+        entry = f"emdr2_candidate_scan_tc_{kind}"
+        args += list(layout)
+    else:
+        entry = f"emdr2_candidate_scan_{kind}"
+    build.launch(entry, f"candidate_scan ({route})", index.device, *args,
                  torch.cuda.current_stream(index.device).cuda_stream)
     build.count_launch(candidate_scan)
     if route == "tensor_core":
         build.count_launch(candidate_scan, "tensor_core_launches")
     return vals, idx
+
+
+def kernel_info() -> list:
+    """What the compiler made of each scan kernel, from the built library
+    (``cudaFuncGetAttributes``): dicts of type, route, queries a block,
+    blocks a cluster, registers, static shared bytes, local (spilled)
+    bytes a thread, and the dynamic shared bytes and ring stages a launch
+    at d = 768 takes."""
+    import ctypes
+    lib = build.load()
+    cap, width = 32, 9
+    out = (ctypes.c_int * (cap * width))()
+    n = lib.emdr2_candidate_scan_kernels(out, cap)
+    if n < 0:
+        build.check(-n, "emdr2_candidate_scan_kernels")
+    keys = ("dtype", "route", "queries", "cluster", "registers",
+            "static_smem", "local_bytes", "dynamic_smem", "stages")
+    rows = []
+    for i in range(n):
+        row = dict(zip(keys, out[i * width:(i + 1) * width]))
+        row["dtype"] = ("bf16", "int8")[row["dtype"]]
+        row["route"] = ("cuda_core", "tensor_core")[row["route"]]
+        rows.append(row)
+    return rows
 
 
 # kernel launches since the last reset (a run proves its path went through

@@ -486,16 +486,11 @@ def test_candidate_scan_matches_plain(cuda, dtype, nq, cands):
             assert diff.float().mean().item() < 1e-3
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("nq", [64, 100, 512])
-@pytest.mark.parametrize("cands", [1, 2])
-def test_candidate_scan_tensor_core_matches_plain(cuda, dtype, nq, cands):
-    """The tensor-core scan (mma.sync) against the plain version: masked
-    rows (a whole group and part of one), a group of 128 equal rows (every
-    query ties across it: the lowest rows win), query rows past nq in the
-    last tile; and the dispatch sends these batches to it."""
-    g = _gen(1000 + nq)
-    n, d, G = 128 * 96, 768, 128
+def _scan_inputs(dtype, nq, n, seed, cuda):
+    """Queries and rows of 768 values (int8 in [-127, 127], or bf16 from a
+    normal), with one group of 128 equal rows (rows 256-383)."""
+    g = _gen(seed)
+    d = 768
     if dtype == torch.int8:
         q = torch.randint(-127, 128, (nq, d), device=cuda, generator=g,
                           dtype=torch.int8)
@@ -505,19 +500,17 @@ def test_candidate_scan_tensor_core_matches_plain(cuda, dtype, nq, cands):
         q = torch.randn(nq, d, device=cuda, generator=g).to(dtype)
         e = torch.randn(n, d, device=cuda, generator=g).to(dtype)
     e[256:384] = e[5]                        # one group of equal rows
-    n_valid = n - 200                        # one and a half masked groups
-    assert mips.scan_route(nq, G) == "tensor_core"
-    before = mips.candidate_scan.tensor_core_launches
-    gv, gi = mips.candidate_scan(q, e, n_valid, G, cands)
-    torch.cuda.synchronize()
-    assert mips.candidate_scan.tensor_core_launches == before + 1
-    wv, wi = mips.candidate_scan_reference(q, e, n_valid, G, cands)
-    groups = n // G
-    tied = gi[:, 2]
-    assert (tied == 256).all()
+    return q, e
+
+
+def _assert_scan_matches(gv, gi, wv, wi, dtype, groups, cands, n, G=128):
+    """A tensor-core scan's output against the plain version's: the tied
+    group's lowest rows win, the fully masked last group gives (NEG_INF,
+    its first row) twice; int8 equal, bf16 within the candidate
+    tolerance."""
+    assert (gi[:, 2] == 256).all()
     if cands == 2:
         assert (gi[:, groups + 2] == 257).all()
-        # the fully masked group: (NEG_INF, its first row) twice
         assert (gi[:, groups - 1] == n - G).all()
         assert (gi[:, 2 * groups - 1] == n - G).all()
         assert (gv[:, 2 * groups - 1] == mips.NEG_INF).all()
@@ -526,6 +519,51 @@ def test_candidate_scan_tensor_core_matches_plain(cuda, dtype, nq, cands):
     else:
         assert ((gv - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all()
         assert (gi != wi).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nq", [9, 65, 100, 512, 1031])
+@pytest.mark.parametrize("cands", [1, 2])
+def test_candidate_scan_tensor_core_matches_plain(cuda, dtype, nq, cands):
+    """The tensor-core scan (wgmma, TMA ring) through the dispatch against
+    the plain version: masked rows (a whole group and part of one), a
+    group of 128 equal rows (every query ties across it: the lowest rows
+    win), query rows past nq in the last tile; the dispatch sends these
+    batches to it and counts the launch."""
+    n, G = 128 * 96, 128
+    q, e = _scan_inputs(dtype, nq, n, 1000 + nq, cuda)
+    n_valid = n - 200                        # one and a half masked groups
+    assert mips.scan_route(nq, G, dtype) == "tensor_core"
+    before = (mips.candidate_scan.launches,
+              mips.candidate_scan.tensor_core_launches)
+    gv, gi = mips.candidate_scan(q, e, n_valid, G, cands)
+    torch.cuda.synchronize()
+    assert (mips.candidate_scan.launches,
+            mips.candidate_scan.tensor_core_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    wv, wi = mips.candidate_scan_reference(q, e, n_valid, G, cands)
+    _assert_scan_matches(gv, gi, wv, wi, dtype, n // G, cands, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("layout", [(1, 1), (1, 2), (1, 4), (2, 1), (2, 2),
+                                    (2, 4)])
+@pytest.mark.parametrize("nq", [9, 200, 1031])
+def test_candidate_scan_tensor_core_layouts_match_plain(cuda, dtype, layout,
+                                                        nq):
+    """Every forced layout of the tensor-core kernel (64 or 128 queries a
+    block, 1, 2 or 4 blocks a cluster sharing each stage by multicast) over
+    700 groups, so that a block walks several: the same answers, and two
+    launches bit-equal."""
+    n, G = 128 * 700, 128
+    q, e = _scan_inputs(dtype, nq, n, 2000 + nq, cuda)
+    n_valid = n - 200
+    gv, gi = mips._launch(q, e, n_valid, G, 2, "tensor_core", layout=layout)
+    rv, ri = mips._launch(q, e, n_valid, G, 2, "tensor_core", layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(gv, rv) and torch.equal(gi, ri)
+    wv, wi = mips.candidate_scan_reference(q, e, n_valid, G, 2)
+    _assert_scan_matches(gv, gi, wv, wi, dtype, n // G, 2, n)
 
 
 @pytest.mark.parametrize("route", ["cuda_core", "tensor_core"])
@@ -578,8 +616,11 @@ def test_candidate_scan_routes_agree(cuda, dtype):
         assert ((cv - tv).abs() <= 1e-3 * cv.abs() + 1e-3).all()
     with pytest.raises(ValueError, match="groups of 128"):
         mips._launch(q, e, n, 64, 2, "tensor_core")
-    assert mips.scan_route(mips.TENSOR_CORE_MIN_NQ - 1, 128) == "cuda_core"
-    assert mips.scan_route(mips.TENSOR_CORE_MIN_NQ, 64) == "cuda_core"
+    low = mips.TENSOR_CORE_MIN_NQ[dtype]
+    if low > 1:
+        assert mips.scan_route(low - 1, 128, dtype) == "cuda_core"
+    assert mips.scan_route(low, 128, dtype) == "tensor_core"
+    assert mips.scan_route(low, 64, dtype) == "cuda_core"
 
 
 def _bert(cuda, flash=True, dtype=torch.bfloat16, **fields):

@@ -51,6 +51,77 @@ def test_candidate_scan_matches_jax_kernel(dtype, cands):
                                    atol=1e-5)
 
 
+def _edge_inputs(dtype, nq, n, d, rng):
+    """Queries and rows (bf16 from a normal, or int8), the group of rows
+    256-383 all equal to row 5."""
+    if dtype == "bf16":
+        qt = np_bf16(rng.randn(nq, d).astype(np.float32))
+        et = np_bf16(rng.randn(n, d).astype(np.float32))
+        et[256:384] = et[5]
+        qj = jnp.asarray(qt.float().numpy()).astype(jnp.bfloat16)
+        ej = jnp.asarray(et.float().numpy()).astype(jnp.bfloat16)
+    else:
+        q8 = rng.randint(-127, 128, size=(nq, d)).astype(np.int8)
+        e8 = rng.randint(-127, 128, size=(n, d)).astype(np.int8)
+        e8[256:384] = e8[5]
+        qt, et = torch.as_tensor(q8), torch.as_tensor(e8)
+        qj, ej = jnp.asarray(q8), jnp.asarray(e8)
+    return qt, et, qj, ej
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("cands", [1, 2])
+def test_candidate_scan_edges_of_the_tensor_core_group(dtype, cands):
+    """The edges the tensor-core kernel must honour, at its only group of
+    128 rows, the plain version against the JAX kernel (interpret mode,
+    one query tile of all 67 queries): a ragged query count, n_valid in
+    the middle of group 126, group 127 wholly past it, and a group of 128
+    equal rows (the lowest two win)."""
+    rng = np.random.RandomState(13)
+    nq, d, G = 67, 256, 128
+    n = 128 * G                    # the JAX kernel's one output block
+    n_valid = n - G - 50
+    qt, et, qj, ej = _edge_inputs(dtype, nq, n, d, rng)
+    wv, wi = jax_mips._candidate_scan(qj, ej, n_valid, n, G, nq, True,
+                                      cands_per_group=cands, masked=True)
+    gv, gi = mips.candidate_scan(qt, et, n_valid, G, cands)
+    groups = n // G
+    assert gv.shape == (nq, cands * groups)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    if dtype == "int8":
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    else:
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-5,
+                                   atol=1e-5)
+    gi = gi.numpy()
+    assert (gi[:, 2] == 256).all()
+    assert (gi[:, groups - 2] < n_valid).all()       # group 126's live rows
+    assert (gi[:, groups - 1] == n - G).all()        # (NEG_INF, first row)
+    assert (gv.numpy()[:, groups - 1] == mips.NEG_INF).all()
+    if cands == 2:
+        assert (gi[:, groups + 2] == 257).all()
+        assert (gi[:, 2 * groups - 2] < n_valid).all()
+        assert (gi[:, 2 * groups - 1] == n - G).all()
+
+
+def test_scan_route_takes_each_type_at_its_own_crossover():
+    """The routing table: each type's tensor-core kernel from its own
+    measured crossover on (PERF.md section 6), groups of 128 rows of at
+    most TENSOR_CORE_MAX_ROW_BYTES only."""
+    assert mips.TENSOR_CORE_MIN_NQ == {torch.bfloat16: 1, torch.int8: 1}
+    for dtype, low in mips.TENSOR_CORE_MIN_NQ.items():
+        if low > 1:
+            assert mips.scan_route(low - 1, 128, dtype) == "cuda_core"
+        for nq in (low, low + 1, 512, 3610):
+            assert mips.scan_route(nq, 128, dtype) == "tensor_core"
+            assert mips.scan_route(nq, 64, dtype) == "cuda_core"
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        wide = mips.TENSOR_CORE_MAX_ROW_BYTES // itemsize + 128
+        assert mips.scan_route(512, 128, dtype, d=wide) == "cuda_core"
+    # the serving batch of 8 over the int8 index: the tensor-core kernel
+    assert mips.scan_route(8, 128, torch.int8) == "tensor_core"
+
+
 def test_candidate_scan_cpu_path_does_not_count():
     q = torch.zeros(2, 64, dtype=torch.int8)
     e = torch.zeros(128, 64, dtype=torch.int8)
