@@ -957,7 +957,7 @@ def k3_kernel_report():
     rows = mips.kernel_info()
     for r in rows:
         log(f"  K3 {r['route']} {r['dtype']} {r['queries']} queries a block"
-            + (f", {r['cluster']} a cluster, a ring of {r['stages']} stages"
+            + (f", a ring of {r['stages']} stages"
                if r["route"] == "tensor_core" else "")
             + f": {r['registers']} registers, {r['local_bytes']} local "
             f"(spilled) bytes a thread, {r['static_smem']} static + "

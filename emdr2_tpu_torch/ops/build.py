@@ -62,10 +62,9 @@ _SIGNATURES = {
     "emdr2_decode_attention_layout": [_P],
     "emdr2_candidate_scan_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # ..., cands, queries a block (1: 64, 2: 128) and blocks a cluster
-    # (0 for either: the kernel's choice)
-    "emdr2_candidate_scan_tc_bf16": [_P] * 4 + [_I] * 8 + [_P],
-    "emdr2_candidate_scan_tc_i8": [_P] * 4 + [_I] * 8 + [_P],
+    "emdr2_candidate_scan_tc_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _P],
+    "emdr2_candidate_scan_tc_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_kernels": [_P, _I],
 }
 

@@ -12,45 +12,46 @@
 // |dot| <= 768 * 127^2 < 2^24. Group and query scales of the int8 index are
 // applied outside, to the winners only.
 //
-// Two kernels, picked by the wrapper (ops/mips.py:scan_route) by the number
-// of queries and the type:
+// Two kernels, picked by the wrapper (ops/mips.py:scan_route) by the group,
+// the row width, and the number of queries for each type:
 //
-// 1. The CUDA-core scan (candidate_scan_kernel), for serving batches. At
-//    nq = 8 it is memory bound, one pass over the index (2.0 GB bf16 or
-//    1.0 GB int8 at 1,310,720 x 768). One block per (group, query tile of 8
-//    or 32); one thread per group row (blockDim = G). The query tile sits
-//    in shared memory; the group's rows stream through shared memory in
-//    128-byte column chunks with coalesced 16-byte loads, and each thread
-//    accumulates its row's dot with every query of the tile in registers
-//    (fmaf, or __dp4a for int8). The per-group top-2 is a block reduction
-//    (warp shuffles, then one value per warp). At nq = 512 its scalar dot
-//    products bound it.
+// 1. The CUDA-core scan (candidate_scan_kernel), for any group of 32-256
+//    rows. At nq = 8 it is memory bound, one pass over the index (2.0 GB
+//    bf16 or 1.0 GB int8 at 1,310,720 x 768). One block per (group, query
+//    tile of 8 or 32); one thread per group row (blockDim = G). The query
+//    tile sits in shared memory; the group's rows stream through shared
+//    memory in 128-byte column chunks with coalesced 16-byte loads, and each
+//    thread accumulates its row's dot with every query of the tile in
+//    registers (fmaf, or __dp4a for int8). The per-group top-2 is a block
+//    reduction (warp shuffles, then one value per warp). At nq = 512 its
+//    scalar dot products bound it.
 //
 // 2. The tensor-core scan (candidate_scan_tc_kernel), groups of 128 rows.
-//    The products bound it once the index is read once: 2 nq N d
-//    operations against N d bytes. What bound its first form (mma.sync on
-//    a (128-query tile, group) a block, both operands staged through a
-//    cp.async ring) was the traffic from L2 into shared memory: every query
-//    tile was read again for each of the 10,240 groups and every group
-//    again for each query tile, about 4 TB/s whatever the batch. So:
-//    - A persistent block keeps its query tile (64 or 128 queries) resident
-//      in shared memory and walks a contiguous run of groups; blocks with
-//      other query tiles walk the same runs, so each group comes from
-//      device memory once and from L2 for the others.
-//    - A cluster of CL = 2 or 4 blocks holds CL query tiles; each block
-//      loads 128 / CL rows of every ring stage and the Tensor Memory
-//      Accelerator multicasts them to all, so L2 sends each row once a
-//      cluster.
+//    From a few hundred queries the products bound it (2 nq N d operations
+//    against one read of N d bytes); below, the read of the index. Between
+//    them sit the bytes each block stages from L2 into shared memory for
+//    its products: a block that stages both a query tile and a group for
+//    every (query tile, group) pair spends most of its time on those
+//    loads. So:
+//    - A persistent block keeps its query tile (64 queries; 128 for int8
+//      above 128 queries) resident in shared memory and walks a contiguous
+//      run of groups; blocks with other query tiles walk the same runs at
+//      the same time, so each group comes from device memory once and from
+//      L2 for the others. The (query tile, run) items are cut so that the
+//      rounds of them over the resident blocks waste the least.
+//      (Clusters that share each stage by TMA multicast measured slower
+//      than single blocks on the H100, PERF.md section 6.)
 //    - Products by wgmma (bf16 m64n128k16 into fp32, int8 m64n128k32 into
 //      int32, both operands K-major in swizzled shared memory): a
 //      warpgroup's accumulators hold 64 queries x the group's 128 rows,
 //      each thread 2 queries x 32 rows, so the per-group top-2 is 32
 //      inserts a query and two quad shuffles, with no shared memory.
-//    - One producer warp fills the ring by TMA (tensor maps with the 128-
-//      or 64-byte swizzle wgmma reads, mbarriers counting the bytes); two
-//      consumer warpgroups take the groups in turn, the turn handed over
-//      by named barriers as soon as a warpgroup has issued its group's
-//      products, so one warpgroup's top-2 runs under the other's products.
+//    - One producer thread fills a ring of 128-row x 128-byte stages by
+//      TMA (tensor maps with the 128-byte swizzle wgmma reads, mbarriers
+//      counting the bytes); two consumer warpgroups take the groups in
+//      turn, the turn handed over by named barriers as soon as a
+//      warpgroup has issued its group's products, so one warpgroup's
+//      branch-free top-2 runs under the other's products.
 //    - No atomics: each (query, group) is written by one thread, and two
 //      launches are bit-equal.
 
@@ -281,42 +282,32 @@ constexpr int TC_CONSUMERS = 2;           // warpgroups that take groups in turn
 constexpr int TC_THREADS = 128 * (TC_CONSUMERS + 1);   // + the producer's
 constexpr int TC_PRODUCER_REGS = 40;      // registers a thread after the
 constexpr int TC_CONSUMER_REGS = 232;     // split (setmaxnreg)
-constexpr int TC_QB = 128;                // bytes of a resident query chunk
+constexpr int TC_KB = 128;                // bytes of a row a tile holds
+constexpr int TC_STAGE = TC_G * TC_KB;    // bytes of a ring stage
 constexpr int TC_MAX_STAGES = 16;
 constexpr int TC_SMEM_LIMIT = 232448;     // dynamic shared memory of a block
-
-// Bytes of each index row a ring stage holds: 128 (the 128-byte swizzle),
-// or 64 (the 64-byte swizzle) where 128 resident bf16 queries leave room
-// for only two stages of 128.
-template <typename T, int MA>
-constexpr int tc_stage_bytes() {
-  return sizeof(T) == 2 && MA == 2 ? 64 : 128;
-}
 
 // Shared memory of a block: the resident query tile, `stages` ring stages,
 // their full and empty mbarriers and the query tile's two, and the slack
 // that aligns the tiles to 1024 bytes.
-__host__ __device__ constexpr int tc_smem_bytes(int qt, int rb, int kb,
-                                                int stages) {
-  return qt * rb + stages * TC_G * kb + (2 * stages + 2) * 8 + 1024;
+constexpr int tc_smem_bytes(int qt, int rb, int stages) {
+  return qt * rb + stages * TC_STAGE + (2 * stages + 2) * 8 + 1024;
 }
 
 // The ring stages that fit beside the resident query tile.
-constexpr int tc_stages(int qt, int rb, int kb) {
+constexpr int tc_stages(int qt, int rb) {
   return std::min(TC_MAX_STAGES,
-                  (TC_SMEM_LIMIT - tc_smem_bytes(qt, rb, kb, 0)) /
-                      (TC_G * kb + 16));
+                  (TC_SMEM_LIMIT - tc_smem_bytes(qt, rb, 0)) / (TC_STAGE + 16));
 }
 
-// Matrix descriptor of a K-major tile in shared memory under the
-// `sw`-byte swizzle (rows of sw bytes, 8-row groups 8 * sw bytes apart),
-// starting at `p` (a k-step of 32 bytes into a row advances p by 32).
-template <int SW>
+// Matrix descriptor of a K-major tile in shared memory under the 128-byte
+// swizzle (128-byte rows, 8-row groups 1024 bytes apart), starting at `p`
+// (a k-step of 32 bytes into a row advances p by 32).
 __device__ __forceinline__ uint64_t tc_desc(const void* p) {
   uint64_t d = (uint64_t)((tma::smem_u32(p) & 0x3FFFF) >> 4);
   d |= (uint64_t)1 << 16;                       // leading offset: unused
-  d |= (uint64_t)((8 * SW) >> 4) << 32;         // stride offset
-  d |= (uint64_t)(SW == 128 ? 1 : 2) << 62;     // 128- or 64-byte swizzle
+  d |= (uint64_t)(1024 >> 4) << 32;             // stride offset
+  d |= (uint64_t)1 << 62;                       // 128-byte swizzle
   return d;
 }
 
@@ -407,19 +398,18 @@ __device__ __forceinline__ void turn_pass(int id) {
                : "memory");
 }
 
-// The items of the walk: query tile group qg (CL tiles, one a block of the
-// cluster) by slice of the groups; cluster c takes items c, c + clusters,
-// ... Each item's groups are [g0, g1), empty when there are more slices
-// than groups.
+// The items of the walk: query tile qt by slice of the groups; block b
+// takes items b, b + blocks, ... Each item's groups are [g0, g1), empty when
+// there are more slices than groups.
 struct TcItem {
-  int qg, g0, g1;
+  int qt, g0, g1;
 };
 
-__device__ __forceinline__ TcItem tc_item(int it, int n_qg, int qpc,
+__device__ __forceinline__ TcItem tc_item(int it, int tiles, int slices,
                                           int n_groups) {
-  const int slice = it / n_qg;
-  return {it % n_qg, (int)((long long)slice * n_groups / qpc),
-          (int)((long long)(slice + 1) * n_groups / qpc)};
+  const int slice = it / tiles;
+  return {it % tiles, (int)((long long)slice * n_groups / slices),
+          (int)((long long)(slice + 1) * n_groups / slices)};
 }
 
 // The top-2 of one query row over the 32 columns a thread holds (its lane
@@ -464,55 +454,43 @@ struct RingPos {
 };
 
 // One block: a producer warpgroup (one thread of it) that fills the ring by
-// TMA, with its registers given to the two consumer
-// warpgroups, which take the item's groups in turn (even, odd), each running
-// the products of all its group's k-chunks against the resident query tile
-// and then, while the other warpgroup's products run, the group's top-2.
-// With CL > 1 the blocks of a cluster hold CL query tiles and walk the same
-// groups; each block loads 128 / CL rows of every stage and multicasts them
-// to all, and a stage is refilled once every block's consumer released it.
-template <typename T, typename Acc, int MA, int KB, int CL>
+// TMA, with its registers given to the two consumer warpgroups, which take
+// the item's groups in turn (even, odd), each running the products of all
+// its group's stages against the resident query tile and then, while the
+// other warpgroup's products run, the group's top-2.
+template <typename T, typename Acc, int MA>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     candidate_scan_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap xmap,
                              float* __restrict__ vals, int* __restrict__ idx,
                              int nq, int n_groups, int rb, int n_valid,
-                             int cands, int n_qg, int qpc, int stages) {
+                             int cands, int tiles, int slices, int stages) {
   constexpr int QT = 64 * MA;
-  constexpr int STAGE = TC_G * KB;
-  constexpr int SLICE = TC_G / CL;         // rows of a stage a block loads
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   uint8_t* qs = smem;                      // [rb / 128][QT][128], swizzled
-  uint8_t* ring = qs + QT * rb;            // [stages][128][KB], swizzled
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  uint8_t* ring = qs + QT * rb;            // [stages][128][128], swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * TC_STAGE);
   uint64_t* empty = full + stages;
   uint64_t* qfull = empty + stages;        // the query tile landed
   uint64_t* qfree = qfull + 1;             // ... and is no longer read
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const uint32_t rank = CL > 1 ? tma::cluster_ctarank() : 0;
-  const int cluster = blockIdx.x / CL;
-  const int n_clusters = gridDim.x / CL;
-  const int items = n_qg * qpc;
-  const int kc_n = rb / KB;                // ring stages a group
+  const int items = tiles * slices;
+  const int kc_n = rb / TC_KB;             // ring stages a group
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       tma::mbar_init(full + s, 1);
-      tma::mbar_init(empty + s, CL);
+      tma::mbar_init(empty + s, 1);
     }
     tma::mbar_init(qfull, 1);
     tma::mbar_init(qfree, TC_CONSUMERS);
     tma::fence_mbar_init();
   }
-  if (CL > 1) {
-    tma::cluster_sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   if (warp / 4 == TC_CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
@@ -520,29 +498,22 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (warp == 4 * TC_CONSUMERS && lane == 0) {
       RingPos p = {0, 0, 0};
       int loaded = 0;
-      for (int it = cluster; it < items; it += n_clusters) {
-        const TcItem w = tc_item(it, n_qg, qpc, n_groups);
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const TcItem w = tc_item(it, tiles, slices, n_groups);
         if (w.g1 <= w.g0) continue;
         if (loaded > 0) tma::mbar_wait(qfree, (loaded - 1) & 1);
         tma::mbar_expect(qfull, QT * rb);
-        const int q0 = (w.qg * CL + (int)rank) * QT;
-        for (int kq = 0; kq < rb / TC_QB; ++kq) {
-          tma::tma_load_2d(qs + kq * QT * TC_QB, &qmap, kq * TC_QB, q0, qfull);
+        for (int kq = 0; kq < rb / TC_KB; ++kq) {
+          tma::tma_load_2d(qs + kq * QT * TC_KB, &qmap, kq * TC_KB, w.qt * QT,
+                           qfull);
         }
         ++loaded;
         for (int g = w.g0; g < w.g1; ++g) {
           for (int kc = 0; kc < kc_n; ++kc, p.advance(1, stages)) {
             tma::mbar_wait(empty + p.slot, p.phase ^ 1);
-            tma::mbar_expect(full + p.slot, STAGE);
-            uint8_t* dst = ring + p.slot * STAGE + (int)rank * SLICE * KB;
-            const int y = g * TC_G + (int)rank * SLICE;
-            if (CL > 1) {
-              tma::tma_load_2d_multicast(dst, &xmap, kc * KB, y,
-                                         full + p.slot,
-                                         (uint16_t)((1 << CL) - 1));
-            } else {
-              tma::tma_load_2d(dst, &xmap, kc * KB, y, full + p.slot);
-            }
+            tma::mbar_expect(full + p.slot, TC_STAGE);
+            tma::tma_load_2d(ring + p.slot * TC_STAGE, &xmap, kc * TC_KB,
+                             g * TC_G, full + p.slot);
           }
         }
       }
@@ -551,46 +522,36 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         TC_CONSUMER_REGS));
     const int wg = warp / 4;               // consumer warpgroup 0 or 1
-    const int wl = threadIdx.x % 128;
+    const bool signals = threadIdx.x % 128 == 0;
     const int n_cols = cands * n_groups;
     const int t2 = (lane & 3) * 2;
     Acc acc[MA][64];
     int n = 0, loaded = 0;
     RingPos p = {0, 0, 0};
-    // release a ring slot in every block of the cluster
-    auto release = [&](int slot) {
-      if (wl < CL) {
-        if (CL > 1) {
-          tma::mbar_arrive_cluster(empty + slot, (uint32_t)wl);
-        } else {
-          tma::mbar_arrive(empty + slot);
-        }
-      }
-    };
-    for (int it = cluster; it < items; it += n_clusters) {
-      const TcItem w = tc_item(it, n_qg, qpc, n_groups);
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const TcItem w = tc_item(it, tiles, slices, n_groups);
       if (w.g1 <= w.g0) continue;
       tma::mbar_wait(qfull, loaded & 1);
       ++loaded;
-      const int q0 = (w.qg * CL + (int)rank) * QT;
       for (int j = wg; w.g0 + j < w.g1; j += 2) {
         p.advance(n + j * kc_n - p.c, stages);   // this group's first stage
         if (j > 0) turn_wait(1 + wg);
         int held = 0;                        // the slot read last
         for (int kc = 0; kc < kc_n; ++kc, p.advance(1, stages)) {
           tma::mbar_wait(full + p.slot, p.phase);
-          const uint8_t* st = ring + p.slot * STAGE;
+          const uint8_t* st = ring + p.slot * TC_STAGE;
 #pragma unroll
           for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
           tc_wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < KB / 32; ++ks) {
-            const int kb = kc * KB + ks * 32;   // byte of the row
-            const uint8_t* qa = qs + (kb / TC_QB) * QT * TC_QB + kb % TC_QB;
-            const uint64_t db = tc_desc<KB>(st + ks * 32);
+          for (int ks = 0; ks < TC_KB / 32; ++ks) {
+            // k-step ks of stage kc is bytes [32 ks, 32 ks + 32) of query
+            // chunk kc
+            const uint64_t db = tc_desc(st + ks * 32);
+            const uint8_t* qa = qs + kc * QT * TC_KB + ks * 32;
 #pragma unroll
             for (int m = 0; m < MA; ++m) {
-              tc_mma(acc[m], tc_desc<TC_QB>(qa + m * 64 * TC_QB), db,
+              tc_mma(acc[m], tc_desc(qa + m * 64 * TC_KB), db,
                      kc > 0 || ks > 0 ? 1 : 0);
             }
           }
@@ -599,7 +560,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
           for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
           if (kc > 0) {
             tc_wait<1>();                   // the stage before has been read
-            release(held);
+            if (signals) tma::mbar_arrive(empty + held);
           }
           held = p.slot;
         }
@@ -609,7 +570,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         tc_wait<0>();
 #pragma unroll
         for (int m = 0; m < MA; ++m) tc_fence_regs(acc[m]);
-        release(held);
+        if (signals) tma::mbar_arrive(empty + held);
 
         const int g = w.g0 + j;
         const int row0 = g * TC_G;
@@ -632,7 +593,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
               t.v2 = NEG_INF;
               t.i2 = t.i1;
             }
-            const int q = q0 + 64 * m + 16 * (warp % 4) + 8 * h + (lane >> 2);
+            const int q = w.qt * QT + 64 * m + 16 * (warp % 4) + 8 * h +
+                          (lane >> 2);
             if ((lane & 3) == 0 && q < nq) {
               const size_t o = (size_t)q * n_cols + g;
               vals[o] = t.v1;
@@ -646,13 +608,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         }
       }
       n += (w.g1 - w.g0) * kc_n;
-      if (wl == 0) tma::mbar_arrive(qfree);
+      if (signals) tma::mbar_arrive(qfree);
     }
-  }
-  // no block leaves while a block of its cluster may still signal it
-  if (CL > 1) {
-    __syncwarp();
-    tma::cluster_sync();
   }
 }
 
@@ -683,34 +640,31 @@ EncodeTiled load_encoder() {
 }
 
 // A [rows, rb] byte matrix, row-major, cut into boxes of box_rows rows by
-// box_bytes (64 or 128) bytes, swizzled by box_bytes; rows past the end
-// arrive as zeros.
+// 128 bytes under the 128-byte swizzle; rows past the end arrive as zeros.
 bool make_map(CUtensorMap* map, const void* base, int rows, int rb,
-              int box_bytes, int box_rows) {
+              int box_rows) {
   static const EncodeTiled encode = load_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)rb, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)rb};
-  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)TC_KB, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                 const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// How many slices of the groups each query tile group is cut into: the
-// items (query tile group, slice) are dealt to the resident clusters in
-// rounds, so the walk takes rounds / slices of the groups' time; the fewest
-// slices within 1% of the least such time (each slice a block walks costs
-// it a reload of its query tile).
-int slices_per_query_group(int n_qg, int n_groups, int clusters) {
-  const int most = std::max(1, std::min(n_groups, 8 * clusters));
+// How many slices of the groups each query tile is cut into: the items
+// (query tile, slice) are dealt to the resident blocks in rounds, so the
+// walk takes rounds / slices of the groups' time; the fewest slices within
+// 1% of the least such time (each slice a block walks costs it a reload of
+// its query tile).
+int slices_per_tile(int tiles, int n_groups, int blocks) {
+  const int most = std::max(1, std::min(n_groups, 8 * blocks));
   auto cost = [&](int k) {
-    return (double)((n_qg * k + clusters - 1) / clusters) / k;
+    return (double)((tiles * k + blocks - 1) / blocks) / k;
   };
   double best = cost(1);
   for (int k = 2; k <= most; ++k) best = std::min(best, cost(k));
@@ -719,128 +673,66 @@ int slices_per_query_group(int n_qg, int n_groups, int clusters) {
   return k;
 }
 
-// Clusters of CL blocks resident at once on `device` (0 if none fits).
-template <typename Kernel>
-int resident_clusters(Kernel kernel, int cl, int smem, int device) {
-  if (cl == 1) {
-    int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      TC_THREADS, smem) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess) {
-      return 0;
-    }
-    return per_sm * sms;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(cl);
-  cfg.blockDim = dim3(TC_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
-    return 0;
-  }
-  return clusters;
-}
-
-template <typename T, typename Acc, int MA, int CL>
+template <typename T, typename Acc, int MA>
 int launch_tc(const void* queries, const void* index, void* vals, void* idx,
               int nq, int N, int rb, int n_valid, int cands,
               cudaStream_t stream) {
   constexpr int QT = 64 * MA;
-  constexpr int KB = tc_stage_bytes<T, MA>();
-  auto kernel = candidate_scan_tc_kernel<T, Acc, MA, KB, CL>;
-  const int stages = tc_stages(QT, rb, KB);
+  auto kernel = candidate_scan_tc_kernel<T, Acc, MA>;
+  const int stages = tc_stages(QT, rb);
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  const int smem = tc_smem_bytes(QT, rb, KB, stages);
+  const int smem = tc_smem_bytes(QT, rb, stages);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int device = 0;
+  int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  // the occupancy query is slow next to a launch: once a device and size
-  static int resident[64] = {0}, resident_smem[64] = {0};
-  if (device >= 64) return (int)cudaErrorInvalidDevice;
-  if (resident_smem[device] != smem) {
-    resident[device] = resident_clusters(kernel, CL, smem, device);
-    resident_smem[device] = smem;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   }
-  const int clusters_max = resident[device];
-  if (clusters_max <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        TC_THREADS, smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
 
   CUtensorMap qmap, xmap;
-  if (!make_map(&qmap, queries, nq, rb, TC_QB, QT) ||
-      !make_map(&xmap, index, N, rb, KB, TC_G / CL)) {
+  if (!make_map(&qmap, queries, nq, rb, QT) ||
+      !make_map(&xmap, index, N, rb, TC_G)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_groups = N / TC_G;
   const int tiles = (nq + QT - 1) / QT;
-  const int n_qg = (tiles + CL - 1) / CL;
-  const int qpc = slices_per_query_group(n_qg, n_groups, clusters_max);
-  const int clusters = std::min(clusters_max, n_qg * qpc);
-
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(clusters * CL);
-  cfg.blockDim = dim3(TC_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, qmap, xmap, static_cast<float*>(vals),
-                           static_cast<int*>(idx), nq, n_groups, rb, n_valid,
-                           cands, n_qg, qpc, stages);
-  if (err != cudaSuccess) return (int)err;
+  const int slices = slices_per_tile(tiles, n_groups, per_sm * sms);
+  const int blocks = std::min(per_sm * sms, tiles * slices);
+  kernel<<<blocks, TC_THREADS, smem, stream>>>(
+      qmap, xmap, static_cast<float*>(vals), static_cast<int*>(idx), nq,
+      n_groups, rb, n_valid, cands, tiles, slices, stages);
   return (int)cudaGetLastError();
 }
 
-// The tile and the cluster for nq queries; `ma` / `cl` other than 0 force
-// them (tools/time_candidate_scan.py and the tests).
+// 64 queries a block; int8 above 128 queries takes 128, which halves the
+// bytes a product needs from L2 (bf16's 128 resident queries would leave a
+// ring of two stages).
 template <typename T, typename Acc>
 int dispatch_tc(const void* queries, const void* index, void* vals, void* idx,
                 int nq, int N, int d, int n_valid, int group, int cands,
-                int ma, int cl, cudaStream_t stream) {
+                cudaStream_t stream) {
   const int rb = d * (int)sizeof(T);
-  if (nq <= 0 || N <= 0 || group != TC_G || N % TC_G || rb % TC_QB ||
-      cands < 1 || cands > 2 || ma < 0 || ma > 2 ||
-      !(cl == 0 || cl == 1 || cl == 2 || cl == 4)) {
+  if (nq <= 0 || N <= 0 || group != TC_G || N % TC_G || rb % TC_KB ||
+      cands < 1 || cands > 2) {
     return (int)cudaErrorInvalidValue;
   }
-  // int8 from 129 queries on: 128 queries a block halve the bytes a product
-  // needs; bf16 keeps 64, whose ring of 16 KB stages outruns 128 queries'
-  // of 8 KB. Multicast clusters ran slower than single blocks at every
-  // count measured (PERF.md section 6), so they are only forced.
-  if (ma == 0) {
-    constexpr int KB2 = tc_stage_bytes<T, 2>();
-    ma = sizeof(T) == 1 && nq > 128 && tc_stages(128, rb, KB2) >= 2 ? 2 : 1;
+  if constexpr (sizeof(T) == 1) {
+    if (nq > 128 && tc_stages(128, rb) >= 2) {
+      return launch_tc<T, Acc, 2>(queries, index, vals, idx, nq, N, rb,
+                                  n_valid, cands, stream);
+    }
   }
-  if (cl == 0) cl = 1;
-#define TC_LAUNCH(MA_, CL_)                                                  \
-  if (ma == MA_ && cl == CL_) {                                              \
-    return launch_tc<T, Acc, MA_, CL_>(queries, index, vals, idx, nq, N, rb, \
-                                       n_valid, cands, stream);              \
-  }
-  TC_LAUNCH(1, 1)
-  TC_LAUNCH(1, 2)
-  TC_LAUNCH(1, 4)
-  TC_LAUNCH(2, 1)
-  TC_LAUNCH(2, 2)
-  TC_LAUNCH(2, 4)
-#undef TC_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return launch_tc<T, Acc, 1>(queries, index, vals, idx, nq, N, rb, n_valid,
+                              cands, stream);
 }
 
 bool bad_args(int nq, int N, int d, int esize, int group, int cands) {
@@ -883,16 +775,14 @@ extern "C" int emdr2_candidate_scan_i8(const void* queries, const void* index,
 }
 
 
-// The tensor-core scan: the same arguments and outputs, group 128 only;
-// `ma` (1 or 2: 64 or 128 queries a block) and `cl` (1, 2 or 4 blocks a
-// cluster) force the layout, 0 leaves it to the number of queries.
+// The tensor-core scan: the same arguments and outputs, group 128 only.
 extern "C" int emdr2_candidate_scan_tc_bf16(const void* queries,
                                             const void* index, void* vals,
                                             void* idx, int nq, int N, int d,
                                             int n_valid, int group, int cands,
-                                            int ma, int cl, void* stream) {
+                                            void* stream) {
   return dispatch_tc<__nv_bfloat16, float>(queries, index, vals, idx, nq, N,
-                                           d, n_valid, group, cands, ma, cl,
+                                           d, n_valid, group, cands,
                                            (cudaStream_t)stream);
 }
 
@@ -900,57 +790,54 @@ extern "C" int emdr2_candidate_scan_tc_i8(const void* queries,
                                           const void* index, void* vals,
                                           void* idx, int nq, int N, int d,
                                           int n_valid, int group, int cands,
-                                          int ma, int cl, void* stream) {
+                                          void* stream) {
   return dispatch_tc<int8_t, int>(queries, index, vals, idx, nq, N, d,
-                                  n_valid, group, cands, ma, cl,
+                                  n_valid, group, cands,
                                   (cudaStream_t)stream);
 }
 
 // What the compiler made of each kernel, KERNEL_INFO ints a kernel into
 // `out` (at most `cap` kernels): type (0 bf16, 1 int8), route (0 CUDA-core,
-// 1 tensor-core), queries a block, blocks a cluster, registers a thread,
-// static shared bytes, local (spilled) bytes a thread, the dynamic shared
-// bytes it launches with at d = 768, the ring's stages there (0: none).
-// Returns the number of kernels, or minus a cudaError_t.
+// 1 tensor-core), queries a block, registers a thread, static shared bytes,
+// local (spilled) bytes a thread, the dynamic shared bytes it launches with
+// at d = 768, the ring's stages there (0: none). Returns the number of
+// kernels, or minus a cudaError_t.
 namespace {
 
-constexpr int KERNEL_INFO = 9;
+constexpr int KERNEL_INFO = 8;
 
 struct KernelRow {
   const void* fn;
-  int type, route, tile, cl, smem, stages;
+  int type, route, tile, smem, stages;
 };
 
 template <typename T, typename Acc, int QT>
 KernelRow core_row() {
   const int qbytes = 768 * (int)sizeof(T);
-  return {(const void*)candidate_scan_kernel<T, Acc, QT>,
-          sizeof(T) == 1, 0, QT, 1,
-          QT * qbytes + TC_G * RSTRIDE + QT * (TC_G / 32) * 8 + QT * 4, 0};
+  return {(const void*)candidate_scan_kernel<T, Acc, QT>, sizeof(T) == 1, 0,
+          QT, QT * qbytes + TC_G * RSTRIDE + QT * (TC_G / 32) * 8 + QT * 4,
+          0};
 }
 
-template <typename T, typename Acc, int MA, int CL>
+template <typename T, typename Acc, int MA>
 KernelRow tc_row() {
-  constexpr int KB = tc_stage_bytes<T, MA>();
   const int rb = 768 * (int)sizeof(T);
-  const int stages = tc_stages(64 * MA, rb, KB);
-  return {(const void*)candidate_scan_tc_kernel<T, Acc, MA, KB, CL>,
-          sizeof(T) == 1, 1, 64 * MA, CL,
-          tc_smem_bytes(64 * MA, rb, KB, stages), stages};
+  const int stages = tc_stages(64 * MA, rb);
+  return {(const void*)candidate_scan_tc_kernel<T, Acc, MA>, sizeof(T) == 1,
+          1, 64 * MA, tc_smem_bytes(64 * MA, rb, stages), stages};
 }
 
 }  // namespace
 
 extern "C" int emdr2_candidate_scan_kernels(int* out, int cap) {
   const KernelRow rows[] = {
-      core_row<__nv_bfloat16, float, 8>(), core_row<__nv_bfloat16, float, 32>(),
-      core_row<int8_t, int, 8>(),          core_row<int8_t, int, 32>(),
-      tc_row<__nv_bfloat16, float, 1, 1>(), tc_row<__nv_bfloat16, float, 1, 2>(),
-      tc_row<__nv_bfloat16, float, 1, 4>(), tc_row<__nv_bfloat16, float, 2, 1>(),
-      tc_row<__nv_bfloat16, float, 2, 2>(), tc_row<__nv_bfloat16, float, 2, 4>(),
-      tc_row<int8_t, int, 1, 1>(),          tc_row<int8_t, int, 1, 2>(),
-      tc_row<int8_t, int, 1, 4>(),          tc_row<int8_t, int, 2, 1>(),
-      tc_row<int8_t, int, 2, 2>(),          tc_row<int8_t, int, 2, 4>(),
+      core_row<__nv_bfloat16, float, 8>(),
+      core_row<__nv_bfloat16, float, 32>(),
+      core_row<int8_t, int, 8>(),
+      core_row<int8_t, int, 32>(),
+      tc_row<__nv_bfloat16, float, 1>(),
+      tc_row<int8_t, int, 1>(),
+      tc_row<int8_t, int, 2>(),
   };
   const int n = (int)(sizeof(rows) / sizeof(rows[0]));
   for (int i = 0; i < n && i < cap; ++i) {
@@ -961,12 +848,11 @@ extern "C" int emdr2_candidate_scan_kernels(int* out, int cap) {
     o[0] = rows[i].type;
     o[1] = rows[i].route;
     o[2] = rows[i].tile;
-    o[3] = rows[i].cl;
-    o[4] = a.numRegs;
-    o[5] = (int)a.sharedSizeBytes;
-    o[6] = (int)a.localSizeBytes;
-    o[7] = rows[i].smem;
-    o[8] = rows[i].stages;
+    o[3] = a.numRegs;
+    o[4] = (int)a.sharedSizeBytes;
+    o[5] = (int)a.localSizeBytes;
+    o[6] = rows[i].smem;
+    o[7] = rows[i].stages;
   }
   return n;
 }

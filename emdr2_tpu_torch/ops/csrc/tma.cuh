@@ -1,9 +1,8 @@
 // Asynchronous copies into shared memory on Hopper, and the mbarriers that
 // count their arrival: bulk copies of contiguous bytes (cp.async.bulk),
 // tiles of a tensor map (cp.async.bulk.tensor, the Tensor Memory
-// Accelerator), optionally multicast to every block of a cluster, and the
-// barrier operations of a ring filled that way (local and remote arrivals,
-// waits that trap instead of hanging). Used by the int8 decode attention
+// Accelerator), and the barrier operations of a ring filled that way
+// (waits that trap instead of hanging). Used by the int8 decode attention
 // (decode_attention.cu) and the tensor-core candidate scan
 // (candidate_scan.cu).
 
@@ -25,8 +24,8 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
                : "memory");
 }
 
-// Makes initialized mbarriers visible to the other blocks of the cluster
-// (and to the copy engine) before anyone arrives on them.
+// Makes initialized mbarriers visible to the copy engine before a copy
+// arrives on them.
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -43,20 +42,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
-}
-
-// One arrival on the barrier at the same shared-memory offset as `bar` in
-// block `cta` of this cluster (this block included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(cta)
-      : "memory");
 }
 
 // `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
@@ -84,21 +69,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x,
       : "memory");
 }
 
-// The same box into `dst` of every block of the cluster in `cta_mask`, each
-// block's arrival counted on its own barrier at `bar`'s offset.
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
-                                                      const void* map, int x,
-                                                      int y, uint64_t* bar,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar)), "h"(cta_mask)
-      : "memory");
-}
-
 // Wait until the phase of `bar` with this parity is complete. A copy that
 // never lands must not hang the card: after about a second the block traps.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -122,20 +92,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
-}
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
 }
 
 }  // namespace tma

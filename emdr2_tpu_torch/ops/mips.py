@@ -103,16 +103,18 @@ def candidate_scan_reference(queries: torch.Tensor, index: torch.Tensor,
 
 
 # The candidate scan has two kernels (``csrc/candidate_scan.cu``): the
-# CUDA-core scan, which reads the index at near the memory rate for a
-# serving batch, and the tensor-core scan (wgmma, its ring filled by TMA),
-# which the products bound at large query batches. ``candidate_scan`` takes
-# the tensor-core one from ``TENSOR_CORE_MIN_NQ[dtype]`` queries on (groups
-# of 128 rows, rows of at most ``TENSOR_CORE_MAX_ROW_BYTES``), each type at
-# its own crossover, measured over 1,310,720 x 768 rows on an NVIDIA H100
-# 80GB HBM3 at 700 W (``chip_smoke.py`` k3 sweep, PERF.md section 6).
+# CUDA-core scan, for any group of 32-256 rows, and the tensor-core scan
+# (wgmma, its ring filled by TMA), for groups of 128 rows of at most
+# ``TENSOR_CORE_MAX_ROW_BYTES``. ``candidate_scan`` takes the tensor-core one
+# from ``TENSOR_CORE_MIN_NQ[dtype]`` queries on, each type at its own
+# crossover: over 1,310,720 x 768 rows on an NVIDIA H100 80GB HBM3 at 700 W
+# it is ahead from one query on in both (``chip_smoke.py`` k3 sweep of nq 1
+# to 256, PERF.md section 6), reading the index at near the memory rate
+# where the CUDA-core kernel did.
 TENSOR_CORE_MIN_NQ = {torch.bfloat16: 1, torch.int8: 1}
 TENSOR_CORE_GROUP = 128
 TENSOR_CORE_MAX_ROW_BYTES = 3072    # 64 resident queries and two stages
+                                    # fit in a block's shared memory
 
 
 def scan_route(nq: int, group_size: int, dtype: torch.dtype,
@@ -153,15 +155,12 @@ def candidate_scan(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
 
 
 def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
-            group_size: int, cands_per_group: int, route: str,
-            layout: Tuple[int, int] = (0, 0)
+            group_size: int, cands_per_group: int, route: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one kernel of the scan on CUDA tensors: ``route`` is
     ``"cuda_core"`` or ``"tensor_core"`` (the tests and ``chip_smoke.py``
     force each to hold both to the plain version and to time the
-    crossover). ``layout`` = (query atoms, cluster) forces the tensor-core
-    kernel's 64 (1) or 128 (2) queries a block and 1, 2 or 4 blocks a
-    cluster; 0 leaves either to the kernel."""
+    crossover)."""
     nq, d = queries.shape
     N = index.shape[0]
     G = group_size
@@ -186,8 +185,6 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
                          f"{d * index.element_size()} bytes")
     if route not in ("cuda_core", "tensor_core"):
         raise ValueError(f"unknown route {route!r}")
-    if layout[0] not in (0, 1, 2) or layout[1] not in (0, 1, 2, 4):
-        raise ValueError(f"unknown tensor-core layout {layout}")
     if not (queries.is_contiguous() and index.is_contiguous()):
         raise ValueError("candidate_scan needs contiguous inputs")
     if queries.data_ptr() % 16 or index.data_ptr() % 16:
@@ -195,16 +192,13 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
     cols = cands_per_group * (N // G)
     vals = torch.empty((nq, cols), dtype=torch.float32, device=index.device)
     idx = torch.empty((nq, cols), dtype=torch.int32, device=index.device)
-    kind = "i8" if index.dtype == torch.int8 else "bf16"
-    args = [queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
-            cands_per_group]
-    if route == "tensor_core":
-        entry = f"emdr2_candidate_scan_tc_{kind}"
-        args += list(layout)
-    else:
-        entry = f"emdr2_candidate_scan_{kind}"
-    build.launch(entry, f"candidate_scan ({route})", index.device, *args,
+    entry = ("emdr2_candidate_scan_"
+             + ("tc_" if route == "tensor_core" else "")
+             + ("i8" if index.dtype == torch.int8 else "bf16"))
+    build.launch(entry, f"candidate_scan ({route})", index.device,
+                 queries.data_ptr(), index.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
+                 cands_per_group,
                  torch.cuda.current_stream(index.device).cuda_stream)
     build.count_launch(candidate_scan)
     if route == "tensor_core":
@@ -215,18 +209,17 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
 def kernel_info() -> list:
     """What the compiler made of each scan kernel, from the built library
     (``cudaFuncGetAttributes``): dicts of type, route, queries a block,
-    blocks a cluster, registers, static shared bytes, local (spilled)
-    bytes a thread, and the dynamic shared bytes and ring stages a launch
-    at d = 768 takes."""
+    registers, static shared bytes, local (spilled) bytes a thread, and the
+    dynamic shared bytes and ring stages a launch at d = 768 takes."""
     import ctypes
     lib = build.load()
-    cap, width = 32, 9
+    cap, width = 32, 8
     out = (ctypes.c_int * (cap * width))()
     n = lib.emdr2_candidate_scan_kernels(out, cap)
     if n < 0:
         build.check(-n, "emdr2_candidate_scan_kernels")
-    keys = ("dtype", "route", "queries", "cluster", "registers",
-            "static_smem", "local_bytes", "dynamic_smem", "stages")
+    keys = ("dtype", "route", "queries", "registers", "static_smem",
+            "local_bytes", "dynamic_smem", "stages")
     rows = []
     for i in range(n):
         row = dict(zip(keys, out[i * width:(i + 1) * width]))

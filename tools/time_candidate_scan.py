@@ -2,7 +2,7 @@
 """Time the MIPS candidate scan (K3) of one source tree on the card.
 
     python3 tools/time_candidate_scan.py [--tree DIR] [--nq 8 64 512 3610]
-        [--dtypes bf16 int8] [--layouts] [--probe-loads]
+        [--dtypes bf16 int8] [--probe-loads]
 
 ``DIR`` is the root of a checkout that holds ``emdr2_tpu_torch`` (default:
 the one this file lies in); its ``ops.mips`` is imported and its kernels
@@ -12,9 +12,6 @@ calls): the dispatch (``candidate_scan``) and each kernel forced
 (``_launch(..., route)``), each held first to the plain version on its
 first 64 queries (int8 equal, bf16 within 1e-3 |v| + 1e-3).
 
-- ``--layouts``: also the tensor-core kernel at each forced layout (64 or
-  128 queries a block, 1, 2 or 4 blocks a cluster), for a tree whose
-  ``_launch`` takes ``layout=``.
 - ``--probe-loads``: the staging of the first tensor-core scan alone (its
   three-stage cp.async ring of 128-query tiles and 128-row groups, 256
   threads, two blocks a multiprocessor, no products, no top-2), compiled
@@ -31,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import inspect
 import json
 import os
 import statistics
@@ -43,7 +39,6 @@ import torch
 SEED = 1234
 N_INDEX = 1_310_720
 D = 768
-LAYOUTS = ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (2, 4))
 
 PROBE_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -154,7 +149,6 @@ def main():
     ap.add_argument("--tree", default=here)
     ap.add_argument("--nq", type=int, nargs="+", default=[8, 64, 512, 3610])
     ap.add_argument("--dtypes", nargs="+", default=["bf16", "int8"])
-    ap.add_argument("--layouts", action="store_true")
     ap.add_argument("--probe-loads", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -177,7 +171,6 @@ def main():
     stored = {"bf16": emb.to(torch.bfloat16),
               "int8": mips.quantize_int8(emb, 128)[0]}
     del emb
-    takes_layout = "layout" in inspect.signature(mips._launch).parameters
     probe = build_probe(tree) if args.probe_loads else None
     rows = []
     for name in args.dtypes:
@@ -199,12 +192,6 @@ def main():
                           else ("tensor_core",)):
                 calls[route] = (lambda r=route: mips._launch(
                     q, index, n_valid, 128, 2, r))
-            if args.layouts and takes_layout:
-                for lay in LAYOUTS:
-                    calls[f"tensor_core {lay[0] * 64}q x{lay[1]}"] = (
-                        lambda lay=lay: mips._launch(
-                            q, index, n_valid, 128, 2, "tensor_core",
-                            layout=lay))
             row = {"dtype": name, "nq": nq}
             for what, fn in calls.items():
                 v, i = fn()
