@@ -160,6 +160,19 @@
    trainer on each host's card 0 beside its embedder on its card 1
    (the embedder phase's run and checks at 8 questions a rank); no two
    ranks on one trainer card, no embedder card on another host, by UUID.
+18. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``), each
+   through its ``main(argv)`` at ``EMDR2Config()`` widths and full depth,
+   grids and iterations cut (``TOOLS_*``): the int8 re-rank window's two
+   selections at k 20 and 51 over 1,310,720 rows (the same rows, the
+   default window held to an exact search by the k3 phase's tie rule, the
+   recall of ``rescore=0`` beside it); K4 and K1 forward + backward at
+   key chunks 256-3,200 (256 and 512 must give times); the step's passes
+   with their share of the peak (in (0, 1]); the dropout variants; a cut
+   train sweep (B 8 and 16 under full remat beside an int8 index, B 8
+   with the towers stored); the pipeline's stages A and B, index swap,
+   embedding rate, prefetch overlap, decode and one decode-sweep row.
+   Prints each tool's rows, its seconds and the phase's; its in-process
+   launches go into each kernel row as ``launches_tools``.
 
 Every failure propagates (non-zero exit). The second-to-last line is the
 kernel summary as JSON; the last line is
@@ -4519,6 +4532,144 @@ def tp_phase(cfg, dev, cards=False, layout=None, timeout=900):
             "launches_by_rank": [dict(g["launches"]) for g in got]}
 
 
+# the measurement tools' phase: every tool of emdr2_tpu_torch/tools/bench_*
+# through its main(argv), at EMDR2Config() widths and full depth, grids and
+# iterations cut to fit TOOLS_BUDGET_S
+TOOLS_BUDGET_S = 360
+TOOLS_SWEEP_ROWS = (["--bs", "8,16", "--policies", "full", "--residency",
+                     "int8"],
+                    ["--bs", "8", "--policies", "towers", "--residency",
+                     "none"])
+TOOLS_EMBED_DOCS = 16_384
+
+
+def _share_ok(x) -> bool:
+    return x is not None and 0.0 < x <= 1.0
+
+
+def tools_phase(dev):
+    """18. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``),
+    each through ``main(argv)`` on the card: the rescore tool (its two
+    window selections at k 20 and 51 give the same rows, the default
+    window's rows equal an exact search up to the k3 phase's ties, and the
+    recall of ``rescore=0`` beside it), the kernel sweep (K4 on the cross
+    shape: chunks 256 and 512 give times), the step breakdown (every
+    pass's share of the peak in (0, 1], and the whole step's), the dropout
+    breakdown, a cut train sweep (each row's share in (0, 1] or an
+    out-of-memory row), and the pipeline's stages A and B, ``--refresh``,
+    ``--embed``, ``--overlap``, ``--decode`` and one decode-sweep row."""
+    from emdr2_tpu_torch.ops import mips
+    from emdr2_tpu_torch.tools import (bench_dropout_breakdown,
+                                       bench_kernel_sweep, bench_mips_rescore,
+                                       bench_pipeline, bench_step_breakdown,
+                                       bench_train_sweep, flagship)
+    t_phase = time.perf_counter()
+    seconds = {}
+    on = ["--device", str(dev)]
+    icfg = flagship.base_config().index
+    group = icfg.group_size
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        seconds[name] = time.perf_counter() - t0
+        log(f"tools: {name} in {seconds[name]:.1f} s")
+        return r
+
+    _reset_counts()
+    # rescore: the two selections agree; the default window against an
+    # exact search (float64 sums), misses only where the k3 phase allows
+    res = timed("bench_mips_rescore",
+                lambda: bench_mips_rescore.main(["--iters", "5"] + on))
+    qf, q8, scales = res[0]["inputs"]
+    n = q8.shape[0]
+    rows_f = mips.dequantize_int8(q8, scales, group)
+    oracle_vals, oracle = _exact_top(qf, rows_f, n, max(bench_mips_rescore.KS))
+    del rows_f
+    for k in bench_mips_rescore.KS:
+        by = {r["row"]["window_select"]: r for r in res if r["row"]["k"] == k}
+        blocked, exact = by["blocked"]["ids"], by["exact_topk"]["ids"]
+        if not np.array_equal(np.sort(blocked, 1), np.sort(exact, 1)):
+            raise AssertionError(f"tools rescore k={k}: the blocked window "
+                                 f"and the exact top-M give other rows")
+        ex = explain_misses(blocked, oracle[:, :k + K3_EXTRA],
+                            oracle_vals[:, :k + K3_EXTRA], k, ties=True,
+                            group=group)
+        _, ids0 = mips.mips_topk(qf, q8, k, chunk_rows=icfg.chunk_rows,
+                                 group_size=group, shard_scales=scales,
+                                 rescore=0)
+        recall0 = bench_mips_rescore.recall(ids0.cpu().numpy(),
+                                            by["blocked"]["ref"])
+        log(f"tools rescore k={k}: {by['blocked']['row']} / "
+            f"{by['exact_topk']['row']}; against an exact search: "
+            f"{misses_text(ex, k)}; recall with rescore=0 {recall0:.6f}")
+        if ex["unexplained"]:
+            raise AssertionError(f"tools rescore k={k}: {misses_text(ex, k)}")
+    del res, qf, q8, scales, oracle, oracle_vals
+    _empty_cache(dev)
+
+    sweep = timed("bench_kernel_sweep", lambda: bench_kernel_sweep.main(
+        ["--batch", "8", "--iters", "5"] + on))
+    for chunk in (256, 512):
+        row = next(r for r in sweep if r.get("key_chunk") == chunk)
+        if "fwd_bwd_ms" not in row:
+            raise AssertionError(f"tools kernel sweep chunk {chunk}: {row}")
+    _empty_cache(dev)
+
+    bd = timed("bench_step_breakdown", lambda: bench_step_breakdown.main(
+        ["--batch", "8", "--iters", "3"] + on))
+    rows = bd["breakdown"]
+    cfg = flagship.flagship_step_config(8, 50)
+    step_flops = flagship.model_flops_per_step(cfg, 8, 50)
+    full_share = flagship.share_of_peak(
+        step_flops, rows["full_step"]["ms"] / 1e3, flagship.peak_flops(dev))
+    log(f"tools step breakdown: {json.dumps(bd)}; the whole step "
+        f"{step_flops / 1e12:.1f} model TFLOP in {rows['full_step']['ms']} "
+        f"ms: {full_share} of the peak")
+    for name in ("retriever_fwdbwd", "reader_fwdbwd", "teacher_fwd"):
+        if not _share_ok(rows[name]["util_vs_peak"]):
+            raise AssertionError(f"tools step breakdown {name}: "
+                                 f"{rows[name]}")
+    if not _share_ok(full_share):
+        raise AssertionError(f"tools step breakdown: step share {full_share}")
+    _empty_cache(dev)
+
+    drop = timed("bench_dropout_breakdown",
+                 lambda: bench_dropout_breakdown.main(["--iters", "3"]
+                                                      + on))
+    for r in drop:
+        if "ms_per_step" not in r:
+            raise AssertionError(f"tools dropout breakdown: {r}")
+
+    train = []
+    for argv in TOOLS_SWEEP_ROWS:
+        train += timed("bench_train_sweep " + " ".join(argv),
+                       lambda a=argv: bench_train_sweep.main(
+                           a + ["--iters", "2"] + on))
+    for r in train:
+        oom = "OutOfMemoryError" in r.get("error", "")
+        if not (oom or _share_ok(r.get("model_flops_util"))):
+            raise AssertionError(f"tools train sweep: {r}")
+
+    for argv in (["--iters", "5", "--decode"], ["--iters", "3", "--refresh"],
+                 ["--embed", "--n-docs", str(TOOLS_EMBED_DOCS)],
+                 ["--iters", "3", "--overlap"]):
+        timed("bench_pipeline " + " ".join(argv),
+              lambda a=argv: bench_pipeline.main(a + on))
+        _empty_cache(dev)
+    row = timed("bench_pipeline --decode-sweep-row 8:1:int8", lambda:
+                bench_pipeline.main(["--iters", "3", "--decode-sweep-row",
+                                     "8:1:int8"] + on))
+    if "error" in row:
+        raise AssertionError(f"tools decode sweep row: {row}")
+    launches = _read_counts(list(_counters()))
+    phase_s = time.perf_counter() - t_phase
+    log(f"tools phase: {phase_s:.1f} s (budget {TOOLS_BUDGET_S} s); "
+        f"launches {launches}")
+    _empty_cache(dev)
+    return dict(launches=launches, seconds=seconds, phase_s=phase_s)
+
+
 def _flagship_cfg():
     from emdr2_tpu_torch.config import EMDR2Config, IndexConfig
     from emdr2_tpu_torch.config import with_flash_attention
@@ -4850,6 +5001,9 @@ def main() -> int:
     tp = tp_phase(_flagship_cfg(), dev)
     log(f"tp phase: {time.perf_counter() - t0:.1f} s (one process "
         f"{tp['ref_seconds']:.1f} s, the ranks {tp['ranks_seconds']:.1f} s)")
+    # the measurement tools, each through its main(argv)
+    _empty_cache(dev)
+    tools = tools_phase(dev)
     c5l, dpl = c5["launches"], dict(dpb["launches"])
     for name, n in dpa["launches"].items():
         dpl[name] = dpl.get(name, 0) + n
@@ -5088,6 +5242,7 @@ def main() -> int:
         if row["name"] in tp_err:
             row["max_abs_err_6_heads"] = tpk[tp_err[row["name"]]][0]
         row["launches_hosts"] = hs["launches"].get(row["name"], 0)
+        row["launches_tools"] = tools["launches"][row["name"]]
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(card)

@@ -275,18 +275,23 @@ def mips_topk(queries: torch.Tensor, shard: torch.Tensor, k: int, *,
               exact: bool = False, chunk_rows: int = 8192,
               group_size: int = 128, cands_per_group: int = 2,
               n_valid: Optional[int] = None,
-              shard_scales: Optional[torch.Tensor] = None
+              shard_scales: Optional[torch.Tensor] = None,
+              rescore: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k inner-product search of queries [nq, d] against shard [N, d].
     Returns (scores [nq, k] fp32, row indices [nq, k]).
 
     ``n_valid``: rows >= n_valid never win (zero pad rows). ``shard_scales``
     (required iff the shard is int8): the per-group scales of
-    :func:`quantize_int8`; queries are then quantized per query inside, and
-    the top-M approximate winners (M = 48 for k <= 20, else max(128, 2k))
-    are re-scored exactly against the full-precision queries before the
-    final top-k. Semantics match ``emdr2_tpu.ops.mips.mips_topk`` with its
-    default ``rescore``."""
+    :func:`quantize_int8`; queries are then quantized per query inside.
+
+    ``rescore`` (int8 shards only; a bf16 shard ignores it): the window M
+    of approximate winners re-scored exactly against the full-precision
+    queries before the final top-k. ``None`` takes the default window, M =
+    48 for k <= 20, else max(128, 2k); an int sets M (at least k, at most
+    the candidate columns); 0 skips the re-rank and returns the top k of
+    the scaled candidates with their approximate int8 scores. Semantics
+    match ``emdr2_tpu.ops.mips.mips_topk``."""
     nq, d = queries.shape
     n, d2 = shard.shape
     if d != d2:
@@ -327,21 +332,24 @@ def mips_topk(queries: torch.Tensor, shard: torch.Tensor, k: int, *,
         # column c holds group (c % n/G) of candidate rank (c // n/G)
         gscale = shard_scales.repeat(cands_per_group)
         cand_vals = cand_vals * gscale[None, :] * q_scale[:, None]
-        rescore_m = 48 if k <= 20 else max(128, 2 * k)
-        m_sel = min(max(rescore_m, k), cand_vals.shape[1])
-        if m_sel >= 96 and cand_vals.shape[1] >= 8192:
-            cpos = _blocked_window_topk(cand_vals, m_sel)
-        else:
-            cpos = torch.topk(cand_vals, m_sel, dim=1).indices
-        cidx = torch.gather(cand_idx, 1, cpos).long()
-        rows = shard[cidx]                                  # [nq, M, d] i8
-        gsc = shard_scales[cidx // group_size]
-        scores = _rerank_scores(qf, rows) * gsc
-        # candidates on padded/invalid rows never displace real ones
-        scores = torch.where(cidx < nv, scores,
-                             torch.full_like(scores, NEG_INF))
-        vals, pos2 = torch.topk(scores, k, dim=1)
-        return vals, torch.gather(cidx, 1, pos2)
+        rescore_m = ((48 if k <= 20 else max(128, 2 * k))
+                     if rescore is None else rescore)
+        if rescore_m:
+            m_sel = min(max(rescore_m, k), cand_vals.shape[1])
+            # through the module global, so a caller may swap the selection
+            if m_sel >= 96 and cand_vals.shape[1] >= 8192:
+                cpos = _blocked_window_topk(cand_vals, m_sel)
+            else:
+                cpos = torch.topk(cand_vals, m_sel, dim=1).indices
+            cidx = torch.gather(cand_idx, 1, cpos).long()
+            rows = shard[cidx]                              # [nq, M, d] i8
+            gsc = shard_scales[cidx // group_size]
+            scores = _rerank_scores(qf, rows) * gsc
+            # candidates on padded/invalid rows never displace real ones
+            scores = torch.where(cidx < nv, scores,
+                                 torch.full_like(scores, NEG_INF))
+            vals, pos2 = torch.topk(scores, k, dim=1)
+            return vals, torch.gather(cidx, 1, pos2)
 
     vals, pos = torch.topk(cand_vals, k, dim=1)
     return vals, torch.gather(cand_idx, 1, pos).long()
@@ -361,7 +369,8 @@ def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
                       k: int, dp, *, n_real: Optional[int] = None,
                       exact: bool = False, chunk_rows: int = 8192,
                       group_size: int = 128, cands_per_group: int = 2,
-                      local_scales: Optional[torch.Tensor] = None
+                      local_scales: Optional[torch.Tensor] = None,
+                      rescore: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k search of every rank's queries against the index whose rows
     the ranks of ``dp.world`` hold in contiguous blocks of
@@ -374,7 +383,8 @@ def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
 
     local_queries [b, d] (this rank's; equal b on every rank),
     local_shard [N/W, d] -> (scores [b, k] fp32, global row ids [b, k]).
-    ``n_real``: rows at or past it (zero padding) never win.
+    ``n_real``: rows at or past it (zero padding) never win. ``rescore``:
+    the int8 re-rank window of the local search (``mips_topk``).
 
     1. all-gather the queries over dp -> [D * b, d] (D = dp ranks; the tp
        ranks hold the same ones, so no gather over tp);
@@ -397,7 +407,7 @@ def sharded_mips_topk(local_queries: torch.Tensor, local_shard: torch.Tensor,
     vals, idx = mips_topk(all_q, local_shard, k, exact=exact,
                           chunk_rows=chunk_rows, group_size=group_size,
                           cands_per_group=cands_per_group, n_valid=n_valid,
-                          shard_scales=local_scales)
+                          shard_scales=local_scales, rescore=rescore)
     idx = idx + start
     if n_real is not None:
         vals = torch.where(idx < n_real, vals, torch.full_like(vals, NEG_INF))

@@ -1,1 +1,2 @@
-"""Command-line tools: evidence prep and the offline index build."""
+"""Command-line tools: evidence prep, the offline index build, checkpoint
+and retrieval tools, and the measurement tools (``bench_*``)."""

@@ -232,11 +232,14 @@ def _port_sources():
      r"^\s*(import|from)\s+(jax|jaxlib|flax|emdr2_tpu)(\.|\s|$)"),
     ("a path into the JAX package's directory",
      r"[\"'/]emdr2_tpu[\"'/]|[\"']emdr2_tpu[\"']\s*[,)]"),
+    ("an import of the JAX package's root bench.py",
+     r"^\s*(import|from)\s+bench(\.|\s|$)"),
 ])
 def test_port_sources_name_no_jax_import_and_no_jax_package_file(what,
                                                                  pattern):
     """Statically, over every module of the port and ``chip_smoke.py``: no
-    import of jax / flax / emdr2_tpu, and no file path built into
+    import of jax / flax / emdr2_tpu or of the root ``bench.py`` (it
+    imports jax and sets its PRNG), and no file path built into
     ``emdr2_tpu/`` (docstrings may name its files as ``emdr2_tpu/...``
     inside double backquotes or after "Replaces:")."""
     import re

@@ -1472,6 +1472,42 @@ def test_sharded_search_over_one_rank_nccl_equals_mips_topk(cuda, tmp_path):
         dist_lib.shutdown()
 
 
+
+@pytest.mark.parametrize("k", [20, 51])
+def test_mips_topk_without_rescore_matches_plain(cuda, k):
+    """``rescore=0`` on the card (the K3 scan, the scales on its winners,
+    no re-rank) against the plain path on the CPU: the same approximate
+    int8 scores, integer sums scaled in the same order, within 3 fp32 eps
+    (a query's scale, ``max|q| / 127``, may differ in its last bit: on the
+    card PyTorch divides by a Python number as a product with its
+    reciprocal); the same rows, but where two score within that of
+    the k-th score (``torch.topk`` orders such ties as it likes)."""
+    g = _gen(31)
+    n_valid = 131_072 - 300
+    rows = torch.randn(131_072, 768, device=cuda, generator=g)
+    rows[n_valid:] = 0.0
+    q8, scales = mips.quantize_int8(rows, 128)
+    q = torch.randn(64, 768, device=cuda, generator=g)
+    got = mips.mips_topk(q, q8, k, n_valid=n_valid, shard_scales=scales,
+                         rescore=0)
+    want = mips.mips_topk(q.cpu(), q8.cpu(), k, n_valid=n_valid,
+                          shard_scales=scales.cpu(), rescore=0)
+    tol = 3 * torch.finfo(torch.float32).eps
+    torch.testing.assert_close(got[0].cpu().sort(dim=1).values,
+                               want[0].sort(dim=1).values, rtol=tol, atol=0)
+    for r in range(q.shape[0]):
+        g_ids = dict(zip(got[1][r].tolist(), got[0][r].tolist()))
+        w_ids = dict(zip(want[1][r].tolist(), want[0][r].tolist()))
+        kth = min(w_ids.values())
+        for a, b in ((g_ids, w_ids), (w_ids, g_ids)):
+            assert all(abs(v - kth) <= tol * abs(kth)
+                       for i, v in a.items() if i not in b), (
+                r, sorted(set(a) - set(b)), kth)
+    # without the re-rank the scores are not the rows' exact products
+    exact = torch.einsum("qd,qkd->qk", q.double(), mips.dequantize_int8(
+        q8, scales, 128)[got[1]].double())
+    assert (got[0].double() - exact).abs().max().item() > 1e-4
+
 # ---- tensor parallelism: the kernels on a tp rank's heads ----
 
 TP_NH = 6                         # a tp=2 rank's heads of the flagship 12

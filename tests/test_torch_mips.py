@@ -230,3 +230,65 @@ def test_rerank_is_independent_of_tf32_and_matmul_precision():
     finally:
         torch.set_float32_matmul_precision(prec)
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _rescore_inputs():
+    """test_mips_topk_matches_jax's sizes: 4,352 x 64 rows in groups of 64,
+    chunk 512 (the scan path), pad rows past n_valid."""
+    rng = np.random.RandomState(11)
+    n, d, nq, n_valid = 4352, 64, 6, 4300
+    e = rng.randn(n, d).astype(np.float32)
+    e[n_valid:] = 0.0
+    q = rng.randn(nq, d).astype(np.float32)
+    return q, e, dict(chunk_rows=512, group_size=64, cands_per_group=2)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("k", [8, 60])
+@pytest.mark.parametrize("rescore", [0, None, 64])
+def test_mips_topk_rescore_matches_jax(quantize, k, rescore):
+    """``rescore`` as the JAX function takes it: None the default window,
+    an int the window M (at least k), 0 no re-rank (the approximate int8
+    scores of the scaled candidates); a bf16 shard ignores it."""
+    q, e, kw = _rescore_inputs()
+    n_valid = 4300
+    if quantize:
+        e8, sc = mips.quantize_int8(torch.as_tensor(e), 64)
+        got = mips.mips_topk(torch.as_tensor(q), e8, k, shard_scales=sc,
+                             n_valid=n_valid, rescore=rescore, **kw)
+        want = jax_mips.mips_topk(jnp.asarray(q), jnp.asarray(e8.numpy()), k,
+                                  shard_scales=jnp.asarray(sc.numpy()),
+                                  n_valid=n_valid, rescore=rescore,
+                                  query_tile=8, interpret=True, **kw)
+    else:
+        got = mips.mips_topk(torch.as_tensor(q), torch.as_tensor(e), k,
+                             n_valid=n_valid, rescore=rescore, **kw)
+        want = jax_mips.mips_topk(jnp.asarray(q), jnp.asarray(e), k,
+                                  n_valid=n_valid, rescore=rescore,
+                                  query_tile=8, interpret=True, **kw)
+    assert (got[1].numpy() < n_valid).all()
+    _assert_same_topk(got, want)
+    if quantize and rescore == 0:
+        # no re-rank: the scores are not the exact products of the rows
+        exact = np.einsum("qd,qkd->qk", q.astype(np.float64),
+                          mips.dequantize_int8(e8, sc, 64).numpy()[
+                              got[1].numpy()].astype(np.float64))
+        assert np.abs(got[0].numpy() - exact).max() > 1e-4
+
+
+@pytest.mark.parametrize("rescore", [0, None, 64])
+def test_sharded_mips_topk_passes_rescore_on_one_rank(rescore):
+    """``sharded_mips_topk`` over a one-rank group hands ``rescore`` to the
+    local search: its result is the JAX ``mips_topk``'s at that window."""
+    from emdr2_tpu_torch.parallel.mesh import DataParallel
+    q, e, kw = _rescore_inputs()
+    k = 60
+    e8, sc = mips.quantize_int8(torch.as_tensor(e), 64)
+    got = mips.sharded_mips_topk(torch.as_tensor(q), e8, k,
+                                 DataParallel.local(), n_real=4300,
+                                 local_scales=sc, rescore=rescore, **kw)
+    want = jax_mips.mips_topk(jnp.asarray(q), jnp.asarray(e8.numpy()), k,
+                              shard_scales=jnp.asarray(sc.numpy()),
+                              n_valid=4300, rescore=rescore, query_tile=8,
+                              interpret=True, **kw)
+    _assert_same_topk(got, want)
