@@ -1,0 +1,8 @@
+"""The global-norm clip and AdamW. The mean of the program's stage timer's
+``optimizer`` stage over the traced window's steps (each boundary waits
+for the stream)."""
+from benchmark.layer_metrics._common import stage_mean_ms
+
+
+def read(record):
+    return stage_mean_ms(record, "optimizer")
