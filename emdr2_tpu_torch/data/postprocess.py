@@ -28,6 +28,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 
 from emdr2_tpu_torch.data.evidence import EvidenceCorpus
+from emdr2_tpu_torch.utils.timing import count
 
 
 def context_bert_format(token_ids: Sequence[int], max_len: int,
@@ -139,6 +140,11 @@ def postprocess_retrieved(query_uids: Sequence[int],
     The C++ extension runs the whole B*K row build in one call (~3,200 rows
     per step at the flagship shape — SURVEY §7 hard-part 3); this Python
     loop is the golden reference it is tested against, and the fallback.
+
+    Either way, the token positions (those not ``pad_id``) and the slots
+    of each kind of row are added to ``postprocess_retrieved.tokens`` and
+    ``.slots`` under ``"context"``, ``"reader"`` and ``"teacher"`` (the
+    one-passage rows).
     """
     native = None
     try:  # fall back to pure Python only if the extension can't build/load
@@ -156,11 +162,23 @@ def postprocess_retrieved(query_uids: Sequence[int],
         assert (k_out == topk).all(), (
             f"only {k_out.min()} usable docs for some query; retrieve "
             f"topk+1 when allow_trivial_doc is off")
-        return PostprocessedBatch(ctx_ids, ctx_types, reader, reader_one)
+        out = PostprocessedBatch(ctx_ids, ctx_types, reader, reader_one)
+    else:
+        out = postprocess_retrieved_python(
+            query_uids, query_t5_ids, query_t5_lens, topk_passage_ids,
+            corpus, topk, retriever_seq_len, reader_seq_len, cls_id, sep_id,
+            pad_id)
+    for key, rows in (("context", out.context_bert_ids),
+                      ("reader", out.reader_ids),
+                      ("teacher", out.reader_one_ctx_ids)):
+        count(postprocess_retrieved, "tokens", key,
+              int(np.count_nonzero(rows != pad_id)))
+        count(postprocess_retrieved, "slots", key, rows.size)
+    return out
 
-    return postprocess_retrieved_python(
-        query_uids, query_t5_ids, query_t5_lens, topk_passage_ids, corpus,
-        topk, retriever_seq_len, reader_seq_len, cls_id, sep_id, pad_id)
+
+postprocess_retrieved.tokens = {}
+postprocess_retrieved.slots = {}
 
 
 def postprocess_retrieved_python(query_uids, query_t5_ids, query_t5_lens,

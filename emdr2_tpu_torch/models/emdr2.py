@@ -28,6 +28,7 @@ from emdr2_tpu_torch.ops.fid_attention import check_kernel_limits
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 from emdr2_tpu_torch.parallel.mesh import Group, check_tp_divides
 from emdr2_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from emdr2_tpu_torch.utils.timing import StageTimer, stage
 
 
 class EMDR2Batch(NamedTuple):
@@ -119,24 +120,31 @@ class EMDR2Model(nn.Module):
                 reader_ids.reshape(B, K * Lr))
 
     def forward(self, batch: EMDR2Batch, drop: Optional[DropoutSeeds] = None,
-                update_retriever: Optional[bool] = None) -> EMDR2Output:
+                update_retriever: Optional[bool] = None,
+                timer: Optional[StageTimer] = None) -> EMDR2Output:
+        """``timer`` records the ``retriever_forward``, ``reader_forward``
+        and ``teacher_forward`` stages (outside every rematerialised call,
+        so the backward's recompute opens none)."""
         cfg = self.config
         update_retriever = (cfg.update_retriever if update_retriever is None
                             else update_retriever)
-        topk_log_probs = self._topk_log_probs(batch, fold(drop, 0))
-        enc_hidden, enc_flat_ids = self.fid_encode(batch.reader_ids,
-                                                   fold(drop, 1))
-        enc_dec_mask = masks.attention_mask(batch.dec_ids, enc_flat_ids)
-        lm_logits = self.reader.decode(batch.dec_ids, enc_hidden,
-                                       enc_dec_mask, fold(drop, 2)).float()
-        if update_retriever:
-            with torch.no_grad():
-                gold_log_probs = self._teacher_gold_log_probs(batch,
-                                                              fold(drop, 3))
-        else:
-            B, K = topk_log_probs.shape
-            gold_log_probs = torch.zeros((B, K, batch.labels.shape[-1]),
-                                         device=lm_logits.device)
+        with stage(timer, "retriever_forward"):
+            topk_log_probs = self._topk_log_probs(batch, fold(drop, 0))
+        with stage(timer, "reader_forward"):
+            enc_hidden, enc_flat_ids = self.fid_encode(batch.reader_ids,
+                                                       fold(drop, 1))
+            enc_dec_mask = masks.attention_mask(batch.dec_ids, enc_flat_ids)
+            lm_logits = self.reader.decode(batch.dec_ids, enc_hidden,
+                                           enc_dec_mask, fold(drop, 2)).float()
+        with stage(timer, "teacher_forward"):
+            if update_retriever:
+                with torch.no_grad():
+                    gold_log_probs = self._teacher_gold_log_probs(
+                        batch, fold(drop, 3))
+            else:
+                B, K = topk_log_probs.shape
+                gold_log_probs = torch.zeros((B, K, batch.labels.shape[-1]),
+                                             device=lm_logits.device)
         return EMDR2Output(lm_logits, topk_log_probs, gold_log_probs)
 
     def _teacher_gold_log_probs(self, batch: EMDR2Batch,

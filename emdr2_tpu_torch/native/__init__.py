@@ -3,7 +3,8 @@
 ``store_ops.cpp`` beside this file (the port's own copy of the JAX
 package's source; a test holds their code lines identical) is compiled with
 g++ on first use into ``emdr2_tpu_torch/_build/``. The bindings below are the JAX
-package's, unchanged. ``MMapIndexedDataset.batch_padded`` keeps its
+package's; ``batch_context_format`` also counts its rows' token positions
+(``utils/timing.py:count``). ``MMapIndexedDataset.batch_padded`` keeps its
 pure-Python path if the build fails, as there; the evidence-index builder
 does not (``retrieval/builder.py``): a failed build raises there.
 """
@@ -16,6 +17,8 @@ import subprocess
 from typing import Optional
 
 import numpy as np
+
+from emdr2_tpu_torch.utils.timing import count
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -144,7 +147,9 @@ def batch_context_format(titles, texts, doc_ids: np.ndarray, max_len: int,
                          cls_id: int, sep_id: int, pad_id: int):
     """Format [CLS] title [SEP] text [SEP] pad rows for many (1-based)
     doc_ids straight from two MMapIndexedDatasets. Returns (ids, types)
-    int32 [n, max_len]."""
+    int32 [n, max_len]. Adds the rows' token positions (those not
+    ``pad_id``) to ``batch_context_format.tokens`` and their slots to
+    ``.slots``."""
     key = (np.dtype(titles.dtype), np.dtype(texts.dtype))
     fn = getattr(get_lib(), _FORMAT_BY_DTYPES[key])
     doc_ids = np.ascontiguousarray(doc_ids, np.int64)
@@ -163,4 +168,11 @@ def batch_context_format(titles, texts, doc_ids: np.ndarray, max_len: int,
        ctypes.c_int64(max_len), ctypes.c_int32(cls_id),
        ctypes.c_int32(sep_id), ctypes.c_int32(pad_id),
        _ptr(ids, ctypes.c_int32), _ptr(types, ctypes.c_int32))
+    count(batch_context_format, "tokens",
+          n=int(np.count_nonzero(ids != pad_id)))
+    count(batch_context_format, "slots", n=ids.size)
     return ids, types
+
+
+batch_context_format.tokens = 0
+batch_context_format.slots = 0

@@ -69,8 +69,8 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()    # the library and the launch counts: the
-                            # prefetch worker launches kernels beside the step
+_lock = threading.Lock()    # the library: the prefetch worker launches
+                            # kernels beside the step
 
 
 def _sources():
@@ -158,19 +158,6 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
-
-
-def count_launch(wrapper, counter: str = "launches", key=None) -> None:
-    """Add one to ``wrapper.launches`` (or to the attribute ``counter``;
-    with ``key``, to that entry of the dict ``counter``) where a wrapper
-    has launched its kernel; under the lock, so no count is lost between
-    threads."""
-    with _lock:
-        if key is None:
-            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
-        else:
-            counts = getattr(wrapper, counter)
-            counts[key] = counts.get(key, 0) + 1
 
 
 def launch(entry: str, what: str, device: torch.device, *args) -> None:

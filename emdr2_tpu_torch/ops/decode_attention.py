@@ -34,6 +34,7 @@ import torch
 
 from emdr2_tpu_torch.ops import build
 from emdr2_tpu_torch.ops.fid_attention import check_kernel_limits
+from emdr2_tpu_torch.utils.timing import count
 
 DEFAULT_KEY_CHUNK = 3200
 # query rows one kernel launch takes; more rows go in blocks of this many
@@ -314,7 +315,7 @@ def _launch(q, k8, kscale, v8, vscale, kv_bias,
             v8.data_ptr(), vscale.data_ptr(), kv_bias.data_ptr(),
             part.data_ptr(), out.data_ptr(), B, R, r0, rows, nh, hd, Lk,
             stages_per_block, n_blocks, stream)
-        build.count_launch(decode_cross_attention_int8)
+        count(decode_cross_attention_int8, "launches")
     return out
 
 

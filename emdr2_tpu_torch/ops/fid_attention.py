@@ -57,6 +57,7 @@ import torch
 
 from emdr2_tpu_torch.ops import build
 from emdr2_tpu_torch.ops.hashing import attention_threshold, keep_mask
+from emdr2_tpu_torch.utils.timing import count
 
 
 # ------------------------------------------------------------------ helpers
@@ -267,9 +268,9 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
         qkv.device, qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
         stats.data_ptr() if stats is not None else None, B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
-    build.count_launch(flash_self_attention)
-    build.count_launch(flash_self_attention, "launches_by_shape",
-                       (str(qkv.device), B, L))
+    count(flash_self_attention, "launches")
+    count(flash_self_attention, "launches_by_shape",
+          (str(qkv.device), B, L))
     return out, stats
 
 
@@ -307,7 +308,7 @@ def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
         dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), B, L, nh, 64,
         *_dropout_args(seed, rate), _stream(qkv))
-    build.count_launch(flash_self_attention_backward)
+    count(flash_self_attention_backward, "launches")
     return dqkv
 
 
@@ -637,7 +638,7 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
         part_acc.data_ptr() if n_splits > 1 else None,
         part_ml.data_ptr() if n_splits > 1 else None, B, Lq, Lk, nh, 64,
         key_chunk, n_splits, *_dropout_args(seed, rate), _stream(q))
-    build.count_launch(flash_cross_attention)
+    count(flash_cross_attention, "launches")
     return out, lse
 
 
@@ -699,7 +700,7 @@ def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
         dq_part.data_ptr() if dq_part is not None else None, dq.data_ptr(),
         dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk, n_runs,
         *_dropout_args(seed, rate), _stream(q))
-    build.count_launch(flash_cross_attention_backward)
+    count(flash_cross_attention_backward, "launches")
     return dq, dkv
 
 
@@ -900,7 +901,7 @@ def fid_cross_attention_forward(q, k, v, kv_bias, seed: Optional[int] = None,
         kv_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), *strides, B, Lq,
         Lk, nh, hd,
         key_chunk, *_dropout_args(seed, dropout_rate), _stream(q))
-    build.count_launch(fid_cross_attention)
+    count(fid_cross_attention, "launches")
     return out, lse
 
 
@@ -963,7 +964,7 @@ def fid_cross_attention_backward(q, k, v, kv_bias, lse, out, dout,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, *grad_strides,
         B, Lq, Lk, nh, hd, key_chunk, *_dropout_args(seed, dropout_rate),
         _stream(q))
-    build.count_launch(fid_cross_attention_backward)
+    count(fid_cross_attention_backward, "launches")
     return dq, dk, dv
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from emdr2_tpu_torch.ops import build
+from emdr2_tpu_torch.utils.timing import count
 
 NEG_INF = float(-3.0e38)
 
@@ -200,9 +201,9 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
                  idx.data_ptr(), nq, N, d, int(min(n_valid, N)), G,
                  cands_per_group,
                  torch.cuda.current_stream(index.device).cuda_stream)
-    build.count_launch(candidate_scan)
+    count(candidate_scan, "launches")
     if route == "tensor_core":
-        build.count_launch(candidate_scan, "tensor_core_launches")
+        count(candidate_scan, "tensor_core_launches")
     return vals, idx
 
 

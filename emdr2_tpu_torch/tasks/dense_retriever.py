@@ -283,6 +283,8 @@ class DPRTask:
         world_size=)``)."""
         state = self.state
         dp = self.dp
+        if self.timer is not None:
+            self.timer.step = state.step
         with stage(self.timer, "forward_backward"):
             state.optimizer.zero_grad()
             q, c = state.model(self._ids(batch.query_ids),

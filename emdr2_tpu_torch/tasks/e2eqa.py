@@ -89,10 +89,19 @@ class PendingSearch:
 
 class E2EQATask:
     """Owns the model, the optimizer and the host glue of EMDR2 training.
-    ``timer`` (optional) records ms per stage: ``retrieve``,
-    ``postprocess``, ``forward_backward``, ``optimizer``, and in evaluation
-    ``eval_forward`` and the decoder session's ``encode``, ``cross_kv`` and
-    ``decode``."""
+    ``timer`` (optional, a ``utils.timing.StageTimer``) records a train
+    step's stages, each on the card's events where the task runs on one
+    and on the host clock elsewhere, stamped with the step they belong to:
+
+      retrieve, postprocess           (``build_device_batch``)
+      forward_backward                (``training/step.py``)
+        retriever_forward, reader_forward, teacher_forward
+                                      (``EMDR2Model.forward``)
+        loss, backward
+      optimizer
+
+    and in evaluation ``eval_forward`` and the decoder session's
+    ``encode``, ``cross_kv`` and ``decode``."""
 
     def __init__(self, cfg: EMDR2Config, t5_tokenizer: BertWordPieceTokenizer,
                  corpus: EvidenceCorpus, index: ShardedEvidenceIndex,
@@ -302,13 +311,19 @@ class E2EQATask:
 
     # --------------------------------------------------------------- stage C
 
+    def _mark_step(self) -> None:
+        if self.timer is not None:
+            self.timer.step = self.state.step
+
     def train_step(self, batch: QABatch) -> Dict[str, torch.Tensor]:
+        self._mark_step()
         return self.train_step_prebuilt(self.build_device_batch(batch))
 
     def train_step_prebuilt(self, device_batch: EMDR2Batch
                             ) -> Dict[str, torch.Tensor]:
         """One differentiable step on an already-retrieved batch; metrics
         are 0-d tensors on the device."""
+        self._mark_step()
         self.state, metrics = self._step_fn(self.state, device_batch)
         if self._retrieval_snapshot is not None:
             # hand the prefetch worker this step's weights

@@ -30,7 +30,7 @@ from emdr2_tpu_torch.training import checkpointing as ckpt_lib
 from emdr2_tpu_torch.training.prefetch import (BatchPrefetcher,
                                               DataParallelPrefetcher)
 from emdr2_tpu_torch.utils import monitoring
-from emdr2_tpu_torch.utils.timers import Timers
+from emdr2_tpu_torch.utils.timing import StageTimer
 
 
 class TrainLog:
@@ -68,6 +68,15 @@ class TrainLog:
 
 def _silent(_: str) -> None:
     pass
+
+
+def _time_line(timer: StageTimer, steps: int) -> str:
+    """The interval's ms a step: the host's wait for batches, the steps'
+    time (the card's where it has events); then forgets the interval."""
+    batch = sum(timer.host_ms["batch"]) / steps
+    step = sum(timer.ms["step"]) / steps
+    timer.clear()
+    return f"time (ms) | batch: {batch:.2f} | step: {step:.2f}"
 
 
 def _past(deadline: float, dp) -> bool:
@@ -132,7 +141,9 @@ def train(task, dataset, cfg: EMDR2Config,
 
     if log is None:
         log = TrainLog(tcfg.log_interval, printer)
-    timers = Timers()
+    # "batch": the host's wait for the next batch; "step": the step, on the
+    # card's events where the task runs on one
+    timer = StageTimer(getattr(task, "device", "cpu"))
     writer = monitoring.MetricsWriter(tensorboard_dir)
     reported_memory = False
     # wall-clock budget: checkpoint and exit cleanly before a scheduler
@@ -172,9 +183,8 @@ def train(task, dataset, cfg: EMDR2Config,
             batches = iter(epoch_batches)
             bi = -1
             while iteration < total_iters:
-                timers("batch").start()   # the wait for the next batch
-                batch = next(batches, None)
-                timers("batch").stop()
+                with timer.stage("batch"):
+                    batch = next(batches, None)
                 if batch is None:
                     break
                 bi += 1
@@ -193,19 +203,17 @@ def train(task, dataset, cfg: EMDR2Config,
                             ckpt_lib.remove_stale_checkpoints(save_dir,
                                                               keep_last=2)
 
-                timers("step").start()
-                if prefetch_depth > 0:   # an already built device batch
-                    metrics = task.train_step_prebuilt(batch)
-                else:
-                    metrics = task.train_step(batch)
-                timers("step").stop()
+                with timer.stage("step"):
+                    if prefetch_depth > 0:   # an already built device batch
+                        metrics = task.train_step_prebuilt(batch)
+                    else:
+                        metrics = task.train_step(batch)
                 iteration += 1
                 log.push(iteration, total_iters, metrics)
                 if iteration % tcfg.log_interval == 0:
                     writer.scalars({k: float(v) for k, v in metrics.items()},
                                    iteration)
-                    printer(" " + timers.log(["batch", "step"],
-                                             normalizer=tcfg.log_interval))
+                    printer(" " + _time_line(timer, tcfg.log_interval))
                     if not reported_memory:
                         monitoring.report_memory(" ", printer)
                         reported_memory = True

@@ -188,8 +188,15 @@ def make_train_step(cfg: EMDR2Config, eos_id: int,
     """-> step_fn(state, batch) -> (state, metrics): forward with dropout
     -> loss -> backward -> (mean over ``dp``) -> clip -> AdamW, in place.
     Metrics are 0-d tensors on the model's device, those of the global
-    batch under ``dp``. ``timer`` records the ``forward_backward`` and
-    ``optimizer`` stages."""
+    batch under ``dp``. ``timer`` records these stages, on the card's
+    events where the model lives on one, else on the host clock:
+
+      forward_backward
+        retriever_forward, reader_forward, teacher_forward
+                           (``EMDR2Model.forward``)
+        loss               (``emdr2_total_loss``)
+        backward
+      optimizer            (the mean over ``dp``, clip and AdamW)"""
     shard = dp.rank if dp is not None else 0
     tp = dp.tp if dp is not None else None
     tp_shard = tp.rank if tp is not None else 0
@@ -198,13 +205,16 @@ def make_train_step(cfg: EMDR2Config, eos_id: int,
         model = state.model
         with stage(timer, "forward_backward"):
             state.optimizer.zero_grad()
-            out = model(batch, drop=state.dropout_seeds(shard, tp_shard))
-            total, aux = emdr2_total_loss(
-                out.lm_logits, out.topk_log_probs, out.gold_log_probs,
-                batch.labels, batch.loss_mask, eos_id=eos_id,
-                update_retriever=cfg.update_retriever,
-                use_kl_div=cfg.use_kl_div_loss, dp=dp, tp=tp)
-            scale_for_mean(total, dp).backward()
+            out = model(batch, drop=state.dropout_seeds(shard, tp_shard),
+                        timer=timer)
+            with stage(timer, "loss"):
+                total, aux = emdr2_total_loss(
+                    out.lm_logits, out.topk_log_probs, out.gold_log_probs,
+                    batch.labels, batch.loss_mask, eos_id=eos_id,
+                    update_retriever=cfg.update_retriever,
+                    use_kl_div=cfg.use_kl_div_loss, dp=dp, tp=tp)
+            with stage(timer, "backward"):
+                scale_for_mean(total, dp).backward()
         with stage(timer, "optimizer"):
             grad_norm = state.optimizer.step()
         state.step += 1

@@ -1,18 +1,15 @@
-"""Observability: device memory report, TensorBoard scalars, profiler (port
-of ``emdr2_tpu/utils/monitoring.py``).
+"""Observability: device memory report and TensorBoard scalars (port of
+``emdr2_tpu/utils/monitoring.py``; spans are ``utils/timing.py``'s).
 
 - ``report_memory`` prints each CUDA device's allocator statistics
   (``torch.cuda.memory_stats``) beside the device's free / total
   (``torch.cuda.mem_get_info``); with no CUDA device it prints nothing;
 - ``MetricsWriter`` writes TensorBoard scalars and text when a log
-  directory is given and ``torch.utils.tensorboard`` imports, else nothing;
-- ``profile_steps`` traces a block with ``torch.profiler`` into a
-  TensorBoard-readable directory.
+  directory is given and ``torch.utils.tensorboard`` imports, else nothing.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -62,21 +59,3 @@ class MetricsWriter:
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
-
-
-@contextlib.contextmanager
-def profile_steps(log_dir: Optional[str]):
-    """``torch.profiler`` trace (host and, with a card, device activity)
-    around a block of steps, written for TensorBoard's profiler plugin
-    into ``log_dir``. No-op when ``log_dir`` is None."""
-    if log_dir is None:
-        yield
-        return
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield

@@ -318,36 +318,37 @@ def test_train_log_averages_per_interval_and_reads_tensors():
     assert len(lines) == 2 and "loss 2.0000e+00" in lines[0]
 
 
-# ---- utils/timers.py and utils/monitoring.py ----
+# ---- the engine's time line and utils/monitoring.py ----
 
-def test_timers_accumulate_and_log():
-    from emdr2_tpu_torch.utils.timers import Timers
+def test_engine_log_line_times_batch_wait_and_step():
+    """Each logged interval prints ``time (ms) | batch: .. | step: ..``,
+    a step's mean of the host's wait for the next batch and of the step
+    (the host clock on the CPU)."""
+    import re
+    import time
 
-    timers = Timers()
-    t = timers("step")
-    assert timers("step") is t
-    t.start()
-    t.stop(wait_for="cpu")                 # a device to wait for: no-op here
-    t.start()
-    first = t.elapsed(reset=False)          # read while running
-    t.stop()
-    assert 0 <= first <= t.elapsed(reset=False)
-    with pytest.raises(AssertionError):
-        t.stop()
-    line = timers.log(["step", "absent"], normalizer=2.0)
-    assert line.startswith("time (ms) | step: ") and "absent" not in line
-    assert t.elapsed() == 0.0               # log reset it
+    class SlowTask(StubTask):
+        def train_step(self, batch):
+            time.sleep(0.004)
+            return super().train_step(batch)
 
-    class Waitable:
-        waited = 0
+    class SlowDataset(StubDataset):
+        def epoch_batches(self, batch_size, seed, **kw):
+            for b in super().epoch_batches(batch_size, seed, **kw):
+                time.sleep(0.002)
+                yield b
 
-        def synchronize(self):
-            self.waited += 1
-
-    w = Waitable()
-    timers("batch").start()
-    timers("batch").stop(wait_for=w)        # a stream or an event
-    assert w.waited == 1
+    cfg = _cfg(train_iters=4)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_interval=2))
+    lines = []
+    engine_lib.train(SlowTask(), SlowDataset(), cfg, printer=lines.append)
+    line = re.compile(r"^ time \(ms\) \| batch: (\d+\.\d\d) \| "
+                      r"step: (\d+\.\d\d)$")
+    times = [line.match(s) for s in lines if "time (ms)" in s]
+    assert len(times) == 2 and all(times)
+    for m in times:
+        batch, step = float(m.group(1)), float(m.group(2))
+        assert 2.0 <= batch < 1e3 and 4.0 <= step < 1e3
 
 
 def test_monitoring_without_a_card_or_a_log_dir(tmp_path):
@@ -359,5 +360,3 @@ def test_monitoring_without_a_card_or_a_log_dir(tmp_path):
     w.scalars({"loss": 1.0}, 1)
     w.text("config", "x")
     w.close()
-    with monitoring.profile_steps(None):
-        pass

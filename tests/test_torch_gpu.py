@@ -1405,18 +1405,14 @@ def test_dpr_step_repeats_bit_for_bit(cuda):
         assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_openqa_step_repeats_bit_for_bit(cuda, tmp_path):
-    """``E2EQATask.train_step`` (retrieval, the three towers, the reader
-    and the teacher, dropout 0.1) run twice from one saved state on the
-    card: equal bit for bit, gradients and parameters included."""
-    import numpy as np
-
+def _card_openqa(tmp_path, cuda, timer=None):
+    """An ``E2EQATask`` on the card (dropout 0.1, 300 passages) and the
+    batches of 4 of its 8 questions."""
     from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
     from emdr2_tpu_torch.data.tokenizer import (BertWordPieceTokenizer,
                                                 toy_vocab)
     from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
     from emdr2_tpu_torch.tasks import E2EQATask
-    from emdr2_tpu_torch.utils.repeat import repeat_step
 
     cfg, corpus, _, _ = _card_world(tmp_path, cuda, 300)
     cfg = cfg.replace(retriever=_dropout_card_cfg().retriever,
@@ -1432,12 +1428,69 @@ def test_openqa_step_repeats_bit_for_bit(cuda, tmp_path):
     emb = torch.randn(len(corpus), 128, device=cuda, generator=_gen(9))
     index = ShardedEvidenceIndex(cfg.index, emb, device=cuda)
     task = E2EQATask(cfg, tok, corpus, index, total_train_iters=10,
-                     device=cuda)
+                     device=cuda, timer=timer)
     task.init_state(4)
-    batches = list(ds.epoch_batches(4, seed=0))
+    return task, list(ds.epoch_batches(4, seed=0))
+
+
+def test_openqa_step_repeats_bit_for_bit(cuda, tmp_path):
+    """``E2EQATask.train_step`` (retrieval, the three towers, the reader
+    and the teacher, dropout 0.1) run twice from one saved state on the
+    card: equal bit for bit, gradients and parameters included."""
+    from emdr2_tpu_torch.utils.repeat import repeat_step
+
+    task, batches = _card_openqa(tmp_path, cuda)
     task.train_step(batches[0])
     result = repeat_step(task, batches[1])
     assert result["equal"], _first_difference_text(result)
+
+
+def test_stage_spans_wait_for_nothing_until_read(cuda, tmp_path,
+                                                 monkeypatch):
+    """With the stage timer on, three train steps call no synchronize of
+    the timer's (the program's own waits for its search's rows are
+    events of its own); reading ``ms`` waits for the spans' events. Each
+    step has the nine stages once, and stage C's five children sum to
+    ``forward_backward`` within 2% (device times)."""
+    from emdr2_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer(cuda)
+    task, batches = _card_openqa(tmp_path, cuda, timer)
+    task.train_step(batches[0])                 # warm-up
+    float(task.train_step(batches[1])["loss"])
+    timer.clear()
+    waited = []
+    for owner, name in ((torch.cuda, "synchronize"),
+                        (torch.cuda.Stream, "synchronize"),
+                        (torch.cuda.Event, "synchronize"),
+                        (torch.cuda.Event, "elapsed_time")):
+        real = getattr(owner, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            waited.append((_name, args[0] if args else None))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(owner, name, spy)
+    for i in range(3):
+        task.train_step(batches[i % 2])
+    ours = {id(e) for s in timer.spans for e in s.events}
+    assert len(timer.spans) == 27 and len(ours) == 54
+    assert not [w for w in waited
+                if w[1] is None or not isinstance(w[1], torch.cuda.Event)
+                or id(w[1]) in ours]
+    waited.clear()
+    ms = timer.ms
+    assert {id(e) for _, e in waited} >= ours
+    assert {k: len(v) for k, v in ms.items()} == {
+        k: 3 for k in ("retrieve", "postprocess", "forward_backward",
+                       "retriever_forward", "reader_forward",
+                       "teacher_forward", "loss", "backward", "optimizer")}
+    children = sum(sum(ms[k]) for k in ("retriever_forward",
+                                        "reader_forward", "teacher_forward",
+                                        "loss", "backward"))
+    whole = sum(ms["forward_backward"])
+    assert abs(children - whole) <= 0.02 * whole, (children, whole)
+    assert all(s.events is None for s in timer.spans)
 
 
 def test_sharded_search_over_one_rank_nccl_equals_mips_topk(cuda, tmp_path):

@@ -171,7 +171,7 @@ def test_launch_counts_lose_nothing_between_threads():
     32 threads x 2,000 increments under a shortened switch interval."""
     import sys
 
-    from emdr2_tpu_torch.ops import build
+    from emdr2_tpu_torch.utils.timing import count
 
     def wrapper():
         pass
@@ -180,7 +180,7 @@ def test_launch_counts_lose_nothing_between_threads():
 
     def work():
         for _ in range(2000):
-            build.count_launch(wrapper)
+            count(wrapper, "launches")
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
