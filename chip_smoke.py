@@ -39,7 +39,12 @@
    backward (K4-bwd) at the same shape (gradients checked on 32 rows, timed
    on all) and on a shape with padded keys and a fully masked row; the
    int8 decode attention (K5) at [8, R, 12, 25,600, 64] for R = 1 and 5, on
-   a slab padded to 256 rows and with a fully masked example. Beside each
+   a slab padded to 256 rows and with a fully masked example; the
+   dropout-add kernel (DA) at the residual sites' [400, 512, 768] and
+   [400, 256, 768], with and without the residual, and at the decoders'
+   materialized probabilities [400, 12, 32, 32] (and a tp rank's 6 heads,
+   offsets set), forward, backward and autograd gradients bit-equal to the
+   plain path, timed beside it and beside ``r + F.dropout(y)``. Beside each
    attention kernel one ``scaled_dot_product_attention`` call on the same
    inputs is timed as a yardstick (the port never calls it), and each
    kernel's bound on this card is computed from its inputs: the larger of
@@ -211,6 +216,13 @@ LSE_TOL = 1e-3                 # abs error of K2's fp32 lse
 STATS_TOL = 1e-3               # K1's fp32 (rowmax, 1/l): abs, relative
 RATE = 0.1                     # attention dropout of the flagship recipe
 DROP_SEED = 0x5EED
+# DA: the residual sites' activations (the FiD and teacher encoders, the
+# context tower) and the decoders' materialized probabilities, as one
+# process and as a tp rank's 6 heads (row offset, head offset)
+DA_SHAPES = ((400, 512, 768), (400, 256, 768))
+DA_PROBS = (((400, 12, 32, 32), 0, 0), ((400, 6, 32, 32), 400, 6))
+DA_SEED = 2 ** 32 - 5
+DA_COUNTED = ("dropout_add", "dropout_add_backward")
 # NVIDIA H100 SXM data sheet (dense): device memory rate, tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -1510,6 +1522,103 @@ def k5_phase(dev, gen):
     return rows
 
 
+def da_phase(dev, gen):
+    """DA (``ops.dropout_add``) in bf16 at the hidden rate, at ``DA_SHAPES``
+    with and without the residual and at ``DA_PROBS``: its output,
+    ``dropout_add_backward`` over a gradient and the autograd gradients of
+    ``y`` and ``r`` are ``torch.equal`` to the plain path's
+    (``r + packed_dropout(y)``). At ``DA_SHAPES``, each one's ms a call of
+    ten queued back to back (the wrapper's host time hides under the
+    device's), forward and backward (the kernel's backward launch, the
+    plain path's autograd over its saved mask), beside the library's
+    ``r + F.dropout(y)`` (another mask: a yardstick only) and the bound by
+    bytes: 6 (4) bytes an element forward with (without) the residual, 4
+    backward, over 3.35 TB/s."""
+    from emdr2_tpu_torch.ops import dropout_add as da
+    from emdr2_tpu_torch.ops.hashing import packed_dropout
+    F = torch.nn.functional
+    cases = ([(s, res, 0, 0) for s in DA_SHAPES for res in (True, False)]
+             + [(s, False, ro, ho) for s, ro, ho in DA_PROBS])
+    rows = []
+    for shape, residual, ro, ho in cases:
+        def t():
+            return torch.randn(shape, device=dev, generator=gen).to(
+                torch.bfloat16)
+        y, g = t(), t()
+        r = t() if residual else None
+        site = da._site(RATE, DA_SEED, ro, ho, y.dtype)
+
+        def plain(y, r):
+            d = packed_dropout(y, RATE, DA_SEED, ro, ho)
+            return d if r is None else r + d
+
+        def kernel(y, r):
+            return da.dropout_add(y, r, RATE, DA_SEED, ro, ho)
+
+        def library(y, r):
+            d = F.dropout(y, RATE)
+            return d if r is None else r + d
+
+        got, outs = {}, {}
+        for name, fn in (("kernel", kernel), ("plain", plain),
+                         ("library", library)):
+            leaves = [x.clone().requires_grad_() for x in (y, r)
+                      if x is not None]
+            out = fn(leaves[0], leaves[1] if residual else None)
+            got[name] = [out.detach()] + list(
+                torch.autograd.grad(out, leaves, g, retain_graph=True))
+            outs[name] = (out, leaves[0])
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(got["kernel"], got["plain"]))
+        bwd_equal = torch.equal(da.dropout_add_backward(g, site),
+                                packed_dropout(g, RATE, DA_SEED, ro, ho))
+        row = dict(shape=list(shape), residual=residual, row_offset=ro,
+                   head_offset=ho, equal=equal, bwd_equal=bwd_equal)
+        line = (f"DA dropout_add {list(shape)} bf16 rate {RATE}, residual "
+                f"{residual}, offsets ({ro}, {ho}): forward and gradients "
+                f"equal to the plain path {equal}, dropout_add_backward "
+                f"{bwd_equal}")
+        if shape in DA_SHAPES:
+            n = y.numel()
+
+            def queued(fn, n_calls=10):
+                return time_ms(lambda: [fn() for _ in range(n_calls)]) \
+                    / n_calls
+
+            def grad_of(name):
+                out, leaf = outs[name]
+                return lambda: torch.autograd.grad(out, leaf, g,
+                                                   retain_graph=True)
+
+            with torch.no_grad():
+                for name, fn in (("kernel", kernel), ("plain", plain),
+                                 ("library", library)):
+                    row[f"{name}_fwd_ms"] = queued(lambda: fn(y, r))
+            row["kernel_bwd_ms"] = queued(
+                lambda: da.dropout_add_backward(g, site))
+            row["plain_bwd_ms"] = queued(grad_of("plain"))
+            row["library_bwd_ms"] = queued(grad_of("library"))
+            row["bound_ms"] = bound((3 if residual else 2) * 2 * n, 0)[0]
+            row["bwd_bound_ms"] = bound(2 * 2 * n, 0)[0]
+            line += (f" | kernel {row['kernel_fwd_ms']:.4f} ms "
+                     f"({row['bound_ms'] / row['kernel_fwd_ms']:.1%} of the "
+                     f"bound {row['bound_ms']:.4f} by bytes), backward "
+                     f"{row['kernel_bwd_ms']:.4f} ms "
+                     f"({row['bwd_bound_ms'] / row['kernel_bwd_ms']:.1%} of "
+                     f"{row['bwd_bound_ms']:.4f}) | plain "
+                     f"{row['plain_fwd_ms']:.4f} / "
+                     f"{row['plain_bwd_ms']:.4f} ms | r + F.dropout(y) "
+                     f"{row['library_fwd_ms']:.4f} / "
+                     f"{row['library_bwd_ms']:.4f} ms")
+        log(line)
+        if not (equal and bwd_equal):
+            raise AssertionError(line)
+        rows.append(row)
+        del y, g, r, got, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def recall_at(ids, oracle, group=128):
     """Mean recall of ``ids`` against ``oracle`` (rows of equal length), and
     (misses, misses whose group holds >= 3 oracle rows)."""
@@ -1584,6 +1693,7 @@ def exact_ids(index, q_emb, k):
 def _counters():
     """name -> wrapper whose ``.launches`` counts its kernel's launches."""
     from emdr2_tpu_torch.ops import decode_attention as da
+    from emdr2_tpu_torch.ops import dropout_add as drop
     from emdr2_tpu_torch.ops import fid_attention as fa
     from emdr2_tpu_torch.ops import mips
     return {"flash_self_attention": fa.flash_self_attention,
@@ -1594,7 +1704,9 @@ def _counters():
             "candidate_scan": mips.candidate_scan,
             "fid_cross_attention": fa.fid_cross_attention,
             "fid_cross_attention_backward": fa.fid_cross_attention_backward,
-            "decode_cross_attention_int8": da.decode_cross_attention_int8}
+            "decode_cross_attention_int8": da.decode_cross_attention_int8,
+            "dropout_add": drop.dropout_add,
+            "dropout_add_backward": drop.dropout_add_backward}
 
 
 def _reset_counts():
@@ -1847,7 +1959,7 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
 
     names = ("flash_self_attention", "flash_self_attention_backward",
              "flash_cross_attention", "flash_cross_attention_backward",
-             "candidate_scan")
+             "candidate_scan") + DA_COUNTED
     with tempfile.TemporaryDirectory() as tmpdir:
         t0 = time.perf_counter()
         tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
@@ -2609,7 +2721,8 @@ def dpr_phase(cfg, dev, batch=128, hard_negs=1, steps=3, valid_batches=2,
                        moved=not torch.equal(before, probe.detach()))
             runs.append(row)
         launches = _read_counts(("flash_self_attention",
-                                 "flash_self_attention_backward"))
+                                 "flash_self_attention_backward")
+                                + DA_COUNTED)
         peak = _peak(dev)
         for i, row in enumerate(runs):
             if not (np.isfinite(row["loss"]) and row["grad_norm"] > 0
@@ -4478,7 +4591,8 @@ def tp_phase(cfg, dev, cards=False, layout=None, timeout=900):
         for (_, t), g in grid.items())
     # the kernels launch on a card only (the plain versions run on the
     # CPU, where this phase rehearses)
-    missing = [(r, k) for r, g in enumerate(got) for k in TP_COUNTED
+    missing = [(r, k) for r, g in enumerate(got)
+               for k in TP_COUNTED + DA_COUNTED
                if g["launches"][k] <= 0 and dev.type == "cuda"]
     # a replica's texts: its rows of each evaluation batch
     per, n_eval = sizes["eval"] // dp_n, len(ref["em"]["texts"])
@@ -4798,6 +4912,7 @@ def main() -> int:
     k4 = k4_phase(dev, gen, profile=args.profile)
     k4_bwd = k4_bwd_phase(dev, gen, profile=args.profile)
     k5 = k5_phase(dev, gen)
+    dropadd = da_phase(dev, gen)
     torch.cuda.empty_cache()
 
     cfg = _flagship_cfg()
@@ -5047,6 +5162,8 @@ def main() -> int:
                    and r["rate"] == RATE)
     k5_greedy = next(r for r in k5 if r["shape"] == "greedy")
     k5_beam = next(r for r in k5 if r["shape"] == "beam5")
+    da_main = next(r for r in dropadd if r["residual"]
+                   and tuple(r["shape"]) == DA_SHAPES[0])
     serve, train, eng = res["launches"], tr["launches"], eg["launches"]
     k4_bwd_main = next(r for r in k4_bwd if r["shape"] == "reader"
                        and r["rate"] == RATE)
@@ -5228,7 +5345,26 @@ def main() -> int:
          "slab_route_backward_bytes": k4_bwd_main["slab_route_bytes"],
          "three_tensor_route_backward_bytes":
              k4_bwd_main["three_tensor_route_bytes"]},
-    ]}
+    ] + [dict(
+        name=name, route="cuda", source=csrc + "dropout_add.cu",
+        # no TPU kernel: XLA fuses PackedDropout and the add around it
+        replaces=None, launches=train[name],
+        launches_c5=c5l[name], launches_dp=dpl[name],
+        launches_embedder=eml[name], launches_engine=eng[name],
+        launches_dpr={lay: n[name] for lay, n in dpr_launches.items()},
+        launches_train_b4={p: r["launches"][name]
+                           for p, r in remat_b4.items()},
+        max_abs_err=0.0,                # bit-equal: da_phase raises else
+        ms=da_main[f"kernel_{way}_ms"], plain_ms=da_main[f"plain_{way}_ms"],
+        bound_ms=da_main[bound_key], bound_by="bytes",
+        library_ms=da_main[f"library_{way}_ms"],
+        shapes=[{k: r[k] for k in ("shape", "residual", f"kernel_{way}_ms",
+                                   f"plain_{way}_ms", f"library_{way}_ms",
+                                   bound_key)}
+                for r in dropadd if f"kernel_{way}_ms" in r])
+        for name, way, bound_key in (
+            ("dropout_add", "fwd", "bound_ms"),
+            ("dropout_add_backward", "bwd", "bwd_bound_ms"))]}
     # each kernel's launches on the tp path, by rank, and its error at a
     # rank's 6 heads where it was checked there
     tp_err = {"flash_self_attention": "k1_fwd",

@@ -30,9 +30,11 @@ beam search the K/V keep one row per example: the beams of an example fold
 into extra query rows.
 
 Training: every method takes ``drop``, the ``DropoutSeeds`` of its part of
-the step (``None`` when evaluating). Hidden dropout (``packed_dropout``)
-runs on the embeddings and on each residual branch, attention dropout inside
-the flash kernels or on the materialized probabilities; each site's seed is
+the step (``None`` when evaluating). Hidden dropout (``packed_dropout``'s
+rule, through ``ops.dropout_add``: on the card one kernel that also adds
+the residual) runs on the embeddings and on each residual branch, attention
+dropout inside the flash kernels or on the materialized probabilities
+(``dropout_add`` again); each site's seed is
 ``drop.site(i)`` for a fixed ``i`` (the ``_SITE_*`` indices), each layer's
 stream ``drop.fold(i)`` for the i-th layer call. ``TransformerStack``
 checkpoints each layer call (``torch.utils.checkpoint``, non-reentrant,
@@ -69,7 +71,8 @@ from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
                                                fid_self_attention,
                                                flash_cross_attention,
                                                flash_self_attention)
-from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold, packed_dropout
+from emdr2_tpu_torch.ops.dropout_add import dropout_add
+from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 from emdr2_tpu_torch.parallel.mesh import Group
 from emdr2_tpu_torch.parallel.tensor import (COLUMN, ROW, Split, copy_to_tp,
                                              is_split, reduce_from_tp)
@@ -273,8 +276,9 @@ class Embeddings(nn.Module):
             if tokentype_ids is None:
                 tokentype_ids = torch.zeros_like(ids)
             x = x + embedding(tokentype_ids, self.tokentype_embeddings)
-        return packed_dropout(x.to(self.cfg.dtype), self.cfg.hidden_dropout,
-                              _site(drop, _SITE_EMBED), _rows(drop, x))
+        return dropout_add(x.to(self.cfg.dtype), None,
+                           self.cfg.hidden_dropout, _site(drop, _SITE_EMBED),
+                           _rows(drop, x))
 
     def attend(self, hidden):
         """hidden [..., H] -> fp32 logits over the tied word embeddings
@@ -331,8 +335,8 @@ def _attend(q, k, v, bias, dtype, rate: float = 0.0,
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias
-    probs = packed_dropout(torch.softmax(scores, dim=-1).to(dtype), rate,
-                           seed, shard * q.shape[0], tp_shard * q.shape[1])
+    probs = dropout_add(torch.softmax(scores, dim=-1).to(dtype), None, rate,
+                        seed, shard * q.shape[0], tp_shard * q.shape[1])
     return torch.matmul(probs, v.to(dtype))
 
 
@@ -544,9 +548,9 @@ class TransformerLayer(nn.Module):
         self.mlp = MLP(cfg, device, tp)
 
     def _resid(self, y, r, drop, site):
-        """``r + dropout(y)``."""
-        return r + packed_dropout(y, self.hidden_dropout, _site(drop, site),
-                                  _rows(drop, y))
+        """``r + dropout(y)``, one kernel on the card."""
+        return dropout_add(y, r, self.hidden_dropout, _site(drop, site),
+                           _rows(drop, y))
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
         x = self._resid(self.self_attention.encode(self.ln_self(x), kv_bias,

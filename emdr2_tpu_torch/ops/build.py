@@ -66,6 +66,12 @@ _SIGNATURES = {
                                      _P],
     "emdr2_candidate_scan_tc_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "emdr2_candidate_scan_kernels": [_P, _I],
+    # y, r (or null), out, elements, rank, extents of axes rank-3 and
+    # rank-2, the last axis, row and head offsets, seed, threshold, scale
+    "emdr2_dropout_add_bf16": [_P] * 3 + [_L] + [_I] * 4 + [_U] * 4
+                              + [_F, _P],
+    "emdr2_dropout_add_f32": [_P] * 3 + [_L] + [_I] * 4 + [_U] * 4
+                             + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,15 +8,18 @@ murmur3-style construction: mix per-axis element coordinates with odd
   (``emdr2_tpu/ops/fid_attention.py:_keep_mask``); the CUDA kernels compute
   the same bits in ``csrc/hashing.cuh``, and the plain versions use this.
 - ``packed_dropout`` is the hidden-dropout module
-  (``emdr2_tpu/models/layers.py:PackedDropout``), elementwise over a tensor.
+  (``emdr2_tpu/models/layers.py:PackedDropout``), elementwise over a tensor:
+  the plain path of ``ops.dropout_add``, whose kernel computes the same
+  bits on the card (``csrc/dropout_add.cu``).
 
 The arithmetic is uint32 with wrap-around. PyTorch has no ``>>`` or
 unsigned compare on uint32 tensors on every device, so the tensors hold the
 bits in int32 (multiplication wraps the same), shifts are arithmetic shifts
 masked to logical ones, and unsigned comparisons flip the sign bit first.
-int32 keeps the hidden-dropout mask at 4 bytes per element: a
-[400, 512, 768] activation takes one 0.63 GB hash tensor and one temporary
-of that size while its mask is made.
+int32 keeps the hidden-dropout mask at 4 bytes per element: on the CPU
+route a [400, 512, 768] activation would take one 0.63 GB hash tensor and
+one temporary of that size while its mask is made. The model's sites on
+the card take the kernel, which makes no hash tensor and saves no mask.
 
 A ``[dp, tp]`` grid of ranks (one process a rank) keeps the JAX package's
 three rules on its mesh. The attention kernels hash *local* (batch * head)

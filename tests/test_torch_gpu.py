@@ -21,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from emdr2_tpu_torch.ops import decode_attention, fid_attention, mips  # noqa: E402
+from emdr2_tpu_torch.ops import dropout_add as dropadd  # noqa: E402
+from emdr2_tpu_torch.ops.hashing import packed_dropout  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1405,9 +1407,12 @@ def test_dpr_step_repeats_bit_for_bit(cuda):
         assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def _card_openqa(tmp_path, cuda, timer=None):
-    """An ``E2EQATask`` on the card (dropout 0.1, 300 passages) and the
-    batches of 4 of its 8 questions."""
+def _card_openqa(tmp_path, cuda, timer=None, reader=None):
+    """An ``E2EQATask`` on the card (dropout 0.1, 300 passages; ``reader``:
+    more fields of the reader's transformer) and the batches of 4 of its 8
+    questions."""
+    import dataclasses
+
     from emdr2_tpu_torch.data.qa_dataset import OpenQADataset
     from emdr2_tpu_torch.data.tokenizer import (BertWordPieceTokenizer,
                                                 toy_vocab)
@@ -1415,8 +1420,11 @@ def _card_openqa(tmp_path, cuda, timer=None):
     from emdr2_tpu_torch.tasks import E2EQATask
 
     cfg, corpus, _, _ = _card_world(tmp_path, cuda, 300)
-    cfg = cfg.replace(retriever=_dropout_card_cfg().retriever,
-                      reader=_dropout_card_cfg().reader)
+    rd = _dropout_card_cfg().reader
+    if reader:
+        rd = dataclasses.replace(rd, transformer=dataclasses.replace(
+            rd.transformer, **reader))
+    cfg = cfg.replace(retriever=_dropout_card_cfg().retriever, reader=rd)
     tok = BertWordPieceTokenizer(
         toy_vocab(["what", "is", "the", "color", "of", "item"]
                   + [f"w{i}" for i in range(300)]), vocab_extra_ids=10)
@@ -1739,3 +1747,205 @@ def test_tp2_openqa_step_on_two_cards_equals_one_card(two_cards, tmp_path):
         assert abs(g_norm - norm) <= 1e-2 * abs(norm)
         for k in params:
             assert (g_params[k] - params[k]).abs().max().item() <= 1e-4, k
+
+
+# ---- the dropout-add kernel: bit for bit the plain path ----
+
+def _plain_dropout_add(y, r, rate, seed, row_offset=0, head_offset=0):
+    """``r + packed_dropout(y, ...)`` in plain PyTorch (the dropout alone
+    without ``r``; ``r + y`` / ``y`` when evaluating)."""
+    if seed is None or rate == 0.0:
+        return y if r is None else r + y
+    d = packed_dropout(y, rate, seed, row_offset, head_offset)
+    return d if r is None else r + d
+
+
+def _check_dropout_add(shape, residual, dtype, rate, seed, row_offset,
+                       head_offset, strided=False, misaligned=False):
+    """The kernel's output and its gradients against autograd through the
+    plain path, ``torch.equal``; one launch each way. ``misaligned``: the
+    kernel's inputs sit one element into a storage of their own, off 16
+    bytes."""
+    g = _gen(seed % 1000)
+    y = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    r = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    y.view(-1)[:3] = torch.tensor([0.0, -0.0, -0.0])
+    r.view(-1)[:3] = torch.tensor([-0.0, -0.0, 0.0])
+    grad = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    if strided:                          # a transposed view of each
+        y, r, grad = (t.transpose(-1, -2).contiguous().transpose(-1, -2)
+                      for t in (y, r, grad))
+    r = r if residual else None
+
+    def leaf(t):
+        t = t.detach()
+        if misaligned:
+            return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
+                t.shape).requires_grad_()
+        return t.clone().requires_grad_()
+
+    leaves = [leaf(t) for t in (y, r) if t is not None]
+    assert all((t.data_ptr() % 16 != 0) == misaligned for t in leaves)
+    plain = [t.detach().clone().requires_grad_() for t in (y, r)
+             if t is not None]
+    fwd, bwd = dropadd.dropout_add.launches, \
+        dropadd.dropout_add_backward.launches
+    got = dropadd.dropout_add(*leaves[:1], leaves[1] if residual else None,
+                              rate, seed, row_offset, head_offset)
+    want = _plain_dropout_add(*plain[:1], plain[1] if residual else None,
+                              rate, seed, row_offset, head_offset)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    got.backward(grad)
+    want.backward(grad)
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)
+    assert dropadd.dropout_add.launches == fwd + 1
+    assert dropadd.dropout_add_backward.launches == bwd + 1
+
+
+@pytest.mark.parametrize("seed,row_offset,head_offset",
+                         [(0, 0, 0), (2 ** 31 + 11, 3, 5),
+                          (2 ** 32 - 5, 8, 0)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(1000,), (33,), (37, 768), (4, 40, 768),
+                                   (3, 5, 33), (2, 12, 32, 32),
+                                   (2, 3, 7, 33), (2, 4, 40, 40)])
+def test_dropout_add_kernel_equals_the_plain_path(cuda, shape, residual,
+                                                  dtype, rate, seed,
+                                                  row_offset, head_offset):
+    """Ranks 1-4 (rank 4: attention probabilities [B, nh, Lq, Lk]), last
+    axes of 768, 40, 32 and 33 (ragged: vectors that run into the next
+    row, and the tensor's last partial vector), with and without the
+    residual, offsets on axes 0 and 1."""
+    _check_dropout_add(shape, residual, dtype, rate, seed, row_offset,
+                       head_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_add_kernel_takes_strided_views(cuda, dtype):
+    _check_dropout_add((3, 8, 40), True, dtype, 0.1, 2 ** 31 + 11, 1, 2,
+                       strided=True)
+
+
+@pytest.mark.parametrize("shape", [(37, 768), (3, 5, 33)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [True, False])
+def test_dropout_add_kernel_takes_tensors_off_16_bytes(cuda, shape, dtype,
+                                                       residual):
+    """Every access element by element under the mask."""
+    _check_dropout_add(shape, residual, dtype, 0.1, 2 ** 31 + 11, 2, 1,
+                       misaligned=True)
+
+
+@pytest.mark.parametrize("shape", [(400, 512, 768), (400, 256, 768)])
+def test_dropout_add_kernel_at_the_readers_and_the_context_towers_size(
+        cuda, shape):
+    _check_dropout_add(shape, True, torch.bfloat16, 0.1, 2 ** 31 + 11, 0, 0)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_dropout_add_saves_no_element_sized_tensor(cuda, residual):
+    y = torch.randn(4, 64, 768, device="cuda").to(torch.bfloat16)
+    r = torch.randn(4, 64, 768, device="cuda").to(torch.bfloat16)
+    y.requires_grad_()
+    r.requires_grad_()
+    packed = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: packed.append(t) or t, lambda t: t):
+        out = dropadd.dropout_add(y, r if residual else None, 0.1, 77)
+    assert [t.numel() for t in packed if t.numel() > 1] == []
+    out.float().sum().backward()
+    assert y.grad is not None
+
+
+def test_dropout_add_refuses_what_the_kernel_does_not_take(cuda):
+    y = torch.randn(2, 3, 8, device="cuda").to(torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        dropadd.dropout_add(y.half(), None, 0.1, 3)
+    with pytest.raises(TypeError, match="one dtype"):
+        dropadd.dropout_add(y, y.float(), 0.1, 3)
+    with pytest.raises(ValueError, match="rank 1 to 4"):
+        dropadd.dropout_add(y.view(1, 2, 3, 2, 4), None, 0.1, 3)
+    with pytest.raises(ValueError, match="shape"):
+        dropadd.dropout_add(y, y[:, :2], 0.1, 3)
+    with pytest.raises(ValueError, match="on cpu"):
+        dropadd.dropout_add(y, y.cpu(), 0.1, 3)
+
+
+@pytest.mark.parametrize("reader", [None, {"remat": True},
+                                    {"remat": True,
+                                     "remat_policy": "dots_no_batch"}])
+def test_openqa_step_through_the_dropout_add_kernel_equals_the_plain_path(
+        cuda, tmp_path, monkeypatch, reader):
+    """One ``E2EQATask.train_step`` (dropout 0.1 in every tower; the reader
+    without and under either remat policy) through the kernel, and again
+    from the same state with the plain function put back in the model's
+    layers. With the recompute run whole, every module output and incoming
+    gradient (in the order each module records them: the kernel saves no
+    mask, so a checkpoint's backward may start its recompute a node later
+    than the plain path's), every parameter gradient, the metrics and the
+    updated parameters are equal bit for bit; as the program runs it (a
+    recompute stops after the last tensor it must give back, so the
+    kernel's run may recompute fewer sites), the parameter gradients, the
+    metrics and the updated parameters. Every call that drops out launches
+    the kernel once, forward."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from emdr2_tpu_torch.models import layers
+    from emdr2_tpu_torch.utils.repeat import (first_difference,
+                                              recorded_step, restore,
+                                              snapshot)
+
+    task, batches = _card_openqa(tmp_path, cuda, reader=reader)
+    task.train_step(batches[0])
+    snap = snapshot(task.state)
+
+    def run(fn, early_stop):
+        restore(task.state, snap)
+        sites = []
+
+        def call(y, r, rate, seed, *offsets):
+            if seed is not None and rate != 0.0:
+                sites.append(tuple(y.shape))
+            return fn(y, r, rate, seed, *offsets)
+
+        monkeypatch.setattr(layers, "dropout_add", call)
+        fwd, bwd = (dropadd.dropout_add.launches,
+                    dropadd.dropout_add_backward.launches)
+        with set_checkpoint_early_stop(early_stop):
+            metrics, entries = recorded_step(task, batches[1])
+        return metrics, entries, sites, (
+            dropadd.dropout_add.launches - fwd,
+            dropadd.dropout_add_backward.launches - bwd)
+
+    def final(entries):
+        return [e for e in entries if e[0] == "<metrics>"
+                or e[1] in ("param_grad", "param_after")]
+
+    def by_module(entries):
+        """(name, kind) -> its fingerprints in order, keys in the order of
+        their first entry."""
+        out = {}
+        for name, kind, fp in entries:
+            out.setdefault((name, kind), []).append(fp)
+        return list(out.items())
+
+    for early_stop in (False, True):
+        mk, ek, sk, (fwd, bwd) = run(dropadd.dropout_add, early_stop)
+        mp, ep, sp, launched = run(_plain_dropout_add, early_stop)
+        assert fwd == len(sk) > 0 and bwd > 0 and launched == (0, 0)
+        if early_stop:
+            assert len(sp) >= len(sk)
+            ek, ep = final(ek), final(ep)
+        else:
+            assert sp == sk
+            ek, ep = (sorted(by_module(e), key=lambda kv: kv[0])
+                      for e in (ek, ep))
+        diff = first_difference(ek, ep)
+        assert diff is None, (early_stop, _first_difference_text(
+            {"first_difference": diff,
+             "differing": sum(x != y for x, y in zip(ek, ep))}))
+        assert all(torch.equal(mk[k], mp[k]) for k in mk)
