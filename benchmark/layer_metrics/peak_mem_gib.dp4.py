@@ -1,0 +1,7 @@
+"""Rank 0's allocator peak over the window (torch.cuda.max_memory_allocated
+on its card, reset at the window's start)."""
+from benchmark.layer_metrics._common import peak_gib
+
+
+def read(record):
+    return peak_gib(record)

@@ -44,7 +44,15 @@
    [400, 256, 768], with and without the residual, and at the decoders'
    materialized probabilities [400, 12, 32, 32] (and a tp rank's 6 heads,
    offsets set), forward, backward and autograd gradients bit-equal to the
-   plain path, timed beside it and beside ``r + F.dropout(y)``. Beside each
+   plain path, timed beside it and beside ``r + F.dropout(y)``; K1 with
+   T5 v1.1's relative-position bias (K1-bias: scale 1, an offsets' vector
+   [nh, 2L-1]) at the atlas-large reader's [200, 512] x 16 heads, rate 0
+   and 0.1, the output, dqkv and the vector's gradient through autograd
+   against the plain forward and backward, timed beside the kernel
+   without the bias and SDPA over the bias materialized as a mask, then a
+   T5 v1.1 encoder of 24 layers at that shape under remat, forward and
+   backward, whose K1-bias launches are counted (48 forward, 24
+   backward). Beside each
    attention kernel one ``scaled_dot_product_attention`` call on the same
    inputs is timed as a yardstick (the port never calls it), and each
    kernel's bound on this card is computed from its inputs: the larger of
@@ -223,6 +231,12 @@ DA_SHAPES = ((400, 512, 768), (400, 256, 768))
 DA_PROBS = (((400, 12, 32, 32), 0, 0), ((400, 6, 32, 32), 400, 6))
 DA_SEED = 2 ** 32 - 5
 DA_COUNTED = ("dropout_add", "dropout_add_backward")
+# K1's relative-position-bias variant (T5 v1.1) at the atlas-large reader's
+# FiD encoder and teacher shape: 4 questions x 50 passages of 512 tokens,
+# 16 heads of 64, scores unscaled; q, k and v of N(0, 0.35^2), so that the
+# unscaled scores have s.d. about 1, and the offsets' vector of N(0, 1)
+RB_SHAPE = (200, 512, 16)
+RB_SPREAD = 0.35
 # NVIDIA H100 SXM data sheet (dense): device memory rate, tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -329,7 +343,10 @@ def _check_self_stats(name, stats, want, bias):
 def flash_kernel_report(ptxas_log: str) -> None:
     """Registers, spills and shared memory of the kernels instantiated from
     ``attention_flash.cuh`` (K1 and K4, each forward and backward: the
-    statistic ``RowMaxInv`` is K1's, ``Lse`` K4's), of K2's backward walk
+    statistic ``RowMaxInv`` is K1's, ``Lse`` K4's; K1's also with T5 v1.1's
+    relative bias, ``RelBias``, whose blocks add the offsets' row (and, in
+    the dq kernel, a second row and four warps' dS stages) to the shared
+    memory: given at ``RB_SHAPE``'s L), of K2's backward walk
     (M = 2..4 atoms of 16 queries, dropout off and on) and of K5's walk, by
     name, from the compilers' ``-Xptxas -v`` output and the library's launch
     configuration. Fails if one of them spills, or if a kernel is missing
@@ -352,19 +369,34 @@ def flash_kernel_report(ptxas_log: str) -> None:
             r"(\d+) bytes spill loads\n.*?Used (\d+) registers")
     entry = re.compile(
         r"Compiling entry function '_ZN6aflash\d+(flash_\w+?_kernel)ILb([01])"
-        r"ENS_\d+(\w+?)EEE" + tail)
+        r"ENS_\d+(\w+?)ENS_\d+(\w+?)EEE" + tail)
+    # attention_flash.cuh: rel_row_bytes, REL_STAGE_BYTES
+    L = RB_SHAPE[1]
+    rel_row = ((2 * L - 1 + 2 * 128 + 3) // 4) * 16
+    rel_extra = {"flash_fwd_kernel": rel_row,
+                 "flash_bwd_dq_kernel": 2 * rel_row + 4 * 16 * 72 * 4,
+                 "flash_bwd_dkv_kernel": rel_row}
     seen = set()
-    for kernel, drop, stat, stack, st, ld, regs in entry.findall(ptxas_log):
+    for kernel, drop, stat, rel, stack, st, ld, regs in \
+            entry.findall(ptxas_log):
         dyn = smem[0] if kernel == "flash_fwd_kernel" else smem[1]
-        seen.add((kernel, stat))
-        log(f"  {kernel}<dropout {'on' if drop == '1' else 'off'}, {stat}>: "
-            f"{regs} registers, {stack} bytes stack, spill stores {st} loads "
-            f"{ld} bytes, {dyn} bytes of dynamic shared memory a block")
+        extra = ""
+        if rel == "RelBias":
+            dyn += rel_extra[kernel]
+            extra = f" at L = {L}"
+        seen.add((kernel, stat, rel))
+        log(f"  {kernel}<dropout {'on' if drop == '1' else 'off'}, {stat}, "
+            f"{rel}>: {regs} registers, {stack} bytes stack, spill stores "
+            f"{st} loads {ld} bytes, {dyn} bytes of dynamic shared memory a "
+            f"block{extra}")
         if int(st) or int(ld):
-            raise AssertionError(f"{kernel}<{drop}, {stat}> spills registers")
-    want = {(k, stat) for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                "flash_bwd_dkv_kernel")
-            for stat in ("RowMaxInv", "Lse")}
+            raise AssertionError(f"{kernel}<{drop}, {stat}, {rel}> spills "
+                                 f"registers")
+    want = {(k, stat, rel) for k in ("flash_fwd_kernel",
+                                     "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel")
+            for stat, rel in (("RowMaxInv", "NoRel"), ("Lse", "NoRel"),
+                              ("RowMaxInv", "RelBias"))}
     if seen != want:
         raise AssertionError(f"flash kernels in the ptxas log: {sorted(seen)}")
     cross = (ctypes.c_int * 14)()
@@ -1617,6 +1649,170 @@ def da_phase(dev, gen):
         del y, g, r, got, outs
         torch.cuda.empty_cache()
     return rows
+
+
+def _relbias_inputs(dev, gen, B, L, nh):
+    qkv = (RB_SPREAD * torch.randn(B, L, 3 * nh * 64, device=dev,
+                                   generator=gen)).to(torch.bfloat16)
+    rel = torch.randn(nh, 2 * L - 1, device=dev, generator=gen)
+    lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
+    lens[B // 2] = 0                           # a fully padded row
+    bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
+                       0.0, -1e9).float()
+    dout = torch.randn(B, L, nh * 64, device=dev, generator=gen
+                       ).to(torch.bfloat16)
+    return qkv, rel, bias, dout
+
+
+def relbias_phase(dev, gen):
+    """K1-bias: ``flash_self_attention`` with T5 v1.1's relative-position
+    bias (``rel_bias`` [nh, 2L-1], scale 1) at ``RB_SHAPE``, rate 0 and
+    ``RATE``. Through autograd (the counts zeroed just before: one forward
+    and one backward relative-bias launch), the output, dqkv and the
+    vector's gradient against ``flash_self_attention_reference`` and
+    ``flash_self_attention_bwd_reference`` (fp32 [B, nh, L, L] scores and
+    dS, every row), at the file's K1 tolerances. Timed: the forward with
+    its statistics (as training saves them) and the backward, beside the
+    same kernels without the bias (scale 1), the plain versions, SDPA with
+    the bias materialized as a [B, nh, L, L] bf16 mask (forward), and the
+    bound. Then the main path: the encoder stack of a T5 v1.1 reader
+    (``t5_v11``, 24 layers, bf16, remat, flash attention) over [200, 512]
+    ids with padding, forward and backward under dropout, the counts
+    zeroed just before: 48 forward launches (24 and their recompute) and
+    24 backward, and a finite, non-zero gradient of the bucket table."""
+    from emdr2_tpu_torch.config import t5_v11
+    from emdr2_tpu_torch.models.layers import init_weights
+    from emdr2_tpu_torch.models.t5 import T5Model
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    from emdr2_tpu_torch.ops.hashing import DropoutSeeds
+    B, L, nh = RB_SHAPE
+    fwd_fn, bwd_fn = fa.flash_self_attention, fa.flash_self_attention_backward
+    qkv, rel, bias, dout = _relbias_inputs(dev, gen, B, L, nh)
+    rows = []
+    for rate in (0.0, RATE):
+        x = qkv.clone().requires_grad_(True)
+        r = rel.clone().requires_grad_(True)
+        fwd_fn.rel_launches = bwd_fn.rel_launches = 0
+        out = fwd_fn(x, bias, nh, DROP_SEED, rate, 1.0, r)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        if (fwd_fn.rel_launches, bwd_fn.rel_launches) != (1, 1):
+            raise AssertionError(
+                f"K1-bias rate {rate}: launches counted (forward, backward) "
+                f"{(fwd_fn.rel_launches, bwd_fn.rel_launches)}, not (1, 1)")
+        out = out.detach()
+        want = fa.flash_self_attention_reference(qkv, bias, nh, DROP_SEED,
+                                                 rate, 1.0, rel)
+        f_err, f_mean, f_ref = _check(f"K1-bias [{B}, {L}] rate {rate}", out,
+                                      want, FWD_TOL)
+        del want
+        dwant, drel = fa.flash_self_attention_bwd_reference(
+            qkv, bias, out, dout, nh, DROP_SEED, rate, 1.0, rel)
+        d_err, d_mean, d_ref = _check(f"K1-bias-bwd [{B}, {L}] rate {rate} "
+                                      f"dqkv", x.grad, dwant)
+        r_err, r_mean, r_ref = _check(f"K1-bias-bwd [{B}, {L}] rate {rate} "
+                                      f"drel", r.grad, drel)
+        del dwant, drel, x, r
+        torch.cuda.empty_cache()
+        _, stats = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
+                                                   rate, scale=1.0,
+                                                   rel_bias=rel)
+        _, stats0 = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
+                                                    rate, scale=1.0)
+        ms = time_ms(lambda: fa.flash_self_attention_forward(
+            qkv, bias, nh, DROP_SEED, rate, scale=1.0, rel_bias=rel))
+        ms0 = time_ms(lambda: fa.flash_self_attention_forward(
+            qkv, bias, nh, DROP_SEED, rate, scale=1.0))
+        bwd_ms = time_ms(lambda: fa.flash_self_attention_backward(
+            qkv, bias, out, dout, nh, DROP_SEED, rate, stats, 1.0, rel))
+        bwd_ms0 = time_ms(lambda: fa.flash_self_attention_backward(
+            qkv, bias, out, dout, nh, DROP_SEED, rate, stats0, 1.0))
+        plain_ms = time_ms(lambda: fa.flash_self_attention_reference(
+            qkv, bias, nh, DROP_SEED, rate, 1.0, rel), reps=3, warmup=1)
+        plain_bwd_ms = time_ms(lambda: fa.flash_self_attention_bwd_reference(
+            qkv, bias, out, dout, nh, DROP_SEED, rate, 1.0, rel), reps=3,
+            warmup=1)
+        flop = 4 * B * nh * L * L * 64
+        moved = nbytes(qkv, bias, rel, out, stats)
+        bound_ms, bound_by = bound(moved, flop)
+        # backward: q, k, v, out, dout, the pad bias, statistics, delta
+        # (written and read), dqkv, the vector and its gradient
+        bwd_moved = (nbytes(qkv, bias, out, dout, stats, qkv, rel, rel)
+                     + 2 * B * nh * L * 4)
+        bwd_bound_ms, bwd_bound_by = bound(bwd_moved, 2.5 * flop)
+        lib_ms = None
+        if rate == 0.0:
+            with torch.no_grad():
+                q, k, v = (t.transpose(1, 2) for t in
+                           qkv.view(B, L, 3, nh, 64).unbind(2))
+                mask = (bias[:, None, None, :]
+                        + fa.rel_bias_full(rel, L, L)[None]).to(qkv.dtype)
+                lib_ms = time_ms(lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     q, k, v, attn_mask=mask, scale=1.0))
+                del q, k, v, mask
+        log(f"K1-bias flash_self_attention [{B}, {L}, {nh} x 64] bf16, "
+            f"scale 1, relative bias, dropout {rate}: output max_abs_err "
+            f"{f_err:.3e} mean {f_mean:.3e} (tol {FWD_TOL} x max|ref| "
+            f"{f_ref:.3e}); dqkv {d_err:.3e} / {d_mean:.3e} (tol {GRAD_TOL} "
+            f"x {d_ref:.3e}); drel {r_err:.3e} / {r_mean:.3e} (tol "
+            f"{GRAD_TOL} x {r_ref:.3e}); launches counted 1 / 1 | forward "
+            f"{ms:.4f} ms (without the bias {ms0:.4f}), bound "
+            f"{bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
+            f"{flop / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms"
+            + (f", SDPA with the bias as a [B, nh, L, L] mask {lib_ms:.4f} ms"
+               if lib_ms is not None else "")
+            + f" | backward {bwd_ms:.4f} ms (without the bias "
+            f"{bwd_ms0:.4f}), bound {bwd_bound_ms:.4f} by {bwd_bound_by} "
+            f"({bwd_moved / 1e6:.1f} MB, {2.5 * flop / 1e9:.1f} GFLOP), "
+            f"plain {plain_bwd_ms:.4f} ms")
+        rows.append(dict(B=B, L=L, nh=nh, rate=rate,
+                         max_abs_err=max(f_err, d_err, r_err),
+                         fwd_max_abs_err=f_err, bwd_max_abs_err=d_err,
+                         drel_max_abs_err=r_err, ms=ms, ms_without_bias=ms0,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms,
+                         bwd_ms=bwd_ms, bwd_ms_without_bias=bwd_ms0,
+                         bwd_plain_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound_ms,
+                         bwd_bound_by=bwd_bound_by))
+        del out, stats, stats0
+        torch.cuda.empty_cache()
+    del qkv, rel, bias, dout
+
+    # the main path: a T5 v1.1 reader's encoder stack at the cell's shape
+    cfg = t5_v11(dtype=torch.bfloat16, remat=True, fid_flash_attention=True,
+                 flash_key_chunk=L)
+    model = T5Model(cfg, device=dev)
+    init_weights(model)
+    ids = torch.randint(1, cfg.vocab_size, (B, L), device=dev, generator=gen)
+    lens = torch.randint(L // 4, L + 1, (B,), device=dev, generator=gen)
+    ids = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
+                      ids, torch.zeros_like(ids))
+    torch.cuda.synchronize()
+    fwd_fn.rel_launches = bwd_fn.rel_launches = 0
+    t0 = time.perf_counter()
+    enc = model.encode(ids, DropoutSeeds(DROP_SEED))
+    enc.float().square().mean().backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = (fwd_fn.rel_launches, bwd_fn.rel_launches)
+    table = model.encoder.relative_attention_bias.grad
+    ok = (launches == (2 * cfg.num_layers, cfg.num_layers)
+          and table is not None and bool(torch.isfinite(table).all())
+          and float(table.abs().max()) > 0)
+    log(f"K1-bias main path: a T5 v1.1 encoder of {cfg.num_layers} layers "
+        f"over [{B}, {L}] ids under remat, forward and backward in "
+        f"{step_ms:.1f} ms (the first call): relative-bias launches "
+        f"(forward, backward) {launches}, want "
+        f"{(2 * cfg.num_layers, cfg.num_layers)}; the bucket table's "
+        f"gradient max |g| "
+        f"{float(table.abs().max()) if table is not None else None}")
+    if not ok:
+        raise AssertionError("K1-bias main path: wrong launch counts or no "
+                             "gradient of the bucket table")
+    del model, enc, ids, table
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "step_ms": step_ms}
 
 
 def recall_at(ids, oracle, group=128):
@@ -4914,6 +5110,7 @@ def main() -> int:
     k5 = k5_phase(dev, gen)
     dropadd = da_phase(dev, gen)
     torch.cuda.empty_cache()
+    relbias = relbias_phase(dev, gen)
 
     cfg = _flagship_cfg()
     res = slice_phase(cfg, dev, gen, profile=args.profile)
@@ -5379,6 +5576,28 @@ def main() -> int:
             row["max_abs_err_6_heads"] = tpk[tp_err[row["name"]]][0]
         row["launches_hosts"] = hs["launches"].get(row["name"], 0)
         row["launches_tools"] = tools["launches"][row["name"]]
+    # K1-bias: T5 v1.1's relative-position variant of K1's walks, which no
+    # other phase runs; its launches are the T5 v1.1 encoder's (forward and
+    # recompute, backward)
+    rb = {r["rate"]: r for r in relbias["rows"]}
+    for name, way, n in (("flash_self_attention_relbias", "",
+                          relbias["launches"][0]),
+                         ("flash_self_attention_backward_relbias", "bwd_",
+                          relbias["launches"][1])):
+        summary["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": csrc + "flash_self_attention.cu",
+            # T5 v1.1's relative-position bias is not in the JAX package
+            "replaces": None,
+            "shape": list(RB_SHAPE), "launches_t5v11_encoder": n,
+            "max_abs_err": max(r["max_abs_err"] for r in rb.values()),
+            "ms": rb[RATE][way + "ms"],
+            "ms_rate_0": rb[0.0][way + "ms"],
+            "ms_without_bias": rb[RATE][way + "ms_without_bias"],
+            "plain_ms": rb[RATE][way + "plain_ms"],
+            "bound_ms": rb[RATE][way + "bound_ms"],
+            "bound_by": rb[RATE][way + "bound_by"],
+            "library_ms": rb[0.0]["library_ms"] if not way else None})
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(card)

@@ -8,7 +8,11 @@ the tensor-parallel group reaches the modules as their ``tp`` argument. The TPU
 query tiling is not ported.
 
 Defaults reproduce the flagship NQ recipe: BERT-base retriever, T5-base
-reader, top-50 retrieval, sequence lengths 512/256/64/32.
+reader, top-50 retrieval, sequence lengths 512/256/64/32. The block's kind
+(``TransformerConfig.block``) defaults to that recipe's Megatron block;
+``t5_v11`` gives T5 v1.1's (RMSNorm, gated GELU, no biases, bucketed
+relative-position bias, unscaled scores, an untied head, T5's init), which
+the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ def _field(**kw):
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Shared transformer trunk hyperparameters: pre-LN blocks, learned
-    absolute position embeddings, GELU MLP."""
+    absolute position embeddings, GELU MLP, by default; ``block``
+    switches to T5 v1.1's block (``t5_v11``)."""
 
     vocab_size: int = 30592          # 30522 padded to a multiple of 128
     hidden_size: int = 768
@@ -61,11 +66,34 @@ class TransformerConfig:
     # attention.
     fid_flash_attention: bool = False
     flash_key_chunk: int = 512
+    # the block's kind: "megatron" (LayerNorm with a bias, biased Dense, a
+    # one-matrix GELU FFN, learned absolute positions, q scaled by
+    # head_dim ** -0.5, the LM head tied to the word embeddings with a
+    # trainable bias, N(0, init_std) with outputs init_std / sqrt(2 *
+    # layers)) | "t5_v11" (HF ``T5Block`` with gated-gelu: RMSNorm, no
+    # biases, gelu(x W_i0) * (x W_i1) with a dropout site before W_o, each
+    # stack's bucketed relative-position table [relative_buckets, heads],
+    # bidirectional in the encoder and causal in the decoder, unscaled
+    # scores, an untied head with no bias, T5's fan-in scaled normals)
+    block: str = "megatron"
+    relative_buckets: int = 32
+    relative_max_distance: int = 128
+
+    def __post_init__(self):
+        if self.block not in ("megatron", "t5_v11"):
+            raise ValueError(f"block must be 'megatron' or 't5_v11', got "
+                             f"{self.block!r}")
 
     @property
     def head_dim(self) -> int:
         assert self.hidden_size % self.num_heads == 0
         return self.hidden_size // self.num_heads
+
+    @property
+    def attention_scale(self) -> Optional[float]:
+        """The scores' scale: None (head_dim ** -0.5) in the Megatron block,
+        1.0 (unscaled) in T5 v1.1's."""
+        return 1.0 if self.block == "t5_v11" else None
 
 
 def bert_base(**overrides) -> TransformerConfig:
@@ -79,6 +107,20 @@ def t5_base(**overrides) -> TransformerConfig:
     return dataclasses.replace(
         TransformerConfig(vocab_size=30720, num_tokentypes=0,
                           max_position_embeddings=512),
+        **overrides)
+
+
+def t5_v11(**overrides) -> TransformerConfig:
+    """T5 v1.1's block (HF ``T5Block`` with ``feed_forward_proj`` gated-gelu,
+    as in ``google/t5-large-lm-adapt``): RMSNorm (eps 1e-6), bias-less
+    projections, gated tanh-GELU FFN, bucketed relative-position bias (32
+    buckets, max distance 128), unscaled scores, an untied bias-less LM
+    head, T5's init; no absolute positions. Widths default to T5-large."""
+    return dataclasses.replace(
+        TransformerConfig(vocab_size=32128, hidden_size=1024, num_layers=24,
+                          num_heads=16, ffn_size=2816, num_tokentypes=0,
+                          layernorm_epsilon=1e-6, init_std=1.0,
+                          gelu_variant="tanh", block="t5_v11"),
         **overrides)
 
 

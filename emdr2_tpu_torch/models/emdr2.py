@@ -66,7 +66,10 @@ class EMDR2Model(nn.Module):
         nothing is routed to a plain version. ``tp``: the tensor-parallel
         group the model splits over (its heads, MLP widths and vocabulary
         must divide by its size); each rank holds the parts of what one
-        process initializes from the same generator."""
+        process initializes from the same generator. Each block is
+        initialized by its kind (``TransformerConfig.block``):
+        Megatron's N(0, init_std) for the BERT towers and the default
+        reader, T5's fan-in scaled normals for a T5 v1.1 reader."""
         super().__init__()
         device = resolve_device(device)
         if tp is not None:
@@ -79,6 +82,14 @@ class EMDR2Model(nn.Module):
                 check_kernel_limits(f"EMDR2Model on {device}, {name}",
                                     cfg.dtype, cfg.head_dim, decoder_len,
                                     cfg.fid_flash_attention)
+        t5c = config.reader.transformer
+        if t5c.block == "t5_v11" and t5c.fid_flash_attention \
+                and t5c.flash_key_chunk < config.reader.seq_len:
+            raise ValueError(
+                f"the relative-position bias runs in K1 only (the general "
+                f"kernel K4 has none): flash_key_chunk "
+                f"({t5c.flash_key_chunk}) must be at least the reader's "
+                f"seq_len ({config.reader.seq_len})")
         self.config = config
         self.tp = tp if tp is not None else Group.local()
         self.retriever = DualEncoder(config.retriever, device, tp)

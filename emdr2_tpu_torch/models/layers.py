@@ -42,6 +42,19 @@ under the ``remat_policy``) when ``cfg.remat``, and shares layers under
 ``num_unique_layers``: the recompute gets the same seeds, so the same
 masks.
 
+The block's kind (``TransformerConfig.block``) selects T5 v1.1's block
+beside the Megatron one: ``RMSNorm`` for ``LayerNorm``, bias-less
+``Dense``, the gated ``MLP`` (``wi_0``, ``wi_1``, HF's names, with a
+hidden-dropout site on the gated product), unscaled scores, and the
+stack's bucketed relative-position table (``relative_attention_bias``
+[buckets, heads], held by ``TransformerStack`` and mapped once a forward
+onto the offsets' vector that every layer call takes: ``flash_self_attention``'s
+``rel_bias`` in the encoder, a materialized [1, nh, L, L] bias in the
+decoder's causal self-attention), and a final dropout after each stack's
+last norm. T5 v1.1 runs neither under tensor parallelism nor the general
+kernel K4 (it needs ``flash_key_chunk`` >= the encoder's length): both
+raise, naming what is missing.
+
 Tensor parallelism (``tp``, a ``parallel.mesh.Group`` of more than one
 rank; ``parallel/tensor.py``): ``Dense`` is column-parallel (``query``,
 ``wi``, the fused ``qkv`` / ``key_value`` by heads) or row-parallel
@@ -70,7 +83,8 @@ from emdr2_tpu_torch.ops.decode_attention import decode_cross_attention_int8
 from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
                                                fid_self_attention,
                                                flash_cross_attention,
-                                               flash_self_attention)
+                                               flash_self_attention,
+                                               rel_bias_full)
 from emdr2_tpu_torch.ops.dropout_add import dropout_add
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 from emdr2_tpu_torch.parallel.mesh import Group
@@ -81,7 +95,9 @@ from emdr2_tpu_torch.parallel.tensor import (COLUMN, ROW, Split, copy_to_tp,
 _SITE_SELF_ATTN, _SITE_SELF_RESID = 0, 1
 _SITE_CROSS_ATTN, _SITE_CROSS_RESID = 2, 3
 _SITE_MLP_RESID = 4
+_SITE_MLP_INNER = 5              # the gated MLP's product (T5 v1.1)
 _SITE_EMBED = 0
+_SITE_STACK_FINAL = 0            # after a stack's last norm (T5 v1.1)
 
 
 def gelu(x: torch.Tensor, variant: str) -> torch.Tensor:
@@ -115,6 +131,57 @@ class LayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(orig)
 
 
+class RMSNorm(nn.Module):
+    """T5's norm: ``weight * x * rsqrt(mean(x^2) + eps)`` in fp32 regardless
+    of compute dtype, no mean subtracted, no bias (``F.rms_norm``: one
+    fused pass each way on the card where PyTorch has one, not the
+    formula's seven)."""
+
+    def __init__(self, hidden: int, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = _param(hidden, device=device)
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.weight)
+
+    def forward(self, x):
+        return F.rms_norm(x.float(), (x.shape[-1],), self.weight,
+                          self.epsilon).to(x.dtype)
+
+
+def make_norm(cfg: TransformerConfig, device=None) -> nn.Module:
+    """The block's norm: ``LayerNorm`` (Megatron) or ``RMSNorm`` (T5
+    v1.1)."""
+    cls = RMSNorm if cfg.block == "t5_v11" else LayerNorm
+    return cls(cfg.hidden_size, cfg.layernorm_epsilon, device)
+
+
+def relative_position_bucket(offsets: torch.Tensor, bidirectional: bool,
+                             num_buckets: int = 32,
+                             max_distance: int = 128) -> torch.Tensor:
+    """T5's bucket of each key-query offset ``j - i`` (HF
+    ``T5Attention._relative_position_bucket``): bidirectional, half the
+    buckets a side (the later keys in the upper half); causal, only
+    ``j <= i`` counts. Offsets below half a side's buckets have a bucket
+    each, the rest share logarithmic ones up to ``max_distance``. Computed
+    in fp32 on the host, so every device and the reference agree."""
+    rel = offsets.detach().to("cpu", torch.int64)
+    buckets = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        buckets += (rel > 0).to(torch.int64) * num_buckets
+        rel = rel.abs()
+    else:
+        rel = -torch.clamp(rel, max=0)
+    max_exact = num_buckets // 2
+    large = max_exact + (torch.log(rel.float() / max_exact)
+                         / math.log(max_distance / max_exact)
+                         * (num_buckets - max_exact)).to(torch.int64)
+    large = torch.clamp(large, max=num_buckets - 1)
+    return buckets + torch.where(rel < max_exact, rel, large)
+
+
 def _normal_(p: nn.Parameter, std: float, generator, split, tp) -> None:
     """``p`` <- N(0, std): drawn whole and cut when ``p`` is a tp part, so
     every rank holds its part of what one process draws."""
@@ -132,15 +199,17 @@ def _normal_(p: nn.Parameter, std: float, generator, split, tp) -> None:
 
 class Dense(nn.Module):
     """``y = x @ kernel + bias`` in ``dtype``; kernel [in, out] (flax
-    layout). ``split`` over ``tp``: ``COLUMN`` (this rank's output
-    columns, its part of the bias; the input's gradient summed over tp),
-    ``ROW`` (this rank's input rows; the partial products summed over tp
-    in ``dtype``, then the whole bias), a fused ``Split(1, n)`` (the n
-    blocks each cut by heads), or None (whole)."""
+    layout); no bias with ``use_bias`` off (T5). ``split`` over ``tp``:
+    ``COLUMN`` (this rank's output columns, its part of the bias; the
+    input's gradient summed over tp), ``ROW`` (this rank's input rows; the
+    partial products summed over tp in ``dtype``, then the whole bias), a
+    fused ``Split(1, n)`` (the n blocks each cut by heads), or None
+    (whole)."""
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype,
                  init_std: float = 0.02, device=None,
-                 tp: Optional[Group] = None, split: Optional[Split] = None):
+                 tp: Optional[Group] = None, split: Optional[Split] = None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
@@ -151,12 +220,16 @@ class Dense(nn.Module):
         self.kernel = _param(in_features // n if row else in_features,
                              features if row else features // n,
                              device=device)
-        self.bias = _param(features if row else features // n,
-                           device=device)
+        if use_bias:
+            self.bias = _param(features if row else features // n,
+                               device=device)
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator=None):
         _normal_(self.kernel, self.init_std, generator, self.split, self.tp)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -167,7 +240,7 @@ class Dense(nn.Module):
             if self.split is not None:
                 x = copy_to_tp(x, self.tp)
             y = torch.matmul(x, self.kernel.to(self.dtype))
-        return y + self.bias.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class FusedDense(Dense):
@@ -175,13 +248,29 @@ class FusedDense(Dense):
     flax [D, n, H] kernel reshaped, so the output is the flat slab
     [..., n*H] ([q | k | v] for n=3, [k | v] for n=2). Under ``tp`` each
     block is cut by heads: the rank's slab is [..., n*H/tp], the
-    [q | k | v] of its ``nh / tp`` heads."""
+    [q | k | v] of its ``nh / tp`` heads. ``part_stds`` (T5's init) draws
+    each block N(0, its std) instead of all N(0, ``init_std``)."""
 
     def __init__(self, in_features: int, n_split: int, features: int,
                  dtype: torch.dtype, init_std: float = 0.02, device=None,
-                 tp: Optional[Group] = None):
+                 tp: Optional[Group] = None, use_bias: bool = True,
+                 part_stds: Optional[tuple] = None):
         super().__init__(in_features, n_split * features, dtype, init_std,
-                         device=device, tp=tp, split=Split(1, n_split))
+                         device=device, tp=tp, split=Split(1, n_split),
+                         use_bias=use_bias)
+        self.n_split = n_split
+        self.part_stds = part_stds
+
+    def reset_parameters(self, generator=None):
+        if self.part_stds is None:
+            return super().reset_parameters(generator)
+        _normal_(self.kernel, 1.0, generator, self.split, self.tp)
+        with torch.no_grad():
+            blocks = self.kernel.view(self.kernel.shape[0], self.n_split, -1)
+            for i, std in enumerate(self.part_stds):
+                blocks[:, i].mul_(std)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class _Lookup(torch.autograd.Function):
@@ -224,8 +313,8 @@ def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 class Embeddings(nn.Module):
     """Word + learned absolute position (+ tokentype) embeddings, summed in
-    fp32 and then cast to the compute dtype; ``attend`` is the tied LM
-    head. Every lookup takes ``embedding``, whose gradient repeats. Under
+    fp32 and then cast to the compute dtype (no position embeddings under
+    relative positions); ``attend`` is the tied LM head. Every lookup takes ``embedding``, whose gradient repeats. Under
     ``tp`` the rank holds word rows ``[t * V/tp, (t+1) * V/tp)``: ids
     outside them look up zeros and the ranks' lookups are summed (each id
     has one owner, so the sum is exact), and ``attend`` gives the rank's
@@ -238,8 +327,11 @@ class Embeddings(nn.Module):
         self.tp = tp if tp is not None else Group.local()
         self.word_embeddings = _param(cfg.vocab_size // self.tp.world_size,
                                       cfg.hidden_size, device=device)
-        self.position_embeddings = _param(cfg.max_position_embeddings,
-                                          cfg.hidden_size, device=device)
+        if cfg.block == "megatron":
+            self.position_embeddings = _param(cfg.max_position_embeddings,
+                                              cfg.hidden_size, device=device)
+        else:
+            self.register_parameter("position_embeddings", None)
         if cfg.num_tokentypes > 0:
             self.tokentype_embeddings = _param(
                 cfg.num_tokentypes, cfg.hidden_size, device=device)
@@ -269,9 +361,11 @@ class Embeddings(nn.Module):
     def forward(self, ids, position_offset: int = 0, tokentype_ids=None,
                 drop: Optional[DropoutSeeds] = None):
         x = self.lookup(ids)
-        pos = torch.arange(position_offset, position_offset + ids.shape[-1],
-                           device=ids.device)
-        x = x + embedding(pos, self.position_embeddings)
+        if self.position_embeddings is not None:
+            pos = torch.arange(position_offset,
+                               position_offset + ids.shape[-1],
+                               device=ids.device)
+            x = x + embedding(pos, self.position_embeddings)
         if self.tokentype_embeddings is not None:
             if tokentype_ids is None:
                 tokentype_ids = torch.zeros_like(ids)
@@ -280,10 +374,12 @@ class Embeddings(nn.Module):
                            self.cfg.hidden_dropout, _site(drop, _SITE_EMBED),
                            _rows(drop, x))
 
-    def attend(self, hidden):
-        """hidden [..., H] -> fp32 logits over the tied word embeddings
-        (this rank's ``V / tp`` of them under tp)."""
-        w = self.word_embeddings.to(hidden.dtype).float()
+    def attend(self, hidden, weight: Optional[torch.Tensor] = None):
+        """hidden [..., H] -> fp32 logits over the tied word embeddings, or
+        over ``weight`` [V, H] (an untied head; this rank's ``V / tp`` rows
+        under tp)."""
+        w = (self.word_embeddings if weight is None else weight)
+        w = w.to(hidden.dtype).float()
         return torch.matmul(copy_to_tp(hidden, self.tp).float(), w.T)
 
 
@@ -322,16 +418,20 @@ def _rows(drop: Optional[DropoutSeeds], x: torch.Tensor) -> int:
 
 
 def _attend(q, k, v, bias, dtype, rate: float = 0.0,
-            seed: Optional[int] = None, shard: int = 0, tp_shard: int = 0):
+            seed: Optional[int] = None, shard: int = 0, tp_shard: int = 0,
+            scale: Optional[float] = None):
     """Materialized-score attention over heads: q [B, nh, Lq, hd], k/v
     [B, nh, Lk, hd], bias broadcastable to [B, nh, Lq, Lk] (or None) ->
-    [B, nh, Lq, hd] in ``dtype``. q is scaled in ``dtype``, scores and the
-    softmax are fp32, probs are cast to ``dtype`` (then dropped out when a
-    ``seed`` is given, at global coordinates: rows offset by data-parallel
-    rank ``shard``, heads by tensor-parallel rank ``tp_shard``) before the
-    P.V product."""
+    [B, nh, Lq, hd] in ``dtype``. q is scaled in ``dtype`` (by ``scale``,
+    hd^-0.5 when None; not at all at 1.0), scores and the softmax are fp32,
+    probs are cast to ``dtype`` (then dropped out when a ``seed`` is given,
+    at global coordinates: rows offset by data-parallel rank ``shard``,
+    heads by tensor-parallel rank ``tp_shard``) before the P.V product."""
     hd = q.shape[-1]
-    q = q * (hd ** -0.5)
+    if scale is None:
+        q = q * (hd ** -0.5)
+    elif scale != 1.0:
+        q = q * scale
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias
@@ -351,16 +451,29 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.tp = tp if tp is not None else Group.local()
         h, dt = cfg.hidden_size, cfg.dtype
-        out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
+        t5 = cfg.block == "t5_v11"
+        bias = not t5
+        if t5:
+            # T5: q N(0, (d * d_kv)^-1/2), k and v N(0, d^-1/2), the output
+            # N(0, (nh * d_kv)^-1/2)
+            q_std = (h * cfg.head_dim) ** -0.5
+            kv_std = h ** -0.5
+            out_std = (cfg.num_heads * cfg.head_dim) ** -0.5
+        else:
+            q_std = kv_std = cfg.init_std
+            out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
         if cross_attention:
-            self.query = Dense(h, h, dt, cfg.init_std, device=device,
-                               tp=tp, split=COLUMN)
-            self.key_value = FusedDense(h, 2, h, dt, cfg.init_std,
-                                        device=device, tp=tp)
+            self.query = Dense(h, h, dt, q_std, device=device,
+                               tp=tp, split=COLUMN, use_bias=bias)
+            self.key_value = FusedDense(h, 2, h, dt, kv_std, device=device,
+                                        tp=tp, use_bias=bias)
         else:
             self.qkv = FusedDense(h, 3, h, dt, cfg.init_std, device=device,
-                                  tp=tp)
-        self.out = Dense(h, h, dt, out_std, device=device, tp=tp, split=ROW)
+                                  tp=tp, use_bias=bias,
+                                  part_stds=((q_std, kv_std, kv_std) if t5
+                                             else None))
+        self.out = Dense(h, h, dt, out_std, device=device, tp=tp, split=ROW,
+                         use_bias=bias)
 
     @property
     def nh(self) -> int:
@@ -390,15 +503,27 @@ class Attention(nn.Module):
         return (rate, drop.site(site), drop.kernel_seed(site), drop.shard,
                 drop.tp_shard)
 
-    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
-        """Padding-masked self-attention: x [B, L, H], kv_bias [B, L]."""
+    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None,
+               pos_bias: Optional[torch.Tensor] = None):
+        """Padding-masked self-attention: x [B, L, H], kv_bias [B, L];
+        ``pos_bias`` [nh, 2L-1] fp32, the relative-position bias by offset
+        (``ops.fid_attention.rel_offsets``), with the stack's scale."""
         cfg = self.cfg
         nh = self.nh
         rate, seed, kseed, shard, tshard = self._dropout(drop,
                                                          _SITE_SELF_ATTN)
         qkv = self.qkv(x)                                   # [B, L, 3H/tp]
-        if cfg.fid_flash_attention and x.shape[-2] <= cfg.flash_key_chunk:
-            o = flash_self_attention(qkv, kv_bias.float(), nh, kseed, rate)
+        L = x.shape[-2]
+        if pos_bias is not None and cfg.fid_flash_attention \
+                and L > cfg.flash_key_chunk:
+            raise ValueError(
+                f"the relative-position bias runs in K1 only: the general "
+                f"kernel K4 has no bias, so flash_key_chunk "
+                f"({cfg.flash_key_chunk}) must be at least the encoder's "
+                f"length ({L})")
+        if cfg.fid_flash_attention and L <= cfg.flash_key_chunk:
+            o = flash_self_attention(qkv, kv_bias.float(), nh, kseed, rate,
+                                     cfg.attention_scale, pos_bias)
         elif cfg.fid_flash_attention:
             # longer than one key chunk: the general kernel, on the slab
             # itself when the chunk divides the length (one gradient slab,
@@ -421,18 +546,23 @@ class Attention(nn.Module):
                 o = fid_self_attention(qkv, kvb, nh, kseed, key_chunk, rate)
         else:
             q, k, v = (self._heads(t) for t in qkv.chunk(3, dim=-1))
-            o = self._merge(_attend(q, k, v, kv_bias.float()[:, None, None, :],
-                                    cfg.dtype, rate, seed, shard, tshard))
+            bias = kv_bias.float()[:, None, None, :]
+            if pos_bias is not None:
+                bias = bias + rel_bias_full(pos_bias, L, L)[None]
+            o = self._merge(_attend(q, k, v, bias, cfg.dtype, rate, seed,
+                                    shard, tshard, cfg.attention_scale))
         return self.out(o.to(cfg.dtype))
 
     def decode_full(self, x, self_bias, drop: Optional[DropoutSeeds] = None):
         """Whole-prefix decoder self-attention, materialized: x [B, L, H],
-        self_bias [B, 1, L, L] (causal and padding)."""
+        self_bias [B, 1 or nh, L, L] (causal and padding, and the
+        relative-position bias when there is one)."""
         cfg = self.cfg
         rate, seed, _, shard, tshard = self._dropout(drop, _SITE_SELF_ATTN)
         q, k, v = (self._heads(t) for t in self.qkv(x).chunk(3, dim=-1))
         return self.out(self._merge(_attend(q, k, v, self_bias, cfg.dtype,
-                                            rate, seed, shard, tshard)))
+                                            rate, seed, shard, tshard,
+                                            cfg.attention_scale)))
 
     def cross_full(self, x, enc_out, kv_bias=None, cross_bias=None,
                    drop: Optional[DropoutSeeds] = None):
@@ -456,12 +586,13 @@ class Attention(nn.Module):
                 kv = F.pad(kv, (0, 0, 0, pad))
                 kvb = F.pad(kvb, (0, pad), value=-1e9)
             o = flash_cross_attention(q, kv.contiguous(), kvb.contiguous(),
-                                      self.nh, key_chunk, kseed, rate)
+                                      self.nh, key_chunk, kseed, rate,
+                                      cfg.attention_scale)
             return self.out(o.to(cfg.dtype))
         k, v = (self._heads(t) for t in kv.chunk(2, dim=-1))
         return self.out(self._merge(_attend(self._heads(q), k, v, cross_bias,
                                             cfg.dtype, rate, seed, shard,
-                                            tshard)))
+                                            tshard, cfg.attention_scale)))
 
     def decode(self, x, cache: DecodeCache, layer: int):
         """Incremental self-attention of the new positions x [B, Lq, H] over
@@ -472,7 +603,8 @@ class Attention(nn.Module):
         cache.keys[layer][:, :, i:i + n] = k
         cache.values[layer][:, :, i:i + n] = v
         o = _attend(q, cache.keys[layer][:, :, :i + n],
-                    cache.values[layer][:, :, :i + n], None, cfg.dtype)
+                    cache.values[layer][:, :, :i + n], None, cfg.dtype,
+                    scale=cfg.attention_scale)
         return self.out(self._merge(o))
 
     def cross(self, x, kv, kv_bias):
@@ -506,26 +638,46 @@ class Attention(nn.Module):
         else:
             k, v = kv
             o = _attend(qh.transpose(1, 2), k, v, kvb[:, None, None, :],
-                        cfg.dtype).transpose(1, 2)
+                        cfg.dtype, scale=cfg.attention_scale).transpose(1, 2)
         return self.out(o.reshape(Bq, Lq, self.width))
 
 
 class MLP(nn.Module):
     """h -> ffn -> gelu -> h (``wi`` column-parallel, ``wo`` row-parallel
-    under tp)."""
+    under tp); in T5 v1.1's block h ->
+    dropout(gelu(h wi_0) * (h wi_1)) -> wo, the dropout at the layer's
+    ``_SITE_MLP_INNER`` (no residual: one dropout-add call without one)."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  tp: Optional[Group] = None):
         super().__init__()
         self.cfg = cfg
-        out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
-        self.wi = Dense(cfg.hidden_size, cfg.ffn_size, cfg.dtype,
-                        cfg.init_std, device=device, tp=tp, split=COLUMN)
-        self.wo = Dense(cfg.ffn_size, cfg.hidden_size, cfg.dtype, out_std,
-                        device=device, tp=tp, split=ROW)
+        h, f, dt = cfg.hidden_size, cfg.ffn_size, cfg.dtype
+        self.gated = cfg.block == "t5_v11"
+        bias = not self.gated
+        if self.gated:
+            in_std, out_std = h ** -0.5, f ** -0.5
+        else:
+            in_std = cfg.init_std
+            out_std = cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
+        if self.gated:
+            self.wi_0 = Dense(h, f, dt, in_std, device=device, tp=tp,
+                              split=COLUMN, use_bias=bias)
+            self.wi_1 = Dense(h, f, dt, in_std, device=device, tp=tp,
+                              split=COLUMN, use_bias=bias)
+        else:
+            self.wi = Dense(h, f, dt, in_std, device=device, tp=tp,
+                            split=COLUMN, use_bias=bias)
+        self.wo = Dense(f, h, dt, out_std, device=device, tp=tp, split=ROW,
+                        use_bias=bias)
 
-    def forward(self, x):
-        return self.wo(gelu(self.wi(x), self.cfg.gelu_variant))
+    def forward(self, x, drop: Optional[DropoutSeeds] = None):
+        if not self.gated:
+            return self.wo(gelu(self.wi(x), self.cfg.gelu_variant))
+        y = gelu(self.wi_0(x), self.cfg.gelu_variant) * self.wi_1(x)
+        return self.wo(dropout_add(y, None, self.cfg.hidden_dropout,
+                                   _site(drop, _SITE_MLP_INNER),
+                                   _rows(drop, y)))
 
 
 class TransformerLayer(nn.Module):
@@ -536,15 +688,14 @@ class TransformerLayer(nn.Module):
                  has_cross_attention: bool = False, device=None,
                  tp: Optional[Group] = None):
         super().__init__()
-        eps = cfg.layernorm_epsilon
         self.hidden_dropout = cfg.hidden_dropout
-        self.ln_self = LayerNorm(cfg.hidden_size, eps, device)
+        self.ln_self = make_norm(cfg, device)
         self.self_attention = Attention(cfg, device=device, tp=tp)
         if has_cross_attention:
-            self.ln_cross = LayerNorm(cfg.hidden_size, eps, device)
+            self.ln_cross = make_norm(cfg, device)
             self.cross_attention = Attention(cfg, cross_attention=True,
                                              device=device, tp=tp)
-        self.ln_mlp = LayerNorm(cfg.hidden_size, eps, device)
+        self.ln_mlp = make_norm(cfg, device)
         self.mlp = MLP(cfg, device, tp)
 
     def _resid(self, y, r, drop, site):
@@ -552,11 +703,12 @@ class TransformerLayer(nn.Module):
         return dropout_add(y, r, self.hidden_dropout, _site(drop, site),
                            _rows(drop, y))
 
-    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
+    def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None,
+               pos_bias: Optional[torch.Tensor] = None):
         x = self._resid(self.self_attention.encode(self.ln_self(x), kv_bias,
-                                                   drop),
+                                                   drop, pos_bias),
                         x, drop, _SITE_SELF_RESID)
-        return self._resid(self.mlp(self.ln_mlp(x)), x, drop,
+        return self._resid(self.mlp(self.ln_mlp(x), drop), x, drop,
                            _SITE_MLP_RESID)
 
     def decode_full(self, x, enc_out, self_bias, kv_bias, cross_bias,
@@ -568,7 +720,7 @@ class TransformerLayer(nn.Module):
         x = self._resid(self.cross_attention.cross_full(
             self.ln_cross(x), enc_out, kv_bias, cross_bias, drop),
             x, drop, _SITE_CROSS_RESID)
-        return self._resid(self.mlp(self.ln_mlp(x)), x, drop,
+        return self._resid(self.mlp(self.ln_mlp(x), drop), x, drop,
                            _SITE_MLP_RESID)
 
     def decode(self, x, cache, layer, cross_kv, cross_bias):
@@ -616,7 +768,14 @@ class TransformerStack(nn.Module):
     With ``cfg.remat`` each call is checkpointed while gradients are on
     (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="nothing"``
     saves no activation inside it (the backward re-runs its forward),
-    ``"dots_no_batch"`` saves the 2-D products (:func:`_dots_no_batch`)."""
+    ``"dots_no_batch"`` saves the 2-D products (:func:`_dots_no_batch`).
+
+    T5 v1.1's block (``cfg.block == "t5_v11"``): the stack holds
+    the bucket table ``relative_attention_bias`` [buckets, heads] (HF keeps
+    it in layer 0 and shares it), maps it once a forward onto the offsets'
+    vector [nh, 2L-1] (bidirectional buckets in the encoder, causal in the
+    decoder) and hands that to every layer call. A T5 stack also drops out
+    its output after the final norm (``_SITE_STACK_FINAL`` of its seeds)."""
 
     def __init__(self, cfg: TransformerConfig,
                  has_cross_attention: bool = False, device=None,
@@ -638,8 +797,39 @@ class TransformerStack(nn.Module):
             self.add_module(f"layer_{u}",
                             TransformerLayer(cfg, has_cross_attention, device,
                                              tp))
-        self.ln_final = LayerNorm(cfg.hidden_size, cfg.layernorm_epsilon,
-                                  device)
+        self.ln_final = make_norm(cfg, device)
+        self.has_cross_attention = has_cross_attention
+        if cfg.block == "t5_v11":
+            self.relative_attention_bias = _param(
+                cfg.relative_buckets, cfg.num_heads, device=device)
+        else:
+            self.relative_attention_bias = None
+
+    def reset_parameters(self, generator=None):
+        if self.relative_attention_bias is not None:
+            # T5: N(0, d^-1/2)
+            _normal_(self.relative_attention_bias,
+                     self.cfg.hidden_size ** -0.5, generator, None, None)
+
+    def position_bias(self, Lq: int, Lk: int) -> Optional[torch.Tensor]:
+        """[nh, Lq + Lk - 1] fp32: the bucket table's entry of each offset
+        ``j - i`` from ``-(Lq - 1)`` to ``Lk - 1`` (a gather whose gradient
+        repeats), or None in the Megatron block."""
+        table = self.relative_attention_bias
+        if table is None:
+            return None
+        offsets = torch.arange(-(Lq - 1), Lk)
+        buckets = relative_position_bucket(
+            offsets, not self.has_cross_attention, self.cfg.relative_buckets,
+            self.cfg.relative_max_distance).to(table.device)
+        return embedding(buckets, table).t().contiguous()
+
+    def _finish(self, x, drop: Optional[DropoutSeeds]):
+        x = self.ln_final(x)
+        if self.cfg.block == "megatron":
+            return x
+        return dropout_add(x, None, self.cfg.hidden_dropout,
+                           _site(drop, _SITE_STACK_FINAL), _rows(drop, x))
 
     def layer(self, u: int) -> TransformerLayer:
         """The unique layer ``u`` (``layer_{u}``)."""
@@ -671,18 +861,27 @@ class TransformerStack(nn.Module):
         return fn(*args)
 
     def encode(self, x, kv_bias, drop: Optional[DropoutSeeds] = None):
+        L = x.shape[-2]
+        pos = self.position_bias(L, L)
         for i in range(self.cfg.num_layers):
-            x = self._run(self.layer(self.unique_index(i)).encode, x, kv_bias,
-                          fold(drop, i))
-        return self.ln_final(x)
+            layer = self.layer(self.unique_index(i))
+            if pos is None:
+                x = self._run(layer.encode, x, kv_bias, fold(drop, i))
+            else:
+                x = self._run(layer.encode, x, kv_bias, fold(drop, i), pos)
+        return self._finish(x, drop)
 
     def decode_full(self, x, enc_out, self_bias, kv_bias, cross_bias,
                     drop: Optional[DropoutSeeds] = None):
+        L = x.shape[-2]
+        pos = self.position_bias(L, L)
+        if pos is not None:
+            self_bias = self_bias + rel_bias_full(pos, L, L)[None]
         for i in range(self.cfg.num_layers):
             x = self._run(self.layer(self.unique_index(i)).decode_full, x,
                           enc_out, self_bias, kv_bias, cross_bias,
                           fold(drop, i))
-        return self.ln_final(x)
+        return self._finish(x, drop)
 
     def decode(self, x, cache: DecodeCache, cross_kvs, cross_bias):
         self.check_decode()

@@ -1,6 +1,12 @@
 """T5 reader with learned absolute positions (port of
 ``emdr2_tpu/models/t5.py``): shared word embeddings, a tied LM head with a
 trainable bias, and an encoder whose states the FiD decoder cross-attends.
+With T5 v1.1's block (``config.t5_v11``: relative positions held by each
+stack, no position embeddings) the head is ``lm_head`` [V, H], untied,
+with no bias and no rescale; such a reader trains and scores (``encode``,
+``decode``, ``decode_gold_log_probs``) but neither generates
+(``decode_step``, the K5 kernel) nor splits over tensor parallelism: both
+raise, naming what is missing.
 
 Two decoders share the weights: ``decode`` runs the whole prefix (training
 and the teacher; causal self-attention bias, FiD cross-attention through the
@@ -41,16 +47,39 @@ class T5Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.tp = tp if tp is not None else Group.local()
+        if cfg.block == "t5_v11" and is_split(self.tp):
+            raise NotImplementedError(
+                "tensor parallelism (--tp > 1) is not built for T5 v1.1's "
+                "block: the relative-position table, the gated MLP and the "
+                "untied head have no split layouts")
         self.shared_embeddings = Embeddings(cfg, device, tp)
         self.encoder = TransformerStack(cfg, device=device, tp=tp)
         self.decoder = TransformerStack(cfg, has_cross_attention=True,
                                         device=device, tp=tp)
-        self.lm_bias = nn.Parameter(torch.empty(
-            cfg.vocab_size // self.tp.world_size, dtype=torch.float32,
-            device=device))
+        V = cfg.vocab_size // self.tp.world_size
+        if cfg.block == "megatron":
+            self.lm_bias = nn.Parameter(torch.empty(
+                V, dtype=torch.float32, device=device))
+            self.register_parameter("lm_head", None)
+        else:
+            self.register_parameter("lm_bias", None)
+            self.lm_head = nn.Parameter(torch.empty(
+                V, cfg.hidden_size, dtype=torch.float32, device=device))
 
     def reset_parameters(self, generator=None):
-        nn.init.zeros_(self.lm_bias)
+        if self.lm_bias is not None:
+            nn.init.zeros_(self.lm_bias)
+        else:
+            with torch.no_grad():
+                self.lm_head.normal_(0.0, self.cfg.init_std,
+                                     generator=generator)
+
+    def head(self, x):
+        """[..., H] -> fp32 logits (this rank's V/tp): the tied embeddings
+        and the bias, or the untied head."""
+        if self.lm_head is not None:
+            return self.shared_embeddings.attend(x, self.lm_head)
+        return self.shared_embeddings.attend(x) + self.lm_bias
 
     def encode(self, enc_ids, drop: Optional[DropoutSeeds] = None):
         """[B, L] ids -> [B, L, H] encoder states (key-side pad bias; the
@@ -82,7 +111,7 @@ class T5Model(nn.Module):
         """Whole-prefix decoder -> [B, Ld, V] fp32 logits (this rank's
         [B, Ld, V/tp] under tp)."""
         x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
-        return self.shared_embeddings.attend(x) + self.lm_bias
+        return self.head(x)
 
     def decode_gold_log_probs(self, dec_ids, enc_hidden, enc_dec_mask,
                               labels, drop: Optional[DropoutSeeds] = None):
@@ -94,13 +123,13 @@ class T5Model(nn.Module):
         max over tp), rescaled sums of exps and masked gold picks (one sum
         over tp) combine: no [*, L, V] tensor, no gathered vocabulary."""
         x = self._decode_hidden(dec_ids, enc_hidden, enc_dec_mask, drop)
-        emb = self.shared_embeddings.word_embeddings      # [V/tp, H] fp32
+        emb = (self.shared_embeddings.word_embeddings if self.lm_head is None
+               else self.lm_head)                          # [V/tp, H] fp32
         V = emb.shape[0]
         base0 = self.tp.rank * V if is_split(self.tp) else 0
         xf = x.float()
         if V % 4:
-            logits = (self.shared_embeddings.attend(x)
-                      + self.lm_bias).float()
+            logits = self.head(x).float()
             if not is_split(self.tp):
                 lse = torch.logsumexp(logits, dim=-1)
                 picked = logits.gather(-1, labels[..., None])[..., 0]
@@ -119,7 +148,9 @@ class T5Model(nn.Module):
         for c in range(4):
             lo = c * chunk
             w = emb[lo:lo + chunk].to(x.dtype).float()
-            lc = torch.matmul(xf, w.T) + self.lm_bias[lo:lo + chunk]
+            lc = torch.matmul(xf, w.T)
+            if self.lm_bias is not None:
+                lc = lc + self.lm_bias[lo:lo + chunk]
             m_new = torch.maximum(m, lc.amax(dim=-1))
             s = (s * torch.exp(m - m_new)
                  + torch.exp(lc - m_new[..., None]).sum(dim=-1))
@@ -147,6 +178,11 @@ class T5Model(nn.Module):
                             cache: DecodeCache, position_offset: int = 0):
         """New decoder positions dec_ids [B, Lq] -> pre-head hidden
         [B, Lq, H]; self-attention causality comes from the cache."""
+        if self.cfg.block == "t5_v11":
+            raise NotImplementedError(
+                "generation (decode_step and the K5 int8 decode kernel) is "
+                "not built for the relative-position block: the KV-cached "
+                "decoder has no relative-position bias")
         x = self.shared_embeddings(dec_ids, position_offset=position_offset)
         return self.decoder.decode(x, cache, cross_kvs, cross_bias)
 
@@ -157,5 +193,4 @@ class T5Model(nn.Module):
         bias of the encoder positions."""
         x = self._decode_step_hidden(dec_ids, cross_kvs, cross_bias, cache,
                                      position_offset)
-        return gather_from_tp(self.shared_embeddings.attend(x)
-                              + self.lm_bias, self.tp)
+        return gather_from_tp(self.head(x), self.tp)

@@ -41,15 +41,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _U, _F, _L = ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
 _DROPOUT = [_U, _U, _I, _F, _F]      # seed, threshold, on, 1-rate, 1/(1-rate)
 _SIGNATURES = {
-    "emdr2_flash_self_attention_bf16": [_P] * 4 + [_I] * 4 + _DROPOUT + [_P],
+    # ..., the scores' scale, the relative-position bias (or null)
+    "emdr2_flash_self_attention_bf16":
+        [_P] * 4 + [_I] * 4 + _DROPOUT + [_F, _P, _P],
+    # ..., the scale, the bias and its gradient's partials (or nulls)
     "emdr2_flash_self_attention_bwd_bf16":
-        [_P] * 7 + [_I] * 4 + _DROPOUT + [_P],
+        [_P] * 7 + [_I] * 4 + _DROPOUT + [_F, _P, _P, _P],
     "emdr2_flash_self_attention_smem": [_P],
     # ..., the splits' scratch (acc, (m, l)), sizes, key_chunk, n_splits
-    "emdr2_flash_cross_attention_bf16": [_P] * 7 + [_I] * 7 + _DROPOUT + [_P],
+    "emdr2_flash_cross_attention_bf16":
+        [_P] * 7 + [_I] * 7 + _DROPOUT + [_F, _P],
     # ..., delta and the runs' dq scratch, ..., sizes, key_chunk, n_runs
     "emdr2_flash_cross_attention_bwd_bf16":
-        [_P] * 10 + [_I] * 7 + _DROPOUT + [_P],
+        [_P] * 10 + [_I] * 7 + _DROPOUT + [_F, _P],
     "emdr2_flash_cross_attention_bwd_layout": [_P],
     # q, k, v as (batch stride, row stride) in elements after the pointers
     "emdr2_fid_attention_bf16":

@@ -40,6 +40,21 @@
 //   packed in place are the A operands of dv += P_d^T do and dk += dS^T q.
 // Results are staged as bf16 over the block's own resident tiles and
 // written 16 bytes a lane.
+//
+// Relative-position bias (RelBias, a compile-time variant; NoRel builds the
+// walks without it): a per-head fp32 vector over the key-query offsets,
+// bias[h, j - i + Lq - 1], added to the scaled score of query i and key j
+// (j counted over all keys, not within a chunk). Each block copies its
+// head's vector into shared memory, padded with zeros on both sides so that
+// the rows and keys past the tensors index it too (their scores are masked
+// or never written). The dq kernel also sums dS along each diagonal: per
+// key tile each warp stages its [16, 64] dS in shared memory, each lane
+// sums whole diagonals of it (79 of them, rows of stride REL_STAGE so a
+// diagonal's reads fall in distinct banks across the lanes) and adds each
+// sum to the block's shared-memory row of offsets (one atomic add a
+// diagonal and warp: the warps' diagonals overlap); the row is the block's
+// partial [B * query tiles, nh, Lq + Lk - 1], which the caller sums over
+// rows and tiles.
 
 #pragma once
 
@@ -179,6 +194,59 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((1024 - (amma::smem_u32(raw) & 1023)) & 1023);
 }
 
+// ---- the relative-position bias of a walk ----
+
+// No bias: the walks as they were.
+struct NoRel {
+  static constexpr bool kOn = false;
+  const float* bias;
+  float* dbias;
+};
+
+// bias [nh, Lq + Lk - 1] fp32, the offset j - i at column j - i + Lq - 1;
+// dbias [B * ceil(Lq / 64), nh, Lq + Lk - 1] fp32, the dq kernel's
+// partials (backward only).
+struct RelBias {
+  static constexpr bool kOn = true;
+  const float* bias;
+  float* dbias;
+};
+
+// zeros each side of a shared-memory row of offsets: rows up to 127 past
+// Lq and keys up to 63 past Lk still index inside it
+constexpr int REL_PAD = 128;
+// the row stride (floats) of a warp's staged [16, 64] dS: writes of a quad
+// two-way at most, a diagonal's reads across the lanes in distinct banks
+constexpr int REL_STAGE = 72;
+constexpr int REL_STAGE_BYTES = 16 * REL_STAGE * 4;   // a warp's
+
+// Bytes of one shared-memory row of offsets, padded.
+__host__ __device__ inline int rel_row_bytes(int Lq, int Lk) {
+  return ((Lq + Lk - 1 + 2 * REL_PAD + 3) / 4) * 16;
+}
+
+// Copies the head's offsets into `at` (padded with zeros) with `nthreads`
+// threads; returns the row's offset 0 - (Lq - 1): row[j - i + Lq - 1].
+__device__ __forceinline__ float* load_rel_row(unsigned char* at,
+                                               const float* src, int width,
+                                               int tid, int nthreads) {
+  float* r = reinterpret_cast<float*>(at);
+  for (int i = tid; i < width + 2 * REL_PAD; i += nthreads) {
+    const int o = i - REL_PAD;
+    r[i] = (o >= 0 && o < width) ? __ldg(src + o) : 0.0f;
+  }
+  return r + REL_PAD;
+}
+
+// Zeroes a padded shared-memory row of offsets (the dq kernel's sums);
+// returns it as load_rel_row does.
+__device__ __forceinline__ float* zero_rel_row(unsigned char* at, int width,
+                                               int tid, int nthreads) {
+  float* r = reinterpret_cast<float*>(at);
+  for (int i = tid; i < width + 2 * REL_PAD; i += nthreads) r[i] = 0.0f;
+  return r + REL_PAD;
+}
+
 // ------------------------------------------------------------- forward
 
 constexpr int FWD_GROUPS = 2;   // warpgroups (64 queries each) a block
@@ -244,13 +312,14 @@ struct KeyRing {
   }
 };
 
-// out [B, Lq, nh, hd] contiguous; `stat` saves the row's statistic.
-template <bool DROP, class Stat>
+// out [B, Lq, nh, hd] contiguous; `stat` saves the row's statistic; `rel`
+// the relative-position bias, if any.
+template <bool DROP, class Stat, class Rel>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_MINB)
 flash_fwd_kernel(HeadRows q, HeadRows k, HeadRows v,
                  const float* __restrict__ kv_bias, bf16* __restrict__ out,
                  Stat stat, int Lq, int Lk, int nh, int C, float scale,
-                 Dropout drop) {
+                 Dropout drop, Rel rel) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -287,6 +356,12 @@ flash_fwd_kernel(HeadRows q, HeadRows k, HeadRows v,
   amma::init_state<1>(O, mrow, lrow);
   bf16* Qg = Qs + group * WG_TILE;
   const int qrow0 = q0 + group * 64 + warp * 16;
+  const float* rel_s = nullptr;     // rel_s[j - i + Lq - 1]
+  if constexpr (Rel::kOn) {
+    rel_s = load_rel_row(smem + FWD_ROWS * HD * 2 + FWD_STAGES * SLOT,
+                         rel.bias + (size_t)h * (Lq + Lk - 1), Lq + Lk - 1,
+                         tid, FWD_THREADS) + (Lq - 1);
+  }
 
   float S[1][NT][4] = {};       // the products take it as a read-write operand
   uint32_t P[NT / 2][4];
@@ -305,9 +380,25 @@ flash_fwd_kernel(HeadRows q, HeadRows k, HeadRows v,
     amma::wgmma_wait<0>(S, O);
     const int cj = div_by(i, n_ct, ct_recip);       // tile ct of chunk cj
     const int ct = i - cj * n_ct;
+    if constexpr (Rel::kOn) {
+      // s * scale + the offset's bias here; the step adds the key bias
+      const int key0 = cj * C + ct * KT + 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int off = key0 + 8 * n + e - (qrow0 + 8 * hf + (lane >> 2));
+            S[0][n][2 * hf + e] = fmaf(S[0][n][2 * hf + e], scale,
+                                       rel_s[off]);
+          }
+        }
+      }
+    }
     amma::softmax_step<1, NT, DROP>(S, O, mrow, lrow, ring.key_bias(i),
-                                    ct * KT, C, scale, drop, bh, (uint32_t)cj,
-                                    qrow0, lane);
+                                    ct * KT, C, Rel::kOn ? 1.0f : scale, drop,
+                                    bh, (uint32_t)cj, qrow0, lane);
     amma::pack_scores<NT>(P, S);
     amma::wgmma_fence();
 #pragma unroll
@@ -340,21 +431,33 @@ flash_fwd_kernel(HeadRows q, HeadRows k, HeadRows v,
              warp * 16, lane);
 }
 
+// The scores' scale of standard attention, hd^-0.5.
+inline float default_scale() { return 1.0f / sqrtf((float)HD); }
+
+// The most dynamic shared memory a block may ask for on the H100.
+constexpr int MAX_SMEM = 227 * 1024;
+
 // Launches the forward on `stream`; returns the launch's cudaError_t.
-template <class Stat>
+// Scores are s * scale (+ the relative-position bias of `rel`) + the key
+// bias.
+template <class Stat, class Rel = NoRel>
 inline cudaError_t launch_forward(HeadRows q, HeadRows k, HeadRows v,
                                   const void* kv_bias, void* out, Stat stat,
                                   int B, int Lq, int Lk, int nh, int C,
-                                  Dropout drop, void* stream) {
-  const auto kernel = drop.on ? flash_fwd_kernel<true, Stat>
-                              : flash_fwd_kernel<false, Stat>;
+                                  Dropout drop, void* stream,
+                                  float scale = default_scale(),
+                                  Rel rel = Rel{}) {
+  const auto kernel = drop.on ? flash_fwd_kernel<true, Stat, Rel>
+                              : flash_fwd_kernel<false, Stat, Rel>;
+  const int smem = FWD_SMEM + (Rel::kOn ? rel_row_bytes(Lq, Lk) : 0);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + FWD_ROWS - 1) / FWD_ROWS, nh, B);
-  kernel<<<grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+  kernel<<<grid, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       q, k, v, static_cast<const float*>(kv_bias), static_cast<bf16*>(out),
-      stat, Lq, Lk, nh, C, 1.0f / sqrtf((float)HD), drop);
+      stat, Lq, Lk, nh, C, scale, drop, rel);
   return cudaGetLastError();
 }
 
@@ -375,14 +478,14 @@ __device__ __forceinline__ uint32_t mask_base(const Dropout& drop, uint32_t bh,
 
 // dq for one (64-query tile, head, row); also writes delta = rowsum(do *
 // out) [B*nh, Lq]. out and dout are [B, Lq, nh, hd] contiguous.
-template <bool DROP, class Stat>
+template <bool DROP, class Stat, class Rel>
 __global__ void __launch_bounds__(BWD_THREADS, DQ_MINB)
 flash_bwd_dq_kernel(HeadRows q, HeadRows k, HeadRows v,
                     const float* __restrict__ kv_bias, Stat stat,
                     const bf16* __restrict__ out,
                     const bf16* __restrict__ dout, float* __restrict__ delta,
                     HeadRows dq, int Lq, int Lk, int nh, int C, float scale,
-                    Dropout drop) {
+                    Dropout drop, Rel rel) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -413,6 +516,21 @@ flash_bwd_dq_kernel(HeadRows q, HeadRows k, HeadRows v,
   amma::load_rows_async_swizzled<KT>(dOs, dob, H, q0, Lq, tid, BWD_THREADS);
 #pragma unroll
   for (int s = 0; s < BWD_STAGES - 1; ++s) ring.prefetch(s, tid);
+  // the offsets' bias and the block's sums of dS along the diagonals,
+  // both indexed [j - i + Lq - 1]
+  const int width = Lq + Lk - 1;
+  const float* rel_s = nullptr;
+  float* drel_s = nullptr;
+  float* stage_s = nullptr;         // this warp's [16, REL_STAGE] dS
+  if constexpr (Rel::kOn) {
+    unsigned char* at = smem + 2 * WG_TILE * 2 + BWD_STAGES * SLOT;
+    rel_s = load_rel_row(at, rel.bias + (size_t)h * width, width, tid,
+                         BWD_THREADS) + (Lq - 1);
+    drel_s = zero_rel_row(at + rel_row_bytes(Lq, Lk), width, tid,
+                          BWD_THREADS) + (Lq - 1);
+    stage_s = reinterpret_cast<float*>(at + 2 * rel_row_bytes(Lq, Lk)
+                                       + warp * REL_STAGE_BYTES);
+  }
 
   // this lane's two query rows: the statistic, and delta from the lane's 16
   // of the row's 64 columns, summed over the quad
@@ -494,7 +612,9 @@ flash_bwd_dq_kernel(HeadRows q, HeadRows k, HeadRows v,
       for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float s = fmaf(S[0][n][2 * hf + e], scale, kbias[e]);
+          float s = fmaf(S[0][n][2 * hf + e], scale, kbias[e]);
+          const int off = cj * C + kin0 + col + e - (qrow0 + 8 * hf + g);
+          if constexpr (Rel::kOn) s += rel_s[off];
           const float p = Stat::prob(s, first[hf], second[hf]);
           float dp = dP[0][n][2 * hf + e];
           if (DROP) {
@@ -502,9 +622,28 @@ flash_bwd_dq_kernel(HeadRows q, HeadRows k, HeadRows v,
             dp = murmur_fin(rterm[hf] ^ (kin * 0x85EBCA77u)) < drop.threshold
                      ? 0.0f : dp * drop.inv_keep;
           }
-          S[0][n][2 * hf + e] = p * (dp - dl[hf]);
+          const float ds = p * (dp - dl[hf]);
+          S[0][n][2 * hf + e] = ds;
+          if constexpr (Rel::kOn) {
+            stage_s[(8 * hf + g) * REL_STAGE + col + e] = ds;
+          }
         }
       }
+    }
+    if constexpr (Rel::kOn) {
+      // the sums along the tile's diagonals: lane l takes the offsets
+      // o = l - 15, l + 17, l + 49 (key column minus row, -15 .. 63)
+      __syncwarp();
+      float* dst = drel_s + (cj * C + kin0 - qrow0);
+      for (int o = lane - 15; o < KT; o += 32) {
+        const int r0 = o < 0 ? -o : 0;
+        const int r1 = o > KT - 16 ? KT - 1 - o : 15;
+        float sum = 0.0f;
+        for (int r = r0; r <= r1; ++r) sum += stage_s[r * (REL_STAGE + 1) + o];
+        asm volatile("red.shared.add.f32 [%0], %1;\n"
+                     :: "r"(amma::smem_u32(dst + o)), "f"(sum) : "memory");
+      }
+      __syncwarp();
     }
     amma::pack_scores<NT>(A, S);
     amma::wgmma_fence();
@@ -526,18 +665,25 @@ flash_bwd_dq_kernel(HeadRows q, HeadRows k, HeadRows v,
   }
   __syncwarp();
   write_rows(dq.head(b, h), dq.rs, qrow0, Lq, Qs, warp * 16, lane);
+  if constexpr (Rel::kOn) {                         // the block's partial
+    float* dst = rel.dbias
+                 + ((size_t)(b * gridDim.x + blockIdx.x) * nh + h) * width;
+    for (int o = tid; o < width; o += BWD_THREADS) {
+      dst[o] = drel_s[o - (Lq - 1)];
+    }
+  }
 }
 
 // dk and dv for one (64-key tile of a chunk, head, row), walking the query
 // tiles; delta from the dq kernel.
-template <bool DROP, class Stat>
+template <bool DROP, class Stat, class Rel>
 __global__ void __launch_bounds__(BWD_THREADS, DKV_MINB)
 flash_bwd_dkv_kernel(HeadRows q, HeadRows k, HeadRows v,
                      const float* __restrict__ kv_bias, Stat stat,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ delta, HeadRows dk, HeadRows dv,
                      int Lq, int Lk, int nh, int C, float scale,
-                     Dropout drop) {
+                     Dropout drop, Rel rel) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -599,6 +745,12 @@ flash_bwd_dkv_kernel(HeadRows q, HeadRows k, HeadRows v,
                                      tid, BWD_THREADS);
 #pragma unroll
   for (int s = 0; s < BWD_STAGES - 1; ++s) prefetch(s);
+  const float* rel_s = nullptr;     // rel_s[j - i + Lq - 1]
+  if constexpr (Rel::kOn) {
+    rel_s = load_rel_row(ring + BWD_STAGES * SLOT,
+                         rel.bias + (size_t)h * (Lq + Lk - 1), Lq + Lk - 1,
+                         tid, BWD_THREADS) + (Lq - 1);
+  }
 
   // this lane's two keys: place in the chunk, bias, the mask's key term
   const int kin0 = t0 + warp * 16;
@@ -652,7 +804,10 @@ flash_bwd_dkv_kernel(HeadRows q, HeadRows k, HeadRows v,
       for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float s = fmaf(ST[0][n][2 * hf + e], scale, kbias[hf]);
+          float s = fmaf(ST[0][n][2 * hf + e], scale, kbias[hf]);
+          if constexpr (Rel::kOn) {
+            s += rel_s[c0 + kin0 + 8 * hf + g - (i * KT + col + e)];
+          }
           const float p = Stat::prob(s, qfirst[e], qsecond[e]);
           float dp = dPT[0][n][2 * hf + e];
           float pd = p;
@@ -700,38 +855,46 @@ flash_bwd_dkv_kernel(HeadRows q, HeadRows k, HeadRows v,
 // Launches both backward kernels on `stream`, in order; returns the first
 // failing launch's cudaError_t (0 = both launched). `stat` is the forward's
 // saved statistic, `delta` [B*nh, Lq] fp32 scratch; every element of dq
-// [.., Lq, ..] and dk, dv [.., Lk, ..] is written.
-template <class Stat>
+// [.., Lq, ..] and dk, dv [.., Lk, ..] is written, and with a RelBias every
+// element of its partials dbias.
+template <class Stat, class Rel = NoRel>
 inline cudaError_t launch_backward(HeadRows q, HeadRows k, HeadRows v,
                                    const void* kv_bias, Stat stat,
                                    const void* out, const void* dout,
                                    void* delta, HeadRows dq, HeadRows dk,
                                    HeadRows dv, int B, int Lq, int Lk, int nh,
-                                   int C, Dropout drop, void* stream) {
-  const auto dq_kernel = drop.on ? flash_bwd_dq_kernel<true, Stat>
-                                 : flash_bwd_dq_kernel<false, Stat>;
-  const auto dkv_kernel = drop.on ? flash_bwd_dkv_kernel<true, Stat>
-                                  : flash_bwd_dkv_kernel<false, Stat>;
+                                   int C, Dropout drop, void* stream,
+                                   float scale = default_scale(),
+                                   Rel rel = Rel{}) {
+  const auto dq_kernel = drop.on ? flash_bwd_dq_kernel<true, Stat, Rel>
+                                 : flash_bwd_dq_kernel<false, Stat, Rel>;
+  const auto dkv_kernel = drop.on ? flash_bwd_dkv_kernel<true, Stat, Rel>
+                                  : flash_bwd_dkv_kernel<false, Stat, Rel>;
+  const int row = Rel::kOn ? rel_row_bytes(Lq, Lk) : 0;
+  // the bias, the sums and the warps' staged dS
+  const int dq_smem = BWD_SMEM + (Rel::kOn ? 2 * row + 4 * REL_STAGE_BYTES
+                                           : 0);
+  const int dkv_smem = BWD_SMEM + row;
+  if (dq_smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf((float)HD);
   cudaStream_t s = (cudaStream_t)stream;
   const float* bias = static_cast<const float*>(kv_bias);
   const bf16* dop = static_cast<const bf16*>(dout);
   const dim3 q_grid((Lq + KT - 1) / KT, nh, B);
-  dq_kernel<<<q_grid, BWD_THREADS, BWD_SMEM, s>>>(
+  dq_kernel<<<q_grid, BWD_THREADS, dq_smem, s>>>(
       q, k, v, bias, stat, static_cast<const bf16*>(out), dop,
-      static_cast<float*>(delta), dq, Lq, Lk, nh, C, scale, drop);
+      static_cast<float*>(delta), dq, Lq, Lk, nh, C, scale, drop, rel);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 k_grid((Lk / C) * ((C + KT - 1) / KT), nh, B);
-  dkv_kernel<<<k_grid, BWD_THREADS, BWD_SMEM, s>>>(
+  dkv_kernel<<<k_grid, BWD_THREADS, dkv_smem, s>>>(
       q, k, v, bias, stat, dop, static_cast<const float*>(delta), dk, dv, Lq,
-      Lk, nh, C, scale, drop);
+      Lk, nh, C, scale, drop, rel);
   return cudaGetLastError();
 }
 

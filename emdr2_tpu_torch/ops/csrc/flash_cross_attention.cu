@@ -6,7 +6,8 @@
 // head h, the Lq decoder queries q [B, Lq, H] attend over the Lk encoder
 // keys of kv [B, Lk, 2H] (features [k | v], heads at column h*hd and
 // H + h*hd) with the key-side bias kv_bias [B, Lk]:
-//   out[b, :, h] = dropout(softmax(q k^T * hd^-0.5 + bias)) v
+//   out[b, :, h] = dropout(softmax(q k^T * scale + bias)) v
+// (scale is the caller's: hd^-0.5 for standard attention, 1 for T5's)
 // and the backward writes dq [B, Lq, H] and the combined dkv [B, Lk, 2H]
 // in the projection's own layout (the TPU emits dkv transposed).
 //
@@ -853,7 +854,7 @@ extern "C" int emdr2_flash_cross_attention_bf16(
     const void* q, const void* kv, const void* kv_bias, void* out, void* lse,
     void* part_acc, void* part_ml, int B, int Lq, int Lk, int nh, int hd,
     int key_chunk, int n_splits, unsigned int seed, unsigned int threshold,
-    int drop_on, float keep_frac, float inv_keep, void* stream) {
+    int drop_on, float keep_frac, float inv_keep, float scale, void* stream) {
   if (bad_shape(B, Lq, Lk, nh, hd, key_chunk) || n_splits < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -863,7 +864,6 @@ extern "C" int emdr2_flash_cross_attention_bf16(
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const float scale = 1.0f / sqrtf((float)amma::HD);
   const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
                                     inv_keep);
   cudaStream_t s = (cudaStream_t)stream;
@@ -915,7 +915,7 @@ extern "C" int emdr2_flash_cross_attention_bwd_bf16(
     const void* out, const void* dout, void* delta, void* dq_part, void* dq,
     void* dkv, int B, int Lq, int Lk, int nh, int hd, int key_chunk,
     int n_runs, unsigned int seed, unsigned int threshold, int drop_on,
-    float keep_frac, float inv_keep, void* stream) {
+    float keep_frac, float inv_keep, float scale, void* stream) {
   if (bad_shape(B, Lq, Lk, nh, hd, key_chunk) || n_runs < 1 ||
       n_runs > 65535 || delta == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -926,7 +926,6 @@ extern "C" int emdr2_flash_cross_attention_bwd_bf16(
       (n_runs > 1 && dq_part == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float scale = 1.0f / sqrtf((float)amma::HD);
   const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
                                     inv_keep);
   cudaStream_t s = (cudaStream_t)stream;

@@ -4,7 +4,7 @@
 // Replaces: emdr2_tpu/ops/fid_attention.py:_self_fwd_kernel (forward) and
 // :_self_bwd_kernel (backward) of flash_self_attention. For each row b and
 // head h,
-//   out[b, :, h] = dropout(softmax(q k^T * hd^-0.5 + kv_bias[b])) v
+//   out[b, :, h] = dropout(softmax(q k^T * scale [+ rel[h]] + kv_bias[b])) v
 // reading q, k and v straight from the [B, L, 3H] slab at column offsets
 // h*hd, H + h*hd and 2H + h*hd, and the backward writes dq, dk and dv into
 // the same column slices of a [B, L, 3H] dqkv slab: no split or head
@@ -47,6 +47,15 @@
 // bit. An L that is no multiple of 64 ends in a short tile whose missing
 // keys count as bias -inf; rows past L arrive as zeros and are never
 // written.
+//
+// `scale` is given by the caller (hd^-0.5 for standard attention, 1 for
+// T5's). With `rel` (a [nh, 2L-1] fp32 vector over the offsets j - i, the
+// relative-position bias of T5) the walks' RelBias variant adds
+// rel[h, j - i + L - 1] to the scaled score, and the backward writes the
+// dq blocks' sums of dS along the diagonals to `drel_part`
+// [B * ceil(L / 64), nh, 2L-1] fp32, which the caller sums over its first
+// axis: the bias's gradient. Those sums are shared-memory atomic adds, so
+// the bias's gradient does not repeat bit for bit; dq, dk and dv do.
 
 #include "attention_flash.cuh"
 #include "hashing.cuh"
@@ -68,38 +77,64 @@ HeadRows slab_part(const void* slab, int part, int L, int H) {
 // stats [B, nh, 2, L] fp32 (rowmax, 1/l; or null), all contiguous and
 // 16-byte aligned.
 // Dropout is on when `drop_on` != 0: `threshold` = min(int(rate*2^32),
-// 2^32-1), keep_frac = 1 - rate. Returns a cudaError_t (0 = launched).
+// 2^32-1), keep_frac = 1 - rate. `rel` [nh, 2L-1] fp32 or null. Returns a
+// cudaError_t (0 = launched).
 extern "C" int emdr2_flash_self_attention_bf16(
     const void* qkv, const void* kv_bias, void* out, void* stats, int B, int L,
     int nh, int hd, unsigned int seed, unsigned int threshold, int drop_on,
-    float keep_frac, float inv_keep, void* stream) {
+    float keep_frac, float inv_keep, float scale, const void* rel,
+    void* stream) {
   if (aflash::bad_shape(B, L, L, nh, hd, L)) return (int)cudaErrorInvalidValue;
   const int H = nh * hd;
+  const aflash::RowMaxInv stat{static_cast<float*>(stats)};
+  const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
+                                    inv_keep);
+  if (rel == nullptr) {
+    return (int)aflash::launch_forward(
+        slab_part(qkv, 0, L, H), slab_part(qkv, 1, L, H),
+        slab_part(qkv, 2, L, H), kv_bias, out, stat, B, L, L, nh, L, drop,
+        stream, scale);
+  }
   return (int)aflash::launch_forward(
       slab_part(qkv, 0, L, H), slab_part(qkv, 1, L, H),
-      slab_part(qkv, 2, L, H), kv_bias, out,
-      aflash::RowMaxInv{static_cast<float*>(stats)}, B, L, L, nh, L,
-      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep), stream);
+      slab_part(qkv, 2, L, H), kv_bias, out, stat, B, L, L, nh, L, drop,
+      stream, scale, aflash::RelBias{static_cast<const float*>(rel), nullptr});
 }
 
 // Backward: qkv, kv_bias as the forward; out [B, L, H] and dout [B, L, H]
 // bf16; stats [B, nh, 2, L] fp32 from the forward; delta [B, nh, L] fp32
-// scratch; dqkv [B, L, 3H] bf16 (every element written). Two launches on
-// `stream`, in order. Returns a cudaError_t (0 = launched).
+// scratch; dqkv [B, L, 3H] bf16 (every element written); with `rel`,
+// drel_part [B * ceil(L / 64), nh, 2L-1] fp32 (every element written). Two
+// launches on `stream`, in order. Returns a cudaError_t (0 = launched).
 extern "C" int emdr2_flash_self_attention_bwd_bf16(
     const void* qkv, const void* kv_bias, const void* out, const void* dout,
     const void* stats, void* delta, void* dqkv, int B, int L, int nh, int hd,
     unsigned int seed, unsigned int threshold, int drop_on, float keep_frac,
-    float inv_keep, void* stream) {
-  if (aflash::bad_shape(B, L, L, nh, hd, L)) return (int)cudaErrorInvalidValue;
+    float inv_keep, float scale, const void* rel, void* drel_part,
+    void* stream) {
+  if (aflash::bad_shape(B, L, L, nh, hd, L) ||
+      (rel != nullptr && drel_part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int H = nh * hd;
+  const aflash::RowMaxInv stat{
+      static_cast<float*>(const_cast<void*>(stats))};
+  const Dropout drop = make_dropout(seed, threshold, drop_on, keep_frac,
+                                    inv_keep);
+  if (rel == nullptr) {
+    return (int)aflash::launch_backward(
+        slab_part(qkv, 0, L, H), slab_part(qkv, 1, L, H),
+        slab_part(qkv, 2, L, H), kv_bias, stat, out, dout, delta,
+        slab_part(dqkv, 0, L, H), slab_part(dqkv, 1, L, H),
+        slab_part(dqkv, 2, L, H), B, L, L, nh, L, drop, stream, scale);
+  }
   return (int)aflash::launch_backward(
       slab_part(qkv, 0, L, H), slab_part(qkv, 1, L, H),
-      slab_part(qkv, 2, L, H), kv_bias,
-      aflash::RowMaxInv{static_cast<float*>(const_cast<void*>(stats))}, out,
-      dout, delta, slab_part(dqkv, 0, L, H), slab_part(dqkv, 1, L, H),
-      slab_part(dqkv, 2, L, H), B, L, L, nh, L,
-      make_dropout(seed, threshold, drop_on, keep_frac, inv_keep), stream);
+      slab_part(qkv, 2, L, H), kv_bias, stat, out, dout, delta,
+      slab_part(dqkv, 0, L, H), slab_part(dqkv, 1, L, H),
+      slab_part(dqkv, 2, L, H), B, L, L, nh, L, drop, stream, scale,
+      aflash::RelBias{static_cast<const float*>(rel),
+                      static_cast<float*>(drel_part)});
 }
 
 // Dynamic shared memory of a block, in bytes: [0] the forward kernel, [1]

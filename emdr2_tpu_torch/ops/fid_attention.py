@@ -44,6 +44,20 @@ chunks and sums fp32 partials in run order
 ``flash_cross_attention_bwd_split_reference`` are that arithmetic in plain
 PyTorch).
 
+K1 and K2 take the scores' ``scale`` (``None``: hd^-0.5; T5's attention
+has none, 1.0). K1 also takes T5's relative-position bias as a per-head
+fp32 vector over the key-query offsets, ``rel_bias`` [nh, 2L-1]
+(``rel_bias[h, j - i + L - 1]`` is added to the scaled score of query i
+and key j; ``rel_offsets`` gives that index and the model maps its bucket
+table onto the vector), and returns its gradient: the sums of dS along each
+diagonal over the rows, which the backward kernel reduces per block into
+[B * L/64, nh, 2L-1] partials and the wrapper sums (no [B, nh, L, L]
+tensor). Without a bias and at the default scale both kernels run the code
+they ran before. The relative-bias calls count ``.rel_launches``,
+``.rel_flops`` and ``.rel_bytes`` on ``flash_self_attention`` (forward,
+remat recompute included) and on ``flash_self_attention_backward`` (the
+partials' write and the sum's read included).
+
 What the kernels take is stated once, in ``kernel_limits``: a
 configuration outside it is refused on the card, at construction and at
 every call, never routed to a plain version.
@@ -145,13 +159,70 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _scale(scale: Optional[float], hd: int) -> float:
+    """The scores' scale: ``scale``, or hd^-0.5 when None."""
+    return hd ** -0.5 if scale is None else float(scale)
+
+
+def rel_offsets(Lq: int, Lk: int, device=None) -> torch.Tensor:
+    """[Lq, Lk] int64: ``j - i + Lq - 1``, the column of a relative-position
+    vector [nh, Lq + Lk - 1] that query i and key j read."""
+    i = torch.arange(Lq, device=device)[:, None]
+    j = torch.arange(Lk, device=device)[None, :]
+    return j - i + (Lq - 1)
+
+
+def rel_bias_full(rel_bias: torch.Tensor, Lq: int, Lk: int) -> torch.Tensor:
+    """The [nh, Lq, Lk] fp32 bias of a relative-position vector
+    [nh, Lq + Lk - 1] (materialized: the plain versions and the tests)."""
+    return rel_bias.float()[:, rel_offsets(Lq, Lk, rel_bias.device)]
+
+
+def rel_bias_grad(ds: torch.Tensor) -> torch.Tensor:
+    """The relative-position vector's gradient [nh, Lq + Lk - 1] from dS
+    [B, nh, Lq, Lk]: the sums along each diagonal over the rows."""
+    _, nh, Lq, Lk = ds.shape
+    idx = rel_offsets(Lq, Lk, ds.device).reshape(-1)
+    return torch.zeros((nh, Lq + Lk - 1), dtype=torch.float32,
+                       device=ds.device).index_add_(
+        1, idx, ds.float().sum(dim=0).reshape(nh, Lq * Lk))
+
+
+def _check_rel(rel_bias, nh: int, L: int) -> None:
+    if rel_bias is not None and (rel_bias.shape != (nh, 2 * L - 1)
+                                 or rel_bias.dtype != torch.float32):
+        raise ValueError(f"rel_bias must be fp32 {(nh, 2 * L - 1)}, got "
+                         f"{rel_bias.dtype} {tuple(rel_bias.shape)}")
+
+
+def _rel_counts(B: int, L: int, nh: int, hd: int, stats: bool,
+                backward: bool):
+    """(FLOPs, bytes) of one relative-bias K1 call over B rows of L tokens:
+    the products (two forward, five backward, 2 L^2 hd each a row and
+    head), each bf16 input read once and each output written once, the
+    fp32 key bias, statistics and offset vector; backward also delta and
+    the gradient written. The diagonal sums' per-block partials are the
+    kernel's scratch, not bytes the call needs, and are not counted."""
+    act = B * L * nh * hd * 2
+    width = nh * (2 * L - 1) * 4
+    if not backward:
+        return (4.0 * B * L * L * nh * hd,
+                4 * act + B * L * 4 + (B * nh * L * 8 if stats else 0)
+                + width)
+    return (10.0 * B * L * L * nh * hd,
+            8 * act + B * L * 4 + B * nh * L * 12 + 2 * width)
+
+
 # ------------------------------------------------- K1: self-attention slab
 
 def flash_self_attention_reference(qkv: torch.Tensor, kv_bias: torch.Tensor,
                                    nh: int, seed: Optional[int] = None,
-                                   rate: float = 0.0) -> torch.Tensor:
+                                   rate: float = 0.0,
+                                   scale: Optional[float] = None,
+                                   rel_bias: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Plain PyTorch forward, rounding where the TPU kernel rounds: fp32
-    scores ``s*scale + bias``, ``p = exp(s - max)``, ``l = sum(p)`` in fp32
+    scores ``s*scale (+ rel) + bias``, ``p = exp(s - max)``, ``l = sum(p)`` in fp32
     over undropped ``p``, dropped ``p`` zeroed and cast to the input dtype
     before the fp32-accumulated P.V product, then ``/ (l*(1-rate))``
     (guarded ``> 0``) and a cast to the input dtype.
@@ -163,7 +234,9 @@ def flash_self_attention_reference(qkv: torch.Tensor, kv_bias: torch.Tensor,
     hd = H // nh
     heads = qkv.view(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)  # [3,B,nh,L,hd]
     q, k, v = heads[0].float(), heads[1].float(), heads[2]
-    s = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5)
+    s = torch.matmul(q, k.transpose(-1, -2)) * _scale(scale, hd)
+    if rel_bias is not None:
+        s = s + rel_bias_full(rel_bias, L, L)
     s = s + kv_bias.float()[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -200,21 +273,27 @@ def flash_self_attention_stats_reference(qkv: torch.Tensor,
 
 def flash_self_attention_bwd_reference(qkv, kv_bias, out, dout, nh: int,
                                        seed: Optional[int] = None,
-                                       rate: float = 0.0) -> torch.Tensor:
+                                       rate: float = 0.0,
+                                       scale: Optional[float] = None,
+                                       rel_bias: Optional[torch.Tensor] = None):
     """Plain PyTorch backward of the TPU kernel (``_self_bwd_kernel``):
     recompute ``P = exp(s - max) / l``; ``delta = rowsum(do * out)``;
     ``dP = do v^T`` (dropped and scaled by 1/(1-rate)); ``dS = P (dP -
     delta)``; dq = dS k * scale, dk = dS^T q * scale, dv = P_d^T do, all in
-    fp32 and cast to qkv's dtype. Returns dqkv [B, L, 3H]."""
+    fp32 and cast to qkv's dtype. Returns dqkv [B, L, 3H]; with
+    ``rel_bias``, (dqkv, its gradient [nh, 2L-1] fp32: dS summed along each
+    diagonal)."""
     B, L, H3 = qkv.shape
     H = H3 // 3
     hd = H // nh
-    scale = hd ** -0.5
+    scale = _scale(scale, hd)
     heads = qkv.view(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)
     q, k, v = heads[0].float(), heads[1].float(), heads[2].float()
     do = dout.view(B, L, nh, hd).permute(0, 2, 1, 3).float()
     o = out.view(B, L, nh, hd).permute(0, 2, 1, 3).float()
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if rel_bias is not None:
+        s = s + rel_bias_full(rel_bias, L, L)
     s = s + kv_bias.float()[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     P = torch.exp(s - m)
@@ -234,17 +313,21 @@ def flash_self_attention_bwd_reference(qkv, kv_bias, out, dout, nh: int,
         Pd = P
     ds = dp.sub_(delta).mul_(P)
     del P
+    drel = rel_bias_grad(ds) if rel_bias is not None else None
     dq = (torch.matmul(ds, k) * scale).to(qkv.dtype)
     dk = (torch.matmul(ds.transpose(-1, -2), q) * scale).to(qkv.dtype)
     del ds
     dv = torch.matmul(Pd.transpose(-1, -2), do).to(qkv.dtype)
     d = torch.stack([dq, dk, dv], dim=0)                     # [3,B,nh,L,hd]
-    return d.permute(1, 3, 0, 2, 4).reshape(B, L, H3)
+    dqkv = d.permute(1, 3, 0, 2, 4).reshape(B, L, H3)
+    return dqkv if drel is None else (dqkv, drel)
 
 
 def flash_self_attention_forward(qkv, kv_bias, nh: int,
                                  seed: Optional[int] = None,
-                                 rate: float = 0.0, with_stats: bool = True):
+                                 rate: float = 0.0, with_stats: bool = True,
+                                 scale: Optional[float] = None,
+                                 rel_bias: Optional[torch.Tensor] = None):
     """-> (out, row statistics or None); the kernel on CUDA, the plain
     version on CPU (which keeps no statistics: its backward recomputes
     them). Not differentiable (see ``flash_self_attention``).
@@ -253,12 +336,14 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
     backward's P = exp(s - rowmax) / l, as the TPU backward recomputes it
     (an lse would lose log(l) in fp32 on a fully padded row, whose rowmax
     is ~-1e9)."""
-    if qkv.device.type == "cpu":
-        return flash_self_attention_reference(qkv, kv_bias, nh, seed,
-                                              rate), None
     B, L, H3 = qkv.shape
     H = H3 // 3
-    _check_cuda("flash_self_attention", (qkv, kv_bias), (qkv,), (kv_bias,),
+    _check_rel(rel_bias, nh, L)
+    if qkv.device.type == "cpu":
+        return flash_self_attention_reference(qkv, kv_bias, nh, seed, rate,
+                                              scale, rel_bias), None
+    tensors = (qkv, kv_bias) + ((rel_bias,) if rel_bias is not None else ())
+    _check_cuda("flash_self_attention", tensors, (qkv,), tensors[1:],
                 H // nh)
     out = torch.empty((B, L, H), dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty((B, nh, 2, L), dtype=torch.float32,
@@ -267,33 +352,44 @@ def flash_self_attention_forward(qkv, kv_bias, nh: int,
         "emdr2_flash_self_attention_bf16", "flash_self_attention",
         qkv.device, qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
         stats.data_ptr() if stats is not None else None, B, L, nh, 64,
-        *_dropout_args(seed, rate), _stream(qkv))
+        *_dropout_args(seed, rate), _scale(scale, H // nh),
+        rel_bias.data_ptr() if rel_bias is not None else None, _stream(qkv))
     count(flash_self_attention, "launches")
     count(flash_self_attention, "launches_by_shape",
           (str(qkv.device), B, L))
+    if rel_bias is not None:
+        flops, nbytes = _rel_counts(B, L, nh, H // nh, with_stats, False)
+        count(flash_self_attention, "rel_launches")
+        count(flash_self_attention, "rel_flops", n=flops)
+        count(flash_self_attention, "rel_bytes", n=nbytes)
     return out, stats
 
 
 def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
                                   seed: Optional[int] = None,
                                   rate: float = 0.0,
-                                  stats: Optional[torch.Tensor] = None
-                                  ) -> torch.Tensor:
-    """dqkv [B, L, 3H] of ``flash_self_attention``. On CUDA it launches the
+                                  stats: Optional[torch.Tensor] = None,
+                                  scale: Optional[float] = None,
+                                  rel_bias: Optional[torch.Tensor] = None):
+    """dqkv [B, L, 3H] of ``flash_self_attention`` (with ``rel_bias``,
+    (dqkv, the bias's gradient [nh, 2L-1] fp32)). On CUDA it launches the
     backward kernels, which need the forward's row ``stats`` [B, nh, 2, L];
     on CPU it runs the plain version."""
     _dropout_args(seed, rate)
-    if qkv.device.type == "cpu":
-        return flash_self_attention_bwd_reference(qkv, kv_bias, out, dout,
-                                                  nh, seed, rate)
-    if stats is None:
-        raise ValueError("the backward kernel needs the forward's stats")
     B, L, H3 = qkv.shape
     H = H3 // 3
+    _check_rel(rel_bias, nh, L)
+    if qkv.device.type == "cpu":
+        return flash_self_attention_bwd_reference(qkv, kv_bias, out, dout,
+                                                  nh, seed, rate, scale,
+                                                  rel_bias)
+    if stats is None:
+        raise ValueError("the backward kernel needs the forward's stats")
     dout = dout.contiguous()
+    rel = (rel_bias,) if rel_bias is not None else ()
     _check_cuda("flash_self_attention_backward",
-                (qkv, kv_bias, out, dout, stats), (qkv, out, dout),
-                (kv_bias, stats), H // nh)
+                (qkv, kv_bias, out, dout, stats) + rel, (qkv, out, dout),
+                (kv_bias, stats) + rel, H // nh)
     if out.shape != (B, L, H) or dout.shape != (B, L, H) \
             or stats.shape != (B, nh, 2, L):
         raise ValueError(f"bad shapes for the backward kernel: qkv "
@@ -301,41 +397,61 @@ def flash_self_attention_backward(qkv, kv_bias, out, dout, nh: int,
                          f"{tuple(dout.shape)}, stats {tuple(stats.shape)}")
     delta = torch.empty((B, nh, L), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
+    parts = (torch.empty((B * (-(-L // 64)), nh, 2 * L - 1),
+                         dtype=torch.float32, device=qkv.device)
+             if rel_bias is not None else None)
     build.launch(
         "emdr2_flash_self_attention_bwd_bf16",
         "flash_self_attention_backward",
         qkv.device, qkv.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
         dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), B, L, nh, 64,
-        *_dropout_args(seed, rate), _stream(qkv))
+        *_dropout_args(seed, rate), _scale(scale, H // nh),
+        rel_bias.data_ptr() if rel_bias is not None else None,
+        parts.data_ptr() if parts is not None else None, _stream(qkv))
     count(flash_self_attention_backward, "launches")
-    return dqkv
+    if parts is None:
+        return dqkv
+    flops, nbytes = _rel_counts(B, L, nh, H // nh, True, True)
+    count(flash_self_attention_backward, "rel_launches")
+    count(flash_self_attention_backward, "rel_flops", n=flops)
+    count(flash_self_attention_backward, "rel_bytes", n=nbytes)
+    return dqkv, parts.sum(dim=0)
 
 
 class _FlashSelfAttention(torch.autograd.Function):
+    """Differentiable w.r.t. qkv and, when there is one, the relative-
+    position bias vector."""
 
     @staticmethod
-    def forward(ctx, qkv, kv_bias, nh, seed, rate):
+    def forward(ctx, qkv, kv_bias, rel_bias, nh, seed, rate, scale):
         out, stats = flash_self_attention_forward(qkv, kv_bias, nh, seed,
-                                                  rate)
-        ctx.save_for_backward(qkv, kv_bias, out, stats)
-        ctx.nh, ctx.seed, ctx.rate = nh, seed, rate
+                                                  rate, scale=scale,
+                                                  rel_bias=rel_bias)
+        ctx.save_for_backward(qkv, kv_bias, rel_bias, out, stats)
+        ctx.nh, ctx.seed, ctx.rate, ctx.scale = nh, seed, rate, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, kv_bias, out, stats = ctx.saved_tensors
-        dqkv = flash_self_attention_backward(qkv, kv_bias, out, dout, ctx.nh,
-                                             ctx.seed, ctx.rate, stats)
-        return dqkv, None, None, None, None
+        qkv, kv_bias, rel_bias, out, stats = ctx.saved_tensors
+        d = flash_self_attention_backward(qkv, kv_bias, out, dout, ctx.nh,
+                                          ctx.seed, ctx.rate, stats,
+                                          ctx.scale, rel_bias)
+        dqkv, drel = d if rel_bias is not None else (d, None)
+        return dqkv, None, drel, None, None, None, None
 
 
 def flash_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor, nh: int,
                          seed: Optional[int] = None,
-                         rate: float = 0.0) -> torch.Tensor:
+                         rate: float = 0.0, scale: Optional[float] = None,
+                         rel_bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """qkv [B, L, 3H], kv_bias [B, L] fp32 -> [B, L, H] in qkv's dtype,
-    differentiable w.r.t. qkv. ``seed`` (uint32) and ``rate`` set the
-    in-kernel attention dropout."""
+    differentiable w.r.t. qkv (and ``rel_bias``). ``seed`` (uint32) and
+    ``rate`` set the in-kernel attention dropout; ``scale`` the scores'
+    scale (None: hd^-0.5); ``rel_bias`` [nh, 2L-1] fp32 a relative-position
+    bias by offset (``rel_offsets``)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * nh):
         raise ValueError(f"qkv must be [B, L, 3H] with H % nh == 0, "
                          f"got {tuple(qkv.shape)} and nh={nh}")
@@ -346,10 +462,15 @@ def flash_self_attention(qkv: torch.Tensor, kv_bias: torch.Tensor, nh: int,
         raise ValueError(f"flash_self_attention: unsupported devices "
                          f"{qkv.device} / {kv_bias.device}")
     _dropout_args(seed, rate)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FlashSelfAttention.apply(qkv, kv_bias, nh, seed, rate)
+    _check_rel(rel_bias, nh, L)
+    if torch.is_grad_enabled() and (
+            qkv.requires_grad
+            or (rel_bias is not None and rel_bias.requires_grad)):
+        return _FlashSelfAttention.apply(qkv, kv_bias, rel_bias, nh, seed,
+                                         rate, scale)
     return flash_self_attention_forward(qkv, kv_bias, nh, seed, rate,
-                                        with_stats=False)[0]
+                                        with_stats=False, scale=scale,
+                                        rel_bias=rel_bias)[0]
 
 
 # ------------------------------------------------ K2: cross-attention slab
@@ -364,7 +485,7 @@ def _cross_heads(q, kv, nh):
 
 
 def _cross_walk(q, kv, kv_bias, nh: int, key_chunk: int, chunks, seed,
-                rate: float):
+                rate: float, scale: Optional[float] = None):
     """The TPU kernel's online softmax over the key chunks ``chunks`` (a
     range): per chunk, ``p = exp(s - m_new)`` against the running max, ``l``
     over undropped ``p``, dropped ``p`` cast to kv's dtype before the
@@ -381,7 +502,7 @@ def _cross_walk(q, kv, kv_bias, nh: int, key_chunk: int, chunks, seed,
     for j in chunks:
         sl = slice(j * key_chunk, (j + 1) * key_chunk)
         s = torch.matmul(qf, kh[:, :, sl].float().transpose(-1, -2))
-        s = s * (hd ** -0.5) + bias[:, None, None, sl]
+        s = s * _scale(scale, hd) + bias[:, None, None, sl]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -407,18 +528,20 @@ def _cross_finish(q, m, l, acc, rate: float):
 
 def flash_cross_attention_reference(q, kv, kv_bias, nh: int, key_chunk: int,
                                     seed: Optional[int] = None,
-                                    rate: float = 0.0
+                                    rate: float = 0.0,
+                                    scale: Optional[float] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward with the TPU kernel's chunked online softmax
     and rounding (``_cross_walk`` over every chunk in order). Returns (out
     [B, Lq, H] in q's dtype, lse [B, Lq, nh] fp32)."""
     chunks = range(kv.shape[1] // key_chunk)
     return _cross_finish(q, *_cross_walk(q, kv, kv_bias, nh, key_chunk,
-                                         chunks, seed, rate), rate)
+                                         chunks, seed, rate, scale), rate)
 
 
 def _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh: int,
-                      key_chunk: int, seed, rate: float):
+                      key_chunk: int, seed, rate: float,
+                      scale: Optional[float] = None):
     """The TPU kernel's backward (``_xslab_bwd_kernel``), chunk by chunk in
     order: ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled), ``dS =
     P (dP - delta)``. Yields (the chunk's key slice, its fp32 dq term dS k *
@@ -427,7 +550,7 @@ def _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh: int,
     B, Lq, H = q.shape
     Lk = kv.shape[1]
     qh, kh, vh, hd = _cross_heads(q, kv, nh)
-    scale = hd ** -0.5
+    scale = _scale(scale, hd)
     qf = qh.float()
     do = dout.view(B, Lq, nh, hd).permute(0, 2, 1, 3).float()
     o = out.view(B, Lq, nh, hd).permute(0, 2, 1, 3).float()
@@ -484,7 +607,8 @@ def _cross_bwd_sum(q, kv, nh: int, terms, ends) -> Tuple[torch.Tensor,
 def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
                                         nh: int, key_chunk: int,
                                         seed: Optional[int] = None,
-                                        rate: float = 0.0
+                                        rate: float = 0.0,
+                                        scale: Optional[float] = None
                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of the TPU kernel (``_xslab_bwd_kernel``): per
     chunk, ``P = exp(s - lse)``, ``dP = do v^T`` (dropped, rescaled),
@@ -492,7 +616,7 @@ def flash_cross_attention_bwd_reference(q, kv, kv_bias, lse, out, dout,
     dq = sum over chunks of dS k * scale (fp32). Returns (dq [B, Lq, H],
     dkv [B, Lk, 2H]) in the inputs' dtypes."""
     terms = _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh, key_chunk,
-                              seed, rate)
+                              seed, rate, scale)
     return _cross_bwd_sum(q, kv, nh, terms, {kv.shape[1] // key_chunk - 1})
 
 
@@ -500,7 +624,8 @@ def flash_cross_attention_bwd_split_reference(q, kv, kv_bias, lse, out, dout,
                                               nh: int, key_chunk: int,
                                               n_splits: int,
                                               seed: Optional[int] = None,
-                                              rate: float = 0.0
+                                              rate: float = 0.0,
+                                              scale: Optional[float] = None
                                               ) -> Tuple[torch.Tensor,
                                                          torch.Tensor]:
     """The arithmetic of the backward kernel's key split, in plain PyTorch:
@@ -516,7 +641,7 @@ def flash_cross_attention_bwd_split_reference(q, kv, kv_bias, lse, out, dout,
     ends = {min(n_chunks, j0 + per_run) - 1
             for j0 in range(0, n_chunks, per_run)}
     terms = _cross_bwd_chunks(q, kv, kv_bias, lse, out, dout, nh, key_chunk,
-                              seed, rate)
+                              seed, rate, scale)
     return _cross_bwd_sum(q, kv, nh, terms, ends)
 
 
@@ -544,7 +669,8 @@ def _check_cross(q, kv, kv_bias, nh, key_chunk):
 def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
                                           key_chunk: int, n_splits: int,
                                           seed: Optional[int] = None,
-                                          rate: float = 0.0
+                                          rate: float = 0.0,
+                                          scale: Optional[float] = None
                                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The arithmetic of the kernel's key split, in plain PyTorch: the
     chunks are dealt to ``n_splits`` runs of whole chunks, each run walked
@@ -556,7 +682,8 @@ def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
     n_chunks = kv.shape[1] // key_chunk
     per_split = _split_chunks(n_chunks, n_splits)[1]
     parts = [_cross_walk(q, kv, kv_bias, nh, key_chunk,
-                         range(j0, min(n_chunks, j0 + per_split)), seed, rate)
+                         range(j0, min(n_chunks, j0 + per_split)), seed, rate,
+                         scale)
              for j0 in range(0, n_chunks, per_split)]
     m = torch.stack([part[0] for part in parts]).amax(dim=0)
     l = torch.zeros_like(m)
@@ -600,7 +727,8 @@ def _cross_splits(B: int, nh: int, n_chunks: int, device,
 def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
                                   seed: Optional[int] = None,
                                   rate: float = 0.0,
-                                  n_splits: Optional[int] = None
+                                  n_splits: Optional[int] = None,
+                                  scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Lq, H], lse [B, Lq, nh] fp32): the kernel on CUDA, the
     plain version on CPU. Not differentiable (see ``flash_cross_attention``).
@@ -613,7 +741,7 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
     _dropout_args(seed, rate)
     if q.device.type == "cpu":
         return flash_cross_attention_reference(q, kv, kv_bias, nh, key_chunk,
-                                               seed, rate)
+                                               seed, rate, scale)
     B, Lq, H = q.shape
     Lk = kv.shape[1]
     _check_cuda("flash_cross_attention", (q, kv, kv_bias), (q, kv),
@@ -637,14 +765,16 @@ def flash_cross_attention_forward(q, kv, kv_bias, nh: int, key_chunk: int,
         out.data_ptr(), lse.data_ptr(),
         part_acc.data_ptr() if n_splits > 1 else None,
         part_ml.data_ptr() if n_splits > 1 else None, B, Lq, Lk, nh, 64,
-        key_chunk, n_splits, *_dropout_args(seed, rate), _stream(q))
+        key_chunk, n_splits, *_dropout_args(seed, rate),
+        _scale(scale, H // nh), _stream(q))
     count(flash_cross_attention, "launches")
     return out, lse
 
 
 def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
                                    key_chunk: int, seed: Optional[int] = None,
-                                   rate: float = 0.0
+                                   rate: float = 0.0,
+                                   scale: Optional[float] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq [B, Lq, H], dkv [B, Lk, 2H]) of ``flash_cross_attention``: the
     kernel on CUDA, the plain version on CPU.
@@ -657,14 +787,15 @@ def flash_cross_attention_backward(q, kv, kv_bias, lse, out, dout, nh: int,
     _dropout_args(seed, rate)
     if q.device.type == "cpu":
         return flash_cross_attention_bwd_reference(
-            q, kv, kv_bias, lse, out, dout, nh, key_chunk, seed, rate)
+            q, kv, kv_bias, lse, out, dout, nh, key_chunk, seed, rate, scale)
     return _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh,
-                                  key_chunk, seed, rate)
+                                  key_chunk, seed, rate, scale=scale)
 
 
 def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
                            key_chunk: int, seed: Optional[int], rate: float,
-                           n_runs: Optional[int] = None
+                           n_runs: Optional[int] = None,
+                           scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the CUDA tensors against the kernel's limits and launch it.
     ``n_runs``: runs of whole chunks a (head, row), reduced until none is
@@ -699,7 +830,7 @@ def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
         lse.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dq_part.data_ptr() if dq_part is not None else None, dq.data_ptr(),
         dkv.data_ptr(), B, Lq, Lk, nh, 64, key_chunk, n_runs,
-        *_dropout_args(seed, rate), _stream(q))
+        *_dropout_args(seed, rate), _scale(scale, H // nh), _stream(q))
     count(flash_cross_attention_backward, "launches")
     return dq, dkv
 
@@ -707,11 +838,12 @@ def _launch_cross_backward(q, kv, kv_bias, lse, out, dout, nh: int,
 class _FlashCrossAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, kv, kv_bias, nh, key_chunk, seed, rate):
+    def forward(ctx, q, kv, kv_bias, nh, key_chunk, seed, rate, scale):
         out, lse = flash_cross_attention_forward(q, kv, kv_bias, nh,
-                                                 key_chunk, seed, rate)
+                                                 key_chunk, seed, rate,
+                                                 scale=scale)
         ctx.save_for_backward(q, kv, kv_bias, lse, out)
-        ctx.args = (nh, key_chunk, seed, rate)
+        ctx.args = (nh, key_chunk, seed, rate, scale)
         return out
 
     @staticmethod
@@ -719,21 +851,22 @@ class _FlashCrossAttention(torch.autograd.Function):
         q, kv, kv_bias, lse, out = ctx.saved_tensors
         dq, dkv = flash_cross_attention_backward(q, kv, kv_bias, lse, out,
                                                  dout, *ctx.args)
-        return dq, dkv, None, None, None, None, None
+        return dq, dkv, None, None, None, None, None, None
 
 
 def flash_cross_attention(q: torch.Tensor, kv: torch.Tensor,
                           kv_bias: torch.Tensor, nh: int, key_chunk: int,
                           seed: Optional[int] = None,
-                          rate: float = 0.0) -> torch.Tensor:
+                          rate: float = 0.0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Lq, H], kv [B, Lk, 2H] ([k | v]), kv_bias [B, Lk] fp32 with Lk a
     multiple of ``key_chunk`` -> [B, Lq, H] in q's dtype, differentiable
-    w.r.t. q and kv."""
+    w.r.t. q and kv. ``scale``: the scores' scale (None: hd^-0.5)."""
     if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad):
         return _FlashCrossAttention.apply(q, kv, kv_bias, nh, key_chunk, seed,
-                                          rate)
+                                          rate, scale)
     return flash_cross_attention_forward(q, kv, kv_bias, nh, key_chunk, seed,
-                                         rate)[0]
+                                         rate, scale=scale)[0]
 
 
 # --------------------------------------- K4: general per-head attention
@@ -1063,6 +1196,9 @@ flash_self_attention.launches = 0
 # ... and by (device, B, L): which card ran which shape
 flash_self_attention.launches_by_shape = {}
 flash_self_attention_backward.launches = 0
+# ... of the relative-position bias, with their FLOPs and bytes
+for _fn in (flash_self_attention, flash_self_attention_backward):
+    _fn.rel_launches = _fn.rel_flops = _fn.rel_bytes = 0
 flash_cross_attention.launches = 0
 flash_cross_attention_backward.launches = 0
 fid_cross_attention.launches = 0

@@ -184,7 +184,8 @@ class E2EQATask:
         if state_dict is not None:
             model.load_state_dict(shard_for(state_dict, tp), strict=True)
         optimizer = step_lib.make_optimizer(model, self.cfg.train.optimizer,
-                                            self.total_train_iters, self.dp)
+                                            self.total_train_iters, self.dp,
+                                            self.timer)
         self.state = step_lib.TrainState(step=0, seed=seed, model=model,
                                          optimizer=optimizer)
         self._retrieval_snapshot = None    # a copy of another model's tower

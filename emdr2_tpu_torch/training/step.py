@@ -91,10 +91,12 @@ class Optimizer:
 
     def __init__(self, model: EMDR2Model, cfg: OptimizerConfig,
                  schedule: Callable[[int], float],
-                 dp: Optional[DataParallel] = None):
+                 dp: Optional[DataParallel] = None,
+                 timer: Optional[StageTimer] = None):
         self.cfg = cfg
         self.schedule = schedule
         self.dp = dp
+        self.timer = timer
         mask = decay_mask(model)
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
@@ -116,10 +118,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Average over the ranks (under ``dp``), clip, update, count;
-        returns the global gradient norm (before the clip)."""
-        if self.dp is not None:
-            self.dp.all_reduce_grads_(self.params)
+        """Average over the ranks (under ``dp``; the ``timer``'s
+        ``grad_all_reduce`` span when they are more than one), clip,
+        update, count; returns the global gradient norm (before the
+        clip)."""
+        if self.dp is not None and self.dp.distributed:
+            with stage(self.timer, "grad_all_reduce"):
+                self.dp.all_reduce_grads_(self.params)
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -144,8 +149,10 @@ class Optimizer:
 
 def make_optimizer(model: EMDR2Model, cfg: OptimizerConfig,
                    total_iters: int,
-                   dp: Optional[DataParallel] = None) -> Optimizer:
-    return Optimizer(model, cfg, schedule_from_config(cfg, total_iters), dp)
+                   dp: Optional[DataParallel] = None,
+                   timer: Optional[StageTimer] = None) -> Optimizer:
+    return Optimizer(model, cfg, schedule_from_config(cfg, total_iters), dp,
+                     timer)
 
 
 @dataclasses.dataclass
@@ -196,7 +203,10 @@ def make_train_step(cfg: EMDR2Config, eos_id: int,
                            (``EMDR2Model.forward``)
         loss               (``emdr2_total_loss``)
         backward
-      optimizer            (the mean over ``dp``, clip and AdamW)"""
+      optimizer            (the mean over ``dp``, clip and AdamW)
+        grad_all_reduce    (the mean over ``dp``, on more than one rank:
+                           the optimizer's own timer, ``make_optimizer``'s
+                           ``timer``)"""
     shard = dp.rank if dp is not None else 0
     tp = dp.tp if dp is not None else None
     tp_shard = tp.rank if tp is not None else 0

@@ -9,7 +9,9 @@ and ``torch.profiler`` stamps its events on ``time.time_ns()``, the spans'
 host clock, so a profiler trace shows the spans over the device's
 operations on one clock.
 
-Counters (``count``): ``fn.launches`` of each kernel wrapper, and the
+Counters (``count``): ``fn.launches`` of each kernel wrapper (and, on
+``ops.fid_attention``'s K1 wrappers, the relative-position bias's
+``.rel_launches``, ``.rel_flops`` and ``.rel_bytes``), and the
 token positions against the slots of the rows a formatter built
 (``data/postprocess.py:postprocess_retrieved``' ``tokens`` and ``slots``
 by kind of row, ``native.batch_context_format``'s), added under one lock,
@@ -91,6 +93,8 @@ class StageTimer:
         loss                the joint loss
         backward            the backward pass
       optimizer           the mean over data parallelism, clip, AdamW
+        grad_all_reduce     the mean over data parallelism alone (more
+                            than one rank; ``Optimizer.step``)
 
     The training engine keeps one of its own for its log line: ``batch``,
     the wait for the next batch (read on the host clock), and ``step``.

@@ -117,6 +117,120 @@ def test_self_attention_forward_backward_match_plain(cuda, B, L, rate):
     _assert_close(x.grad, dwant)
 
 
+def _rel_inputs(B, L, nh, seed, spread=0.35):
+    """T5's unscaled attention: q, k and v of N(0, spread^2), so that the
+    scores (q . k over 64 dims, no scale) have s.d. about 1; a
+    relative-position vector [nh, 2L-1] of N(0, 1) (the learned table's
+    entries); a pad bias with a fully padded row and a padded tail."""
+    g = _gen(seed)
+    qkv = (spread * torch.randn(B, L, 3 * nh * 64, device="cuda",
+                                generator=g)).to(torch.bfloat16)
+    rel = torch.randn(nh, 2 * L - 1, device="cuda", generator=g)
+    bias = torch.zeros(B, L, device="cuda")
+    bias[0, :] = -1e9
+    bias[-1, L // 3:] = -1e9
+    dout = torch.randn(B, L, nh * 64, device="cuda", generator=g
+                       ).to(torch.bfloat16)
+    return qkv, rel, bias, dout
+
+
+# the reader's [200, 512] x 16 heads of the atlas-large-b4 cell (B = 4
+# questions x 50 passages), and smaller shapes with short tiles. Tolerances
+# are the file's: the output and dqkv as every K1 test holds them (bf16
+# results, sums in another order, dS and P rounded to bf16 for the
+# products); the bias's gradient is an fp32 sum of dS along a diagonal
+# (up to B * L terms) in another order, over dS that differs from the plain
+# version's by the forward's online softmax statistics and the fast exp,
+# held to the same 2e-2 / 2e-3 of its largest entry
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L,nh", [(2, 130, 16), (3, 64, 4), (200, 512, 16)])
+def test_self_attention_relative_bias_matches_plain(cuda, B, L, nh, rate):
+    qkv, rel, bias, dout = _rel_inputs(B, L, nh, seed=L + B)
+    x = qkv.clone().requires_grad_(True)
+    r = rel.clone().requires_grad_(True)
+    fwd0 = fid_attention.flash_self_attention.rel_launches
+    bwd0 = fid_attention.flash_self_attention_backward.rel_launches
+    out = fid_attention.flash_self_attention(x, bias, nh, 77, rate, 1.0, r)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fid_attention.flash_self_attention.rel_launches == fwd0 + 1
+    assert fid_attention.flash_self_attention_backward.rel_launches == \
+        bwd0 + 1
+    want = fid_attention.flash_self_attention_reference(qkv, bias, nh, 77,
+                                                        rate, 1.0, rel)
+    _assert_close(out.detach(), want)
+    del want
+    dwant, drel = fid_attention.flash_self_attention_bwd_reference(
+        qkv, bias, out.detach(), dout, nh, 77, rate, 1.0, rel)
+    _assert_close(x.grad, dwant)
+    _assert_close(r.grad, drel)
+
+
+def test_self_attention_relative_bias_off_is_the_plain_kernel(cuda):
+    """A zero vector at scale hd^-0.5 gives the kernel without the bias,
+    bit for bit in the forward (one more fp32 add of 0)."""
+    qkv, _, bias, _ = _rel_inputs(2, 130, NH, seed=5, spread=1.0)
+    zero = torch.zeros(NH, 2 * 130 - 1, device=cuda)
+    a = fid_attention.flash_self_attention(qkv, bias, NH, 9, 0.1)
+    b = fid_attention.flash_self_attention(qkv, bias, NH, 9, 0.1, None, zero)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# T5 v1.1's RMSNorm on the card (``F.rms_norm`` over fp32, one fused pass
+# each way) against its formula, w * x * rsqrt(mean(x^2) + eps), in fp32, at
+# the reader's width 1,024 over 8,192 bf16 rows. Both sides compute in fp32
+# and round the output and dx once to bf16, summing in another order: two
+# bf16 ulps (2^-7) of the largest value at most, 1e-3 of it on average; the
+# weight's gradient is an fp32 sum over the rows on both sides: 1e-4
+def test_rmsnorm_matches_its_formula(cuda):
+    from emdr2_tpu_torch.models.layers import RMSNorm
+    g = _gen(11)
+    x = (3.0 * torch.randn(8192, 1024, device=cuda, generator=g)
+         ).to(torch.bfloat16)
+    dy = torch.randn(8192, 1024, device=cuda, generator=g).to(torch.bfloat16)
+    norm = RMSNorm(1024, 1e-6, device=cuda)
+    with torch.no_grad():
+        norm.weight.copy_(1.0 + 0.1 * torch.randn(1024, device=cuda,
+                                                  generator=g))
+    w = norm.weight.detach().clone().requires_grad_(True)
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got = norm(a)
+    xf = b.float()
+    want = (w * xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+            ).to(torch.bfloat16)
+    got.backward(dy)
+    want.backward(dy)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, want, 2 ** -7, 1e-3)
+    _assert_close(a.grad, b.grad, 2 ** -7, 1e-3)
+    _assert_close(norm.weight.grad, w.grad, 1e-4, 1e-5)
+
+
+# the reader's FiD cross-attention at scale 1.0 (T5): 4 rows of 32 decoder
+# positions over 50 x 512 keys, q and kv of N(0, 0.35^2) so that the
+# unscaled scores have s.d. about 1; the file's tolerances
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cross_attention_scale_one_matches_plain(cuda, rate):
+    B, Lq, Lk, chunk, real = 4, 32, 25600, 512, 20000
+    q, kv, bias, dout = _cross_inputs(B, Lq, Lk, real, seed=3)
+    q = (0.35 * q.float()).to(torch.bfloat16)
+    kv = (0.35 * kv.float()).to(torch.bfloat16)
+    a = q.clone().requires_grad_(True)
+    b = kv.clone().requires_grad_(True)
+    out = fid_attention.flash_cross_attention(a, b, bias, NH, chunk, 31, rate,
+                                              1.0)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    want, lse = fid_attention.flash_cross_attention_reference(
+        q, kv, bias, NH, chunk, 31, rate, 1.0)
+    _assert_close(out.detach(), want)
+    dq, dkv = fid_attention.flash_cross_attention_bwd_reference(
+        q, kv, bias, lse, out.detach(), dout, NH, chunk, 31, rate, 1.0)
+    _assert_close(a.grad, dq)
+    _assert_close(b.grad, dkv)
+
+
 def test_self_attention_masked_keys_get_no_gradient(cuda):
     qkv, bias, dout = _self_inputs(2, 100, seed=3)
     x = qkv.clone().requires_grad_(True)
