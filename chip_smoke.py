@@ -231,6 +231,13 @@ DA_SHAPES = ((400, 512, 768), (400, 256, 768))
 DA_PROBS = (((400, 12, 32, 32), 0, 0), ((400, 6, 32, 32), 400, 6))
 DA_SEED = 2 ** 32 - 5
 DA_COUNTED = ("dropout_add", "dropout_add_backward")
+# LN: the Megatron block's norm at the cells' rows, width 768: the FiD
+# reader's and the teacher's encoders [400, 512], the context tower
+# [400, 256], the embedder's batch [128, 256], the query tower [8, 64]
+LN_SHAPES = ((400, 512, 768), (400, 256, 768), (128, 256, 768),
+             (8, 64, 768))
+LN_EPS = 1e-5
+LN_COUNTED = ("layer_norm", "layer_norm_backward")
 # K1's relative-position-bias variant (T5 v1.1) at the atlas-large reader's
 # FiD encoder and teacher shape: 4 questions x 50 passages of 512 tokens,
 # 16 heads of 64, scores unscaled; q, k and v of N(0, 0.35^2), so that the
@@ -1651,6 +1658,128 @@ def da_phase(dev, gen):
     return rows
 
 
+def ln_step_launches(cfg):
+    """(forward, backward) launches of the layer-norm kernel in one
+    ``E2EQATask.train_step`` of the Megatron block, by the code: a tower is
+    2 norms a layer and its stack's final one, a T5 encoder likewise, a T5
+    decoder 3 a layer and the final one; a checkpointed stack's recompute
+    runs each layer's norms again (the final norm is outside the
+    checkpoints). Forward: stage A's query tower, stage C's query and
+    context towers, the reader's encoder and decoder (their recompute
+    under remat) and, under ``no_grad``, the teacher's encoder and decoder;
+    backward: the two towers, the reader's encoder and decoder."""
+    t, r = cfg.retriever.encoder, cfg.reader.transformer
+    tower, enc, dec = (2 * t.num_layers + 1, 2 * r.num_layers + 1,
+                       3 * r.num_layers + 1)
+    redo_tower = 2 * t.num_layers if t.remat else 0
+    redo_reader = 5 * r.num_layers if r.remat else 0
+    fwd = tower + 2 * (tower + redo_tower) + 2 * (enc + dec) + redo_reader
+    return fwd, 2 * tower + enc + dec
+
+
+def ln_phase(dev, gen):
+    """LN (``ops.layer_norm``) in bf16 at ``LN_SHAPES``: through autograd
+    (one launch each way, counted), the output, dx, dw and db against
+    autograd through ``layer_norm_reference`` (the formula), at the `gpu`
+    tests' tolerances (one bf16 step of the largest value at most, 1e-3 of
+    it on average; 1e-5 / 1e-6 for the fp32 dw and db). At each shape, ms
+    a call of ten queued back to back (the wrapper's host time hides under
+    the device's), forward and backward (the kernel's backward launch, the
+    formula's autograd over its saved graph), beside ``F.layer_norm`` over
+    bf16 copies of the weight and bias (a yardstick only: the port never
+    calls it) and the bound: the wrapper's counted bytes over 3.35 TB/s."""
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    F = torch.nn.functional
+    rows = []
+    for shape in LN_SHAPES:
+        h = shape[-1]
+        n_rows = math.prod(shape[:-1])
+        x = (3.0 * torch.randn(shape, device=dev, generator=gen) + 0.5
+             ).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
+        b = 0.1 * torch.randn(h, device=dev, generator=gen)
+        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+        def library(x, w, b, eps):
+            return F.layer_norm(x, (h,), w.to(x.dtype), b.to(x.dtype), eps)
+
+        got, outs = {}, {}
+        for name, fn in (("kernel", ln.layer_norm),
+                         ("plain", ln.layer_norm_reference),
+                         ("library", library)):
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            before = (ln.layer_norm.launches, ln.layer_norm_backward.launches)
+            out = fn(*leaves, LN_EPS)
+            got[name] = [out.detach()] + list(
+                torch.autograd.grad(out, leaves, dy, retain_graph=True))
+            outs[name] = (out, leaves)
+            if name == "kernel":
+                launched = (ln.layer_norm.launches - before[0],
+                            ln.layer_norm_backward.launches - before[1])
+        errs = []
+        for what, a, c, (rel_max, rel_mean) in zip(
+                ("y", "dx", "dw", "db"), got["kernel"], got["plain"],
+                [(2 ** -7, 1e-3)] * 2 + [(1e-5, 1e-6)] * 2):
+            err = (a.float() - c.float()).abs()
+            ref = c.float().abs().max().item() or 1.0
+            errs.append((what, err.max().item(), err.mean().item(), ref))
+            if not (err.max().item() <= rel_max * ref
+                    and err.mean().item() <= rel_mean * ref):
+                raise AssertionError(
+                    f"LN {list(shape)} {what}: max abs err "
+                    f"{err.max().item():.3e}, mean {err.mean().item():.3e} "
+                    f"against tol ({rel_max}, {rel_mean}) x max|ref| "
+                    f"{ref:.3e}")
+        if launched != (1, 1):
+            raise AssertionError(f"LN {list(shape)}: launches counted "
+                                 f"(forward, backward) {launched}, not "
+                                 f"(1, 1)")
+
+        def queued(fn, n_calls=10):
+            return time_ms(lambda: [fn() for _ in range(n_calls)]) / n_calls
+
+        def grad_of(name):
+            out, leaves = outs[name]
+            return lambda: torch.autograd.grad(out, leaves, dy,
+                                               retain_graph=True)
+
+        row = dict(shape=list(shape),
+                   max_abs_err={w_: e for w_, e, _, _ in errs})
+        with torch.no_grad():
+            row["kernel_fwd_ms"] = queued(lambda: ln.layer_norm(x, w, b,
+                                                                LN_EPS))
+            row["plain_fwd_ms"] = queued(
+                lambda: ln.layer_norm_reference(x, w, b, LN_EPS))
+            row["library_fwd_ms"] = queued(
+                lambda: F.layer_norm(x, (h,), wl, bl, LN_EPS))
+        row["kernel_bwd_ms"] = queued(
+            lambda: ln.layer_norm_backward(x, dy, w, LN_EPS))
+        row["plain_bwd_ms"] = queued(grad_of("plain"))
+        row["library_bwd_ms"] = queued(grad_of("library"))
+        groups = ln._grid(n_rows, h, dev, ln._BWD_BLOCKS_PER_SM)
+        row["bound_ms"] = bound(ln.forward_bytes(n_rows, h, 2), 0)[0]
+        row["bwd_bound_ms"] = bound(ln.backward_bytes(n_rows, h, 2, groups),
+                                    0)[0]
+        log(f"LN layer_norm {list(shape)} bf16: output, dx, dw, db against "
+            f"the formula: " + ", ".join(
+                f"{w_} max {e:.3e} mean {m:.3e} (max|ref| {r:.3e})"
+                for w_, e, m, r in errs)
+            + f"; launches 1 / 1 | kernel {row['kernel_fwd_ms']:.4f} ms "
+            f"({row['bound_ms'] / row['kernel_fwd_ms']:.1%} of the bound "
+            f"{row['bound_ms']:.4f} by bytes), backward "
+            f"{row['kernel_bwd_ms']:.4f} ms "
+            f"({row['bwd_bound_ms'] / row['kernel_bwd_ms']:.1%} of "
+            f"{row['bwd_bound_ms']:.4f}, {groups} partials) | plain "
+            f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f} ms | "
+            f"F.layer_norm (bf16 weight) {row['library_fwd_ms']:.4f} / "
+            f"{row['library_bwd_ms']:.4f} ms")
+        rows.append(row)
+        del x, dy, got, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _relbias_inputs(dev, gen, B, L, nh):
     qkv = (RB_SPREAD * torch.randn(B, L, 3 * nh * 64, device=dev,
                                    generator=gen)).to(torch.bfloat16)
@@ -1891,6 +2020,7 @@ def _counters():
     from emdr2_tpu_torch.ops import decode_attention as da
     from emdr2_tpu_torch.ops import dropout_add as drop
     from emdr2_tpu_torch.ops import fid_attention as fa
+    from emdr2_tpu_torch.ops import layer_norm as norm
     from emdr2_tpu_torch.ops import mips
     return {"flash_self_attention": fa.flash_self_attention,
             "flash_self_attention_backward": fa.flash_self_attention_backward,
@@ -1902,7 +2032,9 @@ def _counters():
             "fid_cross_attention_backward": fa.fid_cross_attention_backward,
             "decode_cross_attention_int8": da.decode_cross_attention_int8,
             "dropout_add": drop.dropout_add,
-            "dropout_add_backward": drop.dropout_add_backward}
+            "dropout_add_backward": drop.dropout_add_backward,
+            "layer_norm": norm.layer_norm,
+            "layer_norm_backward": norm.layer_norm_backward}
 
 
 def _reset_counts():
@@ -2155,7 +2287,7 @@ def train_phase(cfg, dev, gen, n_rows=N_INDEX, n_docs=20_000, batch=8,
 
     names = ("flash_self_attention", "flash_self_attention_backward",
              "flash_cross_attention", "flash_cross_attention_backward",
-             "candidate_scan") + DA_COUNTED
+             "candidate_scan") + DA_COUNTED + LN_COUNTED
     with tempfile.TemporaryDirectory() as tmpdir:
         t0 = time.perf_counter()
         tok, corpus, index = make_world(cfg, tmpdir, dev, gen, n_docs,
@@ -5111,6 +5243,7 @@ def main() -> int:
     dropadd = da_phase(dev, gen)
     torch.cuda.empty_cache()
     relbias = relbias_phase(dev, gen)
+    lnorm = ln_phase(dev, gen)
 
     cfg = _flagship_cfg()
     res = slice_phase(cfg, dev, gen, profile=args.profile)
@@ -5162,6 +5295,13 @@ def main() -> int:
     for name, n in tr["launches"].items():
         if n <= 0:
             raise AssertionError(f"{name} never launched during the steps")
+    ln_want = tuple(len(tr["metrics"]) * n for n in ln_step_launches(tcfg))
+    ln_got = tuple(tr["launches"][name] for name in LN_COUNTED)
+    log(f"train: layer-norm launches (forward, backward) in "
+        f"{len(tr['metrics'])} steps {ln_got}, by the code {ln_want}")
+    if ln_got != ln_want:
+        raise AssertionError(f"layer-norm launches {ln_got} in the steps, "
+                             f"the code gives {ln_want}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5561,7 +5701,22 @@ def main() -> int:
                 for r in dropadd if f"kernel_{way}_ms" in r])
         for name, way, bound_key in (
             ("dropout_add", "fwd", "bound_ms"),
-            ("dropout_add_backward", "bwd", "bwd_bound_ms"))]}
+            ("dropout_add_backward", "bwd", "bwd_bound_ms"))] + [dict(
+        name=name, route="cuda", source=csrc + "layer_norm.cu",
+        # no TPU kernel: XLA fuses the LayerNorm formula on the TPU
+        replaces=None, launches=train[name],
+        launches_c5=c5l.get(name), launches_dp=dpl.get(name),
+        launches_embedder=eml.get(name), launches_engine=eng.get(name),
+        max_abs_err=max(lnorm[0]["max_abs_err"].values()),
+        ms=lnorm[0][f"kernel_{way}_ms"], plain_ms=lnorm[0][f"plain_{way}_ms"],
+        bound_ms=lnorm[0][bound_key], bound_by="bytes",
+        library_ms=lnorm[0][f"library_{way}_ms"],
+        shapes=[{k: r[k] for k in ("shape", f"kernel_{way}_ms",
+                                   f"plain_{way}_ms", f"library_{way}_ms",
+                                   bound_key)} for r in lnorm])
+        for name, way, bound_key in (
+            ("layer_norm", "fwd", "bound_ms"),
+            ("layer_norm_backward", "bwd", "bwd_bound_ms"))]}
     # each kernel's launches on the tp path, by rank, and its error at a
     # rank's 6 heads where it was checked there
     tp_err = {"flash_self_attention": "k1_fwd",

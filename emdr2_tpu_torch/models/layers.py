@@ -86,6 +86,7 @@ from emdr2_tpu_torch.ops.fid_attention import (fid_cross_attention,
                                                flash_self_attention,
                                                rel_bias_full)
 from emdr2_tpu_torch.ops.dropout_add import dropout_add
+from emdr2_tpu_torch.ops.layer_norm import layer_norm
 from emdr2_tpu_torch.ops.hashing import DropoutSeeds, fold
 from emdr2_tpu_torch.parallel.mesh import Group
 from emdr2_tpu_torch.parallel.tensor import (COLUMN, ROW, Split, copy_to_tp,
@@ -110,7 +111,9 @@ def _param(*shape, device=None) -> nn.Parameter:
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm in fp32 regardless of compute dtype."""
+    """LayerNorm in fp32 regardless of compute dtype (``ops.layer_norm``:
+    one hand-written kernel each way on the card, the formula on the
+    CPU)."""
 
     def __init__(self, hidden: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -123,12 +126,7 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        orig = x.dtype
-        x = x.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        y = (x - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.weight + self.bias).to(orig)
+        return layer_norm(x, self.weight, self.bias, self.epsilon)
 
 
 class RMSNorm(nn.Module):

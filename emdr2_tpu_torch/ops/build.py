@@ -76,6 +76,12 @@ _SIGNATURES = {
                               + [_F, _P],
     "emdr2_dropout_add_f32": [_P] * 3 + [_L] + [_I] * 4 + [_U] * 4
                              + [_F, _P],
+    # x, weight, bias, y, rows, H, eps, grid
+    "emdr2_layer_norm_bf16": [_P] * 4 + [_I, _I, _F, _I, _P],
+    "emdr2_layer_norm_f32": [_P] * 4 + [_I, _I, _F, _I, _P],
+    # x, dy, weight, dx, partials, dweight, dbias, rows, H, eps, groups
+    "emdr2_layer_norm_bwd_bf16": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "emdr2_layer_norm_bwd_f32": [_P] * 7 + [_I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -724,17 +724,18 @@ def test_candidate_scan_routes_agree(cuda, dtype):
 
 def _bert(cuda, flash=True, dtype=torch.bfloat16, **fields):
     """A BERT encoder with head dim 64 on the card (bf16 unless ``dtype``
-    says otherwise), weights from seed 3."""
+    says otherwise; width 128 unless ``fields`` say otherwise), weights
+    from seed 3."""
     import dataclasses
 
     from emdr2_tpu_torch.config import tiny_config
     from emdr2_tpu_torch.models.bert import BertEncoder
     from emdr2_tpu_torch.models.layers import init_weights
 
+    widths = dict(hidden_size=128, num_heads=2, ffn_size=256, vocab_size=512)
     cfg = dataclasses.replace(
-        tiny_config().retriever.encoder, hidden_size=128, num_heads=2,
-        ffn_size=256, dtype=dtype, vocab_size=512,
-        fid_flash_attention=flash, **fields)
+        tiny_config().retriever.encoder, dtype=dtype,
+        fid_flash_attention=flash, **{**widths, **fields})
     model = BertEncoder(cfg, device=cuda)
     init_weights(model, _gen(3))
     return model
@@ -2063,3 +2064,117 @@ def test_openqa_step_through_the_dropout_add_kernel_equals_the_plain_path(
             {"first_difference": diff,
              "differing": sum(x != y for x, y in zip(ek, ep))}))
         assert all(torch.equal(mk[k], mp[k]) for k in mk)
+
+
+# ---- the layer-norm kernels against the formula they replace ----
+
+def _layer_norm_inputs(shape, dtype, seed):
+    g = _gen(seed)
+    h = shape[-1]
+    x = (3.0 * torch.randn(shape, device="cuda", generator=g) + 0.5
+         ).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
+    b = 0.1 * torch.randn(h, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    return x, w, b, dy
+
+
+def _layer_norm_run(fn, x, w, b, dy, eps=1e-5):
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    out = fn(*leaves, eps)
+    out.backward(dy)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+# Tolerances, relative to the largest reference magnitude. The kernels and
+# the formula both compute in fp32 and round the output and dx once to x's
+# dtype, but sum each row in another order: in bf16 a value may round to
+# its neighbour, one bf16 step (2^-7 of the largest value at most; 1e-3
+# of it on average); in fp32 the sums of 768-2,048 terms differ by a few
+# ulps (1e-5). dw and db are fp32 sums over up to 204,800 rows in another
+# order on both sides (1e-5; a lost block's partial would be 1/264 off).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(400, 512, 768), (400, 256, 768),
+                                   (128, 256, 768), (8, 64, 768),
+                                   (1001, 768), (3, 4099, 64), (300, 2048)])
+def test_layer_norm_kernels_match_the_formula(cuda, shape, dtype):
+    """The reader's and the context tower's rows, the embedder's batch, the
+    query tower's, a ragged row count, H = 64 (8 lanes of a warp) and
+    H = 2,048 (a block a row); one launch each way."""
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    x, w, b, dy = _layer_norm_inputs(shape, dtype, sum(shape))
+    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_backward.launches
+    got = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+    assert (ln.layer_norm.launches, ln.layer_norm_backward.launches) == (
+        fwd + 1, bwd + 1)
+    want = _layer_norm_run(ln.layer_norm_reference, x, w, b, dy)
+    assert got[0].dtype == got[1].dtype == dtype
+    tol = (2 ** -7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    _assert_close(got[0], want[0], *tol)
+    _assert_close(got[1], want[1], *tol)
+    _assert_close(got[2], want[2], 1e-5, 1e-6)
+    _assert_close(got[3], want[3], 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(400, 256, 768), (300, 2048)])
+def test_layer_norm_kernels_repeat_bit_for_bit(cuda, shape):
+    """No atomics: the output, dx and the summed weight gradients are the
+    same bits call after call."""
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    x, w, b, dy = _layer_norm_inputs(shape, torch.bfloat16, 5)
+    first = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+    for _ in range(2):
+        again = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_layer_norm_takes_strided_and_misaligned_rows(cuda):
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    x, w, b, dy = _layer_norm_inputs((6, 40, 64), torch.bfloat16, 8)
+    want = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    off = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    assert off.data_ptr() % 16 != 0
+    for t in (strided, off):
+        got = _layer_norm_run(ln.layer_norm, t, w, b, dy)
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    x, w, b, _ = _layer_norm_inputs((4, 8200), torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="up to 8192"):
+        ln.layer_norm(x, w, b, 1e-5)
+    x, w, b, _ = _layer_norm_inputs((4, 64), torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="on cpu"):
+        ln.layer_norm(x, w.cpu(), b, 1e-5)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        ln.layer_norm(x.half(), w, b, 1e-5)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots_no_batch"])
+def test_layer_norm_in_a_stack_under_remat_equals_no_remat(cuda, policy):
+    """A 4-layer BERT stack at width 768 under remat (the norms' forward
+    kernel rerun by the recompute) against the same weights without: the
+    output and every gradient bit for bit; forward launches 2 x 4 + 1 and
+    the recompute's 2 x 4, backward 2 x 4 + 1."""
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    fields = dict(hidden_size=768, num_heads=12, ffn_size=3072,
+                  num_layers=4)
+    kern = _bert(cuda, remat=True, remat_policy=policy, **fields)
+    plain = _bert(cuda, **fields)
+    plain.load_state_dict(kern.state_dict())
+    g = _gen(6)
+    ids = torch.randint(2, 500, (8, 128), device=cuda, generator=g)
+    ids[1, 70:] = 0
+    w = torch.randn(8, 128, 768, device=cuda, generator=g) / 768
+    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_backward.launches
+    out, grads = _fwd_bwd(kern, ids, w)
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches - fwd == 2 * 4 + 1 + 2 * 4
+    assert ln.layer_norm_backward.launches - bwd == 2 * 4 + 1
+    p_out, p_grads = _fwd_bwd(plain, ids, w)
+    assert torch.equal(out, p_out)
+    for name, grad in grads.items():
+        assert torch.equal(grad, p_grads[name]), name
