@@ -7,57 +7,13 @@
                                              two hosts and tp)
 
 1. Builds the hand-written CUDA kernels from ``emdr2_tpu_torch/ops/csrc``
-   (one nvcc per source, in parallel).
-2. Holds each kernel against its plain PyTorch version at the shapes the
-   serving and training paths give it, and times both with CUDA events:
-   flash self-attention (K1) forward at [8, 64, 2304], [128, 256, 2304] (the
-   index builder's batch), [400, 256, 2304] and [400, 512, 2304] (bf16, 12
-   heads, one row fully padded; the saved (rowmax, 1/l) held against the
-   plain statistics) and with dropout 0.1,
-   its backward at [8, 64], [400, 256] and [400, 512] (gradients checked on
-   32 rows, timed on all); the registers, spills and shared memory of the
-   K1, K2-bwd, K4 and K5 kernels are printed by name, and a spill fails the
-   run; flash cross-attention (K2) forward and backward at the reader shape
-   (8 rows, 32 queries x 25,600 keys; the backward in key chunks of 512 and
-   256, and over several forced run counts) and the teacher shape (400
-   rows, 32 x 512), dropout 0 and 0.1, padded keys present, and its key
-   split under key chunk 256 (100 chunks) and with seven chunks dealt to 1,
-   2, 3 and 7 splits (forward) or runs (backward), whole splits and one row
-   padded; the MIPS candidate scan
-   (K3) over a 1,310,720 x 768 index in bf16 and int8: its kernels'
-   registers, shared memory and spills, both of its kernels (CUDA-core and
-   tensor-core) forced at nq in {1, 2, 4, 8, 9, 16, 32, 64, 128, 256}, each
-   held to the plain version, for each type's crossover, and the dispatch
-   at nq in {8, 64, 512, 3,610} against the plain version (in blocks of 512
-   queries), beside the score GEMM alone, plus top-50 recall of the whole
-   search against an exact search (float64 sums), an int8 search split
-   into scan, selection and re-rank at 512 and 3,610, and the widest bf16
-   boundary tie over two more random indexes; the
-   general flash forward (K4) on [400, 512, 12, 64] views of a qkv slab in
-   key chunks of 256, dropout 0 and 0.1, at a small Lq != Lk shape and on
-   1,024 tokens in key chunks of 512; its
-   backward (K4-bwd) at the same shape (gradients checked on 32 rows, timed
-   on all) and on a shape with padded keys and a fully masked row; the
-   int8 decode attention (K5) at [8, R, 12, 25,600, 64] for R = 1 and 5, on
-   a slab padded to 256 rows and with a fully masked example; the
-   dropout-add kernel (DA) at the residual sites' [400, 512, 768] and
-   [400, 256, 768], with and without the residual, and at the decoders'
-   materialized probabilities [400, 12, 32, 32] (and a tp rank's 6 heads,
-   offsets set), forward, backward and autograd gradients bit-equal to the
-   plain path, timed beside it and beside ``r + F.dropout(y)``; K1 with
-   T5 v1.1's relative-position bias (K1-bias: scale 1, an offsets' vector
-   [nh, 2L-1]) at the atlas-large reader's [200, 512] x 16 heads, rate 0
-   and 0.1, the output, dqkv and the vector's gradient through autograd
-   against the plain forward and backward, timed beside the kernel
-   without the bias and SDPA over the bias materialized as a mask, then a
-   T5 v1.1 encoder of 24 layers at that shape under remat, forward and
-   backward, whose K1-bias launches are counted (48 forward, 24
-   backward). Beside each
-   attention kernel one ``scaled_dot_product_attention`` call on the same
-   inputs is timed as a yardstick (the port never calls it), and each
-   kernel's bound on this card is computed from its inputs: the larger of
-   bytes moved / 3.35 TB/s and operations / the peak rate of their type.
-3. Serving: drives ``QAPipeline.ask`` on 16 questions at batch 8 at full
+   (one nvcc per source, in parallel) and runs every case of
+   ``kernel_checks.CHECKS``: each kernel's wrapper against its plain
+   version at the main path's shapes, by the functions and at the limits
+   the ``gpu`` tests (``tests/test_torch_gpu.py``) run one case a test.
+   ``tools/time_kernels.py`` times the kernels; this run drives the paths
+   around them.
+2. Serving: drives ``QAPipeline.ask`` on 16 questions at batch 8 at full
    published width (BERT-base query tower, T5-base reader, K=50, reader
    length 512, 32 decode steps, int8 index, flash attention on: the
    flagship recipe), with weights from a seed, a synthetic ~20k-passage
@@ -69,26 +25,13 @@
    stages, the slab's bytes in both forms, the share of int8 greedy answers
    equal to the bf16-path ones, and holds one decode step's log-probs of
    the int8 session against the bf16-path session's.
-4. Training: three ``E2EQATask.train_step``s at ``EMDR2Config()`` widths
-   (BERT-base x 2, T5-base, K=50, Lr=512, Lc=256, Lq=64, Ld=32, dropout
-   0.1, flash attention, the flagship AdamW / clip / schedule) at batch 8,
-   the flagship ``--remat --no-remat-towers`` layout, on the same world
-   with synthetic question/answer pairs. Prints ms per stage, peak memory,
-   the metrics of each step and each kernel's launch count during the
-   steps; checks the metrics are finite, the gradient norm positive and
-   the parameters moved once the learning rate is non-zero.
-   ``--profile`` adds a fourth step under ``torch.profiler`` and prints its
-   top device kernels and the device time by operator, and does the same
-   for one warm greedy batch with the fp32-K slab and one with the int8
-   slab, for K4-fwd beside SDPA, for K4's backward through autograd by
-   both routes and for K1's three kernels at each shape.
-5. Evaluation under ``flash_key_chunk=256`` (the reader's 512-token rows
+3. Evaluation under ``flash_key_chunk=256`` (the reader's 512-token rows
    then take the general flash kernel): ``E2EQATask.evaluate_em`` on 16
    synthetic QA examples (greedy, int8 K/V), beam 5 on 8 of them, and
    ``validation_loss`` over two batches of 8; checks counts, EM range,
    finite losses, and the losses of one batch against the same weights
    with the flash kernels off.
-6. The training loop under ``flash_key_chunk=256``, full width and depth:
+4. The training loop under ``flash_key_chunk=256``, full width and depth:
    ``training.engine.train`` for four iterations at B=8 (dropout 0.1,
    ``--remat --no-remat-towers``) with ``prefetch_depth=2``, an async
    interval checkpoint at 2, the final one at 4 and an evaluation callback
@@ -102,8 +45,7 @@
    moment), from which one more step runs. Prints ms per iteration and per
    stage, peak memory, and the checkpoint's bytes and seconds (async
    stage, background write, synchronous save, load).
-
-7. The evidence-index build at the same widths: ``EvidenceIndexBuilder``
+5. The evidence-index build at the same widths: ``EvidenceIndexBuilder``
    embeds 32,768 synthetic passages at Lc=256, batch 128, by the host path
    (fp16 rows in host RAM) and by the device path (bf16 rows on the card):
    passages/s, peak memory and K1-fwd's 3,072 launches of each; the paths'
@@ -111,44 +53,49 @@
    ``ShardedEvidenceIndex.update`` of a 1,310,720-row int8 index (the
    reference's shard a GPU) from a host fp16 array and from a device tensor:
    the swap's stall; and the full-shard pass time at the measured rates.
-8. The loop with a live ``AsyncIndexRefresher`` (the flagship layout, B=8,
+6. The loop with a live ``AsyncIndexRefresher`` (the flagship layout, B=8,
    prefetch 0, 8 iterations, a 16,384-passage corpus and int8 index, reload
    interval 2), then 3 iterations without it: ms per iteration with an embed
    pass in flight and without, passages/s while training, each swap's ms,
    ``refresh_count`` >= 1, peak memory; the first swapped index held to the
    embedding of the tower handed over at ``start``; no thread left.
-9. The command line: ``tools.create_doc_index.main`` and
+7. The command line: ``tools.create_doc_index.main`` and
    ``tasks.run.main(["--task", "OPENQA", ...])`` by their argv with the
    flagship flags, ``--async-indexer --index-reload-interval 2
    --index-quantize int8 --train-iters 4 --save-interval 2`` and 8 valid
    examples (rc 0, the tracker at 4, "valid EM" printed), then
    ``QAPipeline.load`` from that save answers 8 questions.
-10. The RETRIEVER task: ``DPRTask.train_step`` at BERT-base x 2, global
+8. The RETRIEVER task: ``DPRTask.train_step`` at BERT-base x 2, global
    batch 128 with one hard negative (256 contexts), dropout 0.1, under no
    remat, ``remat_policy="nothing"`` and ``"dots_no_batch"`` (ms per step,
    peak memory, K1 launches), then ``validate`` in the 30+30 layout.
-11. Retrieval evaluation: 16,384 passages embedded by a DPR context tower
+9. Retrieval evaluation: 16,384 passages embedded by a DPR context tower
    into a 1,310,720-row index (random rows beyond), bf16 and int8, and
    ``OpenRetrievalEvaluator.evaluate_recall`` of 3,610 questions at k=100 in
    one search (the tensor-core K3); rows and recall held to an exact
    search.
-12. Two OPENQA steps at B=4 under ``--remat-policy nothing`` and
+10. Two OPENQA steps at B=4 under ``--remat-policy nothing`` and
    ``dots_no_batch`` (ms, peak memory).
-13. The RETRIEVER command line (``tasks.run --task RETRIEVER``: 4
+11. The RETRIEVER command line (``tasks.run --task RETRIEVER``: 4
    iterations, saves, validation, post-train recall), ``checkpoint_surgery
    extract`` loaded into an OPENQA model, and ``tools.evaluate_retrieval``,
    whose recall must equal the run's.
-14. One step repeats bit for bit: the embedding lookups' backward at a
-   step's shapes (``F.embedding`` against ``layers.embedding``), then a DPR
-   step at 128 and an OPENQA step at B=8 each twice from one state,
-   fingerprinted module by module (``utils/repeat.py``).
-15. Data parallelism: (a) one rank over NCCL, the DPR step and the int8
+12. One step repeats bit for bit: a DPR step at 128 and an OPENQA step at
+   B=8, at published widths, each twice from one state, fingerprinted
+   module by module (``utils/repeat.py``). The OPENQA task's first step is
+   the main path's run of the kernels: their counts zeroed just before it
+   and each launch recorded, every kernel of the step must launch, LN as
+   often as ``kernel_checks.layer_norm_step_launches`` counts; then one
+   ``{"kernels": [...]}`` line: each kernel's launches in that step, their
+   bytes and operations, ``bound_ms`` (``flagship.bound_ms`` a launch,
+   summed) and the largest error of the checks that hold it.
+13. Data parallelism: (a) one rank over NCCL, the DPR step and the int8
    search bit-equal to the plain path; (b) two ranks sharing the card over
    gloo (subprocesses: ``--dp-rank R --dp-spec PATH``), each with half of
    one index, against one process: searches, step-1 losses, bit-equal
    replicas, ``evaluate_em``. ``--dp-cards N`` runs only this phase over
    NCCL, a rank a card, beside one card at the same batch a rank.
-16. The embedder group: two ranks sharing the card over gloo, each running
+14. The embedder group: two ranks sharing the card over gloo, each running
    ``engine.train`` under the flagship layout with its
    ``AsyncIndexRefresher`` on the card (``--embed-devices 0``) and
    ``prefetch_depth=1``, an int8 index over 16,384 passages, reload
@@ -161,7 +108,7 @@
    trainers on cards 0-1 over NCCL at 8 questions a rank beside their
    embedders on cards 2-3 (32,768 passages, 8 + 3 iterations); the same
    checks, and no K1 launch at the builder's shape on a trainer card.
-17. A launch across hosts: two emulated hosts of one rank each, each a
+15. A launch across hosts: two emulated hosts of one rank each, each a
    subprocess with its own ``CUDA_VISIBLE_DEVICES`` and torchrun's
    variables, joining through ``parallel.init_distributed`` (the ranks
    learn their hosts at the rendezvous; a rank takes the card of its
@@ -173,35 +120,35 @@
    trainer on each host's card 0 beside its embedder on its card 1
    (the embedder phase's run and checks at 8 questions a rank); no two
    ranks on one trainer card, no embedder card on another host, by UUID.
-18. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``), each
+16. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``), each
    through its ``main(argv)`` at ``EMDR2Config()`` widths and full depth,
    grids and iterations cut (``TOOLS_*``): the int8 re-rank window's two
    selections at k 20 and 51 over 1,310,720 rows (the same rows, the
-   default window held to an exact search by the k3 phase's tie rule, the
-   recall of ``rescore=0`` beside it); K4 and K1 forward + backward at
-   key chunks 256-3,200 (256 and 512 must give times); the step's passes
+   default window held to an exact search by the tie rule of
+   ``TIE_EPS``, the recall of ``rescore=0`` beside it); K4 and K1
+   forward + backward at key chunks 256-3,200 (256 and 512 must give
+   times); the step's passes
    with their share of the peak (in (0, 1]); the dropout variants; a cut
    train sweep (B 8 and 16 under full remat beside an int8 index, B 8
    with the towers stored); the pipeline's stages A and B, index swap,
    embedding rate, prefetch overlap, decode and one decode-sweep row.
-   Prints each tool's rows, its seconds and the phase's; its in-process
-   launches go into each kernel row as ``launches_tools``.
+   Prints each tool's rows, its seconds and the phase's.
 
-Every failure propagates (non-zero exit). The second-to-last line is the
-kernel summary as JSON; the last line is
-``{"ok": true, "device": {...}}``. Needs one CUDA device; without one it
+Every failure propagates (non-zero exit). Before the last line, a
+``{"phase_seconds": {...}}`` line gives each phase's seconds; the last
+line is ``{"ok": true, "device": {...}}``. Needs one CUDA device; without one it
 exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import inspect
 import json
-import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -210,294 +157,26 @@ import time
 import numpy as np
 import torch
 
+import kernel_checks
+# bf16 results against the plain path or the same weights another way are
+# held to FWD_TOL; retrieval against an exact search to the recall rule
+from kernel_checks import (FWD_TOL, K3_EXTRA, TIE_EPS, exact_top,
+                           explain_misses, misses_text, recall_at)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_INDEX = 1_310_720
 SEED = 1234
-# forward kernels, bf16 output: max / mean abs error relative to the
-# largest |reference output| (the readings are about one bf16 ulp of it)
-FWD_TOL = (2e-2, 2e-3)
-# backward kernels: bf16 gradients, dS and the dropped probabilities rounded
-# to bf16 for the products -> max / mean abs error relative to the largest
-# reference gradient
-GRAD_TOL = (2e-2, 2e-3)
-LSE_TOL = 1e-3                 # abs error of K2's fp32 lse
-STATS_TOL = 1e-3               # K1's fp32 (rowmax, 1/l): abs, relative
-RATE = 0.1                     # attention dropout of the flagship recipe
-DROP_SEED = 0x5EED
-# DA: the residual sites' activations (the FiD and teacher encoders, the
-# context tower) and the decoders' materialized probabilities, as one
-# process and as a tp rank's 6 heads (row offset, head offset)
-DA_SHAPES = ((400, 512, 768), (400, 256, 768))
-DA_PROBS = (((400, 12, 32, 32), 0, 0), ((400, 6, 32, 32), 400, 6))
-DA_SEED = 2 ** 32 - 5
 DA_COUNTED = ("dropout_add", "dropout_add_backward")
-# LN: the Megatron block's norm at the cells' rows, width 768: the FiD
-# reader's and the teacher's encoders [400, 512], the context tower
-# [400, 256], the embedder's batch [128, 256], the query tower [8, 64]
-LN_SHAPES = ((400, 512, 768), (400, 256, 768), (128, 256, 768),
-             (8, 64, 768))
-LN_EPS = 1e-5
 LN_COUNTED = ("layer_norm", "layer_norm_backward")
-# K1's relative-position-bias variant (T5 v1.1) at the atlas-large reader's
-# FiD encoder and teacher shape: 4 questions x 50 passages of 512 tokens,
-# 16 heads of 64, scores unscaled; q, k and v of N(0, 0.35^2), so that the
-# unscaled scores have s.d. about 1, and the offsets' vector of N(0, 1)
-RB_SHAPE = (200, 512, 16)
-RB_SPREAD = 0.35
-# NVIDIA H100 SXM data sheet (dense): device memory rate, tensor-core rates
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps=10, warmup=2):
-    """Median ms of ``reps`` runs of ``fn``, each between CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: float, n_ops: float, op_type: str = "bf16"):
-    """(ms, "bytes" | "operations"): the least time this card could take to
-    move ``n_bytes`` (each input read once, each output written once) and
-    to do ``n_ops`` operations of ``op_type``, by the data sheet."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
-
-
-def sdpa(q, k, v, bias):
-    """The one PyTorch call that computes the same attention: heads-first
-    q [B, nh, Lq, hd], k, v [B, nh, Lk, hd] (views are fine) and the
-    key-side bias [B, Lk] as an additive mask. A yardstick only."""
-    mask = bias.to(q.dtype)[:, None, None, :]
-    return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask)
-
-
-def slab_heads(slab, n, nh=12):
-    """[B, L, n*H] projection slab -> n heads-first views [B, nh, L, hd]."""
-    B, L = slab.shape[:2]
-    parts = slab.view(B, L, n, nh, -1).permute(2, 0, 3, 1, 4)
-    return [parts[i] for i in range(n)]
-
-
-def sdpa_times(q_slab, n_q, kv_slab, n_kv, bias, dout=None):
-    """(forward ms, backward ms or None) of ``sdpa`` on views of the
-    projection slabs; the backward is timed alone, from saved state."""
-    with torch.no_grad():
-        q = slab_heads(q_slab, n_q)[0]
-        k, v = slab_heads(kv_slab, n_kv)[-2:]
-        fwd = time_ms(lambda: sdpa(q, k, v, bias))
-    if dout is None:
-        return fwd, None
-    leaves = [t.detach().clone().requires_grad_(True)
-              for t in ((q_slab,) if kv_slab is q_slab
-                        else (q_slab, kv_slab))]
-    q = slab_heads(leaves[0], n_q)[0]
-    k, v = slab_heads(leaves[-1], n_kv)[-2:]
-    out = sdpa(q, k, v, bias)
-    g = slab_heads(dout, 1)[0]
-    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                              retain_graph=True))
-    return fwd, bwd
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip()
-
-
-def _check_self_stats(name, stats, want, bias):
-    """The saved (rowmax, 1/l) [B, nh, 2, L] against the plain statistics:
-    rowmax to STATS_TOL on rows with a live key, 1/l to STATS_TOL of
-    itself; a fully padded row's rowmax is its scores (about -1e9) and its
-    1/l exactly 1/L. Returns the two errors over the live rows."""
-    L = want.shape[-1]
-    live = (bias > -1e8).any(dim=1)
-    m_err = (stats[live, :, 0] - want[live, :, 0]).abs().max().item()
-    il_err = (stats[live, :, 1] / want[live, :, 1] - 1.0).abs().max().item()
-    padded = stats[~live]
-    if not (torch.isfinite(stats).all() and m_err <= STATS_TOL
-            and il_err <= STATS_TOL and bool((padded[:, :, 0] < -9e8).all())
-            and bool((padded[:, :, 1] == 1.0 / L).all())):
-        raise AssertionError(f"{name}: statistics disagree with the plain "
-                             f"ones: rowmax {m_err}, 1/l {il_err} (relative)")
-    return m_err, il_err
-
-
-def flash_kernel_report(ptxas_log: str) -> None:
-    """Registers, spills and shared memory of the kernels instantiated from
-    ``attention_flash.cuh`` (K1 and K4, each forward and backward: the
-    statistic ``RowMaxInv`` is K1's, ``Lse`` K4's; K1's also with T5 v1.1's
-    relative bias, ``RelBias``, whose blocks add the offsets' row (and, in
-    the dq kernel, a second row and four warps' dS stages) to the shared
-    memory: given at ``RB_SHAPE``'s L), of K2's backward walk
-    (M = 2..4 atoms of 16 queries, dropout off and on) and of K5's walk, by
-    name, from the compilers' ``-Xptxas -v`` output and the library's launch
-    configuration. Fails if one of them spills, or if a kernel is missing
-    from the log. A library built earlier comes with no log: that is said,
-    and nothing is checked."""
-    import ctypes
-    import re
-
-    from emdr2_tpu_torch.ops import build
-    from emdr2_tpu_torch.ops.decode_attention import kernel_layout
-    if not ptxas_log:
-        log("  the kernel library was built earlier: no compiler report, the "
-            "check for spills and missing kernels is skipped (remove "
-            "emdr2_tpu_torch/_build to have it)")
-        return
-    lib = build.load()
-    smem = (ctypes.c_int * 2)()
-    lib.emdr2_flash_self_attention_smem(smem)
-    tail = (r".*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads\n.*?Used (\d+) registers")
-    entry = re.compile(
-        r"Compiling entry function '_ZN6aflash\d+(flash_\w+?_kernel)ILb([01])"
-        r"ENS_\d+(\w+?)ENS_\d+(\w+?)EEE" + tail)
-    # attention_flash.cuh: rel_row_bytes, REL_STAGE_BYTES
-    L = RB_SHAPE[1]
-    rel_row = ((2 * L - 1 + 2 * 128 + 3) // 4) * 16
-    rel_extra = {"flash_fwd_kernel": rel_row,
-                 "flash_bwd_dq_kernel": 2 * rel_row + 4 * 16 * 72 * 4,
-                 "flash_bwd_dkv_kernel": rel_row}
-    seen = set()
-    for kernel, drop, stat, rel, stack, st, ld, regs in \
-            entry.findall(ptxas_log):
-        dyn = smem[0] if kernel == "flash_fwd_kernel" else smem[1]
-        extra = ""
-        if rel == "RelBias":
-            dyn += rel_extra[kernel]
-            extra = f" at L = {L}"
-        seen.add((kernel, stat, rel))
-        log(f"  {kernel}<dropout {'on' if drop == '1' else 'off'}, {stat}, "
-            f"{rel}>: {regs} registers, {stack} bytes stack, spill stores "
-            f"{st} loads {ld} bytes, {dyn} bytes of dynamic shared memory a "
-            f"block{extra}")
-        if int(st) or int(ld):
-            raise AssertionError(f"{kernel}<{drop}, {stat}, {rel}> spills "
-                                 f"registers")
-    want = {(k, stat, rel) for k in ("flash_fwd_kernel",
-                                     "flash_bwd_dq_kernel",
-                                     "flash_bwd_dkv_kernel")
-            for stat, rel in (("RowMaxInv", "NoRel"), ("Lse", "NoRel"),
-                              ("RowMaxInv", "RelBias"))}
-    if seen != want:
-        raise AssertionError(f"flash kernels in the ptxas log: {sorted(seen)}")
-    cross = (ctypes.c_int * 14)()
-    build.check(lib.emdr2_flash_cross_attention_bwd_layout(cross),
-                "emdr2_flash_cross_attention_bwd_layout")
-    bwd = re.compile(r"Compiling entry function '\w*?cross_bwd_kernelILi(\d)"
-                     r"ELb([01])EEE" + tail)
-    rows = sorted(bwd.findall(ptxas_log))
-    if [r[:2] for r in rows] != [(str(m), d) for m in range(2, 5)
-                                 for d in "01"]:
-        raise AssertionError(f"K2 backward kernels in the ptxas log: {rows}")
-    for M, drop, stack, st, ld, regs in rows:
-        m = int(M)
-        log(f"  cross_bwd_kernel<M={M}, dropout {'on' if drop == '1' else 'off'}"
-            f">: {regs} registers, {stack} bytes stack, spill stores {st} "
-            f"loads {ld} bytes, {cross[1 + m]} bytes of dynamic shared memory "
-            f"a block ({cross[1]} threads, rings of {cross[0]} slots), "
-            f"{cross[5 + m + 4 * int(drop)]} blocks resident a multiprocessor "
-            f"by the occupancy query")
-        if int(st) or int(ld):
-            raise AssertionError(f"cross_bwd_kernel<{M}, {drop}> spills "
-                                 f"registers")
-    layout = kernel_layout()
-    walk = re.compile(r"Compiling entry function '\w*?decode_walk_kernelILi"
-                      r"(\d)EEE" + tail)
-    rows = sorted(walk.findall(ptxas_log))
-    if [r[0] for r in rows] != [str(i) for i in range(1, 9)]:
-        raise AssertionError(f"K5 walk kernels in the ptxas log: {rows}")
-    for R, stack, st, ld, regs in rows:
-        log(f"  decode_walk_kernel<R={R}>: {regs} registers, {stack} bytes "
-            f"stack, spill stores {st} loads {ld} bytes, "
-            f"{layout.smem_bytes[int(R) - 1]} bytes of dynamic shared memory "
-            f"a block ({layout.slots} slots of {layout.stage_keys} keys), "
-            f"{layout.resident_blocks[int(R) - 1]} blocks resident a "
-            f"multiprocessor by the occupancy query")
-        if int(st) or int(ld):
-            raise AssertionError(f"decode_walk_kernel<{R}> spills registers")
-
-
-def k1_phase(dev, gen):
-    """K1 forward at the query tower's (serving batch 8 and the DPR step's
-    128 queries), the index builder's (a batch of 128 passages), the DPR
-    step's 256 contexts, the context tower's and the reader's shapes, rate 0,
-    with one fully padded row: the output and the saved statistics against
-    their plain versions."""
-    from emdr2_tpu_torch.ops.fid_attention import (
-        flash_self_attention, flash_self_attention_forward,
-        flash_self_attention_reference, flash_self_attention_stats_reference)
-    rows = []
-    for B, L in ((8, 64), (128, 64), (128, 256), (256, 256), (400, 256),
-                 (400, 512)):
-        qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen
-                          ).to(torch.bfloat16)
-        lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
-        lens[B // 2] = 0                       # a fully padded row
-        bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
-                           0.0, -1e9).float()
-        got = flash_self_attention(qkv, bias, 12)
-        torch.cuda.synchronize()
-        want = flash_self_attention_reference(qkv, bias, 12)
-        max_err, mean_err, ref = _check(f"K1 [{B}, {L}]", got, want,
-                                        FWD_TOL)
-        with_stats, stats = flash_self_attention_forward(qkv, bias, 12)
-        if not torch.equal(with_stats, got):
-            raise AssertionError(f"K1 [{B}, {L}]: saving the statistics "
-                                 f"changed the output")
-        n = min(B, 32)
-        idx = torch.unique(torch.tensor([*range(n), B // 2], device=dev))
-        m_err, il_err = _check_self_stats(
-            f"K1 [{B}, {L}]", stats[idx],
-            flash_self_attention_stats_reference(qkv[idx], bias[idx], 12),
-            bias[idx])
-        del with_stats, stats
-        ms = time_ms(lambda: flash_self_attention(qkv, bias, 12))
-        plain_ms = time_ms(lambda: flash_self_attention_reference(qkv, bias,
-                                                                  12))
-        flop = 4 * B * 12 * L * L * 64
-        moved = nbytes(qkv, bias, got)
-        bound_ms, bound_by = bound(moved, flop)
-        lib_ms, _ = sdpa_times(qkv, 3, qkv, 3, bias)
-        log(f"K1 flash_self_attention [{B}, {L}, 2304] bf16: max_abs_err "
-            f"{max_err:.3e} mean_abs_err {mean_err:.3e} (tol {FWD_TOL} x "
-            f"max|ref| {ref:.3e}) | kernel {ms:.4f} ms "
-            f"({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} ms | "
-            f"SDPA {lib_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
-            f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP) | statistics "
-            f"(rows 0..{n - 1} and the fully padded row {B // 2}): rowmax "
-            f"error {m_err:.3e}, 1/l relative error {il_err:.3e} (tol "
-            f"{STATS_TOL}), the padded row's 1/l exactly 1/L")
-        rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms))
-        del qkv, bias, got, want
-    return rows
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _errors(got, want):
@@ -505,7 +184,7 @@ def _errors(got, want):
     return err.max().item(), err.mean().item()
 
 
-def _check(name, got, want, tol=GRAD_TOL):
+def _check(name, got, want, tol=FWD_TOL):
     """max / mean abs error and max|want|; fails beyond ``tol`` times the
     largest |want|."""
     max_err, mean_err = _errors(got, want)
@@ -517,1444 +196,7 @@ def _check(name, got, want, tol=GRAD_TOL):
     return max_err, mean_err, ref
 
 
-def _self_inputs(dev, gen, B, L):
-    qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen
-                      ).to(torch.bfloat16)
-    lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
-    bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
-                       0.0, -1e9).float()
-    dout = torch.randn(B, L, 768, device=dev, generator=gen
-                       ).to(torch.bfloat16)
-    return qkv, bias, dout
-
-
-def k1_dropout_phase(dev, gen):
-    """K1 forward with the flagship attention dropout at [400, 512]."""
-    from emdr2_tpu_torch.ops.fid_attention import (
-        flash_self_attention, flash_self_attention_reference)
-    qkv, bias, _ = _self_inputs(dev, gen, 400, 512)
-    got = flash_self_attention(qkv, bias, 12, DROP_SEED, RATE)
-    torch.cuda.synchronize()
-    want = flash_self_attention_reference(qkv, bias, 12, DROP_SEED, RATE)
-    max_err, mean_err, ref = _check(f"K1 dropout {RATE}", got, want, FWD_TOL)
-    ms = time_ms(lambda: flash_self_attention(qkv, bias, 12, DROP_SEED,
-                                              RATE))
-    plain_ms = time_ms(lambda: flash_self_attention_reference(
-        qkv, bias, 12, DROP_SEED, RATE), reps=5, warmup=1)
-    log(f"K1 flash_self_attention [400, 512, 2304] bf16 dropout {RATE}: "
-        f"max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} (tol "
-        f"{FWD_TOL} x max|ref| {ref:.3e}) | kernel {ms:.4f} ms | plain "
-        f"{plain_ms:.4f} ms")
-    return dict(B=400, L=512, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
-
-
-def k1_bwd_phase(dev, gen, check_rows=32, profile=False):
-    """K1 backward at the towers' (the OPENQA step's and the DPR step's:
-    128 queries, 256 contexts) and the reader's shapes, dropout 0.1:
-    gradients held against the plain backward on the first ``check_rows``
-    rows (its fp32 [B, nh, L, L] tensors), both timed on all rows.
-    ``profile`` adds the device time of the forward kernel and of the
-    backward's two at each shape (five calls each under torch.profiler:
-    at [8, 64] the events above time the launch, not the kernels)."""
-    from emdr2_tpu_torch.ops.fid_attention import (
-        flash_self_attention_backward, flash_self_attention_bwd_reference,
-        flash_self_attention_forward)
-    rows = []
-    for B, L in ((8, 64), (128, 64), (256, 256), (400, 256), (400, 512)):
-        qkv, bias, dout = _self_inputs(dev, gen, B, L)
-        out, stats = flash_self_attention_forward(qkv, bias, 12, DROP_SEED,
-                                                  RATE)
-
-        def kernel():
-            return flash_self_attention_backward(qkv, bias, out, dout, 12,
-                                                 DROP_SEED, RATE, stats)
-
-        def plain():
-            return flash_self_attention_bwd_reference(qkv, bias, out, dout,
-                                                      12, DROP_SEED, RATE)
-
-        got = kernel()
-        torch.cuda.synchronize()
-        n = min(B, check_rows)
-        want = flash_self_attention_bwd_reference(
-            qkv[:n], bias[:n], out[:n], dout[:n], 12, DROP_SEED, RATE)
-        max_err, mean_err, ref = _check(f"K1-bwd [{B}, {L}]", got[:n],
-                                             want)
-        if not torch.equal(kernel(), got):
-            raise AssertionError(f"K1-bwd [{B}, {L}] is not deterministic")
-        del want
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, reps=3, warmup=1)
-        flop = 2.5 * 4 * B * 12 * L * L * 64
-        moved = nbytes(qkv, bias, out, dout, stats, got)
-        bound_ms, bound_by = bound(moved, flop)
-        _, lib_ms = sdpa_times(qkv, 3, qkv, 3, bias, dout)  # rate 0
-        log(f"K1-bwd flash_self_attention_backward [{B}, {L}, 2304] dropout "
-            f"{RATE}: max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
-            f"(rows 0..{n - 1}; tol {GRAD_TOL} x max|ref| {ref:.3e}), "
-            f"repeat bit-identical | kernel {ms:.4f} ms "
-            f"({flop / ms / 1e9:.2f} TFLOP/s by 2.5 x 4*L^2*hd) | plain "
-            f"{plain_ms:.4f} ms | SDPA backward (rate 0) {lib_ms:.4f} ms | "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
-            f"{flop / 1e9:.1f} GFLOP)")
-        rows.append(dict(B=B, L=L, max_abs_err=max_err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms))
-        if profile:
-            def five_each():
-                for _ in range(5):
-                    flash_self_attention_forward(qkv, bias, 12, DROP_SEED,
-                                                 RATE)
-                for _ in range(5):
-                    kernel()
-            log_profile(f"K1 forward and backward at [{B}, {L}] dropout "
-                        f"{RATE}, five calls each",
-                        profile_call(five_each, f"k1_profile_{B}x{L}.txt",
-                                     4))
-        del qkv, bias, dout, out, stats, got
-        torch.cuda.empty_cache()
-    return rows
-
-
-def k2_phase(dev, gen):
-    """K2 forward and backward at the reader shape (8 x 32 queries over
-    25,600 keys in 512-key chunks, and in 256-key chunks as the engine runs
-    it; each row's keys past its length padded) and the teacher shape (400 x
-    32 over 512), dropout 0 and 0.1. Then the backward's time at the reader
-    shape, rate 0.1, over several forced run counts beside the wrapper's."""
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    rows = []
-    for name, B, Lk, chunks in (("reader", 8, 25_600, (512, 256)),
-                                ("teacher", 400, 512, (512,))):
-        q = torch.randn(B, 32, 768, device=dev, generator=gen
-                        ).to(torch.bfloat16)
-        kv = torch.randn(B, Lk, 1536, device=dev, generator=gen
-                         ).to(torch.bfloat16)
-        real = torch.randint(Lk // 2, Lk - 100, (B,), device=dev,
-                             generator=gen)
-        bias = torch.where(torch.arange(Lk, device=dev)[None, :]
-                           < real[:, None], 0.0, -1e9).float()
-        dout = torch.randn(B, 32, 768, device=dev, generator=gen
-                           ).to(torch.bfloat16)
-        for chunk, rate in ((c, r) for c in chunks for r in (0.0, RATE)):
-            seed = DROP_SEED if rate else None
-            out, lse = fa.flash_cross_attention_forward(q, kv, bias, 12,
-                                                        chunk, seed, rate)
-            torch.cuda.synchronize()
-            w_out, w_lse = fa.flash_cross_attention_reference(
-                q, kv, bias, 12, chunk, seed, rate)
-            f_max, f_mean, f_ref = _check(f"K2-fwd {name} rate {rate}", out,
-                                          w_out, FWD_TOL)
-            lse_err = (lse - w_lse).abs().max().item()
-            if lse_err > LSE_TOL:
-                raise AssertionError(f"K2-fwd {name} rate {rate}: lse error "
-                                     f"{lse_err}")
-            again = fa.flash_cross_attention_forward(q, kv, bias, 12, chunk,
-                                                     seed, rate)
-            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
-                raise AssertionError(f"K2-fwd {name} is not deterministic")
-            args = (q, kv, bias, w_lse, w_out, dout, 12, chunk, seed, rate)
-            dq, dkv = fa.flash_cross_attention_backward(*args)
-            torch.cuda.synchronize()
-            w_dq, w_dkv = fa.flash_cross_attention_bwd_reference(*args)
-            dq_err = _check(f"K2-bwd dq {name} chunk {chunk}", dq, w_dq)
-            dkv_err = _check(f"K2-bwd dkv {name} chunk {chunk}", dkv, w_dkv)
-            pad = torch.arange(Lk, device=dev)[None, :] >= real[:, None]
-            if not bool((dkv[pad] == 0).all()):
-                raise AssertionError(f"K2-bwd {name} chunk {chunk}: padded "
-                                     f"keys got a gradient")
-            again = fa.flash_cross_attention_backward(*args)
-            if not (torch.equal(again[0], dq) and torch.equal(again[1], dkv)):
-                raise AssertionError(f"K2-bwd {name} is not deterministic")
-            del w_dq, w_dkv, again, pad
-            ms = time_ms(lambda: fa.flash_cross_attention_forward(
-                q, kv, bias, 12, chunk, seed, rate))
-            plain_ms = time_ms(lambda: fa.flash_cross_attention_reference(
-                q, kv, bias, 12, chunk, seed, rate), reps=3, warmup=1)
-            bwd_ms = time_ms(lambda: fa.flash_cross_attention_backward(*args))
-            bwd_plain_ms = time_ms(
-                lambda: fa.flash_cross_attention_bwd_reference(*args),
-                reps=3, warmup=1)
-            kv_gb = kv.numel() * 2 / 1e9
-            flop = 4 * B * 12 * 32 * Lk * 64
-            f_bound = bound(nbytes(q, kv, bias, out, lse), flop)
-            b_bound = bound(nbytes(q, kv, bias, w_lse, w_out, dout, dq, dkv),
-                            2.5 * flop)
-            lib_ms, lib_bwd_ms = sdpa_times(q, 1, kv, 2, bias, dout)
-            log(f"K2 flash_cross_attention {name} [{B}, 32 x {Lk}] key_chunk "
-                f"{chunk} rate {rate}: fwd max_abs_err {f_max:.3e} mean "
-                f"{f_mean:.3e} (tol {FWD_TOL} x max|ref| {f_ref:.3e}) lse "
-                f"{lse_err:.3e}, repeat bit-identical | bwd dq max "
-                f"{dq_err[0]:.3e} mean {dq_err[1]:.3e}, dkv max "
-                f"{dkv_err[0]:.3e} mean {dkv_err[1]:.3e} (tol {GRAD_TOL} x "
-                f"max|ref|), padded keys' dkv exactly 0, repeat bit-identical"
-                f" | fwd kernel {ms:.4f} ms ({kv_gb / ms * 1e3:.1f} GB/s of "
-                f"kv) plain {plain_ms:.4f} ms | bwd kernel {bwd_ms:.4f} ms "
-                f"({2 * kv_gb / bwd_ms * 1e3:.1f} GB/s of kv + dkv) plain "
-                f"{bwd_plain_ms:.4f} ms | SDPA (rate 0) fwd {lib_ms:.4f} ms "
-                f"bwd {lib_bwd_ms:.4f} ms | bound fwd {f_bound[0]:.4f} ms by "
-                f"{f_bound[1]}, bwd {b_bound[0]:.4f} ms by {b_bound[1]}")
-            rows.append(dict(shape=name, chunk=chunk, rate=rate,
-                             max_abs_err=f_max,
-                             bwd_max_abs_err=max(dq_err[0], dkv_err[0]),
-                             ms=ms, plain_ms=plain_ms, bwd_ms=bwd_ms,
-                             bwd_plain_ms=bwd_plain_ms,
-                             bound_ms=f_bound[0], bound_by=f_bound[1],
-                             bwd_bound_ms=b_bound[0], bwd_bound_by=b_bound[1],
-                             library_ms=lib_ms, bwd_library_ms=lib_bwd_ms))
-            if name == "reader" and chunk == 512 and rate == RATE:
-                n_chunks = Lk // chunk
-                runs = sorted({fa._split_chunks(n_chunks, n)[0]
-                               for n in (2, 5, 10, 17, 25, n_chunks)})
-                sweep = {n: time_ms(lambda n=n: fa._launch_cross_backward(
-                    *args, n_runs=n)) for n in runs}
-                log(f"K2-bwd reader key_chunk {chunk} rate {rate}, ms by "
-                    f"forced run count (blocks = runs x 96): "
-                    + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items())
-                    + f"; the wrapper's choice {bwd_ms:.4f}")
-                rows[-1]["bwd_ms_by_runs"] = sweep
-            del out, lse, w_out, w_lse, dq, dkv
-        del q, kv, bias, dout
-        torch.cuda.empty_cache()
-    return rows
-
-
-def k2_split_phase(dev, gen):
-    """K2's key split: the forward at the reader shape under key chunk 256
-    (100 chunks, the engine phase's setting), timed; then seven chunks dealt
-    to 1, 2, 3 and 7 splits of the forward and runs of the backward (3 deals
-    them 3, 3, 1) with every key past the first 1,000-1,500 padded, so whole
-    splits hold padding only, and one row fully padded. Every run against
-    the plain version (the forced splits also against its split + combine,
-    the forced runs against the run-split backward; the padded row against
-    the plain P = 1 result; padded keys of the other rows get exactly zero
-    dk and dv), repeated bit for bit."""
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    rows = []
-
-    def run(name, q, kv, bias, chunk, rate, n_splits):
-        seed = DROP_SEED if rate else None
-        out, lse = fa.flash_cross_attention_forward(q, kv, bias, 12, chunk,
-                                                    seed, rate, n_splits)
-        torch.cuda.synchronize()
-        w_out, w_lse = fa.flash_cross_attention_reference(q, kv, bias, 12,
-                                                          chunk, seed, rate)
-        f_max, f_mean, f_ref = _check(f"K2-fwd {name} rate {rate}", out,
-                                      w_out, FWD_TOL)
-        # rows with a live key: the absolute limit; a fully padded row's lse
-        # is its (equal) scores, about -1e9
-        live = (bias > -1e8).any(dim=1)
-        lse_err = (lse - w_lse)[live].abs().max().item()
-        if lse_err > LSE_TOL or not (torch.isfinite(lse).all()
-                                     and bool((lse[~live] < -9e8).all())):
-            raise AssertionError(f"K2-fwd {name} rate {rate}: lse error "
-                                 f"{lse_err}, padded rows {lse[~live]}")
-        if n_splits is not None:      # and the split + combine arithmetic
-            s_out, s_lse = fa.flash_cross_attention_split_reference(
-                q, kv, bias, 12, chunk, n_splits, seed, rate)
-            _check(f"K2-fwd {name} rate {rate} vs the plain split", out,
-                   s_out, FWD_TOL)
-            if (lse - s_lse)[live].abs().max().item() > LSE_TOL:
-                raise AssertionError(f"K2-fwd {name} rate {rate}: lse off "
-                                     f"the plain split's")
-        again = fa.flash_cross_attention_forward(q, kv, bias, 12, chunk,
-                                                 seed, rate, n_splits)
-        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
-            raise AssertionError(f"K2-fwd {name} is not deterministic")
-        return f_max, f_mean, f_ref, lse_err
-
-    def bwd_run(name, q, kv, bias, dout, real, chunk, rate, n_runs):
-        seed = DROP_SEED if rate else None
-        out, lse = fa.flash_cross_attention_reference(q, kv, bias, 12, chunk,
-                                                      seed, rate)
-        args = (q, kv, bias, lse, out, dout, 12, chunk, seed, rate)
-        dq, dkv = fa._launch_cross_backward(*args, n_runs=n_runs)
-        torch.cuda.synchronize()
-        w_dq, w_dkv = fa.flash_cross_attention_bwd_reference(*args)
-        s_dq, _ = fa.flash_cross_attention_bwd_split_reference(
-            *args[:8], n_runs, seed, rate)
-        errs = [_check(f"K2-bwd {name} rate {rate} {what}", got, want)
-                for what, got, want in (("dq", dq, w_dq), ("dkv", dkv, w_dkv),
-                                        ("dq vs the run sums", dq, s_dq),
-                                        ("padded row's dq", dq[0], w_dq[0]),
-                                        ("padded row's dkv", dkv[0],
-                                         w_dkv[0]))]
-        for r in range(1, q.shape[0]):
-            if not bool((dkv[r, real[r]:] == 0).all()):
-                raise AssertionError(f"K2-bwd {name} rate {rate}: padded keys "
-                                     f"of row {r} got a gradient")
-        again = fa._launch_cross_backward(*args, n_runs=n_runs)
-        if not (torch.equal(again[0], dq) and torch.equal(again[1], dkv)):
-            raise AssertionError(f"K2-bwd {name} is not deterministic")
-        return max(e[0] for e in errs), max(e[2] for e in errs)
-
-    B, Lk = 8, 25_600
-    q = torch.randn(B, 32, 768, device=dev, generator=gen).to(torch.bfloat16)
-    kv = torch.randn(B, Lk, 1536, device=dev, generator=gen
-                     ).to(torch.bfloat16)
-    real = torch.randint(Lk // 2, Lk - 100, (B,), device=dev, generator=gen)
-    bias = torch.where(torch.arange(Lk, device=dev)[None, :] < real[:, None],
-                       0.0, -1e9).float()
-    n_chunks = Lk // 256
-    for rate in (0.0, RATE):
-        seed = DROP_SEED if rate else None
-        f_max, f_mean, f_ref, lse_err = run("reader chunk 256", q, kv, bias,
-                                            256, rate, None)
-        ms = time_ms(lambda: fa.flash_cross_attention_forward(
-            q, kv, bias, 12, 256, seed, rate))
-        log(f"K2 flash_cross_attention reader [{B}, 32 x {Lk}] key_chunk 256 "
-            f"({n_chunks} chunks) rate {rate}: fwd "
-            f"max_abs_err {f_max:.3e} mean {f_mean:.3e} (tol {FWD_TOL} x "
-            f"max|ref| {f_ref:.3e}) lse {lse_err:.3e}, repeat bit-identical "
-            f"| fwd kernel {ms:.4f} ms ({nbytes(kv) / ms / 1e6:.1f} GB/s of "
-            f"kv)")
-        rows.append(dict(shape="reader256", rate=rate, max_abs_err=f_max,
-                         ms=ms))
-    del q, kv, bias
-
-    B, Lk = 4, 7 * 512
-    q = torch.randn(B, 32, 768, device=dev, generator=gen).to(torch.bfloat16)
-    kv = torch.randn(B, Lk, 1536, device=dev, generator=gen
-                     ).to(torch.bfloat16)
-    real = torch.randint(1000, 1500, (B,), device=dev, generator=gen)
-    real[0] = 0                                       # a fully padded row
-    bias = torch.where(torch.arange(Lk, device=dev)[None, :] < real[:, None],
-                       0.0, -1e9).float()
-    dout = torch.randn(B, 32, 768, device=dev, generator=gen
-                       ).to(torch.bfloat16)
-    for n_splits in (1, 2, 3, 7):
-        for rate in (0.0, RATE):
-            f_max, f_mean, f_ref, lse_err = run(
-                f"7 chunks in {n_splits} splits", q, kv, bias, 512, rate,
-                n_splits)
-            b_max, b_ref = bwd_run(f"7 chunks in {n_splits} runs", q, kv,
-                                   bias, dout, real, 512, rate, n_splits)
-            rows.append(dict(shape="padded", rate=rate, splits=n_splits,
-                             max_abs_err=f_max, bwd_max_abs_err=b_max,
-                             bwd_ref=b_ref))
-    log(f"K2 flash_cross_attention [{B}, 32 x {Lk}] 7 chunks in 1, 2, 3 and "
-        f"7 splits, keys past {real[1:].min().item()}-{real.max().item()} "
-        f"and all of row 0 padded, rate 0 and {RATE}: max_abs_err "
-        f"{max(r['max_abs_err'] for r in rows if r['shape'] == 'padded'):.3e}"
-        f" (tol {FWD_TOL} x max|ref|, against the plain version and its "
-        f"split + combine), lse within {LSE_TOL} on live rows and below -9e8"
-        f" on row 0, repeats bit-identical; backward in 1, 2, 3 and 7 runs: "
-        f"max_abs_err "
-        f"{max(r['bwd_max_abs_err'] for r in rows if r['shape'] == 'padded'):.3e}"
-        f" (tol {GRAD_TOL} x max|ref|, max|ref| up to "
-        f"{max(r['bwd_ref'] for r in rows if r['shape'] == 'padded'):.3e}, "
-        f"against the plain backward and its run "
-        f"sums; row 0 against the plain P = 1 result), padded keys of rows "
-        f"1-{B - 1} get exactly zero dk and dv, repeats bit-identical")
-    return rows
-
-
-K3_NQ = (8, 64, 512, 3610)          # serving, just above the crossover,
-                                    # the evaluator's batches (NQ-test)
-K3_SWEEP_NQ = (1, 2, 4, 8, 9, 16, 32, 64, 128, 256)  # both kernels forced:
-                                    # each type's crossover
 K3_TIE_SEEDS = (SEED + 1, SEED + 2)  # more bf16 indexes for the widest tie
-K3_SPLIT_NQ = (512, 3610)           # int8 mips_topk split into its parts
-K3_EXTRA = 8                        # exact rows kept past the k-th
-TIE_EPS = 4                         # a boundary tie: scores within this
-                                    # many fp32 eps of |k-th score|
-K3_BLOCK = 512                      # plain comparisons, queries a block
-
-
-def _k3_queries(name, nq, dev, gen):
-    """(fp32 queries, the scan's queries: bf16, or int8 per-query
-    quantized as ``mips_topk`` does)."""
-    qf = torch.randn(nq, 768, device=dev, generator=gen)
-    return qf, (qf.to(torch.bfloat16) if name == "bf16"
-                else quantize_queries(qf))
-
-
-def _score_matmul(q, index):
-    """The one library call for the score matrix alone (not the same
-    function: no per-group top-2; a yardstick only): a bf16 GEMM, or
-    ``torch._int_mm`` (int8 in, int32 out, which wants more than 16 rows:
-    the queries are padded to a multiple of 32)."""
-    if q.dtype == torch.int8:
-        pad = -q.shape[0] % 32
-        qp = torch.nn.functional.pad(q, (0, 0, 0, pad)) if pad else q
-        return torch._int_mm(qp, index.T)
-    return torch.matmul(q, index.T)
-
-
-def _exact_top(qf, rows_f, n_valid, k, q_dtype=None):
-    """Exact top-(k + K3_EXTRA) (float64 scores, rows) over the stored rows
-    (fp32 values, summed in float64), in query blocks: the rows past the
-    k-th are the ones a boundary tie may trade in."""
-    rows_d = rows_f[:n_valid].double()
-    vals, idx = [], []
-    for s in range(0, qf.shape[0], K3_BLOCK):
-        q = qf[s:s + K3_BLOCK]
-        if q_dtype is not None:
-            q = q.to(q_dtype)
-        v, i = torch.topk(torch.matmul(q.double(), rows_d.T), k + K3_EXTRA,
-                          dim=1)
-        vals.append(v)
-        idx.append(i)
-    del rows_d
-    return torch.cat(vals), torch.cat(idx)
-
-
-def quantize_queries(qf):
-    """int8 queries quantized per query, as ``mips_topk`` does."""
-    qs = qf.abs().amax(dim=1).clamp(min=1e-30) / 127.0
-    return torch.clamp(torch.round(qf / qs[:, None]), -127,
-                       127).to(torch.int8)
-
-
-def explain_misses(ids, oracle, oracle_vals, k, ties=False, group=128):
-    """Sort the misses of the search's rows ``ids`` [nq, k] against the
-    exact top-k (the first k of ``oracle``, the exact top-(k + K3_EXTRA)
-    rows with their float64 scores ``oracle_vals``) by what the search
-    gives up by design. ``collided``: the row's group holds >= 3 of the
-    true top-k (the scan keeps two a group). ``ties`` (counted when
-    ``ties``): a retrieved row outside the true top-k scores within TIE_EPS
-    fp32 eps of |k-th score| of the missed one, each retrieved row paired
-    with one miss (the lowest miss with the best such row first), so an
-    order of sums other than the exact search's may trade the two. Returns
-    the counts, the widest tie in eps of |k-th score| (``tie_eps``), and
-    the misses neither explains, [(query, row)]."""
-    eps = torch.finfo(torch.float32).eps
-    out = dict(misses=0, collided=0, ties=0, tie_eps=0.0, unexplained=[])
-    for qi, (got, ext, v) in enumerate(zip(ids.tolist(), oracle.tolist(),
-                                           oracle_vals.tolist())):
-        want = ext[:k]
-        score = dict(zip(ext, v))
-        unit = eps * abs(v[k - 1])
-        groups = [w // group for w in want]
-        # rows outside the k-th place keep no score past the extended list
-        intruders = sorted((score.get(x, -math.inf)
-                            for x in set(got) - set(want)), reverse=True)
-        for w in sorted(set(want) - set(got), key=score.get):
-            out["misses"] += 1
-            if groups.count(w // group) >= 3:
-                out["collided"] += 1
-                continue
-            gap = (score[w] - intruders[0]) / unit if intruders else math.inf
-            if ties and gap <= TIE_EPS:
-                out["ties"] += 1
-                out["tie_eps"] = max(out["tie_eps"], gap)
-                intruders.pop(0)
-            else:
-                out["unexplained"].append((qi, w))
-    return out
-
-
-def describe_int8_miss(qf, index, scales, n_valid, qi, w, k,
-                       group=128):
-    """What ``mips_topk`` did with true top-``k`` row ``w`` of int8 query
-    ``qi``: its exact score beside the k-th, its rank among the scan's
-    scaled candidates, and its exact re-rank score beside the k-th
-    re-ranked one."""
-    from emdr2_tpu_torch.ops import mips
-    q = qf[qi:qi + 1]
-    q8 = quantize_queries(q)
-    qs = (q.abs().amax(dim=1).clamp(min=1e-30) / 127.0)[0]
-    rows = mips.dequantize_int8(index, scales, group)[:n_valid]
-    exact = torch.matmul(q, rows.T)[0]
-    top = torch.topk(exact, k + 1).values
-    cv, ci = mips.candidate_scan_reference(q8, index, n_valid, group, 2)
-    cv = cv[0] * scales.repeat(2) * qs
-    pos = (ci[0] == w).nonzero()
-    cand_rank = (int((cv > cv[pos[0, 0]]).sum()) if len(pos) else None)
-    got_vals, _ = mips.mips_topk(q, index, k, n_valid=n_valid,
-                                 shard_scales=scales)
-    rerank = (mips._rerank_scores(q, index[w][None, None, :])[0, 0]
-              * scales[w // group]).item()
-    return (f"query {qi} row {w}: exact score {exact[w].item():.6f}, k-th "
-            f"{top[k - 1].item():.6f}, (k+1)-th {top[k].item():.6f}; rank "
-            f"among the scan's scaled candidates {cand_rank}; re-rank score "
-            f"{rerank:.6f} against the k-th retrieved "
-            f"{got_vals[0, -1].item():.6f}")
-
-
-def misses_text(ex, k):
-    return (f"misses {ex['misses']}: in a group holding >= 3 of the true "
-            f"top-{k} {ex['collided']}, boundary ties {ex['ties']} (widest "
-            f"{ex['tie_eps']:.3f} fp32 eps of |k-th score|), unexplained "
-            f"{ex['unexplained']}")
-
-
-def k3_sass_counts():
-    """Instructions of the tensor-core scan kernels in the built library, by
-    ``cuobjdump -sass``: the warpgroup products (HGMMA bf16, IGMMA int8) and
-    the tensor-map loads (UTMALDG) and bulk copies (UBLKCP). Fails if a
-    kernel lacks its products or its loads; None without cuobjdump."""
-    import re
-
-    from emdr2_tpu_torch.ops import build
-    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        log("  K3: no cuobjdump beside nvcc, the SASS is not read")
-        return None
-    sass = subprocess.run([tool, "-sass", build.library_path()],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts = {}
-    for part in re.split(r"\n\s+Function : ", sass)[1:]:
-        name = part.split("\n", 1)[0]
-        if "candidate_scan_tc_kernel" not in name:
-            continue
-        c = {op: len(re.findall(r"\b" + op + r"\.", part))
-             for op in ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")}
-        products = c["IGMMA"] if "candidate_scan_tc_kernelIa" in name \
-            else c["HGMMA"]
-        if not products or not (c["UTMALDG"] or c["UBLKCP"]):
-            raise AssertionError(f"K3 {name}: SASS {c}")
-        counts[name] = c
-    if not counts:
-        raise AssertionError("K3: no tensor-core scan kernel in the SASS")
-    log(f"  K3 SASS of the tensor-core kernels (cuobjdump -sass): "
-        f"{sorted(set(map(str, counts.values())))} in {len(counts)} kernels")
-    return counts
-
-
-def k3_kernel_report():
-    """Registers, shared memory and spills of every scan kernel, from the
-    built library (``cudaFuncGetAttributes``); fails if a tensor-core
-    kernel spills."""
-    from emdr2_tpu_torch.ops import mips
-    rows = mips.kernel_info()
-    for r in rows:
-        log(f"  K3 {r['route']} {r['dtype']} {r['queries']} queries a block"
-            + (f", a ring of {r['stages']} stages"
-               if r["route"] == "tensor_core" else "")
-            + f": {r['registers']} registers, {r['local_bytes']} local "
-            f"(spilled) bytes a thread, {r['static_smem']} static + "
-            f"{r['dynamic_smem']} dynamic shared bytes a block at d = 768")
-        if r["route"] == "tensor_core" and r["local_bytes"]:
-            raise AssertionError(f"K3 tensor-core kernel spills: {r}")
-    return rows
-
-
-def k3_topk_split(qf, index, scales, n_valid, k=50):
-    """ms of a whole int8 ``mips_topk`` and of its parts: the scan, the
-    float64 re-rank of the selected rows with its final top-k, and the
-    selection between them (the scales on the candidates, the top-M and the
-    gather of the M rows): the whole less the two."""
-    from emdr2_tpu_torch.ops import mips
-    nq = qf.shape[0]
-    q = quantize_queries(qf)
-    whole = time_ms(lambda: mips.mips_topk(qf, index, k, n_valid=n_valid,
-                                           shard_scales=scales), reps=5)
-    scan = time_ms(lambda: mips.candidate_scan(q, index, n_valid, 128, 2),
-                   reps=5)
-    m = 48 if k <= 20 else max(128, 2 * k)
-    cidx = torch.randint(0, n_valid, (nq, m), device=index.device)
-    rows = index[cidx]
-
-    def rerank():
-        s = mips._rerank_scores(qf, rows) * scales[cidx // 128]
-        s = torch.where(cidx < n_valid, s, torch.full_like(s, mips.NEG_INF))
-        v, p = torch.topk(s, k, dim=1)
-        return v, torch.gather(cidx, 1, p)
-    rr = time_ms(rerank, reps=5)
-    return dict(nq=nq, whole_ms=whole, scan_ms=scan, rerank_ms=rr,
-                selection_ms=whole - scan - rr)
-
-
-def k3_bf16_ties(dev, seed, nq=3610, k=50):
-    """The widest boundary tie of a bf16 search of ``nq`` random queries
-    over a random 1,310,720 x 768 index made from ``seed`` (the rows and
-    queries), against an exact search (float64 sums): in fp32 eps of
-    |k-th score|. A miss neither a collision nor a tie fails."""
-    from emdr2_tpu_torch.ops import mips
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    n_valid = N_INDEX - 1000
-    emb = torch.randn(N_INDEX, 768, device=dev, generator=g)
-    emb[n_valid:] = 0.0
-    index = emb.to(torch.bfloat16)
-    del emb
-    qf = torch.randn(nq, 768, device=dev, generator=g)
-    _, ids = mips.mips_topk(qf, index, k, n_valid=n_valid)
-    oracle_vals, oracle = _exact_top(qf, index.float(), n_valid, k,
-                                     torch.bfloat16)
-    ex = explain_misses(ids, oracle, oracle_vals, k, ties=True)
-    log(f"K3 bf16 seed {seed} nq={nq}: {misses_text(ex, k)}")
-    if ex["unexplained"]:
-        raise AssertionError(f"K3 bf16 seed {seed}: {misses_text(ex, k)}")
-    return ex["tie_eps"]
-
-
-def k3_phase(dev, gen):
-    """K3 over 1,310,720 x 768 rows, bf16 and int8: the kernels' registers
-    and shared memory; the crossover sweep (both kernels forced at nq in
-    K3_SWEEP_NQ), then the dispatch at nq in K3_NQ held to the plain
-    version (in blocks of K3_BLOCK queries: a plain [3,610, 1.31M] fp32
-    score matrix is 19 GB), timed beside the plain version, the score
-    matrix's library GEMM and the bound, and the whole search's recall@50
-    against an exact search; an int8 ``mips_topk`` split into scan,
-    selection and re-rank; the widest bf16 tie over more indexes."""
-    from emdr2_tpu_torch.ops import mips
-    kernels = k3_kernel_report()
-    sass = k3_sass_counts()
-    rows, sweep, split = [], [], []
-    n_valid = N_INDEX - 1000
-    emb = torch.randn(N_INDEX, 768, device=dev, generator=gen)
-    emb[n_valid:] = 0.0
-    stored = {"bf16": (emb.to(torch.bfloat16), None)}
-    stored["int8"] = mips.quantize_int8(emb, 128)
-    del emb
-    for name in ("bf16", "int8"):
-        index, scales = stored[name]
-        for nq in K3_SWEEP_NQ:
-            _, q = _k3_queries(name, nq, dev, gen)
-            # each kernel forced and held to the plain version, then timed
-            wv, wi = mips.candidate_scan_reference(q, index, n_valid, 128, 2)
-            t, err = {}, {}
-            for route in ("cuda_core", "tensor_core"):
-                v, i = mips._launch(q, index, n_valid, 128, 2, route)
-                torch.cuda.synchronize()
-                ok = (torch.equal(v, wv) and torch.equal(i, wi)
-                      if name == "int8" else
-                      bool(((v - wv).abs() <= 1e-3 * wv.abs() + 1e-3).all()))
-                err[route] = (v - wv).abs().max().item()
-                if not ok:
-                    raise AssertionError(f"K3 {name} nq={nq} {route} kernel "
-                                         f"disagrees: max_abs_err "
-                                         f"{err[route]:.3e}")
-                del v, i
-                t[route] = time_ms(lambda r=route: mips._launch(
-                    q, index, n_valid, 128, 2, r))
-            del wv, wi
-            sweep.append(dict(dtype=name, nq=nq, **t,
-                              max_abs_err=max(err.values())))
-            log(f"K3 crossover {name} nq={nq}: CUDA-core kernel "
-                f"{t['cuda_core']:.4f} ms (max_abs_err {err['cuda_core']:.3e}"
-                f"), tensor-core kernel {t['tensor_core']:.4f} ms (max_abs_err "
-                f"{err['tensor_core']:.3e})")
-        for nq in K3_NQ:
-            qf, q = _k3_queries(name, nq, dev, gen)
-            route = mips.scan_route(nq, 128, q.dtype)
-            gv, gi = mips.candidate_scan(q, index, n_valid, 128, 2)
-            torch.cuda.synchronize()
-            ok, max_err, agree = True, 0.0, 0
-            for s in range(0, nq, K3_BLOCK):
-                wv, wi = mips.candidate_scan_reference(
-                    q[s:s + K3_BLOCK], index, n_valid, 128, 2)
-                v, i = gv[s:s + K3_BLOCK], gi[s:s + K3_BLOCK]
-                if name == "int8":
-                    ok &= torch.equal(v, wv) and torch.equal(i, wi)
-                else:
-                    ok &= bool(((v - wv).abs() <= 1e-3 * wv.abs()
-                                + 1e-3).all())
-                max_err = max(max_err, (v - wv).abs().max().item())
-                agree += (i == wi).sum().item()
-                del wv, wi
-            id_agree = agree / gi.numel()
-            # the scales are applied outside the scan, so they do not count
-            bound_ms, bound_by = bound(nbytes(q, index, gv, gi),
-                                       2 * nq * N_INDEX * 768, name)
-            del gv, gi
-            ms = time_ms(lambda: mips.candidate_scan(q, index, n_valid, 128,
-                                                     2))
-            plain_ms = time_ms(lambda: [
-                mips.candidate_scan_reference(q[s:s + K3_BLOCK], index,
-                                              n_valid, 128, 2)
-                for s in range(0, nq, K3_BLOCK)], reps=3, warmup=1)
-            matmul_ms = time_ms(lambda: _score_matmul(q, index), reps=5,
-                                warmup=1)
-            index_bytes = nbytes(index)
-            # top-50 recall of the whole search vs an exact search over the
-            # stored rows (float64 sums; rows past n_valid excluded)
-            vals, ids = mips.mips_topk(qf, index, 50, n_valid=n_valid,
-                                       shard_scales=scales)
-            rows_f = (index.float() if scales is None
-                      else mips.dequantize_int8(index, scales, 128))
-            oracle_vals, oracle = _exact_top(
-                qf, rows_f, n_valid, 50,
-                torch.bfloat16 if scales is None else None)
-            del rows_f
-            recall, _ = recall_at(ids, oracle[:, :50])
-            # the kernel's order of sums (bf16), or the re-rank's float64
-            # sums rounded to fp32 (int8), may trade a row at the 50th place
-            # with one just outside when the two score within a few fp32
-            # eps: above the serving batch such a miss is counted apart
-            ex = explain_misses(ids, oracle, oracle_vals, 50, ties=nq > 8)
-            log(f"K3 candidate_scan {name} nq={nq} N={N_INDEX} ({route} "
-                f"kernel): {'equal' if name == 'int8' else 'within '}"
-                f"{'' if name == 'int8' else '1e-3*|v|+1e-3'}={ok} "
-                f"max_abs_err {max_err:.3e} id_agreement {id_agree:.6f} | "
-                f"kernel {ms:.4f} ms ({index_bytes / ms / 1e6:.1f} GB/s, "
-                f"{2 * nq * N_INDEX * 768 / ms / 1e9:.1f} TOP/s) | plain "
-                f"{plain_ms:.4f} ms | score GEMM alone {matmul_ms:.4f} ms | "
-                f"bound {bound_ms:.4f} ms by {bound_by} | recall@50 "
-                f"{recall:.6f} ({misses_text(ex, 50)})")
-            if not ok:
-                raise AssertionError(f"K3 {name} nq={nq} disagrees")
-            # per-group top-2 loses a row only when three true winners share
-            # a 128-row group (~2e-4 per query at k=50, N=1.31M): the serving
-            # batch must be exact, and any miss at larger nq must be such
-            # one, or a boundary tie
-            if name == "int8":
-                for qi, w in ex["unexplained"]:
-                    log("K3 int8 miss: " + describe_int8_miss(
-                        qf, index, scales, n_valid, qi, w, 50))
-            if (nq <= 8 and recall != 1.0) or ex["unexplained"]:
-                raise AssertionError(f"K3 {name} nq={nq} recall {recall}, "
-                                     f"{misses_text(ex, 50)}")
-            rows.append(dict(dtype=name, nq=nq, route=route,
-                             max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                             matmul_ms=matmul_ms,
-                             gbps=index_bytes / ms / 1e6, recall=recall,
-                             id_agree=id_agree, bound_ms=bound_ms,
-                             bound_by=bound_by, misses=ex["misses"],
-                             ties=ex["ties"], tie_eps=ex["tie_eps"]))
-            if name == "int8" and nq in K3_SPLIT_NQ:
-                split.append(k3_topk_split(qf, index, scales, n_valid))
-                log(f"K3 int8 mips_topk nq={nq} k=50: {split[-1]}")
-    del stored
-    ties = [r["tie_eps"] for r in rows if r["dtype"] == "bf16"]
-    ties += [k3_bf16_ties(dev, seed) for seed in K3_TIE_SEEDS]
-    log(f"K3 bf16: the widest boundary tie over seeds {SEED}, "
-        f"{', '.join(map(str, K3_TIE_SEEDS))}: {max(ties):.3f} fp32 eps of "
-        f"|k-th score| (TIE_EPS {TIE_EPS})")
-    crossover = {}
-    for name in ("bf16", "int8"):
-        runs = [r for r in sweep if r["dtype"] == name]
-        # the smallest nq from which the tensor-core kernel stays faster
-        crossover[name] = next(
-            (r["nq"] for i, r in enumerate(runs)
-             if all(x["tensor_core"] < x["cuda_core"] for x in runs[i:])),
-            None)
-    log(f"K3 crossover: the tensor-core kernel is faster from nq = "
-        f"{crossover} on (of {list(K3_SWEEP_NQ)}); the dispatch takes it "
-        f"from mips.TENSOR_CORE_MIN_NQ = "
-        f"{ {str(t): n for t, n in mips.TENSOR_CORE_MIN_NQ.items()} }")
-    return dict(rows=rows, sweep=sweep, crossover=crossover, split=split,
-                kernels=kernels, sass=sass, bf16_ties=max(ties))
-
-
-def k4_phase(dev, gen, profile=False):
-    """K4 forward on [B, L, nh, hd] views of a qkv slab: the reader encoder
-    under key chunk 256 (two chunks), dropout 0 and 0.1, a small shape
-    with Lq != Lk, three chunks and ragged tiles, and 1,024 tokens under key
-    chunk 512. ``profile`` adds five calls each of the kernel and of SDPA at
-    the reader shape under torch.profiler."""
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    rows = []
-    for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
-                                   ("small", 3, 100, 288, 96),
-                                   ("long", 16, 1024, 1024, 512)):
-        L = max(Lq, Lk)
-        slab = torch.randn(B, L, 3 * 768, device=dev, generator=gen
-                           ).to(torch.bfloat16)
-        q = slab[:, :Lq, :768].view(B, Lq, 12, 64)       # views, no copies
-        k = slab[:, :Lk, 768:1536].view(B, Lk, 12, 64)
-        v = slab[:, :Lk, 1536:].view(B, Lk, 12, 64)
-        lens = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
-        bias = torch.where(torch.arange(Lk, device=dev)[None, :]
-                           < lens[:, None], 0.0, -1e9).float()
-        for rate in (0.0, RATE):
-            seed = DROP_SEED if rate else None
-            out, lse = fa.fid_cross_attention_forward(q, k, v, bias, seed,
-                                                      chunk, rate)
-            torch.cuda.synchronize()
-            w_out, w_lse = fa.fid_cross_attention_reference(q, k, v, bias,
-                                                            seed, chunk, rate)
-            max_err, mean_err, ref = _check(f"K4-fwd {name} rate {rate}", out,
-                                            w_out, FWD_TOL)
-            lse_err = (lse - w_lse).abs().max().item()
-            if lse_err > LSE_TOL * max(1.0, w_lse.abs().max().item()):
-                raise AssertionError(f"K4-fwd {name} rate {rate}: lse error "
-                                     f"{lse_err}")
-            again, _ = fa.fid_cross_attention_forward(q, k, v, bias, seed,
-                                                      chunk, rate)
-            if not torch.equal(again, out):
-                raise AssertionError(f"K4-fwd {name} is not deterministic")
-            del w_out, w_lse, again
-            ms = time_ms(lambda: fa.fid_cross_attention_forward(
-                q, k, v, bias, seed, chunk, rate))
-            plain_ms = time_ms(lambda: fa.fid_cross_attention_reference(
-                q, k, v, bias, seed, chunk, rate), reps=3, warmup=1)
-            flop = 4 * B * 12 * Lq * Lk * 64
-            moved = nbytes(q, k, v, bias, out, lse)
-            bound_ms, bound_by = bound(moved, flop)
-            with torch.no_grad():
-                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                lib_ms = time_ms(lambda: sdpa(qh, kh, vh, bias))
-            log(f"K4 fid_cross_attention {name} [{B}, {Lq} x {Lk}, 12, 64] "
-                f"key_chunk {chunk} rate {rate}: max_abs_err {max_err:.3e} "
-                f"mean {mean_err:.3e} (tol {FWD_TOL} x max|ref| {ref:.3e}) "
-                f"lse {lse_err:.3e}, repeat bit-identical | kernel {ms:.4f} "
-                f"ms ({flop / ms / 1e9:.2f} TFLOP/s) | plain {plain_ms:.4f} "
-                f"ms | SDPA (rate 0) {lib_ms:.4f} ms | bound {bound_ms:.4f} "
-                f"ms by {bound_by} ({moved / 1e6:.1f} MB, "
-                f"{flop / 1e9:.1f} GFLOP)")
-            rows.append(dict(shape=name, rate=rate, max_abs_err=max_err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms))
-            if profile and name == "reader" and not rate:
-                def five_each():
-                    with torch.no_grad():
-                        for _ in range(5):
-                            fa.fid_cross_attention_forward(q, k, v, bias,
-                                                           seed, chunk, rate)
-                        for _ in range(5):
-                            sdpa(qh, kh, vh, bias)
-                log_profile("K4-fwd and SDPA at the reader shape, five calls "
-                            "each", profile_call(five_each,
-                                                 "k4_fwd_profile.txt", 6))
-            del out, lse
-        del slab, q, k, v, bias
-        torch.cuda.empty_cache()
-    return rows
-
-
-def _slab_routes(fa, slab, bias, dout, chunk, rate, seed, profile=False):
-    """The two ways from a [B, L, 3H] slab's attention output back to the
-    slab's gradient: ``fid_self_attention`` (the backward kernels write one
-    gradient slab in place) and ``fid_cross_attention`` on three views
-    (autograd concatenates dq, dk, dv). Returns {route: (gradient, ms of
-    the backward alone, bytes it allocates at its peak)}; ``profile`` adds
-    three backward calls of each route under torch.profiler."""
-    B, L = slab.shape[:2]
-    res = {}
-    for route in ("slab", "three tensors"):
-        leaf = slab.detach().clone().requires_grad_(True)
-        if route == "slab":
-            out = fa.fid_self_attention(leaf, bias, 12, seed, chunk, rate)
-            g = dout.reshape(B, L, 768)
-        else:
-            views = [t.view(B, L, 12, 64) for t in leaf.chunk(3, dim=-1)]
-            out = fa.fid_cross_attention(*views, bias, seed, chunk, rate)
-            g = dout
-
-        def backward():
-            return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
-
-        backward()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        grad = backward()
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - base
-        res[route] = (grad, time_ms(backward), extra)
-        if profile:
-            def three_calls():
-                for _ in range(3):
-                    backward()
-            log_profile(f"K4 backward through autograd, {route} route, "
-                        f"three calls", profile_call(
-                            three_calls,
-                            f"k4_bwd_{route.split()[0]}_profile.txt", 6))
-        del out, leaf
-    return res
-
-
-def k4_bwd_phase(dev, gen, check_rows=32, profile=False):
-    """K4 backward on [B, L, nh, hd] views of a qkv slab, from the plain
-    forward's out and lse: the reader encoder under key chunk 256, dropout 0
-    and 0.1 (gradients held against the plain backward on the first
-    ``check_rows`` rows, both timed on all rows), and a small shape whose
-    keys past 300 are padding and whose row 0 is fully masked. At the
-    reader shape the backward also runs through autograd on the slab itself
-    and on three views of it (``_slab_routes``): the gradients must be equal
-    bit for bit; ``profile`` profiles both routes at rate 0.1."""
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    rows = []
-    for name, B, Lq, Lk, chunk in (("reader", 400, 512, 512, 256),
-                                   ("padded", 3, 300, 512, 256)):
-        slab = torch.randn(B, Lk, 3 * 768, device=dev, generator=gen
-                           ).to(torch.bfloat16)
-        q = slab[:, :Lq, :768].view(B, Lq, 12, 64)       # views, no copies
-        k = slab[:, :, 768:1536].view(B, Lk, 12, 64)
-        v = slab[:, :, 1536:].view(B, Lk, 12, 64)
-        if name == "reader":
-            lens = torch.randint(1, Lk + 1, (B,), device=dev, generator=gen)
-        else:
-            lens = torch.tensor([0, 300, 200], device=dev)
-        bias = torch.where(torch.arange(Lk, device=dev)[None, :]
-                           < lens[:, None], 0.0, -1e9).float()
-        # a cotangent that is not contiguous, as a reshape may hand over
-        dout = torch.randn(B, 12, Lq, 64, device=dev, generator=gen
-                           ).to(torch.bfloat16).transpose(1, 2)
-        n = min(B, check_rows)
-        for rate in (0.0, RATE):
-            seed = DROP_SEED if rate else None
-            out, lse = fa.fid_cross_attention_forward(q, k, v, bias, seed,
-                                                      chunk, rate)
-
-            def kernel():
-                return fa.fid_cross_attention_backward(
-                    q, k, v, bias, lse, out, dout, seed, chunk, rate)
-
-            def plain():
-                return fa.fid_cross_attention_bwd_reference(
-                    q, k, v, bias, lse, out, dout, seed, chunk, rate)
-
-            got = kernel()
-            torch.cuda.synchronize()
-            want = fa.fid_cross_attention_bwd_reference(
-                q[:n], k[:n], v[:n], bias[:n], lse[:n * 12], out[:n],
-                dout[:n], seed, chunk, rate)
-            errs = [_check(f"K4-bwd {name} rate {rate} d{x}", g[:n], w)
-                    for x, g, w in zip("qkv", got, want)]
-            again = kernel()
-            if not all(torch.equal(a, g) for a, g in zip(again, got)):
-                raise AssertionError(f"K4-bwd {name} is not deterministic")
-            del want, again
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, reps=3, warmup=1)
-            flop = 2.5 * 4 * B * 12 * Lq * Lk * 64
-            moved = nbytes(q, k, v, bias, lse, out, dout, *got)
-            bound_ms, bound_by = bound(moved, flop)
-            lib_ms = None
-            if Lq == Lk:
-                _, lib_ms = sdpa_times(slab, 3, slab, 3, bias,
-                                       dout.reshape(B, Lq, 768))  # rate 0
-            log(f"K4-bwd fid_cross_attention_backward {name} [{B}, {Lq} x "
-                f"{Lk}, 12, 64] key_chunk {chunk} rate {rate}: "
-                + ", ".join(f"d{x} max {e[0]:.3e} mean {e[1]:.3e}"
-                            for x, e in zip("qkv", errs))
-                + f" (rows 0..{n - 1}; tol {GRAD_TOL} x max|ref| "
-                f"{max(e[2] for e in errs):.3e}), repeat bit-identical | "
-                f"kernel {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s by 2.5 x "
-                f"4*Lq*Lk*hd) | plain {plain_ms:.4f} ms | SDPA backward "
-                f"(rate 0) " + (f"{lib_ms:.4f} ms" if lib_ms else "not timed")
-                + f" | bound {bound_ms:.4f} ms by {bound_by} "
-                f"({moved / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP)")
-            rows.append(dict(shape=name, rate=rate,
-                             max_abs_err=max(e[0] for e in errs), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms))
-            if Lq == Lk:
-                routes = _slab_routes(fa, slab, bias, dout, chunk, rate, seed,
-                                      profile and bool(rate))
-                (g_slab, slab_ms, slab_b), (g_three, three_ms, three_b) = (
-                    routes["slab"], routes["three tensors"])
-                if not (torch.equal(g_slab, g_three) and torch.equal(
-                        g_slab, torch.cat([g.reshape(B, Lk, 768)
-                                           for g in got], dim=-1))):
-                    raise AssertionError(f"K4-bwd {name} rate {rate}: the "
-                                         f"slab route's gradient differs")
-                log(f"K4-bwd through autograd, {name} rate {rate}, the "
-                    f"slab's gradient [{B}, {Lk}, 2304]: slab route "
-                    f"{slab_ms:.4f} ms, {slab_b / 1e9:.3f} GB allocated by "
-                    f"the backward | three-tensor route {three_ms:.4f} ms, "
-                    f"{three_b / 1e9:.3f} GB (dq, dk, dv, then their "
-                    f"concatenation) | gradients equal bit for bit")
-                rows[-1].update(slab_route_ms=slab_ms,
-                                three_tensor_route_ms=three_ms,
-                                slab_route_bytes=slab_b,
-                                three_tensor_route_bytes=three_b)
-                del routes, g_slab, g_three
-            del out, lse, got
-        del slab, q, k, v, bias, dout
-        torch.cuda.empty_cache()
-    return rows
-
-
-def k5_phase(dev, gen):
-    """K5 at the decode shape [8, R, 12, 25,600, 64] for one query row
-    (greedy) and five (beam 5), on a slab padded from 200 to 256 rows, and
-    with a fully masked example. The kernel keeps ``p * vscale`` in fp32
-    where the plain version rounds it to bf16 (as the TPU kernel does) and
-    sums its stages, warps and blocks in another order: the forward
-    tolerance, also against the plain form of that order
-    (``decode_cross_attention_int8_split_reference``)."""
-    from emdr2_tpu_torch.ops import decode_attention as da
-    layout = da.kernel_layout()
-    stage_keys, slots = layout.stage_keys, layout.slots
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = []
-    for name, R, Lk, real_lo, masked in (("greedy", 1, 25_600, 12_800, False),
-                                         ("beam5", 5, 25_600, 12_800, False),
-                                         ("padded", 5, 256, 200, False),
-                                         ("masked", 5, 25_600, 12_800, True)):
-        B = 8
-        q = torch.randn(B, R, 12, 64, device=dev, generator=gen
-                        ).to(torch.bfloat16)
-        kf = torch.randn(B, 12, Lk, 64, device=dev, generator=gen)
-        vf = torch.randn(B, 12, Lk, 64, device=dev, generator=gen)
-        real = torch.randint(real_lo, Lk - 50 if Lk > 256 else real_lo + 1,
-                             (B,), device=dev, generator=gen)
-        pad = torch.arange(Lk, device=dev)[None, :] >= real[:, None]
-        kf.masked_fill_(pad[:, None, :, None], 0.0)      # padded rows: 0,
-        vf.masked_fill_(pad[:, None, :, None], 0.0)      # scale 1, bias -1e9
-        k8, ks = da.quantize_kv_rows(kf)
-        v8, vs = da.quantize_kv_rows(vf)
-        bias = torch.where(pad, -1e9, 0.0).float()
-        if masked:
-            bias[0] = -1e9
-        got = da.decode_cross_attention_int8(q, k8, ks, v8, vs, bias)
-        torch.cuda.synchronize()
-        want = da.decode_cross_attention_int8_plain(q, k8, ks, v8, vs, bias)
-        max_err, mean_err, ref = _check(f"K5 {name}", got, want, FWD_TOL)
-        dense = da.decode_cross_attention_int8_reference(q, k8, ks, v8, vs,
-                                                         bias)
-        dense_err, _, _ = _check(f"K5 {name} vs dense", got, dense,
-                                 (3e-2, 3e-3))
-        spb, n_blocks = da.split_plan(B, 12, Lk, dev)
-        split_err, _, _ = _check(
-            f"K5 {name} vs its own order of sums", got,
-            da.decode_cross_attention_int8_split_reference(
-                q, k8, ks, v8, vs, bias, spb, stage_keys, layout.warps),
-            FWD_TOL)
-        if not torch.equal(da.decode_cross_attention_int8(q, k8, ks, v8, vs,
-                                                          bias), got):
-            raise AssertionError(f"K5 {name} is not deterministic")
-        if masked and got[0].abs().max().item() > 2 * ref:
-            raise AssertionError("K5: a fully masked example blew up")
-        row = dict(shape=name, R=R, Lk=Lk, max_abs_err=max_err)
-        line = (f"K5 decode_cross_attention_int8 {name} [{B}, {R}, 12, {Lk}, "
-                f"64]: max_abs_err {max_err:.3e} mean {mean_err:.3e} (tol "
-                f"{FWD_TOL} x max|ref| {ref:.3e}), vs dense reference "
-                f"{dense_err:.3e}, vs the plain form of its own order of "
-                f"sums {split_err:.3e}, repeat bit-identical; {n_blocks} "
-                f"blocks a (head, example) of {spb} stages of {stage_keys} "
-                f"keys")
-        if name in ("greedy", "beam5"):
-            # one call between two events (the figure every kernel's row
-            # carries) takes the wrapper's host time when that is the longer;
-            # ten calls queued back to back take the kernels' time
-            ms = time_ms(lambda: da.decode_cross_attention_int8(
-                q, k8, ks, v8, vs, bias), reps=20)
-
-            def ten_calls():
-                for _ in range(10):
-                    da.decode_cross_attention_int8(q, k8, ks, v8, vs, bias)
-            queued_ms = time_ms(ten_calls, reps=10) / 10
-            plain_ms = time_ms(lambda: da.decode_cross_attention_int8_plain(
-                q, k8, ks, v8, vs, bias), reps=3, warmup=1)
-            moved = nbytes(q, k8, ks, v8, vs, bias, got)
-            flop = 4 * B * R * 12 * Lk * 64
-            bound_ms, bound_by = bound(moved, flop)
-            # the same call on the slab dequantized to bf16: twice the bytes
-            kb = (k8.float() * ks[..., None]).to(torch.bfloat16)
-            vb = (v8.float() * vs[..., None]).to(torch.bfloat16)
-            qh = q.transpose(1, 2)
-            with torch.no_grad():
-                sdpa_bf16_ms = time_ms(lambda: sdpa(qh, kb, vb, bias),
-                                       reps=20)
-            del kb, vb
-            # what a multiprocessor keeps in flight: the blocks the runtime's
-            # occupancy query says it holds, each with slots - 1 stages (K
-            # and V) asked for ahead of the one it computes
-            resident = layout.resident_blocks[R - 1]
-            ahead = resident * (slots - 1) * 2 * stage_keys * 64
-            line += (f" | kernel {ms:.4f} ms for one call between two events, "
-                     f"{queued_ms:.4f} ms a call of ten queued back to back "
-                     f"({moved / queued_ms / 1e6:.1f} GB/s of 3350) "
-                     f"| plain {plain_ms:.4f} ms | SDPA on the bf16 "
-                     f"slab (twice the bytes) {sdpa_bf16_ms:.4f} ms | bound "
-                     f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} "
-                     f"MB, {flop / 1e9:.2f} GFLOP) | grid "
-                     f"({n_blocks}, 12, {B}) = {n_blocks * 12 * B} blocks on "
-                     f"{sms} multiprocessors, {layout.smem_bytes[R - 1]} "
-                     f"bytes of shared memory a block: {resident} resident a "
-                     f"multiprocessor (occupancy query), so {ahead} bytes "
-                     f"asked for ahead")
-            row.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       sdpa_bf16_ms=sdpa_bf16_ms)
-        log(line)
-        rows.append(row)
-        del q, kf, vf, k8, ks, v8, vs, bias, got, want, dense
-        torch.cuda.empty_cache()
-    return rows
-
-
-def da_phase(dev, gen):
-    """DA (``ops.dropout_add``) in bf16 at the hidden rate, at ``DA_SHAPES``
-    with and without the residual and at ``DA_PROBS``: its output,
-    ``dropout_add_backward`` over a gradient and the autograd gradients of
-    ``y`` and ``r`` are ``torch.equal`` to the plain path's
-    (``r + packed_dropout(y)``). At ``DA_SHAPES``, each one's ms a call of
-    ten queued back to back (the wrapper's host time hides under the
-    device's), forward and backward (the kernel's backward launch, the
-    plain path's autograd over its saved mask), beside the library's
-    ``r + F.dropout(y)`` (another mask: a yardstick only) and the bound by
-    bytes: 6 (4) bytes an element forward with (without) the residual, 4
-    backward, over 3.35 TB/s."""
-    from emdr2_tpu_torch.ops import dropout_add as da
-    from emdr2_tpu_torch.ops.hashing import packed_dropout
-    F = torch.nn.functional
-    cases = ([(s, res, 0, 0) for s in DA_SHAPES for res in (True, False)]
-             + [(s, False, ro, ho) for s, ro, ho in DA_PROBS])
-    rows = []
-    for shape, residual, ro, ho in cases:
-        def t():
-            return torch.randn(shape, device=dev, generator=gen).to(
-                torch.bfloat16)
-        y, g = t(), t()
-        r = t() if residual else None
-        site = da._site(RATE, DA_SEED, ro, ho, y.dtype)
-
-        def plain(y, r):
-            d = packed_dropout(y, RATE, DA_SEED, ro, ho)
-            return d if r is None else r + d
-
-        def kernel(y, r):
-            return da.dropout_add(y, r, RATE, DA_SEED, ro, ho)
-
-        def library(y, r):
-            d = F.dropout(y, RATE)
-            return d if r is None else r + d
-
-        got, outs = {}, {}
-        for name, fn in (("kernel", kernel), ("plain", plain),
-                         ("library", library)):
-            leaves = [x.clone().requires_grad_() for x in (y, r)
-                      if x is not None]
-            out = fn(leaves[0], leaves[1] if residual else None)
-            got[name] = [out.detach()] + list(
-                torch.autograd.grad(out, leaves, g, retain_graph=True))
-            outs[name] = (out, leaves[0])
-        equal = all(torch.equal(a, b)
-                    for a, b in zip(got["kernel"], got["plain"]))
-        bwd_equal = torch.equal(da.dropout_add_backward(g, site),
-                                packed_dropout(g, RATE, DA_SEED, ro, ho))
-        row = dict(shape=list(shape), residual=residual, row_offset=ro,
-                   head_offset=ho, equal=equal, bwd_equal=bwd_equal)
-        line = (f"DA dropout_add {list(shape)} bf16 rate {RATE}, residual "
-                f"{residual}, offsets ({ro}, {ho}): forward and gradients "
-                f"equal to the plain path {equal}, dropout_add_backward "
-                f"{bwd_equal}")
-        if shape in DA_SHAPES:
-            n = y.numel()
-
-            def queued(fn, n_calls=10):
-                return time_ms(lambda: [fn() for _ in range(n_calls)]) \
-                    / n_calls
-
-            def grad_of(name):
-                out, leaf = outs[name]
-                return lambda: torch.autograd.grad(out, leaf, g,
-                                                   retain_graph=True)
-
-            with torch.no_grad():
-                for name, fn in (("kernel", kernel), ("plain", plain),
-                                 ("library", library)):
-                    row[f"{name}_fwd_ms"] = queued(lambda: fn(y, r))
-            row["kernel_bwd_ms"] = queued(
-                lambda: da.dropout_add_backward(g, site))
-            row["plain_bwd_ms"] = queued(grad_of("plain"))
-            row["library_bwd_ms"] = queued(grad_of("library"))
-            row["bound_ms"] = bound((3 if residual else 2) * 2 * n, 0)[0]
-            row["bwd_bound_ms"] = bound(2 * 2 * n, 0)[0]
-            line += (f" | kernel {row['kernel_fwd_ms']:.4f} ms "
-                     f"({row['bound_ms'] / row['kernel_fwd_ms']:.1%} of the "
-                     f"bound {row['bound_ms']:.4f} by bytes), backward "
-                     f"{row['kernel_bwd_ms']:.4f} ms "
-                     f"({row['bwd_bound_ms'] / row['kernel_bwd_ms']:.1%} of "
-                     f"{row['bwd_bound_ms']:.4f}) | plain "
-                     f"{row['plain_fwd_ms']:.4f} / "
-                     f"{row['plain_bwd_ms']:.4f} ms | r + F.dropout(y) "
-                     f"{row['library_fwd_ms']:.4f} / "
-                     f"{row['library_bwd_ms']:.4f} ms")
-        log(line)
-        if not (equal and bwd_equal):
-            raise AssertionError(line)
-        rows.append(row)
-        del y, g, r, got, outs
-        torch.cuda.empty_cache()
-    return rows
-
-
-def ln_step_launches(cfg):
-    """(forward, backward) launches of the layer-norm kernel in one
-    ``E2EQATask.train_step`` of the Megatron block, by the code: a tower is
-    2 norms a layer and its stack's final one, a T5 encoder likewise, a T5
-    decoder 3 a layer and the final one; a checkpointed stack's recompute
-    runs each layer's norms again (the final norm is outside the
-    checkpoints). Forward: stage A's query tower, stage C's query and
-    context towers, the reader's encoder and decoder (their recompute
-    under remat) and, under ``no_grad``, the teacher's encoder and decoder;
-    backward: the two towers, the reader's encoder and decoder."""
-    t, r = cfg.retriever.encoder, cfg.reader.transformer
-    tower, enc, dec = (2 * t.num_layers + 1, 2 * r.num_layers + 1,
-                       3 * r.num_layers + 1)
-    redo_tower = 2 * t.num_layers if t.remat else 0
-    redo_reader = 5 * r.num_layers if r.remat else 0
-    fwd = tower + 2 * (tower + redo_tower) + 2 * (enc + dec) + redo_reader
-    return fwd, 2 * tower + enc + dec
-
-
-def ln_phase(dev, gen):
-    """LN (``ops.layer_norm``) in bf16 at ``LN_SHAPES``: through autograd
-    (one launch each way, counted), the output, dx, dw and db against
-    autograd through ``layer_norm_reference`` (the formula), at the `gpu`
-    tests' tolerances (one bf16 step of the largest value at most, 1e-3 of
-    it on average; 1e-5 / 1e-6 for the fp32 dw and db). At each shape, ms
-    a call of ten queued back to back (the wrapper's host time hides under
-    the device's), forward and backward (the kernel's backward launch, the
-    formula's autograd over its saved graph), beside ``F.layer_norm`` over
-    bf16 copies of the weight and bias (a yardstick only: the port never
-    calls it) and the bound: the wrapper's counted bytes over 3.35 TB/s."""
-    from emdr2_tpu_torch.ops import layer_norm as ln
-    F = torch.nn.functional
-    rows = []
-    for shape in LN_SHAPES:
-        h = shape[-1]
-        n_rows = math.prod(shape[:-1])
-        x = (3.0 * torch.randn(shape, device=dev, generator=gen) + 0.5
-             ).to(torch.bfloat16)
-        w = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
-        b = 0.1 * torch.randn(h, device=dev, generator=gen)
-        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
-
-        def library(x, w, b, eps):
-            return F.layer_norm(x, (h,), w.to(x.dtype), b.to(x.dtype), eps)
-
-        got, outs = {}, {}
-        for name, fn in (("kernel", ln.layer_norm),
-                         ("plain", ln.layer_norm_reference),
-                         ("library", library)):
-            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
-            before = (ln.layer_norm.launches, ln.layer_norm_backward.launches)
-            out = fn(*leaves, LN_EPS)
-            got[name] = [out.detach()] + list(
-                torch.autograd.grad(out, leaves, dy, retain_graph=True))
-            outs[name] = (out, leaves)
-            if name == "kernel":
-                launched = (ln.layer_norm.launches - before[0],
-                            ln.layer_norm_backward.launches - before[1])
-        errs = []
-        for what, a, c, (rel_max, rel_mean) in zip(
-                ("y", "dx", "dw", "db"), got["kernel"], got["plain"],
-                [(2 ** -7, 1e-3)] * 2 + [(1e-5, 1e-6)] * 2):
-            err = (a.float() - c.float()).abs()
-            ref = c.float().abs().max().item() or 1.0
-            errs.append((what, err.max().item(), err.mean().item(), ref))
-            if not (err.max().item() <= rel_max * ref
-                    and err.mean().item() <= rel_mean * ref):
-                raise AssertionError(
-                    f"LN {list(shape)} {what}: max abs err "
-                    f"{err.max().item():.3e}, mean {err.mean().item():.3e} "
-                    f"against tol ({rel_max}, {rel_mean}) x max|ref| "
-                    f"{ref:.3e}")
-        if launched != (1, 1):
-            raise AssertionError(f"LN {list(shape)}: launches counted "
-                                 f"(forward, backward) {launched}, not "
-                                 f"(1, 1)")
-
-        def queued(fn, n_calls=10):
-            return time_ms(lambda: [fn() for _ in range(n_calls)]) / n_calls
-
-        def grad_of(name):
-            out, leaves = outs[name]
-            return lambda: torch.autograd.grad(out, leaves, dy,
-                                               retain_graph=True)
-
-        row = dict(shape=list(shape),
-                   max_abs_err={w_: e for w_, e, _, _ in errs})
-        with torch.no_grad():
-            row["kernel_fwd_ms"] = queued(lambda: ln.layer_norm(x, w, b,
-                                                                LN_EPS))
-            row["plain_fwd_ms"] = queued(
-                lambda: ln.layer_norm_reference(x, w, b, LN_EPS))
-            row["library_fwd_ms"] = queued(
-                lambda: F.layer_norm(x, (h,), wl, bl, LN_EPS))
-        row["kernel_bwd_ms"] = queued(
-            lambda: ln.layer_norm_backward(x, dy, w, LN_EPS))
-        row["plain_bwd_ms"] = queued(grad_of("plain"))
-        row["library_bwd_ms"] = queued(grad_of("library"))
-        groups = ln._grid(n_rows, h, dev, ln._BWD_BLOCKS_PER_SM)
-        row["bound_ms"] = bound(ln.forward_bytes(n_rows, h, 2), 0)[0]
-        row["bwd_bound_ms"] = bound(ln.backward_bytes(n_rows, h, 2, groups),
-                                    0)[0]
-        log(f"LN layer_norm {list(shape)} bf16: output, dx, dw, db against "
-            f"the formula: " + ", ".join(
-                f"{w_} max {e:.3e} mean {m:.3e} (max|ref| {r:.3e})"
-                for w_, e, m, r in errs)
-            + f"; launches 1 / 1 | kernel {row['kernel_fwd_ms']:.4f} ms "
-            f"({row['bound_ms'] / row['kernel_fwd_ms']:.1%} of the bound "
-            f"{row['bound_ms']:.4f} by bytes), backward "
-            f"{row['kernel_bwd_ms']:.4f} ms "
-            f"({row['bwd_bound_ms'] / row['kernel_bwd_ms']:.1%} of "
-            f"{row['bwd_bound_ms']:.4f}, {groups} partials) | plain "
-            f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f} ms | "
-            f"F.layer_norm (bf16 weight) {row['library_fwd_ms']:.4f} / "
-            f"{row['library_bwd_ms']:.4f} ms")
-        rows.append(row)
-        del x, dy, got, outs
-        torch.cuda.empty_cache()
-    return rows
-
-
-def _relbias_inputs(dev, gen, B, L, nh):
-    qkv = (RB_SPREAD * torch.randn(B, L, 3 * nh * 64, device=dev,
-                                   generator=gen)).to(torch.bfloat16)
-    rel = torch.randn(nh, 2 * L - 1, device=dev, generator=gen)
-    lens = torch.randint(1, L + 1, (B,), device=dev, generator=gen)
-    lens[B // 2] = 0                           # a fully padded row
-    bias = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
-                       0.0, -1e9).float()
-    dout = torch.randn(B, L, nh * 64, device=dev, generator=gen
-                       ).to(torch.bfloat16)
-    return qkv, rel, bias, dout
-
-
-def relbias_phase(dev, gen):
-    """K1-bias: ``flash_self_attention`` with T5 v1.1's relative-position
-    bias (``rel_bias`` [nh, 2L-1], scale 1) at ``RB_SHAPE``, rate 0 and
-    ``RATE``. Through autograd (the counts zeroed just before: one forward
-    and one backward relative-bias launch), the output, dqkv and the
-    vector's gradient against ``flash_self_attention_reference`` and
-    ``flash_self_attention_bwd_reference`` (fp32 [B, nh, L, L] scores and
-    dS, every row), at the file's K1 tolerances. Timed: the forward with
-    its statistics (as training saves them) and the backward, beside the
-    same kernels without the bias (scale 1), the plain versions, SDPA with
-    the bias materialized as a [B, nh, L, L] bf16 mask (forward), and the
-    bound. Then the main path: the encoder stack of a T5 v1.1 reader
-    (``t5_v11``, 24 layers, bf16, remat, flash attention) over [200, 512]
-    ids with padding, forward and backward under dropout, the counts
-    zeroed just before: 48 forward launches (24 and their recompute) and
-    24 backward, and a finite, non-zero gradient of the bucket table."""
-    from emdr2_tpu_torch.config import t5_v11
-    from emdr2_tpu_torch.models.layers import init_weights
-    from emdr2_tpu_torch.models.t5 import T5Model
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    from emdr2_tpu_torch.ops.hashing import DropoutSeeds
-    B, L, nh = RB_SHAPE
-    fwd_fn, bwd_fn = fa.flash_self_attention, fa.flash_self_attention_backward
-    qkv, rel, bias, dout = _relbias_inputs(dev, gen, B, L, nh)
-    rows = []
-    for rate in (0.0, RATE):
-        x = qkv.clone().requires_grad_(True)
-        r = rel.clone().requires_grad_(True)
-        fwd_fn.rel_launches = bwd_fn.rel_launches = 0
-        out = fwd_fn(x, bias, nh, DROP_SEED, rate, 1.0, r)
-        out.backward(dout)
-        torch.cuda.synchronize()
-        if (fwd_fn.rel_launches, bwd_fn.rel_launches) != (1, 1):
-            raise AssertionError(
-                f"K1-bias rate {rate}: launches counted (forward, backward) "
-                f"{(fwd_fn.rel_launches, bwd_fn.rel_launches)}, not (1, 1)")
-        out = out.detach()
-        want = fa.flash_self_attention_reference(qkv, bias, nh, DROP_SEED,
-                                                 rate, 1.0, rel)
-        f_err, f_mean, f_ref = _check(f"K1-bias [{B}, {L}] rate {rate}", out,
-                                      want, FWD_TOL)
-        del want
-        dwant, drel = fa.flash_self_attention_bwd_reference(
-            qkv, bias, out, dout, nh, DROP_SEED, rate, 1.0, rel)
-        d_err, d_mean, d_ref = _check(f"K1-bias-bwd [{B}, {L}] rate {rate} "
-                                      f"dqkv", x.grad, dwant)
-        r_err, r_mean, r_ref = _check(f"K1-bias-bwd [{B}, {L}] rate {rate} "
-                                      f"drel", r.grad, drel)
-        del dwant, drel, x, r
-        torch.cuda.empty_cache()
-        _, stats = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
-                                                   rate, scale=1.0,
-                                                   rel_bias=rel)
-        _, stats0 = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
-                                                    rate, scale=1.0)
-        ms = time_ms(lambda: fa.flash_self_attention_forward(
-            qkv, bias, nh, DROP_SEED, rate, scale=1.0, rel_bias=rel))
-        ms0 = time_ms(lambda: fa.flash_self_attention_forward(
-            qkv, bias, nh, DROP_SEED, rate, scale=1.0))
-        bwd_ms = time_ms(lambda: fa.flash_self_attention_backward(
-            qkv, bias, out, dout, nh, DROP_SEED, rate, stats, 1.0, rel))
-        bwd_ms0 = time_ms(lambda: fa.flash_self_attention_backward(
-            qkv, bias, out, dout, nh, DROP_SEED, rate, stats0, 1.0))
-        plain_ms = time_ms(lambda: fa.flash_self_attention_reference(
-            qkv, bias, nh, DROP_SEED, rate, 1.0, rel), reps=3, warmup=1)
-        plain_bwd_ms = time_ms(lambda: fa.flash_self_attention_bwd_reference(
-            qkv, bias, out, dout, nh, DROP_SEED, rate, 1.0, rel), reps=3,
-            warmup=1)
-        flop = 4 * B * nh * L * L * 64
-        moved = nbytes(qkv, bias, rel, out, stats)
-        bound_ms, bound_by = bound(moved, flop)
-        # backward: q, k, v, out, dout, the pad bias, statistics, delta
-        # (written and read), dqkv, the vector and its gradient
-        bwd_moved = (nbytes(qkv, bias, out, dout, stats, qkv, rel, rel)
-                     + 2 * B * nh * L * 4)
-        bwd_bound_ms, bwd_bound_by = bound(bwd_moved, 2.5 * flop)
-        lib_ms = None
-        if rate == 0.0:
-            with torch.no_grad():
-                q, k, v = (t.transpose(1, 2) for t in
-                           qkv.view(B, L, 3, nh, 64).unbind(2))
-                mask = (bias[:, None, None, :]
-                        + fa.rel_bias_full(rel, L, L)[None]).to(qkv.dtype)
-                lib_ms = time_ms(lambda: torch.nn.functional
-                                 .scaled_dot_product_attention(
-                                     q, k, v, attn_mask=mask, scale=1.0))
-                del q, k, v, mask
-        log(f"K1-bias flash_self_attention [{B}, {L}, {nh} x 64] bf16, "
-            f"scale 1, relative bias, dropout {rate}: output max_abs_err "
-            f"{f_err:.3e} mean {f_mean:.3e} (tol {FWD_TOL} x max|ref| "
-            f"{f_ref:.3e}); dqkv {d_err:.3e} / {d_mean:.3e} (tol {GRAD_TOL} "
-            f"x {d_ref:.3e}); drel {r_err:.3e} / {r_mean:.3e} (tol "
-            f"{GRAD_TOL} x {r_ref:.3e}); launches counted 1 / 1 | forward "
-            f"{ms:.4f} ms (without the bias {ms0:.4f}), bound "
-            f"{bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
-            f"{flop / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms"
-            + (f", SDPA with the bias as a [B, nh, L, L] mask {lib_ms:.4f} ms"
-               if lib_ms is not None else "")
-            + f" | backward {bwd_ms:.4f} ms (without the bias "
-            f"{bwd_ms0:.4f}), bound {bwd_bound_ms:.4f} by {bwd_bound_by} "
-            f"({bwd_moved / 1e6:.1f} MB, {2.5 * flop / 1e9:.1f} GFLOP), "
-            f"plain {plain_bwd_ms:.4f} ms")
-        rows.append(dict(B=B, L=L, nh=nh, rate=rate,
-                         max_abs_err=max(f_err, d_err, r_err),
-                         fwd_max_abs_err=f_err, bwd_max_abs_err=d_err,
-                         drel_max_abs_err=r_err, ms=ms, ms_without_bias=ms0,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms,
-                         bwd_ms=bwd_ms, bwd_ms_without_bias=bwd_ms0,
-                         bwd_plain_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound_ms,
-                         bwd_bound_by=bwd_bound_by))
-        del out, stats, stats0
-        torch.cuda.empty_cache()
-    del qkv, rel, bias, dout
-
-    # the main path: a T5 v1.1 reader's encoder stack at the cell's shape
-    cfg = t5_v11(dtype=torch.bfloat16, remat=True, fid_flash_attention=True,
-                 flash_key_chunk=L)
-    model = T5Model(cfg, device=dev)
-    init_weights(model)
-    ids = torch.randint(1, cfg.vocab_size, (B, L), device=dev, generator=gen)
-    lens = torch.randint(L // 4, L + 1, (B,), device=dev, generator=gen)
-    ids = torch.where(torch.arange(L, device=dev)[None, :] < lens[:, None],
-                      ids, torch.zeros_like(ids))
-    torch.cuda.synchronize()
-    fwd_fn.rel_launches = bwd_fn.rel_launches = 0
-    t0 = time.perf_counter()
-    enc = model.encode(ids, DropoutSeeds(DROP_SEED))
-    enc.float().square().mean().backward()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    launches = (fwd_fn.rel_launches, bwd_fn.rel_launches)
-    table = model.encoder.relative_attention_bias.grad
-    ok = (launches == (2 * cfg.num_layers, cfg.num_layers)
-          and table is not None and bool(torch.isfinite(table).all())
-          and float(table.abs().max()) > 0)
-    log(f"K1-bias main path: a T5 v1.1 encoder of {cfg.num_layers} layers "
-        f"over [{B}, {L}] ids under remat, forward and backward in "
-        f"{step_ms:.1f} ms (the first call): relative-bias launches "
-        f"(forward, backward) {launches}, want "
-        f"{(2 * cfg.num_layers, cfg.num_layers)}; the bucket table's "
-        f"gradient max |g| "
-        f"{float(table.abs().max()) if table is not None else None}")
-    if not ok:
-        raise AssertionError("K1-bias main path: wrong launch counts or no "
-                             "gradient of the bucket table")
-    del model, enc, ids, table
-    torch.cuda.empty_cache()
-    return {"rows": rows, "launches": launches, "step_ms": step_ms}
-
-
-def recall_at(ids, oracle, group=128):
-    """Mean recall of ``ids`` against ``oracle`` (rows of equal length), and
-    (misses, misses whose group holds >= 3 oracle rows)."""
-    hits, misses, collided = 0, 0, 0
-    for got, want in zip(ids.tolist(), oracle.tolist()):
-        groups = [w // group for w in want]
-        for w in set(want) - set(got):
-            misses += 1
-            collided += groups.count(w // group) >= 3
-        hits += len(set(got) & set(want))
-    return hits / oracle.numel(), (misses, collided)
 
 
 def make_corpus(cfg, tmpdir, n_docs=20_000):
@@ -2047,6 +289,187 @@ def _reset_counts():
 def _read_counts(names):
     counters = _counters()
     return {name: counters[name].launches for name in names}
+
+
+def kernel_phase(dev):
+    """Every case of ``kernel_checks.CHECKS``: each hand-written kernel's
+    wrapper against its plain version at the main path's shapes, by the
+    functions and at the limits of the ``gpu`` tests. Fails at the first
+    miss; -> {check: its largest error relative to its reference's largest
+    magnitude}."""
+    worst = {}
+    for check, cases in kernel_checks.CHECKS:
+        t0 = time.perf_counter()
+        errs = []
+        for case in cases:
+            errs.append(check(dev, *case))
+            _empty_cache(dev)
+        worst[check.__name__] = max(errs)
+        log(f"kernels {check.__name__}: {len(cases)} cases held, largest "
+            f"error {max(errs):.3e} of the reference's largest, "
+            f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+class _Recorded:
+    """Stands in for a launch function of ``emdr2_tpu_torch.ops`` while a
+    run is recorded: calls it and keeps, a call, (kernel, launches it
+    counted, bytes, operations, their type). Attributes read and written
+    pass through to the function, so its counters stay its own."""
+
+    def __init__(self, fn, kernel, work, calls):
+        for k, v in dict(_fn=fn, _sig=inspect.signature(fn), _kernel=kernel,
+                         _work=work, _calls=calls).items():
+            object.__setattr__(self, k, v)
+
+    def __call__(self, *args, **kwargs):
+        counter = _counters()[self._kernel]
+        before = counter.launches
+        out = self._fn(*args, **kwargs)
+        a = self._sig.bind(*args, **kwargs)
+        a.apply_defaults()
+        self._calls.append((self._kernel, counter.launches - before,
+                            *self._work(a.arguments, out)))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+def _launch_work():
+    """(module, launch function, kernel it counts, work) for each launch
+    function of the attention kernels, K3 and K5: work(arguments, result)
+    -> (bytes, each input read once and each output written once;
+    operations of the kernel's products; their type). DA and LN count
+    their bytes themselves (``.bytes``)."""
+    from emdr2_tpu_torch.ops import decode_attention as da
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    from emdr2_tpu_torch.ops import mips
+
+    def outs(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    def saved(a):                # what a backward reads beside the inputs
+        return a.get("lse"), a.get("out"), a.get("dout"), a.get("stats")
+
+    def self_attention(passes):          # qkv [B, L, 3H]
+        def work(a, r):
+            B, L, H3 = a["qkv"].shape
+            return (nbytes(a["qkv"], a["kv_bias"], a["rel_bias"], *saved(a),
+                           *outs(r)),
+                    passes * 4 * B * L * L * (H3 // 3), "bf16")
+        return work
+
+    def cross(passes):                   # q [B, Lq, H], kv [B, Lk, 2H]
+        def work(a, r):
+            B, Lq, H = a["q"].shape
+            return (nbytes(a["q"], a["kv"], a["kv_bias"], *saved(a),
+                           *outs(r)),
+                    passes * 4 * B * Lq * a["kv"].shape[1] * H, "bf16")
+        return work
+
+    def fid(passes):                     # q [B, Lq, nh, hd], k [B, Lk, ...]
+        def work(a, r):
+            B, Lq, nh, hd = a["q"].shape
+            return (nbytes(a["q"], a["k"], a["v"], a["kv_bias"], *saved(a),
+                           *outs(r)),
+                    passes * 4 * B * Lq * a["k"].shape[1] * nh * hd, "bf16")
+        return work
+
+    def scan(a, r):                      # queries [nq, D], index [N, D]
+        q, index = a["queries"], a["index"]
+        n, d = min(a["n_valid"], index.shape[0]), index.shape[1]
+        return (nbytes(q, *r) + n * d * index.element_size(),
+                2 * q.shape[0] * n * d,
+                "int8" if index.dtype == torch.int8 else "bf16")
+
+    def decode(a, r):                    # q [B, R, nh, hd], k8 [B, nh, Lk]
+        B, R, nh, hd = a["q"].shape
+        return (nbytes(a["q"], a["k8"], a["kscale"], a["v8"], a["vscale"],
+                       a["kv_bias"], r),
+                4 * B * R * nh * a["k8"].shape[2] * hd, "bf16")
+
+    return ((fa, "flash_self_attention_forward", "flash_self_attention",
+             self_attention(1)),
+            (fa, "flash_self_attention_backward",
+             "flash_self_attention_backward", self_attention(2.5)),
+            (fa, "flash_cross_attention_forward", "flash_cross_attention",
+             cross(1)),
+            (fa, "_launch_cross_backward", "flash_cross_attention_backward",
+             cross(2.5)),
+            (fa, "fid_cross_attention_forward", "fid_cross_attention",
+             fid(1)),
+            (fa, "fid_cross_attention_backward",
+             "fid_cross_attention_backward", fid(2.5)),
+            (mips, "_launch", "candidate_scan", scan),
+            (da, "_launch", "decode_cross_attention_int8", decode))
+
+
+@contextlib.contextmanager
+def recorded_launches(calls):
+    """Record into ``calls`` every launch of the attention kernels, K3 and
+    K5 (``_launch_work``) while the block runs."""
+    table = _launch_work()
+    originals = [getattr(module, name) for module, name, _, _ in table]
+    try:
+        for (module, name, kernel, work), fn in zip(table, originals):
+            setattr(module, name, _Recorded(fn, kernel, work, calls))
+        yield
+    finally:
+        for (module, name, _, _), fn in zip(table, originals):
+            setattr(module, name, fn)
+
+
+def step_kernels(task, batch, dev):
+    """One ``task.train_step(batch)`` with every kernel's counts zeroed just
+    before it and its launches recorded: -> {kernel: launches, bytes,
+    operations and ``bound_ms``, the least time the card could take for
+    them (``flagship.bound_ms`` a launch, summed; DA and LN by their
+    counted bytes)}. Fails if a launch of a recorded kernel fell outside
+    the recorded functions."""
+    from emdr2_tpu_torch.tools import flagship
+    _reset_counts()
+    counters = _counters()
+    for name in DA_COUNTED + LN_COUNTED:
+        counters[name].bytes = 0
+    calls = []
+    with recorded_launches(calls):
+        float(task.train_step(batch)["loss"])
+    torch.cuda.synchronize(dev)
+    rows = {}
+    for name, fn in counters.items():
+        if name in DA_COUNTED + LN_COUNTED:
+            mine = [(name, fn.launches, fn.bytes, 0, "bf16")]
+        else:
+            mine = [c for c in calls if c[0] == name]
+            if sum(c[1] for c in mine) != fn.launches:
+                raise AssertionError(
+                    f"{name}: {fn.launches} launches in the step, "
+                    f"{sum(c[1] for c in mine)} of them recorded")
+        bounds = [flagship.bound_ms(b, o, dev, t)[0]
+                  for _, n, b, o, t in mine if n]
+        rows[name] = dict(
+            launches=fn.launches, bytes=sum(c[2] for c in mine),
+            ops=sum(c[3] for c in mine),
+            bound_ms=None if None in bounds else sum(bounds))
+    return rows
+
+
+def kernels_line(kernel_errors, step):
+    """The ``kernels`` line: each kernel's source, its launches in the
+    B=8 OPENQA step with their bytes, operations and ``bound_ms``
+    (``step_kernels``), the checks that hold it and their largest error
+    (``kernel_phase``)."""
+    rows = [dict(name=name, route="cuda",
+                 source="emdr2_tpu_torch/ops/csrc/" + source, **step[name],
+                 checked_by=[c.__name__ for c in checks],
+                 max_err=max(kernel_errors[c.__name__] for c in checks))
+            for name, (source, checks) in kernel_checks.KERNELS.items()]
+    return {"kernels": rows, "run": "E2EQATask.train_step at B=8, the "
+            "flagship recipe (--remat --no-remat-towers)"}
 
 
 def log_profile(what, p):
@@ -3116,6 +1539,7 @@ def retrieval_eval_phase(cfg, dev, gen, n_docs=16_384, n_rows=N_INDEX,
     from emdr2_tpu_torch.retrieval.qa_validation import (SimpleTokenizer,
                                                          has_answer)
     from emdr2_tpu_torch.tasks.dense_retriever import DPRModel
+    from emdr2_tpu_torch.tools import flagship
 
     res = {}
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -3175,14 +1599,14 @@ def retrieval_eval_phase(cfg, dev, gen, n_docs=16_384, n_rows=N_INDEX,
                 raise AssertionError(f"retrieval eval {name}: launches "
                                      f"{launches}")
             q = ev.encode_queries([e.question for e in examples])
-            search_ms = (time_ms(lambda: index.search(q, k), reps=3,
-                                 warmup=1) if dev.type == "cuda"
-                         else float("nan"))
+            search_ms = (flagship.event_ms(lambda: index.search(q, k),
+                                           reps=3, warmup=1)
+                         if dev.type == "cuda" else float("nan"))
             _, got = index.search(q, k)
             stored = (mips.dequantize_int8(index.embeddings, index.scales,
                                            icfg.group_size)
                       if name == "int8" else index.embeddings.float())
-            oracle_vals, oracle = _exact_top(
+            oracle_vals, oracle = exact_top(
                 q, stored, n_rows, k,
                 None if name == "int8" else torch.bfloat16)
             del stored
@@ -3241,7 +1665,7 @@ def retrieval_eval_phase(cfg, dev, gen, n_docs=16_384, n_rows=N_INDEX,
                     index = ShardedEvidenceIndex(icfg, emb, passage_ids=pids,
                                                  device=dev)
                     _, got = index.search(q, k)
-                    oracle_vals, oracle = _exact_top(
+                    oracle_vals, oracle = exact_top(
                         q, index.embeddings.float(), n_rows, k,
                         torch.bfloat16)
                     sx = explain_misses(got, oracle, oracle_vals, k,
@@ -3430,51 +1854,6 @@ def _diff_text(result):
             f"the first at {i}: {a} against {b}")
 
 
-def _lookup_backward_check(cfg, dev, reps=5):
-    """The embedding lookups of a step (a tower's tokentype and word
-    tables under 65,536 lookups, the reader's shared table under 204,800)
-    by ``F.embedding`` and by ``layers.embedding``: does each weight
-    gradient repeat over ``reps`` runs, and what does its backward cost
-    (ms, CUDA events)."""
-    import torch.nn.functional as F
-
-    from emdr2_tpu_torch.models.layers import embedding
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED + 5)
-    h = cfg.retriever.encoder.hidden_size
-    out = {}
-    for name, rows, n in (
-            ("tokentype", 2, 65_536),
-            ("word", cfg.retriever.encoder.vocab_size, 65_536),
-            ("reader", cfg.reader.transformer.vocab_size, 204_800)):
-        u = torch.rand(n, device=dev, generator=g)
-        ids = (u ** 4 * rows).long().clamp_(max=rows - 1)   # skewed ids
-        dout = torch.randn(n, h, device=dev, generator=g)
-        for how, fn in (("F.embedding", F.embedding),
-                        ("layers.embedding", embedding)):
-            w = torch.zeros(rows, h, device=dev, requires_grad=True)
-
-            def run():
-                w.grad = None
-                fn(ids, w).backward(dout)
-                return w.grad
-
-            grads = [run().clone() for _ in range(reps)]
-            repeats = all(torch.equal(grads[0], x) for x in grads)
-            out[f"{name} {how}"] = dict(
-                repeats=repeats,
-                ms=time_ms(run) if dev.type == "cuda" else float("nan"))
-    log("c5 lookup backward (rows x lookups: tokentype 2 x 65,536, word "
-        f"{cfg.retriever.encoder.vocab_size} x 65,536, reader "
-        f"{cfg.reader.transformer.vocab_size} x 204,800; {reps} runs): "
-        + "; ".join(f"{k} repeats={v['repeats']} {v['ms']:.4f} ms"
-                    for k, v in out.items()))
-    for key, v in out.items():
-        if "layers" in key and not v["repeats"]:
-            raise AssertionError(f"c5: {key} does not repeat")
-    return out
-
-
 def c5_phase(cfg, tcfg, dev, gen, dpr_batch=128, qa_batch=8,
              n_rows=N_INDEX, n_docs=20_000):
     """A DPR step (global batch ``dpr_batch``, dropout 0.1) and an OPENQA
@@ -3482,14 +1861,16 @@ def c5_phase(cfg, tcfg, dev, gen, dpr_batch=128, qa_batch=8,
     from one saved state (``utils.repeat.repeat_step``: every module
     output, incoming gradient, parameter gradient, metric and updated
     parameter fingerprinted bit for bit). Fails with the first differing
-    module."""
+    module. The OPENQA task's first step, before the repeats, is the main
+    path's own run of the kernels (``step_kernels``: ``res["kernels"]``):
+    each kernel of the step must launch, LN as often each way as
+    ``kernel_checks.layer_norm_step_launches`` counts the step's norms."""
     from emdr2_tpu_torch.config import OptimizerConfig
     from emdr2_tpu_torch.tasks import E2EQATask
     from emdr2_tpu_torch.tasks.dense_retriever import DPRTask
     from emdr2_tpu_torch.utils.repeat import repeat_step
 
-    res = {"lookup": _lookup_backward_check(cfg, dev)}
-    _reset_counts()
+    res = {}
     with tempfile.TemporaryDirectory() as tmpdir:
         batches = _dpr_batches(cfg, tmpdir, dpr_batch, 2)
     task = DPRTask(cfg.retriever, OptimizerConfig(lr=2e-5), 1000,
@@ -3515,7 +1896,7 @@ def c5_phase(cfg, tcfg, dev, gen, dpr_batch=128, qa_batch=8,
                          device=dev)
         task.init_state(SEED)
         qbatches = list(ds.epoch_batches(qa_batch, seed=SEED))
-        task.train_step(qbatches[0])
+        res["kernels"] = step_kernels(task, qbatches[0], dev)
         t0 = time.perf_counter()
         r = repeat_step(task, qbatches[1])
         res["openqa"] = dict(equal=r["equal"], entries=r["entries"],
@@ -3523,16 +1904,27 @@ def c5_phase(cfg, tcfg, dev, gen, dpr_batch=128, qa_batch=8,
                              loss=[float(m["loss"]) for m in r["metrics"]],
                              seconds=time.perf_counter() - t0)
         del task, index
-    res["launches"] = _read_counts(tuple(_counters()))
     log(f"c5 OPENQA step at B={qa_batch}, twice from one state: "
         f"{res['openqa']['text']} over {res['openqa']['entries']} "
         f"fingerprints; loss {res['openqa']['loss'][0]:.8f} / "
-        f"{res['openqa']['loss'][1]:.8f}; launches {res['launches']}")
+        f"{res['openqa']['loss'][1]:.8f}")
     _empty_cache(dev)
     for name in ("dpr", "openqa"):
         if not res[name]["equal"]:
             raise AssertionError(f"c5: the {name} step does not repeat: "
                                  f"{res[name]['text']}")
+    step = res["kernels"]
+    for name in ("flash_self_attention", "flash_self_attention_backward",
+                 "flash_cross_attention", "flash_cross_attention_backward",
+                 "candidate_scan") + DA_COUNTED + LN_COUNTED:
+        if step[name]["launches"] <= 0:
+            raise AssertionError(f"{name} never launched in the B={qa_batch} "
+                                 f"OPENQA step")
+    ln = tuple(step[name]["launches"] for name in LN_COUNTED)
+    if ln != kernel_checks.layer_norm_step_launches(tcfg):
+        raise AssertionError(
+            f"LN launched {ln} times in the step, the code counts "
+            f"{kernel_checks.layer_norm_step_launches(tcfg)}")
     return res
 
 
@@ -4509,6 +2901,7 @@ def hosts_phase(cfg, dev, dpb=None, cards=False, timeout=900, sizes=None):
     rank's step time, passages/s and swap time are printed with the
     card's name and power limit. On the CPU a rehearsal over gloo
     (``sizes`` replaces the embedder's sizes there)."""
+    from emdr2_tpu_torch.tools import flagship
     on_cards = cards and dev.type == "cuda"
     visible = HOSTS_CARDS_VISIBLE if cards else HOSTS_VISIBLE
     world = len(visible)
@@ -4582,7 +2975,8 @@ def hosts_phase(cfg, dev, dpb=None, cards=False, timeout=900, sizes=None):
     failures += _card_failures(got, on_cards)
     res["launches"] = launches
     log(f"{what}: " + "; ".join(times) + f"; {seconds:.1f} s in all; "
-        + (gpu_name_and_power() if dev.type == "cuda" else "the CPU"))
+        + (flagship.card_name_and_power() if dev.type == "cuda"
+           else "the CPU"))
     if failures:
         raise AssertionError(f"{what} failed: {failures}")
     return res
@@ -4802,67 +3196,6 @@ def _tp_runs(cfg, dev, tmpdir, sizes, n_questions, dp=None):
     return out
 
 
-def tp_kernel_checks(dev, gen):
-    """K1 (forward, backward), K2 (forward, backward) and K5 on a tp
-    rank's 6 heads (a [B, L, 3H/2] slab, H/2 = 384) at the shapes the tp
-    path gives them, each against its plain version on the same inputs."""
-    from emdr2_tpu_torch.ops import decode_attention as da
-    from emdr2_tpu_torch.ops import fid_attention as fa
-    nh, H = 6, 384
-    out = {}
-    qkv = torch.randn(8, 512, 3 * H, device=dev, generator=gen
-                      ).to(torch.bfloat16)
-    lens = torch.randint(1, 513, (8,), device=dev, generator=gen)
-    bias = torch.where(torch.arange(512, device=dev)[None] < lens[:, None],
-                       0.0, -1e9).float()
-    dout = torch.randn(8, 512, H, device=dev, generator=gen
-                       ).to(torch.bfloat16)
-    got, stats = fa.flash_self_attention_forward(qkv, bias, nh, DROP_SEED,
-                                                 RATE)
-    want = fa.flash_self_attention_reference(qkv, bias, nh, DROP_SEED, RATE)
-    out["k1_fwd"] = _check("K1-fwd at 6 heads", got, want, FWD_TOL)
-    dq = fa.flash_self_attention_backward(qkv, bias, got, dout, nh,
-                                          DROP_SEED, RATE, stats)
-    dwant = fa.flash_self_attention_bwd_reference(qkv, bias, got, dout, nh,
-                                                  DROP_SEED, RATE)
-    out["k1_bwd"] = _check("K1-bwd at 6 heads", dq, dwant)
-    del qkv, dout, dq, dwant
-    q = torch.randn(2, 32, H, device=dev, generator=gen).to(torch.bfloat16)
-    kv = torch.randn(2, 25_600, 2 * H, device=dev, generator=gen
-                     ).to(torch.bfloat16)
-    kb = torch.zeros(2, 25_600, device=dev)
-    kb[:, 24_000:] = -1e9
-    dout = torch.randn(2, 32, H, device=dev, generator=gen
-                       ).to(torch.bfloat16)
-    o, lse = fa.flash_cross_attention_forward(q, kv, kb, nh, 512, DROP_SEED,
-                                              RATE)
-    ow, lw = fa.flash_cross_attention_reference(q, kv, kb, nh, 512,
-                                                DROP_SEED, RATE)
-    out["k2_fwd"] = _check("K2-fwd at 6 heads", o, ow, FWD_TOL)
-    g = fa.flash_cross_attention_backward(q, kv, kb, lse, o, dout, nh, 512,
-                                          DROP_SEED, RATE)
-    gw = fa.flash_cross_attention_bwd_reference(q, kv, kb, lse, o, dout, nh,
-                                                512, DROP_SEED, RATE)
-    out["k2_bwd_dq"] = _check("K2-bwd dq at 6 heads", g[0], gw[0])
-    out["k2_bwd_dkv"] = _check("K2-bwd dkv at 6 heads", g[1], gw[1])
-    del kv, g, gw
-    qd = torch.randn(8, 1, nh, 64, device=dev, generator=gen
-                     ).to(torch.bfloat16)
-    kf = torch.randn(8, nh, 25_600, 64, device=dev, generator=gen)
-    vf = torch.randn(8, nh, 25_600, 64, device=dev, generator=gen)
-    k8, ks = da.quantize_kv_rows(kf)
-    v8, vs = da.quantize_kv_rows(vf)
-    db = torch.zeros(8, 25_600, device=dev)
-    got = da.decode_cross_attention_int8(qd, k8, ks, v8, vs, db)
-    want = da.decode_cross_attention_int8_plain(qd, k8, ks, v8, vs, db)
-    out["k5"] = _check("K5 at 6 heads", got, want, FWD_TOL)
-    _empty_cache(dev)
-    log("tp kernel checks at a rank's 6 heads (max abs err, mean, max "
-        "|ref|): " + ", ".join(f"{k} {v[0]:.3e}/{v[1]:.3e}/{v[2]:.3e}"
-                               for k, v in out.items()))
-    return out
-
-
 def tp_phase(cfg, dev, cards=False, layout=None, timeout=900):
     """The ranks of a ``[dp, tp]`` grid as subprocesses of this script
     against one process from the same state. Default (one card): two
@@ -4990,12 +3323,12 @@ def _share_ok(x) -> bool:
 
 
 def tools_phase(dev):
-    """18. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``),
+    """16. The port's measurement tools (``emdr2_tpu_torch/tools/bench_*``),
     each through ``main(argv)`` on the card: the rescore tool (its two
     window selections at k 20 and 51 give the same rows, the default
-    window's rows equal an exact search up to the k3 phase's ties, and the
-    recall of ``rescore=0`` beside it), the kernel sweep (K4 on the cross
-    shape: chunks 256 and 512 give times), the step breakdown (every
+    window's rows equal an exact search up to the ties ``TIE_EPS`` allows,
+    and the recall of ``rescore=0`` beside it), the kernel sweep (K4 on the
+    cross shape: chunks 256 and 512 give times), the step breakdown (every
     pass's share of the peak in (0, 1], and the whole step's), the dropout
     breakdown, a cut train sweep (each row's share in (0, 1] or an
     out-of-memory row), and the pipeline's stages A and B, ``--refresh``,
@@ -5020,13 +3353,13 @@ def tools_phase(dev):
 
     _reset_counts()
     # rescore: the two selections agree; the default window against an
-    # exact search (float64 sums), misses only where the k3 phase allows
+    # exact search (float64 sums), misses only where TIE_EPS allows
     res = timed("bench_mips_rescore",
                 lambda: bench_mips_rescore.main(["--iters", "5"] + on))
     qf, q8, scales = res[0]["inputs"]
     n = q8.shape[0]
     rows_f = mips.dequantize_int8(q8, scales, group)
-    oracle_vals, oracle = _exact_top(qf, rows_f, n, max(bench_mips_rescore.KS))
+    oracle_vals, oracle = exact_top(qf, rows_f, n, max(bench_mips_rescore.KS))
     del rows_f
     for k in bench_mips_rescore.KS:
         by = {r["row"]["window_select"]: r for r in res if r["row"]["k"] == k}
@@ -5185,12 +3518,10 @@ def profile_call(fn, table_name, n_top=15):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more warm train step (also at B=4 "
-                         "under each remat policy, and a DPR step under "
-                         "each layout), one warm "
-                         "greedy batch with each cross-K/V form, K4-fwd "
-                         "beside SDPA, K4's backward through autograd by "
-                         "both routes, and K1's kernels at each shape")
+                    help="profile one more warm train step at B=4 under "
+                         "each remat policy, a DPR step under each layout "
+                         "and one warm greedy batch with each cross-K/V "
+                         "form")
     ap.add_argument("--dp-cards", type=int, default=None,
                     help="run only the data-parallel phase, over NCCL with "
                          "this many ranks, one a card, against one card at "
@@ -5207,9 +3538,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from emdr2_tpu_torch.config import with_transformers
-    from emdr2_tpu_torch.ops import build, mips
+    from emdr2_tpu_torch.ops import build
+    from emdr2_tpu_torch.tools import flagship
 
-    card = gpu_name_and_power()
+    card = flagship.card_name_and_power()
     log(f"nvidia-smi name, power.limit: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -5221,32 +3553,25 @@ def main() -> int:
     gen.manual_seed(SEED)
     t_start = time.perf_counter()
 
-    info = build.build(extra_flags=("-Xptxas", "-v"))
+    info = build.build()
     log(f"kernel build: {info['seconds']:.1f} s (built={info['built']}) "
         f"-> {os.path.relpath(info['path'], REPO)}")
     if args.dp_cards is not None:
         return dp_cards_main(args.dp_cards, dev, card, t_start)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  ptxas:", line.strip())
-    flash_kernel_report(info["log"])
 
-    k1 = k1_phase(dev, gen)
-    k1_drop = k1_dropout_phase(dev, gen)
-    k1_bwd = k1_bwd_phase(dev, gen, profile=args.profile)
-    k2 = k2_phase(dev, gen)
-    k2_split = k2_split_phase(dev, gen)
-    k3 = k3_phase(dev, gen)
-    k4 = k4_phase(dev, gen, profile=args.profile)
-    k4_bwd = k4_bwd_phase(dev, gen, profile=args.profile)
-    k5 = k5_phase(dev, gen)
-    dropadd = da_phase(dev, gen)
-    torch.cuda.empty_cache()
-    relbias = relbias_phase(dev, gen)
-    lnorm = ln_phase(dev, gen)
+    seconds = {}                     # each phase's, in the order run
 
+    def timed(name, phase, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = phase(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    # each kernel against its plain version at the main path's shapes
+    kernel_errors = timed("kernels", kernel_phase, dev)
     cfg = _flagship_cfg()
-    res = slice_phase(cfg, dev, gen, profile=args.profile)
+    res = timed("serving", slice_phase, cfg, dev, gen,
+                profile=args.profile)
     for name, ms in res["stage_ms"].items():
         log(f"slice stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
             + " ms per batch")
@@ -5286,30 +3611,12 @@ def main() -> int:
     # the flagship recipe: --remat --no-remat-towers (reader stacks
     # checkpointed, towers stored), dropout 0.1 (the config defaults)
     tcfg = with_transformers(cfg, {"remat": False}, {"remat": True})
-    tr = train_phase(tcfg, dev, gen, batch=8, profile=args.profile)
-    for name, ms in tr["stage_ms"].items():
-        log(f"train stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
-            + " ms per step")
-    log(f"train: peak memory {tr['peak_bytes'] / 2**30:.2f} GiB, launches "
-        f"during {len(tr['metrics'])} steps {tr['launches']}")
-    for name, n in tr["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched during the steps")
-    ln_want = tuple(len(tr["metrics"]) * n for n in ln_step_launches(tcfg))
-    ln_got = tuple(tr["launches"][name] for name in LN_COUNTED)
-    log(f"train: layer-norm launches (forward, backward) in "
-        f"{len(tr['metrics'])} steps {ln_got}, by the code {ln_want}")
-    if ln_got != ln_want:
-        raise AssertionError(f"layer-norm launches {ln_got} in the steps, "
-                             f"the code gives {ln_want}")
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # evaluation under --flash-key-chunk 256: rows longer than the chunk
     # (the reader's 512 tokens) run the general flash kernel
     chunked = {"flash_key_chunk": 256}
-    ev = eval_phase(with_transformers(cfg, chunked, chunked), dev, gen)
-    evl = ev["launches"]
+    ev = timed("eval", eval_phase, with_transformers(cfg, chunked, chunked),
+               dev, gen)
     for name, ms in ev["stage_ms"].items():
         log(f"eval stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
             + " ms")
@@ -5333,7 +3640,8 @@ def main() -> int:
 
     # the training loop under --flash-key-chunk 256, --remat
     # --no-remat-towers: prefetcher, checkpoints, evaluation callback
-    eg = engine_phase(with_transformers(tcfg, chunked, chunked), dev, gen)
+    eg = timed("engine", engine_phase,
+               with_transformers(tcfg, chunked, chunked), dev, gen)
     for name, ms in eg["stage_ms"].items():
         log(f"engine stage {name}: " + ", ".join(f"{m:.2f}" for m in ms)
             + " ms")
@@ -5364,8 +3672,8 @@ def main() -> int:
 
     # the evidence-index build, its live refresh in the loop, and the
     # command line around them
-    ix = index_phase(cfg, dev, gen)
-    rf = refresh_phase(tcfg, dev, gen)
+    timed("index", index_phase, cfg, dev, gen)
+    rf = timed("refresh", refresh_phase, tcfg, dev, gen)
     log("refresh: ms per iteration with an embed pass in flight "
         + ", ".join(f"{m:.1f}" for m in rf["with_embed"])
         + "; without " + ", ".join(f"{m:.1f}" for m in rf["without"])
@@ -5388,7 +3696,7 @@ def main() -> int:
         if rf["launches"][name] <= 0:
             raise AssertionError(f"{name} never launched in the refresh "
                                  f"phase")
-    cl = cli_phase(cfg, dev)
+    cl = timed("cli", cli_phase, cfg, dev)
     log(f"cli: seconds {cl['seconds']}; {cl['valid']}; create_doc_index "
         f"launches {cl['index_launches']}; run launches {cl['launches']}; "
         f"QAPipeline.load answers {cl['answers'][:2]!r}")
@@ -5403,17 +3711,15 @@ def main() -> int:
     # the RETRIEVER task (DPR training under the three remat layouts), the
     # retrieval evaluation at NQ-test's size, the OPENQA step under
     # dots_no_batch, and the RETRIEVER command line with its tools
-    dp = dpr_phase(cfg, dev, profile=args.profile)
+    timed("dpr", dpr_phase, cfg, dev, profile=args.profile)
     _empty_cache(dev)
-    rv = retrieval_eval_phase(cfg, dev, gen)
-    remat_b4 = {}
+    timed("retrieval_eval", retrieval_eval_phase, cfg, dev, gen)
     for policy in ("nothing", "dots_no_batch"):
         pcfg = with_transformers(cfg, {"remat": False},
                                  {"remat": True, "remat_policy": policy})
-        r = train_phase(pcfg, dev, gen, batch=4, steps=2,
-                        profile=args.profile,
-                        profile_table=f"train_step_profile_b4_{policy}.txt")
-        remat_b4[policy] = r
+        r = timed(f"train_b4_{policy}", train_phase, pcfg, dev, gen,
+                  batch=4, steps=2, profile=args.profile,
+                  profile_table=f"train_step_profile_b4_{policy}.txt")
         if r["top"] is not None:
             log_profile(f"warm train step at B=4, {policy}", r["top"])
         log(f"train B=4 --remat-policy {policy}: " + "; ".join(
@@ -5426,37 +3732,17 @@ def main() -> int:
                 raise AssertionError(f"{name} never launched in the B=4 "
                                      f"{policy} steps")
         _empty_cache(dev)
-    rcl = retriever_cli_phase(cfg, dev)
+    timed("retriever_cli", retriever_cli_phase, cfg, dev)
     _empty_cache(dev)
 
     # C5: a DPR step and an OPENQA step, each twice from one state, bit
     # for bit; then data parallelism: one rank over NCCL against the plain
     # path, two ranks sharing the card over gloo against one process
-    c5 = c5_phase(cfg, tcfg, dev, gen)
-    dpa = dp_one_rank_phase(cfg, dev)
-    dpb = dp_ranks_phase(cfg, dev)
-    # a launch across hosts: two emulated hosts of one rank each, both
-    # seeing card 0, placed by torchrun's variables, held to (b)'s
-    # one-process references
-    _empty_cache(dev)
-    hs = hosts_phase(cfg, dev, dpb)
-    # the asynchronous refresh and prefetch across ranks: two ranks share
-    # the card over gloo, each with its embedder on it (--embed-devices 0)
-    _empty_cache(dev)
-    emb = embedder_phase(tcfg, dev)
-    eml = emb["launches"]
-    # tensor parallelism: two gloo ranks share the card at --tp 2, each on
-    # its 6 of the 12 heads (the kernels checked at those shapes first)
-    _empty_cache(dev)
-    tpk = tp_kernel_checks(dev, gen)
-    t0 = time.perf_counter()
-    tp = tp_phase(_flagship_cfg(), dev)
-    log(f"tp phase: {time.perf_counter() - t0:.1f} s (one process "
-        f"{tp['ref_seconds']:.1f} s, the ranks {tp['ranks_seconds']:.1f} s)")
-    # the measurement tools, each through its main(argv)
-    _empty_cache(dev)
-    tools = tools_phase(dev)
-    c5l, dpl = c5["launches"], dict(dpb["launches"])
+    c5 = timed("c5", c5_phase, cfg, tcfg, dev, gen)
+    log(json.dumps(kernels_line(kernel_errors, c5["kernels"])))
+    dpa = timed("dp_one_rank", dp_one_rank_phase, cfg, dev)
+    dpb = timed("dp_ranks", dp_ranks_phase, cfg, dev)
+    dpl = dict(dpb["launches"])
     for name, n in dpa["launches"].items():
         dpl[name] = dpl.get(name, 0) + n
     dpl["candidate_scan"] += sum(s["launches"]
@@ -5467,300 +3753,32 @@ def main() -> int:
         if dpl[name] <= 0:
             raise AssertionError(f"{name} never launched on the "
                                  f"data-parallel path")
-
-    if tr["top"] is not None:
-        log_profile("warm train step", tr["top"])
-
-    k1_main = k1[-1]                                   # [400, 512, 2304]
-    k1_embed = next(r for r in k1 if (r["B"], r["L"]) == (128, 256))
-    k1_dpr = {f"{B}x{L}": next(r for r in k1 if (r["B"], r["L"]) == (B, L))
-              for B, L in ((128, 64), (256, 256))}
-    k1_bwd_dpr = {f"{B}x{L}": next(r for r in k1_bwd
-                                   if (r["B"], r["L"]) == (B, L))
-                  for B, L in ((128, 64), (256, 256))}
-    k1_bwd_main = k1_bwd[-1]                           # [400, 512]
-    k2_main = next(r for r in k2 if r["shape"] == "reader"
-                   and r["chunk"] == 512 and r["rate"] == RATE)
-    k2_bwd256 = next(r for r in k2 if r["shape"] == "reader"
-                     and r["chunk"] == 256 and r["rate"] == RATE)
-    k2_teacher = next(r for r in k2 if r["shape"] == "teacher"
-                      and r["rate"] == RATE)
-    k2_chunk256 = next(r for r in k2_split if r["shape"] == "reader256"
-                       and r["rate"] == RATE)
-    k3_main = next(r for r in k3["rows"] if r["dtype"] == "int8"
-                   and r["nq"] == 8)
-    k3_tc = {f"{r['dtype']}_nq{r['nq']}": r for r in k3["rows"]
-             if r["route"] == "tensor_core"}
-    dpr_launches = {name: lay["launches"]
-                    for name, lay in dp["layouts"].items()}
-    k4_main = next(r for r in k4 if r["shape"] == "reader"
-                   and r["rate"] == 0.0)
-    k4_drop = next(r for r in k4 if r["shape"] == "reader"
-                   and r["rate"] == RATE)
-    k5_greedy = next(r for r in k5 if r["shape"] == "greedy")
-    k5_beam = next(r for r in k5 if r["shape"] == "beam5")
-    da_main = next(r for r in dropadd if r["residual"]
-                   and tuple(r["shape"]) == DA_SHAPES[0])
-    serve, train, eng = res["launches"], tr["launches"], eg["launches"]
-    k4_bwd_main = next(r for r in k4_bwd if r["shape"] == "reader"
-                       and r["rate"] == RATE)
-    gen_greedy = res["generation"]["greedy_int8"]["launches"]
-    gen_beam = res["generation"]["beam5_int8"]["launches"]
-    csrc = "emdr2_tpu_torch/ops/csrc/"
-    # "launches": the count on the first path that runs the kernel (serving
-    # for K1-fwd and K3, training for K1-bwd and K2, generation with beam 5
-    # for K5, evaluation for K4-fwd, the engine for K4-bwd); the other
-    # paths' counts beside it
-    summary = {"kernels": [
-        {"name": "flash_self_attention", "route": "cuda",
-         "launches_c5": c5l["flash_self_attention"],
-         "launches_dp": dpl["flash_self_attention"],
-         "launches_embedder": eml["flash_self_attention"],
-         "launches_engine": eng["flash_self_attention"],
-         "source": csrc + "flash_self_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:383",
-         "launches": serve["flash_self_attention"],
-         "launches_train": train["flash_self_attention"],
-         "launches_generation": gen_beam["flash_self_attention"],
-         "launches_eval": evl["flash_self_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1 + [k1_drop]),
-         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
-         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-         "library_ms": k1_main["library_ms"],
-         "ms_dropout": k1_drop["ms"], "plain_ms_dropout": k1_drop["plain_ms"],
-         "launches_refresh": rf["launches"]["flash_self_attention"],
-         "launches_index_build": ix["host"]["launches"],
-         "launches_dpr": {name: n["flash_self_attention"]
-                          for name, n in dpr_launches.items()},
-         "launches_retrieval_eval":
-             rv["int8"]["launches"]["flash_self_attention"],
-         "dpr_shapes": {key: {f: r[f] for f in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-             for key, r in k1_dpr.items()},
-         "ms_embedder": k1_embed["ms"],
-         "plain_ms_embedder": k1_embed["plain_ms"],
-         "bound_ms_embedder": k1_embed["bound_ms"],
-         "library_ms_embedder": k1_embed["library_ms"]},
-        {"name": "flash_self_attention_backward", "route": "cuda",
-         "launches_c5": c5l["flash_self_attention_backward"],
-         "launches_dp": dpl["flash_self_attention_backward"],
-         "launches_embedder": eml["flash_self_attention_backward"],
-         "launches_engine": eng["flash_self_attention_backward"],
-         "source": csrc + "flash_self_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:414",
-         "launches": train["flash_self_attention_backward"],
-         "launches_dpr": {name: n["flash_self_attention_backward"]
-                          for name, n in dpr_launches.items()},
-         "dpr_shapes": {key: {f: r[f] for f in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-             for key, r in k1_bwd_dpr.items()},
-         "max_abs_err": max(r["max_abs_err"] for r in k1_bwd),
-         "ms": k1_bwd_main["ms"], "plain_ms": k1_bwd_main["plain_ms"],
-         "bound_ms": k1_bwd_main["bound_ms"],
-         "bound_by": k1_bwd_main["bound_by"],
-         "library_ms": k1_bwd_main["library_ms"]},
-        {"name": "flash_cross_attention", "route": "cuda",
-         "launches_c5": c5l["flash_cross_attention"],
-         "launches_dp": dpl["flash_cross_attention"],
-         "launches_embedder": eml["flash_cross_attention"],
-         "launches_engine": eng["flash_cross_attention"],
-         "source": csrc + "flash_cross_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:562",
-         "launches": train["flash_cross_attention"],
-         "launches_eval": evl["flash_cross_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2 + k2_split),
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
-         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": k2_main["library_ms"],
-         "ms_teacher": k2_teacher["ms"],
-         "library_ms_teacher": k2_teacher["library_ms"],
-         "ms_key_chunk_256": k2_chunk256["ms"]},
-        {"name": "flash_cross_attention_backward", "route": "cuda",
-         "launches_c5": c5l["flash_cross_attention_backward"],
-         "launches_dp": dpl["flash_cross_attention_backward"],
-         "launches_embedder": eml["flash_cross_attention_backward"],
-         "launches_engine": eng["flash_cross_attention_backward"],
-         "source": csrc + "flash_cross_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:612",
-         "launches": train["flash_cross_attention_backward"],
-         "max_abs_err": max(r["bwd_max_abs_err"] for r in k2 + k2_split
-                            if "bwd_max_abs_err" in r),
-         "ms": k2_main["bwd_ms"], "plain_ms": k2_main["bwd_plain_ms"],
-         "bound_ms": k2_main["bwd_bound_ms"],
-         "bound_by": k2_main["bwd_bound_by"],
-         "library_ms": k2_main["bwd_library_ms"],
-         "ms_key_chunk_256": k2_bwd256["bwd_ms"],
-         "plain_ms_key_chunk_256": k2_bwd256["bwd_plain_ms"],
-         "bound_ms_key_chunk_256": k2_bwd256["bwd_bound_ms"],
-         "library_ms_key_chunk_256": k2_bwd256["bwd_library_ms"],
-         "ms_teacher": k2_teacher["bwd_ms"],
-         "ms_by_runs": {str(n): t for n, t
-                        in k2_main["bwd_ms_by_runs"].items()}},
-        {"name": "candidate_scan", "route": "cuda",
-         "launches_c5": c5l["candidate_scan"],
-         "launches_dp": dpl["candidate_scan"],
-         "launches_embedder": eml["candidate_scan"],
-         "launches_engine": eng["candidate_scan"],
-         "source": csrc + "candidate_scan.cu",
-         "replaces": "emdr2_tpu/ops/mips.py:116",
-         "launches": serve["candidate_scan"],
-         "launches_train": train["candidate_scan"],
-         "launches_generation": gen_beam["candidate_scan"],
-         "launches_eval": evl["candidate_scan"],
-         "launches_refresh": rf["launches"]["candidate_scan"],
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in k3["rows"] + k3["sweep"]),
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
-         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-         "library_ms": None,
-         # the tensor-core route (candidate_scan.cu's mma.sync kernel)
-         "launches_tensor_core_retrieval_eval":
-             rv["int8"]["launches"]["candidate_scan_tensor_core"]
-             + rv["bf16"]["launches"]["candidate_scan_tensor_core"],
-         "tensor_core": {key: {f: r[f] for f in (
-             "ms", "plain_ms", "matmul_ms", "bound_ms", "bound_by",
-             "max_abs_err")} for key, r in k3_tc.items()},
-         "crossover_nq": k3["crossover"],
-         "tensor_core_min_nq": {str(t).replace("torch.", ""): n for t, n
-                                in mips.TENSOR_CORE_MIN_NQ.items()},
-         "kernels": k3["kernels"], "sass": k3["sass"],
-         "topk_split_ms": k3["split"],
-         "bf16_widest_tie_eps": k3["bf16_ties"],
-         "crossover_sweep_ms": k3["sweep"]},
-        {"name": "decode_cross_attention_int8", "route": "cuda",
-         "launches_c5": c5l["decode_cross_attention_int8"],
-         "launches_dp": dpl["decode_cross_attention_int8"],
-         "launches_embedder": eml["decode_cross_attention_int8"],
-         "launches_engine": eng["decode_cross_attention_int8"],
-         "source": csrc + "decode_attention.cu",
-         "replaces": "emdr2_tpu/ops/decode_attention.py:105",
-         "launches": gen_beam["decode_cross_attention_int8"],
-         "launches_generation_greedy":
-             gen_greedy["decode_cross_attention_int8"],
-         "launches_eval": evl["decode_cross_attention_int8"],
-         "max_abs_err": max(r["max_abs_err"] for r in k5),
-         "ms": k5_beam["ms"], "plain_ms": k5_beam["plain_ms"],
-         "bound_ms": k5_beam["bound_ms"], "bound_by": k5_beam["bound_by"],
-         "library_ms": None,            # no PyTorch call reads the int8 slab
-         "sdpa_bf16_slab_ms": k5_beam["sdpa_bf16_ms"],
-         "ms_queued": k5_beam["queued_ms"],
-         "ms_one_row": k5_greedy["ms"],
-         "ms_queued_one_row": k5_greedy["queued_ms"],
-         "plain_ms_one_row": k5_greedy["plain_ms"],
-         "bound_ms_one_row": k5_greedy["bound_ms"],
-         "sdpa_bf16_slab_ms_one_row": k5_greedy["sdpa_bf16_ms"]},
-        {"name": "fid_cross_attention", "route": "cuda",
-         "launches_c5": c5l["fid_cross_attention"],
-         "launches_dp": dpl["fid_cross_attention"],
-         "launches_embedder": eml["fid_cross_attention"],
-         "launches_engine": eng["fid_cross_attention"],
-         "source": csrc + "fid_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:68",
-         "launches": evl["fid_cross_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in k4),
-         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
-         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
-         "library_ms": k4_main["library_ms"],
-         "ms_dropout": k4_drop["ms"], "plain_ms_dropout": k4_drop["plain_ms"]},
-        {"name": "fid_cross_attention_backward", "route": "cuda",
-         "launches_c5": c5l["fid_cross_attention_backward"],
-         "launches_dp": dpl["fid_cross_attention_backward"],
-         "launches_embedder": eml["fid_cross_attention_backward"],
-         "source": csrc + "fid_attention.cu",
-         "replaces": "emdr2_tpu/ops/fid_attention.py:120",
-         "launches": eng["fid_cross_attention_backward"],
-         "max_abs_err": max(r["max_abs_err"] for r in k4_bwd),
-         "ms": k4_bwd_main["ms"], "plain_ms": k4_bwd_main["plain_ms"],
-         "bound_ms": k4_bwd_main["bound_ms"],
-         "bound_by": k4_bwd_main["bound_by"],
-         "library_ms": k4_bwd_main["library_ms"],
-         "ms_rate_0": next(r["ms"] for r in k4_bwd if r["shape"] == "reader"
-                           and r["rate"] == 0.0),
-         "slab_route_backward_ms": k4_bwd_main["slab_route_ms"],
-         "three_tensor_route_backward_ms":
-             k4_bwd_main["three_tensor_route_ms"],
-         "slab_route_backward_bytes": k4_bwd_main["slab_route_bytes"],
-         "three_tensor_route_backward_bytes":
-             k4_bwd_main["three_tensor_route_bytes"]},
-    ] + [dict(
-        name=name, route="cuda", source=csrc + "dropout_add.cu",
-        # no TPU kernel: XLA fuses PackedDropout and the add around it
-        replaces=None, launches=train[name],
-        launches_c5=c5l[name], launches_dp=dpl[name],
-        launches_embedder=eml[name], launches_engine=eng[name],
-        launches_dpr={lay: n[name] for lay, n in dpr_launches.items()},
-        launches_train_b4={p: r["launches"][name]
-                           for p, r in remat_b4.items()},
-        max_abs_err=0.0,                # bit-equal: da_phase raises else
-        ms=da_main[f"kernel_{way}_ms"], plain_ms=da_main[f"plain_{way}_ms"],
-        bound_ms=da_main[bound_key], bound_by="bytes",
-        library_ms=da_main[f"library_{way}_ms"],
-        shapes=[{k: r[k] for k in ("shape", "residual", f"kernel_{way}_ms",
-                                   f"plain_{way}_ms", f"library_{way}_ms",
-                                   bound_key)}
-                for r in dropadd if f"kernel_{way}_ms" in r])
-        for name, way, bound_key in (
-            ("dropout_add", "fwd", "bound_ms"),
-            ("dropout_add_backward", "bwd", "bwd_bound_ms"))] + [dict(
-        name=name, route="cuda", source=csrc + "layer_norm.cu",
-        # no TPU kernel: XLA fuses the LayerNorm formula on the TPU
-        replaces=None, launches=train[name],
-        launches_c5=c5l.get(name), launches_dp=dpl.get(name),
-        launches_embedder=eml.get(name), launches_engine=eng.get(name),
-        max_abs_err=max(lnorm[0]["max_abs_err"].values()),
-        ms=lnorm[0][f"kernel_{way}_ms"], plain_ms=lnorm[0][f"plain_{way}_ms"],
-        bound_ms=lnorm[0][bound_key], bound_by="bytes",
-        library_ms=lnorm[0][f"library_{way}_ms"],
-        shapes=[{k: r[k] for k in ("shape", f"kernel_{way}_ms",
-                                   f"plain_{way}_ms", f"library_{way}_ms",
-                                   bound_key)} for r in lnorm])
-        for name, way, bound_key in (
-            ("layer_norm", "fwd", "bound_ms"),
-            ("layer_norm_backward", "bwd", "bwd_bound_ms"))]}
-    # each kernel's launches on the tp path, by rank, and its error at a
-    # rank's 6 heads where it was checked there
-    tp_err = {"flash_self_attention": "k1_fwd",
-              "flash_self_attention_backward": "k1_bwd",
-              "flash_cross_attention": "k2_fwd",
-              "flash_cross_attention_backward": "k2_bwd_dq",
-              "decode_cross_attention_int8": "k5"}
-    for row in summary["kernels"]:
-        row["launches_tp"] = [n.get(row["name"], 0)
-                              for n in tp["launches_by_rank"]]
-        if row["name"] in tp_err:
-            row["max_abs_err_6_heads"] = tpk[tp_err[row["name"]]][0]
-        row["launches_hosts"] = hs["launches"].get(row["name"], 0)
-        row["launches_tools"] = tools["launches"][row["name"]]
-    # K1-bias: T5 v1.1's relative-position variant of K1's walks, which no
-    # other phase runs; its launches are the T5 v1.1 encoder's (forward and
-    # recompute, backward)
-    rb = {r["rate"]: r for r in relbias["rows"]}
-    for name, way, n in (("flash_self_attention_relbias", "",
-                          relbias["launches"][0]),
-                         ("flash_self_attention_backward_relbias", "bwd_",
-                          relbias["launches"][1])):
-        summary["kernels"].append({
-            "name": name, "route": "cuda",
-            "source": csrc + "flash_self_attention.cu",
-            # T5 v1.1's relative-position bias is not in the JAX package
-            "replaces": None,
-            "shape": list(RB_SHAPE), "launches_t5v11_encoder": n,
-            "max_abs_err": max(r["max_abs_err"] for r in rb.values()),
-            "ms": rb[RATE][way + "ms"],
-            "ms_rate_0": rb[0.0][way + "ms"],
-            "ms_without_bias": rb[RATE][way + "ms_without_bias"],
-            "plain_ms": rb[RATE][way + "plain_ms"],
-            "bound_ms": rb[RATE][way + "bound_ms"],
-            "bound_by": rb[RATE][way + "bound_by"],
-            "library_ms": rb[0.0]["library_ms"] if not way else None})
+    # a launch across hosts: two emulated hosts of one rank each, both
+    # seeing card 0, placed by torchrun's variables, held to (b)'s
+    # one-process references
+    _empty_cache(dev)
+    timed("hosts", hosts_phase, cfg, dev, dpb)
+    # the asynchronous refresh and prefetch across ranks: two ranks share
+    # the card over gloo, each with its embedder on it (--embed-devices 0)
+    _empty_cache(dev)
+    timed("embedder", embedder_phase, tcfg, dev)
+    # tensor parallelism: two gloo ranks share the card at --tp 2, each on
+    # its 6 of the 12 heads
+    _empty_cache(dev)
+    t0 = time.perf_counter()
+    tp = timed("tp", tp_phase, _flagship_cfg(), dev)
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s (one process "
+        f"{tp['ref_seconds']:.1f} s, the ranks {tp['ranks_seconds']:.1f} s)")
+    # the measurement tools, each through its main(argv)
+    _empty_cache(dev)
+    timed("tools", tools_phase, dev)
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps(summary))
+    log(json.dumps({"phase_seconds": seconds}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -634,8 +634,8 @@ def flash_cross_attention_bwd_split_reference(q, kv, kv_bias, lse, out, dout,
     terms summed into an fp32 partial, and the partials summed in run order;
     dk and dv are the unsplit backward's. Equals
     ``flash_cross_attention_bwd_reference`` up to rounding. Nothing on the
-    card's path calls it: the tests hold the run sums with it, and
-    ``chip_smoke.py`` holds the kernel's forced runs to it."""
+    card's path calls it: the CPU tests hold the run sums with it, and the
+    ``gpu`` tests hold the kernel's forced runs to it."""
     n_chunks = kv.shape[1] // key_chunk
     per_run = _split_chunks(n_chunks, n_splits)[1]
     ends = {min(n_chunks, j0 + per_run) - 1
@@ -677,8 +677,8 @@ def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
     on its own into a partial (m, l, acc), and the partials combined in
     split order: M = max m_i, l = sum l_i exp(m_i - M), acc likewise, then
     out and lse as in the unsplit walk, which this equals up to rounding.
-    Nothing on the card's path calls it: the tests hold the combine rule
-    with it, and ``chip_smoke.py`` holds the kernel's forced splits to it."""
+    Nothing on the card's path calls it: the CPU tests hold the combine rule
+    with it, and the ``gpu`` tests hold the kernel's forced splits to it."""
     n_chunks = kv.shape[1] // key_chunk
     per_split = _split_chunks(n_chunks, n_splits)[1]
     parts = [_cross_walk(q, kv, kv_bias, nh, key_chunk,
@@ -699,7 +699,7 @@ def flash_cross_attention_split_reference(q, kv, kv_bias, nh: int,
 # multiprocessor (four fit at once; more, smaller ones even out the tail)
 _CROSS_BLOCKS_PER_SM = 8
 # and the backward (fewer fit at once; at the reader shape 17 runs of 3
-# chunks beat 10 of 5 and 50 of 1: chip_smoke.py's run sweep)
+# chunks beat 10 of 5 and 50 of 1: tools/time_kernels.py's K2-bwd runs)
 _CROSS_BWD_BLOCKS_PER_SM = 16
 
 

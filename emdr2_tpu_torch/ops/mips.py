@@ -109,9 +109,9 @@ def candidate_scan_reference(queries: torch.Tensor, index: torch.Tensor,
 # ``TENSOR_CORE_MAX_ROW_BYTES``. ``candidate_scan`` takes the tensor-core one
 # from ``TENSOR_CORE_MIN_NQ[dtype]`` queries on, each type at its own
 # crossover: over 1,310,720 x 768 rows on an NVIDIA H100 80GB HBM3 at 700 W
-# it is ahead from one query on in both (``chip_smoke.py`` k3 sweep of nq 1
-# to 256, PERF.md section 6), reading the index at near the memory rate
-# where the CUDA-core kernel did.
+# it is ahead from one query on in both (``tools/time_kernels.py``'s K3
+# crossover rows, nq 1 to 256; PERF.md section 6), reading the index at near
+# the memory rate where the CUDA-core kernel did.
 TENSOR_CORE_MIN_NQ = {torch.bfloat16: 1, torch.int8: 1}
 TENSOR_CORE_GROUP = 128
 TENSOR_CORE_MAX_ROW_BYTES = 3072    # 64 resident queries and two stages
@@ -159,8 +159,8 @@ def _launch(queries: torch.Tensor, index: torch.Tensor, n_valid: int,
             group_size: int, cands_per_group: int, route: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one kernel of the scan on CUDA tensors: ``route`` is
-    ``"cuda_core"`` or ``"tensor_core"`` (the tests and ``chip_smoke.py``
-    force each to hold both to the plain version and to time the
+    ``"cuda_core"`` or ``"tensor_core"`` (the ``gpu`` tests force each to
+    hold both to the plain version, ``tools/time_kernels.py`` to time the
     crossover)."""
     nq, d = queries.shape
     N = index.shape[0]

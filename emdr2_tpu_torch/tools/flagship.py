@@ -12,8 +12,14 @@ formulas), and the card's peak rates.
   :func:`model_flops_per_step`: analytic matmul FLOPs of the model's
   useful work, ``bench.py``'s formulas; :func:`pass_flops` splits a step's
   by pass as ``bench_step_breakdown`` times them.
-- :data:`PEAK_OPS_PER_S`: peak rates by ``torch.cuda.get_device_name()``;
-  a card not in the table has no peak (shares print as ``null``).
+- :data:`PEAK_OPS_PER_S`, :data:`MEMORY_BYTES_PER_S`: peak rates and the
+  device memory's rate by ``torch.cuda.get_device_name()``; a card not in
+  the tables has no peak (shares print as ``null``). :func:`bound_ms`: the
+  least time the card could take for a kernel's bytes and operations.
+- :func:`seconds_per_call`: the tools' host-clock timer around whole calls;
+  :func:`event_ms`: the one kernel timer (CUDA events around one call, or
+  around calls queued back to back); :func:`card_name_and_power`: the line
+  every on-card run prints beside its numbers.
 - :data:`SHARD_ROWS`: the index rows a card holds in the reference's
   layout (21M passages over 16 GPUs), the size of every tool's index.
 
@@ -27,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +53,8 @@ SHARD_ROWS = 1_310_720
 PEAK_OPS_PER_S = {
     "NVIDIA H100 80GB HBM3": {"bf16": 989e12, "int8": 1979e12},
 }
+# the device memory's rate, same data sheet
+MEMORY_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
 
 EOS_ID = 102        # bench.py's eos id for the train step
 
@@ -99,6 +108,53 @@ def seconds_per_call(fn: Callable[[], object], iters: int,
         fn()
     sync(device)
     return (time.perf_counter() - t0) / iters
+
+
+def event_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
+             calls: int = 1) -> float:
+    """Median ms a call of ``fn`` over ``reps`` runs after ``warmup``
+    calls, each run ``calls`` calls queued back to back on the current CUDA
+    stream between two events. One call holds the wrapper's host work where
+    that outlasts its kernels; ten queued calls hide it under the device's
+    time and give the kernels' own."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float, device: torch.device,
+             op_type: str = "bf16") -> Tuple[Optional[float], Optional[str]]:
+    """(ms, ``"bytes"`` or ``"operations"``): the least time ``device``
+    could take to move ``n_bytes`` (each input read once, each output
+    written once) and to do ``n_ops`` operations of ``op_type``, by its
+    data sheet; (None, None) for a card not in the tables."""
+    kind = device_kind(device)
+    rate, peak = MEMORY_BYTES_PER_S.get(kind), peak_flops(device, op_type)
+    if rate is None or peak is None:
+        return None, None
+    by_bytes, by_ops = n_bytes / rate * 1e3, n_ops / peak * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def card_name_and_power() -> str:
+    """``nvidia-smi``'s name and power limit of the cards, one line each:
+    a card set below its maximum runs slower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def child_row(module: str, args: List[str]

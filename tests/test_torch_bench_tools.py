@@ -140,6 +140,57 @@ def test_peak_table_has_only_the_card():
     assert flagship.share_of_peak(1e12, 1.0, None) is None
 
 
+def test_a_kernels_bound_is_the_slower_of_its_bytes_and_its_operations(
+        monkeypatch):
+    """``bound_ms``: max(bytes / the memory rate, operations / the peak of
+    their type) on a card in both tables, nothing elsewhere."""
+    assert set(flagship.MEMORY_BYTES_PER_S) == set(flagship.PEAK_OPS_PER_S)
+    assert flagship.bound_ms(1e9, 1e12, torch.device("cpu")) == (None, None)
+    monkeypatch.setattr(flagship, "device_kind",
+                        lambda device: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(flagship, "peak_flops",
+                        lambda device, op_type="bf16":
+                        flagship.PEAK_OPS_PER_S["NVIDIA H100 80GB HBM3"][
+                            op_type])
+    card = torch.device("cuda", 0)
+    ms, by = flagship.bound_ms(3.35e9, 0, card)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
+    ms, by = flagship.bound_ms(1.0, 1979e9, card, "int8")
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+
+
+def test_the_smokes_recorder_keeps_each_launchs_work_and_puts_it_back():
+    """``chip_smoke.recorded_launches`` stands in for the attention kernels'
+    launch functions while its block runs: each call is kept with its bytes
+    (each input read once, each output written once) and its operations;
+    attributes pass through to the function (its counters); after the
+    block the functions are the module's own again. On the CPU route no
+    launch is counted."""
+    import chip_smoke
+    from emdr2_tpu_torch.ops import fid_attention as fa
+    B, L, nh, H = 2, 16, 2, 128
+    qkv = torch.randn(B, L, 3 * H, requires_grad=True)
+    bias = torch.zeros(B, L)
+    backward, launches = fa.flash_self_attention_backward, \
+        fa.flash_self_attention_backward.launches
+    calls = []
+    with chip_smoke.recorded_launches(calls):
+        assert fa.flash_self_attention_backward is not backward
+        fa.flash_self_attention_backward.launches = launches + 7
+        assert backward.launches == launches + 7
+        backward.launches = launches
+        fa.flash_self_attention(qkv, bias, nh, 5, 0.1).sum().backward()
+    assert fa.flash_self_attention_backward is backward
+    # fp32: qkv, the bias and out forward; qkv, the bias, out, dout and
+    # dqkv backward (the CPU route keeps no statistics)
+    assert calls == [
+        ("flash_self_attention", 0, B * L * (3 * H + 1 + H) * 4,
+         4 * B * L * L * H, "bf16"),
+        ("flash_self_attention_backward", 0,
+         B * L * (3 * H + 1 + H + H + 3 * H) * 4, 2.5 * 4 * B * L * L * H,
+         "bf16")]
+
+
 # ---- each tool's JSON keys are the JAX tool's ----------------------------
 
 def _jax_source(tool):

@@ -224,7 +224,9 @@ def _port_sources():
     import glob
     return sorted(glob.glob(os.path.join(REPO, "emdr2_tpu_torch", "**",
                                          "*.py"), recursive=True)
-                  ) + [os.path.join(REPO, "chip_smoke.py")]
+                  ) + [os.path.join(REPO, "chip_smoke.py"),
+                       os.path.join(REPO, "kernel_checks.py"),
+                       os.path.join(REPO, "tools", "time_kernels.py")]
 
 
 @pytest.mark.parametrize("what,pattern", [
@@ -237,11 +239,11 @@ def _port_sources():
 ])
 def test_port_sources_name_no_jax_import_and_no_jax_package_file(what,
                                                                  pattern):
-    """Statically, over every module of the port and ``chip_smoke.py``: no
-    import of jax / flax / emdr2_tpu or of the root ``bench.py`` (it
-    imports jax and sets its PRNG), and no file path built into
-    ``emdr2_tpu/`` (docstrings may name its files as ``emdr2_tpu/...``
-    inside double backquotes or after "Replaces:")."""
+    """Statically, over every module of the port, ``chip_smoke.py``,
+    ``kernel_checks.py`` and ``tools/time_kernels.py``: no import of jax / flax / emdr2_tpu or of
+    the root ``bench.py`` (it imports jax and sets its PRNG), and no file
+    path built into ``emdr2_tpu/`` (docstrings may name its files as
+    ``emdr2_tpu/...`` inside double backquotes or after "Replaces:")."""
     import re
     rx = re.compile(pattern)
     bad = []

@@ -22,11 +22,14 @@ torch = pytest.importorskip("torch")
 
 from emdr2_tpu_torch.ops import decode_attention, fid_attention, mips  # noqa: E402
 from emdr2_tpu_torch.ops import dropout_add as dropadd  # noqa: E402
-from emdr2_tpu_torch.ops.hashing import packed_dropout  # noqa: E402
+
+import kernel_checks as kc  # noqa: E402
+from kernel_checks import NH, TP_NH  # noqa: E402
+from kernel_checks import assert_close as _assert_close  # noqa: E402
+from kernel_checks import gen as _gen  # noqa: E402
+from kernel_checks import stats_close as _stats_close  # noqa: E402
 
 pytestmark = pytest.mark.gpu
-
-NH = 12
 
 
 @pytest.fixture
@@ -35,21 +38,6 @@ def cuda():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
-
-
-def _gen(seed):
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    return g
-
-
-def _assert_close(got, want, rel_max=2e-2, rel_mean=2e-3):
-    """Errors relative to the largest reference magnitude (bf16 results)."""
-    assert torch.isfinite(got.float()).all()
-    err = (got.float() - want.float()).abs()
-    ref = want.float().abs().max().item() or 1.0
-    assert err.max().item() <= rel_max * ref, (err.max().item(), ref)
-    assert err.mean().item() <= rel_mean * ref, (err.mean().item(), ref)
 
 
 def _self_inputs(B, L, seed):
@@ -117,59 +105,15 @@ def test_self_attention_forward_backward_match_plain(cuda, B, L, rate):
     _assert_close(x.grad, dwant)
 
 
-def _rel_inputs(B, L, nh, seed, spread=0.35):
-    """T5's unscaled attention: q, k and v of N(0, spread^2), so that the
-    scores (q . k over 64 dims, no scale) have s.d. about 1; a
-    relative-position vector [nh, 2L-1] of N(0, 1) (the learned table's
-    entries); a pad bias with a fully padded row and a padded tail."""
-    g = _gen(seed)
-    qkv = (spread * torch.randn(B, L, 3 * nh * 64, device="cuda",
-                                generator=g)).to(torch.bfloat16)
-    rel = torch.randn(nh, 2 * L - 1, device="cuda", generator=g)
-    bias = torch.zeros(B, L, device="cuda")
-    bias[0, :] = -1e9
-    bias[-1, L // 3:] = -1e9
-    dout = torch.randn(B, L, nh * 64, device="cuda", generator=g
-                       ).to(torch.bfloat16)
-    return qkv, rel, bias, dout
-
-
-# the reader's [200, 512] x 16 heads of the atlas-large-b4 cell (B = 4
-# questions x 50 passages), and smaller shapes with short tiles. Tolerances
-# are the file's: the output and dqkv as every K1 test holds them (bf16
-# results, sums in another order, dS and P rounded to bf16 for the
-# products); the bias's gradient is an fp32 sum of dS along a diagonal
-# (up to B * L terms) in another order, over dS that differs from the plain
-# version's by the forward's online softmax statistics and the fast exp,
-# held to the same 2e-2 / 2e-3 of its largest entry
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("B,L,nh", [(2, 130, 16), (3, 64, 4), (200, 512, 16)])
+@pytest.mark.parametrize("B,L,nh,rate", kc.SELF_RELATIVE_BIAS)
 def test_self_attention_relative_bias_matches_plain(cuda, B, L, nh, rate):
-    qkv, rel, bias, dout = _rel_inputs(B, L, nh, seed=L + B)
-    x = qkv.clone().requires_grad_(True)
-    r = rel.clone().requires_grad_(True)
-    fwd0 = fid_attention.flash_self_attention.rel_launches
-    bwd0 = fid_attention.flash_self_attention_backward.rel_launches
-    out = fid_attention.flash_self_attention(x, bias, nh, 77, rate, 1.0, r)
-    out.backward(dout)
-    torch.cuda.synchronize()
-    assert fid_attention.flash_self_attention.rel_launches == fwd0 + 1
-    assert fid_attention.flash_self_attention_backward.rel_launches == \
-        bwd0 + 1
-    want = fid_attention.flash_self_attention_reference(qkv, bias, nh, 77,
-                                                        rate, 1.0, rel)
-    _assert_close(out.detach(), want)
-    del want
-    dwant, drel = fid_attention.flash_self_attention_bwd_reference(
-        qkv, bias, out.detach(), dout, nh, 77, rate, 1.0, rel)
-    _assert_close(x.grad, dwant)
-    _assert_close(r.grad, drel)
+    kc.self_attention_relative_bias(cuda, B, L, nh, rate)
 
 
 def test_self_attention_relative_bias_off_is_the_plain_kernel(cuda):
     """A zero vector at scale hd^-0.5 gives the kernel without the bias,
     bit for bit in the forward (one more fp32 add of 0)."""
-    qkv, _, bias, _ = _rel_inputs(2, 130, NH, seed=5, spread=1.0)
+    qkv, _, bias, _ = kc.rel_inputs(2, 130, NH, seed=5, spread=1.0)
     zero = torch.zeros(NH, 2 * 130 - 1, device=cuda)
     a = fid_attention.flash_self_attention(qkv, bias, NH, 9, 0.1)
     b = fid_attention.flash_self_attention(qkv, bias, NH, 9, 0.1, None, zero)
@@ -263,21 +207,6 @@ def test_self_attention_rate_zero_is_no_dropout_and_repeats(cuda):
 
 
 # ---- K1 on the shared walks: one pass forward, backward in registers ----
-
-def _stats_close(got, want, live):
-    """(rowmax, 1/l) [B, nh, 2, L]: rows with a live key to 1e-3 (1/l
-    relative), a fully padded row's rowmax is its scores (about -1e9) and
-    its 1/l exactly 1/L."""
-    B, nh, _, L = want.shape
-    assert got.shape == want.shape and torch.isfinite(got).all()
-    assert (got[live, :, 0] - want[live, :, 0]).abs().max().item() <= 1e-3
-    rel = (got[live, :, 1] / want[live, :, 1] - 1.0).abs().max().item()
-    assert rel <= 1e-3, rel
-    if (~live).any():
-        assert (got[~live, :, 0] < -9e8).all()
-        assert torch.equal(got[~live, :, 1],
-                           torch.full_like(got[~live, :, 1], 1.0 / L))
-
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,L", [(3, 64), (2, 100), (2, 130), (2, 256),
@@ -1686,9 +1615,6 @@ def test_mips_topk_without_rescore_matches_plain(cuda, k):
 
 # ---- tensor parallelism: the kernels on a tp rank's heads ----
 
-TP_NH = 6                         # a tp=2 rank's heads of the flagship 12
-
-
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_self_attention_on_a_tp_ranks_six_heads(cuda, rate):
     """K1 forward and backward on a [B, L, 3H/2] slab of 6 heads (what a
@@ -1866,59 +1792,6 @@ def test_tp2_openqa_step_on_two_cards_equals_one_card(two_cards, tmp_path):
 
 # ---- the dropout-add kernel: bit for bit the plain path ----
 
-def _plain_dropout_add(y, r, rate, seed, row_offset=0, head_offset=0):
-    """``r + packed_dropout(y, ...)`` in plain PyTorch (the dropout alone
-    without ``r``; ``r + y`` / ``y`` when evaluating)."""
-    if seed is None or rate == 0.0:
-        return y if r is None else r + y
-    d = packed_dropout(y, rate, seed, row_offset, head_offset)
-    return d if r is None else r + d
-
-
-def _check_dropout_add(shape, residual, dtype, rate, seed, row_offset,
-                       head_offset, strided=False, misaligned=False):
-    """The kernel's output and its gradients against autograd through the
-    plain path, ``torch.equal``; one launch each way. ``misaligned``: the
-    kernel's inputs sit one element into a storage of their own, off 16
-    bytes."""
-    g = _gen(seed % 1000)
-    y = torch.randn(shape, device="cuda", generator=g).to(dtype)
-    r = torch.randn(shape, device="cuda", generator=g).to(dtype)
-    y.view(-1)[:3] = torch.tensor([0.0, -0.0, -0.0])
-    r.view(-1)[:3] = torch.tensor([-0.0, -0.0, 0.0])
-    grad = torch.randn(shape, device="cuda", generator=g).to(dtype)
-    if strided:                          # a transposed view of each
-        y, r, grad = (t.transpose(-1, -2).contiguous().transpose(-1, -2)
-                      for t in (y, r, grad))
-    r = r if residual else None
-
-    def leaf(t):
-        t = t.detach()
-        if misaligned:
-            return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
-                t.shape).requires_grad_()
-        return t.clone().requires_grad_()
-
-    leaves = [leaf(t) for t in (y, r) if t is not None]
-    assert all((t.data_ptr() % 16 != 0) == misaligned for t in leaves)
-    plain = [t.detach().clone().requires_grad_() for t in (y, r)
-             if t is not None]
-    fwd, bwd = dropadd.dropout_add.launches, \
-        dropadd.dropout_add_backward.launches
-    got = dropadd.dropout_add(*leaves[:1], leaves[1] if residual else None,
-                              rate, seed, row_offset, head_offset)
-    want = _plain_dropout_add(*plain[:1], plain[1] if residual else None,
-                              rate, seed, row_offset, head_offset)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got, want)
-    got.backward(grad)
-    want.backward(grad)
-    for a, b in zip(leaves, plain):
-        assert torch.equal(a.grad, b.grad)
-    assert dropadd.dropout_add.launches == fwd + 1
-    assert dropadd.dropout_add_backward.launches == bwd + 1
-
-
 @pytest.mark.parametrize("seed,row_offset,head_offset",
                          [(0, 0, 0), (2 ** 31 + 11, 3, 5),
                           (2 ** 32 - 5, 8, 0)])
@@ -1935,14 +1808,14 @@ def test_dropout_add_kernel_equals_the_plain_path(cuda, shape, residual,
     axes of 768, 40, 32 and 33 (ragged: vectors that run into the next
     row, and the tensor's last partial vector), with and without the
     residual, offsets on axes 0 and 1."""
-    _check_dropout_add(shape, residual, dtype, rate, seed, row_offset,
-                       head_offset)
+    kc.dropout_add_matches_plain(shape, residual, dtype, rate, seed,
+                                 row_offset, head_offset)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dropout_add_kernel_takes_strided_views(cuda, dtype):
-    _check_dropout_add((3, 8, 40), True, dtype, 0.1, 2 ** 31 + 11, 1, 2,
-                       strided=True)
+    kc.dropout_add_matches_plain((3, 8, 40), True, dtype, 0.1, 2 ** 31 + 11,
+                                 1, 2, strided=True)
 
 
 @pytest.mark.parametrize("shape", [(37, 768), (3, 5, 33)])
@@ -1951,14 +1824,15 @@ def test_dropout_add_kernel_takes_strided_views(cuda, dtype):
 def test_dropout_add_kernel_takes_tensors_off_16_bytes(cuda, shape, dtype,
                                                        residual):
     """Every access element by element under the mask."""
-    _check_dropout_add(shape, residual, dtype, 0.1, 2 ** 31 + 11, 2, 1,
-                       misaligned=True)
+    kc.dropout_add_matches_plain(shape, residual, dtype, 0.1, 2 ** 31 + 11,
+                                 2, 1, misaligned=True)
 
 
 @pytest.mark.parametrize("shape", [(400, 512, 768), (400, 256, 768)])
 def test_dropout_add_kernel_at_the_readers_and_the_context_towers_size(
         cuda, shape):
-    _check_dropout_add(shape, True, torch.bfloat16, 0.1, 2 ** 31 + 11, 0, 0)
+    kc.dropout_add_matches_plain(shape, True, torch.bfloat16, 0.1,
+                                 2 ** 31 + 11, 0, 0)
 
 
 @pytest.mark.parametrize("residual", [True, False])
@@ -2050,7 +1924,7 @@ def test_openqa_step_through_the_dropout_add_kernel_equals_the_plain_path(
 
     for early_stop in (False, True):
         mk, ek, sk, (fwd, bwd) = run(dropadd.dropout_add, early_stop)
-        mp, ep, sp, launched = run(_plain_dropout_add, early_stop)
+        mp, ep, sp, launched = run(kc.plain_dropout_add, early_stop)
         assert fwd == len(sk) > 0 and bwd > 0 and launched == (0, 0)
         if early_stop:
             assert len(sp) >= len(sk)
@@ -2068,52 +1942,14 @@ def test_openqa_step_through_the_dropout_add_kernel_equals_the_plain_path(
 
 # ---- the layer-norm kernels against the formula they replace ----
 
-def _layer_norm_inputs(shape, dtype, seed):
-    g = _gen(seed)
-    h = shape[-1]
-    x = (3.0 * torch.randn(shape, device="cuda", generator=g) + 0.5
-         ).to(dtype)
-    w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
-    b = 0.1 * torch.randn(h, device="cuda", generator=g)
-    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
-    return x, w, b, dy
-
-
-def _layer_norm_run(fn, x, w, b, dy, eps=1e-5):
-    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
-    out = fn(*leaves, eps)
-    out.backward(dy)
-    return [out.detach()] + [t.grad for t in leaves]
-
-
-# Tolerances, relative to the largest reference magnitude. The kernels and
-# the formula both compute in fp32 and round the output and dx once to x's
-# dtype, but sum each row in another order: in bf16 a value may round to
-# its neighbour, one bf16 step (2^-7 of the largest value at most; 1e-3
-# of it on average); in fp32 the sums of 768-2,048 terms differ by a few
-# ulps (1e-5). dw and db are fp32 sums over up to 204,800 rows in another
-# order on both sides (1e-5; a lost block's partial would be 1/264 off).
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(400, 512, 768), (400, 256, 768),
-                                   (128, 256, 768), (8, 64, 768),
-                                   (1001, 768), (3, 4099, 64), (300, 2048)])
+@pytest.mark.parametrize("dtype", kc.LAYER_NORM_DTYPES)
+@pytest.mark.parametrize("shape", kc.LAYER_NORM_SHAPES)
 def test_layer_norm_kernels_match_the_formula(cuda, shape, dtype):
     """The reader's and the context tower's rows, the embedder's batch, the
     query tower's, a ragged row count, H = 64 (8 lanes of a warp) and
-    H = 2,048 (a block a row); one launch each way."""
-    from emdr2_tpu_torch.ops import layer_norm as ln
-    x, w, b, dy = _layer_norm_inputs(shape, dtype, sum(shape))
-    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_backward.launches
-    got = _layer_norm_run(ln.layer_norm, x, w, b, dy)
-    assert (ln.layer_norm.launches, ln.layer_norm_backward.launches) == (
-        fwd + 1, bwd + 1)
-    want = _layer_norm_run(ln.layer_norm_reference, x, w, b, dy)
-    assert got[0].dtype == got[1].dtype == dtype
-    tol = (2 ** -7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
-    _assert_close(got[0], want[0], *tol)
-    _assert_close(got[1], want[1], *tol)
-    _assert_close(got[2], want[2], 1e-5, 1e-6)
-    _assert_close(got[3], want[3], 1e-5, 1e-6)
+    H = 2,048 (a block a row); one launch each way (limits and their reasons
+    in ``kernel_checks``)."""
+    kc.layer_norm_matches_the_formula(cuda, shape, dtype)
 
 
 @pytest.mark.parametrize("shape", [(400, 256, 768), (300, 2048)])
@@ -2121,32 +1957,32 @@ def test_layer_norm_kernels_repeat_bit_for_bit(cuda, shape):
     """No atomics: the output, dx and the summed weight gradients are the
     same bits call after call."""
     from emdr2_tpu_torch.ops import layer_norm as ln
-    x, w, b, dy = _layer_norm_inputs(shape, torch.bfloat16, 5)
-    first = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+    x, w, b, dy = kc.layer_norm_inputs(shape, torch.bfloat16, 5)
+    first = kc.layer_norm_run(ln.layer_norm, x, w, b, dy)
     for _ in range(2):
-        again = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+        again = kc.layer_norm_run(ln.layer_norm, x, w, b, dy)
         assert all(torch.equal(a, c) for a, c in zip(first, again))
 
 
 def test_layer_norm_takes_strided_and_misaligned_rows(cuda):
     from emdr2_tpu_torch.ops import layer_norm as ln
-    x, w, b, dy = _layer_norm_inputs((6, 40, 64), torch.bfloat16, 8)
-    want = _layer_norm_run(ln.layer_norm, x, w, b, dy)
+    x, w, b, dy = kc.layer_norm_inputs((6, 40, 64), torch.bfloat16, 8)
+    want = kc.layer_norm_run(ln.layer_norm, x, w, b, dy)
     strided = x.transpose(0, 1).contiguous().transpose(0, 1)
     assert not strided.is_contiguous()
     off = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
     assert off.data_ptr() % 16 != 0
     for t in (strided, off):
-        got = _layer_norm_run(ln.layer_norm, t, w, b, dy)
+        got = kc.layer_norm_run(ln.layer_norm, t, w, b, dy)
         assert all(torch.equal(a, c) for a, c in zip(got, want))
 
 
 def test_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
     from emdr2_tpu_torch.ops import layer_norm as ln
-    x, w, b, _ = _layer_norm_inputs((4, 8200), torch.bfloat16, 2)
+    x, w, b, _ = kc.layer_norm_inputs((4, 8200), torch.bfloat16, 2)
     with pytest.raises(ValueError, match="up to 8192"):
         ln.layer_norm(x, w, b, 1e-5)
-    x, w, b, _ = _layer_norm_inputs((4, 64), torch.bfloat16, 2)
+    x, w, b, _ = kc.layer_norm_inputs((4, 64), torch.bfloat16, 2)
     with pytest.raises(ValueError, match="on cpu"):
         ln.layer_norm(x, w.cpu(), b, 1e-5)
     with pytest.raises(TypeError, match="bf16 or fp32"):
@@ -2178,3 +2014,165 @@ def test_layer_norm_in_a_stack_under_remat_equals_no_remat(cuda, policy):
     assert torch.equal(out, p_out)
     for name, grad in grads.items():
         assert torch.equal(grad, p_grads[name]), name
+
+
+# ---- the main path's shapes and each kernel's build ----
+#
+# Each kernel at the shapes the serving, training and embedding paths give
+# it, held to its plain version by ``kernel_checks`` (its table of cases and
+# its limits, which ``chip_smoke.py``'s kernel phase runs whole too), and
+# each kernel's build.
+
+def _ptxas_rows(log, pattern):
+    """(name parts..., stack, spill stores, spill loads, registers) of
+    each kernel ``pattern`` names in a ``-Xptxas -v`` log."""
+    import re
+    tail = (r".*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads\n.*?Used (\d+) registers")
+    return sorted(re.findall(r"Compiling entry function '" + pattern + tail,
+                             log))
+
+
+def test_attention_kernels_compile_without_spilling(cuda, tmp_path,
+                                                    monkeypatch):
+    """The library built afresh with ``-Xptxas -v``: every instantiation of
+    ``attention_flash.cuh``'s walks (K1's statistic ``RowMaxInv``, K4's
+    ``Lse``, K1 with T5 v1.1's ``RelBias``; dropout off and on), of K2's
+    backward walk (M = 2-4 atoms of 16 queries) and of K5's walk (1-8
+    query rows) is in the compiler's report, and none spills."""
+    from emdr2_tpu_torch.ops import build
+    monkeypatch.setattr(build, "_BUILD", str(tmp_path))
+    log = build.build(extra_flags=("-Xptxas", "-v"))["log"]
+    flash = _ptxas_rows(log, r"_ZN6aflash\d+(flash_\w+?_kernel)ILb([01])"
+                             r"ENS_\d+(\w+?)ENS_\d+(\w+?)EEE")
+    assert {r[:1] + r[2:4] for r in flash} == {
+        (k, stat, rel) for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                 "flash_bwd_dkv_kernel")
+        for stat, rel in (("RowMaxInv", "NoRel"), ("Lse", "NoRel"),
+                          ("RowMaxInv", "RelBias"))}
+    cross = _ptxas_rows(log, r"\w*?cross_bwd_kernelILi(\d)ELb([01])EEE")
+    assert [r[:2] for r in cross] == [(str(m), d) for m in range(2, 5)
+                                      for d in "01"]
+    walk = _ptxas_rows(log, r"\w*?decode_walk_kernelILi(\d)EEE")
+    assert [r[0] for r in walk] == [str(i) for i in range(1, 9)]
+    spills = [r for r in flash + cross + walk if int(r[-3]) or int(r[-2])]
+    assert not spills, spills
+
+
+def test_tensor_core_scan_kernels_hold_their_products_and_spill_nothing(
+        cuda):
+    """K3's tensor-core kernels in the built library: no local (spilled)
+    bytes (``cudaFuncGetAttributes``), and their SASS holds the warpgroup
+    products (HGMMA bf16, IGMMA int8) and the tensor-map loads or bulk
+    copies that feed them (``cuobjdump -sass``)."""
+    import os
+    import re
+    import subprocess
+
+    from emdr2_tpu_torch.ops import build
+    tc = [r for r in mips.kernel_info() if r["route"] == "tensor_core"]
+    assert tc and not [r for r in tc if r["local_bytes"]], tc
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        pytest.skip("no cuobjdump beside nvcc: the SASS cannot be read")
+    sass = subprocess.run([tool, "-sass", build.library_path()],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    kernels = 0
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0]
+        if "candidate_scan_tc_kernel" not in name:
+            continue
+        kernels += 1
+        c = {op: len(re.findall(r"\b" + op + r"\.", part))
+             for op in ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")}
+        products = c["IGMMA" if "candidate_scan_tc_kernelIa" in name
+                     else "HGMMA"]
+        assert products and (c["UTMALDG"] or c["UBLKCP"]), (name, c)
+    assert kernels
+
+
+@pytest.mark.parametrize("B,L,rate", kc.SELF_FORWARD)
+def test_self_attention_forward_at_the_main_paths_shapes(cuda, B, L, rate):
+    kc.self_attention_forward(cuda, B, L, rate)
+
+
+@pytest.mark.parametrize("B,L", kc.SELF_BACKWARD)
+def test_self_attention_backward_at_the_main_paths_shapes(cuda, B, L):
+    kc.self_attention_backward(cuda, B, L)
+
+
+@pytest.mark.parametrize("B,Lk,chunk,rate", kc.CROSS)
+def test_cross_attention_at_the_main_paths_shapes(cuda, B, Lk, chunk, rate):
+    kc.cross_attention(cuda, B, Lk, chunk, rate)
+
+
+@pytest.mark.parametrize("n,rate", kc.CROSS_SPLITS)
+def test_cross_attention_splits_and_runs_over_padding(cuda, n, rate):
+    kc.cross_attention_splits(cuda, n, rate)
+
+
+@pytest.mark.parametrize("nq", kc.SCAN_NQ)
+@pytest.mark.parametrize("dtype", kc.SCAN_DTYPES)
+def test_candidate_scan_both_kernels_over_a_shard(cuda, dtype, nq):
+    kc.candidate_scan_both_kernels(cuda, dtype, nq)
+
+
+@pytest.mark.parametrize("dtype,nq,seed", kc.TOPK)
+def test_mips_topk_over_a_shard_recalls_the_exact_top_50(cuda, dtype, nq,
+                                                         seed):
+    kc.mips_topk_recall(cuda, dtype, nq, seed)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,chunk,rate", kc.FID_FORWARD)
+def test_fid_cross_attention_at_the_main_paths_shapes(cuda, B, Lq, Lk, chunk,
+                                                      rate):
+    kc.fid_cross_attention_forward(cuda, B, Lq, Lk, chunk, rate)
+
+
+@pytest.mark.parametrize("B,Lq,lens,rate", kc.FID_BACKWARD)
+def test_fid_cross_attention_backward_at_the_main_paths_shapes(cuda, B, Lq,
+                                                               lens, rate):
+    kc.fid_cross_attention_backward(cuda, B, Lq, lens, rate)
+
+
+@pytest.mark.parametrize("R,Lk,lo,masked", kc.DECODE)
+def test_decode_attention_int8_at_the_decode_shape(cuda, R, Lk, lo, masked):
+    kc.decode_attention_int8(cuda, R, Lk, lo, masked)
+
+
+@pytest.mark.parametrize("shape,residual,row_offset,head_offset",
+                         kc.DROPOUT_ADD)
+def test_dropout_add_kernel_at_the_main_paths_shapes(cuda, shape, residual,
+                                                     row_offset, head_offset):
+    kc.dropout_add_at_the_main_paths_shapes(cuda, shape, residual, row_offset,
+                                            head_offset)
+
+
+def test_kernels_on_a_tp_ranks_six_heads_at_the_main_paths_shapes(cuda):
+    kc.tp_six_heads(cuda)
+
+
+def test_t5v11_encoder_launches_the_relative_bias_kernels(cuda):
+    kc.t5v11_encoder_relative_bias(cuda)
+
+
+@pytest.mark.parametrize("reader", [None, {"remat": True}])
+def test_openqa_step_launches_layer_norm_as_the_code_counts(cuda, tmp_path,
+                                                            reader):
+    """One ``E2EQATask.train_step`` launches the layer-norm kernels as many
+    times each way as ``kernel_checks.layer_norm_step_launches`` counts the
+    step's norms (the flagship step: 259 forward, 112 backward)."""
+    from emdr2_tpu_torch.ops import layer_norm as ln
+    task, batches = _card_openqa(tmp_path, cuda, reader=reader)
+    task.train_step(batches[0])
+    before = (ln.layer_norm.launches, ln.layer_norm_backward.launches)
+    float(task.train_step(batches[1])["loss"])
+    assert (ln.layer_norm.launches - before[0],
+            ln.layer_norm_backward.launches - before[1]) == \
+        kc.layer_norm_step_launches(task.cfg)
+
+
+@pytest.mark.parametrize("rows,lookups", kc.LOOKUPS)
+def test_embedding_lookup_backward_repeats_bit_for_bit(cuda, rows, lookups):
+    kc.embedding_lookup_backward_repeats(cuda, rows, lookups)

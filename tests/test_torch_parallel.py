@@ -51,6 +51,7 @@ from tests.helpers import build_toy_world  # noqa: E402
 from tests.test_torch_eval import _noisy  # noqa: E402
 from tests.test_torch_models import jax_flash_cfg  # noqa: E402
 from tests.test_torch_models import unboxed_numpy  # noqa: E402
+from tests.test_torch_parallel_workers import one_thread  # noqa: E402
 from tests.test_torch_serving import port_config  # noqa: E402
 
 torch.set_num_threads(2)
@@ -277,9 +278,11 @@ def _one_process_recall(spec, tok, corpus):
         report_at=[1, 5, 10])
 
 
+@one_thread()
 def _one_process_refresh(spec, tok, corpus, ds):
     """The port's refresh in one process: the rows and the search of the
-    first batch after it."""
+    first batch after it, on one intra-op thread as the ranks run theirs
+    (``one_thread``)."""
     from emdr2_tpu_torch.retrieval import ShardedEvidenceIndex
     from emdr2_tpu_torch.retrieval.builder import EvidenceIndexBuilder
     from emdr2_tpu_torch.tasks import E2EQATask

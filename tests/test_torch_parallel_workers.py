@@ -11,6 +11,7 @@ on the CPU with a timeout, so a rank that hangs fails its test instead of
 stalling the run.
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -23,6 +24,23 @@ from emdr2_tpu_torch.parallel import DataParallel  # noqa: E402
 from emdr2_tpu_torch.parallel import distributed as dist_lib  # noqa: E402
 
 TIMEOUT_S = 120.0
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block on one intra-op thread. A process's first call of
+    ``torch.exp`` on the CPU over two threads (PyTorch 2.13, MKL) may run
+    one thread's half of the tensor through a less accurate path (errors
+    of ~2e-5; seen with several processes at work on the machine), and
+    every call after it through the accurate one; on one thread every call
+    takes the accurate path. A refresh compares rows from two processes
+    at rtol 1e-5, where such a half moves fp16 rows by an ulp."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _world(spec):
@@ -198,6 +216,7 @@ def case_engine(spec, dp):
             "files": sorted(os.listdir(e["save"]))}
 
 
+@one_thread()
 def case_refresh(spec, dp):
     """A synchronous refresh: each rank embeds its own rows and swaps them
     in; the search after it."""
